@@ -1,0 +1,75 @@
+"""Trajectory store on the device and window batching (port of
+``sciml_pde_tpu/data/windows.py``).
+
+The whole trajectory tensor ``(N, T, *spatial, C)`` lives on the device and
+windows are gathered there from ``(trajectory, t0)`` index rows, so the host
+only ships small index tensors per step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def gather_windows(data: torch.Tensor, idx: torch.Tensor, initial_step: int, rollout: int):
+    """data (N, T, *spatial, C), idx (B, 2) rows of (trajectory, t0) ->
+    x (B, *spatial, initial_step, C), y (B, *spatial, rollout, C): time
+    second-to-last, the model-facing layout."""
+    span = initial_step + rollout
+    offs = torch.arange(span, device=idx.device, dtype=idx.dtype)
+    win = data[idx[:, 0, None], idx[:, 1, None] + offs[None, :]]
+    win = torch.movedim(win, 1, -2)
+    return win[..., :initial_step, :], win[..., initial_step:, :]
+
+
+class WindowedTrajectories:
+    """A trajectory store (a device tensor) with its grid and window
+    bookkeeping.  ``train=True`` enumerates every sliding window;
+    ``train=False`` exposes one window per trajectory at t0 = 0."""
+
+    def __init__(self, data, grid, *, initial_step: int, rollout: int = 1,
+                 train: bool = True, device=None):
+        self.data = torch.as_tensor(data, dtype=torch.float32, device=device)
+        self.grid = torch.as_tensor(grid, dtype=torch.float32, device=device)
+        self.initial_step = int(initial_step)
+        self.rollout = int(rollout)
+        self.train = bool(train)
+        n_t = self.data.shape[1]
+        if n_t < self.initial_step + self.rollout:
+            raise ValueError(
+                f"trajectories have {n_t} frames < initial_step+rollout "
+                f"({self.initial_step}+{self.rollout})"
+            )
+
+    @property
+    def num_trajectories(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def windows_per_trajectory(self) -> int:
+        if not self.train:
+            return 1
+        return self.data.shape[1] - self.initial_step - self.rollout + 1
+
+    def window_index(self) -> np.ndarray:
+        """(num_windows, 2) int32 host array of (trajectory, t0) rows."""
+        n, w = self.num_trajectories, self.windows_per_trajectory
+        traj = np.repeat(np.arange(n, dtype=np.int32), w)
+        t0 = np.tile(np.arange(w, dtype=np.int32), n)
+        return np.stack([traj, t0], axis=1)
+
+
+def epoch_batches(index: np.ndarray, batch_size: int, rng=None):
+    """Shuffled fixed-size index batches for one epoch; the remainder is
+    dropped.  Fewer rows than ``batch_size`` are tiled up to one batch."""
+    index = np.asarray(index)
+    n = len(index)
+    order = rng.permutation(n) if rng is not None else np.arange(n)
+    nb = n // batch_size
+    if nb == 0:
+        reps = -(-batch_size // max(n, 1))
+        yield index[np.tile(order, reps)[:batch_size]]
+        return
+    for b in range(nb):
+        yield index[order[b * batch_size:(b + 1) * batch_size]]

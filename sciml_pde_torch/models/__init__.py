@@ -1,0 +1,5 @@
+"""Neural operator models."""
+
+from sciml_pde_torch.models.fno import FNO2d
+
+__all__ = ["FNO2d"]

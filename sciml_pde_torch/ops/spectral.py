@@ -1,0 +1,181 @@
+"""Spectral convolution (the FNO hot path), PyTorch port of
+``sciml_pde_tpu/ops/spectral.py``.
+
+Semantics: real FFT over the two spatial axes, a complex channel mix on the
+retained corner mode blocks (rows ``[:m1]`` and ``[H-m1:]``, columns
+``[:m2]`` of the rfft axis), zero elsewhere, inverse real FFT.  Arrays are
+channels-last ``(B, H, W, C)`` and complex weights are ``(2, Cin, Cout, m1,
+m2)`` real/imag stacks, as in the JAX package.
+
+``impl="dft"`` never forms the full spectrum: the forward transform is a
+partial DFT (two skinny products with constant factor matrices) and the
+inverse is the adjoint pair with Hermitian doubling along the rfft axis.
+``impl="fft"`` goes through ``torch.fft`` for cross-checking.
+
+Precision: ``SCIML_DFT_PRECISION={highest,high,default}`` as in the JAX
+package, default ``default``: bf16 inputs to every DFT/mode product with
+f32 accumulation.  ``highest`` (and ``high``) keep f32 inputs.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+
+_PRECISIONS = ("highest", "high", "default")
+
+
+def _parse_precision(name: str) -> str:
+    name = name.lower()
+    if name not in _PRECISIONS:
+        raise ValueError(f"unknown dft precision {name!r}; one of {_PRECISIONS}")
+    return name
+
+
+_PRECISION = _parse_precision(os.environ.get("SCIML_DFT_PRECISION", "default"))
+
+
+def set_dft_precision(name: str) -> None:
+    global _PRECISION
+    _PRECISION = _parse_precision(name)
+
+
+def get_dft_precision() -> str:
+    return _PRECISION
+
+
+def dot_bf16() -> bool:
+    """True when products take bf16 inputs (the ``default`` precision)."""
+    return _PRECISION == "default"
+
+
+def round_dot_input(x: torch.Tensor, bf16: bool | None = None) -> torch.Tensor:
+    """``x`` rounded to bf16 and back when products take bf16 inputs."""
+    if dot_bf16() if bf16 is None else bf16:
+        return x.to(torch.bfloat16).float()
+    return x
+
+
+@functools.lru_cache(maxsize=128)
+def _dft_factors_1d(n: int, modes: int, rows: tuple[int, ...] | None):
+    """Partial-DFT bases along one axis of length n, as (real, imag) f32
+    numpy pairs.
+
+    ``rows`` None: retained frequencies 0..modes-1 (the rfft axis);
+      fwd (n, modes) e^{-2 pi i k x / n}; inv (modes, n) c_k e^{+2 pi i k x / n} / n
+      with Hermitian doubling c_0 = 1, c_k = 2 for 0 < k < n/2, c_{n/2} = 1.
+    Else ``rows`` lists the retained (negative-wrapped) frequencies of a
+    full-complex axis; inv has no doubling.
+    """
+    xs = np.arange(n)
+    if rows is None:
+        ks = np.arange(modes)
+        ang_f = -2 * np.pi * np.outer(xs, ks) / n
+        c = np.where((ks > 0) & (ks < n / 2), 2.0, 1.0)[:, None]
+        ang_i = 2 * np.pi * np.outer(ks, xs) / n
+        fwd = (np.cos(ang_f), np.sin(ang_f))
+        inv = (c * np.cos(ang_i) / n, c * np.sin(ang_i) / n)
+    else:
+        ks = np.asarray(rows)
+        ang_f = -2 * np.pi * np.outer(xs, ks) / n
+        ang_i = 2 * np.pi * np.outer(ks, xs) / n
+        fwd = (np.cos(ang_f), np.sin(ang_f))
+        inv = (np.cos(ang_i) / n, np.sin(ang_i) / n)
+    return (
+        tuple(a.astype(np.float32) for a in fwd),
+        tuple(a.astype(np.float32) for a in inv),
+    )
+
+
+def _corner_rows(n: int, m: int) -> tuple[int, ...]:
+    """Frequencies [0..m-1] and [n-m..n-1] (the two corner blocks)."""
+    return tuple(range(m)) + tuple(range(n - m, n))
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, round_dot_input(a), round_dot_input(b))
+
+
+def _cmul_mm(ar, ai, br, bi, eq: str):
+    """Complex multiply-contract via real einsums: (ar + i ai) x (br + i bi)."""
+    rr = _einsum(eq, ar, br)
+    if ai is None:  # real input (forward transform of a real signal)
+        return rr, _einsum(eq, ar, bi)
+    return rr - _einsum(eq, ai, bi), _einsum(eq, ar, bi) + _einsum(eq, ai, br)
+
+
+def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+
+
+def spectral_conv_2d(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    modes1: int,
+    modes2: int,
+    impl: str = "dft",
+) -> torch.Tensor:
+    """2D spectral convolution.
+
+    x: (B, H, W, Cin) real; w1, w2: (2, Cin, Cout, modes1, modes2) real/imag
+    stacks for the low (rows [:m1]) and high (rows [-m1:]) frequency blocks.
+    Returns (B, H, W, Cout) real.
+    """
+    h, w = x.shape[1], x.shape[2]
+    if impl == "fft":
+        xf = torch.fft.rfft2(x, dim=(1, 2))  # (B, H, W//2+1, Cin)
+        w1c = torch.complex(w1[0], w1[1])
+        w2c = torch.complex(w2[0], w2[1])
+        top = torch.einsum("bxyi,ioxy->bxyo", xf[:, :modes1, :modes2], w1c)
+        bot = torch.einsum("bxyi,ioxy->bxyo", xf[:, h - modes1:, :modes2], w2c)
+        out_ft = torch.zeros(
+            (x.shape[0], h, w // 2 + 1, top.shape[-1]), dtype=torch.complex64,
+            device=x.device,
+        )
+        out_ft[:, :modes1, :modes2] = top
+        out_ft[:, h - modes1:, :modes2] = bot
+        return torch.fft.irfft2(out_ft, s=(h, w), dim=(1, 2))
+    if impl != "dft":
+        raise ValueError(f"unknown spectral impl {impl!r}")
+
+    (fwr, fwi), (iwr, iwi) = _dft_factors_1d(w, modes2, None)
+    (fhr, fhi), (ihr, ihi) = _dft_factors_1d(h, 2 * modes1, _corner_rows(h, modes1))
+    # W-axis partial rDFT of the real signal: (B,H,W,C) @ (W,m2)
+    xwr, xwi = _cmul_mm(x, None, _t(fwr, x), _t(fwi, x), "bhwc,wk->bhkc")
+    # H-axis partial DFT on the retained corner rows -> (B, 2m1, m2, C)
+    xfr, xfi = _cmul_mm(xwr, xwi, _t(fhr, x), _t(fhi, x), "bhkc,hr->brkc")
+    # mode mix with the two corner-row weight blocks stacked along rows
+    wr = torch.cat([w1[0], w2[0]], dim=2)  # (Ci, Co, 2m1, m2)
+    wi = torch.cat([w1[1], w2[1]], dim=2)
+    yfr, yfi = _cmul_mm(xfr, xfi, wr, wi, "brkc,cork->brko")
+    # inverse H (complex), then the Hermitian-weighted real inverse W:
+    # Re[(yr + i yi)(gr + i gi)] = yr gr - yi gi
+    yhr, yhi = _cmul_mm(yfr, yfi, _t(ihr, x), _t(ihi, x), "brko,rh->bhko")
+    return _einsum("bhko,kw->bhwo", yhr, _t(iwr, x)) - _einsum(
+        "bhko,kw->bhwo", yhi, _t(iwi, x)
+    )
+
+
+def spectral_weight_init(in_channels: int, out_channels: int, modes1: int, modes2: int,
+                         generator: torch.Generator | None = None,
+                         device=None) -> torch.Tensor:
+    """Reference init: scale * U[0, 1) for real and imag, scale = 1/(Cin*Cout),
+    as a (2, Cin, Cout, m1, m2) real stack."""
+    scale = 1.0 / (in_channels * out_channels)
+    shape = (2, in_channels, out_channels, modes1, modes2)
+    return scale * torch.rand(shape, generator=generator, device=device)
+
+
+def naive_spectral_conv_2d_numpy(x, w1c, w2c, m1, m2):
+    """Numpy oracle for tests: direct translation of the math definition."""
+    b, h, w, ci = x.shape
+    co = w1c.shape[1]
+    xf = np.fft.rfft2(x, axes=(1, 2))
+    out = np.zeros((b, h, w // 2 + 1, co), dtype=np.complex128)
+    out[:, :m1, :m2] = np.einsum("bxyi,ioxy->bxyo", xf[:, :m1, :m2], w1c)
+    out[:, h - m1:, :m2] = np.einsum("bxyi,ioxy->bxyo", xf[:, h - m1:, :m2], w2c)
+    return np.fft.irfft2(out, s=(h, w), axes=(1, 2))

@@ -1,0 +1,50 @@
+"""Training CLI (port of the ``train`` subcommand of
+``sciml_pde_tpu/train/cli.py``):
+
+  python -m sciml_pde_torch.train.cli train --config config_dr --dataset basic_ds8 \\
+      base_path=data/ [key=value ...]
+
+Runs on ``cuda``; ``device=cpu`` runs the plain PyTorch versions on the CPU.
+The other subcommands (aux, transformer) come with later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import sys
+
+from sciml_pde_torch.utils.config import load_config
+
+
+def _call_with_supported(fn, args: dict, override_keys=()):
+    sig = inspect.signature(fn)
+    # config keys the trainer does not take are dropped (the presets carry
+    # keys of other trainers), but an explicit override that lands nowhere
+    # is a user error
+    unknown = [k for k in override_keys if k not in sig.parameters]
+    if unknown:
+        raise SystemExit(f"unknown override(s) for {fn.__name__}: {', '.join(unknown)}")
+    return fn(**{k: v for k, v in args.items() if k in sig.parameters})
+
+
+def main(argv=None):
+    from sciml_pde_torch.train.fno_train import run_training
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", default="config_dr")
+    p.add_argument("--dataset", default=None, help="preset, e.g. basic_ds8")
+    p.add_argument("overrides", nargs="*", help="key=value overrides")
+    a = p.parse_args(argv)
+    cfg = load_config(a.config, a.dataset, a.overrides)
+    keys = [kv.split("=", 1)[0] for kv in a.overrides if "=" in kv]
+    res = _call_with_supported(run_training, cfg, keys)
+    print(f"best_val={res.best_val:.6g}", flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    cmd = sys.argv[1] if len(sys.argv) > 1 else "train"
+    if cmd != "train":
+        raise SystemExit(f"unknown subcommand {cmd!r}; the port has: train")
+    main(sys.argv[2:])

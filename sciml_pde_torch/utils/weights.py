@@ -1,0 +1,77 @@
+"""Weight conversion between the flax ``FNO2d`` parameter tree, the port's
+``FNO2d`` ``state_dict`` and the fused step's packed parameters.
+
+Flax layouts: ``Dense`` kernels are ``(in, out)`` (torch ``nn.Linear``
+weights are ``(out, in)``); spectral weights are ``(2, Cin, Cout, m1, m2)``
+real/imag stacks, ``w1`` for the low corner rows and ``w2`` for the high
+ones (the same stack in both packages).  The tree is nested dicts of
+numpy arrays, as ``flax`` hands it out after ``jax.device_get``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sciml_pde_torch.ops.fno_fused_step import (
+    L_LAYERS,
+    FastFNOParams,
+    pack_params,
+    unpack_grads,
+)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
+    """Flax FNO2d tree -> the port's ``FNO2d`` ``state_dict``."""
+    bb = tree["backbone"]
+    t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))  # noqa: E731
+    sd = {}
+
+    def dense(prefix, d):
+        sd[f"{prefix}.weight"] = t(_np(d["Dense_0"]["kernel"]).T)
+        sd[f"{prefix}.bias"] = t(d["Dense_0"]["bias"])
+
+    dense("backbone.fc0", bb["fc0"])
+    dense("backbone.fc1", bb["fc1"])
+    for i in range(L_LAYERS):
+        sd[f"backbone.convs.{i}.w1"] = t(bb[f"conv{i}"]["w1"])
+        sd[f"backbone.convs.{i}.w2"] = t(bb[f"conv{i}"]["w2"])
+        dense(f"backbone.ws.{i}", bb[f"w{i}"])
+    dense("fc2", tree["fc2"])
+    return sd
+
+
+def state_dict_to_flax(sd) -> dict:
+    """The port's ``FNO2d`` ``state_dict`` -> flax FNO2d tree of numpy arrays."""
+    def dense(prefix):
+        return {"Dense_0": {"kernel": _np(sd[f"{prefix}.weight"]).T.copy(),
+                            "bias": _np(sd[f"{prefix}.bias"])}}
+
+    bb = {"fc0": dense("backbone.fc0"), "fc1": dense("backbone.fc1")}
+    for i in range(L_LAYERS):
+        bb[f"conv{i}"] = {"w1": _np(sd[f"backbone.convs.{i}.w1"]),
+                          "w2": _np(sd[f"backbone.convs.{i}.w2"])}
+        bb[f"w{i}"] = dense(f"backbone.ws.{i}")
+    return {"backbone": bb, "fc2": dense("fc2")}
+
+
+def flax_to_packed(tree, modes: int, device=None) -> FastFNOParams:
+    """Flax FNO2d tree -> the fused step's packed parameters."""
+    return pack_params(tree, modes, modes, device)
+
+
+def packed_to_flax(p: FastFNOParams, modes: int) -> dict:
+    """Packed parameters -> flax FNO2d tree of numpy arrays."""
+    tree = unpack_grads(p, modes, modes)
+    return tree_map(_np, tree)
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+

@@ -1,0 +1,44 @@
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py): pin
+f32 products in both packages and move trees between them."""
+
+import contextlib
+
+import jax
+import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def precision(name: str):
+    """Set SCIML_DFT_PRECISION's value in both packages for the block."""
+    from sciml_pde_tpu.ops import spectral as jspec
+    from sciml_pde_torch.ops import spectral as tspec
+
+    prev_j, prev_t = jspec._PRECISION, tspec.get_dft_precision()
+    jspec.set_dft_precision(name)
+    tspec.set_dft_precision(name)
+    try:
+        yield
+    finally:
+        jspec._PRECISION = prev_j
+        tspec.set_dft_precision(prev_t)
+
+
+def to_numpy_tree(tree):
+    """Flax/JAX tree -> nested dicts of numpy arrays."""
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
+
+
+def assert_trees_close(got, want, rtol, atol, what=""):
+    """Every leaf of ``want`` (a flax tree) against the same path of ``got``."""
+    flat_got = {
+        tuple(getattr(k, "key", k) for k in path): leaf
+        for path, leaf in jax.tree_util.tree_leaves_with_path(got)
+    }
+    for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+        key = tuple(getattr(k, "key", k) for k in path)
+        have = flat_got[key]
+        if isinstance(have, torch.Tensor):
+            have = have.detach().cpu().numpy()
+        np.testing.assert_allclose(np.asarray(have), np.asarray(leaf), rtol=rtol, atol=atol,
+                                   err_msg=f"{what} mismatch at {'/'.join(key)}")

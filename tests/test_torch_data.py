@@ -1,0 +1,61 @@
+"""Port io/h5.py + data/dr.py + data/windows.py vs the JAX loaders on a
+tiny DR file written with the JAX package's writer."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sciml_pde_tpu.data.dr import load_dr_baseline as jax_load
+from sciml_pde_tpu.data.windows import epoch_batches as jax_batches
+from sciml_pde_tpu.data.windows import gather_windows as jax_gather
+from sciml_pde_tpu.io.h5 import write_seed_group
+from sciml_pde_torch.data.dr import load_dr_baseline
+from sciml_pde_torch.data.windows import epoch_batches, gather_windows
+
+NT, X, Y, C = 9, 8, 6, 2
+
+
+@pytest.fixture(scope="module")
+def folder(tmp_path_factory):
+    d = tmp_path_factory.mktemp("dr")
+    rng = np.random.default_rng(0)
+    for s in range(11):
+        write_seed_group(d / "2D_diff-react_test_all.h5", s,
+                         rng.normal(size=(NT, Y, X, C)).astype(np.float32),
+                         np.linspace(-1, 1, X, dtype=np.float32),
+                         np.linspace(-1, 1, Y, dtype=np.float32),
+                         np.linspace(0, 1, NT, dtype=np.float32))
+    return str(d) + "/"
+
+
+@pytest.mark.parametrize("subsample", [4, 0.5])
+def test_load_dr_baseline_matches_jax(folder, subsample):
+    want = jax_load(folder, train_subsample=subsample, initial_step=3, rollout_test=1)
+    got = load_dr_baseline(folder, train_subsample=subsample, initial_step=3,
+                           rollout_test=1, device="cpu")
+    for g, w in ((got.train, want.train), (got.test, want.test)):
+        np.testing.assert_array_equal(g.data.numpy(), np.asarray(w.data))
+        np.testing.assert_array_equal(g.grid.numpy(), np.asarray(w.grid))
+        np.testing.assert_array_equal(g.window_index(), w.window_index())
+
+
+def test_windows_and_batches_match_jax(folder):
+    want = jax_load(folder, train_subsample=4, initial_step=3, rollout_test=1)
+    got = load_dr_baseline(folder, train_subsample=4, initial_step=3, rollout_test=1,
+                           device="cpu")
+    idx = got.train.window_index()
+    b_t = list(epoch_batches(idx, 5, np.random.default_rng(3)))
+    b_j = list(jax_batches(want.train.window_index(), 5, np.random.default_rng(3)))
+    assert len(b_t) == len(b_j) > 0
+    for bt, bj in zip(b_t, b_j):
+        np.testing.assert_array_equal(bt, bj)
+        x, y = gather_windows(got.train.data, torch.from_numpy(bt).long(), 3, 1)
+        xj, yj = jax_gather(want.train.data, jnp.asarray(bj), 3, 1)
+        np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+        np.testing.assert_array_equal(y.numpy(), np.asarray(yj))
+
+
+def test_too_few_trajectories_raises(folder):
+    with pytest.raises(ValueError, match="train trajectories"):
+        load_dr_baseline(folder, train_subsample=50, initial_step=3, device="cpu")

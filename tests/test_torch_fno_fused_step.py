@@ -1,0 +1,129 @@
+"""Port ops/fno_fused_step.py vs the JAX module: the CPU fused apply (the
+kernels' plain versions composed as on the card) against the JAX reference
+composition and the JAX Pallas kernels run in interpret mode, values and
+all ten gradients."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sciml_pde_tpu.models import FNO2d as FlaxFNO2d
+from sciml_pde_tpu.ops import fno_fused_step as jf
+from sciml_pde_torch.ops import fno_fused_step as tf
+from sciml_pde_torch.utils.weights import flax_to_packed, packed_to_flax
+
+from _torch_parity import assert_trees_close, precision, to_numpy_tree
+
+B, X, Y, T, CC = 2, 16, 16, 3, 2
+WIDTH, MODES = 8, 4
+# values: as the JAX package's own fused-step tests; grads: the same
+VAL_TOL = dict(rtol=2e-4, atol=2e-5)
+GRAD_TOL = dict(rtol=5e-3, atol=1e-4)
+# `default` rounds every dot input to bf16 (8 mantissa bits, relative
+# resolution 2^-8 = 3.9e-3); the two packages round at the same points
+# but sum in other orders, so a value can land on the other side of a
+# rounding boundary.  Errors are held against the largest magnitude.
+BF16_REL_TO_MAX = 3e-2
+
+
+@pytest.fixture(scope="module")
+def setup():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(B, X, Y, T, CC)).astype(np.float32)
+    gx, gy = np.meshgrid(np.linspace(0, 1, X, dtype=np.float32),
+                         np.linspace(0, 1, Y, dtype=np.float32), indexing="ij")
+    grid = np.stack([gx, gy], -1)
+    gridb = np.broadcast_to(grid[None], (B, X, Y, 2))
+    params = to_numpy_tree(
+        FlaxFNO2d(num_channels=CC, modes1=MODES, modes2=MODES, width=WIDTH,
+                  initial_step=T).init(jax.random.PRNGKey(1), x, gridb)["params"])
+    win = np.ascontiguousarray(np.transpose(x, (0, 3, 4, 1, 2)))  # (B, T, Cc, X, Y)
+    grid2 = np.ascontiguousarray(np.transpose(grid, (2, 0, 1)))   # (2, X, Y)
+    cot = rng.normal(size=(B, CC, X, Y)).astype(np.float32)
+    return params, win, grid2, cot
+
+
+def _port_apply(params, win, grid2, cot):
+    p = tf.pack_params(params, MODES, MODES)
+    p = tf.FastFNOParams(*(t.requires_grad_(True) for t in p))
+    pred = tf.fno2d_fused_apply(torch.from_numpy(win), torch.from_numpy(grid2), p, MODES, MODES)
+    (pred * torch.from_numpy(cot)).sum().backward()
+    grads = tf.unpack_grads(tf.FastFNOParams(*(t.grad for t in p)), MODES, MODES)
+    return pred.detach().numpy(), grads
+
+
+def _jax_grads(fn, params, win, grid2, cot):
+    fp = jf.pack_params(params, MODES, MODES)
+    g = jax.grad(lambda q: jnp.sum(fn(win, grid2, q, MODES, MODES) * cot))(fp)
+    return to_numpy_tree(jf.unpack_grads(g, MODES, MODES, params))
+
+
+@pytest.mark.parametrize("jax_fn", ["reference", "pallas_interpret"])
+def test_fused_apply_matches_jax(setup, jax_fn):
+    params, win, grid2, cot = setup
+    with precision("highest"):
+        pred, grads = _port_apply(params, win, grid2, cot)
+        fp = jf.pack_params(params, MODES, MODES)
+        if jax_fn == "reference":
+            want = jf.fno2d_fused_reference(win, grid2, fp, MODES, MODES)
+        else:
+            want = jf.fno2d_fused_apply(win, grid2, fp, MODES, MODES)
+        np.testing.assert_allclose(pred, np.asarray(want), **VAL_TOL)
+        if jax_fn == "pallas_interpret":
+            want_g = _jax_grads(jf.fno2d_fused_apply, params, win, grid2, cot)
+        else:
+            want_g = _jax_grads(jf.fno2d_fused_reference, params, win, grid2, cot)
+    assert_trees_close(grads, want_g, what="grad", **GRAD_TOL)
+
+
+def test_plain_reference_and_vjp_match_jax(setup):
+    """The whole-model plain reference and the plain hand-written VJP."""
+    params, win, grid2, cot = setup
+    with precision("highest"):
+        p = tf.pack_params(params, MODES, MODES)
+        w, g2 = torch.from_numpy(win), torch.from_numpy(grid2)
+        pred = tf.fno2d_fused_reference(w, g2, p, MODES, MODES).numpy()
+        vjp = tf.fno2d_fused_vjp_reference(torch.from_numpy(cot), w, g2, p, MODES, MODES)
+        fp = jf.pack_params(params, MODES, MODES)
+        want = np.asarray(jf.fno2d_fused_reference(win, grid2, fp, MODES, MODES))
+        want_g = _jax_grads(jf.fno2d_fused_reference, params, win, grid2, cot)
+    np.testing.assert_allclose(pred, want, **VAL_TOL)
+    assert_trees_close(tf.unpack_grads(vjp, MODES, MODES), want_g, what="vjp", **GRAD_TOL)
+
+
+def test_fused_apply_bf16_default_matches_jax(setup):
+    params, win, grid2, cot = setup
+    with precision("default"):
+        pred, grads = _port_apply(params, win, grid2, cot)
+        fp = jf.pack_params(params, MODES, MODES)
+        want = np.asarray(jf.fno2d_fused_reference(win, grid2, fp, MODES, MODES))
+        want_g = _jax_grads(jf.fno2d_fused_apply, params, win, grid2, cot)
+    assert np.abs(pred - want).max() <= BF16_REL_TO_MAX * np.abs(want).max()
+    got = dict(jax.tree_util.tree_leaves_with_path(grads))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(want_g):
+        err = np.abs(got[path].numpy() - leaf).max()
+        assert err <= BF16_REL_TO_MAX * np.abs(leaf).max() + 1e-6, (path, err)
+
+
+def test_pack_unpack_roundtrip(setup):
+    params = setup[0]
+    p = flax_to_packed(params, MODES)
+    assert p.wmr.shape == (4, WIDTH, WIDTH, MODES, 2 * MODES)
+    # the packed layout is the JAX package's, without the tile padding
+    jp = jf.pack_params(params, MODES, MODES)
+    np.testing.assert_array_equal(p.wmr[0].numpy(),
+                                  np.asarray(jp.wmr[0])[:, :, :MODES, :2 * MODES])
+    assert_trees_close(packed_to_flax(p, MODES), params, 0, 0, "roundtrip")
+
+
+def test_cpu_fused_apply_is_the_kernels_plain_composition(setup):
+    """On CPU tensors every kernel wrapper runs its plain version: no
+    launch is counted."""
+    from sciml_pde_torch.ops import fno_kernels as k
+
+    params, win, grid2, cot = setup
+    k.reset_launch_counts()
+    _port_apply(params, win, grid2, cot)
+    assert sum(k.LAUNCHES.values()) == 0

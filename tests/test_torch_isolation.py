@@ -1,0 +1,75 @@
+"""The port imports neither JAX nor the JAX package, and its entry points
+refuse to run without a CUDA device unless the CPU is asked for."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+MODULES = [
+    "sciml_pde_torch", "sciml_pde_torch._device", "sciml_pde_torch.ops.spectral",
+    "sciml_pde_torch.ops._build", "sciml_pde_torch.ops.fno_kernels",
+    "sciml_pde_torch.ops.fno_fused_step", "sciml_pde_torch.models",
+    "sciml_pde_torch.models.common", "sciml_pde_torch.models.fno",
+    "sciml_pde_torch.utils.weights", "sciml_pde_torch.utils.checkpoint",
+    "sciml_pde_torch.utils.config", "sciml_pde_torch.metrics",
+    "sciml_pde_torch.train.fast_step", "sciml_pde_torch.train.fno_train",
+    "sciml_pde_torch.train.cli", "sciml_pde_torch.io.h5",
+    "sciml_pde_torch.data.windows", "sciml_pde_torch.data.dr",
+]
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sciml_pde_tpu'))\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert "torch" in names
+    assert not names & {"jax", "jaxlib", "flax", "optax", "orbax", "sciml_pde_tpu"}, names
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from sciml_pde_torch import resolve_device
+    from sciml_pde_torch.train.fno_train import run_training
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_training(base_path=str(tmp_path))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from sciml_pde_torch.ops import fno_kernels as k
+
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        k.reduce_rows(torch.zeros(2, 3, device="meta"))
