@@ -1,11 +1,13 @@
-"""Training CLI (port of the ``train`` subcommand of
+"""Training CLI (port of the ``train`` and ``transformer`` subcommands of
 ``sciml_pde_tpu/train/cli.py``):
 
   python -m sciml_pde_torch.train.cli train --config config_dr --dataset basic_ds8 \\
       base_path=data/ [key=value ...]
+  python -m sciml_pde_torch.train.cli transformer --config config_ns \\
+      --dataset basic_ds4 base_path=data/ns_256/ if_aux=False [key=value ...]
 
 Runs on ``cuda``; ``device=cpu`` runs the plain PyTorch versions on the CPU.
-The other subcommands (aux, transformer) come with later slices.
+The ``aux`` subcommand comes with a later slice.
 """
 
 from __future__ import annotations
@@ -28,23 +30,47 @@ def _call_with_supported(fn, args: dict, override_keys=()):
     return fn(**{k: v for k, v in args.items() if k in sig.parameters})
 
 
-def main(argv=None):
-    from sciml_pde_torch.train.fno_train import run_training
-
+def _parse(argv):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", default="config_dr")
     p.add_argument("--dataset", default=None, help="preset, e.g. basic_ds8")
     p.add_argument("overrides", nargs="*", help="key=value overrides")
     a = p.parse_args(argv)
-    cfg = load_config(a.config, a.dataset, a.overrides)
     keys = [kv.split("=", 1)[0] for kv in a.overrides if "=" in kv]
+    return load_config(a.config, a.dataset, a.overrides), keys
+
+
+def main(argv=None):
+    from sciml_pde_torch.train.fno_train import run_training
+
+    cfg, keys = _parse(argv)
     res = _call_with_supported(run_training, cfg, keys)
     print(f"best_val={res.best_val:.6g}", flush=True)
     return res
 
 
+# FNO-config keys that name the same knob differently in the transformer
+# trainer
+_TRANSFORMER_ALIASES = {"num_channels": "in_chans"}
+
+
+def main_transformer(argv=None):
+    from sciml_pde_torch.train.transformer_train import run_transformer_training
+
+    cfg, keys = _parse(argv)
+    for src, dst in _TRANSFORMER_ALIASES.items():
+        if src in cfg and dst not in cfg:
+            cfg[dst] = cfg.pop(src)
+    keys = [_TRANSFORMER_ALIASES.get(k, k) for k in keys]
+    res = _call_with_supported(run_transformer_training, cfg, keys)
+    print(f"best_val={res.best_val:.6g}", flush=True)
+    return res
+
+
+_SUBCOMMANDS = {"train": main, "transformer": main_transformer}
+
 if __name__ == "__main__":
     cmd = sys.argv[1] if len(sys.argv) > 1 else "train"
-    if cmd != "train":
-        raise SystemExit(f"unknown subcommand {cmd!r}; the port has: train")
-    main(sys.argv[2:])
+    if cmd not in _SUBCOMMANDS:
+        raise SystemExit(f"unknown subcommand {cmd!r}; the port has: {', '.join(_SUBCOMMANDS)}")
+    _SUBCOMMANDS[cmd](sys.argv[2:])

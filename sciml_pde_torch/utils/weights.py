@@ -75,3 +75,40 @@ def tree_map(fn, tree):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
+
+
+# ---------------------------------------------------------------------------
+# VideoMAEOperator: the port keeps flax's layout and names
+# ---------------------------------------------------------------------------
+
+
+def transformer_flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
+    """Flax ``VideoMAEOperator`` tree -> the port's ``state_dict``: the keys
+    joined with dots, the arrays as f32 tensors in the same layout (Dense
+    kernels (in, out); ``qkv_kernel`` (dim, 3 * dim) with q | k | v along
+    the output axis)."""
+    sd = {}
+
+    def walk(prefix, node):
+        for k, v in node.items():
+            name = f"{prefix}.{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(name, v)
+            else:
+                sd[name] = torch.as_tensor(np.array(v, dtype=np.float32))
+
+    walk("", tree)
+    return sd
+
+
+def transformer_state_dict_to_flax(sd) -> dict:
+    """The port's ``VideoMAEOperator`` ``state_dict`` -> flax tree of numpy
+    arrays."""
+    tree: dict = {}
+    for name, t in sd.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = _np(t).astype(np.float32, copy=True)
+    return tree

@@ -1,0 +1,121 @@
+"""Port ops/attention.py vs the JAX package: flash_attention values and q/k/v
+gradients (JAX Pallas in interpret mode on the CPU), each plain version
+against the Pallas body it stands for, and the shape rule.
+
+Tolerances, relative to the largest magnitude of the JAX result: f32 1e-5
+(sums in another order); bf16 3e-2 (roundings to bf16 at other points)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sciml_pde_tpu.ops import attention as ja
+from sciml_pde_torch.ops import attention as ta
+
+DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+B, H, D = 1, 2, 16
+
+
+def _inputs(n, seed, count=4):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(B, H, n, D)).astype(np.float32) for _ in range(count)]
+
+
+def _close(got, want, tol, what):
+    got = np.asarray(torch.as_tensor(got).float().detach().numpy(), np.float32)
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= tol, f"{what}: max error {err:.3e} of the largest magnitude (tol {tol:.0e})"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [64, 512, 17, 320])
+def test_flash_attention_values_and_grads_match_jax(n, dtype):
+    """n = 64 and 512 (two Q blocks) take the fused path, 17 and 320 the
+    jnp path, in both packages."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v, g = _inputs(n, seed=n)
+    scale = D**-0.5
+
+    def jloss(q, k, v):
+        o = ja.flash_attention(q, k, v, scale)
+        return jnp.sum(o.astype(jnp.float32) * g), o
+
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    (_, o_want), grads_want = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jq, jk, jv)
+    tq, tk, tv = (torch.tensor(a).to(tdt).requires_grad_(True) for a in (q, k, v))
+    o = ta.flash_attention(tq, tk, tv, scale)
+    (o.float() * torch.tensor(g)).sum().backward()
+    assert o.dtype == tdt
+    _close(o, o_want, tol, "o")
+    for name, t, w in zip("qkv", (tq, tk, tv), grads_want):
+        assert t.grad.dtype == tdt
+        _close(t.grad, w, tol, f"d{name}")
+
+
+def test_shape_rule_matches_jax(monkeypatch):
+    fused = []
+    real = ta._FlashCore.apply
+    monkeypatch.setattr(ta._FlashCore, "apply", lambda *a: fused.append(1) or real(*a))
+    for n, d, want in [(64, 16, True), (256, 16, True), (512, 16, True), (2048, 8, True),
+                       (17, 16, False), (320, 16, False), (2304, 16, False),
+                       (64, 12, False), (132, 16, False)]:
+        fused.clear()
+        x = torch.zeros(1, 1, n, d)
+        ta.flash_attention(x, x, x, 1.0)
+        assert bool(fused) == want, (n, d)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [64, 512])
+def test_plain_versions_match_pallas_bodies(n, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    tol = 1e-5 if dtype == "f32" else 1e-2  # bf16: only the output rounding differs
+    q, k, v, do = (a.reshape(B * H, n, D) for a in _inputs(n, seed=100 + n))
+    scale = D**-0.5
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o_want, l_want = ja._attention_fwd_flat(jq, jk, jv, scale)
+    dq_want, dk_want, dv_want = ja._attention_bwd_flat(jq, jk, jv, o_want, l_want, jdo, scale)
+
+    tq, tk, tv, tdo = (torch.tensor(a).to(tdt) for a in (q, k, v, do))
+    o, l = ta.attention_fwd_plain(tq, tk, tv, scale)
+    _close(o, o_want, tol, "o")
+    np.testing.assert_allclose(l.numpy(), np.asarray(l_want), rtol=1e-6, atol=1e-6)
+    # the backward from the JAX forward's own o and l
+    o_j = torch.tensor(np.asarray(o_want.astype(jnp.float32))).to(tdt)
+    l_j = torch.tensor(np.asarray(l_want))
+    delta = torch.sum(tdo.float() * o_j.float(), dim=-1, keepdim=True)
+    dq = ta.attention_dq_plain(tq, tk, tv, tdo, l_j, delta, scale)
+    dk, dv = ta.attention_dkv_plain(tq, tk, tv, tdo, l_j, delta, scale)
+    for name, got, want in (("dq", dq, dq_want), ("dk", dk, dk_want), ("dv", dv, dv_want)):
+        assert got.dtype == tdt
+        _close(got, want, tol, name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_jnp_attention_matches_jax(dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(40, seed=7, count=3)
+    want = ja.jnp_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)), 0.25)
+    got = ta.jnp_attention(*(torch.tensor(a).to(tdt) for a in (q, k, v)), 0.25)
+    assert got.dtype == tdt
+    _close(got, want, tol, "jnp_attention")
+
+
+def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
+    q, k, v, do = (torch.tensor(a.reshape(B * H, 64, D)) for a in _inputs(64, seed=3))
+    o, l = ta.attention_fwd(q, k, v, 0.25)
+    o_p, l_p = ta.attention_fwd_plain(q, k, v, 0.25)
+    assert torch.equal(o, o_p) and torch.equal(l, l_p)
+    delta = torch.sum(do * o, dim=-1, keepdim=True)
+    assert torch.equal(ta.attention_dq(q, k, v, do, l, delta, 0.25),
+                       ta.attention_dq_plain(q, k, v, do, l, delta, 0.25))
+    for a, b in zip(ta.attention_dkv(q, k, v, do, l, delta, 0.25),
+                    ta.attention_dkv_plain(q, k, v, do, l, delta, 0.25)):
+        assert torch.equal(a, b)
+    assert all(c == 0 for c in ta.LAUNCHES.values())
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        ta.attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"), 0.25)

@@ -21,6 +21,9 @@ MODULES = [
     "sciml_pde_torch.train.fast_step", "sciml_pde_torch.train.fno_train",
     "sciml_pde_torch.train.cli", "sciml_pde_torch.io.h5",
     "sciml_pde_torch.data.windows", "sciml_pde_torch.data.dr",
+    "sciml_pde_torch.ops.attention", "sciml_pde_torch.models.transformer",
+    "sciml_pde_torch.train.optim", "sciml_pde_torch.train.transformer_train",
+    "sciml_pde_torch.data.ns",
 ]
 
 
@@ -60,16 +63,26 @@ def test_entry_points_raise_without_cuda(tmp_path):
         pytest.skip("this host has a CUDA device")
     from sciml_pde_torch import resolve_device
     from sciml_pde_torch.train.fno_train import run_training
+    from sciml_pde_torch.train.transformer_train import run_transformer_training
 
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         run_training(base_path=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_transformer_training(base_path=str(tmp_path), if_aux=False)
+    # device="cpu" gets past the device check to the (missing) data files
+    with pytest.raises(OSError):
+        run_transformer_training(base_path=str(tmp_path), if_aux=False, device="cpu")
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_kernel_wrappers_refuse_other_devices():
     from sciml_pde_torch.ops import fno_kernels as k
 
+    from sciml_pde_torch.ops import attention as a
+
     with pytest.raises(ValueError, match="CUDA device or on the CPU"):
         k.reduce_rows(torch.zeros(2, 3, device="meta"))
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        a.attention_fwd(*(torch.zeros(1, 8, 16, device="meta"),) * 3, 1.0)
