@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``sciml_pde_torch/ops/csrc`` and drives the port's two main paths through
-their trainers: the fused FNO-2D diffusion-reaction baseline step (batch 4,
-128x128, 2 channels, initial_step 10, width 20, modes 12), then the NS-2D
+``sciml_pde_torch/ops/csrc`` and drives the port's three main paths through
+their entry points: the fused FNO-2D diffusion-reaction baseline step (batch
+4, 128x128, 2 channels, initial_step 10, width 20, modes 12), the NS-2D
 VideoMAE transformer baseline at full width (img 256, patch 16, tubelet 2,
 3 channels, 10 frames -> 1280 tokens; encoder 768 x 12 with 12 heads,
-decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16):
+decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16),
+and the production FNO-2D step at the DR flagship width (the plain model
+through the dft2 spectral conv, adaptive clip, torch-style Adam) with the
+fused dft2 layer op and the native-kernel probe:
 
+  0. probe    build the probe kernel alone and launch it through the
+              experiment's probe_native: native, and exactly 2 * x
   1. card     name and power limit (nvidia-smi), torch and CUDA versions
   2. build    nvcc for sm_90a, all sources in parallel
   3. check    the fused forward and all ten gradients from the kernels
@@ -38,6 +43,25 @@ decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16):
   9. timing   ms per micro-step and per optimizer step (CUDA events), the
               device-busy share and top device ops (torch.profiler), and
               per-launch attention kernel times beside their bounds
+ 10. layer    the fused dft2 layer (kernel) at (4, 130, 130, 20), modes 12,
+              through its autograd op: against its plain f32 version within
+              1e-5 of the largest magnitude, with the plain version on
+              bf16-rounded inputs more than 10x that away as the control,
+              and the gradients of sum(out^2) against autograd of the plain
+              forward within 1e-5
+ 11. step     the plain FNO2d forward on the card under `highest` against
+              the CPU in f32 within 1e-5 (the TF32 guard); 10 production
+              steps against 10 fused steps from the same tree and batches
+              (loss and grad norm rtol 2e-3, params rtol 5e-3 atol 1e-5,
+              the JAX package's drop-in bounds)
+ 12. train    one DR epoch of the production step (cosine, `default`):
+              finite and falling loss and a best-val checkpoint; a short
+              StepLR run; a short autoregressive run whose windows run past
+              the end of their trajectories (the gather clamps)
+ 13. timing   production steps/s (CUDA events), device-busy share and top
+              device ops (torch.profiler), the dft vs dft2 A/B through the
+              experiment's bench_shape, and per-launch times of the fused
+              layer and the probe beside their bounds
 
 It prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero and
@@ -103,6 +127,16 @@ KERNEL_SOURCE = {
     "fno_iwdft_pw.adj": "fwd", "fno_head_fwd": "fwd", "fno_head_bwd": "bwd",
     "fno_mix_wgrad": "bwd", "fno_outer_partial": "bwd", "fno_reduce_rows": "bwd",
 }
+# fused dft2 layer (B6) against its plain f32 version and autograd of it:
+# f32 sums in another order; the control (bf16-rounded inputs) must lie more
+# than 10x the bound away, so a kernel that rounds or uses TF32 fails
+SF_TOL = 1e-5
+SF_SITE = "sciml_pde_tpu/ops/spectral_fused.py:63"
+PROBE_SITE = "experiments/spectral_impl_bench.py:106"
+# production step against the fused step over 10 steps under `highest`: the
+# JAX package's drop-in bounds (tests/test_fast_step.py)
+PROD_STEPS, PROD_RTOL, PARAM_RTOL, PARAM_ATOL = 10, 2e-3, 5e-3, 1e-5
+TOL_FORWARD = 1e-5  # the plain FNO2d on the card vs the CPU in f32 (TF32 guard)
 
 failures: list[str] = []
 
@@ -519,6 +553,242 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     return rows
 
 
+def sf_work(x, w1, w2, pw, bias, out, m1: int, m2: int) -> tuple[int, int]:
+    """(bytes each input read and each output written once, f32 FLOPs) of one
+    fused dft2 layer: the W-axis rDFT, the corner DFT, the mode mix, the
+    inverse corner DFT, the inverse W step and the pointwise product."""
+    b, h, w, c = x.shape
+    o, r, k = out.shape[-1], 2 * m1, m2
+    nbytes = sum(t.numel() * 4 for t in (x, w1, w2, pw, bias, out))
+    flops = 2 * b * (h * w * c * 2 * k + 2 * h * 2 * r * k * c + 2 * c * 2 * o * r * k
+                     + 2 * r * 2 * h * k * o + h * w * o * 2 * k + h * w * c * o)
+    return nbytes, flops
+
+
+def check_layer(dev) -> tuple:
+    """Phase 10: the fused dft2 layer through its autograd op at the flagship
+    layer shape.  Returns its inputs and the launches of the run."""
+    import torch
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.ops import spectral_fused as sf
+
+    g = torch.Generator().manual_seed(6)
+    hp = XY + PAD
+    k = 1.0 / math.sqrt(WIDTH)
+    x = torch.randn(B, hp, hp, WIDTH, generator=g).to(dev)
+    w1, w2 = ((torch.rand(2, WIDTH, WIDTH, MODES, MODES, generator=g) / WIDTH**2).to(dev)
+              for _ in range(2))
+    pw = ((2 * torch.rand(WIDTH, WIDTH, generator=g) - 1) * k).to(dev)
+    bias = ((2 * torch.rand(WIDTH, generator=g) - 1) * k).to(dev)
+    spectral.set_dft_precision("highest")
+    ins = [t.clone().requires_grad_(True) for t in (x, w1, w2, pw, bias)]
+    sf.reset_launch_counts()
+    out = sf.fused_fno_layer_2d(*ins, MODES, MODES)
+    (out * out).sum().backward()
+    torch.cuda.synchronize()
+    launches = sf.LAUNCHES["spectral_fused"]
+    check(launches == 1, f"[layer] the op launched the fused layer kernel {launches}x (1 expected)")
+    ref_in = [t.clone().requires_grad_(True) for t in (x, w1, w2, pw, bias)]
+    ref = sf.fused_fno_layer_2d_plain(*ref_in, MODES, MODES)
+    (ref * ref).sum().backward()
+    r16 = lambda t: t.bfloat16().float()  # noqa: E731
+    ctl = sf.fused_fno_layer_2d_plain(r16(x), r16(w1), r16(w2), r16(pw), r16(bias), MODES, MODES)
+    torch.cuda.synchronize()
+    err, rel = rel_err(out.detach(), ref.detach())
+    ctl_rel = rel_err(ctl, ref.detach())[1]
+    check(bool(torch.isfinite(out).all()) and rel <= SF_TOL and ctl_rel > 10 * SF_TOL,
+          f"[layer] spectral_fused {tuple(x.shape)} modes {MODES}: max abs err {err:.3e}, "
+          f"rel-to-max {rel:.3e} (tol {SF_TOL:.0e}); control: plain on bf16-rounded inputs "
+          f"{ctl_rel:.3e} above 10x the tol")
+    for name, a, b in zip(("dx", "dw1", "dw2", "dpw", "dbias"), ins, ref_in):
+        gerr, grel = rel_err(a.grad, b.grad)
+        check(grel <= SF_TOL, f"[layer] {name} of sum(out^2) vs autograd of the plain forward: "
+              f"max abs err {gerr:.3e}, rel-to-max {grel:.3e} (tol {SF_TOL:.0e})")
+    spectral.set_dft_precision("default")
+    return (x, w1, w2, pw, bias), out.detach(), err, launches
+
+
+def flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in flat_leaves(sub, f"{prefix}/{key}").items()}
+    return {prefix: tree}
+
+
+def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dict:
+    """Phases 10-13 (the production FNO step, the fused dft2 layer and the
+    probe's timing); returns the layer's row of the kernel table."""
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.data.dr import DRBaselineDataset
+    from sciml_pde_torch.data.windows import WindowedTrajectories, gather_windows
+    from sciml_pde_torch.experiments.spectral_impl_bench import bench_shape
+    from sciml_pde_torch.models.fno import FNO2d
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.ops import spectral_fused as sf
+    from sciml_pde_torch.train import fast_step as fs
+    from sciml_pde_torch.train.fno_train import build_baseline_step, train_baseline
+    from sciml_pde_torch.train.optim import make_optimizer
+    from sciml_pde_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
+
+    # ---- 10. the fused dft2 layer ---------------------------------------------
+    layer_in, layer_out, layer_err, layer_launches = check_layer(dev)
+
+    # ---- 11. the production step against the fused step ----------------------
+    spectral.set_dft_precision("highest")
+    model = FNO2d(CC, MODES, MODES, WIDTH, T0)
+    model.load_state_dict(flax_to_state_dict(tree))
+    x = torch.from_numpy(store[:B, :T0]).permute(0, 2, 3, 1, 4).contiguous()
+    gb = torch.from_numpy(grid)[None].expand(B, *grid.shape)
+    with torch.no_grad():
+        on_cpu = model(x, gb)
+        on_card = model.to(dev)(x.to(dev), gb.to(dev)).cpu()
+    err, rel = rel_err(on_card, on_cpu)
+    check(rel <= TOL_FORWARD, f"[step] plain FNO2d forward ({spectral.get_spectral_impl()}, "
+          f"highest) on the card vs the CPU in f32: max abs err {err:.3e}, rel-to-max "
+          f"{rel:.3e} (tol {TOL_FORWARD:.0e})")
+    data, gridd = ds.train.data, ds.train.grid
+    rng = np.random.default_rng(7)
+    widx = ds.train.window_index()
+    idxs = [torch.as_tensor(widx[rng.choice(len(widx), B, replace=False)], dtype=torch.long,
+                            device=dev) for _ in range(PROD_STEPS)]
+    params = dict(model.named_parameters())
+    step, _ = build_baseline_step(model, make_optimizer(params, 1e-3, 10_000), T0, 1)
+    theta, spec = fs.fast_state_from_tree(tree, MODES, dev)
+    fopt = fs.init_opt(theta)
+    fstep = fs.build_fast_baseline_step(MODES, T0, spec, 1e-3, 10_000)
+    grid2 = gridd.permute(2, 0, 1).contiguous()
+    worst = {"loss": 0.0, "grad norm": 0.0}
+    for idx in idxs:
+        loss_p, gn_p = step(data, gridd, idx)
+        theta, fopt, loss_f, gn_f = fstep(theta, fopt, data, grid2, idx)
+        for key, a, b in (("loss", loss_f, loss_p), ("grad norm", gn_f, gn_p)):
+            worst[key] = max(worst[key], abs(float(a) - float(b)) / abs(float(b)))
+    got = flat_leaves(fs.tree_from_fast_state(theta, spec, MODES))
+    want = flat_leaves(state_dict_to_flax(params))
+    excess = max(((got[k].to(dev) - torch.as_tensor(v, device=dev)).abs()
+                  - PARAM_RTOL * torch.as_tensor(v, device=dev).abs()).max().item()
+                 for k, v in want.items())
+    check(max(worst.values()) <= PROD_RTOL and excess <= PARAM_ATOL,
+          f"[step] {PROD_STEPS} production steps vs fused steps (highest): worst rel loss "
+          f"{worst['loss']:.3e}, grad norm {worst['grad norm']:.3e} (rtol {PROD_RTOL:.0e}); "
+          f"params |a-b| - {PARAM_RTOL:.0e}|b| at most {excess:.3e} (atol {PARAM_ATOL:.0e})")
+    del model, params, step, theta, fopt, fstep
+
+    # ---- 12. train on the production step -------------------------------------
+    spectral.set_dft_precision("default")
+    t0 = time.perf_counter()
+    res = train_baseline(ds, modes=MODES, width=WIDTH, initial_step=T0, num_channels=CC,
+                         batch_size=B, epochs=1, learning_rate=1e-3, seed=0,
+                         run_dir=str(run_dir), model_name="DR_smoke_prod_FNO", log_every=0,
+                         fast_step=False, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    h = res.history[0]
+    n_steps = len(ds.train.window_index()) // B
+    print(f"[train] production step ({spectral.get_spectral_impl()}, default, cosine), "
+          f"{n_steps} steps + val in {train_s:.3f} s: first step loss {h['first_step_loss']:.6g}, "
+          f"last step loss {h['last_step_loss']:.6g}, epoch train loss {h['train_loss']:.6g}, "
+          f"val loss {h['val_loss']:.6g}", flush=True)
+    check(all(math.isfinite(h[k]) for k in ("first_step_loss", "last_step_loss", "train_loss",
+                                            "val_loss")), "[train] production losses finite")
+    check(h["last_step_loss"] < h["first_step_loss"] and h["train_loss"] < h["first_step_loss"],
+          "[train] production loss falls (last step and epoch mean below the first step)")
+    check((run_dir / "DR_smoke_prod_FNO_ckpt.pt").exists(),
+          "[train] production best-val checkpoint written")
+
+    def small(n_t, rollout=1):
+        return DRBaselineDataset(
+            train=WindowedTrajectories(ds.train.data[:1, :n_t], grid, initial_step=T0,
+                                       rollout=rollout, train=True, device=dev),
+            test=WindowedTrajectories(ds.test.data[:, :n_t], grid, initial_step=T0,
+                                      rollout=rollout, train=False, device=dev))
+    res = train_baseline(small(30), modes=MODES, width=WIDTH, initial_step=T0,
+                         num_channels=CC, batch_size=B, epochs=2, scheduler="step",
+                         scheduler_step=3, scheduler_gamma=0.5, seed=0, run_dir=str(run_dir),
+                         model_name="DR_smoke_steplr_FNO", log_every=0, fast_step=False,
+                         device=dev)
+    losses = [v for hh in res.history for v in (hh["train_loss"], hh["val_loss"])]
+    print(f"[train] StepLR (step 3, gamma 0.5), 2 epochs x 5 steps: train/val losses "
+          + ", ".join(f"{v:.6g}" for v in losses), flush=True)
+    check(len(res.history) == 2 and all(map(math.isfinite, losses))
+          and (run_dir / "DR_smoke_steplr_FNO_ckpt.pt").exists(),
+          "[train] StepLR run: finite losses and a checkpoint")
+    n_t, t_train = 40, T0 + 5
+    ar = small(n_t)
+    widx = ar.train.window_index()
+    idx = torch.as_tensor(widx[-B:], dtype=torch.long, device=dev)
+    _, y = gather_windows(ar.train.data, idx, T0, t_train - T0)
+    frames = np.minimum(widx[-B:, 1, None] + T0 + np.arange(t_train - T0)[None], n_t - 1)
+    want_y = np.moveaxis(ar.train.data.cpu().numpy()[widx[-B:, 0, None], frames], 1, -2)
+    check(bool(torch.equal(y.cpu(), torch.from_numpy(want_y))),
+          f"[train] the gather clamps frames past the end on the card (t0 up to "
+          f"{int(widx[-1, 1])}, {t_train - T0} target frames of {n_t})")
+    res = train_baseline(ar, modes=MODES, width=WIDTH, initial_step=T0, num_channels=CC,
+                         batch_size=B, epochs=1, training_type="autoregressive",
+                         t_train=t_train, seed=0, run_dir=str(run_dir),
+                         model_name="DR_smoke_ar_FNO", log_every=0, fast_step=False, device=dev)
+    torch.cuda.synchronize()
+    h = res.history[0]
+    print(f"[train] autoregressive, t_train {t_train} ({t_train - T0} teacher-forced steps), "
+          f"{len(widx) // B} steps: first step loss {h['first_step_loss']:.6g}, train loss "
+          f"{h['train_loss']:.6g}, val loss {h['val_loss']:.6g}", flush=True)
+    check(all(math.isfinite(h[k]) for k in ("first_step_loss", "train_loss", "val_loss")),
+          "[train] autoregressive run finite, no device assert")
+
+    # ---- 13. timing -------------------------------------------------------------
+    model = FNO2d(CC, MODES, MODES, WIDTH, T0)
+    model.load_state_dict(flax_to_state_dict(tree))
+    model.to(dev)
+    params = dict(model.named_parameters())
+    step, _ = build_baseline_step(model, make_optimizer(params, 1e-3, 10_000), T0, 1)
+    idx = idxs[0]
+    for _ in range(3):
+        step(data, gridd, idx)
+    torch.cuda.synchronize()
+    n = 30
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        loss, _ = step(data, gridd, idx)
+    e.record()
+    e.synchronize()
+    step_ms = s.elapsed_time(e) / n
+    check(bool(torch.isfinite(loss)), "[timing] production loss finite")
+    print(f"[timing] {card}: production step ({spectral.get_spectral_impl()}, default) "
+          f"{step_ms:.4f} ms = {1e3 / step_ms:.2f} steps/s (batch {B}, 128^2, width {WIDTH}, "
+          f"modes {MODES})", flush=True)
+
+    def prod_steps():
+        for _ in range(10):
+            step(data, gridd, idx)
+    device_profile(card, prod_steps, 10, "step", step_ms, ())
+    ab = bench_shape("dr", B, XY, CC, steps=30, windows=3, device=dev)
+    print(f"[timing] {card}: bench_shape dr: dft {ab['dft']['steps_per_sec_median']:.2f} "
+          f"steps/s, dft2 {ab['dft2']['steps_per_sec_median']:.2f} steps/s, dft2/dft "
+          f"{ab['speedup_dft2_vs_dft']:.4f} (median of 3 windows of 30 steps)", flush=True)
+    print(json.dumps({"bench_shape": ab}), flush=True)
+
+    nbytes, flops = sf_work(*layer_in, layer_out, MODES, MODES)
+    row = {
+        "name": "spectral_fused", "route": "cuda",
+        "source": "sciml_pde_torch/ops/csrc/spectral_fused.cu", "replaces": SF_SITE,
+        "launches": layer_launches, "max_abs_err": layer_err,
+        "ms": cuda_ms(lambda: sf.spectral_fused_layer(*layer_in, MODES, MODES)),
+        "plain_ms": cuda_ms(lambda: sf.fused_fno_layer_2d_plain(*layer_in, MODES, MODES)),
+        "bound_ms": max(nbytes / HBM_BPS, flops / PEAK_FLOPS["highest"]) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BPS >= flops / PEAK_FLOPS["highest"]
+        else "operations",
+        "library_ms": None,
+    }
+    print(f"[timing] {card}: spectral_fused at {tuple(layer_in[0].shape)} f32: "
+          f"{row['ms']:.4f} ms/launch, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {nbytes} bytes, {flops} FLOP), "
+          f"{row['launches']} launch in the layer run", flush=True)
+    return {"spectral_fused": row}
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "sciml_pde_torch" / "ops" / "csrc").is_dir():
@@ -536,13 +806,32 @@ def main() -> int:
 
     from sciml_pde_torch.data.dr import DRBaselineDataset
     from sciml_pde_torch.data.windows import WindowedTrajectories
+    from sciml_pde_torch.experiments.spectral_impl_bench import probe_native
     from sciml_pde_torch.ops import _build
     from sciml_pde_torch.ops import attention as ta
     from sciml_pde_torch.ops import fno_fused_step as ff
     from sciml_pde_torch.ops import fno_kernels as fk
+    from sciml_pde_torch.ops import probe as pb
     from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.ops import spectral_fused as sf
     from sciml_pde_torch.train import fast_step as fs
     from sciml_pde_torch.train.fno_train import default_init_tree, train_baseline
+
+    # ---- 0. probe: the build and launch path, before anything is built on it --
+    secs = _build.build_all(("probe",))
+    pb.reset_launch_counts()
+    probe_res = probe_native()
+    probe_launches = pb.LAUNCHES["probe"]
+    print(f"[probe] nvcc sm_90a probe.cu {secs:.2f} s; probe_native: {json.dumps(probe_res)}",
+          flush=True)
+    check(probe_res["native"] is True and probe_launches == 1,
+          f"[probe] native kernel built, launched ({probe_launches}x) and exact")
+    if not probe_res["native"]:
+        print("FAIL: the native-kernel probe failed; nothing else is built", file=sys.stderr)
+        return 1
+    xp = torch.randn(8, 128, generator=torch.Generator().manual_seed(8)).cuda()
+    yp = pb.probe(xp)
+    check(bool(torch.equal(yp, pb.probe_plain(xp))), "[probe] probe(x) == 2 * x exactly")
 
     # ---- 1. card -------------------------------------------------------------
     card = card_line()
@@ -554,7 +843,7 @@ def main() -> int:
     secs = _build.build_all()
     for name in _build.SOURCES:
         _build.load(name)
-    print(f"[build] nvcc sm_90a, {len(_build.SOURCES)} sources in parallel: "
+    print(f"[build] nvcc sm_90a, the other {len(_build.SOURCES) - 1} sources in parallel: "
           f"{secs:.2f} s", flush=True)
 
     # ---- 3. kernels vs plain versions ----------------------------------------
@@ -740,7 +1029,7 @@ def main() -> int:
     res = train_baseline(ds, modes=MODES, width=WIDTH, initial_step=T0, num_channels=CC,
                          batch_size=B, epochs=1, learning_rate=1e-3, seed=0,
                          run_dir=str(run_dir), model_name="DR_smoke_FNO", log_every=0,
-                         device=dev)
+                         fast_step=True, device=dev)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(fk.LAUNCHES)
@@ -805,12 +1094,29 @@ def main() -> int:
               f"{r['launches']} launches in the epoch", flush=True)
 
     kernel_rows.update(transformer_path(dev, card, run_dir))
+    kernel_rows.update(production_path(dev, card, run_dir, store, grid, tree, ds))
+    bytes_s, ops_s = 2 * xp.numel() * 4 / HBM_BPS, xp.numel() / PEAK_FLOPS["highest"]
+    kernel_rows["probe"] = {
+        "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
+        "replaces": PROBE_SITE, "launches": probe_launches,
+        "max_abs_err": rel_err(yp, pb.probe_plain(xp))[0],
+        "ms": cuda_ms(lambda: pb.probe(xp)), "plain_ms": cuda_ms(lambda: pb.probe_plain(xp)),
+        "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "library_ms": cuda_ms(lambda: torch.mul(xp, 2)),
+    }
+    r = kernel_rows["probe"]
+    print(f"[timing] {card}: probe at (8, 128) f32: {r['ms']:.4f} ms/launch, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.7f} ms ({r['bound_by']}), library "
+          f"{r['library_ms']:.4f} ms (torch.mul), {r['launches']} launch in probe_native",
+          flush=True)
 
     if failures:
         print(f"FAILED {len(failures)} check(s): " + "; ".join(failures), file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [kernel_rows[k] for k in (*fk.KERNEL_NAMES,
-                                                            *ta.KERNEL_NAMES)]}))
+    print(json.dumps({"kernels": [kernel_rows[k] for k in (*fk.KERNEL_NAMES, *ta.KERNEL_NAMES,
+                                                            *sf.KERNEL_NAMES,
+                                                            *pb.KERNEL_NAMES)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,10 +15,16 @@ import torch
 def gather_windows(data: torch.Tensor, idx: torch.Tensor, initial_step: int, rollout: int):
     """data (N, T, *spatial, C), idx (B, 2) rows of (trajectory, t0) ->
     x (B, *spatial, initial_step, C), y (B, *spatial, rollout, C): time
-    second-to-last, the model-facing layout."""
+    second-to-last, the model-facing layout.
+
+    Frame indices past the end of a trajectory are clamped to its last
+    frame, as the JAX gather clamps them: the autoregressive step gathers
+    ``t_train - initial_step`` target frames from windows indexed for a
+    shorter rollout, and relies on it.  The clamp runs on the device."""
     span = initial_step + rollout
     offs = torch.arange(span, device=idx.device, dtype=idx.dtype)
-    win = data[idx[:, 0, None], idx[:, 1, None] + offs[None, :]]
+    frames = torch.clamp(idx[:, 1, None] + offs[None, :], 0, data.shape[1] - 1)
+    win = data[idx[:, 0, None], frames]
     win = torch.movedim(win, 1, -2)
     return win[..., :initial_step, :], win[..., initial_step:, :]
 

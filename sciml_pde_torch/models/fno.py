@@ -1,12 +1,16 @@
 """Baseline 2D Fourier Neural Operator (port of ``sciml_pde_tpu/models/fno.py``).
 
-The plain model: the reference the fused step is held against in tests,
-and the form checkpoints take (``utils/weights.py`` converts between its
+The plain model: what the production step trains, the reference the fused
+step is held against, and the form checkpoints take (``utils/weights.py`` converts between its
 ``state_dict``, the flax parameter tree and the fused step's packed
 parameters).
 
 Call signature as the JAX package's: ``(x: [B,X,Y,T,C], grid: [B,X,Y,2])
--> [B,X,Y,1,C]``, channels-last throughout.
+-> [B,X,Y,1,C]``, channels-last throughout.  ``impl`` picks the spectral
+conv's form; None means the module default of ``ops/spectral.py`` (``dft2``
+unless ``SCIML_SPECTRAL_IMPL`` says otherwise), as in the flax model.  The
+dense layers are f32 products.  ``remat`` (rematerialised blocks) is not
+ported: ``remat=True`` raises.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ class SpectralConv2d(nn.Module):
         self.w2 = nn.Parameter(spectral_weight_init(in_channels, out_channels, modes1,
                                                     modes2, generator))
 
-    def forward(self, x: torch.Tensor, impl: str = "dft") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str | None = None) -> torch.Tensor:
         return spectral_conv_2d(x, self.w1, self.w2, self.modes1, self.modes2, impl)
 
 
@@ -46,7 +50,7 @@ class FNOBackbone2d(nn.Module):
         self.ws = nn.ModuleList(torch_linear(width, width, generator) for _ in range(4))
         self.fc1 = torch_linear(width, 128, generator)
 
-    def forward(self, x: torch.Tensor, impl: str = "dft") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str | None = None) -> torch.Tensor:
         nx, ny = x.shape[1], x.shape[2]
         x = self.fc0(x)
         x = nn.functional.pad(x, (0, 0, 0, self.padding, 0, self.padding))
@@ -78,14 +82,16 @@ class FNO2d(nn.Module):
 
     def __init__(self, num_channels: int, modes1: int = 12, modes2: int = 12,
                  width: int = 20, initial_step: int = 10,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, remat: bool = False):
         super().__init__()
+        if remat:
+            raise NotImplementedError("remat (rematerialised spectral blocks) is not ported yet")
         self.num_channels, self.modes1, self.modes2 = num_channels, modes1, modes2
         self.width, self.initial_step = width, initial_step
         self.backbone = FNOBackbone2d(initial_step * num_channels + 2, modes1, modes2,
                                       width, generator=generator)
         self.fc2 = torch_linear(128, num_channels, generator)
 
-    def forward(self, x: torch.Tensor, grid: torch.Tensor, impl: str = "dft") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grid: torch.Tensor, impl: str | None = None) -> torch.Tensor:
         inp, std, mean = _prep_2d(x, grid)
         return _denorm(self.fc2(self.backbone(inp, impl)), std, mean)

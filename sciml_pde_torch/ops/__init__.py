@@ -1,1 +1,2 @@
-"""Spectral convolutions and the fused FNO-2D step (CUDA kernels in ``csrc``)."""
+"""Spectral convolutions, the fused FNO-2D step, attention, the fused dft2
+layer and the probe (CUDA kernels in ``csrc``)."""

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source becomes one shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into ``ops/_build/`` (listed
-in ``.gitignore``) and bound with ``ctypes``.  All missing sources compile
-in parallel, one ``nvcc`` process each.  A library's file name carries a
+in ``.gitignore``) and bound with ``ctypes``.  ``build_all`` compiles every
+missing source in parallel, one ``nvcc`` process each; ``load`` builds only
+the library it is asked for.  A library's file name carries a
 hash of its sources and flags, so an edited source is rebuilt and a stale
 library is never loaded.  A failed build raises with the compiler's output.
 """
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fno_fwd", "fno_bwd", "attention")
+SOURCES = ("fno_fwd", "fno_bwd", "attention", "spectral_fused", "probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -48,10 +49,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> float:
-    """Compile every missing library, all sources at once.  Returns the
+def build_all(names=SOURCES) -> float:
+    """Compile every missing library of ``names``, all at once.  Returns the
     seconds spent (0 when everything was built already)."""
-    todo = [n for n in SOURCES if not library_path(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,10 +78,10 @@ def build_all() -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library ``name`` (building the kernels first if needed)."""
+    """The built library ``name`` (building it first if needed)."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all()
+        build_all((name,))
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -10,7 +10,12 @@ m2)`` real/imag stacks, as in the JAX package.
 ``impl="dft"`` never forms the full spectrum: the forward transform is a
 partial DFT (two skinny products with constant factor matrices) and the
 inverse is the adjoint pair with Hermitian doubling along the rfft axis.
-``impl="fft"`` goes through ``torch.fft`` for cross-checking.
+``impl="dft2"`` packs each complex contraction of that chain into one real
+contraction with the block factor [[Br, Bi], [-Bi, Br]] (the real
+embedding of complex multiplication): five products per layer instead of
+fourteen.  ``impl="fft"`` goes through ``torch.fft`` for cross-checking.
+The module default is ``dft2``, or ``SCIML_SPECTRAL_IMPL={dft,dft2,fft}``
+as in the JAX package; ``impl=None`` means the module default.
 
 Precision: ``SCIML_DFT_PRECISION={highest,high,default}`` as in the JAX
 package, default ``default``: bf16 inputs to every DFT/mode product with
@@ -45,6 +50,22 @@ def set_dft_precision(name: str) -> None:
 
 def get_dft_precision() -> str:
     return _PRECISION
+
+
+_IMPLS = ("dft", "dft2", "fft")
+_DEFAULT_IMPL = os.environ.get("SCIML_SPECTRAL_IMPL", "dft2").lower()
+
+
+def set_spectral_impl(name: str) -> None:
+    """Set the process-wide default impl ("dft" | "dft2" | "fft")."""
+    global _DEFAULT_IMPL
+    if name.lower() not in _IMPLS:
+        raise ValueError(f"unknown spectral impl {name!r}")
+    _DEFAULT_IMPL = name.lower()
+
+
+def get_spectral_impl() -> str:
+    return _DEFAULT_IMPL
 
 
 def dot_bf16() -> bool:
@@ -95,8 +116,70 @@ def _corner_rows(n: int, m: int) -> tuple[int, ...]:
     return tuple(range(m)) + tuple(range(n - m, n))
 
 
-def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.einsum(eq, round_dot_input(a), round_dot_input(b))
+# "dft2" factors: a complex contraction y = x @ F becomes one real
+# contraction over a doubled axis with the block factor [[Fr, Fi], [-Fi, Fr]]:
+# y_re = xr Fr - xi Fi, y_im = xr Fi + xi Fr.
+
+
+@functools.lru_cache(maxsize=128)
+def _dft2_real_axis(n: int, modes: int):
+    """rfft-like axis of a REAL signal.  Returns (fwd, inv):
+    fwd (n, 2, modes): real input -> stacked (re, im) mode axis;
+    inv (2, modes, n): Hermitian-weighted inverse keeping only Re[output]."""
+    (fr, fi), (ir, ii) = _dft_factors_1d(n, modes, None)
+    fwd = np.stack([fr, fi], axis=1).astype(np.float32)  # "nsk"
+    inv = np.stack([ir, -ii], axis=0).astype(np.float32)  # "skn"
+    return fwd, inv
+
+
+@functools.lru_cache(maxsize=128)
+def _dft2_corner_axis(n: int, m: int):
+    """Full-complex corner axis (rows [0..m-1] and [n-m..n-1]).  Returns
+    (fwd, inv) block factors:
+    fwd (2, n, 2, 2m): complex input (complexity s) x complex e^{-i...}
+      -> complexity t on the 2m retained rows;
+    inv (2, 2m, 2, n): the adjoint pair back to physical length n."""
+    rows = _corner_rows(n, m)
+    (fr, fi), (ir, ii) = _dft_factors_1d(n, 2 * m, rows)
+    fwd = np.empty((2, n, 2, 2 * m), np.float32)
+    fwd[0, :, 0] = fr
+    fwd[0, :, 1] = fi
+    fwd[1, :, 0] = -fi
+    fwd[1, :, 1] = fr
+    inv = np.empty((2, 2 * m, 2, n), np.float32)
+    inv[0, :, 0] = ir
+    inv[0, :, 1] = ii
+    inv[1, :, 0] = -ii
+    inv[1, :, 1] = ir
+    return fwd, inv
+
+
+def _weight_block(wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+    """(Ci, Co, *modes) complex weight pair -> (2, Ci, 2, Co, *modes) block
+    [[wr, wi], [-wi, wr]] (contraction over (t, Ci), output (u, Co))."""
+    return torch.stack([torch.stack([wr, wi], dim=1), torch.stack([-wi, wr], dim=1)], dim=0)
+
+
+@functools.lru_cache(maxsize=128)
+def _device_factors(kind: str, n: int, m: int, device: torch.device):
+    """The factor matrices of one axis as f32 tensors on ``device``, copied
+    there once: a copy from host memory on every call would wait for the
+    card's queue to drain."""
+    if kind == "real":
+        arrays = sum(_dft_factors_1d(n, m, None), ())
+    elif kind == "corner":
+        arrays = sum(_dft_factors_1d(n, 2 * m, _corner_rows(n, m)), ())
+    elif kind == "dft2_real":
+        arrays = _dft2_real_axis(n, m)
+    elif kind == "dft2_corner":
+        arrays = _dft2_corner_axis(n, m)
+    else:
+        raise KeyError(kind)
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrays)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor, bf16: bool | None = None) -> torch.Tensor:
+    return torch.einsum(eq, round_dot_input(a, bf16), round_dot_input(b, bf16))
 
 
 def _cmul_mm(ar, ai, br, bi, eq: str):
@@ -107,8 +190,25 @@ def _cmul_mm(ar, ai, br, bi, eq: str):
     return rr - _einsum(eq, ai, bi), _einsum(eq, ar, bi) + _einsum(eq, ai, br)
 
 
-def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+def dft2_spectral_conv_2d(x, w1, w2, modes1: int, modes2: int,
+                          bf16: bool | None = None) -> torch.Tensor:
+    """The ``dft2`` chain: five real contractions, each with both inputs
+    rounded to bf16 when ``bf16`` (None: the module precision) -- the
+    mode-mix weight block too, as ``precision=`` rounds it in the JAX
+    package.  Shapes as ``spectral_conv_2d``."""
+    h, w = x.shape[1], x.shape[2]
+    fw, vw = _device_factors("dft2_real", w, modes2, x.device)
+    gh, gi = _device_factors("dft2_corner", h, modes1, x.device)
+    # W-axis partial rDFT of the real signal -> complexity axis s
+    xw = _einsum("bhwc,wsk->bhskc", x, fw, bf16)
+    # H-axis corner DFT: contract (s, h) jointly -> complexity t
+    xf = _einsum("bhskc,shtr->btrkc", xw, gh, bf16)
+    # mode mix: contract (t, Cin) jointly -> (complexity u, Cout)
+    w2b = _weight_block(torch.cat([w1[0], w2[0]], dim=2), torch.cat([w1[1], w2[1]], dim=2))
+    yf = _einsum("btrkc,tcuork->burko", xf, w2b, bf16)
+    # inverse H (complex), then the Hermitian-weighted real W inverse
+    yh = _einsum("burko,urvh->bvhko", yf, gi, bf16)
+    return _einsum("bvhko,vkw->bhwo", yh, vw, bf16)
 
 
 def spectral_conv_2d(
@@ -117,14 +217,15 @@ def spectral_conv_2d(
     w2: torch.Tensor,
     modes1: int,
     modes2: int,
-    impl: str = "dft",
+    impl: str | None = None,
 ) -> torch.Tensor:
     """2D spectral convolution.
 
     x: (B, H, W, Cin) real; w1, w2: (2, Cin, Cout, modes1, modes2) real/imag
     stacks for the low (rows [:m1]) and high (rows [-m1:]) frequency blocks.
-    Returns (B, H, W, Cout) real.
+    Returns (B, H, W, Cout) real.  ``impl`` None: the module default.
     """
+    impl = impl or _DEFAULT_IMPL
     h, w = x.shape[1], x.shape[2]
     if impl == "fft":
         xf = torch.fft.rfft2(x, dim=(1, 2))  # (B, H, W//2+1, Cin)
@@ -139,25 +240,25 @@ def spectral_conv_2d(
         out_ft[:, :modes1, :modes2] = top
         out_ft[:, h - modes1:, :modes2] = bot
         return torch.fft.irfft2(out_ft, s=(h, w), dim=(1, 2))
+    if impl == "dft2":
+        return dft2_spectral_conv_2d(x, w1, w2, modes1, modes2)
     if impl != "dft":
         raise ValueError(f"unknown spectral impl {impl!r}")
 
-    (fwr, fwi), (iwr, iwi) = _dft_factors_1d(w, modes2, None)
-    (fhr, fhi), (ihr, ihi) = _dft_factors_1d(h, 2 * modes1, _corner_rows(h, modes1))
+    fwr, fwi, iwr, iwi = _device_factors("real", w, modes2, x.device)
+    fhr, fhi, ihr, ihi = _device_factors("corner", h, modes1, x.device)
     # W-axis partial rDFT of the real signal: (B,H,W,C) @ (W,m2)
-    xwr, xwi = _cmul_mm(x, None, _t(fwr, x), _t(fwi, x), "bhwc,wk->bhkc")
+    xwr, xwi = _cmul_mm(x, None, fwr, fwi, "bhwc,wk->bhkc")
     # H-axis partial DFT on the retained corner rows -> (B, 2m1, m2, C)
-    xfr, xfi = _cmul_mm(xwr, xwi, _t(fhr, x), _t(fhi, x), "bhkc,hr->brkc")
+    xfr, xfi = _cmul_mm(xwr, xwi, fhr, fhi, "bhkc,hr->brkc")
     # mode mix with the two corner-row weight blocks stacked along rows
     wr = torch.cat([w1[0], w2[0]], dim=2)  # (Ci, Co, 2m1, m2)
     wi = torch.cat([w1[1], w2[1]], dim=2)
     yfr, yfi = _cmul_mm(xfr, xfi, wr, wi, "brkc,cork->brko")
     # inverse H (complex), then the Hermitian-weighted real inverse W:
     # Re[(yr + i yi)(gr + i gi)] = yr gr - yi gi
-    yhr, yhi = _cmul_mm(yfr, yfi, _t(ihr, x), _t(ihi, x), "brko,rh->bhko")
-    return _einsum("bhko,kw->bhwo", yhr, _t(iwr, x)) - _einsum(
-        "bhko,kw->bhwo", yhi, _t(iwi, x)
-    )
+    yhr, yhi = _cmul_mm(yfr, yfi, ihr, ihi, "brko,rh->bhko")
+    return _einsum("bhko,kw->bhwo", yhr, iwr) - _einsum("bhko,kw->bhwo", yhi, iwi)
 
 
 def spectral_weight_init(in_channels: int, out_channels: int, modes1: int, modes2: int,

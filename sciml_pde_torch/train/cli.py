@@ -6,6 +6,11 @@
   python -m sciml_pde_torch.train.cli transformer --config config_ns \\
       --dataset basic_ds4 base_path=data/ns_256/ if_aux=False [key=value ...]
 
+``train`` runs the production step unless ``fast_step=True`` (or
+``SCIML_FAST_STEP=1``) asks for the fused one, as the JAX CLI does; every
+key of ``run_training`` (``scheduler``, ``scheduler_step``,
+``scheduler_gamma``, ``training_type``, ``t_train``, ``rollout_test``,
+``continue_training`` ...) passes through from the config or an override.
 Runs on ``cuda``; ``device=cpu`` runs the plain PyTorch versions on the CPU.
 The ``aux`` subcommand comes with a later slice.
 """

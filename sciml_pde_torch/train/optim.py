@@ -1,8 +1,13 @@
-"""Learning-rate schedules and the transformer trainers' optimizer (port of
-``sciml_pde_tpu/train/optim.py::make_lr_schedule`` and the optax chain of
-``sciml_pde_tpu/train/transformer_train.py::make_transformer_optimizer``).
+"""Learning-rate schedules and the optimizers of the plain-model trainers
+(port of ``sciml_pde_tpu/train/optim.py`` -- ``adaptive_clip``,
+``make_lr_schedule``, ``_torch_adam``, ``make_optimizer`` -- and of the optax
+chain of ``sciml_pde_tpu/train/transformer_train.py::make_transformer_optimizer``).
 
-The chain, as optax runs it:
+The FNO production chain (``make_optimizer`` -> ``TorchAdam``), as optax
+runs it: adaptive clip to max(5, 0.1 * ||g||) on the global norm ->
+g + wd * p -> Adam(0.9, 0.999, 1e-8) -> times -lr(count).
+
+The transformer chain (``GroupedAdamMultiSteps``), as optax runs it:
 
   MultiSteps(k)            mean of k micro-batch gradients; the inner chain
                            runs on every k-th call, the rest apply nothing
@@ -12,9 +17,10 @@ The chain, as optax runs it:
                            1e-8) -> times -lr(count), count = applied updates
                            so far (the schedule ticks once per update)
 
-Schedules are plain functions of the update count.  The optimizer is plain
-tensor code (``torch._foreach_*`` over the parameter lists), as in the JAX
-package, where it is XLA and not a kernel.
+Both share ``adam_update_``.  Schedules are plain functions of the update
+count.  The optimizers are plain tensor code (``torch._foreach_*`` over the
+parameter lists) that never waits for the device, as in the JAX package,
+where they are XLA and not kernels.
 """
 
 from __future__ import annotations
@@ -61,6 +67,89 @@ def with_warmup(schedule: Schedule, learning_rate: float, warmup_steps: int) -> 
     return joined
 
 
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax ``global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def adaptive_clip(grads: list[torch.Tensor], floor: float = 5.0,
+                  frac: float = 0.1) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """``clip_grad_norm_`` with threshold max(floor, frac * ||g||): the
+    gradients times min(1, max(floor, frac ||g||) / (||g|| + 1e-12)), and the
+    pre-clip global norm, all on the device."""
+    g_norm = global_norm(grads)
+    clip_value = torch.clamp(frac * g_norm, min=floor)
+    scale = torch.clamp(clip_value / (g_norm + 1e-12), max=1.0)
+    return torch._foreach_mul(grads, scale), g_norm
+
+
+@torch.no_grad()
+def adam_update_(params: list[torch.Tensor], updates: list[torch.Tensor],
+                 m: list[torch.Tensor], v: list[torch.Tensor], count: int, lr: float,
+                 weight_decay: float) -> None:
+    """One torch-style Adam update in place: u = g + wd * p (L2 before the
+    moments, not AdamW), the moments, bias correction at ``count + 1``, and
+    p -= lr * mhat / (sqrt(vhat) + eps).  ``updates`` are overwritten."""
+    bc1, bc2 = 1.0 - ADAM_B1 ** (count + 1), 1.0 - ADAM_B2 ** (count + 1)
+    torch._foreach_add_(updates, params, alpha=weight_decay)
+    torch._foreach_mul_(m, ADAM_B1)
+    torch._foreach_add_(m, updates, alpha=1.0 - ADAM_B1)
+    torch._foreach_mul_(v, ADAM_B2)
+    torch._foreach_addcmul_(v, updates, updates, value=1.0 - ADAM_B2)
+    mhat = torch._foreach_div(m, bc1)
+    den = torch._foreach_div(v, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, ADAM_EPS)
+    torch._foreach_div_(mhat, den)
+    torch._foreach_add_(params, mhat, alpha=-lr)
+
+
+class TorchAdam:
+    """The FNO production optimizer on named parameters, in place (port of
+    ``_torch_adam``): ``step(params, grads)`` clips the gradients
+    adaptively, adds ``weight_decay * p``, applies Adam and the learning rate
+    ``schedule(count)`` read before the count advances, and returns the
+    pre-clip global norm."""
+
+    def __init__(self, params: dict[str, torch.Tensor], schedule: Schedule,
+                 weight_decay: float = 1e-4):
+        self.names = list(params)
+        self.schedule, self.weight_decay = schedule, float(weight_decay)
+        self.m = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.v = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]):
+        upd, g_norm = adaptive_clip([grads[n] for n in self.names])
+        adam_update_([params[n] for n in self.names], upd, [self.m[n] for n in self.names],
+                     [self.v[n] for n in self.names], self.count, self.schedule(self.count),
+                     self.weight_decay)
+        self.count += 1
+        return g_norm
+
+    def state_dict(self) -> dict:
+        return {"m": dict(self.m), "v": dict(self.v), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        if not isinstance(state.get("m"), dict):
+            raise ValueError("the optimizer state is not the production optimizer's (a run "
+                             "resumes with the fast_step setting it started with)")
+        for key in ("m", "v"):
+            for n, t in state[key].items():
+                getattr(self, key)[n].copy_(t)
+        self.count = int(state["count"])
+
+
+def make_optimizer(params: dict[str, torch.Tensor], learning_rate: float, total_steps: int,
+                   scheduler: str = "cosine", weight_decay: float = 1e-4,
+                   scheduler_step: int = 100, scheduler_gamma: float = 0.5) -> TorchAdam:
+    """The single-group production optimizer of the baseline FNO trainer."""
+    sched = make_lr_schedule(scheduler, learning_rate, total_steps, scheduler_step,
+                             scheduler_gamma)
+    return TorchAdam(params, sched, weight_decay)
+
+
 class GroupedAdamMultiSteps:
     """The transformer optimizer on named parameters, in place.
 
@@ -97,37 +186,23 @@ class GroupedAdamMultiSteps:
             self.mini_step += 1
             return False
         self.mini_step = 0
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(acc)))
+        g_norm = global_norm(acc)
         # clip_by_global_norm: select(g_norm < c, g, g / g_norm * c), no sync
         inside = g_norm < self.clip
         div = torch.where(inside, torch.ones_like(g_norm), g_norm)
         mul = torch.where(inside, torch.ones_like(g_norm), torch.full_like(g_norm, self.clip))
         upd = torch._foreach_div(acc, div)
         torch._foreach_mul_(upd, mul)
-        count = self.count + 1
-        bc1, bc2 = 1.0 - ADAM_B1 ** count, 1.0 - ADAM_B2 ** count
         by_name = dict(zip(self.names, upd))
         for group, names in self.groups.items():
             if not names:
                 continue
-            p = [params[n] for n in names]
-            u = [by_name[n] for n in names]
-            m = [self.m[n] for n in names]
-            v = [self.v[n] for n in names]
-            torch._foreach_add_(u, p, alpha=self.weight_decay)
-            torch._foreach_mul_(m, ADAM_B1)
-            torch._foreach_add_(m, u, alpha=1.0 - ADAM_B1)
-            torch._foreach_mul_(v, ADAM_B2)
-            torch._foreach_addcmul_(v, u, u, value=1.0 - ADAM_B2)
-            mhat = torch._foreach_div(m, bc1)
-            den = torch._foreach_div(v, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, ADAM_EPS)
-            torch._foreach_div_(mhat, den)
-            torch._foreach_add_(p, mhat, alpha=-self.schedules[group](self.count))
+            adam_update_([params[n] for n in names], [by_name[n] for n in names],
+                         [self.m[n] for n in names], [self.v[n] for n in names], self.count,
+                         self.schedules[group](self.count), self.weight_decay)
         for a in acc:
             a.zero_()
-        self.count = count
+        self.count += 1
         return True
 
     def state_dict(self) -> dict:

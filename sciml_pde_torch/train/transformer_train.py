@@ -34,7 +34,12 @@ import torch
 from sciml_pde_torch._device import resolve_device
 from sciml_pde_torch.data.windows import epoch_batches, gather_windows
 from sciml_pde_torch.models.transformer import VideoMAEOperator
-from sciml_pde_torch.train.optim import GroupedAdamMultiSteps, make_lr_schedule, with_warmup
+from sciml_pde_torch.train.optim import (
+    GroupedAdamMultiSteps,
+    global_norm,
+    make_lr_schedule,
+    with_warmup,
+)
 from sciml_pde_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from sciml_pde_torch.utils.weights import (
     transformer_flax_to_state_dict,
@@ -158,7 +163,7 @@ def build_transformer_baseline_step(model, opt: GroupedAdamMultiSteps, initial_s
         x, y = gather_windows(data, idx, initial_step, 1)
         loss = loss_fn(model(_to_tf_layout(x)), y[..., 0, :])
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
+        g_norm = global_norm(list(grads.values()))
         opt.step(params, grads)
         return loss.detach(), g_norm
 

@@ -1,9 +1,12 @@
 """Checkpoints with the best-validation semantics of the reference.
 
 ``torch.save`` of ``{params, opt_state, meta}``: ``params`` is the flax-layout
-FNO2d tree (nested dicts of CPU tensors, the layout the JAX package's
-checkpoints hold), ``opt_state`` the flat Adam moments and step count of the
-fused step, ``meta`` the epoch and the best validation loss.
+model tree (nested dicts of CPU tensors, the layout the JAX package's
+checkpoints hold), ``opt_state`` the optimizer's state -- the Adam moments
+and step count, as one flat vector each for the fused FNO step and per
+named parameter for the production optimizers of ``train/optim.py`` --
+and ``meta`` the epoch and the best validation loss.  Only the optimizer
+state depends on the step that wrote it.
 """
 
 from __future__ import annotations

@@ -56,6 +56,23 @@ def test_windows_and_batches_match_jax(folder):
         np.testing.assert_array_equal(y.numpy(), np.asarray(yj))
 
 
+@pytest.mark.parametrize("initial_step, rollout", [(3, 6), (5, 1)])
+def test_gather_past_the_end_matches_jax_clamp(initial_step, rollout):
+    """Frame indices past a trajectory's end clamp to its last frame, as the
+    JAX gather does: 12 frames, t0 = 8, 3 + 6 frames gives y = frames
+    [11] * 6."""
+    rng = np.random.default_rng(1)
+    data = rng.normal(size=(2, 12, 4, 3, 2)).astype(np.float32)
+    idx = np.array([[0, 8], [1, 11], [1, 2]], np.int32)
+    x, y = gather_windows(torch.from_numpy(data), torch.from_numpy(idx).long(), initial_step,
+                          rollout)
+    xj, yj = jax_gather(jnp.asarray(data), jnp.asarray(idx), initial_step, rollout)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(yj))
+    if (initial_step, rollout) == (3, 6):
+        np.testing.assert_array_equal(y.numpy()[0], np.repeat(data[0, 11][..., None, :], 6, -2))
+
+
 def test_too_few_trajectories_raises(folder):
     with pytest.raises(ValueError, match="train trajectories"):
         load_dr_baseline(folder, train_subsample=50, initial_step=3, device="cpu")

@@ -23,7 +23,9 @@ MODULES = [
     "sciml_pde_torch.data.windows", "sciml_pde_torch.data.dr",
     "sciml_pde_torch.ops.attention", "sciml_pde_torch.models.transformer",
     "sciml_pde_torch.train.optim", "sciml_pde_torch.train.transformer_train",
-    "sciml_pde_torch.data.ns",
+    "sciml_pde_torch.data.ns", "sciml_pde_torch.ops.spectral_fused",
+    "sciml_pde_torch.ops.probe", "sciml_pde_torch.experiments",
+    "sciml_pde_torch.experiments.spectral_impl_bench",
 ]
 
 
@@ -70,11 +72,31 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_training(base_path=str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA"):
+        run_training(base_path=str(tmp_path), fast_step=False, training_type="autoregressive")
+    with pytest.raises(RuntimeError, match="CUDA"):
         run_transformer_training(base_path=str(tmp_path), if_aux=False)
     # device="cpu" gets past the device check to the (missing) data files
     with pytest.raises(OSError):
         run_transformer_training(base_path=str(tmp_path), if_aux=False, device="cpu")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_production_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import numpy as np
+
+    from sciml_pde_torch.data.dr import DRBaselineDataset
+    from sciml_pde_torch.data.windows import WindowedTrajectories
+    from sciml_pde_torch.experiments.spectral_impl_bench import bench_shape
+    from sciml_pde_torch.train.fno_train import train_baseline
+
+    w = WindowedTrajectories(np.zeros((1, 12, 8, 8, 2), np.float32),
+                             np.zeros((8, 8, 2), np.float32), initial_step=5, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_baseline(DRBaselineDataset(train=w, test=w), fast_step=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_shape("dr", batch=1, nx=24, channels=2, steps=1)
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -86,3 +108,11 @@ def test_kernel_wrappers_refuse_other_devices():
         k.reduce_rows(torch.zeros(2, 3, device="meta"))
     with pytest.raises(ValueError, match="CUDA device or on the CPU"):
         a.attention_fwd(*(torch.zeros(1, 8, 16, device="meta"),) * 3, 1.0)
+    from sciml_pde_torch.ops import probe, spectral_fused
+
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        probe.probe(torch.zeros(8, 128, device="meta"))
+    meta = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        spectral_fused.fused_fno_layer_2d(meta(1, 8, 8, 2), meta(2, 2, 2, 2, 2),
+                                          meta(2, 2, 2, 2, 2), meta(2, 2), meta(2), 2, 2)

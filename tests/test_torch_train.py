@@ -1,5 +1,6 @@
-"""Port train/fno_train.py vs JAX run_training(fast_step=True): one tiny DR
-epoch from the same initial weights and the same batch order."""
+"""Port train/fno_train.py vs JAX run_training on both steps (fused and
+production), from the same initial weights and the same batch order, and
+the step selection and refusals of the port's trainer."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +11,7 @@ import torch
 from sciml_pde_tpu.io.h5 import write_seed_group
 from sciml_pde_tpu.models import FNO2d as FlaxFNO2d
 from sciml_pde_tpu.train.fno_train import run_training as jax_run_training
-from sciml_pde_torch.train.fno_train import run_training
+from sciml_pde_torch.train.fno_train import run_training, select_fast_step
 from sciml_pde_torch.utils.checkpoint import restore_checkpoint
 
 from _torch_parity import assert_trees_close, precision, to_numpy_tree
@@ -33,17 +34,21 @@ def folder(tmp_path_factory):
     return str(d) + "/"
 
 
-def test_one_epoch_matches_jax_fast_step(folder, tmp_path):
+def _jax_init():
     # the JAX trainer initialises from PRNGKey(seed) at these shapes
-    init = to_numpy_tree(FlaxFNO2d(num_channels=C, modes1=4, modes2=4, width=8,
+    return to_numpy_tree(FlaxFNO2d(num_channels=C, modes1=4, modes2=4, width=8,
                                    initial_step=5).init(
         jax.random.PRNGKey(COMMON["seed"]), jnp.zeros((1, X, X, 5, C)),
         jnp.zeros((1, X, X, 2)))["params"])
+
+
+def test_one_epoch_matches_jax_fast_step(folder, tmp_path):
+    init = _jax_init()
     with precision("highest"):
         want = jax_run_training(base_path=folder, fast_step=True, run_dir=str(tmp_path / "j"),
                                 model_name="j", **COMMON)
         got = run_training(base_path=folder, run_dir=str(tmp_path / "t"), model_name="t",
-                           init_params=init, device="cpu",
+                           init_params=init, device="cpu", fast_step=True,
                            **{k: v for k, v in COMMON.items() if k != "if_aux"})
     assert len(got.history) == len(want.history) == 1
     for hg, hw in zip(got.history, want.history):
@@ -73,5 +78,94 @@ def test_continue_training_resumes_from_checkpoint(folder, tmp_path):
 @pytest.mark.parametrize("bad", [dict(if_aux=True), dict(training_type="autoregressive"),
                                  dict(rollout_test=2), dict(scheduler="step")])
 def test_unsupported_configs_raise(tmp_path, bad):
+    """An explicit fast_step=True on a configuration the fused step does not
+    run raises before any data is read, as in the JAX trainer."""
     with pytest.raises(ValueError, match="fused_step"):
-        run_training(base_path=str(tmp_path), device="cpu", **bad)
+        run_training(base_path=str(tmp_path), device="cpu", fast_step=True, **bad)
+
+
+PRODUCTION = {
+    "cosine": dict(),
+    "autoregressive": dict(training_type="autoregressive", t_train=9),
+    "steplr": dict(scheduler="step", scheduler_step=3, scheduler_gamma=0.5),
+}
+
+
+@pytest.mark.parametrize("case", PRODUCTION.values(), ids=PRODUCTION.keys())
+def test_two_epochs_match_jax_production_step(folder, tmp_path, case):
+    """The default (production) step for two epochs against JAX's
+    run_training(fast_step=False) from the same tree: train and val loss
+    per epoch within rtol 1e-4.  The autoregressive case gathers 4 target
+    frames from windows indexed for one, so windows run past the end of
+    their 12-frame trajectories and the gather clamps."""
+    kw = dict(COMMON, epochs=2, learning_rate=1e-3, **case)
+    with precision("highest"):
+        want = jax_run_training(base_path=folder, fast_step=False, run_dir=str(tmp_path / "j"),
+                                model_name="j", **kw)
+        kw.pop("if_aux")
+        got = run_training(base_path=folder, run_dir=str(tmp_path / "t"), model_name="t",
+                           init_params=_jax_init(), device="cpu", **kw)
+    assert [h["epoch"] for h in got.history] == [h["epoch"] for h in want.history] == [0, 1]
+    for hg, hw in zip(got.history, want.history):
+        np.testing.assert_allclose(hg["train_loss"], hw["train_loss"], rtol=1e-4)
+        np.testing.assert_allclose(hg["val_loss"], hw["val_loss"], rtol=1e-4)
+    ck = restore_checkpoint(tmp_path / "t" / "t_ckpt.pt")
+    assert isinstance(ck["opt_state"]["m"], dict) and ck["opt_state"]["count"] > 0
+    assert ck["params"]["backbone"]["conv0"]["w1"].shape == (2, 8, 8, 4, 4)
+
+
+def test_cli_train_matches_jax_cli(folder, tmp_path, monkeypatch):
+    """``train`` with no fast_step key runs the production step in both CLIs:
+    two epochs from the same tree (the port's seeded init replaced by the
+    JAX one) give the same history within rtol 1e-4."""
+    from sciml_pde_tpu.train.cli import main as jax_main
+    from sciml_pde_torch.train import cli, fno_train
+
+    monkeypatch.delenv("SCIML_FAST_STEP", raising=False)
+    monkeypatch.setattr(fno_train, "default_init_tree", lambda *a, **k: _jax_init())
+    args = ["--config", "config_dr", "--dataset", "basic_ds4", f"base_path={folder}",
+            "epochs=2", "width=8", "modes=4", "initial_step=5", "seed=3", "log_every=0"]
+    with precision("highest"):
+        want = jax_main(args + [f"run_dir={tmp_path / 'j'}"])
+        got = cli.main(args + [f"run_dir={tmp_path / 't'}", "device=cpu"])
+    assert len(got.history) == len(want.history) == 2
+    for hg, hw in zip(got.history, want.history):
+        np.testing.assert_allclose(hg["train_loss"], hw["train_loss"], rtol=1e-4)
+        np.testing.assert_allclose(hg["val_loss"], hw["val_loss"], rtol=1e-4)
+    assert isinstance(restore_checkpoint(tmp_path / "t" / "FNO_ckpt.pt")["opt_state"]["m"], dict)
+
+
+@pytest.mark.parametrize("env, config, fused", [
+    ("1", {}, True), ("", {}, False), ("true", dict(training_type="autoregressive"), False),
+    ("1", dict(scheduler="step"), False),
+])
+def test_fast_step_none_follows_env(folder, tmp_path, monkeypatch, env, config, fused):
+    """fast_step=None reads SCIML_FAST_STEP; on a configuration the fused step
+    does not run the variable gives way to the production step."""
+    monkeypatch.setenv("SCIML_FAST_STEP", env)
+    assert select_fast_step(None, **config) is fused
+    kw = {k: v for k, v in COMMON.items() if k != "if_aux"}
+    run_training(base_path=folder, run_dir=str(tmp_path), model_name="e", device="cpu",
+                 **dict(kw, **config))
+    m = restore_checkpoint(tmp_path / "e_ckpt.pt")["opt_state"]["m"]
+    assert isinstance(m, torch.Tensor) is fused
+
+
+def test_resume_needs_the_same_step(folder, tmp_path):
+    kw = {k: v for k, v in COMMON.items() if k != "if_aux"}
+    run_training(base_path=folder, run_dir=str(tmp_path), model_name="r", device="cpu",
+                 fast_step=False, **kw)
+    with pytest.raises(ValueError, match="fast_step"):
+        run_training(base_path=folder, run_dir=str(tmp_path), model_name="r", device="cpu",
+                     fast_step=True, continue_training=True, **dict(kw, epochs=2))
+
+
+@pytest.mark.parametrize("option", [
+    dict(if_aux=True), dict(if_training=False), dict(dataset_family="ns"),
+    dict(model_family="transformer3d"), dict(lie_augment=True), dict(fno_remat=True),
+    dict(shard_store=True), dict(host_stream=True), dict(resident_rotate=2),
+    dict(extra_train_files=["more.h5"]), dict(dr_leaky_clip=True),
+])
+def test_out_of_scope_options_raise(tmp_path, option):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        run_training(base_path=str(tmp_path), device="cpu", **option)
