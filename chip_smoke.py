@@ -10,9 +10,11 @@ their entry points: the fused FNO-2D diffusion-reaction baseline step (batch
 VideoMAE transformer baseline at full width (img 256, patch 16, tubelet 2,
 3 channels, 10 frames -> 1280 tokens; encoder 768 x 12 with 12 heads,
 decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16),
-and the production FNO-2D step at the DR flagship width (the plain model
+the production FNO-2D step at the DR flagship width (the plain model
 through the dft2 spectral conv, adaptive clip, torch-style Adam) with the
-fused dft2 layer op and the native-kernel probe:
+fused dft2 layer op and the native-kernel probe, and the ported perf probe
+(``sciml_pde_torch/experiments/perf_probe.py``: the K-step scans of both
+FNO steps and the five split kernels):
 
   0. probe    build the probe kernel alone and launch it through the
               experiment's probe_native: native, and exactly 2 * x
@@ -63,6 +65,19 @@ fused dft2 layer op and the native-kernel probe:
               experiment's bench_shape, and per-launch times of the fused
               layer and the probe beside their bounds
 
+ 14. split    the five split functions (B1a-B2c) at the flagship shape under
+              `highest` and `default`: each through the kernels against
+              its plain version on the same inputs (phase 3's bounds), the
+              stage-kernel launches of one call, a control under `default`
+              (bf16 mix weights in `_bb_backward`, a bf16 spectrum in
+              `_bb_weight_grads`, each further from the plain version than
+              the kernels), the five chained against the plain fused VJP
+              within 1e-4 (`highest`), and per-call times beside bounds
+ 15. probe    the ported perf probe, all eleven configs in this process
+              (PROBE_SCAN_K 50) and one more through its subprocess runner:
+              no error, finite results, the steps/s table, and launches of
+              every split function and stage kernel
+
 It prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero and
 prints no result.  Without a CUDA device it exits non-zero at once.
@@ -79,6 +94,7 @@ from pathlib import Path
 
 # flagship DR shape (configs/config_dr.yaml, the JAX package's bench.py)
 B, T0, CC, XY, WIDTH, MODES, PAD, NH = 4, 10, 2, 128, 20, 12, 2, 128
+FNO_LAYERS = 4
 N_TRAJ, N_T = 10, 101
 # kernels vs plain versions, error bound relative to the largest magnitude
 # of the plain result: f32 sums in another order (highest); bf16 dot inputs
@@ -137,6 +153,27 @@ PROBE_SITE = "experiments/spectral_impl_bench.py:106"
 # JAX package's drop-in bounds (tests/test_fast_step.py)
 PROD_STEPS, PROD_RTOL, PARAM_RTOL, PARAM_ATOL = 10, 2e-3, 5e-3, 1e-5
 TOL_FORWARD = 1e-5  # the plain FNO2d on the card vs the CPU in f32 (TF32 guard)
+# the five split functions (B1a-B2c): each a sequence of the stage kernels
+SPLIT_SITE = "sciml_pde_tpu/ops/fno_fused_step.py"
+SPLIT_ROWS = {  # name: (TPU kernel body line, sources, packed params read)
+    "bb_forward": (494, ("fwd",), ("wmr", "wmi", "pw", "pb", "w0t", "b0")),
+    "head_forward": (542, ("fwd",), ("w1t", "b1", "w2t", "b2")),
+    "head_backward": (559, ("bwd",), ("w1t", "b1", "w2t")),
+    "bb_backward": (594, ("fwd", "bwd"), ("wmr", "wmi", "pw")),
+    "bb_weight_grads": (636, ("fwd", "bwd"), ()),
+}
+SPLIT_STAGES = {  # stage-kernel launches of one call of each
+    "bb_forward": {"fno_stats": 1, "fno_lift": 1, "fno_wdft": 4, "fno_corner": 4,
+                   "fno_iwdft_pw": 4},
+    "head_forward": {"fno_head_fwd": 1},
+    "head_backward": {"fno_head_bwd": 1, "fno_reduce_rows": 1},
+    "bb_backward": {"fno_lift": 1, "fno_wdft.adj": 4, "fno_corner.adj": 4,
+                    "fno_iwdft_pw.adj": 4, "fno_outer_partial": 1, "fno_reduce_rows": 1},
+    "bb_weight_grads": {"fno_wdft": 8, "fno_corner": 4, "fno_corner.adj": 4,
+                        "fno_mix_wgrad": 4, "fno_outer_partial": 4, "fno_reduce_rows": 4},
+}
+TOL_SPLIT_CHAIN = 1e-4  # the five chained vs the plain fused VJP, `highest`
+PROBE_SCAN_K = 50  # steps per scan in the probe phase (the probe's own default is 200)
 
 failures: list[str] = []
 
@@ -657,7 +694,7 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
     step, _ = build_baseline_step(model, make_optimizer(params, 1e-3, 10_000), T0, 1)
     theta, spec = fs.fast_state_from_tree(tree, MODES, dev)
     fopt = fs.init_opt(theta)
-    fstep = fs.build_fast_baseline_step(MODES, T0, spec, 1e-3, 10_000)
+    fstep, _ = fs.build_fast_baseline_step(MODES, T0, spec, 1e-3, 10_000)
     grid2 = gridd.permute(2, 0, 1).contiguous()
     worst = {"loss": 0.0, "grad norm": 0.0}
     for idx in idxs:
@@ -787,6 +824,171 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
           f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {nbytes} bytes, {flops} FLOP), "
           f"{row['launches']} launch in the layer run", flush=True)
     return {"spectral_fused": row}
+
+
+def split_flops(name: str, b: int, t: int) -> int:
+    """FLOPs one call of a split function needs at the flagship shape: the
+    products of the JAX kernel's body, dot and mode mix, 2 per
+    multiply-add (8 per complex one); sums and activations not counted."""
+    c, k, r, hp, nx = WIDTH, MODES, 2 * MODES, XY + PAD, XY
+    npix, field, f = b * nx * nx, b * hp * hp, t * CC + 2
+    wdft, corner_dft = 2 * field * c * 2 * k, 8 * b * k * c * r * hp
+    mix = 8 * b * k * r * c * c
+    layer = wdft + 2 * corner_dft + mix + 2 * field * c * (2 * k + c)
+    return {
+        "bb_forward": 2 * npix * f * c + FNO_LAYERS * layer,
+        "head_forward": 2 * npix * (NH * c + CC * NH),
+        "head_backward": 2 * npix * (3 * NH * c + 2 * CC * NH),
+        "bb_backward": FNO_LAYERS * layer + 2 * npix * c * f,
+        "bb_weight_grads": FNO_LAYERS * (2 * wdft + 2 * corner_dft + mix + 2 * field * c * c),
+    }[name]
+
+
+def split_path(dev, card: str, win, grid2, p, cot) -> dict:
+    """Phase 14: the five split functions at the flagship shape; returns
+    their rows of the kernel table (launches filled in by phase 15)."""
+    from types import SimpleNamespace
+
+    import torch
+    from sciml_pde_torch.ops import fno_fused_step as ff
+    from sciml_pde_torch.ops import fno_kernels as fk
+    from sciml_pde_torch.ops import spectral
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for y in x for t in tensors(y)] if isinstance(x, (tuple, list)) else []
+
+    def worst(outs_a, outs_b):
+        errs = [rel_err(a, b) for a, b in zip(tensors(outs_a), tensors(outs_b))]
+        return max(e for e, _ in errs), max(r for _, r in errs)
+
+    def bf16_spectrum_corner(a, pf, w, q, adj, spec_dtype, bf, spec_only=False):
+        return fk.corner_plain(a, pf, w, q, adj, spec_dtype if adj else torch.bfloat16, bf,
+                               spec_only)
+
+    ops_bf16_spec = SimpleNamespace(**{**vars(fk.PLAIN), "corner": bf16_spectrum_corner})
+    rd = lambda t: t.bfloat16().float()  # noqa: E731
+    p_bf16_mix = p._replace(wmr=rd(p.wmr), wmi=rd(p.wmi))
+    rows, timing = {}, {}
+    for prec in ("highest", "default"):
+        spectral.set_dft_precision(prec)
+        # the chain through the kernels; each call's inputs kept for the checks
+        pre, bbout, stats, h0p = ff._bb_forward(win, grid2, p, MODES, MODES, PAD)
+        pred = ff._head_forward(bbout, stats, p)
+        dbb, dw1t, db1, dw2t, db2 = ff._head_backward(cot, bbout, stats, p)
+        dpre, dw0t, db0 = ff._bb_backward(dbb, pre, win, grid2, stats, p, MODES, MODES, PAD)
+        dwmr, dwmi, dpw, dpb = ff._bb_weight_grads(pre, h0p, dpre, p, MODES, MODES, PAD, XY, XY)
+        calls = {
+            "bb_forward": (ff._bb_forward, (win, grid2, p, MODES, MODES, PAD)),
+            "head_forward": (ff._head_forward, (bbout, stats, p)),
+            "head_backward": (ff._head_backward, (cot, bbout, stats, p)),
+            "bb_backward": (ff._bb_backward, (dbb, pre, win, grid2, stats, p, MODES, MODES, PAD)),
+            "bb_weight_grads": (ff._bb_weight_grads, (pre, h0p, dpre, p, MODES, MODES, PAD, XY,
+                                                      XY)),
+        }
+        for name, (fn, args) in calls.items():
+            fk.reset_launch_counts()
+            out_k = fn(*args)
+            torch.cuda.synchronize()
+            stages = {k: v for k, v in fk.LAUNCHES.items() if v}
+            out_p = fn(*args, ops=fk.PLAIN)
+            err, rel = worst(out_k, out_p)
+            finite = all(bool(torch.isfinite(t).all()) for t in tensors(out_k))
+            check(finite and rel <= TOL[prec] and stages == SPLIT_STAGES[name],
+                  f"[split {prec}] {name}: max abs err {err:.3e}, rel-to-max {rel:.3e} (tol "
+                  f"{TOL[prec]:.0e}); stage launches per call {json.dumps(stages)}")
+            if prec == "default" and name in ("bb_backward", "bb_weight_grads"):
+                if name == "bb_backward":
+                    ctl = fn(*args[:5], p_bf16_mix, *args[6:], ops=fk.PLAIN)
+                    what = "plain version with bf16-rounded mix weights"
+                else:
+                    ctl = fn(*args, ops=ops_bf16_spec)
+                    what = "plain version with a bf16 spectrum"
+                ctl_rel = worst(ctl, out_p)[1]
+                check(rel < ctl_rel / 2, f"[split default] {name} control: the {what} lies "
+                      f"{ctl_rel:.3e} from the plain version, the kernels {rel:.3e} (below half)")
+            ms = cuda_ms(lambda: fn(*args))
+            plain_ms = cuda_ms(lambda: fn(*args, ops=fk.PLAIN))
+            timing[name, prec] = (ms, plain_ms)
+            if prec == "highest":
+                _, sources, fields = SPLIT_ROWS[name]
+                nbytes = sum(t.numel() * t.element_size() for t in
+                             tensors([a for a in args if not isinstance(a, ff.FastFNOParams)])
+                             + [getattr(p, f) for f in fields] + tensors(out_k))
+                fl = split_flops(name, B, T0)
+                bound_s = max(nbytes / HBM_BPS, fl / PEAK_FLOPS[prec])
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": f"sciml_pde_torch/ops/csrc/fno_{sources[0]}.cu",
+                    "sources": [f"sciml_pde_torch/ops/csrc/fno_{s}.cu" for s in sources],
+                    "replaces": f"{SPLIT_SITE}:{SPLIT_ROWS[name][0]}", "launches": 0,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_s * 1e3,
+                    "bound_by": "bytes" if nbytes / HBM_BPS >= fl / PEAK_FLOPS[prec]
+                    else "operations",
+                    "library_ms": None, "stage_launches_per_call": stages,
+                    "bytes": nbytes, "flops": fl,
+                }
+        if prec == "highest":
+            want = ff.fno2d_fused_reference(win, grid2, p, MODES, MODES, PAD)
+            want_g = ff.fno2d_fused_vjp_reference(cot, win, grid2, p, MODES, MODES, PAD)
+            got_g = ff.FastFNOParams(dwmr, dwmi, dpw, dpb, dw0t, db0, dw1t, db1, dw2t, db2)
+            errs = {"pred": rel_err(pred, want)[1]}
+            errs.update({f"d{n}": rel_err(a, b)[1]
+                         for n, a, b in zip(ff.FastFNOParams._fields, got_g, want_g)})
+            n_worst = max(errs, key=errs.get)
+            check(max(errs.values()) <= TOL_SPLIT_CHAIN,
+                  f"[split highest] the five chained vs the plain fused forward and VJP: worst "
+                  f"rel-to-max {errs[n_worst]:.3e} ({n_worst}; tol {TOL_SPLIT_CHAIN:.0e})")
+    spectral.set_dft_precision("default")
+    for name, r in rows.items():
+        ms_d, plain_d = timing[name, "default"]
+        print(f"[timing] {card}: {name} (split, flagship): {r['ms']:.4f} ms/call `highest` "
+              f"({ms_d:.4f} `default`), plain {r['plain_ms']:.4f} ms ({plain_d:.4f}), bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} bytes, {r['flops']} FLOP "
+              f"at 67 TFLOP/s f32)", flush=True)
+    return rows
+
+
+def probe_path(dev, card: str, run_dir: Path) -> dict:
+    """Phase 15: the ported perf probe, all eleven configs in this process
+    with the launch counts set to 0 before and read after, then one config
+    through the probe's own subprocess runner on its default device.
+    Returns the launches of the split functions and the stage kernels."""
+    import os
+
+    import torch
+    from sciml_pde_torch.experiments import perf_probe as pp
+    from sciml_pde_torch.ops import fno_fused_step as ff
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    os.environ["PROBE_SCAN_K"] = str(PROBE_SCAN_K)
+    fk.reset_launch_counts()
+    ff.reset_split_counts()
+    results = {}
+    for name in pp.CONFIGS:
+        t0 = time.perf_counter()
+        results[name] = pp.run_config(name, dev)
+        results[name]["wall_s"] = round(time.perf_counter() - t0, 1)
+        print(json.dumps(results[name]), flush=True)
+    launches = {**ff.SPLIT_LAUNCHES, **fk.LAUNCHES}
+    print(f"[probe] {card}: PROBE_SCAN_K {PROBE_SCAN_K}, PROBE_ITERS 20, flagship shape\n"
+          + pp.table(results), flush=True)
+    for name, res in results.items():
+        check(pp.ok(res), f"[probe] {name}: no error, finite result"
+              + (f" ({res['error']}: {res.get('error_lines', [])[-1:]})" if "error" in res
+                 else ""))
+    print(f"[probe] launches: {json.dumps(launches)}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"[probe] the probe run launched {name} {n}x")
+    out = run_dir / "perf_probe_main.json"
+    pp.main(["--configs", "iso_headfwd", "--out", str(out)])
+    res = json.loads(out.read_text())["iso_headfwd"]
+    check(pp.ok(res) and res["device"] == torch.cuda.get_device_name(0),
+          f"[probe] the subprocess runner on its default device: iso_headfwd "
+          f"{res.get('steps_per_sec', float('nan')):.2f} calls/s on {res.get('device')}")
+    return launches
 
 
 def main() -> int:
@@ -1053,7 +1255,7 @@ def main() -> int:
     # ---- 5. timing -----------------------------------------------------------
     theta, spec = fs.fast_state_from_tree(tree, MODES, dev)
     opt = fs.init_opt(theta)
-    step = fs.build_fast_baseline_step(MODES, T0, spec, 1e-3, 10_000)
+    step, _ = fs.build_fast_baseline_step(MODES, T0, spec, 1e-3, 10_000)
     data, grid2t = ds.train.data, ds.train.grid.permute(2, 0, 1).contiguous()
     idx = torch.as_tensor(ds.train.window_index()[:B], dtype=torch.long, device=dev)
     n_steps = 50
@@ -1095,6 +1297,13 @@ def main() -> int:
 
     kernel_rows.update(transformer_path(dev, card, run_dir))
     kernel_rows.update(production_path(dev, card, run_dir, store, grid, tree, ds))
+
+    # ---- 14. the split functions; 15. the probe, this slice's path -------------
+    split_rows = split_path(dev, card, win, grid2, p, cot)
+    path_launches = probe_path(dev, card, run_dir)
+    for name, row in split_rows.items():
+        row["launches"] = path_launches[name]
+    kernel_rows.update(split_rows)
     bytes_s, ops_s = 2 * xp.numel() * 4 / HBM_BPS, xp.numel() / PEAK_FLOPS["highest"]
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
@@ -1115,8 +1324,8 @@ def main() -> int:
         print(f"FAILED {len(failures)} check(s): " + "; ".join(failures), file=sys.stderr)
         return 1
     print(json.dumps({"kernels": [kernel_rows[k] for k in (*fk.KERNEL_NAMES, *ta.KERNEL_NAMES,
-                                                            *sf.KERNEL_NAMES,
-                                                            *pb.KERNEL_NAMES)]}))
+                                                            *sf.KERNEL_NAMES, *pb.KERNEL_NAMES,
+                                                            *ff.SPLIT_NAMES)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

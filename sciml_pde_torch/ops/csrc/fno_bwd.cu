@@ -19,6 +19,10 @@
 //                      input) and lift grads (A = dh0, B = lift input)
 //   fno_reduce_rows    out[i] = sum_k partial[k, i], k in order
 //
+// The split kernels _head_bwd_kernel (B2a), _bb_bwd_kernel (B2b) and
+// _bb_wgrad_kernel (B2c) use head_bwd, outer_partial, mix_wgrad (on f32
+// spectra) and reduce_rows the same way (sciml_pde_torch/ops/fno_fused_step.py).
+//
 // Bound at the flagship shape: as the forward, latency-bound (a few MB and
 // a few tens of MFLOP per launch).
 

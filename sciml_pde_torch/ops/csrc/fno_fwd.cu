@@ -22,6 +22,13 @@
 // backward (fno_bwd.cu holds the rest): the caller hands them the adjoint
 // factor matrices and sets `adj`.
 //
+// The JAX file's split kernels are sequences of these kernels as well
+// (sciml_pde_torch/ops/fno_fused_step.py): _bb_fwd_kernel (B1a) is stats,
+// lift and the layers with `pre` kept in f32, _head_fwd_kernel (B1b) is
+// head_fwd, and the adjoint and weight-gradient passes of _bb_bwd_kernel
+// (B2b) and _bb_wgrad_kernel (B2c) run wdft / corner / iwdft_pw; for B2c
+// wdft applies gelu on load and corner stops after the spectrum.
+//
 // Bound at the flagship shape (B=4, 128^2, width 20, modes 12): a layer is
 // ~60 MFLOP per element and moves a few MB, so every kernel here is
 // latency-bound, not compute- or bandwidth-bound.  The design keeps each
@@ -141,6 +148,9 @@ FNO_EXPORT int fno_lift(const float* win, const float* grid2, const float* mean,
 // With `pre` set the input is the cotangent dh of a layer output and the
 // kernel first forms dpre = dh * gelu'(pre) (or dh itself for the last
 // layer), writes it out, and transforms it: the first stage of the adjoint.
+// With `gelu_in` set the input is a saved pre-activation and the kernel
+// transforms gelu(in), the layer's output: the split weight-gradient pass
+// recomputes the spectrum of a layer's input from the previous `pre`.
 // ---------------------------------------------------------------------------
 
 #define WDFT_ROWS 32
@@ -149,7 +159,7 @@ template <typename S>
 __global__ void wdft_kernel(const float* __restrict__ x, const float* __restrict__ fac,
                             float* __restrict__ out, int M, int N, int J,
                             const S* __restrict__ pre, int gelu_grad,
-                            float* __restrict__ dpre, int bf) {
+                            float* __restrict__ dpre, int gelu_in, int bf) {
   extern __shared__ float sm[];
   float* xs = sm;                 // (WDFT_ROWS, N)
   float* fs = sm + WDFT_ROWS * N;  // (N, J)
@@ -159,6 +169,7 @@ __global__ void wdft_kernel(const float* __restrict__ x, const float* __restrict
   for (int i = threadIdx.x; i < nrows * N; i += blockDim.x) {
     const size_t g = (size_t)row0 * N + i;
     float v = x[g];
+    if (gelu_in) v = gelu_f(v);
     if (pre != nullptr) {
       if (gelu_grad) v *= gelu_grad_f(ldv(pre + g));
       dpre[g] = v;
@@ -177,23 +188,24 @@ __global__ void wdft_kernel(const float* __restrict__ x, const float* __restrict
 
 template <typename S>
 static int launch_wdft(const float* x, const float* fac, float* out, int M, int N, int J,
-                       const void* pre, int gelu_grad, float* dpre, int bf,
+                       const void* pre, int gelu_grad, float* dpre, int gelu_in, int bf,
                        cudaStream_t st) {
   const size_t smem = (size_t)(WDFT_ROWS * N + N * J) * sizeof(float);
   cudaError_t e = fno_set_smem(wdft_kernel<S>, smem);
   if (e != cudaSuccess) return (int)e;
   wdft_kernel<S><<<(M + WDFT_ROWS - 1) / WDFT_ROWS, 256, smem, st>>>(
-      x, fac, out, M, N, J, (const S*)pre, gelu_grad, dpre, bf);
+      x, fac, out, M, N, J, (const S*)pre, gelu_grad, dpre, gelu_in, bf);
   return (int)cudaGetLastError();
 }
 
 FNO_EXPORT int fno_wdft(const float* x, const float* fac, float* out, int M, int N, int J,
-                        const void* pre, int pre_bf16, int gelu_grad, float* dpre, int bf,
-                        void* stream) {
+                        const void* pre, int pre_bf16, int gelu_grad, float* dpre, int gelu_in,
+                        int bf, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (pre_bf16)
-    return launch_wdft<__nv_bfloat16>(x, fac, out, M, N, J, pre, gelu_grad, dpre, bf, st);
-  return launch_wdft<float>(x, fac, out, M, N, J, pre, gelu_grad, dpre, bf, st);
+    return launch_wdft<__nv_bfloat16>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in, bf,
+                                      st);
+  return launch_wdft<float>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in, bf, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -203,7 +215,9 @@ FNO_EXPORT int fno_wdft(const float* x, const float* fac, float* out, int M, int
 //            = sum_i Bs[i, r] conj(W[j, i, k, r])       (adjoint)
 //   D[b, j, h, k] = sum_r Cm[j, r] Q[r, h]              (complex)
 // A and D hold the real parts at [..., :K] and the imaginary parts at
-// [..., K:2K].  spec is (B, Cin, K, R), real and imaginary apart.
+// [..., K:2K].  spec is (B, Cin, K, R), real and imaginary apart.  With D
+// null the block stops after the spectrum (the split weight-gradient pass
+// needs only the spectra of a layer's input and of its cotangent).
 // ---------------------------------------------------------------------------
 
 template <typename S, bool ADJ>
@@ -254,6 +268,7 @@ __global__ void corner_kernel(const float* __restrict__ A, const float* __restri
     stv(spr + so, sr);
     stv(spi + so, si);
   }
+  if (D == nullptr) return;  // uniform across the block
   __syncthreads();
   for (int o = threadIdx.x; o < Cout * R; o += blockDim.x) {
     const int j = o / R, r = o % R;

@@ -28,6 +28,17 @@ of the kernels' plain versions.  ``fno2d_fused_reference`` is the plain
 whole-model forward (the JAX module's reference composition) and
 ``fno2d_fused_vjp_reference`` the plain hand-written VJP, both usable on
 any device.
+
+The JAX module's five split kernels (``_bb_forward``, ``_head_forward``,
+``_head_backward``, ``_bb_backward``, ``_bb_weight_grads``) keep their
+names, arguments and results here, each a sequence of the same stage
+kernels run with the split form's own dtypes, which under the ``default``
+precision differ from the fused step's: ``pre`` is kept in f32, the
+adjoint mode mix takes the f32 weights, and the weight-gradient pass
+recomputes each layer's corner spectrum in f32 from the layer input.
+Every product runs in a stage kernel; between them PyTorch only moves
+data (stacks per-layer results, crops and zero-pads fields, rounds
+weights to the dot dtype).
 """
 
 from __future__ import annotations
@@ -335,3 +346,159 @@ def fno2d_fused_apply(win, grid2, p: FastFNOParams, modes1, modes2, pad=2):
         return _FusedApply.apply(win, grid2, modes1, modes2, pad, *p)
     pred, _ = _fused_forward(_k.KERNELS, win, grid2, p, modes1, modes2, pad, save=False)
     return pred
+
+
+# ---------------------------------------------------------------------------
+# The split forms: the JAX module's five pallas_calls, one function each
+# ---------------------------------------------------------------------------
+
+SPLIT_NAMES = ("bb_forward", "head_forward", "head_backward", "bb_backward",
+               "bb_weight_grads")
+# One count per call that ran its stage kernels on the card (the plain
+# composition on the CPU, or with ``ops=PLAIN``, counts nothing).
+SPLIT_LAUNCHES: dict[str, int] = dict.fromkeys(SPLIT_NAMES, 0)
+
+
+def reset_split_counts() -> None:
+    for k in SPLIT_LAUNCHES:
+        SPLIT_LAUNCHES[k] = 0
+
+
+def _count(name: str, ops, t: torch.Tensor) -> None:
+    if ops is _k.KERNELS and t.is_cuda:
+        SPLIT_LAUNCHES[name] += 1
+
+
+def _stats_cols(stats):
+    """(B, Cc, 2) -> mean, std (B, Cc) each, contiguous."""
+    return stats[..., 0].contiguous(), stats[..., 1].contiguous()
+
+
+def _layer_major(a):
+    """(B, L, ...) -> (L, B, ...) contiguous, so that each layer's slice is
+    contiguous.  No copy for the views the split functions return."""
+    return a.transpose(0, 1).contiguous()
+
+
+def _check_chunks(xx: int, yy: int, n_chunks: int) -> None:
+    if (xx * yy) % n_chunks:
+        raise ValueError(f"head kernels chunk the {xx}x{yy} spatial axis into {n_chunks} "
+                         f"slices; {xx * yy} % {n_chunks} != 0")
+
+
+def _bb_forward(win, grid2, p: FastFNOParams, m1, m2, pad, *, ops=_k.KERNELS):
+    """Stats, lift and the four spectral layers (``_bb_fwd_kernel``).
+
+    win (B, T, Cc, X, Y), grid2 (2, X, Y) -> pre (B, L, C, Hp, Wp) every
+    layer's pre-activation in f32, bbout (B, C, X, Y) the last layer's
+    output, stats (B, Cc, 2) (mean, std), h0p (B, C, Hp, Wp) the padded lift
+    output.  ``pre`` is a view of layer-major storage.  ``ops=PLAIN`` runs
+    the plain versions on any device."""
+    _count("bb_forward", ops, win)
+    bf = _spec.dot_bf16()
+    b, t, cc, xx, yy = win.shape
+    hp, wp = xx + pad, yy + pad
+    f = kernel_factors(hp, wp, m1, m2, str(win.device), bf)
+    rd = functools.partial(_k._rd, bf=bf)
+    mean, std = ops.stats(win)
+    h0p, _ = ops.lift(win, grid2, mean, std, rd(p.w0t), p.b0, hp, wp, bf)
+    h, pres = h0p, []
+    for i in range(L_LAYERS):
+        a = ops.wdft(h, f.fwd_w, None, False, bf)
+        _, _, d = ops.corner(a, f.fwd_p, (p.wmr[i], p.wmi[i]), f.fwd_q, False, torch.float32,
+                             bf)
+        h, pre = ops.iwdft_pw(d, f.fwd_z, h, rd(p.pw[i].T.contiguous()), p.pb[i],
+                              i < L_LAYERS - 1, torch.float32, bf)
+        pres.append(pre)
+    bbout = h[:, :, :xx, :yy].contiguous()
+    return torch.stack(pres).transpose(0, 1), bbout, torch.stack([mean, std], -1), h0p
+
+
+def _head_forward(bbout, stats, p: FastFNOParams, n_chunks=4, *, ops=_k.KERNELS):
+    """fc1 -> gelu -> fc2 -> de-norm (``_head_fwd_kernel``): bbout
+    (B, C, X, Y), stats (B, Cc, 2) -> pred (B, Co, X, Y).  The kernel runs
+    one thread per pixel; ``n_chunks`` is checked as the JAX kernel's
+    spatial chunking, which changes no result."""
+    _check_chunks(bbout.shape[2], bbout.shape[3], n_chunks)
+    _count("head_forward", ops, bbout)
+    bf = _spec.dot_bf16()
+    rd = functools.partial(_k._rd, bf=bf)
+    mean, std = _stats_cols(stats)
+    xx, yy = bbout.shape[2:]
+    return ops.head_fwd(bbout.contiguous(), rd(p.w1t), p.b1, rd(p.w2t), p.b2, mean, std, xx,
+                        yy, bf)
+
+
+def _head_backward(dpred, bbout, stats, p: FastFNOParams, n_chunks=4, *, ops=_k.KERNELS):
+    """Head recompute and backward (``_head_bwd_kernel``): -> dbb
+    (B, C, X, Y), dw1t (NH, C), db1 (NH,), dw2t (Co, NH), db2 (Co,)."""
+    _check_chunks(bbout.shape[2], bbout.shape[3], n_chunks)
+    _count("head_backward", ops, bbout)
+    bf = _spec.dot_bf16()
+    rd = functools.partial(_k._rd, bf=bf)
+    _, std = _stats_cols(stats)
+    return ops.head_bwd(dpred.contiguous(), bbout.contiguous(), rd(p.w1t), p.b1, rd(p.w2t),
+                        std, bf)
+
+
+def _bb_backward(dbb, pre, win, grid2, stats, p: FastFNOParams, m1, m2, pad, *,
+                 ops=_k.KERNELS):
+    """Data cotangent through the four layers, last to first
+    (``_bb_bwd_kernel``): dbb (B, C, X, Y), pre (B, L, C, Hp, Wp) f32 ->
+    dpre (B, L, C, Hp, Wp) (a view of layer-major storage), dw0t (C, F),
+    db0 (C,).  The adjoint mode mix takes the f32 weights, not the
+    bf16-rounded ones of the fused step.  The lift input is recomputed
+    from win, grid2 and stats (its lift output is not used)."""
+    _count("bb_backward", ops, dbb)
+    bf = _spec.dot_bf16()
+    b, t, cc, xx, yy = win.shape
+    hp, wp = xx + pad, yy + pad
+    f = kernel_factors(hp, wp, m1, m2, str(win.device), bf)
+    rd = functools.partial(_k._rd, bf=bf)
+    mean, std = _stats_cols(stats)
+    _, finp = ops.lift(win, grid2, mean, std, p.w0t, p.b0, hp, wp, bf)
+    pre_l = _layer_major(pre)
+    dh = dbb.new_zeros(b, dbb.shape[1], hp, wp)
+    dh[:, :, :xx, :yy] = dbb
+    dpres = [None] * L_LAYERS
+    for i in reversed(range(L_LAYERS)):
+        a, dpres[i] = ops.wdft(dh, f.adj_w, pre_l[i], i < L_LAYERS - 1, bf)
+        _, _, d = ops.corner(a, f.adj_p, (p.wmr[i], p.wmi[i]), f.adj_q, True, torch.float32,
+                             bf)
+        dh, _ = ops.iwdft_pw(d, f.adj_z, dpres[i], rd(p.pw[i]), None, False, None, bf,
+                             adj=True)
+    dw0t, db0 = ops.outer(dh, finp, False, xx, yy, bf)
+    return torch.stack(dpres).transpose(0, 1), dw0t, db0
+
+
+def _bb_weight_grads(pre, h0p, dpre, p: FastFNOParams, m1, m2, pad, xx, yy, *,
+                     ops=_k.KERNELS):
+    """Per-layer spectral and pointwise weight grads (``_bb_wgrad_kernel``):
+    pre, dpre (B, L, C, Hp, Wp), h0p (B, C, Hp, Wp) -> dwmr, dwmi
+    (L, C, O, m2, 2m1), dpw (L, C, O), dpb (L, O).  Each layer's corner
+    spectrum is recomputed in f32 from its input (h0p, or gelu of the
+    previous layer's pre), and the cotangent's spectrum from dpre."""
+    b, _, c, hp, wp = pre.shape
+    if (hp, wp) != (xx + pad, yy + pad):
+        raise ValueError(f"pre {tuple(pre.shape)} is not the padded field of {xx}x{yy}, "
+                         f"pad {pad}")
+    _count("bb_weight_grads", ops, pre)
+    bf = _spec.dot_bf16()
+    f = kernel_factors(hp, wp, m1, m2, str(pre.device), bf)
+    f32 = torch.float32
+    pre_l, dpre_l = _layer_major(pre), _layer_major(dpre)
+    dwmr, dwmi, dpw, dpb = [], [], [], []
+    for i in range(L_LAYERS):
+        w = (p.wmr[i], p.wmi[i])
+        h_in = h0p if i == 0 else pre_l[i - 1]
+        a = ops.wdft(h_in, f.fwd_w, None, False, bf, gelu_in=i > 0)
+        spr, spi, _ = ops.corner(a, f.fwd_p, w, f.fwd_q, False, f32, bf, spec_only=True)
+        a = ops.wdft(dpre_l[i], f.adj_w, None, False, bf)
+        dcr, dci, _ = ops.corner(a, f.adj_p, w, f.adj_q, True, f32, bf, spec_only=True)
+        gr, gi = ops.mix_wgrad(spr, spi, dcr, dci)
+        dpw_t, dpb_i = ops.outer(dpre_l[i], h_in, i > 0, hp, wp, bf)
+        dwmr.append(gr)
+        dwmi.append(gi)
+        dpw.append(dpw_t.T)
+        dpb.append(dpb_i)
+    return torch.stack(dwmr), torch.stack(dwmi), torch.stack(dpw), torch.stack(dpb)

@@ -53,7 +53,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fno_stats": ("fno_fwd", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "fno_lift": ("fno_fwd", [_P] * 8 + [_I] * 9 + [_P]),
-    "fno_wdft": ("fno_fwd", [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P]),
+    "fno_wdft": ("fno_fwd", [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P]),
     "fno_corner": ("fno_fwd", [_P] * 10 + [_I] * 9 + [_P]),
     "fno_iwdft_pw": ("fno_fwd", [_P] * 7 + [_I] * 9 + [_P]),
     "fno_head_fwd": ("fno_fwd", [_P] * 8 + [_I] * 9 + [_P]),
@@ -181,20 +181,21 @@ def lift(win, grid2, mean, std, w0t, b0, hp, wp, bf):
 # ---------------------------------------------------------------------------
 
 
-def wdft_plain(x, fac, pre=None, gelu_grad=False, bf=False):
-    """out (..., J) = v (..., N) @ fac (N, J) with v = x, or with ``pre``
-    given v = dpre = x * gelu'(pre) (x itself unless ``gelu_grad``).
-    Returns out, or (out, dpre) when ``pre`` is given."""
-    v = x
+def wdft_plain(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
+    """out (..., J) = v (..., N) @ fac (N, J) with v = x (gelu(x) with
+    ``gelu_in``), or with ``pre`` given v = dpre = x * gelu'(pre) (x itself
+    unless ``gelu_grad``).  Returns out, or (out, dpre) when ``pre`` is
+    given."""
+    v = _gelu(x) if gelu_in else x
     if pre is not None and gelu_grad:
         v = x * _gelu_grad(pre.float())
     out = torch.matmul(_rd(v, bf), fac)
     return out if pre is None else (out, v)
 
 
-def wdft(x, fac, pre=None, gelu_grad=False, bf=False):
+def wdft(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
     if not _on_cuda(x, fac, pre):
-        return wdft_plain(x, fac, pre, gelu_grad, bf)
+        return wdft_plain(x, fac, pre, gelu_grad, bf, gelu_in)
     n, j = fac.shape
     if x.shape[-1] != n:
         raise ValueError(f"wdft: x {tuple(x.shape)} vs fac {tuple(fac.shape)}")
@@ -206,7 +207,7 @@ def wdft(x, fac, pre=None, gelu_grad=False, bf=False):
         dpre = torch.empty_like(x)
     _launch("fno_wdft", "fno_wdft" if pre is None else "fno_wdft.adj", x, fac, out, m, n, j,
             pre, int(pre is not None and pre.dtype == torch.bfloat16), int(gelu_grad),
-            dpre, int(bf))
+            dpre, int(gelu_in), int(bf))
     return out if pre is None else (out, dpre)
 
 
@@ -215,16 +216,19 @@ def wdft(x, fac, pre=None, gelu_grad=False, bf=False):
 # ---------------------------------------------------------------------------
 
 
-def corner_plain(a, p, w, q, adj, spec_dtype, bf):
+def corner_plain(a, p, w, q, adj, spec_dtype, bf, spec_only=False):
     """a (B, Cin, Hp, 2K); p = (pr, pi) (Hp, R); w = (wr, wi) (C, O, K, R);
     q = (qr, qi) (R, Hp).  Returns spec_r, spec_i (B, Cin, K, R) in
-    ``spec_dtype`` and D (B, Cout, Hp, 2K).  The forward mixes with W, the
-    adjoint (``adj``) with conj(W) transposed over its channel axes."""
+    ``spec_dtype`` and D (B, Cout, Hp, 2K), None with ``spec_only``.  The
+    forward mixes with W, the adjoint (``adj``) with conj(W) transposed over
+    its channel axes."""
     k = a.shape[-1] // 2
     ar, ai = _rd(a[..., :k], bf), _rd(a[..., k:], bf)
     pr, pi = p
     br = torch.einsum("bchk,hr->bckr", ar, pr) - torch.einsum("bchk,hr->bckr", ai, pi)
     bi = torch.einsum("bchk,hr->bckr", ar, pi) + torch.einsum("bchk,hr->bckr", ai, pr)
+    if spec_only:
+        return br.to(spec_dtype), bi.to(spec_dtype), None
     wr, wi = w
     if adj:
         wr, wi = wr.transpose(0, 1), -wi.transpose(0, 1)
@@ -237,9 +241,9 @@ def corner_plain(a, p, w, q, adj, spec_dtype, bf):
     return br.to(spec_dtype), bi.to(spec_dtype), torch.cat([dr, di], dim=-1)
 
 
-def corner(a, p, w, q, adj, spec_dtype, bf):
+def corner(a, p, w, q, adj, spec_dtype, bf, spec_only=False):
     if not _on_cuda(a, *p, *w, *q):
-        return corner_plain(a, p, w, q, adj, spec_dtype, bf)
+        return corner_plain(a, p, w, q, adj, spec_dtype, bf, spec_only)
     b, cin, hp, k2 = a.shape
     k, r = k2 // 2, p[0].shape[1]
     c, o = w[0].shape[:2]
@@ -253,7 +257,7 @@ def corner(a, p, w, q, adj, spec_dtype, bf):
         raise ValueError("corner: the adjoint spectrum is kept in f32")
     spr = torch.empty(b, cin, k, r, device=a.device, dtype=spec_dtype)
     spi = torch.empty_like(spr)
-    d = torch.empty(b, cout, hp, k2, device=a.device)
+    d = None if spec_only else torch.empty(b, cout, hp, k2, device=a.device)
     _launch("fno_corner", "fno_corner.adj" if adj else "fno_corner", a, p[0], p[1], w[0],
             w[1], q[0], q[1], spr, spi, d, b, cin, cout, hp, k, r, int(adj),
             int(spec_dtype == torch.bfloat16), int(bf))

@@ -127,8 +127,14 @@ def build_fast_baseline_step(
     total_steps: int = 10_000,
     pad: int = 2,
 ):
-    """Returns step(theta, opt, data, grid2, idx) -> (theta, opt, loss, g_norm),
-    the single-rollout training step.  ``theta`` is updated in place."""
+    """Returns (step, step_scan) over (theta_flat, FlatOptState).
+
+    step(theta, opt, data, grid2, idx) -> (theta, opt, loss, g_norm) is the
+    single-rollout training step; ``theta`` is updated in place.
+    step_scan(theta, opt, data, grid2, idx_chunk) -> (theta, opt, losses,
+    g_norms) runs one step per (B, 2) row block of a (K, B, 2) chunk and
+    returns the K losses and grad norms as tensors on the device, with no
+    host sync in the loop (the JAX package's ``lax.scan``)."""
     sched = cosine_lr(learning_rate, total_steps)
 
     def step(theta, opt, data, grid2, idx):
@@ -141,7 +147,15 @@ def build_fast_baseline_step(
         theta, opt, g_norm = optimizer_update(theta, opt, g, sched)
         return theta, opt, loss.detach(), g_norm
 
-    return step
+    def step_scan(theta, opt, data, grid2, idx_chunk):
+        losses, g_norms = [], []
+        for idx in idx_chunk:
+            theta, opt, loss, g_norm = step(theta, opt, data, grid2, idx)
+            losses.append(loss)
+            g_norms.append(g_norm)
+        return theta, opt, torch.stack(losses), torch.stack(g_norms)
+
+    return step, step_scan
 
 
 def fast_state_from_tree(tree, modes: int, device=None):

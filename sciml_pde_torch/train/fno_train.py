@@ -27,8 +27,10 @@ step's optimizer state), written at most once a minute and flushed at the
 end.  Not ported yet, each raising ``NotImplementedError``: the evaluation
 path (``if_training=False``), aux, NS / 3D, ``lie_augment``, ``fno_remat``,
 ``shard_store``, ``host_stream``, ``resident_rotate``,
-``extra_train_files``, ``dr_leaky_clip``; and the JAX step's ``scan`` and
-``xy`` variants (TPU dispatch and host-stream levers).
+``extra_train_files``, ``dr_leaky_clip``.  The production step carries
+JAX's ``scan`` (K steps over an index chunk, no host sync in the loop) and
+``xy`` (pre-gathered windows) variants; the step's ``lie_augment`` and
+``train_gather`` are not ported.
 """
 
 from __future__ import annotations
@@ -105,6 +107,12 @@ def build_baseline_step(model: FNO2d, opt, initial_step: int, rollout: int,
     (``g_norm`` is the pre-clip global norm), and ``val_loss(data, grid,
     idx) -> loss``.  ``grid`` is (X, Y, 2), ``idx`` (B, 2) window rows.
 
+    ``step.scan(data, grid, idx_chunk) -> (losses, g_norms)`` runs one step
+    per (B, 2) block of a (K, B, 2) chunk and returns length-K tensors on the
+    device, with no host sync in the loop; ``step.xy(x, y, grid) -> (loss,
+    g_norm)`` takes windows gathered already (x (B, X, Y, T0, C), y
+    (B, X, Y, rollout, C)).
+
     ``training_type="autoregressive"``: teacher-forced unroll over
     ``(t_train or initial_step + rollout) - initial_step`` target frames --
     the model predicts from the window, the loss adds up, the true frame
@@ -134,16 +142,27 @@ def build_baseline_step(model: FNO2d, opt, initial_step: int, rollout: int,
         x, y = gather_windows(data, idx, initial_step, gather_rollout)
         return x.float(), y.float(), grid.expand(idx.shape[0], *grid.shape)
 
-    def step(data, grid, idx):
-        loss = loss_fn(*batch(data, grid, idx))
+    def update(x, y, gb):
+        loss = loss_fn(x, y, gb)
         grads = torch.autograd.grad(loss, list(params.values()))
         g_norm = opt.step(params, dict(zip(params, grads)))
         return loss.detach(), g_norm
+
+    def step(data, grid, idx):
+        return update(*batch(data, grid, idx))
+
+    def step_xy(x, y, grid):
+        return update(x.float(), y.float(), grid.expand(x.shape[0], *grid.shape))
+
+    def step_scan(data, grid, idx_chunk):
+        losses, g_norms = zip(*(step(data, grid, idx) for idx in idx_chunk))
+        return torch.stack(losses), torch.stack(g_norms)
 
     @torch.no_grad()
     def val_loss(data, grid, idx):
         return loss_fn(*batch(data, grid, idx))
 
+    step.xy, step.scan = step_xy, step_scan
     return step, val_loss
 
 
@@ -183,8 +202,8 @@ class _FusedRun:
         self.dev, self.modes, self.initial_step = dev, modes, initial_step
         self.theta, self.spec = fs.fast_state_from_tree(tree, modes, dev)
         self.opt = fs.init_opt(self.theta)
-        self._step = fs.build_fast_baseline_step(modes, initial_step, self.spec,
-                                                 learning_rate, total_steps)
+        self._step, _ = fs.build_fast_baseline_step(modes, initial_step, self.spec,
+                                                    learning_rate, total_steps)
 
     def step(self, data, grid, idx):
         grid2 = grid.permute(2, 0, 1).contiguous()

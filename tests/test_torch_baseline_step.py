@@ -1,6 +1,7 @@
 """Port train/optim.py (adaptive clip, the production optimizer) and
-train/fno_train.py::build_baseline_step vs the JAX package, on the same
-numpy-seeded inputs, f32 products in both packages."""
+train/fno_train.py::build_baseline_step (with its ``scan`` and ``xy``
+variants) vs the JAX package, on the same numpy-seeded inputs, f32 products
+in both packages."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ from sciml_pde_tpu.models import FNO2d as FlaxFNO2d
 from sciml_pde_tpu.train.fno_train import build_baseline_step as jax_build_step
 from sciml_pde_tpu.train.optim import adaptive_clip as jax_adaptive_clip
 from sciml_pde_tpu.train.optim import make_optimizer as jax_make_optimizer
+from sciml_pde_torch.data.windows import gather_windows
 from sciml_pde_torch.models.fno import FNO2d
 from sciml_pde_torch.train.fno_train import build_baseline_step
 from sciml_pde_torch.train.optim import adaptive_clip, make_optimizer
@@ -96,6 +98,20 @@ def _port_step(tree, training_type, t_train):
     return params, step, val
 
 
+def _assert_params_close(params, pj):
+    """The port's parameters against a JAX tree, within 1e-5 of the largest
+    parameter magnitude."""
+    got = state_dict_to_flax(params)
+    want = jax.tree_util.tree_leaves_with_path(to_numpy_tree(pj))
+    scale = max(np.abs(leaf).max() for _, leaf in want)
+    for path, leaf in want:
+        have = got
+        for k in path:
+            have = have[k.key]
+        np.testing.assert_allclose(have, leaf, rtol=0, atol=1e-5 * scale,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
 CASES = {"single": ("single", None), "autoregressive": ("autoregressive", T0 + 6)}
 # Adam turns the f32 rounding of a gradient element near zero into a step of
 # up to lr, so the packages drift apart in proportion to lr; at the config's
@@ -124,15 +140,7 @@ def test_baseline_step_matches_jax(setup, training_type, t_train):
                                        err_msg=f"loss at step {k}")
             np.testing.assert_allclose(float(gn_t), float(gn_j), rtol=1e-5,
                                        err_msg=f"grad norm at step {k}")
-    got = state_dict_to_flax(params)
-    want = jax.tree_util.tree_leaves_with_path(to_numpy_tree(pj))
-    scale = max(np.abs(leaf).max() for _, leaf in want)
-    for path, leaf in want:
-        have = got
-        for k in path:
-            have = have[k.key]
-        np.testing.assert_allclose(have, leaf, rtol=0, atol=1e-5 * scale,
-                                   err_msg=jax.tree_util.keystr(path))
+    _assert_params_close(params, pj)
 
 
 @pytest.mark.parametrize("training_type, t_train", CASES.values(), ids=CASES.keys())
@@ -148,3 +156,46 @@ def test_val_loss_matches_jax(setup, training_type, t_train):
             got = val(torch.from_numpy(data), torch.from_numpy(grid), torch.from_numpy(idx).long())
             assert not got.requires_grad
             np.testing.assert_allclose(float(got), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("training_type, t_train", CASES.values(), ids=CASES.keys())
+def test_step_scan_equals_single_steps_and_jax(setup, training_type, t_train):
+    """step.scan over a (3, B, 2) chunk: exactly what three calls of step
+    give, and JAX's step.scan from the same tree and chunk at the
+    three-step test's bounds."""
+    data, grid, idxs, flax_model, tree = setup
+    data_t, grid_t = torch.from_numpy(data), torch.from_numpy(grid)
+    chunk = np.stack(idxs)
+    with precision("highest"):
+        params_a, step_a, _ = _port_step(tree, training_type, t_train)
+        single = [step_a(data_t, grid_t, idx) for idx in torch.from_numpy(chunk).long()]
+        params_b, step_b, _ = _port_step(tree, training_type, t_train)
+        losses, g_norms = step_b.scan(data_t, grid_t, torch.from_numpy(chunk).long())
+        tx = jax_make_optimizer(LR, 10)
+        jstep, _ = jax_build_step(flax_model, tx, T0, 1, training_type, t_train)
+        pj = jax.tree_util.tree_map(jnp.asarray, tree)
+        pj, _, losses_j, gns_j = jstep.scan(pj, tx.init(pj), jnp.asarray(data), jnp.asarray(grid),
+                                            jnp.asarray(chunk), jax.random.PRNGKey(0))
+    assert losses.shape == g_norms.shape == (3,)
+    assert torch.equal(losses, torch.stack([l for l, _ in single]))
+    assert torch.equal(g_norms, torch.stack([g for _, g in single]))
+    for name, p in params_b.items():
+        assert torch.equal(p, params_a[name]), name
+    np.testing.assert_allclose(losses.numpy(), np.asarray(losses_j), rtol=1e-5)
+    np.testing.assert_allclose(g_norms.numpy(), np.asarray(gns_j), rtol=1e-5)
+    _assert_params_close(params_b, pj)
+
+
+def test_step_xy_equals_step(setup):
+    """step.xy on windows gathered beforehand gives what step gives on their
+    indices: the same loss, grad norm and parameters."""
+    data, grid, idxs, flax_model, tree = setup
+    data_t, grid_t = torch.from_numpy(data), torch.from_numpy(grid)
+    params_a, step_a, _ = _port_step(tree, "single", None)
+    params_b, step_b, _ = _port_step(tree, "single", None)
+    for idx in torch.from_numpy(np.stack(idxs)).long():
+        x, y = gather_windows(data_t, idx, T0, 1)
+        want, got = step_a(data_t, grid_t, idx), step_b.xy(x, y, grid_t)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for name, p in params_b.items():
+        assert torch.equal(p, params_a[name]), name

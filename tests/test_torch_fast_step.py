@@ -1,6 +1,7 @@
 """Port train/fast_step.py vs the JAX build_fast_baseline_step: three steps
 from the same theta on the same data and index batches; loss, grad norm
-and parameters compared after each step."""
+and parameters compared after each step.  The K-step scan against K steps
+and against the JAX scan."""
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +43,7 @@ def test_fast_step_matches_jax_three_steps(setup):
         jstep, _ = jfs.build_fast_baseline_step(MODES, T0, spec_j, LR, TOTAL)
         opt_j = jfs.init_opt(theta_j)
         theta_t, spec_t = tfs.fast_state_from_tree(params, MODES, "cpu")
-        tstep = tfs.build_fast_baseline_step(MODES, T0, spec_t, LR, TOTAL)
+        tstep, _ = tfs.build_fast_baseline_step(MODES, T0, spec_t, LR, TOTAL)
         opt_t = tfs.init_opt(theta_t)
         data_t, grid_t = torch.from_numpy(data), torch.from_numpy(grid2)
         for k, idx in enumerate(idxs):
@@ -58,6 +59,51 @@ def test_fast_step_matches_jax_three_steps(setup):
             got = tfs.tree_from_fast_state(theta_t, spec_t, MODES)
             assert_trees_close(got, want, rtol=5e-3, atol=1e-5, what=f"params at step {k}")
     assert opt_t.count == 3
+
+
+def test_step_scan_equals_single_steps(setup):
+    """step_scan over a (3, B, 2) chunk gives exactly what three calls of
+    step give: the same losses, grad norms, parameters and moments."""
+    data, grid2, idxs, params = setup
+    data_t, grid_t = torch.from_numpy(data), torch.from_numpy(grid2)
+    chunk = torch.from_numpy(np.stack(idxs)).long()
+    with precision("highest"):
+        theta, spec = tfs.fast_state_from_tree(params, MODES, "cpu")
+        step, step_scan = tfs.build_fast_baseline_step(MODES, T0, spec, LR, TOTAL)
+        theta_a, opt_a, losses_a, gns_a = theta.clone(), tfs.init_opt(theta), [], []
+        for idx in chunk:
+            theta_a, opt_a, loss, gn = step(theta_a, opt_a, data_t, grid_t, idx)
+            losses_a.append(loss)
+            gns_a.append(gn)
+        theta_b, opt_b, losses_b, gns_b = step_scan(theta.clone(), tfs.init_opt(theta), data_t,
+                                                    grid_t, chunk)
+    assert losses_b.shape == gns_b.shape == (3,) and opt_b.count == opt_a.count == 3
+    assert torch.equal(losses_b, torch.stack(losses_a))
+    assert torch.equal(gns_b, torch.stack(gns_a))
+    assert torch.equal(theta_b, theta_a)
+    assert torch.equal(opt_b.m, opt_a.m) and torch.equal(opt_b.v, opt_a.v)
+
+
+def test_step_scan_matches_jax_scan(setup):
+    """The port's step_scan and JAX's from the same tree and chunk, at the
+    three-step test's bounds."""
+    data, grid2, idxs, params = setup
+    chunk = np.stack(idxs)
+    with precision("highest"):
+        theta_j, spec_j = jfs.fast_state_from_tree(params, MODES)
+        _, jscan = jfs.build_fast_baseline_step(MODES, T0, spec_j, LR, TOTAL)
+        theta_j, _, losses_j, gns_j = jscan(theta_j, jfs.init_opt(theta_j), jnp.asarray(data),
+                                            jnp.asarray(grid2), jnp.asarray(chunk))
+        theta_t, spec_t = tfs.fast_state_from_tree(params, MODES, "cpu")
+        _, tscan = tfs.build_fast_baseline_step(MODES, T0, spec_t, LR, TOTAL)
+        theta_t, _, losses_t, gns_t = tscan(theta_t, tfs.init_opt(theta_t),
+                                            torch.from_numpy(data), torch.from_numpy(grid2),
+                                            torch.from_numpy(chunk).long())
+    np.testing.assert_allclose(losses_t.numpy(), np.asarray(losses_j), rtol=1e-4)
+    np.testing.assert_allclose(gns_t.numpy(), np.asarray(gns_j), rtol=1e-3)
+    want = to_numpy_tree(jfs.tree_from_fast_state(theta_j, spec_j, MODES, params))
+    assert_trees_close(tfs.tree_from_fast_state(theta_t, spec_t, MODES), want, rtol=5e-3,
+                       atol=1e-5, what="params after the scan")
 
 
 def test_optimizer_update_clips_on_global_norm():

@@ -26,6 +26,7 @@ MODULES = [
     "sciml_pde_torch.data.ns", "sciml_pde_torch.ops.spectral_fused",
     "sciml_pde_torch.ops.probe", "sciml_pde_torch.experiments",
     "sciml_pde_torch.experiments.spectral_impl_bench",
+    "sciml_pde_torch.experiments.perf_probe",
 ]
 
 
