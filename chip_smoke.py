@@ -24,15 +24,19 @@ FNO steps and the five split kernels):
               against the plain PyTorch versions on the card, under
               `highest` (f32) and `default` (bf16 dot inputs); then every
               kernel against its own plain version on the inputs the main
-              path gives it
+              path gives it, and fno_stats at three more shapes (X*Y not a
+              multiple of 4, a pair larger than one cluster's shared
+              memory, the flagship + 1e3 with a one-pass control)
   4. train    one epoch of the DR baseline on a seeded in-memory store
               (10 trajectories x 101 frames x 128 x 128 x 2): finite and
               falling loss, launch counts of every kernel
-  5. timing   fused step steps/s and per-launch kernel times (CUDA events)
+  5. timing   fused step steps/s and per-launch kernel times (CUDA events;
+              fno_stats also in profiler device time)
   6. attention the three flash-attention kernels against their plain
               versions at the encoder (24, 1280, 64) and decoder
-              (16, 1280, 64) shapes, in f32 and bf16, with a control
-              against a kernel that rounds p and ds to bf16
+              (16, 1280, 64) shapes and at head dims 96 and 24, in f32 and
+              bf16, and at batch*heads 70000 (70000, 16, 16) in bf16, with
+              a control against a kernel that rounds p and ds to bf16
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
               every gradient) through the kernels against the same model
               through the plain versions, with the bf16-vs-f32 gap as a
@@ -44,7 +48,8 @@ FNO steps and the five split kernels):
               micro-step
   9. timing   ms per micro-step and per optimizer step (CUDA events), the
               device-busy share and top device ops (torch.profiler), and
-              per-launch attention kernel times beside their bounds
+              per-launch attention kernel times (CUDA events and profiler
+              device time) beside their bounds
  10. layer    the fused dft2 layer (kernel) at (4, 130, 130, 20), modes 12,
               through its autograd op: against its plain f32 version within
               1e-5 of the largest magnitude, with the plain version on
@@ -103,6 +108,10 @@ N_TRAJ, N_T = 10, 101
 # run measures and checks, so a kernel that ignores its precision fails.
 TOL = {"highest": 1e-4, "default": 2e-3}
 TOL_KERNEL = 1e-3  # one kernel against its plain version, main-path inputs
+# fno_stats beyond the flagship: (what, win shape, offset added to N(0, 1))
+STATS_SHAPES = (("X*Y not a multiple of 4", (3, 1, 3, 17, 13), 0.0),
+                ("larger than one cluster's shared memory", (1, 10, 1, 256, 256), 0.0),
+                ("flagship + 1e3", (B, T0, CC, XY, XY), 1e3))
 # gradients against autograd of the independent plain forward in f32 (the
 # exact gradient): under `default` the bound covers the bf16-vs-f32 gap
 # (up to 9.2e-3 of the largest magnitude on an H100)
@@ -120,6 +129,12 @@ NS_BATCH, NS_ACCUM, NS_LR, NS_EPOCHS = 2, 4, 1e-3, 3
 NS_TRAJ, NS_T, NS_TEST = 4, 30, 2
 NS_LAYERS = NS_MODEL["encoder_depth"] + NS_MODEL["decoder_depth"]
 ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 1280, 64)}
+# shapes the JAX package's kernels take beyond the NS recipe: head dims
+# padded in shared memory (96 is plume-3D's decoder, 768 / 8 heads; 24 pads
+# to 32) in both dtypes, and batch*heads above the 65535 of a grid's y axis
+ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
+             "head dim 24": ((16, 1280, 24), ("float32", "bfloat16")),
+             "batch*heads 70000": ((70_000, 16, 16), ("bfloat16",))}
 # attention kernels vs plain versions: f32 outputs within 1e-5 of the
 # largest magnitude (f32 sums in another order); bf16 outputs within one
 # bf16 rounding step of the value (2^-7 of its magnitude: the two round
@@ -216,6 +231,25 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return s.elapsed_time(e) / reps
 
 
+def profiler_ms(fn, kernel_key: str = "", reps: int = 20):
+    """Device time per call of ``fn`` in kernels whose name holds
+    ``kernel_key`` (all of its device time by default), from torch.profiler
+    over ``reps`` back-to-back calls (no host issue gaps); None when the
+    profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type.name == "CUDA" and kernel_key in ev.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
 def device_profile(card: str, run, n: int, unit: str, unprofiled_ms: float, ours) -> None:
     """Run ``run()`` (``n`` units of work) under torch.profiler and print the
     wall time, the device-busy share (kernel time on the card over wall
@@ -244,6 +278,35 @@ def device_profile(card: str, run, n: int, unit: str, unprofiled_ms: float, ours
     for ev in sorted(evs, key=lambda ev: -ev.self_device_time_total)[:12]:
         print(f"[profile]   {ev.self_device_time_total / n:9.1f} us/{unit} "
               f"{ev.count / n:6.1f}x  {ev.key[:90]}", flush=True)
+
+
+def check_stats(dev) -> None:
+    """Phase 3: ``fno_stats`` against its plain version beyond the flagship
+    shape: X*Y not a multiple of 4 (misaligned runs), a pair larger than
+    one cluster's shared memory, and the flagship with a +1e3 offset, where
+    a one-pass E[x^2] - E[x]^2 (the control) must lie outside the bound
+    that the kernel meets."""
+    import torch
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    g = torch.Generator().manual_seed(10)
+    for what, shape, off in STATS_SHAPES:
+        win = (torch.randn(*shape, generator=g) + off).to(dev)
+        got, want = fk.stats(win), fk.stats_plain(win)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        worst_rel = max(r for _, r in errs)
+        msg = (f"[kernel] fno_stats {what} {shape}: max abs err {max(e for e, _ in errs):.3e}, "
+               f"rel-to-max {worst_rel:.3e} (tol {TOL_KERNEL:.0e})")
+        ok = all(bool(torch.isfinite(t).all()) for t in got) and worst_rel <= TOL_KERNEL
+        if off:
+            n = shape[1] * shape[3] * shape[4]
+            mean = win.mean(dim=(1, 3, 4))
+            var1 = ((win * win).mean(dim=(1, 3, 4)) - mean * mean) * (n / (n - 1))
+            ctl = rel_err(torch.sqrt(var1.clamp_min(0)) + 1e-7, want[1])[1]
+            ok &= ctl > TOL_KERNEL
+            msg += f"; control: one-pass std {ctl:.3e} from the plain version, above the tol"
+        check(ok, msg)
 
 
 def make_store(seed: int = 0):
@@ -296,15 +359,21 @@ def make_ns_store(n_traj: int, n_t: int, seed: int, dev):
 
 def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     """(bytes each input read and each output written once, seconds of the
-    products at the card's peak for their input type): q.k^T and do.v^T
-    take the input type; p.v, ds.k, ds^T.q and p^T.do take f32 p and ds
-    (the CUDA cores' 67 TFLOP/s)."""
+    products at the card's peak for their input type).  The bf16 forward
+    counts the products its design needs to be exact to its bound, all at
+    the bf16 tensor-core rate: q.k^T, and p.v as two bf16 terms of the f32
+    p (three products).  Elsewhere q.k^T and do.v^T take the input type
+    and p.v, ds.k, ds^T.q and p^T.do take f32 p and ds (the CUDA cores' 67
+    TFLOP/s), as the bf16 forward's bound counted them before its
+    tensor-core design (0.080 ms at the encoder shape)."""
     es = 2 if bf else 4
     panel, row = bh * n * d * es, bh * n * 4
     prod = 2 * bh * n * n * d
     rate_in = PEAK_FLOPS["default" if bf else "highest"]
     rate_f32 = PEAK_FLOPS["highest"]
     if name == "attention_fwd":
+        if bf:
+            return 3 * panel + panel + row, 3 * prod / rate_in
         return 3 * panel + panel + row, prod / rate_in + prod / rate_f32
     if name == "attention_dq":
         return 4 * panel + 2 * row + panel, 2 * prod / rate_in + prod / rate_f32
@@ -332,14 +401,17 @@ def att_bf16p(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.
 
 def check_attention(ta, dev) -> dict:
     """Phase 6: each kernel against its plain version at the encoder and
-    decoder shapes in f32 and bf16.  Returns the bf16 encoder-shape inputs
-    of each kernel (the main path's most frequent launch) for timing."""
+    decoder shapes and at head dims 96 and 24 in f32 and bf16, and at
+    batch*heads 70000 in bf16.  Returns the bf16 encoder-shape inputs of
+    each kernel (the main path's most frequent launch) for timing."""
     import torch
 
     g = torch.Generator().manual_seed(3)
     main_inputs = {}
-    for where, (bh, n, d) in ATT_SHAPES.items():
-        for dt in (torch.float32, torch.bfloat16):
+    cases = [(where, shape, ("float32", "bfloat16")) for where, shape in ATT_SHAPES.items()]
+    cases += [(where, shape, dts) for where, (shape, dts) in ATT_EXTRA.items()]
+    for where, (bh, n, d), dts in cases:
+        for dt in (getattr(torch, name) for name in dts):
             bf = dt == torch.bfloat16
             q, k, v, do = (torch.randn(bh, n, d, generator=g).to(dev, dt) for _ in range(4))
             scale = d**-0.5
@@ -538,7 +610,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
         for b in batches[:NS_ACCUM]:
             step(ns_ds.train.data, b)
     device_profile(card, one_optimizer_step, NS_ACCUM, "micro-step", micro_ms,
-                   ("fwd_kernel<", "dq_kernel<", "dkv_kernel<"))
+                   ("fwd_kernel<", "fwd_tc_kernel<", "dq_kernel<", "dkv_kernel<"))
     del model, opt, step, params
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -565,13 +637,23 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
             "bound_ms": max(nbytes / HBM_BPS, ops_s) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BPS >= ops_s else "operations",
             "library_ms": lib[name],
+            "device_ms": profiler_ms(lambda: getattr(ta, name)(*args, scale),
+                                     {"attention_fwd": "fwd_tc_kernel<"}.get(name,
+                                                                            name[10:] + "_kernel<")),
         }
         r = rows[name]
-        print(f"[timing] {card}: {name} at {tuple(q.shape)} bf16: {r['ms']:.4f} ms/launch, "
+        if name == "attention_fwd":
+            r["library_device_ms"] = profiler_ms(lambda: sdpa(as4(q), as4(k), as4(v),
+                                                              scale=scale))
+        dev_ms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+        print(f"[timing] {card}: {name} at {tuple(q.shape)} bf16: {r['ms']:.4f} ms/launch "
+              f"(profiler device time {dev_ms}), "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
               f"library {r['library_ms']:.4f} ms (scaled_dot_product_attention "
-              f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV together'}), "
-              f"{r['launches']} launches in the training run", flush=True)
+              f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV together'}"
+              + (f"; profiler device time {r['library_device_ms']:.4f} ms"
+                 if r.get("library_device_ms") is not None else "")
+              + f"), {r['launches']} launches in the training run", flush=True)
     for where, (bh_d, n_d, d_d) in ATT_SHAPES.items():
         if where == "encoder":
             continue
@@ -586,6 +668,24 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
               f"attention_dkv "
               f"{cuda_ms(lambda: ta.attention_dkv(qd, kd, vd, dod, ld, deltad, scale)):.4f} ms",
               flush=True)
+    # the f32 forward keeps the CUDA-core body: its time at the encoder shape
+    # beside its plain version and the f32 SDPA forward on the same inputs
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    r = rows["attention_fwd"]
+    r["f32_ms"] = cuda_ms(lambda: ta.attention_fwd(qf, kf, vf, scale))
+    r["f32_device_ms"] = profiler_ms(lambda: ta.attention_fwd(qf, kf, vf, scale), "fwd_kernel<")
+    r["f32_plain_ms"] = cuda_ms(lambda: ta.attention_fwd_plain(qf, kf, vf, scale))
+    r["f32_library_ms"] = cuda_ms(lambda: sdpa(as4(qf), as4(kf), as4(vf), scale=scale))
+    r["f32_library_device_ms"] = profiler_ms(lambda: sdpa(as4(qf), as4(kf), as4(vf),
+                                                          scale=scale))
+    f32_bytes, f32_ops_s = att_work("attention_fwd", bh, n, d, bf=False)
+    r["f32_bound_ms"] = max(f32_bytes / HBM_BPS, f32_ops_s) * 1e3
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+    print(f"[timing] {card}: attention_fwd at {tuple(q.shape)} f32 (CUDA-core body): "
+          f"{r['f32_ms']:.4f} ms/launch (profiler device time {fmt(r['f32_device_ms'])}), "
+          f"plain {r['f32_plain_ms']:.4f} ms, bound {r['f32_bound_ms']:.5f} ms (operations), "
+          f"library {r['f32_library_ms']:.4f} ms (scaled_dot_product_attention forward, f32; "
+          f"profiler device time {fmt(r['f32_library_device_ms'])})", flush=True)
 
     return rows
 
@@ -1174,7 +1274,7 @@ def main() -> int:
     def library_fn(key, fname, args):
         if key == "fno_stats":
             return lambda: torch.std_mean(args[0], dim=(1, 3, 4))
-        if key == "fno_wdft":
+        if key in ("fno_wdft", "fno_wdft.adj"):
             return lambda: torch.matmul(args[0], args[1])
         if key == "fno_reduce_rows":
             return lambda: torch.sum(args[0], dim=0)
@@ -1215,6 +1315,12 @@ def main() -> int:
             else "operations",
             "library_ms": cuda_ms(lib) if lib is not None else None,
         }
+
+    fname, args, kw = records["fno_stats"]
+    kernel_rows["fno_stats"]["device_ms"] = profiler_ms(lambda: fk.stats(*args), "stats_kernel")
+    kernel_rows["fno_stats"]["library_device_ms"] = profiler_ms(library_fn("fno_stats", fname,
+                                                                           args))
+    check_stats(dev)
 
     # ---- 4. train: the main path, through the trainer -------------------------
     spectral.set_dft_precision("default")
@@ -1290,7 +1396,13 @@ def main() -> int:
                     "mix_wgrad_kernel", "outer_partial_kernel", "reduce_rows_kernel"))
     for key in fk.KERNEL_NAMES:
         r = kernel_rows[key]
-        lib ="n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        if "device_ms" in r:
+            lib += (" ms (profiler device time "
+                    + ("not measured" if r["library_device_ms"] is None
+                       else f"{r['library_device_ms']:.4f}")
+                    + "), profiler device time "
+                    + ("not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f}"))
         print(f"[timing] {card}: {key}: {r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib} ms, "
               f"{r['launches']} launches in the epoch", flush=True)

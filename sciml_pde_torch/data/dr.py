@@ -2,7 +2,8 @@
 
 Single HDF5 file keyed by zero-padded seed groups; 90/10 train/test split
 by sorted key order; ``train_subsample`` keeps the first N train keys (a
-float < 1 keeps that fraction).  The selected trajectories become device
+float < 1 keeps that fraction; a float >= 1 is a count, as an int is) and
+raises when the split holds fewer.  The selected trajectories become device
 tensors.  Not ported yet: ``extra_train_files`` and ``leaky_clip``.
 """
 
@@ -41,10 +42,12 @@ def _split_keys(keys: list[str]) -> tuple[list[str], list[str]]:
     return keys[:n_train], keys[n_train:]
 
 
-def _take(train_keys: list[str], subsample) -> list[str]:
+def _resolve_count(train_keys: list[str], subsample) -> int:
+    """Train trajectories asked for: a float below 1 is a fraction of the
+    split (at least one), anything else a count (a float >= 1 truncated)."""
     if isinstance(subsample, float) and subsample < 1:
-        return train_keys[: max(int(subsample * len(train_keys)), 1)]
-    return train_keys[: int(subsample)]
+        return max(int(subsample * len(train_keys)), 1)
+    return int(subsample)
 
 
 def load_dr_baseline(
@@ -60,12 +63,13 @@ def load_dr_baseline(
     the 10% tail with one window at t0 = 0 per trajectory."""
     path = Path(base_path) / primary_file
     train_keys, test_keys = _split_keys(list_seed_groups(path))
-    want = _take(train_keys, train_subsample)
-    if isinstance(train_subsample, (int, np.integer)) and len(want) < int(train_subsample):
+    count = _resolve_count(train_keys, train_subsample)
+    if len(train_keys) < count:
         raise ValueError(
-            f"requested {train_subsample} train trajectories but only "
+            f"requested {count} train trajectories but only "
             f"{len(train_keys)} available in {primary_file}"
         )
+    want = train_keys[:count]
     grid = _read_grid(path, train_keys[0] if train_keys else test_keys[0])
     return DRBaselineDataset(
         train=WindowedTrajectories(_read_keys(path, want), grid, initial_step=initial_step,

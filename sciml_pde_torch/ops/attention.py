@@ -9,8 +9,11 @@ a failed build or launch.  Every launch adds one to ``LAUNCHES[name]``.
   attention_dq    (q, k, v, do, l, delta) -> dq          B4 ``_dq_kernel``
   attention_dkv   (q, k, v, do, l, delta) -> dk, dv      B5 ``_dkv_kernel``
 
-on flat ``(BH, N, D)`` panels in f32 or bf16; ``l`` (the row logsumexp) and
-``delta = rowsum(do * o)`` are ``(BH, N, 1)`` f32.  The plain versions
+on flat ``(BH, N, D)`` panels in f32 or bf16, any head dim ``D % 8 == 0`` up
+to 128 and any ``BH``; ``l`` (the row logsumexp) and ``delta = rowsum(do *
+o)`` are ``(BH, N, 1)`` f32.  The bf16 forward runs its products on the
+tensor cores (``p`` split into two bf16 terms), the others on the CUDA cores
+(see the source's note).  The plain versions
 compute the Pallas bodies over whole rows: inputs widened to f32, ``q``
 scaled in f32, ``p`` and ``ds`` kept in f32, outputs rounded to the input
 type once.
@@ -33,7 +36,10 @@ from sciml_pde_torch.ops.fno_kernels import _on_cuda
 MAX_PALLAS_TOKENS = 2048
 BLOCK_Q = 256
 BLOCK_K = 256
-HEAD_DIMS = (16, 32, 64, 128)  # the head dims csrc/attention.cu is built for
+# csrc/attention.cu is built for the padded head dims 16, 32, 64, 96 and 128
+# and takes any head dim d % 8 == 0 up to MAX_HEAD_DIM
+MAX_HEAD_DIM = 128
+TILE = 64  # fewest rows per block; the blocks of all (bh, tile) pairs lie on grid.x
 
 KERNEL_NAMES = ("attention_fwd", "attention_dq", "attention_dkv")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
@@ -55,6 +61,12 @@ _SIGNATURES = {
     "attention_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data do not start on 16 bytes (the
+    bf16 forward copies 16-byte rows by cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(name: str, tensors, bh: int, n: int, d: int, bf: bool, scale: float) -> None:
@@ -82,10 +94,12 @@ def _check(q, panels=(), rows=()):
             if tuple(t.shape) != shape or t.dtype != dtype:
                 raise ValueError(f"attention kernels: expected {shape} {dtype}, got "
                                  f"{tuple(t.shape)} {t.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels are built for head dims {HEAD_DIMS}, got {d}")
-    if bh > 65535:
-        raise ValueError(f"batch*heads {bh} exceeds the kernels' grid limit 65535")
+    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head dims d % 8 == 0 up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if bh * -(-n // TILE) >= 2**31:
+        raise ValueError(f"batch*heads {bh} x {-(-n // TILE)} row tiles exceed the kernels' "
+                         "grid of 2^31 - 1 blocks")
     return bh, n, d, q.dtype == torch.bfloat16
 
 
@@ -113,6 +127,7 @@ def attention_fwd(q, k, v, scale: float):
     if not _on_cuda(q, k, v):
         return attention_fwd_plain(q, k, v, scale)
     bh, n, d, bf = _check(q, (k, v))
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     l = torch.empty(bh, n, 1, dtype=torch.float32, device=q.device)
     _launch("attention_fwd", (q, k, v, o, l), bh, n, d, bf, scale)

@@ -7,7 +7,8 @@
 // lines of the JAX file's _bb_fwd_kernel / _head_fwd_kernel and spills each
 // layer's activation to device memory between launches:
 //
-//   fno_stats      instance-norm mean/std per (element, channel)
+//   fno_stats      instance-norm mean/std per (element, channel): one
+//                  thread-block cluster per pair (see its note below)
 //   fno_lift       normalise + grid channels + fc0, into the padded field
 //   per layer:
 //     fno_wdft     W-axis partial rDFT: (rows, Wp) x (Wp, 2*m2)
@@ -35,53 +36,160 @@
 // stage a plain tiled loop over shared memory with f32 FMAs on the CUDA
 // cores; tensor cores (wgmma) and TMA are left for a later change.
 
+#include <cooperative_groups.h>
+#include <stdint.h>
+
 #include "fno_common.cuh"
 
 // ---------------------------------------------------------------------------
 // instance-norm statistics
+//
+// fno_stats replaces the statistics part of _full_fwd_kernel (B1) and
+// _bb_fwd_kernel (B1a), the JAX file's _stats_cols: per (element, channel)
+// of win (B, T, Cc, X*Y) the mean over (T, X, Y) and the two-pass unbiased
+// std sqrt(sum((x - mean)^2) / (n - 1)) + 1e-7, n = T*X*Y.  Bound by bytes:
+// each value read once (5.2 MB at the flagship shape, 1.6 us at 3.35 TB/s),
+// while only B*Cc = 8 (element, channel) pairs exist.  So each pair gets a
+// thread-block cluster of STATS_CLUSTER blocks (the portable size), 64
+// blocks at the flagship shape.  Each block streams a contiguous share of
+// its pair's n values (T runs of X*Y floats, Cc*X*Y apart) with 16-byte
+// loads (scalar loads for each run's misaligned head and ragged tail), sums
+// in registers and warp shuffles, and keeps its share in shared memory
+// where it fits.  The cluster adds the blocks' sums through distributed
+// shared memory in rank order, so every block forms the same mean; each
+// block then sums its squared deviations (from its shared copy, about 10%
+// faster on an H100 than a second read that hits L2, or from that read
+// where the share does not fit) and rank 0 adds those in rank order.  One
+// launch, one read of device memory, a fixed summation order, no atomics;
+// E[x^2] - E[x]^2 is not used, as DR fields carry offsets that it cancels.
+//
+// The sums run in f64 (the f32 squares of the f32 deviations x - mean, as
+// the reference forms them), and mean = f32(sum / n), var = f32(sum / (n -
+// 1)): the correctly rounded statistics, which no summation order changes.
+// An f32 sum in another order than the plain version's moves the mean by an
+// ulp, and the bf16 roundings of every later product with it.
 // ---------------------------------------------------------------------------
 
-__device__ float block_sum(float v, float* red) {
-  red[threadIdx.x] = v;
+constexpr int STATS_CLUSTER = 8;
+constexpr int STATS_NT = 512;
+constexpr size_t STATS_KEEP_MAX = 192 * 1024;  // largest share kept in shared memory
+
+// The block's sum of v in a fixed order (warp shuffles, then the warps in
+// order); every thread gets it.
+__device__ double block_sum(double v, double* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
   __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  const float r = red[0];
+  double r = 0.0;
+  for (int w = 0; w < STATS_NT / 32; ++w) r += red[w];
   __syncthreads();
   return r;
 }
 
-// win (B, T, Cc, X*Y) -> mean, std (B, Cc): unbiased std over (T, X, Y) + 1e-7.
-__global__ void stats_kernel(const float* __restrict__ win, float* __restrict__ mean,
-                             float* __restrict__ stdv, int T, int Cc, int XY) {
-  __shared__ float red[256];
-  const int b = blockIdx.x / Cc, cc = blockIdx.x % Cc;
+// Calls f(value, j) or f(float4, j) on the values [lo, hi) of one pair's
+// logical index space t*XY + p, j the index within the share.
+template <typename F>
+__device__ __forceinline__ void walk_share(const float* pair, long long lo, long long hi,
+                                           int XY, size_t run_stride, F& f) {
+  for (long long t = lo / XY; t * XY < hi; ++t) {
+    const long long s0 = max(lo, t * XY), s1 = min(hi, (t + 1) * XY);
+    const float* p = pair + t * run_stride + (s0 - t * XY);
+    const int len = (int)(s1 - s0), j0 = (int)(s0 - lo);
+    const int head = min(len, (int)(((16 - ((uintptr_t)p & 15)) & 15) / 4));
+    const int n4 = (len - head) / 4;
+    for (int i = threadIdx.x; i < head; i += STATS_NT) f(p[i], j0 + i);
+    const float4* p4 = reinterpret_cast<const float4*>(p + head);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n4; i += STATS_NT) f(p4[i], j0 + head + 4 * i);
+    for (int i = head + 4 * n4 + threadIdx.x; i < len; i += STATS_NT) f(p[i], j0 + i);
+  }
+}
+
+struct SumKeep {  // pass 1: sum, and the share's copy when `keep` is set
+  double s;
+  float* keep;
+  __device__ void operator()(float x, int j) {
+    s += x;
+    if (keep) keep[j] = x;
+  }
+  __device__ void operator()(float4 x, int j) {
+    s += ((double)x.x + x.y) + ((double)x.z + x.w);
+    if (keep) {
+      keep[j] = x.x; keep[j + 1] = x.y; keep[j + 2] = x.z; keep[j + 3] = x.w;
+    }
+  }
+};
+
+struct SqDev {  // pass 2: sum of the f32 squares of the f32 deviations from m
+  double s;
+  float m;
+  __device__ void operator()(float x, int) {
+    const float d = __fsub_rn(x, m);
+    s += __fmul_rn(d, d);
+  }
+  __device__ void operator()(float4 x, int) {
+    (*this)(x.x, 0); (*this)(x.y, 0); (*this)(x.z, 0); (*this)(x.w, 0);
+  }
+};
+
+// win (B, T, Cc, X*Y) -> mean, std (B, Cc); grid B*Cc clusters of STATS_CLUSTER.
+__global__ void __cluster_dims__(STATS_CLUSTER, 1, 1) __launch_bounds__(STATS_NT)
+stats_kernel(const float* __restrict__ win, float* __restrict__ mean,
+             float* __restrict__ stdv, int T, int Cc, int XY, int keep) {
+  extern __shared__ __align__(16) float share[];  // the block's share, when kept
+  __shared__ double red[STATS_NT / 32];
+  __shared__ double part[2];  // this block's sum, then its squared deviations
+  __shared__ float mean_s;
+  namespace cgrp = cooperative_groups;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int pair = blockIdx.x / STATS_CLUSTER;  // b * Cc + cc
+  const int b = pair / Cc, cc = pair - b * Cc;
   const float* base = win + ((size_t)b * T * Cc + cc) * XY;
-  const int n = T * XY;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int t = i / XY, p = i - t * XY;
-    s += base[(size_t)t * Cc * XY + p];
-  }
-  const float m = block_sum(s, red) / (float)n;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int t = i / XY, p = i - t * XY;
-    const float d = base[(size_t)t * Cc * XY + p] - m;
-    ss += d * d;
-  }
-  const float var = block_sum(ss, red) / (float)(n - 1);
+  const size_t run_stride = (size_t)Cc * XY;
+  const long long n = (long long)T * XY;
+  const long long lo = n * rank / STATS_CLUSTER, hi = n * (rank + 1) / STATS_CLUSTER;
+
+  SumKeep f1{0.0, keep ? share : nullptr};
+  walk_share(base, lo, hi, XY, run_stride, f1);
+  const double s = block_sum(f1.s, red);
+  if (threadIdx.x == 0) part[0] = s;
+  cluster.sync();
   if (threadIdx.x == 0) {
-    mean[blockIdx.x] = m;
-    stdv[blockIdx.x] = sqrtf(var) + 1e-7f;
+    double tot = 0.0;
+    for (int r = 0; r < STATS_CLUSTER; ++r) tot += *cluster.map_shared_rank(&part[0], r);
+    mean_s = (float)(tot / (double)n);
   }
+  __syncthreads();
+  SqDev f2{0.0, mean_s};
+  if (keep) {
+    for (int i = threadIdx.x; i < (int)(hi - lo); i += STATS_NT) f2(share[i], i);
+  } else {
+    walk_share(base, lo, hi, XY, run_stride, f2);
+  }
+  const double ss = block_sum(f2.s, red);
+  if (threadIdx.x == 0) part[1] = ss;
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    double v = 0.0;
+    for (int r = 0; r < STATS_CLUSTER; ++r) v += *cluster.map_shared_rank(&part[1], r);
+    mean[pair] = mean_s;
+    stdv[pair] = __fadd_rn(sqrtf((float)(v / (double)(n - 1))), 1e-7f);
+  }
+  cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
 FNO_EXPORT int fno_stats(const float* win, float* mean, float* stdv, int B, int T,
                          int Cc, int XY, void* stream) {
-  stats_kernel<<<B * Cc, 256, 0, (cudaStream_t)stream>>>(win, mean, stdv, T, Cc, XY);
+  const long long n = (long long)T * XY;
+  const size_t share = (size_t)((n + STATS_CLUSTER - 1) / STATS_CLUSTER) * sizeof(float);
+  const int keep = share <= STATS_KEEP_MAX;
+  const size_t smem = keep ? share : 0;
+  const cudaError_t e = fno_set_smem(stats_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  stats_kernel<<<B * Cc * STATS_CLUSTER, STATS_NT, smem, (cudaStream_t)stream>>>(
+      win, mean, stdv, T, Cc, XY, keep);
   return (int)cudaGetLastError();
 }
 

@@ -49,7 +49,8 @@ def main(argv=None):
     from sciml_pde_torch.train.fno_train import run_training
 
     cfg, keys = _parse(argv)
-    res = _call_with_supported(run_training, cfg, keys)
+    # `train` is the baseline whatever the config says, as in the JAX CLI
+    res = _call_with_supported(run_training, {**cfg, "if_aux": False}, keys)
     print(f"best_val={res.best_val:.6g}", flush=True)
     return res
 

@@ -110,10 +110,14 @@ def nrmse_loss_cf(pred, tar):
 
 
 def fast_gather(data, idx, initial_step: int):
-    """data (N, T, X, Y, C), idx (B, 2) -> win (B, T0, C, X, Y), y (B, C, X, Y)."""
+    """data (N, T, X, Y, C), idx (B, 2) -> win (B, T0, C, X, Y), y (B, C, X, Y).
+
+    Frame indices past the end of a trajectory are clamped to its last
+    frame, as the JAX gather clamps them (and as ``gather_windows`` does)."""
     span = initial_step + 1
     offs = torch.arange(span, device=idx.device, dtype=idx.dtype)
-    win5 = data[idx[:, 0, None], idx[:, 1, None] + offs[None, :]].float()
+    frames = torch.clamp(idx[:, 1, None] + offs[None, :], 0, data.shape[1] - 1)
+    win5 = data[idx[:, 0, None], frames].float()
     x = win5[:, :initial_step].permute(0, 1, 4, 2, 3).contiguous()
     y = win5[:, initial_step].permute(0, 3, 1, 2).contiguous()
     return x, y

@@ -24,7 +24,10 @@ at ``train_baseline`` with a ``DRBaselineDataset``.  Per epoch: shuffled
 window batches (one copy to the device) -> a step each -> validation loss
 -> best-validation checkpoint (the flax-layout parameter tree plus the
 step's optimizer state), written at most once a minute and flushed at the
-end.  Not ported yet, each raising ``NotImplementedError``: the evaluation
+end.  ``utils/logging.py::MetricLogger`` writes
+``{run_dir}/{model_name}.jsonl`` (and echoes it): the training scalars when
+``log_every`` crosses, the validation loss on every validated epoch.  Not
+ported yet, each raising ``NotImplementedError``: the evaluation
 path (``if_training=False``), aux, NS / 3D, ``lie_augment``, ``fno_remat``,
 ``shard_store``, ``host_stream``, ``resident_rotate``,
 ``extra_train_files``, ``dr_leaky_clip``.  The production step carries
@@ -54,6 +57,7 @@ from sciml_pde_torch.ops.fno_fused_step import fno2d_fused_apply
 from sciml_pde_torch.train import fast_step as fs
 from sciml_pde_torch.train.optim import make_optimizer
 from sciml_pde_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from sciml_pde_torch.utils.logging import MetricLogger
 from sciml_pde_torch.utils.weights import flax_to_state_dict, state_dict_to_flax, tree_map
 
 _CKPT_MIN_INTERVAL_S = 60.0
@@ -268,6 +272,7 @@ def train_baseline(
     so a run can start from the same weights as a JAX run.  Batches come
     from ``numpy.random.default_rng(seed)``, as in the JAX trainer."""
     dev = resolve_device(device)
+    logger = MetricLogger(run_dir, name=model_name, echo_every=1)
     train_w, test_w = dataset.train, dataset.test
     use_fast = select_fast_step(fast_step, training_type=training_type,
                                 rollout_test=train_w.rollout, scheduler=scheduler)
@@ -317,8 +322,7 @@ def train_baseline(
             nb += 1
         gstep += nb
         if log_every and (gstep // log_every) != ((gstep - nb) // log_every):
-            print(f"step={gstep} epoch={ep} train_loss={float(loss):.6g} "
-                  f"grad_norm={float(g_norm):.6g}", flush=True)
+            logger.log(gstep, train_loss=float(loss), grad_norm=float(g_norm), epoch=ep)
         train_loss = float(loss_acc) / max(nb, 1)
         if ep % model_update == 0:
             val_sum, vb = 0.0, 0
@@ -330,8 +334,7 @@ def train_baseline(
             history.append({"epoch": ep, "train_loss": train_loss, "val_loss": val,
                             "first_step_loss": float(first_loss),
                             "last_step_loss": float(loss)})
-            if log_every:
-                print(f"step={gstep} epoch={ep} val_loss={val:.6g}", flush=True)
+            logger.log(gstep, epoch=ep, val_loss=val)
             if val < best_val:
                 best_val, best_state = val, (run.snapshot(), ep)
                 if time.time() - last_ckpt_t > _CKPT_MIN_INTERVAL_S:

@@ -14,6 +14,9 @@ accumulation, global-norm clip, L2 + Adam per parameter group, warmup and
 cosine or step schedule).  As in the JAX step, the model runs without
 ``deterministic=False``, so drop-path never fires in training.  Per epoch:
 validation loss and a best-validation checkpoint of the flax-layout tree.
+``utils/logging.py::MetricLogger`` writes ``{run_dir}/{model_name}.jsonl``
+(and echoes it): the training scalars when ``log_every`` crosses, the
+validation loss on every validated epoch.
 
 Not ported yet, and raising: ``if_aux``, ``host_stream``,
 ``resident_rotate``, ``early_window_boost``, ``swa_frac`` and
@@ -41,6 +44,7 @@ from sciml_pde_torch.train.optim import (
     with_warmup,
 )
 from sciml_pde_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from sciml_pde_torch.utils.logging import MetricLogger
 from sciml_pde_torch.utils.weights import (
     transformer_flax_to_state_dict,
     transformer_state_dict_to_flax,
@@ -224,6 +228,7 @@ def train_transformer_baseline(
     so a run can start from the same weights as a JAX run.  Batches come
     from ``numpy.random.default_rng(seed)``, as in the JAX trainer."""
     dev = resolve_device(device)
+    logger = MetricLogger(run_dir, name=model_name, echo_every=1)
     rng = np.random.default_rng(seed)
     train_w, test_w = dataset.train, dataset.test
     train_idx, test_idx = train_w.window_index(), test_w.window_index()
@@ -281,8 +286,7 @@ def train_transformer_baseline(
             nb += 1
         gstep += nb
         if log_every and (gstep // log_every) != ((gstep - nb) // log_every):
-            print(f"step={gstep} epoch={ep} train_loss={float(loss):.6g} "
-                  f"grad_norm={float(g_norm):.6g}", flush=True)
+            logger.log(gstep, train_loss=float(loss), grad_norm=float(g_norm), epoch=ep)
         train_loss = float(loss_acc) / max(nb, 1)
         if ep % model_update == 0:
             val_sum, vb = 0.0, 0
@@ -293,8 +297,7 @@ def train_transformer_baseline(
             val_loss = val_sum / max(vb, 1)
             history.append({"epoch": ep, "train_loss": train_loss, "val_loss": val_loss,
                             "first_step_loss": float(first_loss), "last_step_loss": float(loss)})
-            if log_every:
-                print(f"step={gstep} epoch={ep} val_loss={val_loss:.6g}", flush=True)
+            logger.log(gstep, epoch=ep, val_loss=val_loss)
             if val_loss < best_val:
                 best_val, best_state = val_loss, (snapshot(), ep)
                 if time.time() - last_ckpt_t > _CKPT_MIN_INTERVAL_S:

@@ -119,3 +119,49 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
     assert all(c == 0 for c in ta.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA device or on the CPU"):
         ta.attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"), 0.25)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [96, 24])
+def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
+    """Head dims that are multiples of 8 but not powers of two take the fused
+    path in both packages (the kernels pad them to 96 and 32 in shared
+    memory): values and q/k/v gradients against JAX in interpret mode."""
+    jdt, tdt, tol = DTYPES[dtype]
+    n = 64
+    rng = np.random.default_rng(d)
+    q, k, v, g = (rng.normal(size=(1, 2, n, d)).astype(np.float32) for _ in range(4))
+    scale = d**-0.5
+
+    def jloss(q, k, v):
+        o = ja.flash_attention(q, k, v, scale)
+        return jnp.sum(o.astype(jnp.float32) * g), o
+
+    (_, o_want), grads_want = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    tq, tk, tv = (torch.tensor(a).to(tdt).requires_grad_(True) for a in (q, k, v))
+    fused = []
+    real = ta._FlashCore.apply
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ta._FlashCore, "apply", lambda *a: fused.append(1) or real(*a))
+        o = ta.flash_attention(tq, tk, tv, scale)
+    assert fused and o.dtype == tdt
+    (o.float() * torch.tensor(g)).sum().backward()
+    _close(o, o_want, tol, "o")
+    for name, t, w in zip("qkv", (tq, tk, tv), grads_want):
+        _close(t.grad, w, tol, f"d{name}")
+
+
+def test_kernel_check_takes_any_head_dim_to_128_and_any_batch_heads():
+    """The wrappers' shape check takes every head dim d % 8 == 0 up to 128 and
+    a batch*heads count above 65535; it raises above 128."""
+    meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
+    for d in (8, 24, 40, 96, 120, 128):
+        assert ta._check(meta(3, 64, d), (meta(3, 64, d),)) == (3, 64, d, True)
+    q = meta(70_000, 16, 16)
+    rows = (meta(70_000, 16, 1, dt=torch.float32),) * 2
+    assert ta._check(q, (q, q, q), rows) == (70_000, 16, 16, True)
+    with pytest.raises(ValueError, match="head dim"):
+        ta._check(meta(2, 64, 136))
+    with pytest.raises(ValueError, match="head dim"):
+        ta._check(meta(2, 64, 20))

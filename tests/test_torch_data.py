@@ -76,3 +76,37 @@ def test_gather_past_the_end_matches_jax_clamp(initial_step, rollout):
 def test_too_few_trajectories_raises(folder):
     with pytest.raises(ValueError, match="train trajectories"):
         load_dr_baseline(folder, train_subsample=50, initial_step=3, device="cpu")
+
+
+
+@pytest.fixture(scope="module")
+def small_folder(tmp_path_factory):
+    """5 seeds: a 4-key train split and a 1-key test split."""
+    d = tmp_path_factory.mktemp("dr_small")
+    rng = np.random.default_rng(2)
+    for s in range(5):
+        write_seed_group(d / "2D_diff-react_test_all.h5", s,
+                         rng.normal(size=(NT, Y, X, C)).astype(np.float32),
+                         np.linspace(-1, 1, X, dtype=np.float32),
+                         np.linspace(-1, 1, Y, dtype=np.float32),
+                         np.linspace(0, 1, NT, dtype=np.float32))
+    return str(d) + "/"
+
+
+@pytest.mark.parametrize("subsample", [2.0, 4.0])
+def test_float_count_subsample_matches_jax(small_folder, subsample):
+    """A float train_subsample >= 1 is a count in both packages: it takes
+    JAX's first keys of the train split."""
+    want = jax_load(small_folder, train_subsample=subsample, initial_step=3, rollout_test=1)
+    got = load_dr_baseline(small_folder, train_subsample=subsample, initial_step=3,
+                           rollout_test=1, device="cpu")
+    assert got.train.num_trajectories == int(subsample)
+    np.testing.assert_array_equal(got.train.data.numpy(), np.asarray(want.train.data))
+
+
+def test_float_count_beyond_the_split_raises_like_jax(small_folder):
+    """8.0 train trajectories from a 4-key train split raise in both packages."""
+    with pytest.raises(ValueError, match="train trajectories"):
+        jax_load(small_folder, train_subsample=8.0, initial_step=3)
+    with pytest.raises(ValueError, match="train trajectories"):
+        load_dr_baseline(small_folder, train_subsample=8.0, initial_step=3, device="cpu")

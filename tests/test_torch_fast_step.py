@@ -124,3 +124,30 @@ def test_flatten_unflatten_roundtrip(setup):
     assert theta.numel() == spec.total
     back = tfs.flatten_params(tfs.unflatten_params(theta, spec))
     assert torch.equal(back, theta)
+
+
+def test_gather_and_step_clamp_past_the_end_like_jax(setup):
+    """12 frames, t0 = 10, initial_step 3: the JAX gather clamps frames past
+    the end, so x takes frames [10, 11, 11] and y frame 11.  The port's
+    fast_gather gives the same values, and one fused step on such rows the
+    three-step test's loss and grad norm."""
+    _, grid2, _, params = setup
+    data = np.random.default_rng(4).normal(size=(2, 12, X, Y, C)).astype(np.float32)
+    idx = np.array([[0, 10], [1, 11]], np.int32)
+    x, y = tfs.fast_gather(torch.from_numpy(data), torch.from_numpy(idx).long(), T0)
+    xj, yj = jfs.fast_gather(jnp.asarray(data), jnp.asarray(idx), T0)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(yj))
+    np.testing.assert_array_equal(x.numpy()[0], np.moveaxis(data[0, [10, 11, 11]], -1, 1))
+    np.testing.assert_array_equal(y.numpy()[0], np.moveaxis(data[0, 11], -1, 0))
+    with precision("highest"):
+        theta_j, spec_j = jfs.fast_state_from_tree(params, MODES)
+        jstep, _ = jfs.build_fast_baseline_step(MODES, T0, spec_j, LR, TOTAL)
+        _, _, loss_j, gn_j = jstep(theta_j, jfs.init_opt(theta_j), jnp.asarray(data),
+                                   jnp.asarray(grid2), jnp.asarray(idx))
+        theta_t, spec_t = tfs.fast_state_from_tree(params, MODES, "cpu")
+        tstep, _ = tfs.build_fast_baseline_step(MODES, T0, spec_t, LR, TOTAL)
+        _, _, loss_t, gn_t = tstep(theta_t, tfs.init_opt(theta_t), torch.from_numpy(data),
+                                   torch.from_numpy(grid2), torch.from_numpy(idx).long())
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-4)
+    np.testing.assert_allclose(float(gn_t), float(gn_j), rtol=1e-3)

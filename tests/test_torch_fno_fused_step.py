@@ -127,3 +127,34 @@ def test_cpu_fused_apply_is_the_kernels_plain_composition(setup):
     k.reset_launch_counts()
     _port_apply(params, win, grid2, cot)
     assert sum(k.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 2, 16, 16), (3, 1, 3, 17, 13)])
+def test_stats_plain_matches_jax_stats_cols_with_offset(shape):
+    """``fno_stats``'s plain version against JAX's ``_stats_cols`` per element
+    on data offset by 1e3 (unit spread): two-pass numerics give the mean
+    and the unbiased std + 1e-7 within rtol 1e-5.  A one-pass
+    E[x^2] - E[x]^2 loses about 1e6 * 2^-24 of the variance to cancellation
+    here, a std off by a few percent."""
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    win = (np.random.default_rng(9).normal(size=shape) + 1e3).astype(np.float32)
+    mean, std = fk.stats_plain(torch.from_numpy(win))
+    for b in range(shape[0]):
+        mc, sc = jf._stats_cols(jnp.asarray(win[b]))
+        np.testing.assert_allclose(mean[b].numpy(), np.asarray(mc)[:, 0], rtol=1e-5)
+        np.testing.assert_allclose(std[b].numpy(), np.asarray(sc)[:, 0], rtol=1e-5)
+
+
+def test_stats_plain_matches_f64_two_pass():
+    """``stats_plain`` against a two-pass f64 numpy reference on shifted,
+    scaled data: the mean and the unbiased std + 1e-7 within rtol 1e-6."""
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    win = (np.random.default_rng(11).normal(size=(2, 4, 3, 16, 12)) * 3 + 7).astype(np.float32)
+    mean, std = fk.stats_plain(torch.from_numpy(win))
+    x = np.moveaxis(win, 2, 1).reshape(2, 3, -1).astype(np.float64)
+    want_mean = x.mean(-1)
+    want_std = np.sqrt(((x - want_mean[..., None]) ** 2).sum(-1) / (x.shape[-1] - 1)) + 1e-7
+    np.testing.assert_allclose(mean.numpy(), want_mean, rtol=1e-6)
+    np.testing.assert_allclose(std.numpy(), want_std, rtol=1e-6)

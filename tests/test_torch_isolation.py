@@ -17,7 +17,7 @@ MODULES = [
     "sciml_pde_torch.ops.fno_fused_step", "sciml_pde_torch.models",
     "sciml_pde_torch.models.common", "sciml_pde_torch.models.fno",
     "sciml_pde_torch.utils.weights", "sciml_pde_torch.utils.checkpoint",
-    "sciml_pde_torch.utils.config", "sciml_pde_torch.metrics",
+    "sciml_pde_torch.utils.config", "sciml_pde_torch.utils.logging", "sciml_pde_torch.metrics",
     "sciml_pde_torch.train.fast_step", "sciml_pde_torch.train.fno_train",
     "sciml_pde_torch.train.cli", "sciml_pde_torch.io.h5",
     "sciml_pde_torch.data.windows", "sciml_pde_torch.data.dr",

@@ -169,3 +169,66 @@ def test_resume_needs_the_same_step(folder, tmp_path):
 def test_out_of_scope_options_raise(tmp_path, option):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         run_training(base_path=str(tmp_path), device="cpu", **option)
+
+
+def _capture_run_training(monkeypatch, module):
+    """Replace ``module.run_training`` with a stand-in of the same signature
+    that records its keyword arguments."""
+    import functools
+    import types
+
+    seen = {}
+    real = module.run_training
+
+    @functools.wraps(real)
+    def fake(**kw):
+        seen.update(kw)
+        return types.SimpleNamespace(best_val=0.0, history=[])
+
+    monkeypatch.setattr(module, "run_training", fake)
+    return seen
+
+
+def test_cli_train_forces_the_baseline_like_jax(monkeypatch, tmp_path):
+    """``train if_aux=True`` reaches run_training with if_aux=False in both
+    CLIs: the subcommand is the baseline whatever the config says."""
+    from sciml_pde_tpu.train import cli as jax_cli
+    from sciml_pde_tpu.train import fno_train as jax_fno_train
+    from sciml_pde_torch.train import cli, fno_train
+
+    want = _capture_run_training(monkeypatch, jax_fno_train)
+    got = _capture_run_training(monkeypatch, fno_train)
+    args = ["--config", "config_dr", "--dataset", "basic_ds4", f"base_path={tmp_path}",
+            "if_aux=True"]
+    jax_cli.main(args)
+    cli.main(args + ["device=cpu"])
+    assert want["if_aux"] is False and got["if_aux"] is False
+
+
+def test_metric_log_matches_jax(folder, tmp_path):
+    """Two epochs of the production step write ``{run_dir}/{model_name}.jsonl``
+    in both packages: the same records (keys and steps) in the same order,
+    the training scalars when log_every crosses and val_loss on every epoch;
+    losses within the histories' rtol 1e-4, grad norms within 1e-3."""
+    import json
+
+    kw = dict(COMMON, epochs=2, learning_rate=1e-3, log_every=5)
+    with precision("highest"):
+        jax_run_training(base_path=folder, fast_step=False, run_dir=str(tmp_path / "j"),
+                         model_name="m", **kw)
+        kw.pop("if_aux")
+        run_training(base_path=folder, run_dir=str(tmp_path / "t"), model_name="m",
+                     init_params=_jax_init(), device="cpu", **kw)
+
+    def records(d):
+        return [json.loads(line) for line in (tmp_path / d / "m.jsonl").read_text().splitlines()]
+
+    got, want = records("t"), records("j")
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    assert [r["step"] for r in got] == [r["step"] for r in want] == [7, 7, 14, 14]
+    assert sum("val_loss" in r for r in got) == 2
+    for g, w in zip(got, want):
+        assert g["epoch"] == w["epoch"]
+        for key, rtol in (("train_loss", 1e-4), ("val_loss", 1e-4), ("grad_norm", 1e-3)):
+            if key in w:
+                np.testing.assert_allclose(g[key], w[key], rtol=rtol, err_msg=key)

@@ -196,3 +196,36 @@ def test_unported_options_raise(tmp_path, bad):
     kw = {"if_aux": False, **bad}
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ttt.run_transformer_training(base_path=str(tmp_path), device="cpu", **kw)
+
+
+def test_metric_log_matches_jax(ns_folder, tmp_path):
+    """One tiny NS epoch with log_every=1 writes ``{run_dir}/{model_name}.jsonl``
+    in both packages: the same records (keys and steps), the training
+    scalars and val_loss; losses within rtol 1e-4, grad norms within 1e-3."""
+    import json
+
+    common = dict(dataset_family="ns", if_aux=False, train_subsample=(1, 1, 1),
+                  test_range=(250, 251), grad_accum=2, warmup_steps=1,
+                  **dict(TINY, log_every=1))
+    model = FlaxVideoMAE(img_size=X, patch_size=8, tubelet_size=2, in_chans=3,
+                         num_frames=4, encoder_dim=32, encoder_depth=2, encoder_heads=2,
+                         decoder_dim=16, decoder_depth=1, decoder_heads=1)
+    x0 = jax_load_ns_baseline(ns_folder, train_subsample=1, initial_step=4,
+                              test_range=(250, 251)).train.data[:1, :4]
+    init = to_numpy_tree(jax.jit(model.init)(jax.random.PRNGKey(TINY["seed"]), x0)["params"])
+    jtt.run_transformer_training(base_path=ns_folder, run_dir=str(tmp_path / "j"),
+                                 model_name="m", **common)
+    ttt.run_transformer_training(base_path=ns_folder, run_dir=str(tmp_path / "t"),
+                                 model_name="m", init_params=init, device="cpu", **common)
+
+    def records(d):
+        return [json.loads(line) for line in (tmp_path / d / "m.jsonl").read_text().splitlines()]
+
+    got, want = records("t"), records("j")
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    assert [r["step"] for r in got] == [r["step"] for r in want] == [4, 4]
+    assert "train_loss" in got[0] and "val_loss" in got[1]
+    for g, w in zip(got, want):
+        for key, rtol in (("train_loss", 1e-4), ("val_loss", 1e-4), ("grad_norm", 1e-3)):
+            if key in w:
+                np.testing.assert_allclose(g[key], w[key], rtol=rtol, err_msg=key)
