@@ -19,7 +19,9 @@ FNO steps and the five split kernels):
   0. probe    build the probe kernel alone and launch it through the
               experiment's probe_native: native, and exactly 2 * x
   1. card     name and power limit (nvidia-smi), torch and CUDA versions
-  2. build    nvcc for sm_90a, all sources in parallel
+  2. build    nvcc for sm_90a, all sources in parallel; registers and
+              spills of every attention kernel (ptxas -v), none spilling
+              at head dim 64 on the tensor cores
   3. check    the fused forward and all ten gradients from the kernels
               against the plain PyTorch versions on the card, under
               `highest` (f32) and `default` (bf16 dot inputs); then every
@@ -33,10 +35,12 @@ FNO steps and the five split kernels):
   5. timing   fused step steps/s and per-launch kernel times (CUDA events;
               fno_stats also in profiler device time)
   6. attention the three flash-attention kernels against their plain
-              versions at the encoder (24, 1280, 64) and decoder
-              (16, 1280, 64) shapes and at head dims 96 and 24, in f32 and
-              bf16, and at batch*heads 70000 (70000, 16, 16) in bf16, with
-              a control against a kernel that rounds p and ds to bf16
+              versions (and the same bits from a second launch) at the
+              encoder (24, 1280, 64) and decoder
+              (16, 1280, 64) shapes and at head dims 96, 24, 160, 192 and
+              256, in f32 and bf16, and at batch*heads 70000 (70000, 16,
+              16) in bf16, with a control against a kernel that rounds p
+              and ds to bf16
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
               every gradient) through the kernels against the same model
               through the plain versions, with the bf16-vs-f32 gap as a
@@ -49,7 +53,8 @@ FNO steps and the five split kernels):
   9. timing   ms per micro-step and per optimizer step (CUDA events), the
               device-busy share and top device ops (torch.profiler), and
               per-launch attention kernel times (CUDA events and profiler
-              device time) beside their bounds
+              device time) beside their bounds and the SDPA forward and
+              backward, in bf16 and (the CUDA-core bodies) in f32
  10. layer    the fused dft2 layer (kernel) at (4, 130, 130, 20), modes 12,
               through its autograd op: against its plain f32 version within
               1e-5 of the largest magnitude, with the plain version on
@@ -131,10 +136,21 @@ NS_LAYERS = NS_MODEL["encoder_depth"] + NS_MODEL["decoder_depth"]
 ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 1280, 64)}
 # shapes the JAX package's kernels take beyond the NS recipe: head dims
 # padded in shared memory (96 is plume-3D's decoder, 768 / 8 heads; 24 pads
-# to 32) in both dtypes, and batch*heads above the 65535 of a grid's y axis
+# to 32), head dims above 128 (32-row f32 dQ and dK/dV tiles; two bf16
+# blocks per row tile, each for half of the output columns), in both dtypes,
+# and batch*heads above the 65535 of a grid's y axis
 ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "head dim 24": ((16, 1280, 24), ("float32", "bfloat16")),
+             "head dim 160": ((8, 1280, 160), ("float32", "bfloat16")),
+             "head dim 192": ((8, 1280, 192), ("float32", "bfloat16")),
+             "head dim 256": ((8, 1280, 256), ("float32", "bfloat16")),
              "batch*heads 70000": ((70_000, 16, 16), ("bfloat16",))}
+# profiler keys of the attention kernels (their demangled names): the bf16
+# tensor-core bodies and the f32 CUDA-core bodies
+ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "dq_tc_kernel<",
+                            "attention_dkv": "dkv_tc_kernel<"},
+                   "f32": {"attention_fwd": "fwd_kernel<", "attention_dq": "dq_kernel<",
+                           "attention_dkv": "dkv_kernel<"}}
 # attention kernels vs plain versions: f32 outputs within 1e-5 of the
 # largest magnitude (f32 sums in another order); bf16 outputs within one
 # bf16 rounding step of the value (2^-7 of its magnitude: the two round
@@ -234,20 +250,28 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def profiler_ms(fn, kernel_key: str = "", reps: int = 20):
     """Device time per call of ``fn`` in kernels whose name holds
     ``kernel_key`` (all of its device time by default), from torch.profiler
-    over ``reps`` back-to-back calls (no host issue gaps); None when the
-    profiler recorded no device time."""
+    over ``reps`` back-to-back calls (no host issue gaps); None when two
+    profiler sessions in a row recorded no device time (the first session
+    after another one has come back empty on the card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type.name == "CUDA" and kernel_key in ev.key)
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type.name == "CUDA" and kernel_key in ev.key)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def device_profile(card: str, run, n: int, unit: str, unprofiled_ms: float, ours) -> None:
@@ -359,25 +383,26 @@ def make_ns_store(n_traj: int, n_t: int, seed: int, dev):
 
 def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     """(bytes each input read and each output written once, seconds of the
-    products at the card's peak for their input type).  The bf16 forward
-    counts the products its design needs to be exact to its bound, all at
-    the bf16 tensor-core rate: q.k^T, and p.v as two bf16 terms of the f32
-    p (three products).  Elsewhere q.k^T and do.v^T take the input type
-    and p.v, ds.k, ds^T.q and p^T.do take f32 p and ds (the CUDA cores' 67
-    TFLOP/s), as the bf16 forward's bound counted them before its
-    tensor-core design (0.080 ms at the encoder shape)."""
+    products at the card's peak for their input type).  The bf16 kernels
+    count the products their designs need to be exact to their bounds, all
+    at the bf16 tensor-core rate (989 TFLOP/s), each f32 operand (p, ds) as
+    two bf16 terms: the forward q.k^T and p.v (three products), dQ q.k^T,
+    do.v^T and ds.k (four), dK/dV k.q^T, v.do^T, ds^T.q and p^T.do (six);
+    at the encoder shape (24, 1280, 64) 0.01527, 0.02036 and 0.03054 ms.
+    The f32 kernels take every product at the CUDA cores' 67 TFLOP/s: two,
+    three and four products.  Before their tensor-core designs the bf16
+    kernels' bounds counted the products that take p or ds at the f32 rate:
+    0.08021 (forward), 0.08530 (dQ) and 0.16042 ms (dK/dV) at the encoder
+    shape."""
     es = 2 if bf else 4
     panel, row = bh * n * d * es, bh * n * 4
     prod = 2 * bh * n * n * d
-    rate_in = PEAK_FLOPS["default" if bf else "highest"]
-    rate_f32 = PEAK_FLOPS["highest"]
-    if name == "attention_fwd":
-        if bf:
-            return 3 * panel + panel + row, 3 * prod / rate_in
-        return 3 * panel + panel + row, prod / rate_in + prod / rate_f32
-    if name == "attention_dq":
-        return 4 * panel + 2 * row + panel, 2 * prod / rate_in + prod / rate_f32
-    return 4 * panel + 2 * row + 2 * panel, 2 * prod / rate_in + 2 * prod / rate_f32
+    rate = PEAK_FLOPS["default" if bf else "highest"]
+    nbytes = {"attention_fwd": 3 * panel + panel + row,
+              "attention_dq": 4 * panel + 2 * row + panel,
+              "attention_dkv": 4 * panel + 2 * row + 2 * panel}[name]
+    products = {"attention_fwd": (3, 2), "attention_dq": (4, 3), "attention_dkv": (6, 4)}[name]
+    return nbytes, products[0 if bf else 1] * prod / rate
 
 
 def att_bf16p(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.0):
@@ -400,8 +425,9 @@ def att_bf16p(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.
 
 
 def check_attention(ta, dev) -> dict:
-    """Phase 6: each kernel against its plain version at the encoder and
-    decoder shapes and at head dims 96 and 24 in f32 and bf16, and at
+    """Phase 6: each kernel against its plain version (and a second launch
+    of itself, which must give the same bits) at the encoder and decoder
+    shapes and at the head dims of ATT_EXTRA in f32 and bf16, and at
     batch*heads 70000 in bf16.  Returns the bf16 encoder-shape inputs of
     each kernel (the main path's most frequent launch) for timing."""
     import torch
@@ -422,9 +448,11 @@ def check_attention(ta, dev) -> dict:
                     "attention_dkv": (q, k, v, do, l_p, delta)}
             for name in ta.KERNEL_NAMES:
                 got = as_tuple(getattr(ta, name)(*args[name], scale))
+                again = as_tuple(getattr(ta, name)(*args[name], scale))
                 want = as_tuple(getattr(ta, f"{name}_plain")(*args[name], scale))
                 torch.cuda.synchronize()
-                msgs, ok = [], True
+                ok = all(torch.equal(a, b) for a, b in zip(got, again))
+                msgs = [f"same bits twice {ok}"]
                 for i, (a, b) in enumerate(zip(got, want)):
                     err, rel = rel_err(a, b)
                     ok &= bool(torch.isfinite(a).all()) and a.dtype == b.dtype
@@ -610,7 +638,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
         for b in batches[:NS_ACCUM]:
             step(ns_ds.train.data, b)
     device_profile(card, one_optimizer_step, NS_ACCUM, "micro-step", micro_ms,
-                   ("fwd_kernel<", "fwd_tc_kernel<", "dq_kernel<", "dkv_kernel<"))
+                   tuple(key for keys in ATT_KERNEL_KEYS.values() for key in keys.values()))
     del model, opt, step, params
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -620,9 +648,11 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     as4 = lambda t: t.view(NS_BATCH, bh // NS_BATCH, n, d)  # noqa: E731
     q4, k4, v4 = (as4(t).detach().requires_grad_(True) for t in (q, k, v))
     o4 = sdpa(q4, k4, v4, scale=scale)
+    sdpa_bwd = lambda: torch.autograd.grad(o4, (q4, k4, v4), as4(do), retain_graph=True)  # noqa: E731
     lib = {"attention_fwd": cuda_ms(lambda: sdpa(as4(q), as4(k), as4(v), scale=scale))}
-    lib["attention_dq"] = lib["attention_dkv"] = cuda_ms(
-        lambda: torch.autograd.grad(o4, (q4, k4, v4), as4(do), retain_graph=True))
+    lib["attention_dq"] = lib["attention_dkv"] = cuda_ms(sdpa_bwd)
+    lib_dev = {"attention_fwd": profiler_ms(lambda: sdpa(as4(q), as4(k), as4(v), scale=scale))}
+    lib_dev["attention_dq"] = lib_dev["attention_dkv"] = profiler_ms(sdpa_bwd)
     for name in ta.KERNEL_NAMES:
         args, scale = att_inputs[name]
         nbytes, ops_s = att_work(name, bh, n, d, bf=True)
@@ -638,22 +668,17 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
             "bound_by": "bytes" if nbytes / HBM_BPS >= ops_s else "operations",
             "library_ms": lib[name],
             "device_ms": profiler_ms(lambda: getattr(ta, name)(*args, scale),
-                                     {"attention_fwd": "fwd_tc_kernel<"}.get(name,
-                                                                            name[10:] + "_kernel<")),
+                                     ATT_KERNEL_KEYS["bf16"][name]),
+            "library_device_ms": lib_dev[name],
         }
         r = rows[name]
-        if name == "attention_fwd":
-            r["library_device_ms"] = profiler_ms(lambda: sdpa(as4(q), as4(k), as4(v),
-                                                              scale=scale))
-        dev_ms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
         print(f"[timing] {card}: {name} at {tuple(q.shape)} bf16: {r['ms']:.4f} ms/launch "
-              f"(profiler device time {dev_ms}), "
+              f"(profiler device time {fmt(r['device_ms'])}), "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
               f"library {r['library_ms']:.4f} ms (scaled_dot_product_attention "
               f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV together'}"
-              + (f"; profiler device time {r['library_device_ms']:.4f} ms"
-                 if r.get("library_device_ms") is not None else "")
-              + f"), {r['launches']} launches in the training run", flush=True)
+              f"; profiler device time {fmt(r['library_device_ms'])}), "
+              f"{r['launches']} launches in the training run", flush=True)
     for where, (bh_d, n_d, d_d) in ATT_SHAPES.items():
         if where == "encoder":
             continue
@@ -668,24 +693,36 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
               f"attention_dkv "
               f"{cuda_ms(lambda: ta.attention_dkv(qd, kd, vd, dod, ld, deltad, scale)):.4f} ms",
               flush=True)
-    # the f32 forward keeps the CUDA-core body: its time at the encoder shape
-    # beside its plain version and the f32 SDPA forward on the same inputs
-    qf, kf, vf = (t.float() for t in (q, k, v))
-    r = rows["attention_fwd"]
-    r["f32_ms"] = cuda_ms(lambda: ta.attention_fwd(qf, kf, vf, scale))
-    r["f32_device_ms"] = profiler_ms(lambda: ta.attention_fwd(qf, kf, vf, scale), "fwd_kernel<")
-    r["f32_plain_ms"] = cuda_ms(lambda: ta.attention_fwd_plain(qf, kf, vf, scale))
-    r["f32_library_ms"] = cuda_ms(lambda: sdpa(as4(qf), as4(kf), as4(vf), scale=scale))
-    r["f32_library_device_ms"] = profiler_ms(lambda: sdpa(as4(qf), as4(kf), as4(vf),
-                                                          scale=scale))
-    f32_bytes, f32_ops_s = att_work("attention_fwd", bh, n, d, bf=False)
-    r["f32_bound_ms"] = max(f32_bytes / HBM_BPS, f32_ops_s) * 1e3
-    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
-    print(f"[timing] {card}: attention_fwd at {tuple(q.shape)} f32 (CUDA-core body): "
-          f"{r['f32_ms']:.4f} ms/launch (profiler device time {fmt(r['f32_device_ms'])}), "
-          f"plain {r['f32_plain_ms']:.4f} ms, bound {r['f32_bound_ms']:.5f} ms (operations), "
-          f"library {r['f32_library_ms']:.4f} ms (scaled_dot_product_attention forward, f32; "
-          f"profiler device time {fmt(r['f32_library_device_ms'])})", flush=True)
+    # the f32 kernels keep the CUDA-core bodies: their times at the encoder
+    # shape beside their plain versions and the f32 SDPA forward and backward
+    # on the same inputs
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    q4f, k4f, v4f = (as4(t).detach().requires_grad_(True) for t in (qf, kf, vf))
+    o4f = sdpa(q4f, k4f, v4f, scale=scale)
+    of, lf = ta.attention_fwd(qf, kf, vf, scale)
+    deltaf = torch.sum(dof * of, dim=-1, keepdim=True)
+    f32_args = {"attention_fwd": (qf, kf, vf), "attention_dq": (qf, kf, vf, dof, lf, deltaf),
+                "attention_dkv": (qf, kf, vf, dof, lf, deltaf)}
+    sdpa_f32 = {"attention_fwd": lambda: sdpa(as4(qf), as4(kf), as4(vf), scale=scale)}
+    sdpa_f32["attention_dq"] = sdpa_f32["attention_dkv"] = lambda: torch.autograd.grad(
+        o4f, (q4f, k4f, v4f), as4(dof), retain_graph=True)
+    for name in ta.KERNEL_NAMES:
+        r, args = rows[name], f32_args[name]
+        r["f32_ms"] = cuda_ms(lambda: getattr(ta, name)(*args, scale))
+        r["f32_device_ms"] = profiler_ms(lambda: getattr(ta, name)(*args, scale),
+                                         ATT_KERNEL_KEYS["f32"][name])
+        r["f32_plain_ms"] = cuda_ms(lambda: getattr(ta, f"{name}_plain")(*args, scale))
+        r["f32_library_ms"] = cuda_ms(sdpa_f32[name])
+        r["f32_library_device_ms"] = profiler_ms(sdpa_f32[name])
+        f32_bytes, f32_ops_s = att_work(name, bh, n, d, bf=False)
+        r["f32_bound_ms"] = max(f32_bytes / HBM_BPS, f32_ops_s) * 1e3
+        print(f"[timing] {card}: {name} at {tuple(q.shape)} f32 (CUDA-core body): "
+              f"{r['f32_ms']:.4f} ms/launch (profiler device time {fmt(r['f32_device_ms'])}), "
+              f"plain {r['f32_plain_ms']:.4f} ms, bound {r['f32_bound_ms']:.5f} ms "
+              f"(operations), library {r['f32_library_ms']:.4f} ms "
+              f"(scaled_dot_product_attention "
+              f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV together'}"
+              f", f32; profiler device time {fmt(r['f32_library_device_ms'])})", flush=True)
 
     return rows
 
@@ -1147,6 +1184,13 @@ def main() -> int:
         _build.load(name)
     print(f"[build] nvcc sm_90a, the other {len(_build.SOURCES) - 1} sources in parallel: "
           f"{secs:.2f} s", flush=True)
+    usage = _build.ptxas_report("attention")
+    for kern, regs, st, ld in usage:
+        print(f"[build] attention.cu {kern}: {regs} registers, {st} bytes spill stores, "
+              f"{ld} bytes spill loads", flush=True)
+    main_tc = [u for u in usage if u[0].endswith("tc_kernel<64>")]
+    check(len(main_tc) == 3 and all(st == ld == 0 for _, _, st, ld in main_tc),
+          "[build] the NS path's tensor-core attention kernels (head dim 64) spill nothing")
 
     # ---- 3. kernels vs plain versions ----------------------------------------
     g = torch.Generator().manual_seed(1)

@@ -6,7 +6,9 @@ in ``.gitignore``) and bound with ``ctypes``.  ``build_all`` compiles every
 missing source in parallel, one ``nvcc`` process each; ``load`` builds only
 the library it is asked for.  A library's file name carries a
 hash of its sources and flags, so an edited source is rebuilt and a stale
-library is never loaded.  A failed build raises with the compiler's output.
+library is never loaded.  A failed build raises with the compiler's output;
+a good one keeps it beside the library (``ptxas -v``: registers and spills
+of each kernel, read by ``ptxas_report``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fno_fwd", "fno_bwd", "attention", "spectral_fused", "probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -71,6 +74,7 @@ def build_all(names=SOURCES) -> float:
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -85,3 +89,32 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a kernel template's mangled name (a length-prefixed
+    identifier ending in ``_kernel``, integer template arguments), else the
+    mangled name."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):  # the length may be any tail of the digits
+            start = m.end() + int(m.group()[i:])
+            ident = mangled[m.end():start]
+            args = re.match(r"I((?:Li\d+E)+)", mangled[start:])
+            if ident.endswith("_kernel") and args:
+                return f"{ident}<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+    return mangled
+
+
+def ptxas_report(name: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) of each kernel
+    of the built library ``name``, from the ``ptxas -v`` output of its build."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            fn, spill = _kernel_name(m.group(1)), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn is not None:
+            rows.append((fn, int(m.group(1)), *spill))
+            fn = None
+    return rows

@@ -10,10 +10,10 @@ a failed build or launch.  Every launch adds one to ``LAUNCHES[name]``.
   attention_dkv   (q, k, v, do, l, delta) -> dk, dv      B5 ``_dkv_kernel``
 
 on flat ``(BH, N, D)`` panels in f32 or bf16, any head dim ``D % 8 == 0`` up
-to 128 and any ``BH``; ``l`` (the row logsumexp) and ``delta = rowsum(do *
-o)`` are ``(BH, N, 1)`` f32.  The bf16 forward runs its products on the
-tensor cores (``p`` split into two bf16 terms), the others on the CUDA cores
-(see the source's note).  The plain versions
+to 256 and any ``BH``; ``l`` (the row logsumexp) and ``delta = rowsum(do *
+o)`` are ``(BH, N, 1)`` f32.  The bf16 kernels run their products on the
+tensor cores (``p`` and ``ds`` split into two bf16 terms each), the f32
+kernels on the CUDA cores (see the source's note).  The plain versions
 compute the Pallas bodies over whole rows: inputs widened to f32, ``q``
 scaled in f32, ``p`` and ``ds`` kept in f32, outputs rounded to the input
 type once.
@@ -36,10 +36,13 @@ from sciml_pde_torch.ops.fno_kernels import _on_cuda
 MAX_PALLAS_TOKENS = 2048
 BLOCK_Q = 256
 BLOCK_K = 256
-# csrc/attention.cu is built for the padded head dims 16, 32, 64, 96 and 128
-# and takes any head dim d % 8 == 0 up to MAX_HEAD_DIM
-MAX_HEAD_DIM = 128
-TILE = 64  # fewest rows per block; the blocks of all (bh, tile) pairs lie on grid.x
+# csrc/attention.cu is built for the padded head dims 16, 32, 64, 96, 128,
+# 160, 192 and 256 and takes any head dim d % 8 == 0 up to MAX_HEAD_DIM
+MAX_HEAD_DIM = 256
+# rows per block: 64, or 32 above head dim 128 (the f32 dQ and dK/dV tiles;
+# the bf16 kernels take two blocks per 64-row tile there); the blocks of all
+# (bh, tile) pairs lie on grid.x
+TILE = 64
 
 KERNEL_NAMES = ("attention_fwd", "attention_dq", "attention_dkv")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
@@ -65,7 +68,7 @@ _fns: dict[str, ctypes._CFuncPtr] = {}
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its data do not start on 16 bytes (the
-    bf16 forward copies 16-byte rows by cp.async)."""
+    bf16 kernels copy 16-byte rows by cp.async)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -84,21 +87,25 @@ def _launch(name: str, tensors, bh: int, n: int, d: int, bf: bool, scale: float)
 
 
 def _check(q, panels=(), rows=()):
-    """Validate the (BH, N, D) panels (q's dtype, f32 or bf16) and the f32
-    (BH, N, 1) rows for the kernels; returns (bh, n, d, bf16)."""
+    """Validate the contiguous (BH, N, D) panels (q's dtype, f32 or bf16) and
+    the contiguous f32 (BH, N, 1) rows for the kernels; returns (bh, n, d,
+    bf16)."""
     bh, n, d = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention kernels take f32 or bf16, got {q.dtype}")
     for ts, shape, dtype in ((panels, (bh, n, d), q.dtype), (rows, (bh, n, 1), torch.float32)):
         for t in ts:
-            if tuple(t.shape) != shape or t.dtype != dtype:
-                raise ValueError(f"attention kernels: expected {shape} {dtype}, got "
-                                 f"{tuple(t.shape)} {t.dtype}")
+            if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+                raise ValueError(f"attention kernels: expected contiguous {shape} {dtype}, "
+                                 f"got {tuple(t.shape)} {t.dtype}")
+    if not q.is_contiguous():
+        raise ValueError("attention kernels: q must be contiguous")
     if d % 8 or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"the attention kernels take head dims d % 8 == 0 up to "
                          f"{MAX_HEAD_DIM}, got {d}")
-    if bh * -(-n // TILE) >= 2**31:
-        raise ValueError(f"batch*heads {bh} x {-(-n // TILE)} row tiles exceed the kernels' "
+    tiles = -(-n // TILE) * (2 if d > 128 else 1)
+    if bh * tiles >= 2**31:
+        raise ValueError(f"batch*heads {bh} x {tiles} row tiles exceed the kernels' "
                          "grid of 2^31 - 1 blocks")
     return bh, n, d, q.dtype == torch.bfloat16
 
@@ -155,6 +162,7 @@ def attention_dq(q, k, v, do, l, delta, scale: float):
     if not _on_cuda(q, k, v, do, l, delta):
         return attention_dq_plain(q, k, v, do, l, delta, scale)
     bh, n, d, bf = _check(q, (k, v, do), (l, delta))
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     dq = torch.empty_like(q)
     _launch("attention_dq", (q, k, v, do, l, delta, dq), bh, n, d, bf, scale)
     return dq
@@ -172,6 +180,7 @@ def attention_dkv(q, k, v, do, l, delta, scale: float):
     if not _on_cuda(q, k, v, do, l, delta):
         return attention_dkv_plain(q, k, v, do, l, delta, scale)
     bh, n, d, bf = _check(q, (k, v, do), (l, delta))
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     _launch("attention_dkv", (q, k, v, do, l, delta, dk, dv), bh, n, d, bf, scale)
     return dk, dv

@@ -1,9 +1,14 @@
 """Port ops/attention.py vs the JAX package: flash_attention values and q/k/v
 gradients (JAX Pallas in interpret mode on the CPU), each plain version
-against the Pallas body it stands for, and the shape rule.
+against the Pallas body it stands for, and the shape rule.  One more test
+rehearses the bf16 backward kernels' numerics (p and ds split into two bf16
+terms) against chip_smoke.py's bounds.
 
 Tolerances, relative to the largest magnitude of the JAX result: f32 1e-5
 (sums in another order); bf16 3e-2 (roundings to bf16 at other points)."""
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -122,11 +127,12 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [96, 24])
+@pytest.mark.parametrize("d", [96, 24, 160, 192, 256])
 def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
-    """Head dims that are multiples of 8 but not powers of two take the fused
-    path in both packages (the kernels pad them to 96 and 32 in shared
-    memory): values and q/k/v gradients against JAX in interpret mode."""
+    """Head dims that are multiples of 8 but not powers of two, and those above
+    128, take the fused path in both packages (the kernels pad 24 to 32 in
+    shared memory and are built for 96, 160, 192 and 256): values and q/k/v
+    gradients against JAX in interpret mode."""
     jdt, tdt, tol = DTYPES[dtype]
     n = 64
     rng = np.random.default_rng(d)
@@ -152,16 +158,72 @@ def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
         _close(t.grad, w, tol, f"d{name}")
 
 
-def test_kernel_check_takes_any_head_dim_to_128_and_any_batch_heads():
-    """The wrappers' shape check takes every head dim d % 8 == 0 up to 128 and
-    a batch*heads count above 65535; it raises above 128."""
+def test_kernel_check_takes_any_head_dim_to_256_and_any_batch_heads():
+    """The wrappers' shape check takes every head dim d % 8 == 0 up to 256 and
+    a batch*heads count above 65535; it raises above 256, naming the limit,
+    on a head dim that is not a multiple of 8, and on a non-contiguous
+    panel."""
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
-    for d in (8, 24, 40, 96, 120, 128):
+    for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256):
         assert ta._check(meta(3, 64, d), (meta(3, 64, d),)) == (3, 64, d, True)
     q = meta(70_000, 16, 16)
     rows = (meta(70_000, 16, 1, dt=torch.float32),) * 2
     assert ta._check(q, (q, q, q), rows) == (70_000, 16, 16, True)
-    with pytest.raises(ValueError, match="head dim"):
-        ta._check(meta(2, 64, 136))
+    with pytest.raises(ValueError, match="head dims d % 8 == 0 up to 256"):
+        ta._check(meta(2, 64, 264))
     with pytest.raises(ValueError, match="head dim"):
         ta._check(meta(2, 64, 20))
+    with pytest.raises(ValueError, match="contiguous"):
+        ta._check(meta(2, 64, 16), (meta(2, 16, 64).transpose(1, 2),))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_split_bf16_backward_meets_the_card_bounds():
+    """The bf16 dQ and dK/dV kernels take their products with the f32 p and ds
+    split into two bf16 terms, x = bf16(x) + bf16(x - bf16(x)).  The plain
+    backward with p and ds so split lies within 1e-5 of the largest magnitude
+    of the plain f32 result, and after the bf16 store within chip_smoke.py's
+    bf16 bound (one bf16 step of the value plus 1e-5 of the largest
+    magnitude), with a mean error under half that of the bf16-p control
+    (chip_smoke.att_bf16p)."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(11)
+    bh, n, d = 2, 128, 64
+    q, k, v, do = (torch.tensor(rng.normal(size=(bh, n, d)).astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    scale = d**-0.5
+    o, l = ta.attention_fwd_plain(q, k, v, scale)
+    delta = torch.sum(do.float() * o.float(), dim=-1, keepdim=True)
+
+    def split(x):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float()
+
+    p, ds = ta._p_ds(q, k, v, do, l, delta, scale)
+    qf, kf, dof = q.float(), k.float(), do.float()
+    exact = {"dq": ds @ kf * scale, "dk": ds.transpose(-1, -2) @ qf * scale,
+             "dv": p.transpose(-1, -2) @ dof}
+    emul = {"dq": split(ds) @ kf * scale, "dk": split(ds).transpose(-1, -2) @ qf * scale,
+            "dv": split(p).transpose(-1, -2) @ dof}
+    plain = dict(zip(("dq", "dk", "dv"), (ta.attention_dq_plain(q, k, v, do, l, delta, scale),
+                                          *ta.attention_dkv_plain(q, k, v, do, l, delta, scale))))
+    ctl = dict(zip(("dq", "dk", "dv"),
+                   (*cs.att_bf16p("attention_dq", q, k, v, do, l, delta, scale),
+                    *cs.att_bf16p("attention_dkv", q, k, v, do, l, delta, scale))))
+    for name in exact:
+        f32_err = (emul[name] - exact[name]).abs().max() / exact[name].abs().max()
+        assert f32_err <= cs.ATT_TOL_F32, (name, f32_err)
+        got, want = emul[name].bfloat16().float(), plain[name].float()
+        assert plain[name].dtype == torch.bfloat16
+        lim = cs.BF16_STEP * torch.maximum(got.abs(), want.abs()) + cs.ATT_TOL_F32 * want.abs().max()
+        assert ((got - want).abs() / lim).max() <= 1.0, name
+        k_mean = (got - want).abs().mean()
+        c_mean = (ctl[name].float() - want).abs().mean()
+        assert k_mean < c_mean / 2, (name, k_mean, c_mean)
