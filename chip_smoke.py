@@ -20,15 +20,23 @@ FNO steps and the five split kernels):
               experiment's probe_native: native, and exactly 2 * x
   1. card     name and power limit (nvidia-smi), torch and CUDA versions
   2. build    nvcc for sm_90a, all sources in parallel; registers and
-              spills of every attention kernel (ptxas -v), none spilling
-              at head dim 64 on the tensor cores
+              spills of every attention and FNO kernel (ptxas -v), none
+              spilling at head dim 64 on the tensor cores, and none in
+              wdft_kernel and reduce_rows_kernel
   3. check    the fused forward and all ten gradients from the kernels
               against the plain PyTorch versions on the card, under
               `highest` (f32) and `default` (bf16 dot inputs); then every
               kernel against its own plain version on the inputs the main
-              path gives it, and fno_stats at three more shapes (X*Y not a
+              path gives it, with its profiler device time beside its
+              library call's; fno_stats at three more shapes (X*Y not a
               multiple of 4, a pair larger than one cluster's shared
-              memory, the flagship + 1e3 with a one-pass control)
+              memory, the flagship + 1e3 with a one-pass control);
+              fno_wdft in all six variants its callers use (forward,
+              gelu_in, adjoint with a bf16 or f32 pre, with and without
+              gelu_grad) under both precisions; fno_reduce_rows at its
+              three shapes (the head backward's, a layer's and the lift's
+              outer-product partials) with its time beside torch.sum's;
+              each of these with the same bits from a second launch
   4. train    one epoch of the DR baseline on a seeded in-memory store
               (10 trajectories x 101 frames x 128 x 128 x 2): finite and
               falling loss, launch counts of every kernel
@@ -37,10 +45,10 @@ FNO steps and the five split kernels):
   6. attention the three flash-attention kernels against their plain
               versions (and the same bits from a second launch) at the
               encoder (24, 1280, 64) and decoder
-              (16, 1280, 64) shapes and at head dims 96, 24, 160, 192 and
-              256, in f32 and bf16, and at batch*heads 70000 (70000, 16,
-              16) in bf16, with a control against a kernel that rounds p
-              and ds to bf16
+              (16, 1280, 64) shapes and at head dims 96, 24, 160, 192,
+              256, 264, 320 and 512, in f32 and bf16, and at batch*heads
+              70000 (70000, 16, 16) in bf16, with a control against a
+              kernel that rounds p and ds to bf16
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
               every gradient) through the kernels against the same model
               through the plain versions, with the bf16-vs-f32 gap as a
@@ -113,6 +121,9 @@ N_TRAJ, N_T = 10, 101
 # run measures and checks, so a kernel that ignores its precision fails.
 TOL = {"highest": 1e-4, "default": 2e-3}
 TOL_KERNEL = 1e-3  # one kernel against its plain version, main-path inputs
+# fno_wdft under `highest` (exact f32 products, no TF32) against its plain
+# version: readings were at most 1.2e-7 (gelu'), TF32 inputs ~1e-4
+TOL_WDFT_F32 = 1e-5
 # fno_stats beyond the flagship: (what, win shape, offset added to N(0, 1))
 STATS_SHAPES = (("X*Y not a multiple of 4", (3, 1, 3, 17, 13), 0.0),
                 ("larger than one cluster's shared memory", (1, 10, 1, 256, 256), 0.0),
@@ -137,13 +148,18 @@ ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 12
 # shapes the JAX package's kernels take beyond the NS recipe: head dims
 # padded in shared memory (96 is plume-3D's decoder, 768 / 8 heads; 24 pads
 # to 32), head dims above 128 (32-row f32 dQ and dK/dV tiles; two bf16
-# blocks per row tile, each for half of the output columns), in both dtypes,
-# and batch*heads above the 65535 of a grid's y axis
+# blocks per row tile, each for half of the output columns), head dims above
+# 256 (the wide bodies: 64-column score chunks, ceil(d / 128) column groups;
+# 200 tokens leave ragged row and key tiles), in both dtypes, and
+# batch*heads above the 65535 of a grid's y axis
 ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "head dim 24": ((16, 1280, 24), ("float32", "bfloat16")),
              "head dim 160": ((8, 1280, 160), ("float32", "bfloat16")),
              "head dim 192": ((8, 1280, 192), ("float32", "bfloat16")),
              "head dim 256": ((8, 1280, 256), ("float32", "bfloat16")),
+             "head dim 264": ((4, 1280, 264), ("float32", "bfloat16")),
+             "head dim 320": ((4, 200, 320), ("float32", "bfloat16")),
+             "head dim 512": ((4, 1280, 512), ("float32", "bfloat16")),
              "batch*heads 70000": ((70_000, 16, 16), ("bfloat16",))}
 # profiler keys of the attention kernels (their demangled names): the bf16
 # tensor-core bodies and the f32 CUDA-core bodies
@@ -173,6 +189,33 @@ KERNEL_SOURCE = {
     "fno_corner": "fwd", "fno_corner.adj": "fwd", "fno_iwdft_pw": "fwd",
     "fno_iwdft_pw.adj": "fwd", "fno_head_fwd": "fwd", "fno_head_bwd": "bwd",
     "fno_mix_wgrad": "bwd", "fno_outer_partial": "bwd", "fno_reduce_rows": "bwd",
+}
+# profiler keys of the FNO kernels (their demangled names hold these)
+FNO_KERNEL_KEYS = {
+    "fno_stats": "stats_kernel", "fno_lift": "lift_kernel", "fno_wdft": "wdft_kernel",
+    "fno_wdft.adj": "wdft_kernel", "fno_corner": "corner_kernel",
+    "fno_corner.adj": "corner_kernel", "fno_iwdft_pw": "iwdft_pw_kernel",
+    "fno_iwdft_pw.adj": "iwdft_pw_kernel", "fno_head_fwd": "head_fwd_kernel",
+    "fno_head_bwd": "head_bwd_kernel", "fno_mix_wgrad": "mix_wgrad_kernel",
+    "fno_outer_partial": "outer_partial_kernel", "fno_reduce_rows": "reduce_rows_kernel",
+}
+# fno_wdft's variants, as its callers use them: (what, input, pre dtype,
+# gelu_grad, gelu_in); input "h" a layer input, "dh" a layer-output
+# cotangent, "pre" a saved pre-activation (f32)
+WDFT_VARIANTS = (("forward", "h", None, False, False),
+                 ("gelu_in (B2c)", "pre", None, False, True),
+                 ("adjoint, pre bf16", "dh", "bfloat16", False, False),
+                 ("adjoint, pre bf16, gelu_grad", "dh", "bfloat16", True, False),
+                 ("adjoint, pre f32", "dh", "float32", False, False),
+                 ("adjoint, pre f32, gelu_grad", "dh", "float32", True, False))
+# fno_reduce_rows at the three shapes the fused step gives it: the head
+# backward's partials (one row per 64 pixels), a layer's and the lift's
+# outer-product partials (one row per 256 pixels of the padded field and of
+# the image)
+RR_SHAPES = {
+    "head backward": (B * XY * XY // 64, NH * WIDTH + NH + CC * NH + CC),
+    "a layer's outer": (-(-B * (XY + PAD) ** 2 // 256), WIDTH * WIDTH + WIDTH),
+    "the lift's outer": (B * XY * XY // 256, WIDTH * (T0 * CC + 2) + WIDTH),
 }
 # fused dft2 layer (B6) against its plain f32 version and autograd of it:
 # f32 sums in another order; the control (bf16-rounded inputs) must lie more
@@ -231,6 +274,39 @@ def rel_err(got, want) -> tuple[float, float]:
     """(max abs error, that over the largest magnitude of ``want``)."""
     err = (got.float() - want.float()).abs().max().item()
     return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def tensors(x) -> list:
+    """The tensors of a tensor or of a nested tuple or list."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in tensors(y)] if isinstance(x, (tuple, list)) else []
+
+
+def worst(outs_a, outs_b) -> tuple[float, float]:
+    """The largest (max abs error, rel-to-max error) over paired outputs."""
+    errs = [rel_err(a, b) for a, b in zip(tensors(outs_a), tensors(outs_b))]
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def tf32(t):
+    """f32 ``t`` rounded to TF32 (10 mantissa bits, to nearest, ties away),
+    as a TF32 tensor-core product reads it."""
+    import torch
+
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def moved_bytes(fname: str, args, out) -> int:
+    """The bytes one FNO kernel call must move: each tensor input read once,
+    each output written once.  ``wdft`` reads ``pre`` only with
+    ``gelu_grad`` (args: x, fac, pre, gelu_grad, ...)."""
+    ins = list(args)
+    if fname == "wdft" and len(ins) > 3 and not ins[3]:
+        ins[2] = None
+    return sum(t.numel() * t.element_size() for t in tensors(ins) + tensors(out))
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -333,6 +409,85 @@ def check_stats(dev) -> None:
         check(ok, msg)
 
 
+def check_wdft(dev, card: str, h, dh, pre) -> None:
+    """Phase 3: ``fno_wdft`` in every variant of WDFT_VARIANTS at the
+    flagship shape under `highest` and `default`: against its plain version
+    within TOL_KERNEL, under `default` also below half the plain bf16-vs-f32
+    gap, under `highest` within TOL_WDFT_F32, which the plain version with
+    TF32 products must exceed (the control); the same bits from a second
+    launch, and its profiler device time beside its bound and ``matmul``'s
+    device time on the same input.  ``h``, ``dh`` and ``pre`` (B, C, Hp, Wp)
+    f32 come from the main path."""
+    import torch
+    from sciml_pde_torch.ops import fno_fused_step as ff
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    hp, wp = h.shape[2:]
+    inputs = {"h": h, "dh": dh, "pre": pre}
+    for prec, bf in (("highest", False), ("default", True)):
+        f = ff.kernel_factors(hp, wp, MODES, MODES, str(dev), bf)
+        for what, src, pre_dt, gelu_grad, gelu_in in WDFT_VARIANTS:
+            fac = f.fwd_w if src != "dh" else f.adj_w
+            pr = None if pre_dt is None else pre.to(getattr(torch, pre_dt))
+            args = (inputs[src], fac, pr, gelu_grad)
+            got, again = fk.wdft(*args, bf, gelu_in), fk.wdft(*args, bf, gelu_in)
+            want = fk.wdft_plain(*args, bf, gelu_in)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(tensors(got), tensors(again)))
+            err, rel = worst(got, want)
+            finite = all(bool(torch.isfinite(t).all()) for t in tensors(got))
+            msg = (f"[kernel] fno_wdft {what} {prec} {tuple(h.shape)}: max abs err {err:.3e}, "
+                   f"rel-to-max {rel:.3e} (tol {TOL_KERNEL:.0e}); same bits twice {same}")
+            ok = finite and same and rel <= TOL_KERNEL
+            if bf:
+                gap = worst(fk.wdft_plain(*args, False, gelu_in), want)[1]
+                ok &= rel < gap / 2
+                msg += f"; plain bf16-vs-f32 gap {gap:.3e}"
+            else:
+                v = want[1] if pr is not None else fk._gelu(args[0]) if gelu_in else args[0]
+                ctl = rel_err(torch.matmul(tf32(v), tf32(fac)), tensors(want)[0])[1]
+                ok &= rel <= TOL_WDFT_F32 < ctl
+                msg += (f"; f32 tol {TOL_WDFT_F32:.0e}; control: plain with TF32 inputs "
+                        f"{ctl:.3e}, above it")
+            check(ok, msg)
+            by_bytes = moved_bytes("wdft", args, got) / HBM_BPS
+            by_ops = 2 * (args[0].numel() // fac.shape[0]) * fac.numel() / PEAK_FLOPS[prec]
+            by = "bytes" if by_bytes >= by_ops else "operations"
+            bound = f"{max(by_bytes, by_ops) * 1e3:.5f} ms ({by})"
+            dev_ms = profiler_ms(lambda: fk.wdft(*args, bf, gelu_in), "wdft_kernel")
+            lib_ms = profiler_ms(lambda: torch.matmul(args[0], fac))
+            print(f"[timing] {card}: fno_wdft {what} {prec}: profiler device time "
+                  f"{fmt(dev_ms)}; bound {bound}; matmul {fmt(lib_ms)}",
+                  flush=True)
+
+
+def check_reduce_rows(dev, card: str) -> None:
+    """Phase 3: ``fno_reduce_rows`` at the three shapes of RR_SHAPES against
+    its plain version within TOL_KERNEL, the same bits from a second launch,
+    and its time (CUDA events and profiler device time) beside its bound
+    and ``torch.sum(part, 0)``'s."""
+    import torch
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    g = torch.Generator().manual_seed(12)
+    for what, shape in RR_SHAPES.items():
+        part = torch.randn(*shape, generator=g).to(dev)
+        got, again, want = fk.reduce_rows(part), fk.reduce_rows(part), fk.reduce_rows_plain(part)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        same = bool(torch.equal(got, again))
+        check(bool(torch.isfinite(got).all()) and same and rel <= TOL_KERNEL,
+              f"[kernel] fno_reduce_rows {what} {shape}: max abs err {err:.3e}, rel-to-max "
+              f"{rel:.3e} (tol {TOL_KERNEL:.0e}); same bits twice {same}")
+        bound_ms = (part.numel() + shape[1]) * 4 / HBM_BPS * 1e3
+        print(f"[timing] {card}: fno_reduce_rows {what} {shape}: "
+              f"{cuda_ms(lambda: fk.reduce_rows(part)):.4f} ms/launch, profiler device time "
+              f"{fmt(profiler_ms(lambda: fk.reduce_rows(part), 'reduce_rows_kernel'))}; "
+              f"bound {bound_ms:.5f} ms (bytes); torch.sum(part, 0) "
+              f"{cuda_ms(lambda: torch.sum(part, dim=0)):.4f} ms, profiler device time "
+              f"{fmt(profiler_ms(lambda: torch.sum(part, dim=0)))}", flush=True)
+
+
 def make_store(seed: int = 0):
     """Smooth DR-shaped trajectories (N, T, X, Y, C): decaying superposed
     sinusoids with seeded amplitudes, wave numbers, phases and rates."""
@@ -424,12 +579,13 @@ def att_bf16p(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.
             torch.matmul(r(p).transpose(-1, -2), do.float()).to(q.dtype))
 
 
-def check_attention(ta, dev) -> dict:
+def check_attention(ta, dev, card: str) -> dict:
     """Phase 6: each kernel against its plain version (and a second launch
     of itself, which must give the same bits) at the encoder and decoder
-    shapes and at the head dims of ATT_EXTRA in f32 and bf16, and at
-    batch*heads 70000 in bf16.  Returns the bf16 encoder-shape inputs of
-    each kernel (the main path's most frequent launch) for timing."""
+    shapes and at the head dims of ATT_EXTRA in f32 and bf16 (above 256
+    with its profiler device time), and at batch*heads 70000 in bf16.
+    Returns the bf16 encoder-shape inputs of each kernel (the main path's
+    most frequent launch) for timing."""
     import torch
 
     g = torch.Generator().manual_seed(3)
@@ -481,6 +637,14 @@ def check_attention(ta, dev) -> dict:
                         main_inputs[name] = (args[name], scale)
                 check(ok, f"[attention] {name} {where} {tuple(q.shape)} {str(dt)[6:]}: "
                       + "; ".join(msgs))
+                if d > 256:  # the wide bodies: their times, on no configuration's path
+                    kfn, pfn = getattr(ta, name), getattr(ta, f"{name}_plain")
+                    key = name.replace("attention_", "") + "_wide_kernel"
+                    dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key)
+                    plain_ms = cuda_ms(lambda: pfn(*args[name], scale))
+                    print(f"[timing] {card}: {name} {where} {tuple(q.shape)} {str(dt)[6:]}: "
+                          f"profiler device time {fmt(dev_ms)}; plain {plain_ms:.4f} ms",
+                          flush=True)
             del q, k, v, do, o_p, l_p, delta, args
     return main_inputs
 
@@ -556,7 +720,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
 
     rows = {}
     # ---- 6. attention kernels vs plain versions -------------------------------
-    att_inputs = check_attention(ta, dev)
+    att_inputs = check_attention(ta, dev, card)
 
     # ---- 7. the full-width model through the kernels --------------------------
     store = make_ns_store(NS_TRAJ + NS_TEST, NS_T, seed=4, dev=dev)
@@ -991,15 +1155,6 @@ def split_path(dev, card: str, win, grid2, p, cot) -> dict:
     from sciml_pde_torch.ops import fno_kernels as fk
     from sciml_pde_torch.ops import spectral
 
-    def tensors(x):
-        if isinstance(x, torch.Tensor):
-            return [x]
-        return [t for y in x for t in tensors(y)] if isinstance(x, (tuple, list)) else []
-
-    def worst(outs_a, outs_b):
-        errs = [rel_err(a, b) for a, b in zip(tensors(outs_a), tensors(outs_b))]
-        return max(e for e, _ in errs), max(r for _, r in errs)
-
     def bf16_spectrum_corner(a, pf, w, q, adj, spec_dtype, bf, spec_only=False):
         return fk.corner_plain(a, pf, w, q, adj, spec_dtype if adj else torch.bfloat16, bf,
                                spec_only)
@@ -1191,6 +1346,14 @@ def main() -> int:
     main_tc = [u for u in usage if u[0].endswith("tc_kernel<64>")]
     check(len(main_tc) == 3 and all(st == ld == 0 for _, _, st, ld in main_tc),
           "[build] the NS path's tensor-core attention kernels (head dim 64) spill nothing")
+    fno_usage = _build.ptxas_report("fno_fwd") + _build.ptxas_report("fno_bwd")
+    for kern, regs, st, ld in fno_usage:
+        print(f"[build] fno {kern}: {regs} registers, {st} bytes spill stores, {ld} bytes "
+              "spill loads", flush=True)
+    redesigned = [u for u in fno_usage if u[0].startswith(("wdft_kernel", "reduce_rows_kernel"))]
+    check(len(redesigned) >= 2 and all(st == ld == 0 for _, _, st, ld in redesigned),
+          "[build] wdft_kernel and reduce_rows_kernel spill nothing: "
+          + ", ".join(u[0] for u in redesigned))
 
     # ---- 3. kernels vs plain versions ----------------------------------------
     g = torch.Generator().manual_seed(1)
@@ -1263,22 +1426,8 @@ def main() -> int:
     records["fno_reduce_rows"] = ("reduce_rows", (part,), {})
     torch.cuda.synchronize()
 
-    def tensors(x):
-        if isinstance(x, torch.Tensor):
-            return [x]
-        if isinstance(x, (tuple, list)):
-            return [t for y in x for t in tensors(y)]
-        return []
-
     def plain_call(fname, args, kw):
         return getattr(fk, f"{fname}_plain")(*args)
-
-    def worst(outs_a, outs_b):
-        worst_abs, worst_rel = 0.0, 0.0
-        for a, b in zip(tensors(outs_a), tensors(outs_b)):
-            e, r = rel_err(a, b)
-            worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
-        return worst_abs, worst_rel
 
     def flops(key, fname, args, out):
         if fname == "stats":
@@ -1341,11 +1490,10 @@ def main() -> int:
               f"[kernel] {key}: max abs err {worst_abs:.3e}, rel-to-max {worst_rel:.3e} "
               f"(tol {TOL_KERNEL:.0e}; plain bf16-vs-f32 gap "
               + ("n/a" if gap is None else f"{gap:.3e}") + ")")
-        in_bytes = sum(t.numel() * t.element_size() for t in tensors(args))
-        out_bytes = sum(t.numel() * t.element_size() for t in tensors(out_k))
+        nbytes = moved_bytes(fname, args, out_k)
         fl = flops(key, fname, args, out_k)
         peak = PEAK_FLOPS[spectral.get_dft_precision()]
-        bound_s = max((in_bytes + out_bytes) / HBM_BPS, fl / peak)
+        bound_s = max(nbytes / HBM_BPS, fl / peak)
         lib = library_fn(key, fname, args)
         kernel_rows[key] = {
             "name": key, "route": "cuda",
@@ -1355,16 +1503,21 @@ def main() -> int:
             "ms": cuda_ms(lambda: kfn(*args, **kw)),
             "plain_ms": cuda_ms(lambda: plain_call(fname, args, kw)),
             "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if (in_bytes + out_bytes) / HBM_BPS >= fl / peak
-            else "operations",
+            "bound_by": "bytes" if nbytes / HBM_BPS >= fl / peak else "operations",
             "library_ms": cuda_ms(lib) if lib is not None else None,
         }
 
-    fname, args, kw = records["fno_stats"]
-    kernel_rows["fno_stats"]["device_ms"] = profiler_ms(lambda: fk.stats(*args), "stats_kernel")
-    kernel_rows["fno_stats"]["library_device_ms"] = profiler_ms(library_fn("fno_stats", fname,
-                                                                           args))
+    # every row's device time (torch.profiler), and its library call's
+    for key in fk.KERNEL_NAMES:
+        fname, args, kw = records[key]
+        kfn, lib = getattr(fk, fname), library_fn(key, fname, args)
+        kernel_rows[key]["device_ms"] = profiler_ms(lambda: kfn(*args, **kw),
+                                                    FNO_KERNEL_KEYS[key])
+        kernel_rows[key]["library_device_ms"] = None if lib is None else profiler_ms(lib)
     check_stats(dev)
+    check_wdft(dev, card, records["fno_wdft"][1][0], records["fno_wdft.adj"][1][0],
+               sv.pres[0].float())
+    check_reduce_rows(dev, card)
 
     # ---- 4. train: the main path, through the trainer -------------------------
     spectral.set_dft_precision("default")
@@ -1434,21 +1587,14 @@ def main() -> int:
         nonlocal theta, opt
         for _ in range(20):
             theta, opt, _, _ = step(theta, opt, data, grid2t, idx)
-    device_profile(card, fno_steps, 20, "step", step_ms,
-                   ("stats_kernel", "lift_kernel", "wdft_kernel", "corner_kernel",
-                    "iwdft_pw_kernel", "head_fwd_kernel", "head_bwd_kernel",
-                    "mix_wgrad_kernel", "outer_partial_kernel", "reduce_rows_kernel"))
+    device_profile(card, fno_steps, 20, "step", step_ms, tuple(set(FNO_KERNEL_KEYS.values())))
     for key in fk.KERNEL_NAMES:
         r = kernel_rows[key]
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        if "device_ms" in r:
-            lib += (" ms (profiler device time "
-                    + ("not measured" if r["library_device_ms"] is None
-                       else f"{r['library_device_ms']:.4f}")
-                    + "), profiler device time "
-                    + ("not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f}"))
-        print(f"[timing] {card}: {key}: {r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib} ms, "
+        lib = ("n/a" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms (profiler device time {fmt(r['library_device_ms'])})")
+        print(f"[timing] {card}: {key}: {r['ms']:.4f} ms/launch (profiler device time "
+              f"{fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib}, "
               f"{r['launches']} launches in the epoch", flush=True)
 
     kernel_rows.update(transformer_path(dev, card, run_dir))

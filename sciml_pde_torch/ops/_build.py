@@ -91,17 +91,42 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _template_args(s: str):
+    """The template arguments of a mangled ``I...E`` list (``s`` starts
+    after the ``I``): integers, booleans, ``float`` and named types; None
+    for any other form."""
+    args, i = [], 0
+    while i < len(s) and s[i] != "E":
+        if m := re.match(r"L([ib])(\d+)E", s[i:]):
+            args.append(m.group(2) if m.group(1) == "i" else ("false", "true")[m.group(2) == "1"])
+            i += m.end()
+        elif s[i] == "f":
+            args.append("float")
+            i += 1
+        elif m := re.match(r"\d+", s[i:]):
+            n = int(m.group())
+            args.append(s[i + m.end():i + m.end() + n])
+            i += m.end() + n
+        else:
+            return None
+    return args if i < len(s) else None
+
+
 def _kernel_name(mangled: str) -> str:
-    """``name<args>`` of a kernel template's mangled name (a length-prefixed
-    identifier ending in ``_kernel``, integer template arguments), else the
-    mangled name."""
+    """``name`` or ``name<args>`` of a kernel's mangled name (a
+    length-prefixed identifier ending in ``_kernel``), else the mangled
+    name."""
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):  # the length may be any tail of the digits
             start = m.end() + int(m.group()[i:])
             ident = mangled[m.end():start]
-            args = re.match(r"I((?:Li\d+E)+)", mangled[start:])
-            if ident.endswith("_kernel") and args:
-                return f"{ident}<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+            if not ident.endswith("_kernel"):
+                continue
+            if not mangled[start:].startswith("I"):
+                return ident
+            args = _template_args(mangled[start + 1:])
+            if args:
+                return f"{ident}<{', '.join(args)}>"
     return mangled
 
 

@@ -9,8 +9,8 @@ a failed build or launch.  Every launch adds one to ``LAUNCHES[name]``.
   attention_dq    (q, k, v, do, l, delta) -> dq          B4 ``_dq_kernel``
   attention_dkv   (q, k, v, do, l, delta) -> dk, dv      B5 ``_dkv_kernel``
 
-on flat ``(BH, N, D)`` panels in f32 or bf16, any head dim ``D % 8 == 0`` up
-to 256 and any ``BH``; ``l`` (the row logsumexp) and ``delta = rowsum(do *
+on flat ``(BH, N, D)`` panels in f32 or bf16, any head dim ``D % 8 == 0``
+and any ``BH``; ``l`` (the row logsumexp) and ``delta = rowsum(do *
 o)`` are ``(BH, N, 1)`` f32.  The bf16 kernels run their products on the
 tensor cores (``p`` and ``ds`` split into two bf16 terms each), the f32
 kernels on the CUDA cores (see the source's note).  The plain versions
@@ -31,17 +31,14 @@ import ctypes
 import torch
 
 from sciml_pde_torch.ops import _build
-from sciml_pde_torch.ops.fno_kernels import _on_cuda
+from sciml_pde_torch.ops.fno_kernels import _aligned, _on_cuda
 
 MAX_PALLAS_TOKENS = 2048
 BLOCK_Q = 256
 BLOCK_K = 256
 # csrc/attention.cu is built for the padded head dims 16, 32, 64, 96, 128,
-# 160, 192 and 256 and takes any head dim d % 8 == 0 up to MAX_HEAD_DIM
-MAX_HEAD_DIM = 256
-# rows per block: 64, or 32 above head dim 128 (the f32 dQ and dK/dV tiles;
-# the bf16 kernels take two blocks per 64-row tile there); the blocks of all
-# (bh, tile) pairs lie on grid.x
+# 160, 192 and 256, and takes any head dim d % 8 == 0 above 256 through its
+# wide bodies; rows of a tile (the blocks per panel: _blocks_per_panel)
 TILE = 64
 
 KERNEL_NAMES = ("attention_fwd", "attention_dq", "attention_dkv")
@@ -66,12 +63,6 @@ _SIGNATURES = {
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it when its data do not start on 16 bytes (the
-    bf16 kernels copy 16-byte rows by cp.async)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(name: str, tensors, bh: int, n: int, d: int, bf: bool, scale: float) -> None:
     f = _fns.get(name)
     if f is None:
@@ -84,6 +75,18 @@ def _launch(name: str, tensors, bh: int, n: int, d: int, bf: bool, scale: float)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
+
+
+def _blocks_per_panel(n: int, d: int) -> int:
+    """Blocks of one (N, D) panel on the kernels' grid.x, the most of the
+    three kernels: 64-row tiles up to head dim 128; above, 32-row f32 tiles
+    or two bf16 blocks per 64-row tile; above 256, 32-row tiles times
+    ceil(d / 128) column groups."""
+    if d <= 128:
+        return -(-n // TILE)
+    if d <= 256:
+        return -(-n // TILE) * 2
+    return -(-n // 32) * -(-d // 128)
 
 
 def _check(q, panels=(), rows=()):
@@ -100,12 +103,11 @@ def _check(q, panels=(), rows=()):
                                  f"got {tuple(t.shape)} {t.dtype}")
     if not q.is_contiguous():
         raise ValueError("attention kernels: q must be contiguous")
-    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernels take head dims d % 8 == 0 up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
-    tiles = -(-n // TILE) * (2 if d > 128 else 1)
-    if bh * tiles >= 2**31:
-        raise ValueError(f"batch*heads {bh} x {tiles} row tiles exceed the kernels' "
+    if d % 8 or d <= 0:
+        raise ValueError(f"the attention kernels take head dims d % 8 == 0, got {d}")
+    blocks = _blocks_per_panel(n, d)
+    if bh * blocks >= 2**31:
+        raise ValueError(f"batch*heads {bh} x {blocks} blocks a panel exceed the kernels' "
                          "grid of 2^31 - 1 blocks")
     return bh, n, d, q.dtype == torch.bfloat16
 

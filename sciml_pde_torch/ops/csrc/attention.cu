@@ -19,12 +19,22 @@
 // results are the same bits from run to run.  The blocks of all (bh, tile)
 // pairs lie on grid.x, bh-major, so batch*heads has no 65535 limit.
 //
-// Head dims: any d % 8 == 0 up to 256.  A kernel is built for the padded
-// dims 16, 32, 64, 96, 128, 160, 192 and 256; a panel's head dim is padded in
-// shared memory to the next of them with zero columns, which change no score
-// and no product and are never stored.  Above 128 the CUDA-core dQ and dK/dV
-// bodies own 32-row tiles, and each tensor-core body splits its output
-// columns over two blocks, which both compute the scores (see below).
+// Head dims: any d % 8 == 0, as the Pallas kernels take.  A kernel is built
+// for the padded dims 16, 32, 64, 96, 128, 160, 192 and 256; a panel's head
+// dim is padded in shared memory to the next of them with zero columns,
+// which change no score and no product and are never stored.  Above 128 the
+// CUDA-core dQ and dK/dV bodies own 32-row tiles, and each tensor-core body
+// splits its output columns over two blocks, which both compute the scores
+// (see below).  Above 256, in both input types, the wide bodies
+// (fwd_wide_kernel, dq_wide_kernel, dkv_wide_kernel) take any d with no
+// upper limit: the head dim is padded to a multiple of 64 with zero columns,
+// the scores run over it in 64-column chunks staged through shared memory
+// (neither panel is held whole, in shared memory or in registers), and the
+// output columns are split over ceil(d / 128) blocks per 32-row tile, each
+// of which computes the scores itself.  They run the f32 bodies' arithmetic
+// (inputs widened to f32, p and ds f32, f32 FMAs on the CUDA cores, one
+// rounding at the store); no configuration reaches these dims, so they are
+// written to be right, not fast.
 //
 // Numerics follow the Pallas bodies: every input is widened to f32, p and ds
 // stay f32 into their products, dq = (ds.k) * scale and dk = (ds^T.q) * scale
@@ -141,13 +151,16 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, 
 // s[i][j] = sum_d a'[ra + i][d] * b[tx + 16 j][d]: RI rows of a tile at ra
 // against RJ strided rows of another, both row stride D + 4.  With SCALED,
 // a' = a * scale in f32 before the product (q.astype(f32) * scale), else a.
-template <int D, bool SCALED, int RI, int RJ>
+// With ACC the sums continue from s (the next chunk of a longer row).
+template <int D, bool SCALED, int RI, int RJ, bool ACC = false>
 __device__ __forceinline__ void dot_tile(float s[RI][RJ], const float* a, int ra,
                                          const float* b, int tx, float scale) {
+  if constexpr (!ACC) {
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
+  }
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float4 av[RI], bv[RJ];
@@ -220,12 +233,20 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Stores the first d of a thread's DPT output columns tx*DPT.. of one row.
-template <int DPT>
-__device__ __forceinline__ void store_row(float* dst, const float* acc, int tx, int d, float mul) {
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Stores the first d of a thread's DPT output columns tx*DPT.. of one row,
+// rounded to T once.
+template <int DPT, typename T>
+__device__ __forceinline__ void store_row(T* dst, const float* acc, int tx, int d, float mul) {
 #pragma unroll
   for (int c = 0; c < DPT; ++c)
-    if (tx * DPT + c < d) dst[tx * DPT + c] = acc[c] * mul;
+    if (tx * DPT + c < d) store_f32(dst + tx * DPT + c, acc[c] * mul);
 }
 
 // ---------------------------------------------------------------------------
@@ -435,6 +456,241 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     if (key >= n) continue;
     store_row<DPT>(dk + base + (size_t)key * d, gk[i], tx, d, scale);
     store_row<DPT>(dv + base + (size_t)key * d, gv[i], tx, d, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// head dims above 256, f32 or bf16 inputs, CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int WC = 64;   // head-dim columns per score chunk
+constexpr int WO = 128;  // output columns per block
+constexpr int WR = 32;   // own rows per block: 2 a thread
+
+// Rows [r0, r0 + rows) and columns [c0, c0 + W) of a (n, d) panel, widened
+// to f32 and times `mul` in f32 (1 leaves it exact), into a row-major tile
+// with row stride W + 4; rows at or past n and columns at or past d are zero.
+template <int W, typename T>
+__device__ __forceinline__ void load_chunk(float* dst, const T* src, int r0, int rows, int c0,
+                                           int n, int d, float mul = 1.f) {
+  for (int i = threadIdx.x; i < rows * W; i += NT) {
+    const int r = i / W, c = i - r * W;
+    dst[r * (W + 4) + c] =
+        (r0 + r < n && c0 + c < d) ? to_f32(src[(size_t)(r0 + r) * d + c0 + c]) * mul : 0.f;
+  }
+}
+
+// forward: one block per (bh, 32 queries, 128 output columns); the scores
+// over 64-column chunks of q * scale and k, then the online softmax and p.v
+// over the block's columns of v, as fwd_kernel
+template <typename T>
+__global__ void __launch_bounds__(NT)
+fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ o, float* __restrict__ lse, int n, int d, int ntiles, int parts,
+                float scale) {
+  constexpr int R = WR / 16, DPT = WO / 16;
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                      // [WR][WC + 4], a chunk of q * scale
+  float* ks = qs + WR * (WC + 4);      // [TILE][WC + 4], a chunk of k
+  float* vs = ks + TILE * (WC + 4);    // [TILE][WO + 4], the block's columns of v
+  float* ps = vs + TILE * (WO + 4);    // [WR queries][SP]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, ra = ty * R;
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile / parts * WR, c0 = tile % parts * WO;
+  const size_t base = bh * n * d;
+  float m[R], lsum[R], acc[R][DPT];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = -INFINITY;
+    lsum[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+  }
+  for (int k0 = 0; k0 < n; k0 += TILE) {
+    float s[R][4] = {};
+    for (int dc = 0; dc < d; dc += WC) {
+      __syncthreads();  // the previous products are done with qs, ks (and vs, ps)
+      load_chunk<WC>(qs, q + base, q0, WR, dc, n, d, scale);
+      load_chunk<WC>(ks, k + base, k0, TILE, dc, n, d);
+      __syncthreads();
+      dot_tile<WC, false, R, 4, true>(s, qs, ra, ks, tx, 0.f);
+    }
+    load_chunk<WO>(vs, v + base, k0, TILE, c0, n, d);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + tx + 16 * j >= n) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));  // finite: the tile holds a key
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        ps[(ra + i) * SP + tx + 16 * j] = p;
+        rs += p;
+      }
+      lsum[i] = lsum[i] * alpha + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+    acc_tile<WO, R>(acc, ps, ra, vs, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ra + i;
+    if (row >= n) continue;
+    store_row<DPT>(o + base + (size_t)row * d + c0, acc[i], tx, d - c0, 1.f / lsum[i]);
+    if (tx == 0 && c0 == 0) lse[bh * n + row] = m[i] + logf(lsum[i]);
+  }
+}
+
+// dQ: one block per (bh, 32 queries, 128 output columns); s and dp over
+// 64-column chunks, then ds.k over the block's columns of k, as dq_kernel
+template <typename T>
+__global__ void __launch_bounds__(NT)
+dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dq, int n, int d, int ntiles,
+               int parts, float scale) {
+  constexpr int R = WR / 16, DPT = WO / 16;
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                      // [WR][WC + 4], a chunk of q * scale
+  float* dos = qs + WR * (WC + 4);     // [WR][WC + 4], a chunk of do
+  float* ks = dos + WR * (WC + 4);     // [TILE][WC + 4], a chunk of k
+  float* vs = ks + TILE * (WC + 4);    // [TILE][WC + 4], a chunk of v
+  float* kc = vs + TILE * (WC + 4);    // [TILE][WO + 4], the block's columns of k
+  float* dss = kc + TILE * (WO + 4);   // [WR queries][SP]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, ra = ty * R;
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile / parts * WR, c0 = tile % parts * WO;
+  const size_t base = bh * n * d, rbase = bh * n;
+  float l[R], dl[R], acc[R][DPT];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = min(q0 + ra + i, n - 1);
+    l[i] = lse[rbase + row];
+    dl[i] = delta[rbase + row];
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+  }
+  for (int k0 = 0; k0 < n; k0 += TILE) {
+    float s[R][4] = {}, dp[R][4] = {};
+    for (int dc = 0; dc < d; dc += WC) {
+      __syncthreads();
+      load_chunk<WC>(qs, q + base, q0, WR, dc, n, d, scale);
+      load_chunk<WC>(dos, dout + base, q0, WR, dc, n, d);
+      load_chunk<WC>(ks, k + base, k0, TILE, dc, n, d);
+      load_chunk<WC>(vs, v + base, k0, TILE, dc, n, d);
+      __syncthreads();
+      dot_tile<WC, false, R, 4, true>(s, qs, ra, ks, tx, 0.f);
+      dot_tile<WC, false, R, 4, true>(dp, dos, ra, vs, tx, 0.f);
+    }
+    load_chunk<WO>(kc, k + base, k0, TILE, c0, n, d);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = k0 + tx + 16 * j < n;
+        const float p = ok ? expf(s[i][j] - l[i]) : 0.f;
+        dss[(ra + i) * SP + tx + 16 * j] = p * (dp[i][j] - dl[i]);
+      }
+    __syncthreads();
+    acc_tile<WO, R>(acc, dss, ra, kc, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ra + i;
+    if (row < n) store_row<DPT>(dq + base + (size_t)row * d + c0, acc[i], tx, d - c0, scale);
+  }
+}
+
+// dK/dV: one block per (bh, 32 keys, 128 output columns); s^T and dp^T
+// over 64-column chunks, then p^T.do and ds^T.q over the block's columns of
+// do and q, as dkv_kernel
+template <typename T>
+__global__ void __launch_bounds__(NT)
+dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int n,
+                int d, int ntiles, int parts, float scale) {
+  constexpr int R = WR / 16, DPT = WO / 16;
+  extern __shared__ __align__(16) float sm[];
+  float* ks = sm;                      // [WR keys][WC + 4], a chunk of k
+  float* vs = ks + WR * (WC + 4);      // [WR keys][WC + 4], a chunk of v
+  float* qs = vs + WR * (WC + 4);      // [TILE queries][WC + 4], a chunk of q, unscaled
+  float* dos = qs + TILE * (WC + 4);   // [TILE][WC + 4], a chunk of do
+  float* qc = dos + TILE * (WC + 4);   // [TILE][WO + 4], the block's columns of q
+  float* doc = qc + TILE * (WO + 4);   // [TILE][WO + 4], the block's columns of do
+  float* pt = doc + TILE * (WO + 4);   // [WR keys][SP]: p transposed
+  float* dst = pt + WR * SP;           // [WR keys][SP]: ds transposed
+  float* ls = dst + WR * SP;           // [TILE] logsumexp of the query tile
+  float* dls = ls + TILE;              // [TILE] delta of the query tile
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int rq = ty * 4, rk = ty * R;  // this thread's query rows (scores), key rows (output)
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int k0 = tile / parts * WR, c0 = tile % parts * WO;
+  const size_t base = bh * n * d, rbase = bh * n;
+  float gk[R][DPT], gv[R][DPT];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) gk[i][c] = gv[i][c] = 0.f;
+
+  for (int r0 = 0; r0 < n; r0 += TILE) {
+    float s[4][R] = {}, dp[4][R] = {};
+    for (int dc = 0; dc < d; dc += WC) {
+      __syncthreads();
+      load_chunk<WC>(ks, k + base, k0, WR, dc, n, d);
+      load_chunk<WC>(vs, v + base, k0, WR, dc, n, d);
+      load_chunk<WC>(qs, q + base, r0, TILE, dc, n, d);
+      load_chunk<WC>(dos, dout + base, r0, TILE, dc, n, d);
+      __syncthreads();
+      dot_tile<WC, true, 4, R, true>(s, qs, rq, ks, tx, scale);
+      dot_tile<WC, false, 4, R, true>(dp, dos, rq, vs, tx, 0.f);
+    }
+    load_chunk<WO>(qc, q + base, r0, TILE, c0, n, d);
+    load_chunk<WO>(doc, dout + base, r0, TILE, c0, n, d);
+    load_rows(ls, lse + rbase, r0, n);
+    load_rows(dls, delta + rbase, r0, n);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const bool key_ok = k0 + tx + 16 * j < n;
+      float pp[4], dd[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = key_ok && r0 + rq + i < n;
+        const float p = ok ? expf(s[i][j] - ls[rq + i]) : 0.f;
+        pp[i] = p;
+        dd[i] = p * (dp[i][j] - dls[rq + i]);
+      }
+      *reinterpret_cast<float4*>(pt + (tx + 16 * j) * SP + rq) =
+          make_float4(pp[0], pp[1], pp[2], pp[3]);
+      *reinterpret_cast<float4*>(dst + (tx + 16 * j) * SP + rq) =
+          make_float4(dd[0], dd[1], dd[2], dd[3]);
+    }
+    __syncthreads();
+    acc_tile<WO, R>(gv, pt, rk, doc, tx);
+    acc_tile<WO, R>(gk, dst, rk, qc, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int key = k0 + rk + i;
+    if (key >= n) continue;
+    store_row<DPT>(dk + base + (size_t)key * d + c0, gk[i], tx, d - c0, scale);
+    store_row<DPT>(dv + base + (size_t)key * d + c0, gv[i], tx, d - c0, 1.f);
   }
 }
 
@@ -1201,10 +1457,34 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
   return cudaGetLastError();
 }
 
-// Dispatch on the padded head dim (16, 32, 64, 96, 128, 160, 192, 256;
-// d % 8 == 0) and the input type (bf16 or f32).
-#define ATT_DISPATCH(d, bf, CALL)                                               \
-  if ((d) <= 0 || (d) % 8 != 0 || (d) > 256) return (int)cudaErrorInvalidValue; \
+// head dims above 256: grid = bh * ceil(n / WR) * parts blocks of NT threads
+template <typename K, typename... A>
+cudaError_t run_wide(K kern, size_t smem, int bh, int n, int d, float scale,
+                     cudaStream_t stream, A... args) {
+  unsigned grid;
+  int ntiles;
+  const int parts = (d + WO - 1) / WO;
+  cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, WR, parts);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, NT, smem, stream>>>(args..., n, d, ntiles, parts, scale);
+  return cudaGetLastError();
+}
+
+// chunk tiles [rows][WC + 4], column tiles [TILE][WO + 4], score tiles [WR][SP]
+constexpr size_t FWD_WIDE_SMEM = f32_tile_bytes(WR, WC) + f32_tile_bytes(TILE, WC) +
+                                 f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
+constexpr size_t DQ_WIDE_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
+                                f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
+constexpr size_t DKV_WIDE_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
+                                 2 * f32_tile_bytes(TILE, WO) + 2 * f32_tile_bytes(WR, TILE) +
+                                 2 * TILE * sizeof(float);
+
+// Dispatch on the padded head dim (16, 32, 64, 96, 128, 160, 192, 256, and
+// any d above 256 through the WIDE bodies; d % 8 == 0) and the input type
+// (bf16 or f32).
+#define ATT_DISPATCH(d, bf, CALL, WIDE)                                          \
+  if ((d) <= 0 || (d) % 8 != 0) return (int)cudaErrorInvalidValue;              \
+  if ((d) > 256) return (int)(bf ? WIDE(__nv_bfloat16) : WIDE(float));          \
   if ((d) <= 16) return (int)(bf ? CALL(16, true) : CALL(16, false));           \
   if ((d) <= 32) return (int)(bf ? CALL(32, true) : CALL(32, false));           \
   if ((d) <= 64) return (int)(bf ? CALL(64, true) : CALL(64, false));           \
@@ -1219,7 +1499,11 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
 ATT_EXPORT int attention_fwd(const void* q, const void* k, const void* v, void* o, float* l,
                              int bh, int n, int d, int bf, float scale, void* stream) {
 #define CALL(DP, BF) run_fwd<DP, BF>(q, k, v, o, l, bh, n, d, scale, (cudaStream_t)stream)
-  ATT_DISPATCH(d, bf, CALL)
+#define WIDE(T)                                                                       \
+  run_wide(fwd_wide_kernel<T>, FWD_WIDE_SMEM, bh, n, d, scale, (cudaStream_t)stream,      \
+              (const T*)q, (const T*)k, (const T*)v, (T*)o, l)
+  ATT_DISPATCH(d, bf, CALL, WIDE)
+#undef WIDE
 #undef CALL
 }
 
@@ -1228,7 +1512,11 @@ ATT_EXPORT int attention_dq(const void* q, const void* k, const void* v, const v
                             int d, int bf, float scale, void* stream) {
 #define CALL(DP, BF) \
   run_dq<DP, BF>(q, k, v, dout, l, delta, dq, bh, n, d, scale, (cudaStream_t)stream)
-  ATT_DISPATCH(d, bf, CALL)
+#define WIDE(T)                                                                       \
+  run_wide(dq_wide_kernel<T>, DQ_WIDE_SMEM, bh, n, d, scale, (cudaStream_t)stream,        \
+              (const T*)q, (const T*)k, (const T*)v, (const T*)dout, l, delta, (T*)dq)
+  ATT_DISPATCH(d, bf, CALL, WIDE)
+#undef WIDE
 #undef CALL
 }
 
@@ -1237,6 +1525,11 @@ ATT_EXPORT int attention_dkv(const void* q, const void* k, const void* v, const 
                              int n, int d, int bf, float scale, void* stream) {
 #define CALL(DP, BF) \
   run_dkv<DP, BF>(q, k, v, dout, l, delta, dk, dv, bh, n, d, scale, (cudaStream_t)stream)
-  ATT_DISPATCH(d, bf, CALL)
+#define WIDE(T)                                                                       \
+  run_wide(dkv_wide_kernel<T>, DKV_WIDE_SMEM, bh, n, d, scale, (cudaStream_t)stream,      \
+              (const T*)q, (const T*)k, (const T*)v, (const T*)dout, l, delta, (T*)dk, \
+              (T*)dv)
+  ATT_DISPATCH(d, bf, CALL, WIDE)
+#undef WIDE
 #undef CALL
 }

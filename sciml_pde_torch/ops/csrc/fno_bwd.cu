@@ -17,14 +17,18 @@
 //   fno_outer_partial  partial sum_p A[i,p] B[j,p] and sum_p A[i,p] over a
 //                      pixel tile: 1x1-conv grads (A = dpre, B = layer
 //                      input) and lift grads (A = dh0, B = lift input)
-//   fno_reduce_rows    out[i] = sum_k partial[k, i], k in order
+//   fno_reduce_rows    out[i] = sum_k partial[k, i] in a fixed order (see its
+//                      note below)
 //
 // The split kernels _head_bwd_kernel (B2a), _bb_bwd_kernel (B2b) and
 // _bb_wgrad_kernel (B2c) use head_bwd, outer_partial, mix_wgrad (on f32
 // spectra) and reduce_rows the same way (sciml_pde_torch/ops/fno_fused_step.py).
 //
 // Bound at the flagship shape: as the forward, latency-bound (a few MB and
-// a few tens of MFLOP per launch).
+// a few tens of MFLOP per launch); fno_reduce_rows at the head shape by
+// bytes.
+
+#include <cooperative_groups.h>
 
 #include "fno_common.cuh"
 
@@ -257,20 +261,77 @@ FNO_EXPORT int fno_outer_partial(const float* A, const void* Bm, int b_bf16, int
 
 // ---------------------------------------------------------------------------
 // deterministic reduction of per-block partial rows
+//
+// fno_reduce_rows replaces the sums that _full_bwd_kernel (B2) carries from
+// one sequential grid step to the next in revisited output blocks (the head
+// gradients, dw1t_ref[:] += ... at sciml_pde_tpu/ops/fno_fused_step.py:1038-1043,
+// and dwmr_ref[i] += ..., dpw_ref[i] += ... and the lift gradients at
+// :1052-1075): out[i] = sum_k partial[k, i] over the partial rows that the
+// kernels above write.  Bound by bytes, each partial read once: 12.08 MB at
+// the head backward's (1024, 2946), 3.61 us at 3.35 TB/s; the outer
+// products' (265, 420) and (256, 460) are latency-bound (0.13-0.14 us of
+// bytes).  One thread per column walking all rows kept 24 SMs busy, each
+// thread a chain of 1024 loads.  Here the rows are cut into RR_GROUPS fixed
+// groups of ceil(rows / RR_GROUPS) consecutive rows (the last ragged, any
+// past it empty): a cluster of RR_CLUSTER blocks per RR_COLS columns,
+// RR_WARPS warps a block, one group a warp.  Each lane sums its column over
+// its group's rows in order with RR_UNROLL loads in flight, coalesced
+// across the warp's 32 columns (scalar loads: a row pitch of 2946 floats is
+// not 16-byte aligned).  The block adds its warps' sums in warp order
+// through shared memory, and rank 0 of the cluster adds the blocks' sums in
+// rank order through distributed shared memory, as fno_stats does.  At the
+// head shape that is 372 blocks of 256 threads on all 132 SMs, about 3 MB
+// of loads in flight.  A fixed order and no atomics: the same bits from
+// launch to launch (tests/test_torch_fno_fused_step.py rehearses the order).
 // ---------------------------------------------------------------------------
 
-__global__ void reduce_rows_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                   int nblk, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+constexpr int RR_COLS = 32, RR_WARPS = 8, RR_CLUSTER = 4, RR_UNROLL = 8;
+constexpr int RR_GROUPS = RR_WARPS * RR_CLUSTER;
+
+__global__ void __cluster_dims__(RR_CLUSTER, 1, 1) __launch_bounds__(RR_COLS * RR_WARPS)
+reduce_rows_kernel(const float* __restrict__ partial, float* __restrict__ out, int nblk, int n) {
+  __shared__ float warp_sum[RR_WARPS][RR_COLS];
+  __shared__ float block_sum[RR_COLS];
+  namespace cgrp = cooperative_groups;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int col = blockIdx.x / RR_CLUSTER * RR_COLS + lane;
+  const int per = (nblk + RR_GROUPS - 1) / RR_GROUPS;
+  const int k0 = min((rank * RR_WARPS + warp) * per, nblk), k1 = min(k0 + per, nblk);
   float s = 0.f;
-  for (int k = 0; k < nblk; ++k) s += partial[(size_t)k * n + i];
-  out[i] = s;
+  if (col < n) {
+    const float* p = partial + (size_t)k0 * n + col;
+    int k = k0;
+    for (; k + RR_UNROLL <= k1; k += RR_UNROLL, p += (size_t)RR_UNROLL * n) {
+      float v[RR_UNROLL];
+#pragma unroll
+      for (int u = 0; u < RR_UNROLL; ++u) v[u] = p[(size_t)u * n];
+#pragma unroll
+      for (int u = 0; u < RR_UNROLL; ++u) s += v[u];
+    }
+    for (; k < k1; ++k, p += n) s += *p;
+  }
+  warp_sum[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0) {
+    float b = 0.f;
+    for (int w = 0; w < RR_WARPS; ++w) b += warp_sum[w][lane];
+    block_sum[lane] = b;
+  }
+  cluster.sync();
+  if (rank == 0 && warp == 0 && col < n) {
+    float t = 0.f;
+    for (int r = 0; r < RR_CLUSTER; ++r) t += *cluster.map_shared_rank(&block_sum[lane], r);
+    out[col] = t;
+  }
+  cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
 FNO_EXPORT int fno_reduce_rows(const float* partial, float* out, int nblk, int n,
                                void* stream) {
-  reduce_rows_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(partial, out, nblk,
-                                                                        n);
+  const unsigned grid = (unsigned)((n + RR_COLS - 1) / RR_COLS * RR_CLUSTER);
+  reduce_rows_kernel<<<grid, RR_COLS * RR_WARPS, 0, (cudaStream_t)stream>>>(partial, out,
+                                                                           nblk, n);
   return (int)cudaGetLastError();
 }

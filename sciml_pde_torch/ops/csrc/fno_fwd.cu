@@ -11,7 +11,8 @@
 //                  thread-block cluster per pair (see its note below)
 //   fno_lift       normalise + grid channels + fc0, into the padded field
 //   per layer:
-//     fno_wdft     W-axis partial rDFT: (rows, Wp) x (Wp, 2*m2)
+//     fno_wdft     W-axis partial rDFT: (rows, Wp) x (Wp, 2*m2), on the
+//                  tensor cores under bf16 dot inputs (see its note below)
 //     fno_corner   H-axis corner DFT -> complex mode mix -> inverse H,
 //                  one block per (element, W-mode) keeps the whole column
 //                  of retained modes in shared memory
@@ -33,8 +34,9 @@
 // Bound at the flagship shape (B=4, 128^2, width 20, modes 12): a layer is
 // ~60 MFLOP per element and moves a few MB, so every kernel here is
 // latency-bound, not compute- or bandwidth-bound.  The design keeps each
-// stage a plain tiled loop over shared memory with f32 FMAs on the CUDA
-// cores; tensor cores (wgmma) and TMA are left for a later change.
+// stage but fno_stats and fno_wdft (their notes below) a plain tiled loop
+// over shared memory with f32 FMAs on the CUDA cores; wgmma and TMA are
+// left for a later change.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -252,57 +254,271 @@ FNO_EXPORT int fno_lift(const float* win, const float* grid2, const float* mean,
 }
 
 // ---------------------------------------------------------------------------
-// W-axis partial DFT: out (M, J) = in (M, N) x fac (N, J).
+// W-axis partial DFT: out (M, J) = v (M, N) x fac (N, J), v = x.
 // With `pre` set the input is the cotangent dh of a layer output and the
 // kernel first forms dpre = dh * gelu'(pre) (or dh itself for the last
 // layer), writes it out, and transforms it: the first stage of the adjoint.
 // With `gelu_in` set the input is a saved pre-activation and the kernel
 // transforms gelu(in), the layer's output: the split weight-gradient pass
 // recomputes the spectrum of a layer's input from the previous `pre`.
+//
+// Replaces the W-axis products of _full_fwd_kernel and _full_bwd_kernel,
+// _dot(hf, f.fr) and _dot(hf, f.fi) at sciml_pde_tpu/ops/fno_fused_step.py:300
+// and, on dpre = dh * gelu'(pre) (:1058), _dot(dsf, f.wrt) at :333.  At the
+// flagship shape (M = 4 * 20 * 130 rows, N = Wp = 130, J = 2 * m2 = 24) it
+// is bound by bytes: 6.42 MB forward (1.92 us at 3.35 TB/s), 14.5 MB
+// adjoint with a bf16 pre read and dpre written (4.34 us), against 65
+// MFLOP.  A block-wide tile in shared memory fed every FMA two shared-memory
+// loads, and each block read the factor with one dependent load after
+// another before any of its rows.  Here a block owns WD_ROWS = 32 rows of x,
+// 32 N contiguous floats from a 16-byte boundary (325 blocks of 256
+// threads at the flagship shape, 2-3 an SM, one wave):
+//   1. its threads copy those rows (and, for gelu', the rows of pre) and the
+//      factor into shared memory by cp.async, all in flight at once, so the
+//      launch waits on about one round trip to device memory;
+//   2. each thread forms v in place from the float4s it copied (gelu or
+//      gelu') and writes dpre with float4 stores; gelu' (erff, expf, a
+//      branching chain) is spread over every thread of the block;
+//   3. the operands are rounded to bf16 once a block: v into a row-major
+//      [32][K + 8] tile, K = 16 ceil(N / 16) (130 -> 144, the padding and
+//      any rows past M zero; +8: conflict-free ldmatrix), and the factor,
+//      already bf16-exact, into the B fragments of every (k16 step, n8
+//      tile) in lane order, rows past N zero;
+//   4. each warp takes (m16 row tile, n8 column tile) pairs of the output,
+//      6 of them at J = 24: per k16 step one ldmatrix, one 8-byte load and
+//      one mma.sync m16n8k16 bf16 with f32 accumulation (the bf16 products
+//      are exact in f32, as the reference's _dot with bf16 inputs), into the
+//      block's output tile in shared memory;
+//   5. the block's rows of out, 32 J contiguous floats, leave by float4
+//      stores.
+// What bounds it now is the work between the copies and the stores, not the
+// bytes (PERF.md): the first designs spent it on per-element index
+// arithmetic and per-step fragment assembly, this one on the two bf16
+// passes, the MMA chain and gelu'.  The factor's fragments come from shared
+// memory rather than registers so that N and J stay runtime sizes.
+//   f32 (bf = 0, `highest`): products stay exact f32 (no TF32), on the CUDA
+//   cores, from the f32 copies after step 2: a lane owns 2 rows x 2 columns
+//   of a warp's 16 x 8 output tile, so each value loaded from shared memory
+//   feeds 2 FMAs; in-order sums over k as before.
+// No atomics and no block reads what another writes: the same bits from
+// launch to launch.
 // ---------------------------------------------------------------------------
 
-#define WDFT_ROWS 32
+constexpr int WD_ROWS = 32;  // rows of x a block owns: two m16 tiles
+constexpr int WD_WARPS = 8;  // warps a block
 
-template <typename S>
-__global__ void wdft_kernel(const float* __restrict__ x, const float* __restrict__ fac,
-                            float* __restrict__ out, int M, int N, int J,
-                            const S* __restrict__ pre, int gelu_grad,
-                            float* __restrict__ dpre, int gelu_in, int bf) {
-  extern __shared__ float sm[];
-  float* xs = sm;                 // (WDFT_ROWS, N)
-  float* fs = sm + WDFT_ROWS * N;  // (N, J)
-  const int row0 = blockIdx.x * WDFT_ROWS;
-  const int nrows = min(WDFT_ROWS, M - row0);
-  for (int i = threadIdx.x; i < N * J; i += blockDim.x) fs[i] = fac[i];
-  for (int i = threadIdx.x; i < nrows * N; i += blockDim.x) {
-    const size_t g = (size_t)row0 * N + i;
-    float v = x[g];
-    if (gelu_in) v = gelu_f(v);
-    if (pre != nullptr) {
-      if (gelu_grad) v *= gelu_grad_f(ldv(pre + g));
-      dpre[g] = v;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async(void* dst, const float* src) {  // 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async(void* dst, const __nv_bfloat16* src) {  // 8 bytes
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four consecutive values from shared memory (8-byte aligned bf16, 16-byte f32)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
+}
+
+// v of one element: gelu(x) with gelu_in, times gelu'(pre) with gelu_grad.
+__device__ __forceinline__ float wdft_v(float x, float pre, bool gelu_grad, int gelu_in) {
+  const float v = gelu_in ? gelu_f(x) : x;
+  return gelu_grad ? v * gelu_grad_f(pre) : v;
+}
+
+// One bf16x2 B-fragment register from fac[k][n], fac[k + 1][n] (row stride
+// J); rows at or past N and columns at or past J are 0.
+__device__ __forceinline__ uint32_t b_pair(const float* f, int k, int n, int N, int J) {
+  const float lo = k < N && n < J ? f[k * J + n] : 0.f;
+  const float hi = k + 1 < N && n < J ? f[(k + 1) * J + n] : 0.f;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Shared memory of one block: the factor as given (f32, N * J rounded up to
+// 4 values), the block's rows of x (WD_ROWS N values rounded up to 8), its
+// rows of pre where gelu'(pre) is taken, and on the tensor-core path the
+// bf16 tile of v, the factor's B fragments and the output tile.  About
+// 224 N bytes with no pre on the CUDA cores, up to about 500 N with gelu',
+// an f32 pre and the tensor cores; so at J = 24 the 227 KB a block may take
+// hold N = Wp up to 492 in the widest variant and 1037 in the narrowest
+// (the flagship's 130 takes 29-65 KB).  fno_kernels.wdft mirrors this
+// layout (wdft_smem_bytes) and raises above it, naming the variant's limit.
+struct WdftLayout {
+  int TS, KS, NNT, LDA;
+  size_t fac, xs, ps, at, bf, bytes;
+  __host__ __device__ WdftLayout(int N, int J, bool tc, bool stage_pre, size_t pre_size) {
+    TS = (WD_ROWS * N + 7) / 8 * 8;
+    KS = (N + 15) / 16;
+    NNT = (J + 7) / 8;
+    LDA = 16 * KS + 8;  // +8 bf16: conflict-free ldmatrix
+    fac = (size_t)(N * J + 3) / 4 * 16;
+    xs = (size_t)TS * 4;
+    ps = stage_pre ? ((size_t)TS * pre_size + 15) / 16 * 16 : 0;
+    at = tc ? (size_t)WD_ROWS * LDA * 2 : 0;
+    bf = tc ? (size_t)KS * NNT * 32 * 8 : 0;
+    bytes = fac + xs + ps + at + bf + (tc ? ((size_t)WD_ROWS * J * 4 + 15) / 16 * 16 : 0);
+  }
+};
+
+template <typename S, bool TC>
+__global__ void __launch_bounds__(WD_WARPS * 32)
+wdft_kernel(const float* __restrict__ x, const float* __restrict__ fac, float* __restrict__ out,
+            int M, int N, int J, const S* __restrict__ pre, int gelu_grad,
+            float* __restrict__ dpre, int gelu_in) {
+  extern __shared__ __align__(16) unsigned char wd_smem[];
+  const bool gg = pre != nullptr && gelu_grad, op = gg || gelu_in;
+  const WdftLayout L(N, J, TC, gg, sizeof(S));
+  float* fst = reinterpret_cast<float*>(wd_smem);
+  float* xs = reinterpret_cast<float*>(wd_smem + L.fac);
+  S* ps = reinterpret_cast<S*>(wd_smem + L.fac + L.xs);
+  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(wd_smem + L.fac + L.xs + L.ps);
+  uint2* bfr = reinterpret_cast<uint2*>(wd_smem + L.fac + L.xs + L.ps + L.at);
+  float* ot = reinterpret_cast<float*>(wd_smem + L.fac + L.xs + L.ps + L.at + L.bf);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int row0 = blockIdx.x * WD_ROWS, nrows = min(WD_ROWS, M - row0);
+  const size_t g0 = (size_t)row0 * N;
+  const int cnt = nrows * N, n4 = cnt / 4, nf = N * J;
+
+  // the factor and the block's rows of x (and pre) into shared memory by
+  // cp.async, all in flight at once (the rows are WD_ROWS N contiguous
+  // values from a 16-byte boundary); ragged tails by plain loads
+  for (int i = tid; i < nf / 4; i += nthr) cp_async(fst + 4 * i, fac + 4 * i);
+  for (int i = nf / 4 * 4 + tid; i < nf; i += nthr) fst[i] = fac[i];
+  for (int i = tid; i < n4; i += nthr) {
+    cp_async(xs + 4 * i, x + g0 + 4 * i);
+    if (gg) cp_async(ps + 4 * i, pre + g0 + 4 * i);
+  }
+  for (int e = 4 * n4 + tid; e < cnt; e += nthr) {
+    xs[e] = x[g0 + e];
+    if (gg) ps[e] = pre[g0 + e];
+  }
+  cp_async_wait_all();
+  if (op || pre != nullptr) {  // v in place of x, and dpre = v: each thread the values it copied
+    for (int i = tid; i < n4; i += nthr) {
+      float4 v = ld4(xs + 4 * i);
+      if (op) {
+        const float4 p = gg ? ld4(ps + 4 * i) : make_float4(0.f, 0.f, 0.f, 0.f);
+        v = make_float4(wdft_v(v.x, p.x, gg, gelu_in), wdft_v(v.y, p.y, gg, gelu_in),
+                        wdft_v(v.z, p.z, gg, gelu_in), wdft_v(v.w, p.w, gg, gelu_in));
+        *reinterpret_cast<float4*>(xs + 4 * i) = v;
+      }
+      if (pre != nullptr) *reinterpret_cast<float4*>(dpre + g0 + 4 * i) = v;
     }
-    xs[i] = rd(v, bf);
+    for (int e = 4 * n4 + tid; e < cnt; e += nthr) {
+      const float v = wdft_v(xs[e], gg ? ldv(ps + e) : 0.f, gg, gelu_in);
+      xs[e] = v;
+      if (pre != nullptr) dpre[g0 + e] = v;
+    }
   }
   __syncthreads();
-  for (int o = threadIdx.x; o < nrows * J; o += blockDim.x) {
-    const int r = o / J, j = o % J;
-    const float* xr = xs + r * N;
-    float acc = 0.f;
-    for (int k = 0; k < N; ++k) acc += xr[k] * fs[k * J + j];
-    out[(size_t)(row0 + r) * J + j] = acc;
+
+  const int lane = tid % 32, warp = tid / 32, g = lane >> 2, t = lane & 3;
+  if constexpr (TC) {
+    // bf16 operands once a block: v as a row-major [WD_ROWS][LDA] tile (columns
+    // past N and rows past the block's zero), and the factor as the B
+    // fragments of each (k16 step, n8 tile) in lane order (PTX m16n8k16: lane
+    // = 4 g + t holds column g, rows 2t, 2t + 1 and 2t + 8, 2t + 9)
+    for (int r = warp; r < WD_ROWS; r += WD_WARPS)
+      for (int c = 2 * lane; c < 16 * L.KS; c += 64) {
+        const float* p = xs + r * N + c;
+        const bool ok = r < nrows;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(ok && c < N ? p[0] : 0.f,
+                                                       ok && c + 1 < N ? p[1] : 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(at + r * L.LDA + c) = h;
+      }
+    for (int i = tid; i < L.KS * L.NNT * 32; i += nthr) {
+      const int q = i >> 5, bg = (i & 31) >> 2, bt = i & 3;
+      const int k = q / L.NNT * 16 + 2 * bt, n = q % L.NNT * 8 + bg;
+      bfr[i] = make_uint2(b_pair(fst, k, n, N, J), b_pair(fst, k + 8, n, N, J));
+    }
+    __syncthreads();
+    // one (m16 row tile, n8 column tile) of the output a warp at a time: A by
+    // ldmatrix, B by one 8-byte load, into the block's output tile
+    const int lm_row = ((lane >> 3) & 1) * 8 + (lane & 7), lm_col = (lane >> 4) * 8;
+    const int items = (nrows + 15) / 16 * L.NNT;
+    for (int item = warp; item < items; item += WD_WARPS) {
+      const int mt = item / L.NNT, nt = item - mt * L.NNT;
+      const __nv_bfloat16* arow = at + (mt * 16 + lm_row) * L.LDA + lm_col;
+      const uint2* bq = bfr + nt * 32 + lane;
+      float acc[4] = {};
+      for (int ks = 0; ks < L.KS; ++ks) {
+        uint32_t a[4];
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                     : "r"(smem_u32(arow + ks * 16))
+                     : "memory");
+        const uint2 b = bq[ks * L.NNT * 32];
+        asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = nt * 8 + 2 * t + (e & 1);
+        if (j < J) ot[(mt * 16 + g + (e >> 1) * 8) * J + j] = acc[e];
+      }
+    }
+    __syncthreads();
+    // the block's rows of out are nrows J contiguous floats from a 16-byte
+    // boundary: float4 stores
+    float* ob = out + (size_t)row0 * J;
+    const int no = nrows * J;
+    for (int i = tid; i < no / 4; i += nthr)
+      *reinterpret_cast<float4*>(ob + 4 * i) = *reinterpret_cast<const float4*>(ot + 4 * i);
+    for (int e = no / 4 * 4 + tid; e < no; e += nthr) ob[e] = ot[e];
+  } else {
+    // one 16 x 8 tile of the output a warp at a time, on the CUDA cores: a
+    // lane owns rows 2 (lane / 4) + i and columns 2 (lane % 4) + c
+    const int nnt = (J + 7) / 8, items = (nrows + 15) / 16 * nnt;
+    for (int item = warp; item < items; item += WD_WARPS) {
+      const int mt = item / nnt, j0 = (item - mt * nnt) * 8, r0 = row0 + mt * 16;
+      const float* xt = xs + mt * 16 * N;
+      const int rr = lane / 4 * 2, jj = j0 + lane % 4 * 2;
+      const bool ok0 = jj < J, ok1 = jj + 1 < J;
+      float acc[2][2] = {};
+      for (int k = 0; k < N; ++k) {
+        const float x0 = xt[rr * N + k], x1 = xt[(rr + 1) * N + k];
+        const float f0 = ok0 ? fst[k * J + jj] : 0.f, f1 = ok1 ? fst[k * J + jj + 1] : 0.f;
+        acc[0][0] = fmaf(x0, f0, acc[0][0]);
+        acc[0][1] = fmaf(x0, f1, acc[0][1]);
+        acc[1][0] = fmaf(x1, f0, acc[1][0]);
+        acc[1][1] = fmaf(x1, f1, acc[1][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int row = r0 + rr + i;
+          if (row < M && jj + c < J) out[(size_t)row * J + jj + c] = acc[i][c];
+        }
+    }
   }
 }
 
-template <typename S>
+template <typename S, bool TC>
 static int launch_wdft(const float* x, const float* fac, float* out, int M, int N, int J,
-                       const void* pre, int gelu_grad, float* dpre, int gelu_in, int bf,
+                       const void* pre, int gelu_grad, float* dpre, int gelu_in,
                        cudaStream_t st) {
-  const size_t smem = (size_t)(WDFT_ROWS * N + N * J) * sizeof(float);
-  cudaError_t e = fno_set_smem(wdft_kernel<S>, smem);
+  const size_t smem = WdftLayout(N, J, TC, pre != nullptr && gelu_grad, sizeof(S)).bytes;
+  cudaError_t e = fno_set_smem(wdft_kernel<S, TC>, smem);
   if (e != cudaSuccess) return (int)e;
-  wdft_kernel<S><<<(M + WDFT_ROWS - 1) / WDFT_ROWS, 256, smem, st>>>(
-      x, fac, out, M, N, J, (const S*)pre, gelu_grad, dpre, gelu_in, bf);
+  wdft_kernel<S, TC><<<(M + WD_ROWS - 1) / WD_ROWS, WD_WARPS * 32, smem, st>>>(
+      x, fac, out, M, N, J, (const S*)pre, gelu_grad, dpre, gelu_in);
   return (int)cudaGetLastError();
 }
 
@@ -311,9 +527,13 @@ FNO_EXPORT int fno_wdft(const float* x, const float* fac, float* out, int M, int
                         int bf, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (pre_bf16)
-    return launch_wdft<__nv_bfloat16>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in, bf,
-                                      st);
-  return launch_wdft<float>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in, bf, st);
+    return bf ? launch_wdft<__nv_bfloat16, true>(x, fac, out, M, N, J, pre, gelu_grad, dpre,
+                                                 gelu_in, st)
+              : launch_wdft<__nv_bfloat16, false>(x, fac, out, M, N, J, pre, gelu_grad, dpre,
+                                                  gelu_in, st);
+  return bf ? launch_wdft<float, true>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in, st)
+            : launch_wdft<float, false>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in,
+                                        st);
 }
 
 // ---------------------------------------------------------------------------

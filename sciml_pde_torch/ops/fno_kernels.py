@@ -101,6 +101,13 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
     raise ValueError(f"tensors must all lie on one CUDA device or on the CPU, got {devs}")
 
 
+def _aligned(t):
+    """``t`` (or None), or a copy of it when its data do not start on 16
+    bytes: the kernels that copy tensors into shared memory by cp.async
+    (wdft, the bf16 attention bodies) move 16 bytes at a time."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _need(t: torch.Tensor, shape, dtype=torch.float32, what: str = "tensor") -> None:
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
         raise ValueError(f"{what}: expected {tuple(shape)} {dtype}, got "
@@ -193,13 +200,51 @@ def wdft_plain(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
     return out if pre is None else (out, v)
 
 
+WDFT_ROWS = 32  # rows of x a block owns (WD_ROWS, fno_fwd.cu)
+SMEM_MAX = 227 * 1024  # shared memory one block may take on an H100
+
+
+def wdft_smem_bytes(n: int, j: int, tc: bool, pre_size: int) -> int:
+    """Shared memory of one ``wdft_kernel`` block (``WdftLayout``,
+    fno_fwd.cu) for N = n, J = j, on the tensor-core body with ``tc``;
+    ``pre_size`` is the bytes of one staged pre value, 0 when pre is not
+    staged (no gelu')."""
+    ts = (WDFT_ROWS * n + 7) // 8 * 8
+    ks, nnt = (n + 15) // 16, (j + 7) // 8
+    total = (n * j + 3) // 4 * 16 + ts * 4 + (ts * pre_size + 15) // 16 * 16
+    if tc:
+        total += WDFT_ROWS * (16 * ks + 8) * 2 + ks * nnt * 32 * 8
+        total += (WDFT_ROWS * j * 4 + 15) // 16 * 16
+    return total
+
+
+def _check_wdft_smem(n: int, j: int, tc: bool, pre_size: int) -> None:
+    """Raise, naming the widest N this variant takes at this J, when one
+    block's shared memory would pass SMEM_MAX (at J = 24: N up to 492 on the
+    tensor cores with gelu' and an f32 pre, up to 1037 on the CUDA cores
+    with no pre)."""
+    if wdft_smem_bytes(n, j, tc, pre_size) <= SMEM_MAX:
+        return
+    widest = n
+    while widest > 0 and wdft_smem_bytes(widest, j, tc, pre_size) > SMEM_MAX:
+        widest -= 1
+    raise ValueError(f"wdft: N = {n} at J = {j} needs {wdft_smem_bytes(n, j, tc, pre_size)} "
+                     f"bytes of shared memory a block, above {SMEM_MAX}; this variant takes "
+                     f"N up to {widest}")
+
+
 def wdft(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
     if not _on_cuda(x, fac, pre):
         return wdft_plain(x, fac, pre, gelu_grad, bf, gelu_in)
     n, j = fac.shape
     if x.shape[-1] != n:
         raise ValueError(f"wdft: x {tuple(x.shape)} vs fac {tuple(fac.shape)}")
+    if x.dtype != torch.float32 or fac.dtype != torch.float32 or (
+            pre is not None and pre.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError("wdft: x and fac must be f32, pre f32 or bf16")
+    _check_wdft_smem(n, j, bool(bf), pre.element_size() if pre is not None and gelu_grad else 0)
     m = x.numel() // n
+    x, fac, pre = _aligned(x), _aligned(fac), _aligned(pre)
     out = torch.empty(*x.shape[:-1], j, device=x.device)
     dpre = None
     if pre is not None:

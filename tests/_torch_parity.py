@@ -1,5 +1,6 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): pin
-f32 products in both packages and move trees between them."""
+f32 products in both packages, move trees between them, and load
+chip_smoke.py for the bounds the card checks use."""
 
 import contextlib
 
@@ -42,3 +43,16 @@ def assert_trees_close(got, want, rtol, atol, what=""):
             have = have.detach().cpu().numpy()
         np.testing.assert_allclose(np.asarray(have), np.asarray(leaf), rtol=rtol, atol=atol,
                                    err_msg=f"{what} mismatch at {'/'.join(key)}")
+
+
+def chip_smoke():
+    """chip_smoke.py as a module, for the bounds and shapes it holds the
+    kernels to on the card (importing it runs nothing)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

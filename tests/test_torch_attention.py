@@ -7,9 +7,6 @@ terms) against chip_smoke.py's bounds.
 Tolerances, relative to the largest magnitude of the JAX result: f32 1e-5
 (sums in another order); bf16 3e-2 (roundings to bf16 at other points)."""
 
-import importlib.util
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +15,8 @@ import torch
 
 from sciml_pde_tpu.ops import attention as ja
 from sciml_pde_torch.ops import attention as ta
+
+from _torch_parity import chip_smoke
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 B, H, D = 1, 2, 16
@@ -127,12 +126,13 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [96, 24, 160, 192, 256])
+@pytest.mark.parametrize("d", [96, 24, 160, 192, 256, 264, 320, 512])
 def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
     """Head dims that are multiples of 8 but not powers of two, and those above
     128, take the fused path in both packages (the kernels pad 24 to 32 in
-    shared memory and are built for 96, 160, 192 and 256): values and q/k/v
-    gradients against JAX in interpret mode."""
+    shared memory, are built for 96, 160, 192 and 256, and take 264, 320 and
+    512 through their wide bodies): values and q/k/v gradients against JAX
+    in interpret mode."""
     jdt, tdt, tol = DTYPES[dtype]
     n = 64
     rng = np.random.default_rng(d)
@@ -158,31 +158,29 @@ def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
         _close(t.grad, w, tol, f"d{name}")
 
 
-def test_kernel_check_takes_any_head_dim_to_256_and_any_batch_heads():
-    """The wrappers' shape check takes every head dim d % 8 == 0 up to 256 and
-    a batch*heads count above 65535; it raises above 256, naming the limit,
-    on a head dim that is not a multiple of 8, and on a non-contiguous
-    panel."""
+def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
+    """The wrappers' shape check takes every head dim d % 8 == 0, with no
+    upper limit (264, 320, 512 and 1024 go to the wide bodies), and a
+    batch*heads count above 65535; it raises on a head dim that is not a
+    multiple of 8, on a grid past 2^31 - 1 blocks (counting the wide
+    bodies' column groups), and on a non-contiguous panel."""
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
-    for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256):
-        assert ta._check(meta(3, 64, d), (meta(3, 64, d),)) == (3, 64, d, True)
+    for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256, 264, 320, 512, 1024):
+        for dt in (torch.bfloat16, torch.float32):
+            want = (3, 64, d, dt == torch.bfloat16)
+            assert ta._check(meta(3, 64, d, dt=dt), (meta(3, 64, d, dt=dt),)) == want
     q = meta(70_000, 16, 16)
     rows = (meta(70_000, 16, 1, dt=torch.float32),) * 2
     assert ta._check(q, (q, q, q), rows) == (70_000, 16, 16, True)
-    with pytest.raises(ValueError, match="head dims d % 8 == 0 up to 256"):
-        ta._check(meta(2, 64, 264))
+    # 2^31 / (2048 / 32 row tiles x 8 column groups) batch*heads fill the grid
+    assert ta._blocks_per_panel(2048, 1024) == 512
+    ta._check(meta(2**22 - 1, 2048, 1024))
+    with pytest.raises(ValueError, match="grid"):
+        ta._check(meta(2**22, 2048, 1024))
     with pytest.raises(ValueError, match="head dim"):
         ta._check(meta(2, 64, 20))
     with pytest.raises(ValueError, match="contiguous"):
         ta._check(meta(2, 64, 16), (meta(2, 16, 64).transpose(1, 2),))
-
-
-def _chip_smoke():
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def test_split_bf16_backward_meets_the_card_bounds():
@@ -193,7 +191,7 @@ def test_split_bf16_backward_meets_the_card_bounds():
     bf16 bound (one bf16 step of the value plus 1e-5 of the largest
     magnitude), with a mean error under half that of the bf16-p control
     (chip_smoke.att_bf16p)."""
-    cs = _chip_smoke()
+    cs = chip_smoke()
     rng = np.random.default_rng(11)
     bh, n, d = 2, 128, 64
     q, k, v, do = (torch.tensor(rng.normal(size=(bh, n, d)).astype(np.float32)).bfloat16()

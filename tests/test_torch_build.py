@@ -1,0 +1,40 @@
+"""The kernel build module's readers of the compiler's output: kernel names
+from mangled symbols (integer, boolean and type template arguments) and
+the registers and spills of each kernel from a ``ptxas -v`` log, as
+chip_smoke.py's phase 2 prints and checks them.  No compiler is needed."""
+
+import pytest
+
+from sciml_pde_torch.ops import _build
+
+
+@pytest.mark.parametrize("mangled, name", [
+    ("_ZN12_GLOBAL__N_113fwd_tc_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiif",
+     "fwd_tc_kernel<64>"),
+    ("_ZN12_GLOBAL__N_115dkv_wide_kernelI13__nv_bfloat16EEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiif",
+     "dkv_wide_kernel<__nv_bfloat16>"),
+    ("_Z11wdft_kernelI13__nv_bfloat16Lb1EEvPKfS2_PfiiiPKT_iS3_ii",
+     "wdft_kernel<__nv_bfloat16, true>"),
+    ("_Z11wdft_kernelIfLb0EEvPKfS1_PfiiiPKT_iS2_ii", "wdft_kernel<float, false>"),
+    ("_Z18reduce_rows_kernelPKfPfii", "reduce_rows_kernel"),
+    ("_Z9not_a_knlPKf", "_Z9not_a_knlPKf"),
+])
+def test_kernel_name_reads_template_arguments(mangled, name):
+    assert _build._kernel_name(mangled) == name
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    log = tmp_path / "libfno_bwd-0.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_Z18reduce_rows_kernelPKfPfii' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z18reduce_rows_kernelPKfPfii\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, 384 bytes smem\n"
+        "ptxas info    : Compiling entry function "
+        "'_Z11wdft_kernelIfLb1EEvPKfS1_PfiiiPKT_iS2_ii' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z11wdft_kernelIfLb1EEvPKfS1_PfiiiPKT_iS2_ii\n"
+        "    24 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 255 registers\n")
+    monkeypatch.setattr(_build, "library_path", lambda name: tmp_path / f"lib{name}-0.so")
+    assert _build.ptxas_report("fno_bwd") == [("reduce_rows_kernel", 32, 0, 0),
+                                              ("wdft_kernel<float, true>", 255, 16, 12)]

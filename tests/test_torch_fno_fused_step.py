@@ -14,7 +14,7 @@ from sciml_pde_tpu.ops import fno_fused_step as jf
 from sciml_pde_torch.ops import fno_fused_step as tf
 from sciml_pde_torch.utils.weights import flax_to_packed, packed_to_flax
 
-from _torch_parity import assert_trees_close, precision, to_numpy_tree
+from _torch_parity import assert_trees_close, chip_smoke, precision, to_numpy_tree
 
 B, X, Y, T, CC = 2, 16, 16, 3, 2
 WIDTH, MODES = 8, 4
@@ -158,3 +158,141 @@ def test_stats_plain_matches_f64_two_pass():
     want_std = np.sqrt(((x - want_mean[..., None]) ** 2).sum(-1) / (x.shape[-1] - 1)) + 1e-7
     np.testing.assert_allclose(mean.numpy(), want_mean, rtol=1e-6)
     np.testing.assert_allclose(std.numpy(), want_std, rtol=1e-6)
+
+
+def _csrc_constants(source, names):
+    """Integer constants of a kernel source, ``NAME = value``."""
+    import re
+    from pathlib import Path
+
+    text = (Path(tf.__file__).resolve().parent / "csrc" / source).read_text()
+    return [int(re.search(rf"\b{n} = (\d+)", text).group(1)) for n in names]
+
+
+@pytest.mark.parametrize("what", ["head backward", "a layer's outer", "the lift's outer"])
+def test_reduce_rows_grouped_order_meets_the_card_bound(what):
+    """A rehearsal of ``reduce_rows_kernel``'s arithmetic at the three shapes
+    the fused step gives it (chip_smoke.RR_SHAPES): the rows cut into the
+    kernel's fixed groups of ceil(rows / groups) (265 rows leave a ragged
+    last group and empty ones after it), each summed in order in f32, the
+    group sums added in warp order, then the blocks' sums in cluster-rank
+    order.  It lies within chip_smoke.py's TOL_KERNEL of the plain version
+    and within 1e-6 of the f64 sum."""
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    cs = chip_smoke()
+    rows, cols = cs.RR_SHAPES[what]
+    warps, cluster = _csrc_constants("fno_bwd.cu", ("RR_WARPS", "RR_CLUSTER"))
+    groups = warps * cluster
+    per = -(-rows // groups)
+    if rows == 265:
+        assert 0 < rows % per and rows // per < groups - 1  # a ragged group, empty ones after
+    part = np.random.default_rng(rows).normal(size=(rows, cols)).astype(np.float32)
+    sums = []
+    for g in range(groups):
+        s = np.zeros(cols, np.float32)
+        for k in range(min(g * per, rows), min((g + 1) * per, rows)):
+            s = s + part[k]
+        sums.append(s)
+    out = np.zeros(cols, np.float32)
+    for r in range(cluster):
+        b = np.zeros(cols, np.float32)
+        for w in range(warps):
+            b = b + sums[r * warps + w]
+        out = out + b
+    want = fk.reduce_rows_plain(torch.from_numpy(part)).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(out - want).max() / scale <= cs.TOL_KERNEL
+    exact = part.astype(np.float64).sum(0)
+    assert np.abs(out - exact).max() / scale <= 1e-6
+
+
+@pytest.mark.parametrize("variant", ["forward", "adjoint, pre bf16, gelu_grad"])
+def test_wdft_bf16_mma_order_meets_the_card_bounds(variant):
+    """A rehearsal of ``wdft_kernel``'s tensor-core arithmetic at the flagship
+    shape (rows 4 * 20 * 130, Wp = 130, J = 24) under `default`: v rounded
+    to bf16, K padded to 144 with zeros, each k16 step's 16 exact products
+    summed and added to the f32 accumulator.  It lies within chip_smoke.py's
+    TOL_KERNEL of the plain version and below half the plain bf16-vs-f32
+    gap, the bound phase 3 holds the kernel to."""
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    cs = chip_smoke()
+    hp = cs.XY + cs.PAD
+    f = tf.kernel_factors(hp, hp, cs.MODES, cs.MODES, "cpu", True)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(cs.B, cs.WIDTH, hp, hp)).astype(np.float32))
+    if variant == "forward":
+        fac, pre, args = f.fwd_w, None, {}
+        v = x
+    else:
+        fac = f.adj_w
+        pre = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)).bfloat16()
+        args = {"pre": pre, "gelu_grad": True}
+        v = x * fk._gelu_grad(pre.float())
+
+    def plain(bf):
+        out = fk.wdft_plain(x, fac, bf=bf, **args)
+        return (out if pre is None else out[0]).numpy()
+
+    want = plain(True)
+    gap = np.abs(plain(False) - want).max()
+    kp = -(-hp // 16) * 16
+    assert kp == 144
+    a = np.zeros((v.numel() // hp, kp), np.float32)
+    a[:, :hp] = v.reshape(-1, hp).bfloat16().float().numpy()
+    b = np.zeros((kp, fac.shape[1]), np.float32)
+    b[:hp] = fac.numpy()
+    assert np.array_equal(b, torch.from_numpy(b).bfloat16().float().numpy())  # bf16-exact
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for ks in range(0, kp, 16):
+        acc = acc + (a[:, ks:ks + 16].astype(np.float64) @ b[ks:ks + 16]).astype(np.float32)
+    err = np.abs(acc - want.reshape(acc.shape)).max()
+    scale = np.abs(want).max()
+    assert err / scale <= cs.TOL_KERNEL and err < gap / 2, (err / scale, gap / scale)
+
+
+@pytest.mark.parametrize("tc,pre_size,widest", [(True, 4, 492), (True, 2, 570), (True, 0, 677),
+                                                (False, 4, 660), (False, 0, 1037)])
+def test_wdft_smem_check_names_the_widest_n(tc, pre_size, widest):
+    """``wdft``'s shared-memory check (the mirror of ``WdftLayout``) takes
+    the flagship's Wp = 130 and every N up to the variant's widest at J = 24,
+    and raises past it with that limit named."""
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    assert _csrc_constants("fno_fwd.cu", ("WD_ROWS",)) == [fk.WDFT_ROWS]
+    fk._check_wdft_smem(130, 24, tc, pre_size)
+    fk._check_wdft_smem(widest, 24, tc, pre_size)
+    with pytest.raises(ValueError, match=f"N up to {widest}$"):
+        fk._check_wdft_smem(widest + 1, 24, tc, pre_size)
+
+
+@pytest.mark.parametrize("variant", ["forward", "adjoint, pre f32, gelu_grad"])
+def test_wdft_f32_bound_rejects_tf32_inputs(variant):
+    """A rehearsal of phase 3's `highest` check on ``fno_wdft`` at the
+    flagship shape: exact f32 products summed in order over k lie within
+    chip_smoke.py's TOL_WDFT_F32 of the plain version, and the control, the
+    plain version with TF32-rounded inputs (what a TF32 body would compute),
+    lies above it."""
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    cs = chip_smoke()
+    hp = cs.XY + cs.PAD
+    f = tf.kernel_factors(hp, hp, cs.MODES, cs.MODES, "cpu", False)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(cs.B, cs.WIDTH, hp, hp)).astype(np.float32))
+    if variant == "forward":
+        fac, v = f.fwd_w, x
+        want = fk.wdft_plain(x, fac)
+    else:
+        fac = f.adj_w
+        pre = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+        want, v = fk.wdft_plain(x, fac, pre, True)
+    a, b = v.reshape(-1, hp).numpy(), fac.numpy()
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(hp):
+        acc = acc + a[:, k:k + 1] * b[k]
+    scale = want.abs().max().item()
+    assert np.abs(acc - want.reshape(acc.shape).numpy()).max() / scale <= cs.TOL_WDFT_F32
+    ctl = torch.matmul(cs.tf32(v), cs.tf32(fac))
+    assert (ctl - want).abs().max().item() / scale > cs.TOL_WDFT_F32
