@@ -20,9 +20,11 @@ FNO steps and the five split kernels):
               experiment's probe_native: native, and exactly 2 * x
   1. card     name and power limit (nvidia-smi), torch and CUDA versions
   2. build    nvcc for sm_90a, all sources in parallel; registers and
-              spills of every attention and FNO kernel (ptxas -v), none
-              spilling at head dim 64 on the tensor cores, and none in
-              wdft_kernel and reduce_rows_kernel
+              spills of every attention and FNO kernel and the FNO kernels'
+              stack frames (ptxas -v), none spilling at head dim 64 on the
+              tensor cores, none in wdft_kernel and reduce_rows_kernel, and
+              neither spills nor a stack frame in lift_kernel and both
+              paths of head_fwd_kernel and head_bwd_kernel
   3. check    the fused forward and all ten gradients from the kernels
               against the plain PyTorch versions on the card, under
               `highest` (f32) and `default` (bf16 dot inputs); then every
@@ -36,7 +38,17 @@ FNO steps and the five split kernels):
               gelu_grad) under both precisions; fno_reduce_rows at its
               three shapes (the head backward's, a layer's and the lift's
               outer-product partials) with its time beside torch.sum's;
-              each of these with the same bits from a second launch
+              fno_lift, fno_head_fwd and fno_head_bwd under both precisions
+              at (C, Co) = (20, 2), (40, 2) and (64, 9) (fault C6: widths and
+              channel counts the first kernels refused; under `highest`
+              within 1e-5 with a TF32-input control), the head kernels'
+              times at the flagship under both; each of these with the same
+              bits from a second launch; each head kernel at its widest C
+              on each path, its wrapper naming that limit one channel
+              above; the fused forward with its ten gradients at width 40
+              against the plain composition, and printed beside it the
+              same on random-normal inputs at widths 20 and 40, with the
+              head kernels and with their plain versions
   4. train    one epoch of the DR baseline on a seeded in-memory store
               (10 trajectories x 101 frames x 128 x 128 x 2): finite and
               falling loss, launch counts of every kernel
@@ -46,9 +58,11 @@ FNO steps and the five split kernels):
               versions (and the same bits from a second launch) at the
               encoder (24, 1280, 64) and decoder
               (16, 1280, 64) shapes and at head dims 96, 24, 160, 192,
-              256, 264, 320 and 512, in f32 and bf16, and at batch*heads
-              70000 (70000, 16, 16) in bf16, with a control against a
-              kernel that rounds p and ds to bf16
+              256, 264, 320 and 512, in f32 and bf16 (above 256 with each
+              kernel's time beside the SDPA forward or backward on the
+              same inputs), and at batch*heads 70000 (70000, 16, 16) in
+              bf16, with a control against a kernel that rounds p and ds
+              to bf16
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
               every gradient) through the kernels against the same model
               through the plain versions, with the bf16-vs-f32 gap as a
@@ -87,15 +101,19 @@ FNO steps and the five split kernels):
               `highest` and `default`: each through the kernels against
               its plain version on the same inputs (phase 3's bounds), the
               stage-kernel launches of one call, a control under `default`
-              (bf16 mix weights in `_bb_backward`, a bf16 spectrum in
-              `_bb_weight_grads`, each further from the plain version than
-              the kernels), the five chained against the plain fused VJP
+              (bf16 mix weights in `_bb_backward`, compared in mean error
+              over dpre, with the ratios on the cotangents of seeds 1-3
+              printed, dbb from the head kernel and from its plain
+              version; a bf16 spectrum in `_bb_weight_grads`; each
+              further from the plain version than the kernels by more than
+              twice), the five chained against the plain fused VJP
               within 1e-4 (`highest`), and per-call times beside bounds
  15. probe    the ported perf probe, all eleven configs in this process
               (PROBE_SCAN_K 50) and one more through its subprocess runner:
               no error, finite results, the steps/s table, and launches of
               every split function and stage kernel
 
+The probe's row carries its profiler device time beside torch.mul's.
 It prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero and
 prints no result.  Without a CUDA device it exits non-zero at once.
@@ -124,6 +142,13 @@ TOL_KERNEL = 1e-3  # one kernel against its plain version, main-path inputs
 # fno_wdft under `highest` (exact f32 products, no TF32) against its plain
 # version: readings were at most 1.2e-7 (gelu'), TF32 inputs ~1e-4
 TOL_WDFT_F32 = 1e-5
+# fno_lift, fno_head_fwd and fno_head_bwd under `highest` (exact f32
+# products on the CUDA cores) against their plain versions: readings were
+# at most 8.1e-7 (fno_head_bwd), 0 for the lift; the plain versions on TF32
+# inputs lie above the bound (the control).  HEAD_TF32_ARGS: the inputs of
+# each that enter a product
+TOL_HEAD_F32 = 1e-5
+HEAD_TF32_ARGS = {"lift": (0, 1, 4), "head_fwd": (0, 1, 3), "head_bwd": (0, 1, 2, 4)}
 # fno_stats beyond the flagship: (what, win shape, offset added to N(0, 1))
 STATS_SHAPES = (("X*Y not a multiple of 4", (3, 1, 3, 17, 13), 0.0),
                 ("larger than one cluster's shared memory", (1, 10, 1, 256, 256), 0.0),
@@ -208,15 +233,27 @@ WDFT_VARIANTS = (("forward", "h", None, False, False),
                  ("adjoint, pre bf16, gelu_grad", "dh", "bfloat16", True, False),
                  ("adjoint, pre f32", "dh", "float32", False, False),
                  ("adjoint, pre f32, gelu_grad", "dh", "float32", True, False))
-# fno_reduce_rows at the three shapes the fused step gives it: the head
-# backward's partials (one row per 64 pixels), a layer's and the lift's
-# outer-product partials (one row per 256 pixels of the padded field and of
-# the image)
-RR_SHAPES = {
-    "head backward": (B * XY * XY // 64, NH * WIDTH + NH + CC * NH + CC),
-    "a layer's outer": (-(-B * (XY + PAD) ** 2 // 256), WIDTH * WIDTH + WIDTH),
-    "the lift's outer": (B * XY * XY // 256, WIDTH * (T0 * CC + 2) + WIDTH),
-}
+# fno_lift, fno_head_fwd and fno_head_bwd at (width C, output channels Co):
+# the flagship, and fault C6's widths and channel counts above the 32 and 8
+# that the first lift and head kernels held in registers
+HEAD_SHAPES = ((WIDTH, CC), (40, 2), (64, 9))
+WIDE_WIDTH = 40  # the fused forward and its ten gradients at a C6 width
+
+
+def rr_shapes() -> dict:
+    """fno_reduce_rows at the three shapes the fused step gives it: the head
+    backward's partials (one row per persistent block of head_bwd_kernel),
+    a layer's and the lift's outer-product partials (one row per
+    outer_partial_kernel block over the padded field and over the image)."""
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    return {
+        "head backward": (fk.head_bwd_rows(B * XY * XY), NH * WIDTH + NH + CC * NH + CC),
+        "a layer's outer": (-(-B * (XY + PAD) ** 2 // fk.OUTER_PB), WIDTH * WIDTH + WIDTH),
+        "the lift's outer": (B * XY * XY // fk.OUTER_PB, WIDTH * (T0 * CC + 2) + WIDTH),
+    }
+
+
 # fused dft2 layer (B6) against its plain f32 version and autograd of it:
 # f32 sums in another order; the control (bf16-rounded inputs) must lie more
 # than 10x the bound away, so a kernel that rounds or uses TF32 fails
@@ -302,11 +339,55 @@ def tf32(t):
 def moved_bytes(fname: str, args, out) -> int:
     """The bytes one FNO kernel call must move: each tensor input read once,
     each output written once.  ``wdft`` reads ``pre`` only with
-    ``gelu_grad`` (args: x, fac, pre, gelu_grad, ...)."""
+    ``gelu_grad`` (args: x, fac, pre, gelu_grad, ...); the head kernels read
+    only the logical (X, Y) region of ``hf`` (B, C, Hp, Wp) (args: hf, ...,
+    x, y and dpred (B, Co, X, Y), hf, ...)."""
     ins = list(args)
     if fname == "wdft" and len(ins) > 3 and not ins[3]:
         ins[2] = None
+    if fname == "head_fwd":
+        ins[0] = ins[0][:, :, :ins[7], :ins[8]]
+    if fname == "head_bwd":
+        ins[1] = ins[1][:, :, :ins[0].shape[2], :ins[0].shape[3]]
     return sum(t.numel() * t.element_size() for t in tensors(ins) + tensors(out))
+
+
+def kernel_flops(fname: str, args, out) -> int:
+    """The floating-point operations one FNO kernel call needs (a multiply-add
+    counts 2)."""
+    if fname == "stats":
+        return 4 * args[0].numel()
+    if fname == "lift":
+        h0, finp = out
+        return 2 * finp.numel() * h0.shape[1]
+    if fname == "wdft":
+        x, fac = args[0], args[1]
+        return 2 * (x.numel() // fac.shape[0]) * fac.numel()
+    if fname == "corner":
+        a, (pr, _), (w, _), d = args[0], args[1], args[2], out[2]
+        bsz, cin, hp, k2 = a.shape
+        r, cout = pr.shape[1], d.shape[1]
+        return bsz * (k2 // 2) * 8 * (cin * r * hp + cout * r * cin + cout * hp * r)
+    if fname == "iwdft_pw":
+        d, xin, o = args[0], args[2], out[0]
+        return 2 * o.numel() * (d.shape[-1] + xin.shape[1])
+    if fname == "head_fwd":
+        hf, w1t, w2t, pr = args[0], args[1], args[3], out
+        npix = pr.shape[0] * pr.shape[2] * pr.shape[3]
+        return 2 * npix * (w1t.numel() + w2t.numel())
+    if fname == "head_bwd":
+        dpred, w1t, w2t = args[0], args[2], args[4]
+        npix = dpred.shape[0] * dpred.shape[2] * dpred.shape[3]
+        return 2 * npix * (3 * w1t.numel() + 2 * w2t.numel())
+    if fname == "mix_wgrad":
+        spr, dcr = args[0], args[2]
+        return 8 * spr.numel() * dcr.shape[1]
+    if fname == "outer":
+        a, bm, nh, nw = args[0], args[1], args[3], args[4]
+        return 2 * a.shape[0] * nh * nw * a.shape[1] * (bm.shape[1] + 1)
+    if fname == "reduce_rows":
+        return args[0].numel()
+    raise KeyError(fname)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -326,15 +407,15 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def profiler_ms(fn, kernel_key: str = "", reps: int = 20):
     """Device time per call of ``fn`` in kernels whose name holds
     ``kernel_key`` (all of its device time by default), from torch.profiler
-    over ``reps`` back-to-back calls (no host issue gaps); None when two
-    profiler sessions in a row recorded no device time (the first session
-    after another one has come back empty on the card)."""
+    over ``reps`` back-to-back calls (no host issue gaps); None when three
+    profiler sessions in a row recorded no device time (a session after
+    another one has come back empty on the card, twice in a row once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -462,7 +543,7 @@ def check_wdft(dev, card: str, h, dh, pre) -> None:
 
 
 def check_reduce_rows(dev, card: str) -> None:
-    """Phase 3: ``fno_reduce_rows`` at the three shapes of RR_SHAPES against
+    """Phase 3: ``fno_reduce_rows`` at the three shapes of ``rr_shapes`` against
     its plain version within TOL_KERNEL, the same bits from a second launch,
     and its time (CUDA events and profiler device time) beside its bound
     and ``torch.sum(part, 0)``'s."""
@@ -470,7 +551,7 @@ def check_reduce_rows(dev, card: str) -> None:
     from sciml_pde_torch.ops import fno_kernels as fk
 
     g = torch.Generator().manual_seed(12)
-    for what, shape in RR_SHAPES.items():
+    for what, shape in rr_shapes().items():
         part = torch.randn(*shape, generator=g).to(dev)
         got, again, want = fk.reduce_rows(part), fk.reduce_rows(part), fk.reduce_rows_plain(part)
         torch.cuda.synchronize()
@@ -486,6 +567,211 @@ def check_reduce_rows(dev, card: str) -> None:
               f"bound {bound_ms:.5f} ms (bytes); torch.sum(part, 0) "
               f"{cuda_ms(lambda: torch.sum(part, dim=0)):.4f} ms, profiler device time "
               f"{fmt(profiler_ms(lambda: torch.sum(part, dim=0)))}", flush=True)
+
+
+def check_head(dev, card: str) -> None:
+    """Phase 3: ``fno_lift``, ``fno_head_fwd`` and ``fno_head_bwd`` at the
+    (C, Co) of HEAD_SHAPES under `highest` and `default`, on seeded inputs of
+    the flagship's batch and image: each against its plain version within
+    TOL_KERNEL, under `default` also below half the plain bf16-vs-f32 gap,
+    under `highest` within TOL_HEAD_F32, which the plain version on TF32
+    inputs must exceed (the control), and the same bits from a second
+    launch; the head kernels' CUDA-event and profiler device times beside
+    their bounds and plain times."""
+    import torch
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    g = torch.Generator().manual_seed(13)
+    hp = XY + PAD
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(dev)  # noqa: E731
+    uni = lambda *shape: (2 * torch.rand(*shape, generator=g) - 1).to(dev)  # noqa: E731
+    for c, co in HEAD_SHAPES:
+        f = T0 * co + 2
+        win, grid2 = rnd(B, T0, co, XY, XY), torch.rand(2, XY, XY, generator=g).to(dev)
+        mean, std = fk.stats_plain(win)
+        w0t, b0 = uni(c, f) / f**0.5, uni(c) / f**0.5
+        hf, dpred = rnd(B, c, hp, hp), rnd(B, co, XY, XY)
+        w1t, b1 = uni(NH, c) / c**0.5, uni(NH) / c**0.5
+        w2t, b2 = uni(co, NH) / NH**0.5, uni(co) / NH**0.5
+        for prec, bf in (("highest", False), ("default", True)):
+            rd = lambda t: fk._rd(t, bf)  # noqa: E731
+            cases = {"fno_lift": ("lift", (win, grid2, mean, std, rd(w0t), b0, hp, hp)),
+                     "fno_head_fwd": ("head_fwd", (hf, rd(w1t), b1, rd(w2t), b2, mean, std,
+                                                   XY, XY)),
+                     "fno_head_bwd": ("head_bwd", (dpred, hf, rd(w1t), b1, rd(w2t), std))}
+            for key, (fname, args) in cases.items():
+                kfn, pfn = getattr(fk, fname), getattr(fk, f"{fname}_plain")
+                got, again, want = kfn(*args, bf), kfn(*args, bf), pfn(*args, bf)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(tensors(got), tensors(again)))
+                err, rel = worst(got, want)
+                finite = all(bool(torch.isfinite(t).all()) for t in tensors(got))
+                ok = finite and same and rel <= TOL_KERNEL
+                msg = (f"[kernel] {key} C={c} Co={co} {prec}: max abs err {err:.3e}, rel-to-max "
+                       f"{rel:.3e} (tol {TOL_KERNEL:.0e}); same bits twice {same}")
+                if bf:
+                    gap = worst(pfn(*args, False), want)[1]
+                    ok &= rel < gap / 2
+                    msg += f"; plain bf16-vs-f32 gap {gap:.3e}"
+                else:
+                    ctl_args = tuple(tf32(a) if i in HEAD_TF32_ARGS[fname] else a
+                                     for i, a in enumerate(args))
+                    ctl = worst(pfn(*ctl_args, False), want)[1]
+                    ok &= rel <= TOL_HEAD_F32 < ctl
+                    msg += (f"; f32 tol {TOL_HEAD_F32:.0e}; control: plain with TF32 inputs "
+                            f"{ctl:.3e}, above it")
+                check(ok, msg)
+                if key == "fno_lift" or (c, co) != HEAD_SHAPES[0]:
+                    continue
+                out = kfn(*args, bf)
+                by_b = moved_bytes(fname, args, out) / HBM_BPS
+                by_o = kernel_flops(fname, args, out) / PEAK_FLOPS[prec]
+                by = "bytes" if by_b >= by_o else "operations"
+                print(f"[timing] {card}: {key} {prec} (C={c}, Co={co}, {B * XY * XY} pixels): "
+                      f"{cuda_ms(lambda: kfn(*args, bf)):.4f} ms/launch, profiler device time "
+                      f"{fmt(profiler_ms(lambda: kfn(*args, bf), FNO_KERNEL_KEYS[key]))}; bound "
+                      f"{max(by_b, by_o) * 1e3:.5f} ms ({by}); plain "
+                      f"{cuda_ms(lambda: pfn(*args, bf)):.4f} ms", flush=True)
+
+
+def check_head_limits(dev) -> None:
+    """Phase 3: each head kernel's widest C at the flagship's NH and Co on
+    each path, from its library's shared-memory layout: the kernel at that C
+    (on seeded inputs of one image) agrees with its plain version within
+    TOL_KERNEL, and the wrapper raises at one channel more, naming it."""
+    import torch
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    g = torch.Generator().manual_seed(14)
+    hp = XY + PAD
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(dev)  # noqa: E731
+    uni = lambda *shape: (2 * torch.rand(*shape, generator=g) - 1).to(dev)  # noqa: E731
+    mean, std, b1, b2 = rnd(1, CC), 1 + uni(1, CC).abs(), uni(NH) / 8, uni(CC) / 8
+    dpred, w2t = rnd(1, CC, XY, XY), uni(CC, NH) / NH**0.5
+
+    def args_at(name, c, bf):
+        hf, w1t = rnd(1, c, hp, hp), fk._rd(uni(NH, c) / c**0.5, bf)
+        if name == "head_fwd":
+            return (hf, w1t, b1, fk._rd(w2t, bf), b2, mean, std, XY, XY)
+        return (dpred, hf, w1t, b1, fk._rd(w2t, bf), std)
+
+    for name in ("head_fwd", "head_bwd"):
+        smem = fk.head_smem_bytes(name)
+        kfn, pfn = getattr(fk, name), getattr(fk, f"{name}_plain")
+        for prec, bf in (("highest", False), ("default", True)):
+            widest = fk._widest(lambda m: smem(m, NH, CC, bf) <= fk.SMEM_MAX, 4096)
+            args = args_at(name, widest, bf)
+            got, want = kfn(*args, bf), pfn(*args, bf)
+            torch.cuda.synchronize()
+            err, rel = worst(got, want)
+            finite = all(bool(torch.isfinite(t).all()) for t in tensors(got))
+            try:
+                kfn(*args_at(name, widest + 1, bf), bf)
+                raised = "nothing"
+            except ValueError as e:
+                raised = str(e)
+            names_it = raised.endswith(f"it takes C up to {widest} at this NH and Co")
+            check(finite and rel <= TOL_KERNEL and names_it,
+                  f"[kernel] fno_{name} {prec} at its widest C = {widest} (NH = {NH}, Co = "
+                  f"{CC}: {smem(widest, NH, CC, bf)} bytes of shared memory a block): max abs "
+                  f"err {err:.3e}, rel-to-max {rel:.3e} (tol {TOL_KERNEL:.0e}); at C = "
+                  f"{widest + 1} the wrapper names that limit: {names_it}")
+
+
+def check_wide_fused(dev, win, grid2, cot) -> None:
+    """Phase 3: fault C6 end to end, the fused forward and its ten gradients
+    at width WIDE_WIDTH on the main path's window and cotangent, through the
+    kernels against the plain composition (``fno2d_fused_reference`` and
+    ``fno2d_fused_vjp_reference``) under `highest` and `default`, within
+    TOL."""
+    import torch
+    from sciml_pde_torch.ops import fno_fused_step as ff
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.train.fno_train import default_init_tree
+
+    p = ff.pack_params(default_init_tree(CC, MODES, WIDE_WIDTH, T0, seed=2), MODES, MODES, dev)
+    names = ["pred"] + [f"d{n}" for n in ff.FastFNOParams._fields]
+    for prec in ("highest", "default"):
+        spectral.set_dft_precision(prec)
+        pk = ff.FastFNOParams(*(t.detach().clone().requires_grad_(True) for t in p))
+        pred = ff.fno2d_fused_apply(win, grid2, pk, MODES, MODES, PAD)
+        (pred * cot).sum().backward()
+        want = [ff.fno2d_fused_reference(win, grid2, p, MODES, MODES, PAD)]
+        want += list(ff.fno2d_fused_vjp_reference(cot, win, grid2, p, MODES, MODES, PAD))
+        torch.cuda.synchronize()
+        got = [pred.detach()] + [a.grad for a in pk]
+        errs = {n: rel_err(a, b)[1] for n, a, b in zip(names, got, want)}
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        name = max(errs, key=errs.get)
+        check(finite and errs[name] <= TOL[prec],
+              f"[check {prec}] width {WIDE_WIDTH} (fault C6): pred and ten grads through the "
+              f"kernels vs plain, worst rel-to-max {errs[name]:.3e} ({name}; tol "
+              f"{TOL[prec]:.0e})")
+    spectral.set_dft_precision("default")
+
+
+def wide_fused_witness(dev, grid2) -> None:
+    """Phase 3, printed only: the fused forward and its ten gradients under
+    `default` on a random-normal window and cotangent (seed 4) at widths
+    WIDTH and WIDE_WIDTH, through every kernel and with the head kernels
+    swapped for their plain versions, worst rel-to-max against the plain
+    composition.  TOL was set on the DR store's smooth fields, where the
+    checks run; these readings show how far random fields move the
+    backbone's bf16 rounding, with the head kernels and without them."""
+    from types import SimpleNamespace
+
+    import torch
+    from sciml_pde_torch.ops import fno_fused_step as ff
+    from sciml_pde_torch.ops import fno_kernels as fk
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.train.fno_train import default_init_tree
+
+    g = torch.Generator().manual_seed(4)
+    win = torch.randn(B, T0, CC, XY, XY, generator=g).to(dev)
+    cot = torch.randn(B, CC, XY, XY, generator=g).to(dev)
+    plain_head = SimpleNamespace(**{**vars(fk.KERNELS), "head_fwd": fk.head_fwd_plain,
+                                    "head_bwd": fk.head_bwd_plain})
+    names = ["pred"] + [f"d{n}" for n in ff.FastFNOParams._fields]
+    spectral.set_dft_precision("default")
+    for width in (WIDTH, WIDE_WIDTH):
+        p = ff.pack_params(default_init_tree(CC, MODES, width, T0, seed=2), MODES, MODES, dev)
+        want = [ff.fno2d_fused_reference(win, grid2, p, MODES, MODES, PAD)]
+        want += list(ff.fno2d_fused_vjp_reference(cot, win, grid2, p, MODES, MODES, PAD))
+        for what, ops in (("every kernel", fk.KERNELS), ("plain head", plain_head)):
+            pred, sv = ff._fused_forward(ops, win, grid2, p, MODES, MODES, PAD, save=True)
+            got = [pred] + list(ff._fused_backward(ops, cot, sv, p, MODES, MODES, PAD))
+            errs = {n: rel_err(a, b)[1] for n, a, b in zip(names, got, want)}
+            name = max(errs, key=errs.get)
+            print(f"[witness default] width {width}, random-normal window and cotangent, "
+                  f"{what}: pred and ten grads vs plain, worst rel-to-max {errs[name]:.3e} "
+                  f"({name}; TOL {TOL['default']:.0e} holds on the store)", flush=True)
+
+
+def bb_backward_witness(dev, args, p_bf16_mix, bbout, stats, p) -> None:
+    """Phase 14, printed only: ``_bb_backward`` under `default` through the
+    kernels, for the cotangents of seeds 1-3 (seed 1 the main path's) and
+    dbb from the head kernel and from its plain version, against the plain
+    version beside its control (the plain version with bf16-rounded mix
+    weights): the kernels' error over the control's, as the largest
+    rel-to-max over all outputs and as the mean abs error of each output.
+    ``args`` are the call's arguments after dbb."""
+    import torch
+    from sciml_pde_torch.ops import fno_fused_step as ff
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    for seed in (1, 2, 3):
+        cot = torch.randn(B, CC, XY, XY, generator=torch.Generator().manual_seed(seed)).to(dev)
+        for what, ops in (("head kernel", fk.KERNELS), ("plain head", fk.PLAIN)):
+            a = (ff._head_backward(cot, bbout, stats, p, ops=ops)[0],) + tuple(args)
+            out_k, out_p = ff._bb_backward(*a), ff._bb_backward(*a, ops=fk.PLAIN)
+            ctl = ff._bb_backward(*a[:5], p_bf16_mix, *a[6:], ops=fk.PLAIN)
+            ratio = worst(out_k, out_p)[1] / worst(ctl, out_p)[1]
+            means = ", ".join(
+                f"{n} {(k - w).abs().mean().item() / (c - w).abs().mean().item():.3f}"
+                for n, k, c, w in zip(("dpre", "dw0t", "db0"), out_k, ctl, out_p))
+            print(f"[witness default] bb_backward, cotangent seed {seed}, dbb from the {what}: "
+                  f"kernels' error over the control's, largest rel-to-max {ratio:.3f}; mean "
+                  f"abs {means}", flush=True)
 
 
 def make_store(seed: int = 0):
@@ -579,6 +865,19 @@ def att_bf16p(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.
             torch.matmul(r(p).transpose(-1, -2), do.float()).to(q.dtype))
 
 
+def sdpa_calls(q, k, v, do, scale: float) -> dict:
+    """One PyTorch call per attention kernel on its inputs (bh, n, d): the
+    SDPA forward, and for dQ and dK/dV the SDPA backward (both together)."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (q, k, v))
+    o4 = sdpa(q4, k4, v4, scale=scale)
+    bwd = lambda: torch.autograd.grad(o4, (q4, k4, v4), do[None], retain_graph=True)  # noqa: E731
+    return {"attention_fwd": lambda: sdpa(q[None], k[None], v[None], scale=scale),
+            "attention_dq": bwd, "attention_dkv": bwd}
+
+
 def check_attention(ta, dev, card: str) -> dict:
     """Phase 6: each kernel against its plain version (and a second launch
     of itself, which must give the same bits) at the encoder and decoder
@@ -642,8 +941,13 @@ def check_attention(ta, dev, card: str) -> dict:
                     key = name.replace("attention_", "") + "_wide_kernel"
                     dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key)
                     plain_ms = cuda_ms(lambda: pfn(*args[name], scale))
+                    lib = sdpa_calls(q, k, v, do, scale)[name]
                     print(f"[timing] {card}: {name} {where} {tuple(q.shape)} {str(dt)[6:]}: "
-                          f"profiler device time {fmt(dev_ms)}; plain {plain_ms:.4f} ms",
+                          f"{cuda_ms(lambda: kfn(*args[name], scale)):.4f} ms/launch, profiler "
+                          f"device time {fmt(dev_ms)}; plain {plain_ms:.4f} ms; library "
+                          f"{cuda_ms(lib):.4f} ms, profiler device time {fmt(profiler_ms(lib))} "
+                          f"(scaled_dot_product_attention "
+                          f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV'})",
                           flush=True)
             del q, k, v, do, o_p, l_p, delta, args
     return main_inputs
@@ -1190,16 +1494,27 @@ def split_path(dev, card: str, win, grid2, p, cot) -> dict:
             check(finite and rel <= TOL[prec] and stages == SPLIT_STAGES[name],
                   f"[split {prec}] {name}: max abs err {err:.3e}, rel-to-max {rel:.3e} (tol "
                   f"{TOL[prec]:.0e}); stage launches per call {json.dumps(stages)}")
-            if prec == "default" and name in ("bb_backward", "bb_weight_grads"):
-                if name == "bb_backward":
-                    ctl = fn(*args[:5], p_bf16_mix, *args[6:], ops=fk.PLAIN)
-                    what = "plain version with bf16-rounded mix weights"
-                else:
-                    ctl = fn(*args, ops=ops_bf16_spec)
-                    what = "plain version with a bf16 spectrum"
-                ctl_rel = worst(ctl, out_p)[1]
-                check(rel < ctl_rel / 2, f"[split default] {name} control: the {what} lies "
-                      f"{ctl_rel:.3e} from the plain version, the kernels {rel:.3e} (below half)")
+            if prec == "default" and name == "bb_backward":
+                # the mix weights reach dpre directly; dw0t and db0 are pixel
+                # sums of the lift cotangent, where the chain's bf16 rounding
+                # noise outweighs them, so their largest errors (printed) do
+                # not tell f32 mix weights from bf16 ones: mean errors over
+                # dpre do, as the bf16 attention controls compare
+                ctl = fn(*args[:5], p_bf16_mix, *args[6:], ops=fk.PLAIN)
+                k_mean = (out_k[0] - out_p[0]).abs().mean().item()
+                c_mean = (ctl[0] - out_p[0]).abs().mean().item()
+                check(k_mean < c_mean / 2,
+                      f"[split default] {name} control: over dpre the plain version with "
+                      f"bf16-rounded mix weights lies {c_mean:.3e} (mean abs) from the plain "
+                      f"version, the kernels {k_mean:.3e} (below half); largest rel-to-max "
+                      f"errors of all outputs: control {worst(ctl, out_p)[1]:.3e}, kernels "
+                      f"{rel:.3e}")
+                bb_backward_witness(dev, args[1:], p_bf16_mix, bbout, stats, p)
+            if prec == "default" and name == "bb_weight_grads":
+                ctl_rel = worst(fn(*args, ops=ops_bf16_spec), out_p)[1]
+                check(rel < ctl_rel / 2, f"[split default] {name} control: the plain version "
+                      f"with a bf16 spectrum lies {ctl_rel:.3e} from the plain version, the "
+                      f"kernels {rel:.3e} (below half)")
             ms = cuda_ms(lambda: fn(*args))
             plain_ms = cuda_ms(lambda: fn(*args, ops=fk.PLAIN))
             timing[name, prec] = (ms, plain_ms)
@@ -1340,20 +1655,25 @@ def main() -> int:
     print(f"[build] nvcc sm_90a, the other {len(_build.SOURCES) - 1} sources in parallel: "
           f"{secs:.2f} s", flush=True)
     usage = _build.ptxas_report("attention")
-    for kern, regs, st, ld in usage:
+    for kern, regs, st, ld, _ in usage:
         print(f"[build] attention.cu {kern}: {regs} registers, {st} bytes spill stores, "
               f"{ld} bytes spill loads", flush=True)
     main_tc = [u for u in usage if u[0].endswith("tc_kernel<64>")]
-    check(len(main_tc) == 3 and all(st == ld == 0 for _, _, st, ld in main_tc),
+    check(len(main_tc) == 3 and all(st == ld == 0 for _, _, st, ld, _ in main_tc),
           "[build] the NS path's tensor-core attention kernels (head dim 64) spill nothing")
     fno_usage = _build.ptxas_report("fno_fwd") + _build.ptxas_report("fno_bwd")
-    for kern, regs, st, ld in fno_usage:
+    for kern, regs, st, ld, frame in fno_usage:
         print(f"[build] fno {kern}: {regs} registers, {st} bytes spill stores, {ld} bytes "
-              "spill loads", flush=True)
+              f"spill loads, {frame} bytes stack frame", flush=True)
     redesigned = [u for u in fno_usage if u[0].startswith(("wdft_kernel", "reduce_rows_kernel"))]
-    check(len(redesigned) >= 2 and all(st == ld == 0 for _, _, st, ld in redesigned),
+    check(len(redesigned) >= 2 and all(st == ld == 0 for _, _, st, ld, _ in redesigned),
           "[build] wdft_kernel and reduce_rows_kernel spill nothing: "
           + ", ".join(u[0] for u in redesigned))
+    heads = [u for u in fno_usage if u[0].startswith(("head_fwd_kernel", "head_bwd_kernel",
+                                                      "lift_kernel"))]
+    check(len(heads) == 5 and all(st == ld == frame == 0 for _, _, st, ld, frame in heads),
+          "[build] the head kernels (both paths) and lift_kernel spill nothing and keep no "
+          "stack frame: " + ", ".join(u[0] for u in heads))
 
     # ---- 3. kernels vs plain versions ----------------------------------------
     g = torch.Generator().manual_seed(1)
@@ -1421,48 +1741,12 @@ def main() -> int:
     pred, sv = ff._fused_forward(rec_ops, win, grid2, p, MODES, MODES, PAD, save=True)
     ff._fused_backward(rec_ops, cot, sv, p, MODES, MODES, PAD)
     # reduce_rows at the shape the head backward hands it
-    nb_head = B * XY * XY // fk.HEAD_PB
-    part = torch.randn(nb_head, NH * WIDTH + NH + CC * NH + CC, generator=g).to(dev)
+    part = torch.randn(*rr_shapes()["head backward"], generator=g).to(dev)
     records["fno_reduce_rows"] = ("reduce_rows", (part,), {})
     torch.cuda.synchronize()
 
     def plain_call(fname, args, kw):
         return getattr(fk, f"{fname}_plain")(*args)
-
-    def flops(key, fname, args, out):
-        if fname == "stats":
-            return 4 * args[0].numel()
-        if fname == "lift":
-            h0, finp = out
-            return 2 * finp.numel() * h0.shape[1]
-        if fname == "wdft":
-            x, fac = args[0], args[1]
-            return 2 * (x.numel() // fac.shape[0]) * fac.numel()
-        if fname == "corner":
-            a, (pr, _), (w, _), d = args[0], args[1], args[2], out[2]
-            bsz, cin, hp, k2 = a.shape
-            r, cout = pr.shape[1], d.shape[1]
-            return bsz * (k2 // 2) * 8 * (cin * r * hp + cout * r * cin + cout * hp * r)
-        if fname == "iwdft_pw":
-            d, xin, o = args[0], args[2], out[0]
-            return 2 * o.numel() * (d.shape[-1] + xin.shape[1])
-        if fname == "head_fwd":
-            hf, w1t, w2t, pr = args[0], args[1], args[3], out
-            npix = pr.shape[0] * pr.shape[2] * pr.shape[3]
-            return 2 * npix * (w1t.numel() + w2t.numel())
-        if fname == "head_bwd":
-            dpred, w1t, w2t = args[0], args[2], args[4]
-            npix = dpred.shape[0] * dpred.shape[2] * dpred.shape[3]
-            return 2 * npix * (3 * w1t.numel() + 2 * w2t.numel())
-        if fname == "mix_wgrad":
-            spr, dcr = args[0], args[2]
-            return 8 * spr.numel() * dcr.shape[1]
-        if fname == "outer":
-            a, bm, nh, nw = args[0], args[1], args[3], args[4]
-            return 2 * a.shape[0] * nh * nw * a.shape[1] * (bm.shape[1] + 1)
-        if fname == "reduce_rows":
-            return args[0].numel()
-        raise KeyError(fname)
 
     def library_fn(key, fname, args):
         if key == "fno_stats":
@@ -1491,7 +1775,7 @@ def main() -> int:
               f"(tol {TOL_KERNEL:.0e}; plain bf16-vs-f32 gap "
               + ("n/a" if gap is None else f"{gap:.3e}") + ")")
         nbytes = moved_bytes(fname, args, out_k)
-        fl = flops(key, fname, args, out_k)
+        fl = kernel_flops(fname, args, out_k)
         peak = PEAK_FLOPS[spectral.get_dft_precision()]
         bound_s = max(nbytes / HBM_BPS, fl / peak)
         lib = library_fn(key, fname, args)
@@ -1518,6 +1802,10 @@ def main() -> int:
     check_wdft(dev, card, records["fno_wdft"][1][0], records["fno_wdft.adj"][1][0],
                sv.pres[0].float())
     check_reduce_rows(dev, card)
+    check_head(dev, card)
+    check_head_limits(dev)
+    check_wide_fused(dev, win, grid2, cot)
+    wide_fused_witness(dev, grid2)
 
     # ---- 4. train: the main path, through the trainer -------------------------
     spectral.set_dft_precision("default")
@@ -1615,12 +1903,15 @@ def main() -> int:
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "library_ms": cuda_ms(lambda: torch.mul(xp, 2)),
+        "device_ms": profiler_ms(lambda: pb.probe(xp), "probe_kernel"),
+        "library_device_ms": profiler_ms(lambda: torch.mul(xp, 2)),
     }
     r = kernel_rows["probe"]
-    print(f"[timing] {card}: probe at (8, 128) f32: {r['ms']:.4f} ms/launch, plain "
-          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.7f} ms ({r['bound_by']}), library "
-          f"{r['library_ms']:.4f} ms (torch.mul), {r['launches']} launch in probe_native",
-          flush=True)
+    print(f"[timing] {card}: probe at (8, 128) f32: {r['ms']:.4f} ms/launch (profiler device "
+          f"time {fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.7f} ms ({r['bound_by']}), library {r['library_ms']:.4f} ms "
+          f"(torch.mul; profiler device time {fmt(r['library_device_ms'])}), {r['launches']} "
+          "launch in probe_native", flush=True)
 
     if failures:
         print(f"FAILED {len(failures)} check(s): " + "; ".join(failures), file=sys.stderr)

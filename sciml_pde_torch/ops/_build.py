@@ -7,8 +7,8 @@ missing source in parallel, one ``nvcc`` process each; ``load`` builds only
 the library it is asked for.  A library's file name carries a
 hash of its sources and flags, so an edited source is rebuilt and a stale
 library is never loaded.  A failed build raises with the compiler's output;
-a good one keeps it beside the library (``ptxas -v``: registers and spills
-of each kernel, read by ``ptxas_report``).
+a good one keeps it beside the library (``ptxas -v``: registers, spills and
+stack frame of each kernel, read by ``ptxas_report``).
 """
 
 from __future__ import annotations
@@ -130,16 +130,18 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-def ptxas_report(name: str) -> list[tuple[str, int, int, int]]:
-    """(kernel, registers, spill store bytes, spill load bytes) of each kernel
-    of the built library ``name``, from the ``ptxas -v`` output of its build."""
-    rows, fn, spill = [], None, (0, 0)
+def ptxas_report(name: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes, stack frame
+    bytes) of each kernel of the built library ``name``, from the ``ptxas
+    -v`` output of its build."""
+    rows, fn, usage = [], None, (0, 0, 0)
     for line in library_path(name).with_suffix(".log").read_text().splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
-            fn, spill = _kernel_name(m.group(1)), (0, 0)
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
-            spill = (int(m.group(1)), int(m.group(2)))
+            fn, usage = _kernel_name(m.group(1)), (0, 0, 0)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            usage = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
         elif (m := re.search(r"Used (\d+) registers", line)) and fn is not None:
-            rows.append((fn, int(m.group(1)), *spill))
+            rows.append((fn, int(m.group(1)), *usage))
             fn = None
     return rows

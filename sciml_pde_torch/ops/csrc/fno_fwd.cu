@@ -18,7 +18,8 @@
 //                  of retained modes in shared memory
 //     fno_iwdft_pw Hermitian inverse W + 1x1 conv + bias (+ gelu), one
 //                  block per (element, image row)
-//   fno_head_fwd   fc1 -> gelu -> fc2 -> de-norm, one thread per pixel
+//   fno_head_fwd   fc1 -> gelu -> fc2 -> de-norm, a warp per 32 pixels on the
+//                  tensor cores under bf16 dot inputs (see its note below)
 //
 // The same wdft / corner / iwdft_pw kernels run the adjoint chain of the
 // backward (fno_bwd.cu holds the rest): the caller hands them the adjoint
@@ -34,9 +35,9 @@
 // Bound at the flagship shape (B=4, 128^2, width 20, modes 12): a layer is
 // ~60 MFLOP per element and moves a few MB, so every kernel here is
 // latency-bound, not compute- or bandwidth-bound.  The design keeps each
-// stage but fno_stats and fno_wdft (their notes below) a plain tiled loop
-// over shared memory with f32 FMAs on the CUDA cores; wgmma and TMA are
-// left for a later change.
+// stage but fno_stats, fno_wdft and fno_head_fwd (their notes below) a
+// plain tiled loop over shared memory with f32 FMAs on the CUDA cores; wgmma
+// and TMA are left for a later change.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -198,7 +199,14 @@ FNO_EXPORT int fno_stats(const float* win, float* mean, float* stdv, int B, int 
 // ---------------------------------------------------------------------------
 // lift: h0 (B, C, Hp, Wp) = fc0(normalised window ++ grid), zero in the pad;
 // also writes the lift input finp (B, F, X, Y) that the lift gradient reads.
+// One thread per pixel of the padded field; the output channels go in passes
+// of LIFT_CC held in registers (each pass reads the F inputs again, the first
+// writes finp), so any C whose (C, F) weights fit in shared memory runs:
+// C * F * 4 bytes up to 227 KB, C up to 2641 at F = 22 (fno_kernels.lift
+// checks it).
 // ---------------------------------------------------------------------------
+
+constexpr int LIFT_CC = 32;  // output channels a pass
 
 __global__ void lift_kernel(const float* __restrict__ win, const float* __restrict__ grid2,
                             const float* __restrict__ mean, const float* __restrict__ stdv,
@@ -222,22 +230,29 @@ __global__ void lift_kernel(const float* __restrict__ win, const float* __restri
     return;
   }
   const size_t xy = (size_t)X * Y, pix = (size_t)h * Y + w;
-  float acc[FNO_MAXC];
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  for (int f = 0; f < F; ++f) {
-    float v;
-    if (f < T * Cc) {
-      const int t = f / Cc, cc = f % Cc;
-      v = (win[(((size_t)b * T + t) * Cc + cc) * xy + pix] - mean[b * Cc + cc]) /
-          stdv[b * Cc + cc];
-    } else {
-      v = grid2[(size_t)(f - T * Cc) * xy + pix];
+  for (int c0 = 0; c0 < C; c0 += LIFT_CC) {
+    float acc[LIFT_CC];
+#pragma unroll
+    for (int i = 0; i < LIFT_CC; ++i) acc[i] = 0.f;
+    for (int f = 0; f < F; ++f) {
+      float v;
+      if (f < T * Cc) {
+        const int t = f / Cc, cc = f % Cc;
+        v = (win[(((size_t)b * T + t) * Cc + cc) * xy + pix] - mean[b * Cc + cc]) /
+            stdv[b * Cc + cc];
+      } else {
+        v = grid2[(size_t)(f - T * Cc) * xy + pix];
+      }
+      if (c0 == 0) finp[((size_t)b * F + f) * xy + pix] = v;
+      const float vr = rd(v, bf);
+#pragma unroll
+      for (int i = 0; i < LIFT_CC; ++i)
+        if (c0 + i < C) acc[i] += ws[(c0 + i) * F + f] * vr;
     }
-    finp[((size_t)b * F + f) * xy + pix] = v;
-    const float vr = rd(v, bf);
-    for (int c = 0; c < C; ++c) acc[c] += ws[c * F + f] * vr;
+#pragma unroll
+    for (int i = 0; i < LIFT_CC; ++i)
+      if (c0 + i < C) hout[(c0 + i) * plane] = acc[i] + b0[c0 + i];
   }
-  for (int c = 0; c < C; ++c) hout[c * plane] = acc[c] + b0[c];
 }
 
 FNO_EXPORT int fno_lift(const float* win, const float* grid2, const float* mean,
@@ -307,20 +322,6 @@ FNO_EXPORT int fno_lift(const float* win, const float* grid2, const float* mean,
 constexpr int WD_ROWS = 32;  // rows of x a block owns: two m16 tiles
 constexpr int WD_WARPS = 8;  // warps a block
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async(void* dst, const float* src) {  // 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async(void* dst, const __nv_bfloat16* src) {  // 8 bytes
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
 
 // four consecutive values from shared memory (8-byte aligned bf16, 16-byte f32)
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -729,52 +730,231 @@ FNO_EXPORT int fno_iwdft_pw(const float* D, const float* Z, const float* xin,
 }
 
 // ---------------------------------------------------------------------------
-// Head: pred (B, Co, X, Y) = (fc2(gelu(fc1(h))) ) * std + mean, per pixel.
+// Head: pred (B, Co, X, Y) = (fc2(gelu(fc1(h))) + b2) * std + mean, per pixel.
+//
+// Replaces the TPU kernel _head_fwd_kernel (B1b,
+// sciml_pde_tpu/ops/fno_fused_step.py:542) and the head stage of
+// _full_fwd_kernel (B1, :942): t1 = gelu(_dot(w1t, bb) + b1), outn =
+// _dot(w2t, t1) + b2, pred = outn * std + mean, the dot inputs rounded to
+// bf16 under `default`.  At the flagship shape (65,536 pixels, C = 20,
+// NH = 128, Co = 2) it moves 5.77 MB (hf's logical region read once, pred
+// written; 1.72 us at 3.35 TB/s) for 0.37 GFLOP (5.5 us on the f32 CUDA
+// cores, 0.4 us on the bf16 tensor cores), and evaluates 8.4 M erff for
+// gelu.  One thread per pixel with the weights in shared memory fed each
+// FMA a shared-memory load and kept bb and acc in runtime-indexed arrays
+// (local memory, and a cap C <= 32, Co <= 8).  Here a block owns HF_PIX
+// consecutive pixels, a warp two m16 tiles of 16 pixels (each fragment of
+// W1 and W2 feeds both, and twice the gelu work is in flight):
+//   1. the block copies its pixels of hf channels-first (coalesced along y),
+//      W1 (NH, C), W2 (Co, NH) and b1 into shared memory by cp.async, all in
+//      flight at once (a batch of loads after another paid the round trip
+//      to device memory several times), then lays them out zero-padded to
+//      NHp = 16 ceil(NH / 16), Cp = 16 ceil(C / 16) and Co8 = 8 ceil(Co /
+//      8) in the element type: bf16 (rounded once) on the tensor-core path,
+//      f32 on the CUDA cores;
+//   2. per hidden chunk of 16, fc1 is 2 x 2 16 x 8 tiles [32 px x Cp] @
+//      W1^T, A fragments from S by ldmatrix.trans, B from W1's rows by
+//      ldmatrix; then + b1 and exact gelu on the accumulators;
+//   3. under `default` the rounded gelu values are the A fragments of fc2
+//      [16 px x 16 h] @ W2^T as they stand (the accumulator layout of the
+//      two n8 tiles is the A layout of one k16 step, as the bf16 attention
+//      forward uses for p), up to HF_OT output-channel tiles (32 channels)
+//      a pass, more passes for wider Co; under `highest` the chunk goes
+//      through a 32 x 16 f32 scratch a warp and FMAs;
+//   4. the epilogue adds b2, times std, plus mean.
+// What bounds it is not the bytes nor the products but gelu's erff on the
+// CUDA cores (its two branches diverge across a warp on trained weights),
+// then every block's copy of the same weights from L2.  No register array
+// is indexed by a runtime bound; C and Co are bounded by shared memory
+// only (HeadFwdLayout; fno_kernels.head_fwd names the widest C).
 // ---------------------------------------------------------------------------
 
-__global__ void head_fwd_kernel(const float* __restrict__ hf, const float* __restrict__ w1t,
-                                const float* __restrict__ b1, const float* __restrict__ w2t,
-                                const float* __restrict__ b2, const float* __restrict__ mean,
-                                const float* __restrict__ stdv, float* __restrict__ pred,
-                                int B, int C, int X, int Y, int Hp, int Wp, int NH, int Co,
-                                int bf) {
-  extern __shared__ float sm[];
-  float* w1s = sm;             // (NH, C)
-  float* b1s = w1s + NH * C;   // (NH)
-  float* w2s = b1s + NH;       // (Co, NH)
-  for (int i = threadIdx.x; i < NH * C; i += blockDim.x) w1s[i] = w1t[i];
-  for (int i = threadIdx.x; i < NH; i += blockDim.x) b1s[i] = b1[i];
-  for (int i = threadIdx.x; i < Co * NH; i += blockDim.x) w2s[i] = w2t[i];
-  __syncthreads();
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * X * Y) return;
-  const int y = idx % Y;
-  const int x = (idx / Y) % X;
-  const int b = idx / ((size_t)X * Y);
-  float bb[FNO_MAXC];
-  for (int c = 0; c < C; ++c) bb[c] = rd(hf[(((size_t)b * C + c) * Hp + x) * Wp + y], bf);
-  float acc[FNO_MAXCO];
-  for (int o = 0; o < Co; ++o) acc[o] = 0.f;
-  for (int j = 0; j < NH; ++j) {
-    float a = 0.f;
-    for (int c = 0; c < C; ++c) a += w1s[j * C + c] * bb[c];
-    const float t = rd(gelu_f(a + b1s[j]), bf);
-    for (int o = 0; o < Co; ++o) acc[o] += w2s[o * NH + j] * t;
+constexpr int HF_PIX = 256;            // pixels a block
+constexpr int HF_WARPS = HF_PIX / 32;  // two m16 tiles a warp
+constexpr int HF_OT = 4;               // output-channel n8 tiles a pass
+constexpr int HF_TLD = 20;             // row stride of the f32 path's per-warp scratch
+
+// Shared memory of one head_fwd_kernel block, in bytes from the start
+// (fno_head_fwd_smem exports its size).
+struct HeadFwdLayout {
+  int Cp, NHp, Co8, ldw1, ldw2, lds;
+  size_t w1, w2, b1, s, raw, wraw, ts, bytes;
+  __host__ __device__ HeadFwdLayout(int C, int NH, int Co, bool tc) {
+    const int es = tc ? 2 : 4, pad = tc ? 8 : 4;
+    Cp = fno_round_up(C, 16);
+    NHp = fno_round_up(NH, 16);
+    Co8 = fno_round_up(Co, 8);
+    ldw1 = Cp + pad;
+    ldw2 = NHp + pad;
+    lds = HF_PIX + pad;
+    w1 = 0;
+    w2 = w1 + fno_align16((size_t)NHp * ldw1 * es);
+    b1 = w2 + fno_align16((size_t)Co8 * ldw2 * es);
+    s = b1 + fno_align16((size_t)NHp * 4);
+    // W1 and W2 as given (f32); hf's pixels as copied, f32 [C][HF_PIX].  On
+    // the bf16 path the weights take S's place until laid out; on the f32
+    // path the pixels are copied straight into S and the weights apart.
+    const size_t s_bytes = fno_align16((size_t)Cp * lds * es);
+    const size_t w_bytes = fno_align16((size_t)(NH * C + Co * NH) * 4);
+    if (tc) {
+      wraw = s;
+      raw = s + (s_bytes > w_bytes ? s_bytes : w_bytes);
+      ts = raw + fno_align16((size_t)C * HF_PIX * 4);
+    } else {
+      raw = s;
+      wraw = s + s_bytes;
+      ts = wraw + w_bytes;
+    }
+    bytes = ts + (tc ? 0 : (size_t)HF_WARPS * 32 * HF_TLD * 4);
   }
-  for (int o = 0; o < Co; ++o)
-    pred[(((size_t)b * Co + o) * X + x) * Y + y] =
-        (acc[o] + b2[o]) * stdv[b * Co + o] + mean[b * Co + o];
+};
+
+template <bool TC>
+__global__ void __launch_bounds__(HF_WARPS * 32)
+head_fwd_kernel(const float* __restrict__ hf, const float* __restrict__ w1t,
+                const float* __restrict__ b1, const float* __restrict__ w2t,
+                const float* __restrict__ b2, const float* __restrict__ mean,
+                const float* __restrict__ stdv, float* __restrict__ pred, int B, int C, int X,
+                int Y, int Hp, int Wp, int NH, int Co) {
+  using E = typename HeadElem<TC>::T;
+  extern __shared__ __align__(16) unsigned char hf_smem[];
+  const HeadFwdLayout L(C, NH, Co, TC);
+  E* w1s = reinterpret_cast<E*>(hf_smem + L.w1);  // [NHp][ldw1]
+  E* w2s = reinterpret_cast<E*>(hf_smem + L.w2);  // [Co8][ldw2]
+  float* b1s = reinterpret_cast<float*>(hf_smem + L.b1);
+  E* s = reinterpret_cast<E*>(hf_smem + L.s);     // [Cp][lds] channels-first pixels
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int XY = X * Y, npix = B * XY, p0 = blockIdx.x * HF_PIX;
+  const size_t plane = (size_t)Hp * Wp;
+  // in flight at once, by cp.async (4 bytes a copy: rows of the padded field
+  // need not start on 8 bytes): the block's pixels of hf channels-first (in
+  // f32, into S itself on the f32 path); W1 and W2 as given; b1
+  float* raw = reinterpret_cast<float*>(hf_smem + L.raw);
+  float* wraw = reinterpret_cast<float*>(hf_smem + L.wraw);
+  const int p = tid % HF_PIX, ldr = TC ? HF_PIX : L.lds;
+  const bool ok = p0 + p < npix;
+  if (ok) {
+    const Pixel px = pixel_at(p0 + p, XY, Y, Wp);
+    const float* src = hf + (size_t)px.b * C * plane + px.hw;
+    for (int c = tid / HF_PIX; c < C; c += nthr / HF_PIX)
+      cp_async4(raw + c * ldr + p, src + c * plane);
+  }
+  for (int i = tid; i < NH * C; i += nthr) cp_async4(wraw + i, w1t + i);
+  for (int i = tid; i < Co * NH; i += nthr) cp_async4(wraw + NH * C + i, w2t + i);
+  for (int i = tid; i < L.NHp; i += nthr) {
+    if (i < NH)
+      cp_async4(b1s + i, b1 + i);
+    else
+      b1s[i] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  stage_matrix(w1s, L.ldw1, wraw, NH, C, L.NHp, L.Cp);
+  stage_matrix(w2s, L.ldw2, wraw + NH * C, Co, NH, L.Co8, L.NHp);
+  __syncthreads();
+  for (int c = tid / HF_PIX; c < L.Cp; c += nthr / HF_PIX)  // the values this thread copied
+    s[c * L.lds + p] = to_elem<E>(ok && c < C ? raw[c * ldr + p] : 0.f);
+  __syncthreads();
+
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int m0 = warp * 32;
+  const int K1 = TC ? L.Cp : C, NOT = L.Co8 / 8;
+  for (int ot0 = 0; ot0 < NOT; ot0 += HF_OT) {
+    float acc2[HF_OT][2][4] = {};
+    for (int h0 = 0; h0 < L.NHp; h0 += 16) {
+      float acc1[2][2][4] = {};
+      tiles_prod<2, 2, false, true>(acc1, s + m0, L.lds, w1s + h0 * L.ldw1, L.ldw1, K1);
+      float tv[2][2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tv[mt][nt][e] = gelu_f(acc1[mt][nt][e] + b1s[h0 + nt * 8 + 2 * t + (e & 1)]);
+      if constexpr (TC) {
+        uint32_t fa[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          fa[mt][0] = pack_bf16(tv[mt][0][0], tv[mt][0][1]);
+          fa[mt][1] = pack_bf16(tv[mt][0][2], tv[mt][0][3]);
+          fa[mt][2] = pack_bf16(tv[mt][1][0], tv[mt][1][1]);
+          fa[mt][3] = pack_bf16(tv[mt][1][2], tv[mt][1][3]);
+        }
+#pragma unroll
+        for (int q = 0; q < HF_OT; ++q)
+          if (ot0 + q < NOT) {
+            uint32_t fb[2];
+            frag_b<true>(fb, w2s + (ot0 + q) * 8 * L.ldw2 + h0, L.ldw2);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) mma_bf16(acc2[q][mt], fa[mt], fb);
+          }
+      } else {
+        float* ts = reinterpret_cast<float*>(hf_smem + L.ts) + warp * 32 * HF_TLD;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              st_pair(ts + (16 * mt + g + 8 * r) * HF_TLD + nt * 8 + 2 * t, tv[mt][nt][2 * r],
+                      tv[mt][nt][2 * r + 1]);
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < HF_OT; ++q)
+          if (ot0 + q < NOT)
+            tiles_prod<2, 1, true, true>(*reinterpret_cast<float(*)[2][1][4]>(&acc2[q]), ts,
+                                         HF_TLD, w2s + (ot0 + q) * 8 * L.ldw2 + h0, L.ldw2, 16);
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pix = p0 + m0 + 16 * mt + g + 8 * r;
+        if (pix >= npix) continue;
+        const Pixel px = pixel_at(pix, XY, Y, Wp);
+#pragma unroll
+        for (int q = 0; q < HF_OT; ++q)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int o = (ot0 + q) * 8 + 2 * t + j, bo = px.b * Co + o;
+            if (o < Co)
+              pred[(size_t)bo * XY + px.xy] =
+                  (acc2[q][mt][2 * r + j] + b2[o]) * stdv[bo] + mean[bo];
+          }
+      }
+  }
+}
+
+template <bool TC>
+static int launch_head_fwd(const float* hf, const float* w1t, const float* b1, const float* w2t,
+                           const float* b2, const float* mean, const float* stdv, float* pred,
+                           int B, int C, int X, int Y, int Hp, int Wp, int NH, int Co,
+                           cudaStream_t st) {
+  const size_t smem = HeadFwdLayout(C, NH, Co, TC).bytes;
+  cudaError_t e = fno_set_smem(head_fwd_kernel<TC>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nblk = (B * X * Y + HF_PIX - 1) / HF_PIX;
+  head_fwd_kernel<TC><<<nblk, HF_WARPS * 32, smem, st>>>(hf, w1t, b1, w2t, b2, mean, stdv,
+                                                         pred, B, C, X, Y, Hp, Wp, NH, Co);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of one head_fwd_kernel block (HeadFwdLayout): the wrapper's check
+// of a shape against the card's limit reads it here.
+FNO_EXPORT long long fno_head_fwd_smem(int C, int NH, int Co, int bf) {
+  return (long long)HeadFwdLayout(C, NH, Co, bf != 0).bytes;
 }
 
 FNO_EXPORT int fno_head_fwd(const float* hf, const float* w1t, const float* b1,
                             const float* w2t, const float* b2, const float* mean,
                             const float* stdv, float* pred, int B, int C, int X, int Y, int Hp,
                             int Wp, int NH, int Co, int bf, void* stream) {
-  const size_t smem = (size_t)(NH * C + NH + Co * NH) * sizeof(float);
-  cudaError_t e = fno_set_smem(head_fwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const size_t n = (size_t)B * X * Y;
-  head_fwd_kernel<<<(unsigned)((n + 127) / 128), 128, smem, (cudaStream_t)stream>>>(
-      hf, w1t, b1, w2t, b2, mean, stdv, pred, B, C, X, Y, Hp, Wp, NH, Co, bf);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf ? launch_head_fwd<true>(hf, w1t, b1, w2t, b2, mean, stdv, pred, B, C, X, Y, Hp, Wp,
+                                    NH, Co, st)
+            : launch_head_fwd<false>(hf, w1t, b1, w2t, b2, mean, stdv, pred, B, C, X, Y, Hp,
+                                     Wp, NH, Co, st);
 }

@@ -36,8 +36,11 @@ KERNEL_NAMES = (
 )
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
-MAXC, MAXCO = 32, 8  # register arrays in the kernels (fno_common.cuh)
-HEAD_PB, OUTER_PB = 64, 256  # pixels per block (fno_bwd.cu)
+OUTER_PB = 256  # pixels per block of outer_partial_kernel (fno_bwd.cu)
+# pixels a tile and the most persistent blocks of head_bwd_kernel (HB_PIX,
+# HB_GRID, fno_bwd.cu): one partial row a block
+HEAD_BWD_PIX, HEAD_BWD_GRID = 64, 256
+SMEM_MAX = 227 * 1024  # shared memory one block may take on an H100
 
 
 def reset_launch_counts() -> None:
@@ -61,6 +64,8 @@ _SIGNATURES = {
     "fno_mix_wgrad": ("fno_bwd", [_P] * 6 + [_I] * 5 + [_P]),
     "fno_outer_partial": ("fno_bwd", [_P, _P, _I, _I, _P] + [_I] * 10 + [_P]),
     "fno_reduce_rows": ("fno_bwd", [_P, _P, _I, _I, _P]),
+    "fno_head_fwd_smem": ("fno_fwd", [_I] * 4, ctypes.c_longlong),
+    "fno_head_bwd_smem": ("fno_bwd", [_I] * 4, ctypes.c_longlong),
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -68,10 +73,10 @@ _fns: dict[str, ctypes._CFuncPtr] = {}
 def _fn(name: str):
     f = _fns.get(name)
     if f is None:
-        lib_name, argtypes = _SIGNATURES[name]
+        lib_name, argtypes, *restype = _SIGNATURES[name]
         f = getattr(_build.load(lib_name), name)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype[0] if restype else ctypes.c_int
         _fns[name] = f
     return f
 
@@ -173,8 +178,11 @@ def lift(win, grid2, mean, std, w0t, b0, hp, wp, bf):
         return lift_plain(win, grid2, mean, std, w0t, b0, hp, wp, bf)
     b, t, cc, x, y = win.shape
     c, f = w0t.shape
-    if f != t * cc + 2 or c > MAXC:
-        raise ValueError(f"lift: w0t {tuple(w0t.shape)} does not fit T*Cc+2={t * cc + 2}, C<={MAXC}")
+    if f != t * cc + 2:
+        raise ValueError(f"lift: w0t {tuple(w0t.shape)} does not fit T*Cc+2={t * cc + 2}")
+    if c * f * 4 > SMEM_MAX:  # lift_kernel keeps the (C, F) weights in shared memory
+        raise ValueError(f"lift: C = {c} at F = {f} needs {c * f * 4} bytes of shared memory "
+                         f"a block, above {SMEM_MAX}; it takes C up to {SMEM_MAX // (4 * f)}")
     _need(grid2, (2, x, y), what="grid2")
     h0 = torch.empty(b, c, hp, wp, device=win.device)
     finp = torch.empty(b, f, x, y, device=win.device)
@@ -201,7 +209,13 @@ def wdft_plain(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
 
 
 WDFT_ROWS = 32  # rows of x a block owns (WD_ROWS, fno_fwd.cu)
-SMEM_MAX = 227 * 1024  # shared memory one block may take on an H100
+
+
+def _widest(fits, n: int) -> int:
+    """The largest m <= n with fits(m), 0 when there is none."""
+    while n > 0 and not fits(n):
+        n -= 1
+    return n
 
 
 def wdft_smem_bytes(n: int, j: int, tc: bool, pre_size: int) -> int:
@@ -225,9 +239,7 @@ def _check_wdft_smem(n: int, j: int, tc: bool, pre_size: int) -> None:
     with no pre)."""
     if wdft_smem_bytes(n, j, tc, pre_size) <= SMEM_MAX:
         return
-    widest = n
-    while widest > 0 and wdft_smem_bytes(widest, j, tc, pre_size) > SMEM_MAX:
-        widest -= 1
+    widest = _widest(lambda m: wdft_smem_bytes(m, j, tc, pre_size) <= SMEM_MAX, n)
     raise ValueError(f"wdft: N = {n} at J = {j} needs {wdft_smem_bytes(n, j, tc, pre_size)} "
                      f"bytes of shared memory a block, above {SMEM_MAX}; this variant takes "
                      f"N up to {widest}")
@@ -348,6 +360,27 @@ def iwdft_pw(d, z, xin, mw, bias, gelu, pre_dtype, bf, adj=False):
 # ---------------------------------------------------------------------------
 
 
+def head_smem_bytes(name: str):
+    """(C, NH, Co, tc) -> the shared memory of one block of ``name``'s kernel
+    ("head_fwd" or "head_bwd"), as the library lays it out
+    (``HeadFwdLayout``, ``HeadBwdLayout``)."""
+    f = _fn(f"fno_{name}_smem")
+    return lambda c, nh, co, tc: f(c, nh, co, int(tc))
+
+
+def _check_head_smem(name: str, smem_bytes, c: int, nh: int, co: int, tc: bool) -> None:
+    """Raise, naming the widest C this kernel takes at this NH and Co on its
+    path (``tc``: the tensor cores under `default`), when one block's shared
+    memory (``smem_bytes(c, nh, co, tc)``) would pass SMEM_MAX."""
+    need = smem_bytes(c, nh, co, tc)
+    if need <= SMEM_MAX:
+        return
+    widest = _widest(lambda m: smem_bytes(m, nh, co, tc) <= SMEM_MAX, c)
+    raise ValueError(f"{name}: C = {c}, NH = {nh}, Co = {co} needs {need} bytes of shared "
+                     f"memory a block, above {SMEM_MAX}; it takes C up to {widest} at this "
+                     f"NH and Co")
+
+
 def head_fwd_plain(hf, w1t, b1, w2t, b2, mean, std, x, y, bf):
     """hf (B, C, Hp, Wp) last-layer output -> pred (B, Co, X, Y)."""
     bb = _rd(hf[:, :, :x, :y], bf)
@@ -362,11 +395,15 @@ def head_fwd(hf, w1t, b1, w2t, b2, mean, std, x, y, bf):
         return head_fwd_plain(hf, w1t, b1, w2t, b2, mean, std, x, y, bf)
     b, c, hp, wp = hf.shape
     nh, co = w1t.shape[0], w2t.shape[0]
-    if c > MAXC or co > MAXCO:
-        raise ValueError(f"head_fwd: C={c} > {MAXC} or Co={co} > {MAXCO}")
     _need(w1t, (nh, c), what="w1t")
+    _need(b1, (nh,), what="b1")
     _need(w2t, (co, nh), what="w2t")
+    _need(b2, (co,), what="b2")
+    _need(mean, (b, co), what="mean")
     _need(std, (b, co), what="std")
+    if x > hp or y > wp:
+        raise ValueError(f"head_fwd: region {(x, y)} outside hf {tuple(hf.shape)}")
+    _check_head_smem("head_fwd", head_smem_bytes("head_fwd"), c, nh, co, bool(bf))
     pred = torch.empty(b, co, x, y, device=hf.device)
     _launch("fno_head_fwd", "fno_head_fwd", hf, w1t, b1, w2t, b2, mean, std, pred,
             b, c, x, y, hp, wp, nh, co, int(bf))
@@ -376,6 +413,12 @@ def head_fwd(hf, w1t, b1, w2t, b2, mean, std, x, y, bf):
 # ---------------------------------------------------------------------------
 # fno_head_bwd (+ fno_reduce_rows): head recompute + backward
 # ---------------------------------------------------------------------------
+
+
+def head_bwd_rows(npix: int) -> int:
+    """Partial rows ``head_bwd_kernel`` writes for ``npix`` pixels: one per
+    persistent block, min(HEAD_BWD_GRID, tiles)."""
+    return max(1, min(HEAD_BWD_GRID, -(-npix // HEAD_BWD_PIX)))
 
 
 def head_bwd_plain(dpred, hf, w1t, b1, w2t, std, bf):
@@ -404,15 +447,17 @@ def head_bwd(dpred, hf, w1t, b1, w2t, std, bf):
     b, c, hp, wp = hf.shape
     co, x, y = dpred.shape[1:]
     nh = w1t.shape[0]
-    if c > MAXC or co > MAXCO:
-        raise ValueError(f"head_bwd: C={c} > {MAXC} or Co={co} > {MAXCO}")
     _need(dpred, (b, co, x, y), what="dpred")
     _need(w1t, (nh, c), what="w1t")
+    _need(b1, (nh,), what="b1")
     _need(w2t, (co, nh), what="w2t")
+    _need(std, (b, co), what="std")
+    if x > hp or y > wp:
+        raise ValueError(f"head_bwd: region {(x, y)} outside hf {tuple(hf.shape)}")
+    _check_head_smem("head_bwd", head_smem_bytes("head_bwd"), c, nh, co, bool(bf))
     n1, n2, n3 = nh * c, nh * c + nh, nh * c + nh + co * nh
-    nblk = -(-b * x * y // HEAD_PB)
-    dh = torch.zeros_like(hf)
-    part = torch.empty(nblk, n3 + co, device=hf.device)
+    dh = torch.empty_like(hf)  # the kernel writes all of it, zeros in the pad
+    part = torch.empty(head_bwd_rows(b * x * y), n3 + co, device=hf.device)
     _launch("fno_head_bwd", "fno_head_bwd", dpred, hf, w1t, b1, w2t, std, dh, part,
             b, c, x, y, hp, wp, nh, co, int(bf))
     g = reduce_rows(part)

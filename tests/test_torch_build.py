@@ -1,7 +1,8 @@
 """The kernel build module's readers of the compiler's output: kernel names
 from mangled symbols (integer, boolean and type template arguments) and
-the registers and spills of each kernel from a ``ptxas -v`` log, as
-chip_smoke.py's phase 2 prints and checks them.  No compiler is needed."""
+the registers, spills and stack frames of each kernel from a ``ptxas -v``
+log, as chip_smoke.py's phase 2 prints and checks them.  No compiler is
+needed."""
 
 import pytest
 
@@ -23,18 +24,36 @@ def test_kernel_name_reads_template_arguments(mangled, name):
     assert _build._kernel_name(mangled) == name
 
 
+_LOG = (
+    "ptxas info    : Compiling entry function '_Z18reduce_rows_kernelPKfPfii' for 'sm_90a'\n"
+    "ptxas info    : Function properties for _Z18reduce_rows_kernelPKfPfii\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 32 registers, 384 bytes smem\n"
+    "ptxas info    : Compiling entry function "
+    "'_Z11wdft_kernelIfLb1EEvPKfS1_PfiiiPKT_iS2_ii' for 'sm_90a'\n"
+    "ptxas info    : Function properties for _Z11wdft_kernelIfLb1EEvPKfS1_PfiiiPKT_iS2_ii\n"
+    "    24 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads\n"
+    "ptxas info    : Used 255 registers\n")
+
+
 def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
-    log = tmp_path / "libfno_bwd-0.log"
-    log.write_text(
-        "ptxas info    : Compiling entry function '_Z18reduce_rows_kernelPKfPfii' for 'sm_90a'\n"
-        "ptxas info    : Function properties for _Z18reduce_rows_kernelPKfPfii\n"
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 32 registers, 384 bytes smem\n"
-        "ptxas info    : Compiling entry function "
-        "'_Z11wdft_kernelIfLb1EEvPKfS1_PfiiiPKT_iS2_ii' for 'sm_90a'\n"
-        "ptxas info    : Function properties for _Z11wdft_kernelIfLb1EEvPKfS1_PfiiiPKT_iS2_ii\n"
-        "    24 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads\n"
-        "ptxas info    : Used 255 registers\n")
+    (tmp_path / "libfno_bwd-0.log").write_text(_LOG)
     monkeypatch.setattr(_build, "library_path", lambda name: tmp_path / f"lib{name}-0.so")
-    assert _build.ptxas_report("fno_bwd") == [("reduce_rows_kernel", 32, 0, 0),
-                                              ("wdft_kernel<float, true>", 255, 16, 12)]
+    assert _build.ptxas_report("fno_bwd") == [("reduce_rows_kernel", 32, 0, 0, 0),
+                                              ("wdft_kernel<float, true>", 255, 16, 12, 24)]
+
+
+def test_ptxas_report_reads_stack_frames(tmp_path, monkeypatch):
+    """Each row ends with the kernel's stack frame (bytes), which phase 2
+    requires to be 0 for the head kernels, read after the kernel's name."""
+    (tmp_path / "libfno_bwd-0.log").write_text(
+        _LOG + "ptxas info    : Compiling entry function "
+        "'_Z15head_bwd_kernelILb1EEvPKfS1_S1_S1_S1_S1_PfS2_iiiiiiii' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_Z15head_bwd_kernelILb1EEvPKfS1_S1_S1_S1_S1_PfS2_iiiiiiii\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, 384 bytes cmem[0]\n")
+    monkeypatch.setattr(_build, "library_path", lambda name: tmp_path / f"lib{name}-0.so")
+    assert _build.ptxas_report("fno_bwd") == [
+        ("reduce_rows_kernel", 32, 0, 0, 0), ("wdft_kernel<float, true>", 255, 16, 12, 24),
+        ("head_bwd_kernel<true>", 96, 0, 0, 0)]

@@ -1,7 +1,9 @@
 """Port ops/fno_fused_step.py vs the JAX module: the CPU fused apply (the
 kernels' plain versions composed as on the card) against the JAX reference
 composition and the JAX Pallas kernels run in interpret mode, values and
-all ten gradients."""
+all ten gradients, at width 8 and at width 40; the lift and head kernels'
+plain versions at width 64 with 9 output channels; CPU rehearsals of the
+kernels' summation orders against the bounds chip_smoke.py holds them to."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import torch
 from sciml_pde_tpu.models import FNO2d as FlaxFNO2d
 from sciml_pde_tpu.ops import fno_fused_step as jf
 from sciml_pde_torch.ops import fno_fused_step as tf
+from sciml_pde_torch.ops import fno_kernels as tk
 from sciml_pde_torch.utils.weights import flax_to_packed, packed_to_flax
 
 from _torch_parity import assert_trees_close, chip_smoke, precision, to_numpy_tree
@@ -26,23 +29,37 @@ GRAD_TOL = dict(rtol=5e-3, atol=1e-4)
 # but sum in other orders, so a value can land on the other side of a
 # rounding boundary.  Errors are held against the largest magnitude.
 BF16_REL_TO_MAX = 3e-2
+# fault C6: a width and an output-channel count above the 32 and 8 that the
+# first lift and head kernels held in registers (JAX's fused step takes any)
+WIDE, OP_C, OP_CO = 40, 64, 9
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _make_setup(width, cc):
+    """Seeded inputs and a flax FNO2d tree: params, win (B, T, Cc, X, Y),
+    grid2 (2, X, Y) and a cotangent (B, Cc, X, Y)."""
     rng = np.random.default_rng(0)
-    x = rng.normal(size=(B, X, Y, T, CC)).astype(np.float32)
+    x = rng.normal(size=(B, X, Y, T, cc)).astype(np.float32)
     gx, gy = np.meshgrid(np.linspace(0, 1, X, dtype=np.float32),
                          np.linspace(0, 1, Y, dtype=np.float32), indexing="ij")
     grid = np.stack([gx, gy], -1)
     gridb = np.broadcast_to(grid[None], (B, X, Y, 2))
     params = to_numpy_tree(
-        FlaxFNO2d(num_channels=CC, modes1=MODES, modes2=MODES, width=WIDTH,
+        FlaxFNO2d(num_channels=cc, modes1=MODES, modes2=MODES, width=width,
                   initial_step=T).init(jax.random.PRNGKey(1), x, gridb)["params"])
     win = np.ascontiguousarray(np.transpose(x, (0, 3, 4, 1, 2)))  # (B, T, Cc, X, Y)
     grid2 = np.ascontiguousarray(np.transpose(grid, (2, 0, 1)))   # (2, X, Y)
-    cot = rng.normal(size=(B, CC, X, Y)).astype(np.float32)
+    cot = rng.normal(size=(B, cc, X, Y)).astype(np.float32)
     return params, win, grid2, cot
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _make_setup(WIDTH, CC)
+
+
+@pytest.fixture(scope="module")
+def setup_wide():
+    return _make_setup(WIDE, CC)
 
 
 def _port_apply(params, win, grid2, cot):
@@ -107,6 +124,104 @@ def test_fused_apply_bf16_default_matches_jax(setup):
         assert err <= BF16_REL_TO_MAX * np.abs(leaf).max() + 1e-6, (path, err)
 
 
+@pytest.mark.parametrize("prec", ["highest", "default"])
+@pytest.mark.parametrize("jax_fn", ["reference", "pallas_interpret"])
+def test_fused_apply_matches_jax_at_width_40(setup_wide, jax_fn, prec):
+    """Fault C6: the fused step at width 40, which JAX's fused step takes and
+    the first lift and head kernels refused on the card.  The CPU fused apply
+    (the plain versions the kernels are held to) against JAX's reference
+    composition or its Pallas kernels in interpret mode, the value and all
+    ten gradients: under `highest` within the f32 tolerances of the width-8
+    case, under `default` within BF16_REL_TO_MAX of each one's largest
+    magnitude."""
+    params, win, grid2, cot = setup_wide
+    fn = jf.fno2d_fused_reference if jax_fn == "reference" else jf.fno2d_fused_apply
+    with precision(prec):
+        pred, grads = _port_apply(params, win, grid2, cot)
+        fp = jf.pack_params(params, MODES, MODES)
+        want = np.asarray(fn(win, grid2, fp, MODES, MODES))
+        want_g = _jax_grads(fn, params, win, grid2, cot)
+    assert pred.shape == want.shape == (B, CC, X, Y)
+    if prec == "highest":
+        np.testing.assert_allclose(pred, want, **VAL_TOL)
+        assert_trees_close(grads, want_g, what="grad", **GRAD_TOL)
+        return
+    assert np.abs(pred - want).max() <= BF16_REL_TO_MAX * np.abs(want).max()
+    got = dict(jax.tree_util.tree_leaves_with_path(grads))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(want_g):
+        err = np.abs(got[path].numpy() - leaf).max()
+        assert err <= BF16_REL_TO_MAX * np.abs(leaf).max() + 1e-6, (path, err)
+
+
+@pytest.fixture(scope="module")
+def op_setup():
+    """Width 64 and 9 channels: a flax tree, a window, and seeded head
+    inputs bbout (B, 64, X, Y), stats (B, 9, 2) and dpred (B, 9, X, Y)."""
+    params, win, grid2, dpred = _make_setup(OP_C, OP_CO)
+    rng = np.random.default_rng(7)
+    bbout = rng.normal(size=(B, OP_C, X, Y)).astype(np.float32)
+    stats = np.stack([rng.normal(size=(B, OP_CO)), rng.uniform(0.5, 2.0, size=(B, OP_CO))],
+                     -1).astype(np.float32)
+    return params, win, grid2, bbout, stats, dpred
+
+
+# the ops at width 64 against JAX's split kernels, rel-to-max: f32 products
+# summed in another order (`highest`); under `default` the hidden activation
+# and dpre1 are rounded to bf16 after a gelu whose erf the JAX kernel takes
+# from a polynomial, so values near a rounding boundary round the other way
+# (1.1e-4 at most measured, against bf16-vs-f32 gaps of 1.8e-3 and more)
+OP_TOL = {"highest": 1e-5, "default": 5e-4}
+
+
+def _plain_op(op, setup, bf, jax_stats=None):
+    params, win, grid2, bbout, stats, dpred = setup
+    p = tf.pack_params(params, MODES, MODES)
+    rd = lambda t: tk._rd(t, bf)  # noqa: E731
+    t = torch.from_numpy
+    if op == "lift":
+        st = t(np.array(jax_stats))
+        return (tk.lift_plain(t(win), t(grid2), st[..., 0], st[..., 1], rd(p.w0t), p.b0, X + 2,
+                              Y + 2, bf)[0],)
+    if op == "head_fwd":
+        return (tk.head_fwd_plain(t(bbout), rd(p.w1t), p.b1, rd(p.w2t), p.b2,
+                                  t(stats[..., 0]), t(stats[..., 1]), X, Y, bf),)
+    return tk.head_bwd_plain(t(dpred), t(bbout), rd(p.w1t), p.b1, rd(p.w2t), t(stats[..., 1]),
+                             bf)
+
+
+@pytest.mark.parametrize("prec", ["highest", "default"])
+@pytest.mark.parametrize("op", ["lift", "head_fwd", "head_bwd"])
+def test_lift_and_head_plain_match_jax_at_width_64(op_setup, op, prec):
+    """Fault C6 at the op level: ``lift_plain``, ``head_fwd_plain`` and
+    ``head_bwd_plain`` at C = 64 with Co = Cc = 9 against JAX's Pallas
+    kernels in interpret mode (the lift output h0p of ``_bb_forward``,
+    ``_head_forward``, ``_head_backward``), each output within OP_TOL of its
+    largest magnitude; under `default` the plain version with f32 dot inputs
+    lies outside that bound."""
+    params, win, grid2, bbout, stats, dpred = op_setup
+    fp = jf.pack_params(params, MODES, MODES)
+    with precision(prec):
+        if op == "lift":
+            _, _, jstats, h0p = jf._bb_forward(win, grid2, fp, MODES, MODES, 2)
+            want = [np.asarray(h0p)[:, :, :X + 2, :Y + 2]]
+        elif op == "head_fwd":
+            jstats, want = None, [np.asarray(jf._head_forward(bbout, stats, fp))]
+        else:
+            jstats = None
+            want = [np.asarray(a) for a in jf._head_backward(dpred, bbout, stats, fp)]
+    bf = prec == "default"
+
+    def errs(got):
+        return [float(np.abs(g.numpy() - w).max() / np.abs(w).max()) for g, w in zip(got, want)]
+
+    got = _plain_op(op, op_setup, bf, jstats)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    assert max(errs(got)) <= OP_TOL[prec], errs(got)
+    if bf:
+        gap = errs(_plain_op(op, op_setup, False, jstats))
+        assert max(gap) > 2 * OP_TOL[prec], gap
+
+
 def test_pack_unpack_roundtrip(setup):
     params = setup[0]
     p = flax_to_packed(params, MODES)
@@ -169,10 +284,31 @@ def _csrc_constants(source, names):
     return [int(re.search(rf"\b{n} = (\d+)", text).group(1)) for n in names]
 
 
+def _reduce_rows_in_order(part):
+    """``reduce_rows_kernel``'s sum of the rows of ``part`` (f32): the rows cut
+    into RR_WARPS * RR_CLUSTER groups of ceil(rows / groups), each summed in
+    order, the groups added in warp order within a block, the blocks in
+    cluster-rank order."""
+    warps, cluster = _csrc_constants("fno_bwd.cu", ("RR_WARPS", "RR_CLUSTER"))
+    rows, cols = part.shape
+    per = -(-rows // (warps * cluster))
+    out = np.zeros(cols, np.float32)
+    for r in range(cluster):
+        b = np.zeros(cols, np.float32)
+        for w in range(warps):
+            g = r * warps + w
+            s = np.zeros(cols, np.float32)
+            for k in range(min(g * per, rows), min((g + 1) * per, rows)):
+                s = s + part[k]
+            b = b + s
+        out = out + b
+    return out
+
+
 @pytest.mark.parametrize("what", ["head backward", "a layer's outer", "the lift's outer"])
 def test_reduce_rows_grouped_order_meets_the_card_bound(what):
     """A rehearsal of ``reduce_rows_kernel``'s arithmetic at the three shapes
-    the fused step gives it (chip_smoke.RR_SHAPES): the rows cut into the
+    the fused step gives it (chip_smoke.rr_shapes): the rows cut into the
     kernel's fixed groups of ceil(rows / groups) (265 rows leave a ragged
     last group and empty ones after it), each summed in order in f32, the
     group sums added in warp order, then the blocks' sums in cluster-rank
@@ -181,25 +317,14 @@ def test_reduce_rows_grouped_order_meets_the_card_bound(what):
     from sciml_pde_torch.ops import fno_kernels as fk
 
     cs = chip_smoke()
-    rows, cols = cs.RR_SHAPES[what]
+    rows, cols = cs.rr_shapes()[what]
     warps, cluster = _csrc_constants("fno_bwd.cu", ("RR_WARPS", "RR_CLUSTER"))
     groups = warps * cluster
     per = -(-rows // groups)
     if rows == 265:
         assert 0 < rows % per and rows // per < groups - 1  # a ragged group, empty ones after
     part = np.random.default_rng(rows).normal(size=(rows, cols)).astype(np.float32)
-    sums = []
-    for g in range(groups):
-        s = np.zeros(cols, np.float32)
-        for k in range(min(g * per, rows), min((g + 1) * per, rows)):
-            s = s + part[k]
-        sums.append(s)
-    out = np.zeros(cols, np.float32)
-    for r in range(cluster):
-        b = np.zeros(cols, np.float32)
-        for w in range(warps):
-            b = b + sums[r * warps + w]
-        out = out + b
+    out = _reduce_rows_in_order(part)
     want = fk.reduce_rows_plain(torch.from_numpy(part)).numpy()
     scale = np.abs(want).max()
     assert np.abs(out - want).max() / scale <= cs.TOL_KERNEL
@@ -296,3 +421,141 @@ def test_wdft_f32_bound_rejects_tf32_inputs(variant):
     assert np.abs(acc - want.reshape(acc.shape).numpy()).max() / scale <= cs.TOL_WDFT_F32
     ctl = torch.matmul(cs.tf32(v), cs.tf32(fac))
     assert (ctl - want).abs().max().item() / scale > cs.TOL_WDFT_F32
+
+
+def test_head_bwd_partial_rows_follow_the_kernel():
+    """``head_bwd`` allocates one partial row per persistent block of
+    ``head_bwd_kernel`` (HB_GRID blocks at most, one per HB_PIX-pixel tile
+    below that), and chip_smoke.py's "head backward" reduce_rows shape is that
+    row count at the flagship."""
+    grid, pix = _csrc_constants("fno_bwd.cu", ("HB_GRID", "HB_PIX"))
+    assert (grid, pix) == (tk.HEAD_BWD_GRID, tk.HEAD_BWD_PIX)
+    cs = chip_smoke()
+    npix = cs.B * cs.XY * cs.XY
+    assert cs.rr_shapes()["head backward"] == (tk.head_bwd_rows(npix),
+                                             cs.NH * cs.WIDTH + cs.NH + cs.CC * cs.NH + cs.CC)
+    assert tk.head_bwd_rows(npix) == grid < npix // pix
+    assert tk.head_bwd_rows(100) == 2 and tk.head_bwd_rows(1) == 1
+
+
+@pytest.mark.parametrize("widest", [64, 96, 124, 149])
+def test_head_smem_check_names_the_widest_c(widest):
+    """The head kernels' shared-memory check, on a stand-in layout of a
+    fixed size a channel that fits SMEM_MAX up to C = ``widest``: it takes
+    every C up to there and raises past it with that limit named.  The
+    kernels' own layouts come from their library (``head_smem_bytes``);
+    chip_smoke.py checks their limits on the card."""
+    per_c = tk.SMEM_MAX // widest
+    smem = lambda c, nh, co, tc: c * per_c  # noqa: E731
+    for c in (1, widest // 2, widest):
+        tk._check_head_smem("head_fwd", smem, c, 128, 2, True)
+    with pytest.raises(ValueError, match=f"C up to {widest} at this NH and Co$"):
+        tk._check_head_smem("head_fwd", smem, widest + 1, 128, 2, True)
+
+
+def _tree_sum(v, axis):
+    """The sum over ``axis`` (length 2^k) by pairs of neighbours, level by
+    level: a shuffle tree's value on its first lane (f32 addition commutes)."""
+    v = np.moveaxis(v, axis, 0)
+    while v.shape[0] > 1:
+        v = v[0::2] + v[1::2]
+    return v[0]
+
+
+def test_head_bwd_tile_order_meets_the_card_bounds():
+    """A rehearsal of ``head_bwd_kernel``'s tensor-core arithmetic under
+    `default` at the flagship shape (65,536 pixels, C = 20, NH = 128, Co = 2):
+    tiles of HB_PIX consecutive pixels, tile k to block k mod HB_GRID, each
+    block's tiles in order; fc1, dW1, dW2 and dbb as k16 steps of exact bf16
+    products (C padded to 32) added to f32 sums; dt1 in order over the output
+    channels; db1 summed by each lane over its rows g and g + 8 of the tile's
+    m16 tiles in order, then over the lanes by the kernel's shuffle tree (g ^
+    1, g ^ 2, g ^ 4), and db2 over the tile by a warp's tree; each tile's sums
+    added to its block's in tile order; the blocks' partial rows through
+    ``reduce_rows_kernel``'s fixed groups.
+    Each weight gradient and dbb lies within chip_smoke.py's TOL_KERNEL of
+    the plain version and within 1e-6 of the f64 sum of the same rounded
+    products."""
+    cs = chip_smoke()
+    grid, pix = _csrc_constants("fno_bwd.cu", ("HB_GRID", "HB_PIX"))
+    b, c, nh, co, xy = cs.B, cs.WIDTH, cs.NH, cs.CC, cs.XY
+    npix, cp = b * xy * xy, -(-c // 16) * 16
+    ntiles = npix // pix
+    assert ntiles % grid == 0 and pix % 16 == 0
+    rng = np.random.default_rng(21)
+    def bf(a):  # rounded to bf16, as f32
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+    hf = rng.normal(size=(b, c, xy + cs.PAD, xy + cs.PAD)).astype(np.float32)
+    w1t = bf(rng.uniform(-1, 1, size=(nh, c)) / np.sqrt(c))
+    b1 = (rng.uniform(-1, 1, size=nh) / np.sqrt(c)).astype(np.float32)
+    w2t = bf(rng.uniform(-1, 1, size=(co, nh)) / np.sqrt(nh))
+    dpred = rng.normal(size=(b, co, xy, xy)).astype(np.float32)
+    std = rng.uniform(0.5, 2.0, size=(b, co)).astype(np.float32)
+    want = tk.head_bwd_plain(*(torch.from_numpy(a) for a in (dpred, hf, w1t, b1, w2t, std)),
+                             True)
+
+    # per pixel, in the kernel's pixel order p = (b * X + x) * Y + y
+    bb = bf(hf[:, :, :xy, :xy].transpose(0, 2, 3, 1).reshape(npix, c))
+    dout = (dpred * std[:, :, None, None]).transpose(0, 2, 3, 1).reshape(npix, co)
+    dor = bf(dout)
+
+    def k16(a, bmat):  # sum over k16 steps of exact products: a (..., K), bmat (K, N)
+        acc = np.zeros(a.shape[:-1] + bmat.shape[1:], np.float32)
+        for k in range(0, a.shape[-1], 16):
+            acc = acc + (a[..., k:k + 16].astype(np.float64) @ bmat[k:k + 16]).astype(np.float32)
+        return acc
+
+    bbp = np.zeros((npix, cp), np.float32)
+    bbp[:, :c] = bb
+    w1p = np.zeros((nh, cp), np.float32)
+    w1p[:, :c] = w1t
+    pre1 = torch.from_numpy(k16(bbp, w1p.T) + b1)
+    t1 = bf(tk._gelu(pre1).numpy())
+    dt = np.zeros((npix, nh), np.float32)
+    for o in range(co):
+        dt = dt + dor[:, o:o + 1] * w2t[o]
+    dp = dt * tk._gelu_grad(pre1).numpy()
+    dpr = bf(dp)
+
+    # per tile (and m16 tile), then per block over its tiles in order
+    tiles = lambda a: a.reshape(ntiles, pix, *a.shape[1:])  # noqa: E731
+    steps = (tiles(dpr).reshape(ntiles, pix // 16, 16, nh).transpose(0, 1, 3, 2).astype(np.float64)
+             @ tiles(bb).reshape(ntiles, pix // 16, 16, c)).astype(np.float32)
+    dw1_t = np.zeros((ntiles, nh, c), np.float32)
+    for k in range(pix // 16):
+        dw1_t = dw1_t + steps[:, k]
+    steps = (tiles(dor).reshape(ntiles, pix // 16, 16, co).transpose(0, 1, 3, 2)
+             .astype(np.float64) @ tiles(t1).reshape(ntiles, pix // 16, 16, nh)).astype(np.float32)
+    dw2_t = np.zeros((ntiles, co, nh), np.float32)
+    for k in range(pix // 16):
+        dw2_t = dw2_t + steps[:, k]
+    pairs = tiles(dp).reshape(ntiles, pix // 16, 16, nh)
+    pairs = pairs[:, :, :8] + pairs[:, :, 8:]  # rows g and g + 8 of each m16 tile
+    lanes = np.zeros((ntiles, 8, nh), np.float32)
+    for m in range(pix // 16):
+        lanes = lanes + pairs[:, m]
+    db1_t = _tree_sum(lanes, 1)  # (tiles, NH)
+    d = tiles(dout).transpose(0, 2, 1)  # (tiles, Co, HB_PIX)
+    db2_t = _tree_sum(sum(d[:, :, j:j + 32] for j in range(0, pix, 32)), 2)
+
+    def block_rows(per_tile):  # (tiles, ...) -> (grid, -1), each block's tiles in order
+        acc = np.zeros((grid,) + per_tile.shape[1:], np.float32)
+        for j in range(ntiles // grid):
+            acc = acc + per_tile[j * grid:(j + 1) * grid]
+        return acc.reshape(grid, -1)
+
+    part = np.concatenate([block_rows(a) for a in (dw1_t, db1_t, dw2_t, db2_t)], 1)
+    assert part.shape == cs.rr_shapes()["head backward"]
+    got = np.split(_reduce_rows_in_order(part), np.cumsum([nh * c, nh, co * nh]))
+    dbb = k16(dpr, w1t)
+
+    exact = [(dpr.astype(np.float64).T @ bb).ravel(), dp.astype(np.float64).sum(0),
+             (dor.astype(np.float64).T @ t1).ravel(), dout.astype(np.float64).sum(0),
+             dpr.astype(np.float64) @ w1t]
+    plain = [want[1].numpy().ravel(), want[2].numpy(), want[3].numpy().ravel(),
+             want[4].numpy(),
+             want[0][:, :, :xy, :xy].numpy().transpose(0, 2, 3, 1).reshape(npix, c)]
+    for name, g, e, w in zip(("dw1t", "db1", "dw2t", "db2", "dbb"), got + [dbb], exact, plain):
+        scale = np.abs(w).max()
+        assert np.abs(g - w).max() / scale <= cs.TOL_KERNEL, (name, np.abs(g - w).max() / scale)
+        assert np.abs(g - e).max() / scale <= 1e-6, (name, np.abs(g - e).max() / scale)
