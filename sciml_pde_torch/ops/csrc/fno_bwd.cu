@@ -430,9 +430,19 @@ FNO_EXPORT int fno_mix_wgrad(const void* br, const void* bi, const float* dcr,
 // A (B, nA, ldhA, ldwA) f32 and Bm (B, nB, ldhB, ldwB):
 //   partial[blk, i*nB + j] = sum_p A[i, p] Bm[j, p];  partial[blk, nA*nB + i] = sum_p A[i, p]
 // With `gelu` set, Bm holds a saved pre-activation and the kernel reads gelu(Bm).
+// A block of OUTER_PB pixels keeps its A values in shared memory and takes
+// Bm's channels in passes of OUTER_BT, so shared memory grows with nA only:
+// (nA + min(nB, OUTER_BT)) (OUTER_PB + 1) floats, nA up to 194 at any nB
+// (fno_kernels.outer names the limit).  With nB <= OUTER_BT (PASSES
+// false, every call of the flagship) the body is the single pass it was
+// before the passes came: the loop over passes made the compiler build the
+// products' chains some 30% slower.  Each entry is the same in-order sum
+// over the block's pixels either way.
 // ---------------------------------------------------------------------------
 
-template <typename S>
+constexpr int OUTER_BT = 32;  // Bm channels a pass
+
+template <typename S, bool PASSES>
 __global__ void outer_partial_kernel(const float* __restrict__ A, const S* __restrict__ Bm,
                                      int gelu, float* __restrict__ partial, int Bn, int nA,
                                      int nB, int nh, int nw, int ldhA, int ldwA, int ldhB,
@@ -440,50 +450,93 @@ __global__ void outer_partial_kernel(const float* __restrict__ A, const S* __res
   extern __shared__ float sm[];
   const int LD = OUTER_PB + 1;
   float* as = sm;            // (nA, LD)
-  float* bs = sm + nA * LD;  // (nB, LD), rounded
+  float* bs = sm + nA * LD;  // (min(nB, OUTER_BT), LD), rounded
   const int npix = Bn * nh * nw;
   const int t = threadIdx.x, pix = blockIdx.x * OUTER_PB + t;
-  if (pix < npix) {
-    const int x = pix % nw, y = (pix / nw) % nh, b = pix / (nh * nw);
-    for (int a = 0; a < nA; ++a)
-      as[a * LD + t] = A[(((size_t)b * nA + a) * ldhA + y) * ldwA + x];
-    for (int j = 0; j < nB; ++j) {
-      float v = ldv(Bm + (((size_t)b * nB + j) * ldhB + y) * ldwB + x);
-      if (gelu) v = gelu_f(v);
-      bs[j * LD + t] = rd(v, bf);
-    }
-  } else {
-    for (int a = 0; a < nA; ++a) as[a * LD + t] = 0.f;
-    for (int j = 0; j < nB; ++j) bs[j * LD + t] = 0.f;
-  }
-  __syncthreads();
   const int np = nA * nB + nA;
   float* part = partial + (size_t)blockIdx.x * np;
-  for (int i = t; i < np; i += blockDim.x) {
-    float s = 0.f;
-    if (i < nA * nB) {
-      const int a = i / nB, j = i % nB;
-      for (int pp = 0; pp < OUTER_PB; ++pp) s += rd(as[a * LD + pp], bf) * bs[j * LD + pp];
+  if constexpr (!PASSES) {
+    if (pix < npix) {
+      const int x = pix % nw, y = (pix / nw) % nh, b = pix / (nh * nw);
+      for (int a = 0; a < nA; ++a)
+        as[a * LD + t] = A[(((size_t)b * nA + a) * ldhA + y) * ldwA + x];
+      for (int j = 0; j < nB; ++j) {
+        float v = ldv(Bm + (((size_t)b * nB + j) * ldhB + y) * ldwB + x);
+        if (gelu) v = gelu_f(v);
+        bs[j * LD + t] = rd(v, bf);
+      }
     } else {
-      const int a = i - nA * nB;
-      for (int pp = 0; pp < OUTER_PB; ++pp) s += as[a * LD + pp];
+      for (int a = 0; a < nA; ++a) as[a * LD + t] = 0.f;
+      for (int j = 0; j < nB; ++j) bs[j * LD + t] = 0.f;
     }
-    part[i] = s;
+    __syncthreads();
+    for (int i = t; i < np; i += blockDim.x) {
+      float s = 0.f;
+      if (i < nA * nB) {
+        const int a = i / nB, j = i % nB;
+        for (int pp = 0; pp < OUTER_PB; ++pp) s += rd(as[a * LD + pp], bf) * bs[j * LD + pp];
+      } else {
+        const int a = i - nA * nB;
+        for (int pp = 0; pp < OUTER_PB; ++pp) s += as[a * LD + pp];
+      }
+      part[i] = s;
+    }
+  } else {
+    const bool ok = pix < npix;
+    const int x = pix % nw, y = (pix / nw) % nh, b = pix / (nh * nw);
+    for (int a = 0; a < nA; ++a)
+      as[a * LD + t] = ok ? A[(((size_t)b * nA + a) * ldhA + y) * ldwA + x] : 0.f;
+    for (int j0 = 0; j0 < nB; j0 += OUTER_BT) {
+      const int nbt = min(OUTER_BT, nB - j0);
+      if (j0 > 0) __syncthreads();  // the last pass's reads of bs are done
+      for (int j = 0; j < nbt; ++j) {
+        float v = 0.f;
+        if (ok) {
+          v = ldv(Bm + (((size_t)b * nB + j0 + j) * ldhB + y) * ldwB + x);
+          if (gelu) v = gelu_f(v);
+        }
+        bs[j * LD + t] = rd(v, bf);
+      }
+      __syncthreads();
+      // the pass's products, and in the first pass the sums of A after them
+      // (one list of entries over the threads, as with a single pass)
+      const int na = nA * nbt, n = na + (j0 == 0 ? nA : 0);
+      for (int i = t; i < n; i += blockDim.x) {
+        float s = 0.f;
+        if (i < na) {
+          const int a = i / nbt, j = i - a * nbt;
+          for (int pp = 0; pp < OUTER_PB; ++pp) s += rd(as[a * LD + pp], bf) * bs[j * LD + pp];
+          part[a * nB + j0 + j] = s;
+        } else {
+          for (int pp = 0; pp < OUTER_PB; ++pp) s += as[(i - na) * LD + pp];
+          part[nA * nB + i - na] = s;
+        }
+      }
+    }
   }
+}
+
+template <typename S, bool PASSES>
+static int launch_outer_passes(const float* A, const void* Bm, int gelu, float* partial,
+                               int Bn, int nA, int nB, int nh, int nw, int ldhA, int ldwA,
+                               int ldhB, int ldwB, int bf, cudaStream_t st) {
+  const size_t smem = (size_t)(nA + min(nB, OUTER_BT)) * (OUTER_PB + 1) * sizeof(float);
+  cudaError_t e = fno_set_smem(outer_partial_kernel<S, PASSES>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nblk = (Bn * nh * nw + OUTER_PB - 1) / OUTER_PB;
+  outer_partial_kernel<S, PASSES><<<nblk, OUTER_PB, smem, st>>>(
+      A, (const S*)Bm, gelu, partial, Bn, nA, nB, nh, nw, ldhA, ldwA, ldhB, ldwB, bf);
+  return (int)cudaGetLastError();
 }
 
 template <typename S>
 static int launch_outer(const float* A, const void* Bm, int gelu, float* partial, int Bn,
                         int nA, int nB, int nh, int nw, int ldhA, int ldwA, int ldhB,
                         int ldwB, int bf, cudaStream_t st) {
-  const size_t smem = (size_t)(nA + nB) * (OUTER_PB + 1) * sizeof(float);
-  cudaError_t e = fno_set_smem(outer_partial_kernel<S>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int nblk = (Bn * nh * nw + OUTER_PB - 1) / OUTER_PB;
-  outer_partial_kernel<S><<<nblk, OUTER_PB, smem, st>>>(A, (const S*)Bm, gelu, partial, Bn,
-                                                        nA, nB, nh, nw, ldhA, ldwA, ldhB,
-                                                        ldwB, bf);
-  return (int)cudaGetLastError();
+  return nB > OUTER_BT ? launch_outer_passes<S, true>(A, Bm, gelu, partial, Bn, nA, nB, nh, nw,
+                                                      ldhA, ldwA, ldhB, ldwB, bf, st)
+                       : launch_outer_passes<S, false>(A, Bm, gelu, partial, Bn, nA, nB, nh,
+                                                       nw, ldhA, ldwA, ldhB, ldwB, bf, st);
 }
 
 FNO_EXPORT int fno_outer_partial(const float* A, const void* Bm, int b_bf16, int gelu,

@@ -14,10 +14,11 @@
 //     fno_wdft     W-axis partial rDFT: (rows, Wp) x (Wp, 2*m2), on the
 //                  tensor cores under bf16 dot inputs (see its note below)
 //     fno_corner   H-axis corner DFT -> complex mode mix -> inverse H,
-//                  one block per (element, W-mode) keeps the whole column
-//                  of retained modes in shared memory
-//     fno_iwdft_pw Hermitian inverse W + 1x1 conv + bias (+ gelu), one
-//                  block per (element, image row)
+//                  a thread-block cluster per (element, W-mode) split
+//                  along H (see its note below)
+//     fno_iwdft_pw Hermitian inverse W + 1x1 conv + bias (+ gelu) as one
+//                  product a row, a block over several image rows (see
+//                  its note below)
 //   fno_head_fwd   fc1 -> gelu -> fc2 -> de-norm, a warp per 32 pixels on the
 //                  tensor cores under bf16 dot inputs (see its note below)
 //
@@ -34,10 +35,9 @@
 //
 // Bound at the flagship shape (B=4, 128^2, width 20, modes 12): a layer is
 // ~60 MFLOP per element and moves a few MB, so every kernel here is
-// latency-bound, not compute- or bandwidth-bound.  The design keeps each
-// stage but fno_stats, fno_wdft and fno_head_fwd (their notes below) a
-// plain tiled loop over shared memory with f32 FMAs on the CUDA cores; wgmma
-// and TMA are left for a later change.
+// latency-bound, not compute- or bandwidth-bound.  The products run on
+// mma.sync under bf16 dot inputs and on f32 FMAs otherwise (the notes
+// below); wgmma and TMA are left for a later change.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -285,43 +285,49 @@ FNO_EXPORT int fno_lift(const float* win, const float* grid2, const float* mean,
 // adjoint with a bf16 pre read and dpre written (4.34 us), against 65
 // MFLOP.  A block-wide tile in shared memory fed every FMA two shared-memory
 // loads, and each block read the factor with one dependent load after
-// another before any of its rows.  Here a block owns WD_ROWS = 32 rows of x,
-// 32 N contiguous floats from a 16-byte boundary (325 blocks of 256
-// threads at the flagship shape, 2-3 an SM, one wave):
-//   1. its threads copy those rows (and, for gelu', the rows of pre) and the
-//      factor into shared memory by cp.async, all in flight at once, so the
-//      launch waits on about one round trip to device memory;
-//   2. each thread forms v in place from the float4s it copied (gelu or
-//      gelu') and writes dpre with float4 stores; gelu' (erff, expf, a
-//      branching chain) is spread over every thread of the block;
-//   3. the operands are rounded to bf16 once a block: v into a row-major
-//      [32][K + 8] tile, K = 16 ceil(N / 16) (130 -> 144, the padding and
-//      any rows past M zero; +8: conflict-free ldmatrix), and the factor,
-//      already bf16-exact, into the B fragments of every (k16 step, n8
-//      tile) in lane order, rows past N zero;
+// another before any of its rows.  Here a block owns WD_ROWS = 32 rows of x
+// (325 blocks of 256 threads at the flagship shape, 2-3 an SM, one wave) and
+// streams them through shared memory in chunks along N of up to WD_KC_MAX
+// k16 steps (256 columns; the wrapper picks the chunk so that the layout
+// fits, WdftLayout), so any N runs and shared memory grows with J only:
+//   1. its threads copy the chunk's columns of those rows (and, for gelu',
+//      the rows of pre) and the factor's rows into shared memory by
+//      cp.async, the next chunk in flight while this one is computed (two
+//      buffers); with one chunk (N up to 256 at J = 24, the flagship) the
+//      block's rows are 32 N contiguous floats from a 16-byte boundary,
+//      copied 16 bytes at a time, pre with them;
+//   2. each thread forms v in place from the values it copied (gelu or
+//      gelu', pre read from device memory when there are several chunks)
+//      and writes dpre; gelu' (erff, expf, a branching chain) is spread over
+//      every thread of the block;
+//   3. the operands are rounded to bf16 once a chunk: v into a row-major
+//      [32][16 KC + 8] tile (columns past N and rows past M zero; +8:
+//      conflict-free ldmatrix), and the factor, already bf16-exact, into the
+//      B fragments of every (k16 step, n8 tile) in lane order, rows past N
+//      zero;
 //   4. each warp takes (m16 row tile, n8 column tile) pairs of the output,
-//      6 of them at J = 24: per k16 step one ldmatrix, one 8-byte load and
-//      one mma.sync m16n8k16 bf16 with f32 accumulation (the bf16 products
-//      are exact in f32, as the reference's _dot with bf16 inputs), into the
-//      block's output tile in shared memory;
+//      6 of them at J = 24: its accumulators come from the block's output
+//      tile in shared memory, then per k16 step of the chunk one ldmatrix,
+//      one 8-byte load and one mma.sync m16n8k16 bf16 with f32 accumulation
+//      (the bf16 products are exact in f32, as the reference's _dot with
+//      bf16 inputs), and go back to the tile: the same chain of k16 steps, in
+//      the same order, as with the whole row in shared memory;
 //   5. the block's rows of out, 32 J contiguous floats, leave by float4
 //      stores.
-// What bounds it now is the work between the copies and the stores, not the
-// bytes (PERF.md): the first designs spent it on per-element index
-// arithmetic and per-step fragment assembly, this one on the two bf16
-// passes, the MMA chain and gelu'.  The factor's fragments come from shared
-// memory rather than registers so that N and J stay runtime sizes.
+// What bounds it is the work between the copies and the stores, not the
+// bytes (PERF.md): the bf16 passes, the MMA chain and gelu'.
 //   f32 (bf = 0, `highest`): products stay exact f32 (no TF32), on the CUDA
 //   cores, from the f32 copies after step 2: a lane owns 2 rows x 2 columns
 //   of a warp's 16 x 8 output tile, so each value loaded from shared memory
-//   feeds 2 FMAs; in-order sums over k as before.
+//   feeds 2 FMAs; in-order sums over k, carried from chunk to chunk through
+//   the output tile.
 // No atomics and no block reads what another writes: the same bits from
 // launch to launch.
 // ---------------------------------------------------------------------------
 
-constexpr int WD_ROWS = 32;  // rows of x a block owns: two m16 tiles
-constexpr int WD_WARPS = 8;  // warps a block
-
+constexpr int WD_ROWS = 32;    // rows of x a block owns: two m16 tiles
+constexpr int WD_WARPS = 8;    // warps a block
+constexpr int WD_KC_MAX = 16;  // k16 steps a chunk at most
 
 // four consecutive values from shared memory (8-byte aligned bf16, 16-byte f32)
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -349,29 +355,35 @@ __device__ __forceinline__ uint32_t b_pair(const float* f, int k, int n, int N, 
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Shared memory of one block: the factor as given (f32, N * J rounded up to
-// 4 values), the block's rows of x (WD_ROWS N values rounded up to 8), its
-// rows of pre where gelu'(pre) is taken, and on the tensor-core path the
-// bf16 tile of v, the factor's B fragments and the output tile.  About
-// 224 N bytes with no pre on the CUDA cores, up to about 500 N with gelu',
-// an f32 pre and the tensor cores; so at J = 24 the 227 KB a block may take
-// hold N = Wp up to 492 in the widest variant and 1037 in the narrowest
-// (the flagship's 130 takes 29-65 KB).  fno_kernels.wdft mirrors this
-// layout (wdft_smem_bytes) and raises above it, naming the variant's limit.
+// Shared memory of one block for N, J and a chunk of at most kc k16 steps:
+// NCH chunks of KC k16 steps (balanced), each buffer the chunk's factor rows
+// (f32), its columns of the block's x rows (row stride LDX: N with one chunk,
+// whose rows are then contiguous, else 16 KC) and, with one chunk, the rows
+// of pre where gelu'(pre) is taken; two buffers with several chunks.  On the
+// tensor-core path the bf16 tile of v and the factor's B fragments of one
+// chunk; the f32 output tile.  At J = 24 the widest variant takes 209 KB at
+// N = 256 (one chunk) and at most 127 KB beyond; fno_kernels.wdft_plan
+// mirrors this layout, picks kc and names the widest J where none fits.
 struct WdftLayout {
-  int TS, KS, NNT, LDA;
-  size_t fac, xs, ps, at, bf, bytes;
-  __host__ __device__ WdftLayout(int N, int J, bool tc, bool stage_pre, size_t pre_size) {
-    TS = (WD_ROWS * N + 7) / 8 * 8;
+  int KS, NNT, NCH, KC, NC, LDX, LDA;
+  size_t fac, xs, ps, buf, at, bf, ot, bytes;
+  __host__ __device__ WdftLayout(int N, int J, bool tc, bool stage_pre, size_t pre_size, int kc) {
     KS = (N + 15) / 16;
     NNT = (J + 7) / 8;
-    LDA = 16 * KS + 8;  // +8 bf16: conflict-free ldmatrix
-    fac = (size_t)(N * J + 3) / 4 * 16;
-    xs = (size_t)TS * 4;
-    ps = stage_pre ? ((size_t)TS * pre_size + 15) / 16 * 16 : 0;
+    NCH = (KS + kc - 1) / kc;
+    KC = (KS + NCH - 1) / NCH;
+    NC = 16 * KC;
+    LDX = NCH == 1 ? N : NC;
+    LDA = NC + 8;  // +8 bf16: conflict-free ldmatrix
+    const size_t ts = (size_t)(WD_ROWS * LDX + 7) / 8 * 8;
+    fac = ((size_t)(NCH == 1 ? N : NC) * J + 3) / 4 * 16;
+    xs = ts * 4;
+    ps = stage_pre && NCH == 1 ? (ts * pre_size + 15) / 16 * 16 : 0;
+    buf = fac + xs + ps;
     at = tc ? (size_t)WD_ROWS * LDA * 2 : 0;
-    bf = tc ? (size_t)KS * NNT * 32 * 8 : 0;
-    bytes = fac + xs + ps + at + bf + (tc ? ((size_t)WD_ROWS * J * 4 + 15) / 16 * 16 : 0);
+    bf = tc ? (size_t)KC * NNT * 32 * 8 : 0;
+    ot = ((size_t)WD_ROWS * J * 4 + 15) / 16 * 16;
+    bytes = (NCH > 1 ? 2 : 1) * buf + at + bf + ot;
   }
 };
 
@@ -379,354 +391,818 @@ template <typename S, bool TC>
 __global__ void __launch_bounds__(WD_WARPS * 32)
 wdft_kernel(const float* __restrict__ x, const float* __restrict__ fac, float* __restrict__ out,
             int M, int N, int J, const S* __restrict__ pre, int gelu_grad,
-            float* __restrict__ dpre, int gelu_in) {
+            float* __restrict__ dpre, int gelu_in, int kc) {
   extern __shared__ __align__(16) unsigned char wd_smem[];
   const bool gg = pre != nullptr && gelu_grad, op = gg || gelu_in;
-  const WdftLayout L(N, J, TC, gg, sizeof(S));
-  float* fst = reinterpret_cast<float*>(wd_smem);
-  float* xs = reinterpret_cast<float*>(wd_smem + L.fac);
-  S* ps = reinterpret_cast<S*>(wd_smem + L.fac + L.xs);
-  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(wd_smem + L.fac + L.xs + L.ps);
-  uint2* bfr = reinterpret_cast<uint2*>(wd_smem + L.fac + L.xs + L.ps + L.at);
-  float* ot = reinterpret_cast<float*>(wd_smem + L.fac + L.xs + L.ps + L.at + L.bf);
+  const WdftLayout L(N, J, TC, gg, sizeof(S), kc);
+  unsigned char* tail = wd_smem + (L.NCH > 1 ? 2 : 1) * L.buf;
+  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(tail);
+  uint2* bfr = reinterpret_cast<uint2*>(tail + L.at);
+  float* ot = reinterpret_cast<float*>(tail + L.at + L.bf);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int row0 = blockIdx.x * WD_ROWS, nrows = min(WD_ROWS, M - row0);
   const size_t g0 = (size_t)row0 * N;
-  const int cnt = nrows * N, n4 = cnt / 4, nf = N * J;
-
-  // the factor and the block's rows of x (and pre) into shared memory by
-  // cp.async, all in flight at once (the rows are WD_ROWS N contiguous
-  // values from a 16-byte boundary); ragged tails by plain loads
-  for (int i = tid; i < nf / 4; i += nthr) cp_async(fst + 4 * i, fac + 4 * i);
-  for (int i = nf / 4 * 4 + tid; i < nf; i += nthr) fst[i] = fac[i];
-  for (int i = tid; i < n4; i += nthr) {
-    cp_async(xs + 4 * i, x + g0 + 4 * i);
-    if (gg) cp_async(ps + 4 * i, pre + g0 + 4 * i);
-  }
-  for (int e = 4 * n4 + tid; e < cnt; e += nthr) {
-    xs[e] = x[g0 + e];
-    if (gg) ps[e] = pre[g0 + e];
-  }
-  cp_async_wait_all();
-  if (op || pre != nullptr) {  // v in place of x, and dpre = v: each thread the values it copied
-    for (int i = tid; i < n4; i += nthr) {
-      float4 v = ld4(xs + 4 * i);
-      if (op) {
-        const float4 p = gg ? ld4(ps + 4 * i) : make_float4(0.f, 0.f, 0.f, 0.f);
-        v = make_float4(wdft_v(v.x, p.x, gg, gelu_in), wdft_v(v.y, p.y, gg, gelu_in),
-                        wdft_v(v.z, p.z, gg, gelu_in), wdft_v(v.w, p.w, gg, gelu_in));
-        *reinterpret_cast<float4*>(xs + 4 * i) = v;
-      }
-      if (pre != nullptr) *reinterpret_cast<float4*>(dpre + g0 + 4 * i) = v;
-    }
-    for (int e = 4 * n4 + tid; e < cnt; e += nthr) {
-      const float v = wdft_v(xs[e], gg ? ldv(ps + e) : 0.f, gg, gelu_in);
-      xs[e] = v;
-      if (pre != nullptr) dpre[g0 + e] = v;
-    }
-  }
-  __syncthreads();
-
   const int lane = tid % 32, warp = tid / 32, g = lane >> 2, t = lane & 3;
-  if constexpr (TC) {
-    // bf16 operands once a block: v as a row-major [WD_ROWS][LDA] tile (columns
-    // past N and rows past the block's zero), and the factor as the B
-    // fragments of each (k16 step, n8 tile) in lane order (PTX m16n8k16: lane
-    // = 4 g + t holds column g, rows 2t, 2t + 1 and 2t + 8, 2t + 9)
-    for (int r = warp; r < WD_ROWS; r += WD_WARPS)
-      for (int c = 2 * lane; c < 16 * L.KS; c += 64) {
-        const float* p = xs + r * N + c;
-        const bool ok = r < nrows;
-        const __nv_bfloat162 h = __floats2bfloat162_rn(ok && c < N ? p[0] : 0.f,
-                                                       ok && c + 1 < N ? p[1] : 0.f);
-        *reinterpret_cast<__nv_bfloat162*>(at + r * L.LDA + c) = h;
+
+  // chunk ch into buffer ch & 1 by cp.async: the factor's rows c0.. (16-byte
+  // aligned: c0 is a multiple of 16) and the chunk's columns of the block's
+  // rows of x (and pre); ragged tails of pre by plain loads
+  auto stage = [=](int ch) {
+    unsigned char* base = wd_smem + (ch & 1) * L.buf;
+    float* fst = reinterpret_cast<float*>(base);
+    float* xs = reinterpret_cast<float*>(base + L.fac);
+    S* ps = reinterpret_cast<S*>(base + L.fac + L.xs);
+    const int c0 = ch * L.NC, nc = min(L.NC, N - c0), nf = nc * J;
+    const float* fsrc = fac + (size_t)c0 * J;
+    for (int i = tid; i < nf / 4; i += nthr) cp_async(fst + 4 * i, fsrc + 4 * i);
+    for (int i = nf / 4 * 4 + tid; i < nf; i += nthr) cp_async4(fst + i, fsrc + i);
+    if (L.NCH == 1) {
+      const int cnt = nrows * N, n4 = cnt / 4;
+      for (int i = tid; i < n4; i += nthr) {
+        cp_async(xs + 4 * i, x + g0 + 4 * i);
+        if (gg) cp_async(ps + 4 * i, pre + g0 + 4 * i);
       }
-    for (int i = tid; i < L.KS * L.NNT * 32; i += nthr) {
-      const int q = i >> 5, bg = (i & 31) >> 2, bt = i & 3;
-      const int k = q / L.NNT * 16 + 2 * bt, n = q % L.NNT * 8 + bg;
-      bfr[i] = make_uint2(b_pair(fst, k, n, N, J), b_pair(fst, k + 8, n, N, J));
-    }
-    __syncthreads();
-    // one (m16 row tile, n8 column tile) of the output a warp at a time: A by
-    // ldmatrix, B by one 8-byte load, into the block's output tile
-    const int lm_row = ((lane >> 3) & 1) * 8 + (lane & 7), lm_col = (lane >> 4) * 8;
-    const int items = (nrows + 15) / 16 * L.NNT;
-    for (int item = warp; item < items; item += WD_WARPS) {
-      const int mt = item / L.NNT, nt = item - mt * L.NNT;
-      const __nv_bfloat16* arow = at + (mt * 16 + lm_row) * L.LDA + lm_col;
-      const uint2* bq = bfr + nt * 32 + lane;
-      float acc[4] = {};
-      for (int ks = 0; ks < L.KS; ++ks) {
-        uint32_t a[4];
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                     : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-                     : "r"(smem_u32(arow + ks * 16))
-                     : "memory");
-        const uint2 b = bq[ks * L.NNT * 32];
-        asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+      for (int e = 4 * n4 + tid; e < cnt; e += nthr) {
+        cp_async4(xs + e, x + g0 + e);
+        if (gg) ps[e] = pre[g0 + e];
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + 2 * t + (e & 1);
-        if (j < J) ot[(mt * 16 + g + (e >> 1) * 8) * J + j] = acc[e];
+    } else {
+      for (int e = tid; e < nrows * nc; e += nthr) {
+        const int r = e / nc, c = e - r * nc;
+        cp_async4(xs + r * L.LDX + c, x + g0 + (size_t)r * N + c0 + c);
       }
     }
-    __syncthreads();
-    // the block's rows of out are nrows J contiguous floats from a 16-byte
-    // boundary: float4 stores
-    float* ob = out + (size_t)row0 * J;
-    const int no = nrows * J;
-    for (int i = tid; i < no / 4; i += nthr)
-      *reinterpret_cast<float4*>(ob + 4 * i) = *reinterpret_cast<const float4*>(ot + 4 * i);
-    for (int e = no / 4 * 4 + tid; e < no; e += nthr) ob[e] = ot[e];
-  } else {
-    // one 16 x 8 tile of the output a warp at a time, on the CUDA cores: a
-    // lane owns rows 2 (lane / 4) + i and columns 2 (lane % 4) + c
-    const int nnt = (J + 7) / 8, items = (nrows + 15) / 16 * nnt;
-    for (int item = warp; item < items; item += WD_WARPS) {
-      const int mt = item / nnt, j0 = (item - mt * nnt) * 8, r0 = row0 + mt * 16;
-      const float* xt = xs + mt * 16 * N;
-      const int rr = lane / 4 * 2, jj = j0 + lane % 4 * 2;
-      const bool ok0 = jj < J, ok1 = jj + 1 < J;
-      float acc[2][2] = {};
-      for (int k = 0; k < N; ++k) {
-        const float x0 = xt[rr * N + k], x1 = xt[(rr + 1) * N + k];
-        const float f0 = ok0 ? fst[k * J + jj] : 0.f, f1 = ok1 ? fst[k * J + jj + 1] : 0.f;
-        acc[0][0] = fmaf(x0, f0, acc[0][0]);
-        acc[0][1] = fmaf(x0, f1, acc[0][1]);
-        acc[1][0] = fmaf(x1, f0, acc[1][0]);
-        acc[1][1] = fmaf(x1, f1, acc[1][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int row = r0 + rr + i;
-          if (row < M && jj + c < J) out[(size_t)row * J + jj + c] = acc[i][c];
+    cp_async_commit();
+  };
+
+  stage(0);
+  for (int ch = 0; ch < L.NCH; ++ch) {
+    if (ch + 1 < L.NCH) {
+      stage(ch + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    unsigned char* base = wd_smem + (ch & 1) * L.buf;
+    const float* fst = reinterpret_cast<const float*>(base);
+    float* xs = reinterpret_cast<float*>(base + L.fac);
+    const S* ps = reinterpret_cast<const S*>(base + L.fac + L.xs);
+    const int c0 = ch * L.NC, nc = min(L.NC, N - c0);
+    // v in place of x, and dpre = v: each thread the values it copied
+    if (op || pre != nullptr) {
+      if (L.NCH == 1) {
+        const int cnt = nrows * N, n4 = cnt / 4;
+        for (int i = tid; i < n4; i += nthr) {
+          float4 v = ld4(xs + 4 * i);
+          if (op) {
+            const float4 p = gg ? ld4(ps + 4 * i) : make_float4(0.f, 0.f, 0.f, 0.f);
+            v = make_float4(wdft_v(v.x, p.x, gg, gelu_in), wdft_v(v.y, p.y, gg, gelu_in),
+                            wdft_v(v.z, p.z, gg, gelu_in), wdft_v(v.w, p.w, gg, gelu_in));
+            *reinterpret_cast<float4*>(xs + 4 * i) = v;
+          }
+          if (pre != nullptr) *reinterpret_cast<float4*>(dpre + g0 + 4 * i) = v;
         }
+        for (int e = 4 * n4 + tid; e < cnt; e += nthr) {
+          const float v = wdft_v(xs[e], gg ? ldv(ps + e) : 0.f, gg, gelu_in);
+          xs[e] = v;
+          if (pre != nullptr) dpre[g0 + e] = v;
+        }
+      } else {
+        for (int e = tid; e < nrows * nc; e += nthr) {
+          const int r = e / nc, c = e - r * nc;
+          const size_t gi = g0 + (size_t)r * N + c0 + c;
+          const float v = wdft_v(xs[r * L.LDX + c], gg ? ldv(pre + gi) : 0.f, gg, gelu_in);
+          xs[r * L.LDX + c] = v;
+          if (pre != nullptr) dpre[gi] = v;
+        }
+      }
     }
+    __syncthreads();
+
+    if constexpr (TC) {
+      // bf16 operands once a chunk: v as a row-major [WD_ROWS][LDA] tile
+      // (columns past N and rows past the block's zero), and the factor as
+      // the B fragments of each (k16 step, n8 tile) in lane order (PTX
+      // m16n8k16: lane = 4 g + t holds column g, rows 2t, 2t + 1 and 2t + 8,
+      // 2t + 9)
+      const int kcc = min(L.KC, L.KS - ch * L.KC);  // this chunk's k16 steps
+      for (int r = warp; r < WD_ROWS; r += WD_WARPS)
+        for (int c = 2 * lane; c < 16 * kcc; c += 64) {
+          const float* p = xs + r * L.LDX + c;
+          const bool ok = r < nrows;
+          const __nv_bfloat162 h = __floats2bfloat162_rn(ok && c < nc ? p[0] : 0.f,
+                                                         ok && c + 1 < nc ? p[1] : 0.f);
+          *reinterpret_cast<__nv_bfloat162*>(at + r * L.LDA + c) = h;
+        }
+      for (int i = tid; i < kcc * L.NNT * 32; i += nthr) {
+        const int q = i >> 5, bg = (i & 31) >> 2, bt = i & 3;
+        const int k = q / L.NNT * 16 + 2 * bt, n = q % L.NNT * 8 + bg;
+        bfr[i] = make_uint2(b_pair(fst, k, n, nc, J), b_pair(fst, k + 8, n, nc, J));
+      }
+      __syncthreads();
+      // one (m16 row tile, n8 column tile) of the output a warp at a time: A
+      // by ldmatrix, B by one 8-byte load, the chain carried in the output tile
+      const int lm_row = ((lane >> 3) & 1) * 8 + (lane & 7), lm_col = (lane >> 4) * 8;
+      const int items = (nrows + 15) / 16 * L.NNT;
+      for (int item = warp; item < items; item += WD_WARPS) {
+        const int mt = item / L.NNT, nt = item - mt * L.NNT;
+        const __nv_bfloat16* arow = at + (mt * 16 + lm_row) * L.LDA + lm_col;
+        const uint2* bq = bfr + nt * 32 + lane;
+        float acc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = nt * 8 + 2 * t + (e & 1);
+          acc[e] = ch > 0 && j < J ? ot[(mt * 16 + g + (e >> 1) * 8) * J + j] : 0.f;
+        }
+        for (int ks = 0; ks < kcc; ++ks) {
+          uint32_t a[4];
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                       : "r"(smem_u32(arow + ks * 16))
+                       : "memory");
+          const uint2 b = bq[ks * L.NNT * 32];
+          asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+              : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+              : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = nt * 8 + 2 * t + (e & 1);
+          if (j < J) ot[(mt * 16 + g + (e >> 1) * 8) * J + j] = acc[e];
+        }
+      }
+    } else {
+      // one 16 x 8 tile of the output a warp at a time, on the CUDA cores: a
+      // lane owns rows 2 (lane / 4) + i and columns 2 (lane % 4) + c
+      const int items = (nrows + 15) / 16 * L.NNT;
+      for (int item = warp; item < items; item += WD_WARPS) {
+        const int mt = item / L.NNT, j0 = (item - mt * L.NNT) * 8;
+        const float* xt = xs + mt * 16 * L.LDX;
+        const int rr = lane / 4 * 2, jj = j0 + lane % 4 * 2;
+        const bool ok0 = jj < J, ok1 = jj + 1 < J;
+        float acc[2][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            acc[i][c] = ch > 0 && jj + c < J ? ot[(mt * 16 + rr + i) * J + jj + c] : 0.f;
+        for (int k = 0; k < nc; ++k) {
+          const float x0 = xt[rr * L.LDX + k], x1 = xt[(rr + 1) * L.LDX + k];
+          const float f0 = ok0 ? fst[k * J + jj] : 0.f, f1 = ok1 ? fst[k * J + jj + 1] : 0.f;
+          acc[0][0] = fmaf(x0, f0, acc[0][0]);
+          acc[0][1] = fmaf(x0, f1, acc[0][1]);
+          acc[1][0] = fmaf(x1, f0, acc[1][0]);
+          acc[1][1] = fmaf(x1, f1, acc[1][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (jj + c < J) ot[(mt * 16 + rr + i) * J + jj + c] = acc[i][c];
+      }
+    }
+    __syncthreads();  // the chunk's buffer and tiles are free, its sums in the output tile
   }
+  // the block's rows of out are nrows J contiguous floats from a 16-byte
+  // boundary: float4 stores
+  float* ob = out + (size_t)row0 * J;
+  const int no = nrows * J;
+  for (int i = tid; i < no / 4; i += nthr)
+    *reinterpret_cast<float4*>(ob + 4 * i) = *reinterpret_cast<const float4*>(ot + 4 * i);
+  for (int e = no / 4 * 4 + tid; e < no; e += nthr) ob[e] = ot[e];
 }
 
 template <typename S, bool TC>
 static int launch_wdft(const float* x, const float* fac, float* out, int M, int N, int J,
-                       const void* pre, int gelu_grad, float* dpre, int gelu_in,
+                       const void* pre, int gelu_grad, float* dpre, int gelu_in, int kc,
                        cudaStream_t st) {
-  const size_t smem = WdftLayout(N, J, TC, pre != nullptr && gelu_grad, sizeof(S)).bytes;
+  const size_t smem = WdftLayout(N, J, TC, pre != nullptr && gelu_grad, sizeof(S), kc).bytes;
   cudaError_t e = fno_set_smem(wdft_kernel<S, TC>, smem);
   if (e != cudaSuccess) return (int)e;
   wdft_kernel<S, TC><<<(M + WD_ROWS - 1) / WD_ROWS, WD_WARPS * 32, smem, st>>>(
-      x, fac, out, M, N, J, (const S*)pre, gelu_grad, dpre, gelu_in);
+      x, fac, out, M, N, J, (const S*)pre, gelu_grad, dpre, gelu_in, kc);
   return (int)cudaGetLastError();
+}
+
+// Shared memory of one block of each redesigned kernel, as laid out here:
+// chip_smoke.py holds fno_kernels' mirrors (wdft_smem_bytes,
+// corner_smem_bytes, iwdft_smem_bytes), which its CPU tests use, to these.
+FNO_EXPORT long long fno_wdft_smem(int N, int J, int tc, int pre_size, int kc) {
+  return (long long)WdftLayout(N, J, tc != 0, pre_size != 0, (size_t)pre_size, kc).bytes;
 }
 
 FNO_EXPORT int fno_wdft(const float* x, const float* fac, float* out, int M, int N, int J,
                         const void* pre, int pre_bf16, int gelu_grad, float* dpre, int gelu_in,
-                        int bf, void* stream) {
+                        int bf, int kc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (pre_bf16)
     return bf ? launch_wdft<__nv_bfloat16, true>(x, fac, out, M, N, J, pre, gelu_grad, dpre,
-                                                 gelu_in, st)
+                                                 gelu_in, kc, st)
               : launch_wdft<__nv_bfloat16, false>(x, fac, out, M, N, J, pre, gelu_grad, dpre,
-                                                  gelu_in, st);
-  return bf ? launch_wdft<float, true>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in, st)
-            : launch_wdft<float, false>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in,
+                                                  gelu_in, kc, st);
+  return bf ? launch_wdft<float, true>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in, kc,
+                                       st)
+            : launch_wdft<float, false>(x, fac, out, M, N, J, pre, gelu_grad, dpre, gelu_in, kc,
                                         st);
 }
 
 // ---------------------------------------------------------------------------
-// Corner stage, one block per (element b, W-mode k):
+// Corner stage, per (element b, W-mode k):
 //   Bs[i, r] = sum_h A[b, i, h, k] P[h, r]              (complex, saved to spec)
 //   Cm[j, r] = sum_i Bs[i, r] W[i, j, k, r]             (forward)
 //            = sum_i Bs[i, r] conj(W[j, i, k, r])       (adjoint)
 //   D[b, j, h, k] = sum_r Cm[j, r] Q[r, h]              (complex)
 // A and D hold the real parts at [..., :K] and the imaginary parts at
 // [..., K:2K].  spec is (B, Cin, K, R), real and imaginary apart.  With D
-// null the block stops after the spectrum (the split weight-gradient pass
+// null the kernel stops after the spectrum (the split weight-gradient pass
 // needs only the spectra of a layer's input and of its cotangent).
+//
+// Replaces the H-axis corner DFT, the mode mix and the inverse H of
+// _full_fwd_kernel and _full_bwd_kernel (sciml_pde_tpu/ops/fno_fused_step.py
+// :302-313, the adjoint at :335-348).  At the flagship shape (B = 4, C = 20,
+// Hp = 130, K = 12, R = 24) it moves 3.06 MB (A and D 1.0 MB each, W 0.92
+// MB; 0.91 us at 3.35 TB/s) for 51.6 MFLOP.  The first design ran one block
+// per (b, k), 48 blocks on 132 SMs, each copying the whole of P and Q with
+// plain loads and running the three complex contractions as serial chains
+// of scalar FMAs (25x its bound).  Here each (b, k) is a thread-block cluster
+// of CN_CLUSTER blocks along H (192 blocks at the flagship), rank q owning
+// rows [q Hb, (q + 1) Hb) of H, Hb = ceil(Hp / CN_CLUSTER):
+//   0. by cp.async, all in flight at once: the first chunk's A, P and Q
+//      rows and the block's slice of W where it fits (later chunks' copies
+//      as their turn comes);
+//   1. the block's rows of A and P in chunks of HC rows (the wrapper picks
+//      HC, CornerLayout): A as the row-major [Cin][2 HC] operand with the
+//      real and imaginary parts of a row h side by side, P as the matching
+//      [[Pr, Pi], [-Pi, Pr]] rows, so [Br | Bi] is one real product; per
+//      (m16, n8) tile its k16 steps (mma.sync bf16 -> f32 under `default`,
+//      in-order f32 FMAs with 2 x 2 values a lane under `highest`) add to
+//      the block's partial spectrum in shared memory;
+//   2. the partial spectra of the cluster's blocks are added in rank order
+//      through distributed shared memory: every block forms the same
+//      spectrum (no atomics, the same bits from launch to launch), and
+//      writes its share of the channels to spec;
+//   3. the mode mix in f32 on the CUDA cores (the reference's VPU mix), the
+//      output channels j = q, q + CN_CLUSTER, ... in block q, W from the
+//      block's staged slice (or from device memory where the slice passes
+//      CN_W_SMEM), each value once a cluster and the clusters of one mode
+//      side by side; Cm rounded to the dot dtype and written straight into
+//      every block's stage-4 operand through distributed shared memory;
+//   4. each block computes its own rows of D in chunks of HC: [Dr | Di] =
+//      [Cr | Ci] [[Qr, Qi], [-Qi, Qr]], k16 steps as in 1, two n8 tiles
+//      (Dr and Di) from one A fragment, and writes them.
+// The staging loops give a warp a row and its lanes the row's columns (no
+// division per element).  __launch_bounds__(CN_NT, 1): without the minimum
+// of one block an SM the compiler held some instances under a register
+// target and spilled.
+// Shared memory grows with C and R only (HC is at least 8): the wrapper
+// names the widest C where even HC = 8 does not fit.
 // ---------------------------------------------------------------------------
 
-template <typename S, bool ADJ>
-__global__ void corner_kernel(const float* __restrict__ A, const float* __restrict__ pr,
-                              const float* __restrict__ pi, const float* __restrict__ wr,
-                              const float* __restrict__ wi, const float* __restrict__ qr,
-                              const float* __restrict__ qi, S* __restrict__ spr,
-                              S* __restrict__ spi, float* __restrict__ D, int Cin, int Cout,
-                              int Hp, int K, int R, int bf) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x / K, k = blockIdx.x % K;
-  const int K2 = 2 * K;
-  float* as_r = sm;
-  float* as_i = as_r + Cin * Hp;
-  float* ps_r = as_i + Cin * Hp;
-  float* ps_i = ps_r + Hp * R;
-  float* qs_r = ps_i + Hp * R;
-  float* qs_i = qs_r + R * Hp;
-  float* bs_r = qs_i + R * Hp;
-  float* bs_i = bs_r + Cin * R;
-  float* cs_r = bs_i + Cin * R;
-  float* cs_i = cs_r + Cout * R;
-  for (int i = threadIdx.x; i < Cin * Hp; i += blockDim.x) {
-    const int c = i / Hp, h = i % Hp;
-    const size_t g = (((size_t)b * Cin + c) * Hp + h) * K2 + k;
-    as_r[i] = rd(A[g], bf);
-    as_i[i] = rd(A[g + K], bf);
+constexpr int CN_CLUSTER = 4;               // blocks of a (element, W-mode) cluster
+constexpr int CN_NT = 256;                  // threads a block
+constexpr size_t CN_W_SMEM = 64 * 1024;     // largest slice of W staged in shared memory
+
+// Shared memory of one corner_kernel block, in bytes from the start; the
+// element E is bf16 on the tensor-core path, f32 on the CUDA cores, and rows
+// of E are padded by 16 bytes of bf16 or 4 floats.  part: the partial
+// spectrum (f32 [Mi][KR + 4]); bsum: the spectrum (f32 [Cin][2R]); ca: Cm
+// as the stage-4 operand ([Mo][KR], written by every block of the cluster);
+// the chunk's copies as they arrive (f32): A ([Cin][2 HC]), P
+// ([2][HC][R]), Q ([2][R][HC]); the block's slice of W (f32 [2][Cin][nj][R],
+// nj = ceil(Cout / CN_CLUSTER) output channels) where it takes at most
+// CN_W_SMEM; then a chunk's operands: A ([Mi][2 HC]) and P ([2 HC][KR]) in
+// stage 1, Q ([KR][2 HC]: per n8 tile of rows, 8 columns of [Qr; -Qi] then 8
+// of [Qi; Qr]) in stage 4.  fno_kernels.corner_plan mirrors it.
+struct CornerLayout {
+  int Mi, Mo, KR, lda, ldn, ldk, ldq, ldp, nj;
+  size_t part, bsum, ca, araw, praw, qraw, wsm, wsm_bytes, chunk, pb, bytes;
+  __host__ __device__ CornerLayout(int Cin, int Cout, int R, int HC, bool tc) {
+    const int es = tc ? 2 : 4, pad = tc ? 8 : 4;
+    Mi = fno_round_up(Cin, 16);
+    Mo = fno_round_up(Cout, 16);
+    KR = fno_round_up(2 * R, 16);
+    lda = 2 * HC + pad;
+    ldn = KR + pad;
+    ldk = KR + pad;
+    ldq = 2 * HC + pad;
+    ldp = KR + 4;
+    nj = (Cout + CN_CLUSTER - 1) / CN_CLUSTER;
+    part = 0;
+    bsum = part + fno_align16((size_t)Mi * ldp * 4);
+    ca = bsum + fno_align16((size_t)Cin * 2 * R * 4);
+    araw = ca + fno_align16((size_t)Mo * ldk * es);
+    praw = araw + fno_align16((size_t)Cin * 2 * HC * 4);
+    qraw = praw + fno_align16((size_t)2 * HC * R * 4);
+    wsm = qraw + fno_align16((size_t)2 * R * HC * 4);
+    wsm_bytes = (size_t)2 * Cin * nj * R * 4;
+    if (wsm_bytes > CN_W_SMEM) wsm_bytes = 0;
+    chunk = wsm + fno_align16(wsm_bytes);
+    pb = chunk + fno_align16((size_t)Mi * lda * es);
+    const size_t s1 = pb + fno_align16((size_t)2 * HC * ldn * es);
+    const size_t s3 = chunk + fno_align16((size_t)KR * ldq * es);
+    bytes = s1 > s3 ? s1 : s3;
   }
-  for (int i = threadIdx.x; i < Hp * R; i += blockDim.x) {
-    ps_r[i] = pr[i];
-    ps_i[i] = pi[i];
-    qs_r[i] = qr[i];
-    qs_i[i] = qi[i];
+};
+
+// corner_kernel's copies of a chunk of the block's rows hb.. (hc of them) by
+// cp.async, 4 bytes each, a row a warp: A (2 values a channel and row) and
+// the rows of P for stage 1; the rows' columns of Q for stage 4
+__device__ __forceinline__ void corner_fetch1(float* araw, float* praw, const float* Ab,
+                                              const float* pr, const float* pi, int Cin,
+                                              int Hp, int K, int R, int HC, int hb, int hc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = warp; c < Cin; c += CN_NT / 32)
+    for (int kk = lane; kk < 2 * hc; kk += 32)
+      cp_async4(araw + c * 2 * HC + kk,
+                Ab + ((size_t)c * Hp + hb + (kk >> 1)) * 2 * K + (kk & 1) * K);
+  for (int i = threadIdx.x; i < hc * R; i += CN_NT) {
+    cp_async4(praw + i, pr + hb * R + i);
+    cp_async4(praw + HC * R + i, pi + hb * R + i);
   }
-  __syncthreads();
-  for (int o = threadIdx.x; o < Cin * R; o += blockDim.x) {
-    const int c = o / R, r = o % R;
-    float sr = 0.f, si = 0.f;
-    for (int h = 0; h < Hp; ++h) {
-      const float ar = as_r[c * Hp + h], ai = as_i[c * Hp + h];
-      const float gr = ps_r[h * R + r], gi = ps_i[h * R + r];
-      sr += ar * gr - ai * gi;
-      si += ar * gi + ai * gr;
+}
+__device__ __forceinline__ void corner_fetch3(float* qraw, const float* qr, const float* qi,
+                                              int Hp, int R, int HC, int hb, int hc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < R; r += CN_NT / 32)
+    for (int hl = lane; hl < hc; hl += 32) {
+      cp_async4(qraw + r * HC + hl, qr + r * Hp + hb + hl);
+      cp_async4(qraw + (R + r) * HC + hl, qi + r * Hp + hb + hl);
     }
-    bs_r[o] = sr;
-    bs_i[o] = si;
-    const size_t so = (((size_t)b * Cin + c) * K + k) * R + r;
-    stv(spr + so, sr);
-    stv(spi + so, si);
+}
+
+template <typename S, bool ADJ, bool TC>
+__global__ void __cluster_dims__(CN_CLUSTER, 1, 1) __launch_bounds__(CN_NT, 1)
+corner_kernel(const float* __restrict__ A, const float* __restrict__ pr,
+              const float* __restrict__ pi, const float* __restrict__ wr,
+              const float* __restrict__ wi, const float* __restrict__ qr,
+              const float* __restrict__ qi, S* __restrict__ spr, S* __restrict__ spi,
+              float* __restrict__ D, int Cin, int Cout, int Hp, int K, int R, int HC) {
+  using E = typename HeadElem<TC>::T;
+  extern __shared__ __align__(16) unsigned char cn_smem[];
+  namespace cgrp = cooperative_groups;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int q = (int)cluster.block_rank();
+  const CornerLayout L(Cin, Cout, R, HC, TC);
+  float* part = reinterpret_cast<float*>(cn_smem + L.part);
+  float* bsum = reinterpret_cast<float*>(cn_smem + L.bsum);
+  E* ca = reinterpret_cast<E*>(cn_smem + L.ca);
+  float* araw = reinterpret_cast<float*>(cn_smem + L.araw);
+  float* praw = reinterpret_cast<float*>(cn_smem + L.praw);
+  float* qraw = reinterpret_cast<float*>(cn_smem + L.qraw);
+  float* wsm = L.wsm_bytes ? reinterpret_cast<float*>(cn_smem + L.wsm) : nullptr;
+  E* as = reinterpret_cast<E*>(cn_smem + L.chunk);
+  E* pb = reinterpret_cast<E*>(cn_smem + L.pb);
+  E* qb = reinterpret_cast<E*>(cn_smem + L.chunk);
+  // the clusters of one mode k are neighbours, so W[:, :, k] is read from L2
+  const int Bn = gridDim.x / (CN_CLUSTER * K), pair = blockIdx.x / CN_CLUSTER;
+  const int k = pair / Bn, b = pair - k * Bn;
+  const int K2 = 2 * K, R2 = 2 * R;
+  const int Hb = (Hp + CN_CLUSTER - 1) / CN_CLUSTER, h0 = q * Hb;
+  const int hn = max(0, min(Hb, Hp - h0));
+  const int nj = (Cout - q + CN_CLUSTER - 1) / CN_CLUSTER;  // output channels q, q + CL, ...
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  constexpr int NW = CN_NT / 32;
+  const float* Ab = A + (size_t)b * Cin * Hp * K2 + k;
+
+  // in flight at once: the first chunk of both stages and this block's slice of W
+  if (hn > 0) {
+    corner_fetch1(araw, praw, Ab, pr, pi, Cin, Hp, K, R, HC, h0, min(HC, hn));
+    if (D != nullptr) corner_fetch3(qraw, qr, qi, Hp, R, HC, h0, min(HC, hn));
   }
-  if (D == nullptr) return;  // uniform across the block
+  if (wsm != nullptr && D != nullptr)
+    for (int ij = warp; ij < Cin * nj; ij += NW) {
+      const int ii = ij / nj, j = q + (ij - ii * nj) * CN_CLUSTER;
+      const size_t wo = ADJ ? (((size_t)j * Cin + ii) * K + k) * R
+                            : (((size_t)ii * Cout + j) * K + k) * R;
+      for (int r = lane; r < R; r += 32) {
+        cp_async4(wsm + ij * R + r, wr + wo + r);
+        cp_async4(wsm + (Cin * nj + ij) * R + r, wi + wo + r);
+      }
+    }
+  cp_async_commit();
+  // zeros over Cm's padding in this block's stage-4 operand (the cluster's
+  // blocks write the rest after the first cluster barrier)
+  for (int m = warp; m < L.Mo; m += NW)
+    for (int kk = lane; kk < L.KR; kk += 32)
+      if (m >= Cout || kk >= R2) ca[m * L.ldk + kk] = to_elem<E>(0.f);
+
+  // 1. the block's partial spectrum [Br | Bi] over its rows of H
+  for (int i = tid; i < L.Mi * L.ldp; i += CN_NT) part[i] = 0.f;
+  for (int c0 = 0; c0 < hn; c0 += HC) {
+    const int hc = min(HC, hn - c0);
+    if (c0 > 0) {
+      corner_fetch1(araw, praw, Ab, pr, pi, Cin, Hp, K, R, HC, h0 + c0, hc);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // as[m][2 hl + s] = A[b, m, h, s K + k] (rounded to E); pb[2 hl + s][n]:
+    // s = 0 [Pr | Pi], s = 1 [-Pi | Pr]; zeros past Cin, 2R and hc
+    for (int m = warp; m < L.Mi; m += NW)
+      for (int kk = 2 * lane; kk < 2 * HC; kk += 64) {
+        const bool ok = m < Cin && kk < 2 * hc;
+        st_pair(as + m * L.lda + kk, ok ? araw[m * 2 * HC + kk] : 0.f,
+                ok ? araw[m * 2 * HC + kk + 1] : 0.f);
+      }
+    for (int kk = warp; kk < 2 * HC; kk += NW) {
+      const int hl = kk >> 1;
+      const float* gr = praw + hl * R;
+      const float* gi = praw + (HC + hl) * R;
+      for (int n = 2 * lane; n < L.KR; n += 64) {
+        float v[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int nn = n + u, rr = nn < R ? nn : nn - R;
+          v[u] = hl >= hc || nn >= R2 ? 0.f
+                 : (kk & 1) == 0      ? (nn < R ? gr[rr] : gi[rr])
+                                      : (nn < R ? -gi[rr] : gr[rr]);
+        }
+        st_pair(pb + kk * L.ldn + n, v[0], v[1]);
+      }
+    }
+    __syncthreads();
+    const int nt16 = L.KR / 16, items = L.Mi / 16 * nt16;
+    for (int it = warp; it < items; it += NW) {
+      const int mt = it / nt16, nt = it - mt * nt16;
+      float* pp = part + (mt * 16 + g) * L.ldp + nt * 16 + 2 * t;
+      float acc[1][2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        acc[0][u][0] = pp[8 * u];
+        acc[0][u][1] = pp[8 * u + 1];
+        acc[0][u][2] = pp[8 * L.ldp + 8 * u];
+        acc[0][u][3] = pp[8 * L.ldp + 8 * u + 1];
+      }
+      tiles_prod<1, 2, true, false>(acc, as + mt * 16 * L.lda, L.lda, pb + nt * 16, L.ldn,
+                                    2 * HC);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        pp[8 * u] = acc[0][u][0];
+        pp[8 * u + 1] = acc[0][u][1];
+        pp[8 * L.ldp + 8 * u] = acc[0][u][2];
+        pp[8 * L.ldp + 8 * u + 1] = acc[0][u][3];
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // W (and Q) where this block holds no rows
+  cluster.sync();
+
+  // 2. the spectrum: the blocks' partials added in rank order; block q writes
+  // the channels c = q, q + CN_CLUSTER, ...
+  for (int c = warp; c < Cin; c += NW)
+    for (int n = lane; n < R2; n += 32) {
+      float s = 0.f;
+#pragma unroll
+      for (int rk = 0; rk < CN_CLUSTER; ++rk)
+        s += cluster.map_shared_rank(part, rk)[c * L.ldp + n];
+      bsum[c * R2 + n] = s;
+      if (c % CN_CLUSTER == q) {
+        const size_t so = (((size_t)b * Cin + c) * K + k) * R + (n < R ? n : n - R);
+        stv((n < R ? spr : spi) + so, s);
+      }
+    }
+  if (D == nullptr) {  // uniform across the cluster
+    cluster.sync();    // no block leaves while another reads its partial
+    return;
+  }
   __syncthreads();
-  for (int o = threadIdx.x; o < Cout * R; o += blockDim.x) {
-    const int j = o / R, r = o % R;
+
+  // 3. the mode mix in f32 for this block's output channels, W from its
+  // staged slice or from device memory
+  for (int o = tid; o < nj * R; o += CN_NT) {
+    const int jj = o / R, r = o - jj * R, j = q + jj * CN_CLUSTER;
     float cr = 0.f, ci = 0.f;
+#pragma unroll 4
     for (int i = 0; i < Cin; ++i) {
-      const size_t wo = ADJ ? (((size_t)j * Cin + i) * K + k) * R + r
-                            : (((size_t)i * Cout + j) * K + k) * R + r;
-      const float w_r = wr[wo];
-      const float w_i = ADJ ? -wi[wo] : wi[wo];
-      const float br = bs_r[i * R + r], bi = bs_i[i * R + r];
+      float w_r, w_i;
+      if (wsm != nullptr) {
+        w_r = wsm[(i * nj + jj) * R + r];
+        w_i = wsm[((Cin + i) * nj + jj) * R + r];
+      } else {
+        const size_t wo = ADJ ? (((size_t)j * Cin + i) * K + k) * R + r
+                              : (((size_t)i * Cout + j) * K + k) * R + r;
+        w_r = wr[wo];
+        w_i = wi[wo];
+      }
+      if (ADJ) w_i = -w_i;
+      const float br = bsum[i * R2 + r], bi = bsum[i * R2 + R + r];
       cr += br * w_r - bi * w_i;
       ci += br * w_i + bi * w_r;
     }
-    cs_r[o] = rd(cr, bf);
-    cs_i[o] = rd(ci, bf);
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < Cout * Hp; o += blockDim.x) {
-    const int j = o / Hp, h = o % Hp;
-    float dr = 0.f, di = 0.f;
-    for (int r = 0; r < R; ++r) {
-      const float cr = cs_r[j * R + r], ci = cs_i[j * R + r];
-      const float q_r = qs_r[r * Hp + h], q_i = qs_i[r * Hp + h];
-      dr += cr * q_r - ci * q_i;
-      di += cr * q_i + ci * q_r;
+    // rounded to the dot dtype, into row j of every block's stage-4 operand
+    const E er = to_elem<E>(cr), ei = to_elem<E>(ci);
+#pragma unroll
+    for (int rk = 0; rk < CN_CLUSTER; ++rk) {
+      E* dst = cluster.map_shared_rank(ca, rk) + j * L.ldk;
+      dst[r] = er;
+      dst[R + r] = ei;
     }
-    const size_t g = (((size_t)b * Cout + j) * Hp + h) * K2 + k;
-    D[g] = dr;
-    D[g + K] = di;
+  }
+  cluster.sync();
+
+  // 4. this block's rows of D
+  for (int c0 = 0; c0 < hn; c0 += HC) {
+    const int hc = min(HC, hn - c0), hb = h0 + c0;
+    if (c0 > 0) {
+      __syncthreads();  // the last chunk's operands are free
+      corner_fetch3(qraw, qr, qi, Hp, R, HC, hb, hc);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    // row hb + hl: column 16 (hl / 8) + hl % 8 of qb holds [Qr; -Qi] and 8
+    // columns on [Qi; Qr], so one product gives a tile of Dr and of Di
+    for (int kk = warp; kk < L.KR; kk += NW) {
+      const float* a = qraw + (kk < R ? kk : kk - R) * HC;
+      const float* c = a + R * HC;
+      for (int hl = lane; hl < HC; hl += 32) {
+        const bool ok = hl < hc && kk < R2;
+        const float vr = !ok ? 0.f : kk < R ? a[hl] : -c[hl];
+        const float vi = !ok ? 0.f : kk < R ? c[hl] : a[hl];
+        E* dst = qb + kk * L.ldq + (hl >> 3) * 16 + (hl & 7);
+        dst[0] = to_elem<E>(vr);
+        dst[8] = to_elem<E>(vi);
+      }
+    }
+    __syncthreads();
+    const int nt8 = HC / 8, items = L.Mo / 16 * nt8;
+    for (int it = warp; it < items; it += NW) {
+      const int mt = it / nt8, nt = it - mt * nt8;
+      float acc[1][2][4] = {};
+      tiles_prod<1, 2, true, false>(acc, ca + mt * 16 * L.ldk, L.ldk, qb + nt * 16, L.ldq,
+                                    L.KR);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = mt * 16 + g + 8 * (e >> 1), hl = nt * 8 + 2 * t + (e & 1);
+        if (j < Cout && hl < hc) {
+          const size_t o = (((size_t)b * Cout + j) * Hp + hb + hl) * K2 + k;
+          D[o] = acc[0][0][e];
+          D[o + K] = acc[0][1][e];
+        }
+      }
+    }
   }
 }
 
-template <typename S, bool ADJ>
+template <typename S, bool ADJ, bool TC>
 static int launch_corner(const float* A, const float* pr, const float* pi, const float* wr,
                          const float* wi, const float* qr, const float* qi, void* spr,
                          void* spi, float* D, int B, int Cin, int Cout, int Hp, int K, int R,
-                         int bf, cudaStream_t st) {
-  const size_t smem =
-      (size_t)(2 * Cin * Hp + 4 * Hp * R + 2 * Cin * R + 2 * Cout * R) * sizeof(float);
-  cudaError_t e = fno_set_smem(corner_kernel<S, ADJ>, smem);
+                         int HC, cudaStream_t st) {
+  const size_t smem = CornerLayout(Cin, Cout, R, HC, TC).bytes;
+  cudaError_t e = fno_set_smem(corner_kernel<S, ADJ, TC>, smem);
   if (e != cudaSuccess) return (int)e;
-  corner_kernel<S, ADJ><<<B * K, 256, smem, st>>>(A, pr, pi, wr, wi, qr, qi, (S*)spr,
-                                                  (S*)spi, D, Cin, Cout, Hp, K, R, bf);
+  corner_kernel<S, ADJ, TC><<<B * K * CN_CLUSTER, CN_NT, smem, st>>>(
+      A, pr, pi, wr, wi, qr, qi, (S*)spr, (S*)spi, D, Cin, Cout, Hp, K, R, HC);
   return (int)cudaGetLastError();
+}
+
+template <bool TC>
+static int dispatch_corner(const float* A, const float* pr, const float* pi, const float* wr,
+                           const float* wi, const float* qr, const float* qi, void* spr,
+                           void* spi, float* D, int B, int Cin, int Cout, int Hp, int K, int R,
+                           int adj, int spec_bf16, int HC, cudaStream_t st) {
+  if (adj)
+    return launch_corner<float, true, TC>(A, pr, pi, wr, wi, qr, qi, spr, spi, D, B, Cin, Cout,
+                                          Hp, K, R, HC, st);
+  if (spec_bf16)
+    return launch_corner<__nv_bfloat16, false, TC>(A, pr, pi, wr, wi, qr, qi, spr, spi, D, B,
+                                                   Cin, Cout, Hp, K, R, HC, st);
+  return launch_corner<float, false, TC>(A, pr, pi, wr, wi, qr, qi, spr, spi, D, B, Cin, Cout,
+                                         Hp, K, R, HC, st);
+}
+
+FNO_EXPORT long long fno_corner_smem(int Cin, int Cout, int R, int HC, int tc) {
+  return (long long)CornerLayout(Cin, Cout, R, HC, tc != 0).bytes;
 }
 
 FNO_EXPORT int fno_corner(const float* A, const float* pr, const float* pi, const float* wr,
                           const float* wi, const float* qr, const float* qi, void* spr,
                           void* spi, float* D, int B, int Cin, int Cout, int Hp, int K,
-                          int R, int adj, int spec_bf16, int bf, void* stream) {
+                          int R, int adj, int spec_bf16, int bf, int hc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (adj)
-    return launch_corner<float, true>(A, pr, pi, wr, wi, qr, qi, spr, spi, D, B, Cin, Cout,
-                                      Hp, K, R, bf, st);
-  if (spec_bf16)
-    return launch_corner<__nv_bfloat16, false>(A, pr, pi, wr, wi, qr, qi, spr, spi, D, B,
-                                               Cin, Cout, Hp, K, R, bf, st);
-  return launch_corner<float, false>(A, pr, pi, wr, wi, qr, qi, spr, spi, D, B, Cin, Cout,
-                                     Hp, K, R, bf, st);
+  return bf ? dispatch_corner<true>(A, pr, pi, wr, wi, qr, qi, spr, spi, D, B, Cin, Cout, Hp, K,
+                                    R, adj, spec_bf16, hc, st)
+            : dispatch_corner<false>(A, pr, pi, wr, wi, qr, qi, spr, spi, D, B, Cin, Cout, Hp,
+                                     K, R, adj, spec_bf16, hc, st);
 }
 
 // ---------------------------------------------------------------------------
-// Inverse W + 1x1 conv epilogue, one block per (element b, row h):
+// Inverse W + 1x1 conv epilogue, per image row (b, h):
 //   v[j, w] = sum_q D[b, j, h, q] Z[q, w] + sum_c M[j, c] xin[b, c, h, w] (+ bias[j])
 // Forward: Z = [wr; -wi], M = pw^T, bias, pre saved, out = gelu(v) or v.
 // Adjoint: Z = [fr^T; fi^T], M = pw, xin = dpre, out = v = dh of the layer input.
+//
+// Replaces the inverse W-axis products and the 1x1 conv of _full_fwd_kernel
+// and _full_bwd_kernel (sciml_pde_tpu/ops/fno_fused_step.py:314-316 and
+// :359-360, the adjoint at :349-351 and :373).  At the flagship shape (B = 4, C = 20, Hp = Wp =
+// 130, K = 12) it moves about 14.5 MB with a bf16 pre (4.34 us at 3.35
+// TB/s) for 59 MFLOP, plus an erff per value for gelu.  The first design ran
+// a block per row (520) that recopied Z (12.5 KB, 6.5 MB of L2 reads a
+// launch) and fed each of a row's 2,600 sums 44 pairs of shared loads.  Here
+// v of a row is one product, [D_row | M] (Cout x (2K + Cin)) times [Z ;
+// xin_row] ((2K + Cin) x Wp), K padded to 16 (44 -> 48):
+//   - a block owns RB consecutive rows (b, h) and one chunk of WC columns of
+//     W (the wrapper picks WC, IwdftLayout, and RB so that about IW_GRID
+//     blocks run: 260 of 2 rows at the flagship); M, the chunk's columns of
+//     Z (copied by cp.async with the first row) and the bias are laid out
+//     once a block;
+//   - each row's D (Cout x 2K) and xin (Cin x WC) come in by cp.async while
+//     the row before is computed (two buffers), then go into the operands
+//     (bf16, rounded once, under `default`; f32 under `highest`);
+//   - each warp takes (m16 channel tile, 16 columns) pairs: k16 steps of
+//     mma.sync bf16 -> f32 (or in-order f32 FMAs with 2 x 2 values a lane),
+//     then the epilogue adds the bias, stores pre (bf16 or f32) and out
+//     (gelu by erff) along w, two neighbouring values a store where Wp is
+//     even (scattered 2-byte stores of a bf16 pre cost about a third of
+//     the kernel's time).
+// Shared memory grows with C and WC only (WC is at least 16): the wrapper
+// names the widest C where even WC = 16 does not fit.  __launch_bounds__
+// (.., 1) as for corner_kernel: without it the tensor-core instances spilled.
 // ---------------------------------------------------------------------------
 
-template <typename S>
-__global__ void iwdft_pw_kernel(const float* __restrict__ D, const float* __restrict__ Z,
-                                const float* __restrict__ xin, const float* __restrict__ Mw,
-                                const float* __restrict__ bias, float* __restrict__ out,
-                                S* __restrict__ pre, int gelu, int Cin, int Cout, int Hp,
-                                int Wp, int K, int bf) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x / Hp, h = blockIdx.x % Hp;
-  const int K2 = 2 * K;
-  float* ds = sm;                // (Cout, 2K)
-  float* zs = ds + Cout * K2;    // (2K, Wp)
-  float* xs = zs + K2 * Wp;      // (Cin, Wp)
-  float* ms = xs + Cin * Wp;     // (Cout, Cin)
-  for (int i = threadIdx.x; i < Cout * K2; i += blockDim.x) {
-    const int j = i / K2, q = i % K2;
-    ds[i] = rd(D[(((size_t)b * Cout + j) * Hp + h) * K2 + q], bf);
+constexpr int IW_WARPS = 8;   // warps a block
+constexpr int IW_GRID = 264;  // blocks aimed at (rows a block = ceil(rows x chunks / IW_GRID))
+
+// Shared memory of one iwdft_pw_kernel block, in bytes from the start: the
+// A operand [Mo][KP] ([D_row | M], rows padded by 16 bytes of bf16 or 4
+// floats), the B operand [KP][WC] ([Z ; xin_row]), two row buffers (f32 D
+// row then xin row), Z's chunk as copied (f32 [2K][WC]) and the bias;
+// KP = 16 ceil((2K + Cin) / 16).  fno_kernels.iwdft_plan mirrors it.
+struct IwdftLayout {
+  int Mo, KP, ldk, ldw, raw_n;
+  size_t a, b, raw, zraw, bias, bytes;
+  __host__ __device__ IwdftLayout(int Cin, int Cout, int K, int WC, bool tc) {
+    const int es = tc ? 2 : 4, pad = tc ? 8 : 4;
+    Mo = fno_round_up(Cout, 16);
+    KP = fno_round_up(2 * K + Cin, 16);
+    ldk = KP + pad;
+    ldw = WC + pad;
+    raw_n = (int)(fno_align16((size_t)(Cout * 2 * K + Cin * WC) * 4) / 4);
+    a = 0;
+    b = a + fno_align16((size_t)Mo * ldk * es);
+    raw = b + fno_align16((size_t)KP * ldw * es);
+    zraw = raw + (size_t)2 * raw_n * 4;
+    bias = zraw + fno_align16((size_t)2 * K * WC * 4);
+    bytes = bias + fno_align16((size_t)Mo * 4);
   }
-  for (int i = threadIdx.x; i < K2 * Wp; i += blockDim.x) zs[i] = Z[i];
-  for (int i = threadIdx.x; i < Cin * Wp; i += blockDim.x) {
-    const int c = i / Wp, w = i % Wp;
-    xs[i] = rd(xin[(((size_t)b * Cin + c) * Hp + h) * Wp + w], bf);
+};
+
+// iwdft_pw_kernel's copies of one row (b, h): its D (Cout x 2K) and its xin
+// at the chunk's columns (Cin x wn, row stride WC) into row buffer rw, by
+// cp.async, 4 bytes each (rows need not be aligned), a row a warp
+__device__ __forceinline__ void iwdft_fetch(float* rw, const float* D, const float* xin,
+                                            int Cin, int Cout, int Hp, int Wp, int K, int WC,
+                                            int w0, int wn, int row) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, K2 = 2 * K;
+  const int bb = row / Hp, h = row - bb * Hp;
+  const float* drow = D + ((size_t)bb * Cout * Hp + h) * K2;
+  for (int j = warp; j < Cout; j += IW_WARPS)
+    for (int qq = lane; qq < K2; qq += 32)
+      cp_async4(rw + j * K2 + qq, drow + (size_t)j * Hp * K2 + qq);
+  const float* xrow = xin + ((size_t)bb * Cin * Hp + h) * Wp + w0;
+  for (int c = warp; c < Cin; c += IW_WARPS)
+    for (int w = lane; w < wn; w += 32)
+      cp_async4(rw + Cout * K2 + c * WC + w, xrow + (size_t)c * Hp * Wp + w);
+}
+
+template <typename S, bool TC>
+__global__ void __launch_bounds__(IW_WARPS * 32, 1)
+iwdft_pw_kernel(const float* __restrict__ D, const float* __restrict__ Z,
+                const float* __restrict__ xin, const float* __restrict__ Mw,
+                const float* __restrict__ bias, float* __restrict__ out, S* __restrict__ pre,
+                int gelu, int Cin, int Cout, int Hp, int Wp, int K, int nrow, int WC, int RB) {
+  using E = typename HeadElem<TC>::T;
+  extern __shared__ __align__(16) unsigned char iw_smem[];
+  const IwdftLayout L(Cin, Cout, K, WC, TC);
+  E* as = reinterpret_cast<E*>(iw_smem + L.a);
+  E* bs = reinterpret_cast<E*>(iw_smem + L.b);
+  float* raw = reinterpret_cast<float*>(iw_smem + L.raw);
+  float* zraw = reinterpret_cast<float*>(iw_smem + L.zraw);
+  float* bss = reinterpret_cast<float*>(iw_smem + L.bias);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int nwc = (Wp + WC - 1) / WC, wc = blockIdx.x % nwc, w0 = wc * WC;
+  const int wn = min(WC, Wp - w0);
+  const int r0 = blockIdx.x / nwc * RB, r1 = min(r0 + RB, nrow);
+  const int K2 = 2 * K, KD = K2 + Cin;
+
+  // in flight at once by cp.async: Z's chunk, the bias and the first row;
+  // meanwhile M into A's columns [2K, 2K + Cin) by plain loads, and zeros
+  // in the padding
+  for (int qq = warp; qq < K2; qq += IW_WARPS)
+    for (int w = lane; w < wn; w += 32)
+      cp_async4(zraw + qq * WC + w, Z + (size_t)qq * Wp + w0 + w);
+  for (int i = tid; i < L.Mo; i += nthr) {
+    if (bias != nullptr && i < Cout)
+      cp_async4(bss + i, bias + i);
+    else
+      bss[i] = 0.f;
   }
-  for (int i = threadIdx.x; i < Cout * Cin; i += blockDim.x) ms[i] = Mw[i];
-  __syncthreads();
-  for (int o = threadIdx.x; o < Cout * Wp; o += blockDim.x) {
-    const int j = o / Wp, w = o % Wp;
-    float s = 0.f;
-    for (int q = 0; q < K2; ++q) s += ds[j * K2 + q] * zs[q * Wp + w];
-    float p = 0.f;
-    for (int c = 0; c < Cin; ++c) p += ms[j * Cin + c] * xs[c * Wp + w];
-    float v = s + p;
-    if (bias != nullptr) v += bias[j];
-    const size_t g = (((size_t)b * Cout + j) * Hp + h) * Wp + w;
-    if (pre != nullptr) stv(pre + g, v);
-    out[g] = gelu ? gelu_f(v) : v;
+  if (r0 < r1) iwdft_fetch(raw, D, xin, Cin, Cout, Hp, Wp, K, WC, w0, wn, r0);
+  cp_async_commit();
+  for (int m = warp; m < L.Mo; m += IW_WARPS)
+    for (int kk = K2 + lane; kk < L.KP; kk += 32)
+      as[m * L.ldk + kk] = to_elem<E>(m < Cout && kk < KD ? Mw[m * Cin + kk - K2] : 0.f);
+  for (int kk = KD + warp; kk < L.KP; kk += IW_WARPS)
+    for (int w = lane; w < WC; w += 32) bs[kk * L.ldw + w] = to_elem<E>(0.f);
+
+  for (int row = r0; row < r1; ++row) {
+    const int buf = (row - r0) & 1;
+    if (row + 1 < r1) {
+      iwdft_fetch(raw + (buf ^ 1) * L.raw_n, D, xin, Cin, Cout, Hp, Wp, K, WC, w0, wn,
+                  row + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the row's copies in, the last row's operands free
+    // into the operands, a row a warp, two columns a lane: Z's chunk (the
+    // first row), the row's D and xin; zeros past wn and Cout
+    const float* rw = raw + buf * L.raw_n;
+    const float* xr = rw + Cout * K2;
+    for (int kk = (row == r0 ? 0 : K2) + warp; kk < KD; kk += IW_WARPS) {
+      const float* src = kk < K2 ? zraw + kk * WC : xr + (kk - K2) * WC;
+      for (int w = 2 * lane; w < WC; w += 64)
+        st_pair(bs + kk * L.ldw + w, w < wn ? src[w] : 0.f, w + 1 < wn ? src[w + 1] : 0.f);
+    }
+    for (int m = warp; m < L.Mo; m += IW_WARPS)
+      for (int qq = lane; qq < K2; qq += 32)
+        as[m * L.ldk + qq] = to_elem<E>(m < Cout ? rw[m * K2 + qq] : 0.f);
+    __syncthreads();
+    const int bb = row / Hp, h = row - bb * Hp;
+    const int nt16 = WC / 16, items = L.Mo / 16 * nt16;
+    for (int it = warp; it < items; it += IW_WARPS) {
+      const int mt = it / nt16, nt = it - mt * nt16;
+      float acc[1][2][4] = {};
+      tiles_prod<1, 2, true, false>(acc, as + mt * 16 * L.ldk, L.ldk, bs + nt * 16, L.ldw,
+                                    L.KP);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = mt * 16 + g + 8 * r;
+        if (j >= Cout) continue;
+        const float bj = bss[j];
+        const size_t o = (((size_t)bb * Cout + j) * Hp + h) * Wp + w0;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int w = nt * 16 + u * 8 + 2 * t;  // and w + 1
+          const float v0 = acc[0][u][2 * r] + bj, v1 = acc[0][u][2 * r + 1] + bj;
+          if (w + 1 < wn && (Wp & 1) == 0) {  // an aligned pair
+            if (pre != nullptr) st_pair(pre + o + w, v0, v1);
+            st_pair(out + o + w, gelu ? gelu_f(v0) : v0, gelu ? gelu_f(v1) : v1);
+          } else {
+            for (int c = 0; c < 2 && w + c < wn; ++c) {
+              const float v = c ? v1 : v0;
+              if (pre != nullptr) stv(pre + o + w + c, v);
+              out[o + w + c] = gelu ? gelu_f(v) : v;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the operands and the row buffer are free
   }
 }
 
 template <typename S>
 static int launch_iwdft(const float* D, const float* Z, const float* xin, const float* Mw,
                         const float* bias, float* out, void* pre, int gelu, int B, int Cin,
-                        int Cout, int Hp, int Wp, int K, int bf, cudaStream_t st) {
-  const size_t smem =
-      (size_t)(Cout * 2 * K + 2 * K * Wp + Cin * Wp + Cout * Cin) * sizeof(float);
-  cudaError_t e = fno_set_smem(iwdft_pw_kernel<S>, smem);
-  if (e != cudaSuccess) return (int)e;
-  iwdft_pw_kernel<S><<<B * Hp, 256, smem, st>>>(D, Z, xin, Mw, bias, out, (S*)pre, gelu,
-                                                Cin, Cout, Hp, Wp, K, bf);
+                        int Cout, int Hp, int Wp, int K, int bf, int WC, int RB,
+                        cudaStream_t st) {
+  const size_t smem = IwdftLayout(Cin, Cout, K, WC, bf != 0).bytes;
+  const int nrow = B * Hp, grid = (Wp + WC - 1) / WC * ((nrow + RB - 1) / RB);
+  cudaError_t e;
+  if (bf) {
+    e = fno_set_smem(iwdft_pw_kernel<S, true>, smem);
+    if (e != cudaSuccess) return (int)e;
+    iwdft_pw_kernel<S, true><<<grid, IW_WARPS * 32, smem, st>>>(
+        D, Z, xin, Mw, bias, out, (S*)pre, gelu, Cin, Cout, Hp, Wp, K, nrow, WC, RB);
+  } else {
+    e = fno_set_smem(iwdft_pw_kernel<S, false>, smem);
+    if (e != cudaSuccess) return (int)e;
+    iwdft_pw_kernel<S, false><<<grid, IW_WARPS * 32, smem, st>>>(
+        D, Z, xin, Mw, bias, out, (S*)pre, gelu, Cin, Cout, Hp, Wp, K, nrow, WC, RB);
+  }
   return (int)cudaGetLastError();
+}
+
+FNO_EXPORT long long fno_iwdft_smem(int Cin, int Cout, int K, int WC, int tc) {
+  return (long long)IwdftLayout(Cin, Cout, K, WC, tc != 0).bytes;
 }
 
 FNO_EXPORT int fno_iwdft_pw(const float* D, const float* Z, const float* xin,
                             const float* Mw, const float* bias, float* out, void* pre,
                             int pre_bf16, int gelu, int B, int Cin, int Cout, int Hp, int Wp,
-                            int K, int bf, void* stream) {
+                            int K, int bf, int wc, int rb, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (pre_bf16)
     return launch_iwdft<__nv_bfloat16>(D, Z, xin, Mw, bias, out, pre, gelu, B, Cin, Cout, Hp,
-                                       Wp, K, bf, st);
-  return launch_iwdft<float>(D, Z, xin, Mw, bias, out, pre, gelu, B, Cin, Cout, Hp, Wp, K,
-                             bf, st);
+                                       Wp, K, bf, wc, rb, st);
+  return launch_iwdft<float>(D, Z, xin, Mw, bias, out, pre, gelu, B, Cin, Cout, Hp, Wp, K, bf,
+                             wc, rb, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ KERNEL_NAMES = (
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 OUTER_PB = 256  # pixels per block of outer_partial_kernel (fno_bwd.cu)
+OUTER_BT = 32   # Bm channels a pass of outer_partial_kernel (OUTER_BT, fno_bwd.cu)
 # pixels a tile and the most persistent blocks of head_bwd_kernel (HB_PIX,
 # HB_GRID, fno_bwd.cu): one partial row a block
 HEAD_BWD_PIX, HEAD_BWD_GRID = 64, 256
@@ -56,15 +57,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fno_stats": ("fno_fwd", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "fno_lift": ("fno_fwd", [_P] * 8 + [_I] * 9 + [_P]),
-    "fno_wdft": ("fno_fwd", [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P]),
-    "fno_corner": ("fno_fwd", [_P] * 10 + [_I] * 9 + [_P]),
-    "fno_iwdft_pw": ("fno_fwd", [_P] * 7 + [_I] * 9 + [_P]),
+    "fno_wdft": ("fno_fwd", [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P]),
+    "fno_corner": ("fno_fwd", [_P] * 10 + [_I] * 10 + [_P]),
+    "fno_iwdft_pw": ("fno_fwd", [_P] * 7 + [_I] * 11 + [_P]),
     "fno_head_fwd": ("fno_fwd", [_P] * 8 + [_I] * 9 + [_P]),
     "fno_head_bwd": ("fno_bwd", [_P] * 8 + [_I] * 9 + [_P]),
     "fno_mix_wgrad": ("fno_bwd", [_P] * 6 + [_I] * 5 + [_P]),
     "fno_outer_partial": ("fno_bwd", [_P, _P, _I, _I, _P] + [_I] * 10 + [_P]),
     "fno_reduce_rows": ("fno_bwd", [_P, _P, _I, _I, _P]),
     "fno_head_fwd_smem": ("fno_fwd", [_I] * 4, ctypes.c_longlong),
+    "fno_wdft_smem": ("fno_fwd", [_I] * 5, ctypes.c_longlong),
+    "fno_corner_smem": ("fno_fwd", [_I] * 5, ctypes.c_longlong),
+    "fno_iwdft_smem": ("fno_fwd", [_I] * 5, ctypes.c_longlong),
     "fno_head_bwd_smem": ("fno_bwd", [_I] * 4, ctypes.c_longlong),
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -117,6 +121,10 @@ def _need(t: torch.Tensor, shape, dtype=torch.float32, what: str = "tensor") -> 
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
         raise ValueError(f"{what}: expected {tuple(shape)} {dtype}, got "
                          f"{tuple(t.shape)} {t.dtype}")
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def _rd(x: torch.Tensor, bf: bool) -> torch.Tensor:
@@ -208,41 +216,63 @@ def wdft_plain(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
     return out if pre is None else (out, v)
 
 
-WDFT_ROWS = 32  # rows of x a block owns (WD_ROWS, fno_fwd.cu)
+WDFT_ROWS = 32    # rows of x a block owns (WD_ROWS, fno_fwd.cu)
+WDFT_KC_MAX = 16  # k16 steps a chunk of N at most (WD_KC_MAX, fno_fwd.cu)
 
 
 def _widest(fits, n: int) -> int:
-    """The largest m <= n with fits(m), 0 when there is none."""
-    while n > 0 and not fits(n):
-        n -= 1
-    return n
+    """The largest m <= n with fits(m), 0 when there is none; fits holds up
+    to some m and fails above it (a layout's bytes grow with m)."""
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
 
 
-def wdft_smem_bytes(n: int, j: int, tc: bool, pre_size: int) -> int:
+def _balanced(n: int, most: int, step: int) -> int:
+    """The chunk, a multiple of ``step`` up to ``most`` (itself a multiple of
+    ``step``), that cuts n into the fewest chunks of about equal size."""
+    c = min(_up(n, step), most)
+    return _up(-(-n // -(-n // c)), step)
+
+
+def wdft_smem_bytes(n: int, j: int, tc: bool, pre_size: int, kc: int) -> int:
     """Shared memory of one ``wdft_kernel`` block (``WdftLayout``,
-    fno_fwd.cu) for N = n, J = j, on the tensor-core body with ``tc``;
-    ``pre_size`` is the bytes of one staged pre value, 0 when pre is not
-    staged (no gelu')."""
-    ts = (WDFT_ROWS * n + 7) // 8 * 8
-    ks, nnt = (n + 15) // 16, (j + 7) // 8
-    total = (n * j + 3) // 4 * 16 + ts * 4 + (ts * pre_size + 15) // 16 * 16
+    fno_fwd.cu) for N = n, J = j and chunks of at most ``kc`` k16 steps, on
+    the tensor-core body with ``tc``; ``pre_size`` is the bytes of one pre
+    value where gelu'(pre) is taken, 0 otherwise.  A mirror of the library's
+    ``fno_wdft_smem``, which chip_smoke.py phase 3 holds it to."""
+    ks, nnt = -(-n // 16), -(-j // 8)
+    nch = -(-ks // kc)
+    kcb = -(-ks // nch)
+    nc = 16 * kcb
+    ldx = n if nch == 1 else nc
+    ts = _up(WDFT_ROWS * ldx, 8)
+    buf = _up((n if nch == 1 else nc) * j, 4) * 4 + ts * 4
+    if pre_size and nch == 1:
+        buf += _up(ts * pre_size, 16)
+    total = (2 if nch > 1 else 1) * buf + _up(WDFT_ROWS * j * 4, 16)
     if tc:
-        total += WDFT_ROWS * (16 * ks + 8) * 2 + ks * nnt * 32 * 8
-        total += (WDFT_ROWS * j * 4 + 15) // 16 * 16
+        total += WDFT_ROWS * (nc + 8) * 2 + kcb * nnt * 32 * 8
     return total
 
 
-def _check_wdft_smem(n: int, j: int, tc: bool, pre_size: int) -> None:
-    """Raise, naming the widest N this variant takes at this J, when one
-    block's shared memory would pass SMEM_MAX (at J = 24: N up to 492 on the
-    tensor cores with gelu' and an f32 pre, up to 1037 on the CUDA cores
-    with no pre)."""
-    if wdft_smem_bytes(n, j, tc, pre_size) <= SMEM_MAX:
-        return
-    widest = _widest(lambda m: wdft_smem_bytes(m, j, tc, pre_size) <= SMEM_MAX, n)
-    raise ValueError(f"wdft: N = {n} at J = {j} needs {wdft_smem_bytes(n, j, tc, pre_size)} "
-                     f"bytes of shared memory a block, above {SMEM_MAX}; this variant takes "
-                     f"N up to {widest}")
+def wdft_plan(n: int, j: int, tc: bool, pre_size: int) -> int:
+    """The chunk ``wdft_kernel`` streams N in: the most k16 steps (up to
+    WDFT_KC_MAX) whose layout fits SMEM_MAX.  Shared memory grows with J
+    only, so every N fits; past the widest J of this variant (787 on the
+    tensor cores, 892 on the CUDA cores at any N above 16) it raises,
+    naming that J."""
+    kcs = range(min(-(-n // 16), WDFT_KC_MAX), 0, -1)
+    for kc in kcs:
+        if wdft_smem_bytes(n, j, tc, pre_size, kc) <= SMEM_MAX:
+            return kc
+    need = min(wdft_smem_bytes(n, j, tc, pre_size, kc) for kc in kcs)
+    widest = _widest(lambda m: min(wdft_smem_bytes(n, m, tc, pre_size, kc) for kc in kcs)
+                     <= SMEM_MAX, j)
+    raise ValueError(f"wdft: J = {j} at N = {n} needs {need} bytes of shared memory a block, "
+                     f"above {SMEM_MAX}; this variant takes J up to {widest}")
 
 
 def wdft(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
@@ -254,7 +284,7 @@ def wdft(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
     if x.dtype != torch.float32 or fac.dtype != torch.float32 or (
             pre is not None and pre.dtype not in (torch.float32, torch.bfloat16)):
         raise ValueError("wdft: x and fac must be f32, pre f32 or bf16")
-    _check_wdft_smem(n, j, bool(bf), pre.element_size() if pre is not None and gelu_grad else 0)
+    kc = wdft_plan(n, j, bool(bf), pre.element_size() if pre is not None and gelu_grad else 0)
     m = x.numel() // n
     x, fac, pre = _aligned(x), _aligned(fac), _aligned(pre)
     out = torch.empty(*x.shape[:-1], j, device=x.device)
@@ -264,7 +294,7 @@ def wdft(x, fac, pre=None, gelu_grad=False, bf=False, gelu_in=False):
         dpre = torch.empty_like(x)
     _launch("fno_wdft", "fno_wdft" if pre is None else "fno_wdft.adj", x, fac, out, m, n, j,
             pre, int(pre is not None and pre.dtype == torch.bfloat16), int(gelu_grad),
-            dpre, int(gelu_in), int(bf))
+            dpre, int(gelu_in), int(bf), kc)
     return out if pre is None else (out, dpre)
 
 
@@ -298,6 +328,45 @@ def corner_plain(a, p, w, q, adj, spec_dtype, bf, spec_only=False):
     return br.to(spec_dtype), bi.to(spec_dtype), torch.cat([dr, di], dim=-1)
 
 
+CORNER_CLUSTER = 4  # blocks a (element, W-mode) cluster, along H (CN_CLUSTER, fno_fwd.cu)
+CORNER_HC_MAX = 64  # rows of H a chunk at most
+CORNER_W_SMEM = 64 * 1024  # largest slice of W staged in shared memory (CN_W_SMEM)
+
+
+def corner_smem_bytes(cin: int, cout: int, r: int, hc: int, tc: bool) -> int:
+    """Shared memory of one ``corner_kernel`` block (``CornerLayout``,
+    fno_fwd.cu) for chunks of ``hc`` rows of H, on the tensor-core path with
+    ``tc``.  A mirror of the library's ``fno_corner_smem`` (chip_smoke.py
+    phase 3 holds it to that)."""
+    es, pad = (2, 8) if tc else (4, 4)
+    mi, mo, kr = _up(cin, 16), _up(cout, 16), _up(2 * r, 16)
+    wsm = 2 * cin * -(-cout // CORNER_CLUSTER) * r * 4
+    chunk = (_up(mi * (kr + 4) * 4, 16) + _up(cin * 2 * r * 4, 16)
+             + _up(mo * (kr + pad) * es, 16)
+             + _up(cin * 2 * hc * 4, 16) + 2 * _up(2 * hc * r * 4, 16)
+             + (_up(wsm, 16) if wsm <= CORNER_W_SMEM else 0))
+    stage1 = _up(mi * (2 * hc + pad) * es, 16) + _up(2 * hc * (kr + pad) * es, 16)
+    stage3 = _up(kr * (2 * hc + pad) * es, 16)
+    return chunk + max(stage1, stage3)
+
+
+def corner_plan(cin: int, cout: int, hp: int, r: int, tc: bool) -> int:
+    """The chunk of H rows (a multiple of 8) ``corner_kernel`` takes a
+    block's share of Hp in: balanced chunks of at most CORNER_HC_MAX rows,
+    fewer where the layout would pass SMEM_MAX.  Shared memory grows with C
+    and R only; past the widest C at this R (Cin = Cout) it raises, naming
+    that C."""
+    hc = _balanced(-(-hp // CORNER_CLUSTER), CORNER_HC_MAX, 8)
+    while hc > 8 and corner_smem_bytes(cin, cout, r, hc, tc) > SMEM_MAX:
+        hc -= 8
+    need = corner_smem_bytes(cin, cout, r, hc, tc)
+    if need <= SMEM_MAX:
+        return hc
+    widest = _widest(lambda m: corner_smem_bytes(m, m, r, 8, tc) <= SMEM_MAX, max(cin, cout))
+    raise ValueError(f"corner: Cin = {cin}, Cout = {cout} at R = {r} need {need} bytes of shared "
+                     f"memory a block, above {SMEM_MAX}; it takes C up to {widest} at this R")
+
+
 def corner(a, p, w, q, adj, spec_dtype, bf, spec_only=False):
     if not _on_cuda(a, *p, *w, *q):
         return corner_plain(a, p, w, q, adj, spec_dtype, bf, spec_only)
@@ -312,12 +381,13 @@ def corner(a, p, w, q, adj, spec_dtype, bf, spec_only=False):
         _need(t, shape, what="corner factor/weight")
     if adj and spec_dtype != torch.float32:
         raise ValueError("corner: the adjoint spectrum is kept in f32")
+    hc = corner_plan(cin, cout, hp, r, bool(bf))
     spr = torch.empty(b, cin, k, r, device=a.device, dtype=spec_dtype)
     spi = torch.empty_like(spr)
     d = None if spec_only else torch.empty(b, cout, hp, k2, device=a.device)
     _launch("fno_corner", "fno_corner.adj" if adj else "fno_corner", a, p[0], p[1], w[0],
             w[1], q[0], q[1], spr, spi, d, b, cin, cout, hp, k, r, int(adj),
-            int(spec_dtype == torch.bfloat16), int(bf))
+            int(spec_dtype == torch.bfloat16), int(bf), hc)
     return spr, spi, d
 
 
@@ -336,6 +406,41 @@ def iwdft_pw_plain(d, z, xin, mw, bias, gelu, pre_dtype, bf):
     return (_gelu(v) if gelu else v), pre
 
 
+IWDFT_GRID = 264     # blocks iwdft_pw_kernel aims at (IW_GRID, fno_fwd.cu)
+IWDFT_WC_MAX = 256  # columns of W a block at most
+
+
+def iwdft_smem_bytes(cin: int, cout: int, k: int, wc: int, tc: bool) -> int:
+    """Shared memory of one ``iwdft_pw_kernel`` block (``IwdftLayout``,
+    fno_fwd.cu) for chunks of ``wc`` columns of W, on the tensor-core path
+    with ``tc``.  A mirror of the library's ``fno_iwdft_smem`` (chip_smoke.py
+    phase 3 holds it to that)."""
+    es, pad = (2, 8) if tc else (4, 4)
+    mo, kp = _up(cout, 16), _up(2 * k + cin, 16)
+    raw = _up((cout * 2 * k + cin * wc) * 4, 16)
+    return (_up(mo * (kp + pad) * es, 16) + _up(kp * (wc + pad) * es, 16) + 2 * raw
+            + _up(2 * k * wc * 4, 16) + _up(mo * 4, 16))
+
+
+def iwdft_plan(cin: int, cout: int, k: int, wp: int, nrow: int, tc: bool) -> tuple[int, int]:
+    """(WC, RB) of ``iwdft_pw_kernel``: balanced chunks of W of at most
+    IWDFT_WC_MAX columns (a multiple of 16), fewer where the layout would
+    pass SMEM_MAX, and the rows a block takes so that about IWDFT_GRID
+    blocks run.  Shared memory grows with C only; past the widest C
+    (Cin = Cout) it raises, naming that C."""
+    wc = _balanced(wp, IWDFT_WC_MAX, 16)
+    while wc > 16 and iwdft_smem_bytes(cin, cout, k, wc, tc) > SMEM_MAX:
+        wc -= 16
+    need = iwdft_smem_bytes(cin, cout, k, wc, tc)
+    if need > SMEM_MAX:
+        widest = _widest(lambda m: iwdft_smem_bytes(m, m, k, 16, tc) <= SMEM_MAX,
+                         max(cin, cout))
+        raise ValueError(f"iwdft_pw: Cin = {cin}, Cout = {cout} at 2K = {2 * k} need {need} "
+                         f"bytes of shared memory a block, above {SMEM_MAX}; it takes C up to "
+                         f"{widest} at this K")
+    return wc, max(1, -(-nrow * -(-wp // wc) // IWDFT_GRID))
+
+
 def iwdft_pw(d, z, xin, mw, bias, gelu, pre_dtype, bf, adj=False):
     if not _on_cuda(d, z, xin, mw, bias):
         return iwdft_pw_plain(d, z, xin, mw, bias, gelu, pre_dtype, bf)
@@ -346,12 +451,13 @@ def iwdft_pw(d, z, xin, mw, bias, gelu, pre_dtype, bf, adj=False):
     _need(mw, (cout, cin), what="Mw")
     if bias is not None:
         _need(bias, (cout,), what="bias")
+    wc, rb = iwdft_plan(cin, cout, k2 // 2, wp, b * hp, bool(bf))
     out = torch.empty(b, cout, hp, wp, device=d.device)
     pre = (torch.empty(b, cout, hp, wp, device=d.device, dtype=pre_dtype)
            if pre_dtype is not None else None)
     _launch("fno_iwdft_pw", "fno_iwdft_pw.adj" if adj else "fno_iwdft_pw", d, z, xin, mw,
             bias, out, pre, int(pre_dtype == torch.bfloat16), int(gelu), b, cin, cout, hp,
-            wp, k2 // 2, int(bf))
+            wp, k2 // 2, int(bf), wc, rb)
     return out, pre
 
 
@@ -510,6 +616,23 @@ def outer_plain(a, bm, gelu, nh, nw, bf):
     return out, av.sum(dim=(0, 2, 3))
 
 
+def outer_smem_bytes(na: int) -> int:
+    """Shared memory of one ``outer_partial_kernel`` block at most (any nB):
+    the A values of its OUTER_PB pixels and a pass of OUTER_BT Bm channels,
+    rows of OUTER_PB + 1 floats."""
+    return (na + OUTER_BT) * (OUTER_PB + 1) * 4
+
+
+def _check_outer_smem(na: int) -> None:
+    """Raise, naming the widest nA (194), when one block's shared memory
+    would pass SMEM_MAX; Bm's channels are unbounded."""
+    if outer_smem_bytes(na) <= SMEM_MAX:
+        return
+    widest = _widest(lambda m: outer_smem_bytes(m) <= SMEM_MAX, na)
+    raise ValueError(f"outer: nA = {na} needs {outer_smem_bytes(na)} bytes of shared memory a "
+                     f"block, above {SMEM_MAX}; it takes nA up to {widest}")
+
+
 def outer(a, bm, gelu, nh, nw, bf):
     if not _on_cuda(a, bm):
         return outer_plain(a, bm, gelu, nh, nw, bf)
@@ -519,6 +642,7 @@ def outer(a, bm, gelu, nh, nw, bf):
         raise ValueError(f"outer: a {tuple(a.shape)} bm {tuple(bm.shape)} region {(nh, nw)}")
     if a.dtype != torch.float32 or bm.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("outer: a must be f32, bm f32 or bf16")
+    _check_outer_smem(na)
     nblk = -(-bn * nh * nw // OUTER_PB)
     part = torch.empty(nblk, na * nb + na, device=a.device)
     _launch("fno_outer_partial", "fno_outer_partial", a, bm, int(bm.dtype == torch.bfloat16),

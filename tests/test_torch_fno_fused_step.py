@@ -1,9 +1,11 @@
 """Port ops/fno_fused_step.py vs the JAX module: the CPU fused apply (the
 kernels' plain versions composed as on the card) against the JAX reference
 composition and the JAX Pallas kernels run in interpret mode, values and
-all ten gradients, at width 8 and at width 40; the lift and head kernels'
-plain versions at width 64 with 9 output channels; CPU rehearsals of the
-kernels' summation orders against the bounds chip_smoke.py holds them to."""
+all ten gradients, at width 8, at width 40 and on a 16 x 40 field; the lift
+and head kernels' plain versions at width 64 with 9 output channels; CPU
+rehearsals of the kernels' summation orders against the bounds
+chip_smoke.py holds them to; the wrappers' shared-memory plans and the
+limits they name."""
 
 import jax
 import jax.numpy as jnp
@@ -32,23 +34,26 @@ BF16_REL_TO_MAX = 3e-2
 # fault C6: a width and an output-channel count above the 32 and 8 that the
 # first lift and head kernels held in registers (JAX's fused step takes any)
 WIDE, OP_C, OP_CO = 40, 64, 9
+# faults C7 and C8 hang on the field's two padded sizes apart (the W-DFT and
+# inverse-W kernels on Wp, the corner kernel on Hp): a field with X != Y
+NON_SQUARE = (16, 40)
 
 
-def _make_setup(width, cc):
-    """Seeded inputs and a flax FNO2d tree: params, win (B, T, Cc, X, Y),
-    grid2 (2, X, Y) and a cotangent (B, Cc, X, Y)."""
+def _make_setup(width, cc, nx=X, ny=Y):
+    """Seeded inputs and a flax FNO2d tree: params, win (B, T, Cc, nx, ny),
+    grid2 (2, nx, ny) and a cotangent (B, Cc, nx, ny)."""
     rng = np.random.default_rng(0)
-    x = rng.normal(size=(B, X, Y, T, cc)).astype(np.float32)
-    gx, gy = np.meshgrid(np.linspace(0, 1, X, dtype=np.float32),
-                         np.linspace(0, 1, Y, dtype=np.float32), indexing="ij")
+    x = rng.normal(size=(B, nx, ny, T, cc)).astype(np.float32)
+    gx, gy = np.meshgrid(np.linspace(0, 1, nx, dtype=np.float32),
+                         np.linspace(0, 1, ny, dtype=np.float32), indexing="ij")
     grid = np.stack([gx, gy], -1)
-    gridb = np.broadcast_to(grid[None], (B, X, Y, 2))
+    gridb = np.broadcast_to(grid[None], (B, nx, ny, 2))
     params = to_numpy_tree(
         FlaxFNO2d(num_channels=cc, modes1=MODES, modes2=MODES, width=width,
                   initial_step=T).init(jax.random.PRNGKey(1), x, gridb)["params"])
     win = np.ascontiguousarray(np.transpose(x, (0, 3, 4, 1, 2)))  # (B, T, Cc, X, Y)
     grid2 = np.ascontiguousarray(np.transpose(grid, (2, 0, 1)))   # (2, X, Y)
-    cot = rng.normal(size=(B, cc, X, Y)).astype(np.float32)
+    cot = rng.normal(size=(B, cc, nx, ny)).astype(np.float32)
     return params, win, grid2, cot
 
 
@@ -60,6 +65,11 @@ def setup():
 @pytest.fixture(scope="module")
 def setup_wide():
     return _make_setup(WIDE, CC)
+
+
+@pytest.fixture(scope="module")
+def setup_non_square():
+    return _make_setup(WIDTH, CC, *NON_SQUARE)
 
 
 def _port_apply(params, win, grid2, cot):
@@ -142,6 +152,32 @@ def test_fused_apply_matches_jax_at_width_40(setup_wide, jax_fn, prec):
         want = np.asarray(fn(win, grid2, fp, MODES, MODES))
         want_g = _jax_grads(fn, params, win, grid2, cot)
     assert pred.shape == want.shape == (B, CC, X, Y)
+    if prec == "highest":
+        np.testing.assert_allclose(pred, want, **VAL_TOL)
+        assert_trees_close(grads, want_g, what="grad", **GRAD_TOL)
+        return
+    assert np.abs(pred - want).max() <= BF16_REL_TO_MAX * np.abs(want).max()
+    got = dict(jax.tree_util.tree_leaves_with_path(grads))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(want_g):
+        err = np.abs(got[path].numpy() - leaf).max()
+        assert err <= BF16_REL_TO_MAX * np.abs(leaf).max() + 1e-6, (path, err)
+
+
+@pytest.mark.parametrize("prec", ["highest", "default"])
+def test_fused_apply_matches_jax_non_square(setup_non_square, prec):
+    """The fused step on a 16 x 40 field (Hp = 18, Wp = 42): the CPU fused
+    apply against JAX's fused step with its Pallas kernels in interpret
+    mode, the value and all ten gradients, from the same numpy-seeded
+    window, cotangent and flax tree: under `highest` within the f32
+    tolerances of the width-8 case, under `default` within BF16_REL_TO_MAX
+    of each one's largest magnitude."""
+    params, win, grid2, cot = setup_non_square
+    with precision(prec):
+        pred, grads = _port_apply(params, win, grid2, cot)
+        fp = jf.pack_params(params, MODES, MODES)
+        want = np.asarray(jf.fno2d_fused_apply(win, grid2, fp, MODES, MODES))
+        want_g = _jax_grads(jf.fno2d_fused_apply, params, win, grid2, cot)
+    assert pred.shape == want.shape == (B, CC, *NON_SQUARE)
     if prec == "highest":
         np.testing.assert_allclose(pred, want, **VAL_TOL)
         assert_trees_close(grads, want_g, what="grad", **GRAD_TOL)
@@ -377,19 +413,203 @@ def test_wdft_bf16_mma_order_meets_the_card_bounds(variant):
     assert err / scale <= cs.TOL_KERNEL and err < gap / 2, (err / scale, gap / scale)
 
 
-@pytest.mark.parametrize("tc,pre_size,widest", [(True, 4, 492), (True, 2, 570), (True, 0, 677),
-                                                (False, 4, 660), (False, 0, 1037)])
+@pytest.mark.parametrize("tc,pre_size,widest", [(True, 4, 787), (True, 2, 787), (True, 0, 787),
+                                                (False, 4, 892), (False, 0, 892)])
 def test_wdft_smem_check_names_the_widest_n(tc, pre_size, widest):
-    """``wdft``'s shared-memory check (the mirror of ``WdftLayout``) takes
-    the flagship's Wp = 130 and every N up to the variant's widest at J = 24,
-    and raises past it with that limit named."""
+    """``wdft``'s shared-memory plan (the mirror of ``WdftLayout``) streams N
+    in chunks, so every N passes at J = 24: the flagship's Wp = 130 in one
+    chunk, 514 (512^2), 1026, 1154 (Y = 1152) and 10^6 in chunks of at most
+    WD_KC_MAX k16 steps.  Shared memory grows with J only: the plan takes the
+    variant's widest J and raises one past it with that limit named."""
     from sciml_pde_torch.ops import fno_kernels as fk
 
-    assert _csrc_constants("fno_fwd.cu", ("WD_ROWS",)) == [fk.WDFT_ROWS]
-    fk._check_wdft_smem(130, 24, tc, pre_size)
-    fk._check_wdft_smem(widest, 24, tc, pre_size)
-    with pytest.raises(ValueError, match=f"N up to {widest}$"):
-        fk._check_wdft_smem(widest + 1, 24, tc, pre_size)
+    assert _csrc_constants("fno_fwd.cu", ("WD_ROWS", "WD_KC_MAX")) == [fk.WDFT_ROWS,
+                                                                      fk.WDFT_KC_MAX]
+    assert fk.wdft_plan(130, 24, tc, pre_size) == 9  # the whole row, K padded to 144
+    for n in (514, 1026, 1154, 10**6):
+        kc = fk.wdft_plan(n, 24, tc, pre_size)
+        assert fk.wdft_smem_bytes(n, 24, tc, pre_size, kc) <= fk.SMEM_MAX
+    fk.wdft_plan(1154, widest, tc, pre_size)
+    with pytest.raises(ValueError, match=f"J up to {widest}$"):
+        fk.wdft_plan(1154, widest + 1, tc, pre_size)
+
+
+# the widest width the head kernels take at NH 128, Co 2 (`default`, `highest`):
+# the fused and split steps reach the corner, inverse-W and outer-product
+# kernels at every such width
+HEAD_WIDEST = {True: 149, False: 96}
+
+
+@pytest.mark.parametrize("tc,widest", [(True, 360), (False, 294)])
+def test_corner_smem_check_names_the_widest_c(tc, widest):
+    """``corner``'s plan (the mirror of ``CornerLayout``) takes every width the
+    head kernels take at Hp up to 1154, its chunk of H rows a multiple of 8
+    that fits SMEM_MAX (the flagship's 33 rows a block in one chunk of 40);
+    at R = 24 it takes the widest C and raises one past it, naming it."""
+    assert _csrc_constants("fno_fwd.cu", ("CN_CLUSTER",)) == [tk.CORNER_CLUSTER]
+    assert tk.corner_plan(20, 20, 130, 24, tc) == 40
+    for hp in (130, 514, 1154):
+        for c in (20, HEAD_WIDEST[tc]):
+            hc = tk.corner_plan(c, c, hp, 24, tc)
+            assert hc % 8 == 0 and tk.corner_smem_bytes(c, c, 24, hc, tc) <= tk.SMEM_MAX
+    tk.corner_plan(widest, widest, 130, 24, tc)
+    with pytest.raises(ValueError, match=f"C up to {widest} at this R$"):
+        tk.corner_plan(widest + 1, widest + 1, 130, 24, tc)
+
+
+@pytest.mark.parametrize("tc,widest", [(True, 240), (False, 176)])
+def test_iwdft_smem_check_names_the_widest_c(tc, widest):
+    """``iwdft_pw``'s plan (the mirror of ``IwdftLayout``) takes every width
+    the head kernels take at Wp up to 1154, in chunks of W a multiple of 16
+    that fit SMEM_MAX, about IW_GRID blocks (260 of 2 rows at the
+    flagship); at K = 12 it takes the widest C and raises one past it,
+    naming it."""
+    assert _csrc_constants("fno_fwd.cu", ("IW_GRID",)) == [tk.IWDFT_GRID]
+    assert tk.iwdft_plan(20, 20, 12, 130, 4 * 130, tc) == (144, 2)
+    for wp in (130, 514, 1154):
+        for c in (20, HEAD_WIDEST[tc]):
+            wc, rb = tk.iwdft_plan(c, c, 12, wp, 4 * wp, tc)
+            assert wc % 16 == 0 and rb >= 1
+            assert tk.iwdft_smem_bytes(c, c, 12, wc, tc) <= tk.SMEM_MAX
+    tk.iwdft_plan(widest, widest, 12, 130, 520, tc)
+    with pytest.raises(ValueError, match=f"C up to {widest} at this K$"):
+        tk.iwdft_plan(widest + 1, widest + 1, 12, 130, 520, tc)
+
+
+def test_outer_smem_check_names_the_widest_na():
+    """``outer``'s check: ``outer_partial_kernel`` keeps nA rows of OUTER_PB + 1
+    floats and takes Bm's channels in passes of OUTER_BT, so it takes nA up
+    to 194 (every width the head kernels take) and any nB, and raises at nA
+    = 195, naming the limit."""
+    assert _csrc_constants("fno_bwd.cu", ("OUTER_BT",)) == [tk.OUTER_BT]
+    for na in (1, HEAD_WIDEST[True], 194):
+        tk._check_outer_smem(na)
+    assert tk.outer_smem_bytes(194) <= tk.SMEM_MAX < tk.outer_smem_bytes(195)
+    with pytest.raises(ValueError, match="it takes nA up to 194$"):
+        tk._check_outer_smem(195)
+
+
+def _bf(a):
+    """``a`` rounded to bf16, as f32 numpy."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _k16(a, b, acc=None):
+    """Sum over the k16 steps of ``a`` (..., K) @ ``b`` (..., K, N), K a multiple
+    of 16: each step's 16 exact products summed, rounded to f32 and added to
+    the f32 accumulator (zero, or ``acc``), as mma.sync m16n8k16 with f32
+    accumulation."""
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32) if acc is None else acc
+    for k in range(0, a.shape[-1], 16):
+        acc = acc + (a[..., k:k + 16].astype(np.float64) @ b[..., k:k + 16, :]).astype(np.float32)
+    return acc
+
+
+def _worst_rel(got, want):
+    return max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("adj", [False, True])
+def test_corner_bf16_mma_order_meets_the_card_bounds(adj):
+    """A rehearsal of ``corner_kernel``'s tensor-core arithmetic under
+    `default` at the flagship shape (B = 4, C = 20, Hp = 130, K = 12, R = 24),
+    forward and adjoint: each cluster rank's rows of H in chunks of the plan's
+    HC rows, A rounded to bf16 with the real and imaginary parts of a row side
+    by side against [[Pr, Pi], [-Pi, Pr]], k16 steps into the rank's partial
+    spectrum; the partials added in rank order; the f32 mode mix in order over
+    the input channels, rounded to bf16; D as k16 steps of [Cr | Ci] against
+    [[Qr, Qi], [-Qi, Qr]].  The spectrum (in f32) and D lie within
+    chip_smoke.py's TOL_KERNEL of the plain version and below half the plain
+    bf16-vs-f32 gap, the bound phase 3 holds the kernel to."""
+    cs = chip_smoke()
+    b, c, hp, k, r = cs.B, cs.WIDTH, cs.XY + cs.PAD, cs.MODES, 2 * cs.MODES
+    f = tf.kernel_factors(hp, hp, cs.MODES, cs.MODES, "cpu", True)
+    pf, qf = (f.adj_p, f.adj_q) if adj else (f.fwd_p, f.fwd_q)
+    rng = np.random.default_rng(31)
+    a = rng.normal(size=(b, c, hp, 2 * k)).astype(np.float32)
+    w = [(rng.normal(size=(c, c, k, r)) / c).astype(np.float32) for _ in range(2)]
+    args = (torch.from_numpy(a), pf, tuple(map(torch.from_numpy, w)), qf, adj, torch.float32)
+    want = [t.numpy() for t in tk.corner_plain(*args, True)]
+    gap = _worst_rel([t.numpy() for t in tk.corner_plain(*args, False)], want)
+
+    cl, hc = tk.CORNER_CLUSTER, tk.corner_plan(c, c, hp, r, True)
+    hb = -(-hp // cl)
+    ab = _bf(a)
+    pr, pi = (t.numpy() for t in pf)
+    bs = np.zeros((b, k, c, 2 * r), np.float32)  # the partials added in rank order
+    for q in range(cl):
+        part = np.zeros_like(bs)
+        hn = max(0, min(hb, hp - q * hb))
+        for c0 in range(0, hn, hc):
+            hs = np.arange(q * hb + c0, q * hb + min(c0 + hc, hn))
+            op_a = np.zeros((b, k, c, 2 * hc), np.float32)
+            op_a[..., 0:2 * len(hs):2] = ab[:, :, hs, :k].transpose(0, 3, 1, 2)
+            op_a[..., 1:2 * len(hs):2] = ab[:, :, hs, k:].transpose(0, 3, 1, 2)
+            op_p = np.zeros((2 * hc, 2 * r), np.float32)
+            op_p[0:2 * len(hs):2] = np.concatenate([pr[hs], pi[hs]], 1)
+            op_p[1:2 * len(hs):2] = np.concatenate([-pi[hs], pr[hs]], 1)
+            part = _k16(op_a, op_p, part)
+        bs = bs + part
+    wr, wi = w
+    if adj:
+        wr, wi = wr.transpose(1, 0, 2, 3), -wi.transpose(1, 0, 2, 3)
+    br, bi = bs[..., :r], bs[..., r:]
+    cr = np.zeros((b, k, c, r), np.float32)
+    ci = np.zeros_like(cr)
+    for i in range(c):
+        wri, wii = wr[i].transpose(1, 0, 2)[None], wi[i].transpose(1, 0, 2)[None]
+        cr = cr + (br[:, :, i, None] * wri - bi[:, :, i, None] * wii)
+        ci = ci + (br[:, :, i, None] * wii + bi[:, :, i, None] * wri)
+    ca = _bf(np.concatenate([cr, ci], -1))
+    qr_, qi_ = (t.numpy() for t in qf)
+    dr = _k16(ca, np.concatenate([qr_, -qi_], 0))  # (b, k, c, hp)
+    di = _k16(ca, np.concatenate([qi_, qr_], 0))
+    got = [br.transpose(0, 2, 1, 3), bi.transpose(0, 2, 1, 3),
+           np.concatenate([dr.transpose(0, 2, 3, 1), di.transpose(0, 2, 3, 1)], -1)]
+    rel = _worst_rel(got, want)
+    assert rel <= cs.TOL_KERNEL and rel < gap / 2, (rel, gap)
+
+
+@pytest.mark.parametrize("adj", [False, True])
+def test_iwdft_bf16_mma_order_meets_the_card_bounds(adj):
+    """A rehearsal of ``iwdft_pw_kernel``'s tensor-core arithmetic under
+    `default` at the flagship shape (B = 4, C = 20, Hp = Wp = 130, K = 12):
+    per row, [D_row | M] (20 x 44, padded to K = 48) against [Z ; xin_row]
+    with D and xin rounded to bf16 and Z, M bf16-exact, as three k16 steps,
+    then + bias, and gelu and a saved pre (forward) or neither (adjoint).  It
+    lies within chip_smoke.py's TOL_KERNEL of the plain version and below
+    half the plain bf16-vs-f32 gap."""
+    cs = chip_smoke()
+    b, c, hp, k = cs.B, cs.WIDTH, cs.XY + cs.PAD, cs.MODES
+    f = tf.kernel_factors(hp, hp, cs.MODES, cs.MODES, "cpu", True)
+    rng = np.random.default_rng(32)
+    d = rng.normal(size=(b, c, hp, 2 * k)).astype(np.float32)
+    xin = rng.normal(size=(b, c, hp, hp)).astype(np.float32)
+    mw = _bf(rng.uniform(-1, 1, size=(c, c)) / np.sqrt(c))
+    if adj:
+        z, bias, gelu = f.adj_z.numpy(), None, False
+    else:
+        z, bias, gelu = f.fwd_z.numpy(), (0.1 * rng.normal(size=c)).astype(np.float32), True
+    t = lambda v: None if v is None else torch.from_numpy(v)  # noqa: E731
+    args = (t(d), t(z), t(xin), t(mw), t(bias), gelu, torch.float32)
+    want = [v.numpy() for v in tk.iwdft_pw_plain(*args, True)]
+    gap = _worst_rel([v.numpy() for v in tk.iwdft_pw_plain(*args, False)], want)
+
+    kp = -(-(2 * k + c) // 16) * 16
+    assert kp == 48
+    op_a = np.zeros((b, hp, c, kp), np.float32)  # per row (b, h)
+    op_a[..., :2 * k] = _bf(d).transpose(0, 2, 1, 3)
+    op_a[..., 2 * k:2 * k + c] = mw
+    op_b = np.zeros((b, hp, kp, hp), np.float32)
+    op_b[:, :, :2 * k] = z
+    op_b[:, :, 2 * k:2 * k + c] = _bf(xin).transpose(0, 2, 1, 3)
+    v = _k16(op_a, op_b)
+    if bias is not None:
+        v = v + bias[:, None]
+    v = v.transpose(0, 2, 1, 3)  # (b, c, hp, wp)
+    out = tk._gelu(torch.from_numpy(v)).numpy() if gelu else v
+    rel = _worst_rel([out, v], want)
+    assert rel <= cs.TOL_KERNEL and rel < gap / 2, (rel, gap)
 
 
 @pytest.mark.parametrize("variant", ["forward", "adjoint, pre f32, gelu_grad"])
