@@ -23,16 +23,18 @@ FNO steps and the five split kernels):
               spills of every attention and FNO kernel and the FNO kernels'
               stack frames (ptxas -v), none spilling at head dim 64 on the
               tensor cores, none in wdft_kernel and reduce_rows_kernel, and
-              neither spills nor a stack frame in lift_kernel, both
-              paths of head_fwd_kernel and head_bwd_kernel, and every
-              instance of corner_kernel, iwdft_pw_kernel, wdft_kernel and
-              outer_partial_kernel
+              neither spills nor a stack frame in both instances of
+              lift_kernel, both paths of head_fwd_kernel and
+              head_bwd_kernel, and every instance of corner_kernel,
+              iwdft_pw_kernel, wdft_kernel and outer_partial_kernel (the
+              four of the last by name)
   3. check    the fused forward and all ten gradients from the kernels
               against the plain PyTorch versions on the card, under
               `highest` (f32) and `default` (bf16 dot inputs); then every
               kernel against its own plain version on the inputs the main
               path gives it, with its profiler device time beside its
-              library call's; fno_stats at three more shapes (X*Y not a
+              library call's, each device time read at or above its bound
+              or "not measured"; fno_stats at three more shapes (X*Y not a
               multiple of 4, a pair larger than one cluster's shared
               memory, the flagship + 1e3 with a one-pass control);
               fno_wdft in all six variants its callers use (forward,
@@ -59,7 +61,11 @@ FNO steps and the five split kernels):
               (faults C7, C8) against their plain versions, one more
               raising a ValueError that names the limit; fno_outer_partial
               at the head kernels' widest C and the adjoint fno_wdft with
-              gelu'(pre) at N 514 and 1154; the fused forward with its ten
+              gelu'(pre) at N 514 and 1154; fno_outer_partial's two
+              main-path instances (a layer's weight gradient on the bf16
+              pre with gelu, the lift's gradient on the f32 lift input)
+              under both precisions, each with its device time and bound
+              and the same bits twice; the fused forward with its ten
               gradients at width 40 against the plain composition, and
               printed beside it the same on random-normal inputs at widths
               20 and 40, with the head kernels and with their plain
@@ -258,6 +264,9 @@ WDFT_VARIANTS = (("forward", "h", None, False, False),
                  ("adjoint, pre bf16, gelu_grad", "dh", "bfloat16", True, False),
                  ("adjoint, pre f32", "dh", "float32", False, False),
                  ("adjoint, pre f32, gelu_grad", "dh", "float32", True, False))
+# the records key of the main path's last fno_outer_partial call, the lift
+# gradient (``record_calls``)
+OUTER_LIFT = "fno_outer_partial (lift)"
 # fno_lift, fno_head_fwd and fno_head_bwd at (width C, output channels Co):
 # the flagship, and fault C6's widths and channel counts above the 32 and 8
 # that the first lift and head kernels held in registers
@@ -300,6 +309,13 @@ SPLIT_C78 = (1, 512, 512)  # phase 14's split functions again: batch, X, Y
 # own inputs (``check_c78_fields``), and the split functions at SPLIT_C78
 # against the control: the same functions with C78_KERNELS plain.
 C78_KERNELS = ("wdft", "corner", "iwdft_pw", "outer")
+# outer_partial_kernel's instances: Bm in f32 or bf16, on the tensor cores
+# (`default`) or the CUDA cores
+OUTER_INSTANCES = sorted(f"outer_partial_kernel<{s}, {tc}>" for s in ("float", "__nv_bfloat16")
+                         for tc in ("true", "false"))
+# fno_outer_partial's two instances on the main path: (what, records key)
+OUTER_CASES = (("a layer's weight gradient, bf16 pre with gelu", "fno_outer_partial"),
+               ("the lift's weight gradient, f32 lift input", OUTER_LIFT))
 
 
 def swap_ops(base, **fns):
@@ -319,16 +335,17 @@ def c78_control_ops():
 
 
 def rr_shapes() -> dict:
-    """fno_reduce_rows at the three shapes the fused step gives it: the head
-    backward's partials (one row per persistent block of head_bwd_kernel),
-    a layer's and the lift's outer-product partials (one row per
-    outer_partial_kernel block over the padded field and over the image)."""
+    """fno_reduce_rows at the three shapes the fused step gives it under
+    `default`: the head backward's partials (one row per persistent block of
+    head_bwd_kernel), a layer's and the lift's outer-product partials (one
+    row per persistent block of outer_partial_kernel over the padded field
+    and over the image)."""
     from sciml_pde_torch.ops import fno_kernels as fk
 
     return {
         "head backward": (fk.head_bwd_rows(B * XY * XY), NH * WIDTH + NH + CC * NH + CC),
-        "a layer's outer": (-(-B * (XY + PAD) ** 2 // fk.OUTER_PB), WIDTH * WIDTH + WIDTH),
-        "the lift's outer": (B * XY * XY // fk.OUTER_PB, WIDTH * (T0 * CC + 2) + WIDTH),
+        "a layer's outer": (fk.outer_rows(B * (XY + PAD) ** 2), WIDTH * WIDTH + WIDTH),
+        "the lift's outer": (fk.outer_rows(B * XY * XY), WIDTH * (T0 * CC + 2) + WIDTH),
     }
 
 
@@ -516,12 +533,14 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return s.elapsed_time(e) / reps
 
 
-def profiler_ms(fn, kernel_key: str = "", reps: int = 20):
+def profiler_ms(fn, kernel_key: str = "", reps: int = 20, bound_ms: float = 0.0):
     """Device time per call of ``fn`` in kernels whose name holds
     ``kernel_key`` (all of its device time by default), from torch.profiler
-    over ``reps`` back-to-back calls (no host issue gaps); None when three
-    profiler sessions in a row recorded no device time (a session after
-    another one has come back empty on the card, twice in a row once)."""
+    over ``reps`` back-to-back calls (no host issue gaps); None ("not
+    measured") when none of three profiler sessions in a row reads a time at
+    or above ``bound_ms``, the least time the card could take for the call:
+    a session can come back empty on the card (twice in a row once) or with
+    events lost, below the bound (0.0019 ms for a 0.00353 ms bound once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -534,7 +553,7 @@ def profiler_ms(fn, kernel_key: str = "", reps: int = 20):
             torch.cuda.synchronize()
         us = sum(ev.self_device_time_total for ev in prof.key_averages()
                  if ev.device_type.name == "CUDA" and kernel_key in ev.key)
-        if us > 0:
+        if us > 0 and us / reps / 1e3 >= bound_ms:
             return us / reps / 1e3
     return None
 
@@ -646,9 +665,11 @@ def check_wdft(dev, card: str, h, dh, pre) -> None:
             by_bytes = moved_bytes("wdft", args, got) / HBM_BPS
             by_ops = 2 * (args[0].numel() // fac.shape[0]) * fac.numel() / PEAK_FLOPS[prec]
             by = "bytes" if by_bytes >= by_ops else "operations"
-            bound = f"{max(by_bytes, by_ops) * 1e3:.5f} ms ({by})"
-            dev_ms = profiler_ms(lambda: fk.wdft(*args, bf, gelu_in), "wdft_kernel")
-            lib_ms = profiler_ms(lambda: torch.matmul(args[0], fac))
+            bound_ms = max(by_bytes, by_ops) * 1e3
+            bound = f"{bound_ms:.5f} ms ({by})"
+            dev_ms = profiler_ms(lambda: fk.wdft(*args, bf, gelu_in), "wdft_kernel",
+                                 bound_ms=bound_ms)
+            lib_ms = profiler_ms(lambda: torch.matmul(args[0], fac), bound_ms=bound_ms)
             print(f"[timing] {card}: fno_wdft {what} {prec}: profiler device time "
                   f"{fmt(dev_ms)}; bound {bound}; matmul {fmt(lib_ms)}",
                   flush=True)
@@ -673,12 +694,15 @@ def check_reduce_rows(dev, card: str) -> None:
               f"[kernel] fno_reduce_rows {what} {shape}: max abs err {err:.3e}, rel-to-max "
               f"{rel:.3e} (tol {TOL_KERNEL:.0e}); same bits twice {same}")
         bound_ms = (part.numel() + shape[1]) * 4 / HBM_BPS * 1e3
+        dev_ms = profiler_ms(lambda: fk.reduce_rows(part), "reduce_rows_kernel",
+                             bound_ms=bound_ms)
         print(f"[timing] {card}: fno_reduce_rows {what} {shape}: "
               f"{cuda_ms(lambda: fk.reduce_rows(part)):.4f} ms/launch, profiler device time "
-              f"{fmt(profiler_ms(lambda: fk.reduce_rows(part), 'reduce_rows_kernel'))}; "
+              f"{fmt(dev_ms)}; "
               f"bound {bound_ms:.5f} ms (bytes); torch.sum(part, 0) "
               f"{cuda_ms(lambda: torch.sum(part, dim=0)):.4f} ms, profiler device time "
-              f"{fmt(profiler_ms(lambda: torch.sum(part, dim=0)))}", flush=True)
+              f"{fmt(profiler_ms(lambda: torch.sum(part, dim=0), bound_ms=bound_ms))}",
+              flush=True)
 
 
 def check_head(dev, card: str) -> None:
@@ -739,10 +763,12 @@ def check_head(dev, card: str) -> None:
                 by_b = moved_bytes(fname, args, out) / HBM_BPS
                 by_o = kernel_flops(fname, args, out) / PEAK_FLOPS[prec]
                 by = "bytes" if by_b >= by_o else "operations"
+                bound_ms = max(by_b, by_o) * 1e3
+                dev_ms = profiler_ms(lambda: kfn(*args, bf), FNO_KERNEL_KEYS[key],
+                                     bound_ms=bound_ms)
                 print(f"[timing] {card}: {key} {prec} (C={c}, Co={co}, {B * XY * XY} pixels): "
                       f"{cuda_ms(lambda: kfn(*args, bf)):.4f} ms/launch, profiler device time "
-                      f"{fmt(profiler_ms(lambda: kfn(*args, bf), FNO_KERNEL_KEYS[key]))}; bound "
-                      f"{max(by_b, by_o) * 1e3:.5f} ms ({by}); plain "
+                      f"{fmt(dev_ms)}; bound {bound_ms:.5f} ms ({by}); plain "
                       f"{cuda_ms(lambda: pfn(*args, bf)):.4f} ms", flush=True)
 
 
@@ -929,9 +955,59 @@ def check_corner_iwdft(dev, card: str, records, p) -> None:
             by_b = moved_bytes(fname, args, got) / HBM_BPS
             by_o = kernel_flops(fname, args, got) / PEAK_FLOPS[prec]
             by = "bytes" if by_b >= by_o else "operations"
+            bound_ms = max(by_b, by_o) * 1e3
+            dev_ms = profiler_ms(lambda: run(kfn, bf), FNO_KERNEL_KEYS[key], bound_ms=bound_ms)
             print(f"[timing] {card}: {key} {what} {prec}: profiler device time "
-                  f"{fmt(profiler_ms(lambda: run(kfn, bf), FNO_KERNEL_KEYS[key]))}; bound "
-                  f"{max(by_b, by_o) * 1e3:.5f} ms ({by})", flush=True)
+                  f"{fmt(dev_ms)}; bound {bound_ms:.5f} ms ({by})", flush=True)
+
+
+def check_outer(dev, card: str, records) -> None:
+    """Phase 3: ``fno_outer_partial``'s two instances on the main path
+    (OUTER_CASES, the recorded calls' inputs) under `highest` and
+    `default`: each against its plain version within TOL_KERNEL, under
+    `default` also below half the plain bf16-vs-f32 gap, under `highest`
+    within TOL_HEAD_F32, which the plain product on TF32-rounded inputs must
+    exceed (the control); the same bits from a second launch; its profiler
+    device time beside its bound."""
+    import torch
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    for what, key in OUTER_CASES:
+        a, bm, gelu, nh, nw, _ = records[key][1]
+        for prec, bf in (("highest", False), ("default", True)):
+            args = (a, bm, gelu, nh, nw, bf)
+            got, again, want = fk.outer(*args), fk.outer(*args), fk.outer_plain(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            err, rel = worst(got, want)
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            ok = finite and same and rel <= TOL_KERNEL
+            msg = (f"[kernel] fno_outer_partial {what} {prec} (nA {a.shape[1]}, nB "
+                   f"{bm.shape[1]}, {a.shape[0] * nh * nw} pixels): max abs err {err:.3e}, "
+                   f"rel-to-max {rel:.3e} (tol {TOL_KERNEL:.0e}); same bits twice {same}")
+            if bf:
+                gap = worst(fk.outer_plain(*args[:-1], False), want)[1]
+                ok &= rel < gap / 2
+                msg += f"; plain bf16-vs-f32 gap {gap:.3e}"
+            else:
+                av = a[:, :, :nh, :nw]
+                bv = bm[:, :, :nh, :nw].float()
+                bv = fk._gelu(bv) if gelu else bv
+                ctl = rel_err(torch.einsum("bixy,bjxy->ij", tf32(av), tf32(bv)), want[0])[1]
+                ok &= rel <= TOL_HEAD_F32 < ctl
+                msg += (f"; f32 tol {TOL_HEAD_F32:.0e}; control: plain with TF32 inputs "
+                        f"{ctl:.3e}, above it")
+            check(ok, msg)
+            by_b = moved_bytes("outer", args, got) / HBM_BPS
+            by_o = kernel_flops("outer", args, got) / PEAK_FLOPS[prec]
+            by = "bytes" if by_b >= by_o else "operations"
+            bound_ms = max(by_b, by_o) * 1e3
+            dev_ms = profiler_ms(lambda: fk.outer(*args), "outer_partial_kernel",
+                                 bound_ms=bound_ms)
+            print(f"[timing] {card}: fno_outer_partial {what} {prec}: "
+                  f"{cuda_ms(lambda: fk.outer(*args)):.4f} ms/launch with its reduce_rows, "
+                  f"profiler device time {fmt(dev_ms)}; bound {bound_ms:.5f} ms ({by}); "
+                  f"{fk.outer_rows(a.shape[0] * nh * nw)} partial rows", flush=True)
 
 
 def smooth_window(b: int, x: int, y: int, seed: int):
@@ -960,8 +1036,9 @@ def smooth_window(b: int, x: int, y: int, seed: int):
 def record_calls(win, grid2, cot, p) -> tuple[dict, tuple]:
     """The fused forward and backward through the kernels, recording the
     arguments of the first call of each kernel of KERNEL_NAMES but
-    fno_reduce_rows: ({key: (function name, args, kwargs)}, the forward's
-    (pred, saved))."""
+    fno_reduce_rows, and of the last ``outer`` call (the lift gradient) under
+    OUTER_LIFT: ({key: (function name, args, kwargs)}, the forward's (pred,
+    saved))."""
     from sciml_pde_torch.ops import fno_fused_step as ff
     from sciml_pde_torch.ops import fno_kernels as fk
 
@@ -977,6 +1054,8 @@ def record_calls(win, grid2, cot, p) -> tuple[dict, tuple]:
                 if (fk.LAUNCHES[key] != before[key] and key not in records
                         and key != "fno_reduce_rows"):
                     records[key] = (fname, args, kw)
+            if fname == "outer":
+                records[OUTER_LIFT] = (fname, args, kw)
             return out
         return call
 
@@ -1124,9 +1203,9 @@ def c78_witness(dev) -> None:
 
 def check_layout_mirrors() -> None:
     """Phase 3: ``fno_kernels``' mirrors of the shared-memory layouts of
-    ``wdft_kernel``, ``corner_kernel`` and ``iwdft_pw_kernel`` (the plans and
-    the CPU tests read them) against the sizes the library lays out, over a
-    sweep of shapes on both paths."""
+    ``wdft_kernel``, ``corner_kernel``, ``iwdft_pw_kernel`` and
+    ``outer_partial_kernel`` (the plans and the CPU tests read them) against
+    the sizes the library lays out, over a sweep of shapes on both paths."""
     from sciml_pde_torch.ops import fno_kernels as fk
 
     cases = {
@@ -1139,6 +1218,8 @@ def check_layout_mirrors() -> None:
         "iwdft": [((c, o, k, wc, tc), fk.iwdft_smem_bytes)
                   for c in (1, 20, 149) for o in (3, 20, 120) for k in (1, 12, 13)
                   for wc in (16, 144, 256) for tc in (True, False)],
+        "outer": [((na,), fk.outer_smem_bytes)
+                  for na in (1, 16, 17, 20, 22, 64, 65, 128, 149, 194, 197, 198, 400)],
     }
     for name, rows in cases.items():
         lib = fk._fn(f"fno_{name}_smem")
@@ -1216,7 +1297,7 @@ def check_c78_paths(dev) -> None:
     TF32-rounded product inputs must exceed (the control), with the same
     bits from a second launch: ``outer`` at nA = nB = the head kernels'
     widest C (149 under `default`, 96 under `highest`, NH 128, Co 2), where
-    ``outer_partial_kernel`` takes Bm in passes of OUTER_BT channels, with
+    ``outer_partial_kernel`` takes Bm in chunks of OUTER_BT channels, with
     gelu on a Bm in the dot dtype as a layer's weight gradient has it; and
     the adjoint ``wdft`` with gelu'(pre), pre f32 and bf16, at N = 514
     (512^2, batch 1) and 1154 (128 x 1152, batch 2), where
@@ -1689,8 +1770,12 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     sdpa_bwd = lambda: torch.autograd.grad(o4, (q4, k4, v4), as4(do), retain_graph=True)  # noqa: E731
     lib = {"attention_fwd": cuda_ms(lambda: sdpa(as4(q), as4(k), as4(v), scale=scale))}
     lib["attention_dq"] = lib["attention_dkv"] = cuda_ms(sdpa_bwd)
-    lib_dev = {"attention_fwd": profiler_ms(lambda: sdpa(as4(q), as4(k), as4(v), scale=scale))}
-    lib_dev["attention_dq"] = lib_dev["attention_dkv"] = profiler_ms(sdpa_bwd)
+    work = {name: att_work(name, bh, n, d, bf=True) for name in ta.KERNEL_NAMES}
+    bounds = {name: max(nbytes / HBM_BPS, ops_s) * 1e3 for name, (nbytes, ops_s) in work.items()}
+    lib_dev = {"attention_fwd": profiler_ms(lambda: sdpa(as4(q), as4(k), as4(v), scale=scale),
+                                            bound_ms=bounds["attention_fwd"])}
+    lib_dev["attention_dq"] = lib_dev["attention_dkv"] = profiler_ms(
+        sdpa_bwd, bound_ms=max(bounds["attention_dq"], bounds["attention_dkv"]))
     for name in ta.KERNEL_NAMES:
         args, scale = att_inputs[name]
         nbytes, ops_s = att_work(name, bh, n, d, bf=True)
@@ -1706,7 +1791,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
             "bound_by": "bytes" if nbytes / HBM_BPS >= ops_s else "operations",
             "library_ms": lib[name],
             "device_ms": profiler_ms(lambda: getattr(ta, name)(*args, scale),
-                                     ATT_KERNEL_KEYS["bf16"][name]),
+                                     ATT_KERNEL_KEYS["bf16"][name], bound_ms=bounds[name]),
             "library_device_ms": lib_dev[name],
         }
         r = rows[name]
@@ -1747,13 +1832,14 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     for name in ta.KERNEL_NAMES:
         r, args = rows[name], f32_args[name]
         r["f32_ms"] = cuda_ms(lambda: getattr(ta, name)(*args, scale))
-        r["f32_device_ms"] = profiler_ms(lambda: getattr(ta, name)(*args, scale),
-                                         ATT_KERNEL_KEYS["f32"][name])
-        r["f32_plain_ms"] = cuda_ms(lambda: getattr(ta, f"{name}_plain")(*args, scale))
-        r["f32_library_ms"] = cuda_ms(sdpa_f32[name])
-        r["f32_library_device_ms"] = profiler_ms(sdpa_f32[name])
         f32_bytes, f32_ops_s = att_work(name, bh, n, d, bf=False)
         r["f32_bound_ms"] = max(f32_bytes / HBM_BPS, f32_ops_s) * 1e3
+        r["f32_device_ms"] = profiler_ms(lambda: getattr(ta, name)(*args, scale),
+                                         ATT_KERNEL_KEYS["f32"][name],
+                                         bound_ms=r["f32_bound_ms"])
+        r["f32_plain_ms"] = cuda_ms(lambda: getattr(ta, f"{name}_plain")(*args, scale))
+        r["f32_library_ms"] = cuda_ms(sdpa_f32[name])
+        r["f32_library_device_ms"] = profiler_ms(sdpa_f32[name], bound_ms=r["f32_bound_ms"])
         print(f"[timing] {card}: {name} at {tuple(q.shape)} f32 (CUDA-core body): "
               f"{r['f32_ms']:.4f} ms/launch (profiler device time {fmt(r['f32_device_ms'])}), "
               f"plain {r['f32_plain_ms']:.4f} ms, bound {r['f32_bound_ms']:.5f} ms "
@@ -2241,12 +2327,16 @@ def main() -> int:
           + ", ".join(u[0] for u in redesigned))
     heads = [u for u in fno_usage if u[0].startswith(("head_fwd_kernel", "head_bwd_kernel",
                                                       "lift_kernel"))]
-    check(len(heads) == 5 and all(st == ld == frame == 0 for _, _, st, ld, frame in heads),
-          "[build] the head kernels (both paths) and lift_kernel spill nothing and keep no "
-          "stack frame: " + ", ".join(u[0] for u in heads))
+    lifts = sorted(u[0] for u in heads if u[0].startswith("lift_kernel"))
+    check(len(heads) == 6 and lifts == ["lift_kernel<false>", "lift_kernel<true>"]
+          and all(st == ld == frame == 0 for _, _, st, ld, frame in heads),
+          "[build] the head kernels (both paths) and both instances of lift_kernel spill "
+          "nothing and keep no stack frame: " + ", ".join(u[0] for u in heads))
     c78 = [u for u in fno_usage if u[0].startswith(("corner_kernel", "iwdft_pw_kernel",
                                                     "wdft_kernel", "outer_partial_kernel"))]
-    check(len(c78) == 18 and all(st == ld == frame == 0 for _, _, st, ld, frame in c78),
+    outers = sorted(u[0] for u in c78 if u[0].startswith("outer_partial_kernel"))
+    check(len(c78) == 18 and outers == OUTER_INSTANCES
+          and all(st == ld == frame == 0 for _, _, st, ld, frame in c78),
           "[build] every instance of corner_kernel, iwdft_pw_kernel, wdft_kernel and "
           "outer_partial_kernel spills nothing and keeps no stack frame: "
           + ", ".join(u[0] for u in c78))
@@ -2355,9 +2445,11 @@ def main() -> int:
     for key in fk.KERNEL_NAMES:
         fname, args, kw = records[key]
         kfn, lib = getattr(fk, fname), library_fn(key, fname, args)
+        bound_ms = kernel_rows[key]["bound_ms"]
         kernel_rows[key]["device_ms"] = profiler_ms(lambda: kfn(*args, **kw),
-                                                    FNO_KERNEL_KEYS[key])
-        kernel_rows[key]["library_device_ms"] = None if lib is None else profiler_ms(lib)
+                                                    FNO_KERNEL_KEYS[key], bound_ms=bound_ms)
+        kernel_rows[key]["library_device_ms"] = (None if lib is None
+                                                 else profiler_ms(lib, bound_ms=bound_ms))
     check_stats(dev)
     check_wdft(dev, card, records["fno_wdft"][1][0], records["fno_wdft.adj"][1][0],
                sv.pres[0].float())
@@ -2365,6 +2457,7 @@ def main() -> int:
     check_head(dev, card)
     check_head_limits(dev)
     check_corner_iwdft(dev, card, records, p)
+    check_outer(dev, card, records)
     check_layout_mirrors()
     check_limits(dev)
     check_c78_paths(dev)
@@ -2470,8 +2563,10 @@ def main() -> int:
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "library_ms": cuda_ms(lambda: torch.mul(xp, 2)),
-        "device_ms": profiler_ms(lambda: pb.probe(xp), "probe_kernel"),
-        "library_device_ms": profiler_ms(lambda: torch.mul(xp, 2)),
+        "device_ms": profiler_ms(lambda: pb.probe(xp), "probe_kernel",
+                                 bound_ms=max(bytes_s, ops_s) * 1e3),
+        "library_device_ms": profiler_ms(lambda: torch.mul(xp, 2),
+                                         bound_ms=max(bytes_s, ops_s) * 1e3),
     }
     r = kernel_rows["probe"]
     print(f"[timing] {card}: probe at (8, 128) f32: {r['ms']:.4f} ms/launch (profiler device "

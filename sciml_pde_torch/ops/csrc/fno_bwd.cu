@@ -15,9 +15,11 @@
 //                      64-pixel tiles: dbb into the padded cotangent field,
 //                      one partial dW1/db1/dW2/db2 row a block (see its note)
 //   fno_mix_wgrad      mode-mix weight grads sum_b conj(spec) * dspec
-//   fno_outer_partial  partial sum_p A[i,p] B[j,p] and sum_p A[i,p] over a
-//                      pixel tile: 1x1-conv grads (A = dpre, B = layer
-//                      input) and lift grads (A = dh0, B = lift input)
+//   fno_outer_partial  sum_p A[i,p] B[j,p] and sum_p A[i,p]: 1x1-conv grads
+//                      (A = dpre, B = layer input) and lift grads (A = dh0,
+//                      B = lift input), persistent blocks over pixel tiles on
+//                      the tensor cores under bf16 dot inputs, one partial
+//                      row a block (see its note)
 //   fno_reduce_rows    out[i] = sum_k partial[k, i] in a fixed order (see its
 //                      note below)
 //
@@ -32,8 +34,6 @@
 #include <cooperative_groups.h>
 
 #include "fno_common.cuh"
-
-#define OUTER_PB 256    // pixels per outer-product block (1 thread each)
 
 // ---------------------------------------------------------------------------
 // head backward
@@ -426,128 +426,357 @@ FNO_EXPORT int fno_mix_wgrad(const void* br, const void* bi, const float* dcr,
 }
 
 // ---------------------------------------------------------------------------
-// outer-product partials over a pixel tile of the region (nh, nw) of
-// A (B, nA, ldhA, ldwA) f32 and Bm (B, nB, ldhB, ldwB):
-//   partial[blk, i*nB + j] = sum_p A[i, p] Bm[j, p];  partial[blk, nA*nB + i] = sum_p A[i, p]
-// With `gelu` set, Bm holds a saved pre-activation and the kernel reads gelu(Bm).
-// A block of OUTER_PB pixels keeps its A values in shared memory and takes
-// Bm's channels in passes of OUTER_BT, so shared memory grows with nA only:
-// (nA + min(nB, OUTER_BT)) (OUTER_PB + 1) floats, nA up to 194 at any nB
-// (fno_kernels.outer names the limit).  With nB <= OUTER_BT (PASSES
-// false, every call of the flagship) the body is the single pass it was
-// before the passes came: the loop over passes made the compiler build the
-// products' chains some 30% slower.  Each entry is the same in-order sum
-// over the block's pixels either way.
+// outer-product partials
+//
+// Replaces the 1x1-conv and lift weight gradients of _full_bwd_kernel (B2,
+// sciml_pde_tpu/ops/fno_fused_step.py:1066-1067, :1072-1073), _bb_bwd_kernel
+// (B2b, :632-633) and _bb_wgrad_kernel (B2c, :666).  Over the region (nh, nw)
+// of A (B, nA, ldhA, ldwA) f32 and Bm (B, nB, ldhB, ldwB) f32 or bf16:
+//   out[i, j] = sum_p rd(A[i, p]) rd(g(Bm[j, p])),   asum[i] = sum_p A[i, p]
+// with g = gelu when `gelu` is set (Bm a saved pre-activation), rd the bf16
+// rounding under `default` (JAX's _dot) and asum unrounded f32 (_sum_cols).
+// The TPU kernels carry both over their sequential grid in revisited output
+// blocks.  At the flagship a layer's call reads 5.41 MB of dpre and 2.70 MB
+// of bf16 pre (2.42 us at 3.35 TB/s) for 0.11 GFLOP: bound by bytes.  The
+// first design gave each of 265 blocks 256 pixels and each thread one or
+// two entries as 256-long serial chains of shared-memory FMAs, and wrote 265
+// partial rows.  Here it is the small GEMM (nA x P)(P x nB), K = P pixels,
+// and what a block spends is the latency of its steps per tile, not bytes
+// or products, so each tile takes as few steps as it can:
+//   - at most OP_GRID persistent blocks of OP_WARPS warps (a constant, not
+//     the SM count, so that the bits do not depend on the card; the fewest
+//     that keep the rounds of tiles the same, outer_grid) walk the tiles of
+//     OP_PIX consecutive pixels, block k the tiles k, k + grid, ... in order,
+//     once for each chunk of OP_BT Bm channels (one chunk for nB <= 32, every
+//     call of the flagship);
+//   - the threads copy a tile (A's nA rows, the chunk's Bm rows) into one of
+//     OP_STAGES buffers by cp.async, the block's first OP_STAGES tiles at
+//     once (all three tiles of a block at the flagship), each later one as
+//     its buffer's tile is done: 16 bytes a copy where the region's runs of
+//     pixels, pitch and pointer allow (a layer's call), else 8 or 4 (the
+//     lift's A, rows of 128 at a pitch of 130), a bf16 value alone by a
+//     plain load;
+//   - warp (r, q) holds the 16 x 8 accumulator tiles of A's m16 tiles
+//     OP_MW r .. OP_MW r + OP_MW - 1 against the chunk's n8 tiles, over the
+//     16-pixel units q, q + ks, ... of every tile, and builds its operands
+//     from the copied values itself: A rounded to bf16 as it enters the
+//     fragment (and, in the first chunk, added unrounded to the lane's row
+//     sums, two pixels at a time in order), Bm through gelu once a value,
+//     then rounded; mma.sync m16n8k16 bf16 with f32 accumulation under
+//     `default`, exact f32 FMAs in pixel order under `highest`;
+//   - at a chunk's end the ks slices (and the row sums, over a row's four
+//     lanes, then the slices) are added in order through shared memory
+//     (rows of OP_RLD floats, written two at a time without bank conflicts)
+//     into the block's partial row, which fno_reduce_rows sums in a fixed
+//     order.
+// Every sum runs in a fixed order and nothing is atomic: the same bits from
+// launch to launch (tests/test_torch_fno_fused_step.py rehearses the order).
+// Shared memory grows with nA only (OuterLayout; fno_kernels.outer names the
+// widest nA); any nB and region run.
+// partial row layout: [out (nA, nB) | asum (nA)]
 // ---------------------------------------------------------------------------
 
-constexpr int OUTER_BT = 32;  // Bm channels a pass
+constexpr int OP_WARPS = 4;     // warps a block
+constexpr int OP_GRID = 396;    // persistent blocks at most: one partial row each
+constexpr int OP_BT = 32;       // Bm channels a chunk: four n8 tiles
+constexpr int OP_MW = 4;        // m16 tiles of A a warp holds
+constexpr int OP_PIX = 64;      // pixels a tile
+constexpr int OP_UNITS = 4;     // 16-pixel units (k16 steps) a tile
+constexpr int OP_STAGES = 3;    // copy buffers: tiles in flight
+constexpr int OP_LD = 72;      // a copied row's pitch in elements (f32 or bf16), OP_PIX + 8:
+                               // 16-byte rows, the fragments' reads free of bank conflicts
+constexpr int OP_RLD = 40;     // the k slices' sums: OP_BT + 8 floats a row (8 modulo 32 banks)
+static_assert(OP_LD == OP_PIX + 8 && OP_PIX == 16 * OP_UNITS && OP_RLD == OP_BT + 8,
+              "tile geometry");
 
-template <typename S, bool PASSES>
-__global__ void outer_partial_kernel(const float* __restrict__ A, const S* __restrict__ Bm,
-                                     int gelu, float* __restrict__ partial, int Bn, int nA,
-                                     int nB, int nh, int nw, int ldhA, int ldwA, int ldhB,
-                                     int ldwB, int bf) {
-  extern __shared__ float sm[];
-  const int LD = OUTER_PB + 1;
-  float* as = sm;            // (nA, LD)
-  float* bs = sm + nA * LD;  // (min(nB, OUTER_BT), LD), rounded
-  const int npix = Bn * nh * nw;
-  const int t = threadIdx.x, pix = blockIdx.x * OUTER_PB + t;
-  const int np = nA * nB + nA;
-  float* part = partial + (size_t)blockIdx.x * np;
-  if constexpr (!PASSES) {
-    if (pix < npix) {
-      const int x = pix % nw, y = (pix / nw) % nh, b = pix / (nh * nw);
-      for (int a = 0; a < nA; ++a)
-        as[a * LD + t] = A[(((size_t)b * nA + a) * ldhA + y) * ldwA + x];
-      for (int j = 0; j < nB; ++j) {
-        float v = ldv(Bm + (((size_t)b * nB + j) * ldhB + y) * ldwB + x);
-        if (gelu) v = gelu_f(v);
-        bs[j * LD + t] = rd(v, bf);
-      }
-    } else {
-      for (int a = 0; a < nA; ++a) as[a * LD + t] = 0.f;
-      for (int j = 0; j < nB; ++j) bs[j * LD + t] = 0.f;
-    }
-    __syncthreads();
-    for (int i = t; i < np; i += blockDim.x) {
-      float s = 0.f;
-      if (i < nA * nB) {
-        const int a = i / nB, j = i % nB;
-        for (int pp = 0; pp < OUTER_PB; ++pp) s += rd(as[a * LD + pp], bf) * bs[j * LD + pp];
-      } else {
-        const int a = i - nA * nB;
-        for (int pp = 0; pp < OUTER_PB; ++pp) s += as[a * LD + pp];
-      }
-      part[i] = s;
-    }
-  } else {
-    const bool ok = pix < npix;
-    const int x = pix % nw, y = (pix / nw) % nh, b = pix / (nh * nw);
-    for (int a = 0; a < nA; ++a)
-      as[a * LD + t] = ok ? A[(((size_t)b * nA + a) * ldhA + y) * ldwA + x] : 0.f;
-    for (int j0 = 0; j0 < nB; j0 += OUTER_BT) {
-      const int nbt = min(OUTER_BT, nB - j0);
-      if (j0 > 0) __syncthreads();  // the last pass's reads of bs are done
-      for (int j = 0; j < nbt; ++j) {
-        float v = 0.f;
-        if (ok) {
-          v = ldv(Bm + (((size_t)b * nB + j0 + j) * ldhB + y) * ldwB + x);
-          if (gelu) v = gelu_f(v);
-        }
-        bs[j * LD + t] = rd(v, bf);
-      }
-      __syncthreads();
-      // the pass's products, and in the first pass the sums of A after them
-      // (one list of entries over the threads, as with a single pass)
-      const int na = nA * nbt, n = na + (j0 == 0 ? nA : 0);
-      for (int i = t; i < n; i += blockDim.x) {
-        float s = 0.f;
-        if (i < na) {
-          const int a = i / nbt, j = i - a * nbt;
-          for (int pp = 0; pp < OUTER_PB; ++pp) s += rd(as[a * LD + pp], bf) * bs[j * LD + pp];
-          part[a * nB + j0 + j] = s;
-        } else {
-          for (int pp = 0; pp < OUTER_PB; ++pp) s += as[(i - na) * LD + pp];
-          part[nA * nB + i - na] = s;
-        }
-      }
-    }
+// The blocks of a launch over npix pixels: ceil(tiles / rounds) for the
+// rounds that OP_GRID blocks take (fno_kernels.outer_rows mirrors it).
+__host__ __device__ inline int outer_grid(int npix) {
+  const int ntiles = (npix + OP_PIX - 1) / OP_PIX;
+  if (ntiles < 1) return 1;
+  const int rounds = (ntiles + OP_GRID - 1) / OP_GRID;
+  return (ntiles + rounds - 1) / rounds;
+}
+
+// Shared memory of one outer_partial_kernel block, in bytes from the start
+// (fno_outer_smem exports its size; fno_kernels.outer_smem_bytes mirrors it).
+struct OuterLayout {
+  int MT, mrows, ks;  // A's m16 tiles, warp rows, k slices
+  size_t stage, red, ared, bytes;
+  __host__ __device__ OuterLayout(int nA) {
+    MT = (nA + 15) / 16;
+    mrows = (MT + OP_MW - 1) / OP_MW;
+    ks = OP_WARPS / mrows < OP_UNITS ? OP_WARPS / mrows : OP_UNITS;
+    if (ks < 1) ks = 1;
+    // a stage: A [nA][OP_LD] f32, then Bm [OP_BT][OP_LD] f32 (bf16 in its first half)
+    stage = fno_align16((size_t)(nA + OP_BT) * OP_LD * 4);
+    red = OP_STAGES * stage;                                      // [ks][16 MT][OP_RLD] f32
+    ared = red + fno_align16((size_t)ks * 16 * MT * OP_RLD * 4);  // [ks][16 MT] f32
+    bytes = ared + (size_t)ks * 16 * MT * 4;
+  }
+};
+
+// pixels a copy: the widest of 4, 2, 1 whose groups of consecutive pixels
+// stay in one contiguous run of the region (whole planes when the region
+// spans its rows, else rows) and start on that many elements' bytes
+static int outer_vw(const void* base, int es, int nh, int nw, int ldh, int ldw) {
+  for (int vw = 4; vw > 1; vw /= 2) {
+    const bool runs = nw == ldw ? (long long)nh * nw % vw == 0 && (long long)ldh * ldw % vw == 0
+                                : nw % vw == 0 && ldw % vw == 0;
+    if (runs && reinterpret_cast<uintptr_t>(base) % (vw * es) == 0) return vw;
+  }
+  return 1;
+}
+
+// a copy of `bytes` bytes into shared memory: cp.async for 16, 8 and 4, a
+// plain load and store for 2 (a bf16 value alone)
+__device__ __forceinline__ void copy_bytes(void* dst, const void* src, int bytes) {
+  switch (bytes) {
+    case 16:
+      cp_async(dst, reinterpret_cast<const float*>(src));
+      break;
+    case 8:
+      cp_async(dst, reinterpret_cast<const __nv_bfloat16*>(src));
+      break;
+    case 4:
+      cp_async4(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src));
+      break;
+    default:
+      *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
   }
 }
 
-template <typename S, bool PASSES>
-static int launch_outer_passes(const float* A, const void* Bm, int gelu, float* partial,
-                               int Bn, int nA, int nB, int nh, int nw, int ldhA, int ldwA,
-                               int ldhB, int ldwB, int bf, cudaStream_t st) {
-  const size_t smem = (size_t)(nA + min(nB, OUTER_BT)) * (OUTER_PB + 1) * sizeof(float);
-  cudaError_t e = fno_set_smem(outer_partial_kernel<S, PASSES>, smem);
+// rows c < n of X (., nC, ldh, ldw) from channel c0, at the tile's pixels
+// p0.. (those below npix), into dst rows of OP_LD elements, vw pixels a copy
+// (a group of vw pixels lies below npix whole or not at all)
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* dst, const T* X, int nC, int c0, int n, int p0,
+                                          int npix, int vw, int nh, int nw, int ldh, int ldw) {
+  const int groups = OP_PIX / vw, gi = threadIdx.x % groups;
+  const int pix = p0 + gi * vw;
+  if (pix >= npix) return;
+  const int x = pix % nw, r = pix / nw, y = r % nh, b = r / nh;
+  const T* src = X + (((size_t)b * nC + c0) * ldh + y) * ldw + x;
+  const size_t plane = (size_t)ldh * ldw;
+  for (int c = threadIdx.x / groups; c < n; c += OP_WARPS * 32 / groups)
+    copy_bytes(dst + c * OP_LD + gi * vw, src + c * plane, vw * (int)sizeof(T));
+}
+
+// two consecutive copied values of a row as f32 (f32 rows; bf16 rows as one word)
+__device__ __forceinline__ float2 row_pair(const float* row, int k) {
+  return *reinterpret_cast<const float2*>(row + k);
+}
+__device__ __forceinline__ float2 row_pair(const __nv_bfloat16* row, int k) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + k);
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+template <typename S, bool TC>
+__global__ void __launch_bounds__(OP_WARPS * 32)
+outer_partial_kernel(const float* __restrict__ A, const S* __restrict__ Bm, int gelu,
+                     float* __restrict__ partial, int Bn, int nA, int nB, int nh, int nw,
+                     int ldhA, int ldwA, int ldhB, int ldwB, int va, int vb) {
+  extern __shared__ __align__(16) unsigned char op_smem[];
+  const OuterLayout L(nA);
+  float* red = reinterpret_cast<float*>(op_smem + L.red);
+  float* ared = reinterpret_cast<float*>(op_smem + L.ared);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int npix = Bn * nh * nw, ntiles = (npix + OP_PIX - 1) / OP_PIX, G = gridDim.x;
+  const int mine = (int)blockIdx.x < ntiles ? (ntiles - 1 - (int)blockIdx.x) / G + 1 : 0;
+  const int items = mine * ((nB + OP_BT - 1) / OP_BT);
+  float* part = partial + (size_t)blockIdx.x * (nA * nB + nA);
+  auto stage_a = [&](int it) {
+    return reinterpret_cast<float*>(op_smem + it % OP_STAGES * L.stage);
+  };
+  auto stage_b = [&](int it) {
+    return reinterpret_cast<S*>(op_smem + it % OP_STAGES * L.stage + (size_t)nA * OP_LD * 4);
+  };
+  // item it: chunk it / mine of Bm, the block's tile it % mine
+  auto fetch = [&](int it) {
+    const int j0 = it / mine * OP_BT, p0 = ((int)blockIdx.x + it % mine * G) * OP_PIX;
+    copy_tile(stage_a(it), A, nA, 0, nA, p0, npix, va, nh, nw, ldhA, ldwA);
+    copy_tile(stage_b(it), Bm, nB, j0, min(OP_BT, nB - j0), p0, npix, vb, nh, nw, ldhB, ldwB);
+    cp_async_commit();
+  };
+
+  const int wr = warp / L.ks, wq = warp % L.ks;  // this warp's row of m16 tiles, k slice
+  const bool mma_warp = warp < L.mrows * L.ks;
+  float acc[OP_MW][4][4] = {};
+  float sa[OP_MW][2] = {};  // this lane's sums of A's rows g and g + 8 of its m16 tiles
+  for (int i = 0; i < OP_STAGES && i < items; ++i) fetch(i);
+  for (int it = 0; it < items; ++it) {
+    const int ch = it / mine, j0 = ch * OP_BT, nbt = min(OP_BT, nB - j0);
+    const int pv = min(OP_PIX, npix - ((int)blockIdx.x + it % mine * G) * OP_PIX);
+    // tile it landed; the tiles copied after it may still be in flight
+    static_assert(OP_STAGES == 3, "the waits below");
+    switch (min(items, it + OP_STAGES) - it - 1) {
+      case 2: cp_async_wait<2>(); break;
+      case 1: cp_async_wait<1>(); break;
+      default: cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it visible to all
+
+    if (mma_warp) {
+      const float* ra = stage_a(it);
+      const S* rb = stage_b(it);
+      const bool sums = ch == 0;
+      for (int ku = wq; ku < OP_UNITS; ku += L.ks) {
+        const int k0 = ku * 16;
+        if constexpr (TC) {
+          uint32_t fb[4][2];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int j = 8 * n + g;
+            if (8 * n >= nbt) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k = k0 + 2 * t + 8 * h;
+              float2 v = make_float2(0.f, 0.f);
+              if (j < nbt) v = row_pair(rb + j * OP_LD, k);
+              if (k >= pv) v.x = 0.f;
+              if (k + 1 >= pv) v.y = 0.f;
+              if (gelu) v = make_float2(gelu_f(v.x), gelu_f(v.y));
+              fb[n][h] = pack_bf16(v.x, v.y);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < OP_MW; ++i) {
+            const int mt = wr * OP_MW + i;
+            if (mt >= L.MT) continue;
+            uint32_t fa[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {  // rows g, g + 8 at k 2t.., then at k 2t + 8..
+              const int r = 16 * mt + g + 8 * (e & 1), k = k0 + 2 * t + 8 * (e >> 1);
+              float2 v = make_float2(0.f, 0.f);
+              if (r < nA) v = row_pair(ra + r * OP_LD, k);
+              if (k >= pv) v.x = 0.f;
+              if (k + 1 >= pv) v.y = 0.f;
+              if (sums) sa[i][e & 1] += v.x + v.y;
+              fa[e] = pack_bf16(v.x, v.y);
+            }
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              if (8 * n < nbt) mma_bf16(acc[i][n], fa, fb[n]);
+          }
+        } else {
+          for (int k = k0; k < k0 + 16; ++k) {
+            float y[4][2];
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+              for (int cc = 0; cc < 2; ++cc) {
+                const int j = 8 * n + 2 * t + cc;
+                float v = 0.f;
+                if (j < nbt && k < pv) {
+                  v = (float)rb[j * OP_LD + k];
+                  if (gelu) v = gelu_f(v);
+                }
+                y[n][cc] = v;
+              }
+#pragma unroll
+            for (int i = 0; i < OP_MW; ++i) {
+              const int mt = wr * OP_MW + i;
+              if (mt >= L.MT) continue;
+              const int r = 16 * mt + g;
+              const float x0 = r < nA && k < pv ? ra[r * OP_LD + k] : 0.f;
+              const float x1 = r + 8 < nA && k < pv ? ra[(r + 8) * OP_LD + k] : 0.f;
+              if (sums && t == 0) sa[i][0] += x0, sa[i][1] += x1;
+#pragma unroll
+              for (int n = 0; n < 4; ++n) {
+                if (8 * n >= nbt) continue;
+                acc[i][n][0] = fmaf(x0, y[n][0], acc[i][n][0]);
+                acc[i][n][1] = fmaf(x0, y[n][1], acc[i][n][1]);
+                acc[i][n][2] = fmaf(x1, y[n][0], acc[i][n][2]);
+                acc[i][n][3] = fmaf(x1, y[n][1], acc[i][n][3]);
+              }
+            }
+          }
+        }
+      }
+    }
+
+    if (it % mine == mine - 1) {  // the chunk's last tile: its sums into the partial row
+      if (mma_warp) {
+#pragma unroll
+        for (int i = 0; i < OP_MW; ++i) {
+          const int mt = wr * OP_MW + i;
+          if (mt >= L.MT) continue;
+          float* rs = red + ((size_t)wq * 16 * L.MT + 16 * mt) * OP_RLD;
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              st_pair(rs + (g + 8 * h) * OP_RLD + 8 * n + 2 * t, acc[i][n][2 * h],
+                      acc[i][n][2 * h + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+          }
+          if (ch == 0) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // over the row's four lanes: (t0 + t1) + (t2 + t3)
+              float v = sa[i][h];
+              v += __shfl_xor_sync(0xffffffffu, v, 1);
+              v += __shfl_xor_sync(0xffffffffu, v, 2);
+              if (t == 0) ared[wq * 16 * L.MT + 16 * mt + g + 8 * h] = v;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      for (int idx = tid; idx < nA * nbt; idx += OP_WARPS * 32) {
+        const int a = idx / nbt, j = idx - a * nbt;
+        float s = 0.f;
+        for (int q = 0; q < L.ks; ++q) s += red[((size_t)q * 16 * L.MT + a) * OP_RLD + j];
+        part[a * nB + j0 + j] = s;
+      }
+      if (ch == 0)
+        for (int a = tid; a < nA; a += OP_WARPS * 32) {
+          float s = 0.f;
+          for (int q = 0; q < L.ks; ++q) s += ared[q * 16 * L.MT + a];
+          part[nA * nB + a] = s;
+        }
+    }
+    if (it + OP_STAGES < items) {  // the tile OP_STAGES on, into this tile's buffer
+      __syncthreads();
+      fetch(it + OP_STAGES);
+    }
+  }
+  if (items == 0)  // no pixel: a row of zeros
+    for (int i = tid; i < nA * nB + nA; i += OP_WARPS * 32) part[i] = 0.f;
+}
+
+template <typename S, bool TC>
+static int launch_outer(const float* A, const void* Bm, int gelu, float* partial, int Bn,
+                        int nA, int nB, int nh, int nw, int ldhA, int ldwA, int ldhB, int ldwB,
+                        cudaStream_t st) {
+  const OuterLayout L(nA);
+  if (L.mrows > OP_WARPS) return (int)cudaErrorInvalidValue;  // past the layout's widest nA
+  cudaError_t e = fno_set_smem(outer_partial_kernel<S, TC>, L.bytes);
   if (e != cudaSuccess) return (int)e;
-  const int nblk = (Bn * nh * nw + OUTER_PB - 1) / OUTER_PB;
-  outer_partial_kernel<S, PASSES><<<nblk, OUTER_PB, smem, st>>>(
-      A, (const S*)Bm, gelu, partial, Bn, nA, nB, nh, nw, ldhA, ldwA, ldhB, ldwB, bf);
+  const int va = outer_vw(A, 4, nh, nw, ldhA, ldwA);
+  const int vb = outer_vw(Bm, (int)sizeof(S), nh, nw, ldhB, ldwB);
+  outer_partial_kernel<S, TC><<<outer_grid(Bn * nh * nw), OP_WARPS * 32, L.bytes, st>>>(
+      A, (const S*)Bm, gelu, partial, Bn, nA, nB, nh, nw, ldhA, ldwA, ldhB, ldwB, va, vb);
   return (int)cudaGetLastError();
 }
 
-template <typename S>
-static int launch_outer(const float* A, const void* Bm, int gelu, float* partial, int Bn,
-                        int nA, int nB, int nh, int nw, int ldhA, int ldwA, int ldhB,
-                        int ldwB, int bf, cudaStream_t st) {
-  return nB > OUTER_BT ? launch_outer_passes<S, true>(A, Bm, gelu, partial, Bn, nA, nB, nh, nw,
-                                                      ldhA, ldwA, ldhB, ldwB, bf, st)
-                       : launch_outer_passes<S, false>(A, Bm, gelu, partial, Bn, nA, nB, nh,
-                                                       nw, ldhA, ldwA, ldhB, ldwB, bf, st);
-}
+// Shared memory of one outer_partial_kernel block (OuterLayout): the mirror in
+// fno_kernels is held to it on the card.
+FNO_EXPORT long long fno_outer_smem(int nA) { return (long long)OuterLayout(nA).bytes; }
 
 FNO_EXPORT int fno_outer_partial(const float* A, const void* Bm, int b_bf16, int gelu,
                                  float* partial, int Bn, int nA, int nB, int nh, int nw,
                                  int ldhA, int ldwA, int ldhB, int ldwB, int bf, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (b_bf16)
-    return launch_outer<__nv_bfloat16>(A, Bm, gelu, partial, Bn, nA, nB, nh, nw, ldhA, ldwA,
-                                       ldhB, ldwB, bf, st);
-  return launch_outer<float>(A, Bm, gelu, partial, Bn, nA, nB, nh, nw, ldhA, ldwA, ldhB,
-                             ldwB, bf, st);
+    return bf ? launch_outer<__nv_bfloat16, true>(A, Bm, gelu, partial, Bn, nA, nB, nh, nw,
+                                                  ldhA, ldwA, ldhB, ldwB, st)
+              : launch_outer<__nv_bfloat16, false>(A, Bm, gelu, partial, Bn, nA, nB, nh, nw,
+                                                   ldhA, ldwA, ldhB, ldwB, st);
+  return bf ? launch_outer<float, true>(A, Bm, gelu, partial, Bn, nA, nB, nh, nw, ldhA, ldwA,
+                                        ldhB, ldwB, st)
+            : launch_outer<float, false>(A, Bm, gelu, partial, Bn, nA, nB, nh, nw, ldhA, ldwA,
+                                         ldhB, ldwB, st);
 }
 
 // ---------------------------------------------------------------------------

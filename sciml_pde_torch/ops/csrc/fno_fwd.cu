@@ -199,59 +199,140 @@ FNO_EXPORT int fno_stats(const float* win, float* mean, float* stdv, int B, int 
 // ---------------------------------------------------------------------------
 // lift: h0 (B, C, Hp, Wp) = fc0(normalised window ++ grid), zero in the pad;
 // also writes the lift input finp (B, F, X, Y) that the lift gradient reads.
-// One thread per pixel of the padded field; the output channels go in passes
-// of LIFT_CC held in registers (each pass reads the F inputs again, the first
-// writes finp), so any C whose (C, F) weights fit in shared memory runs:
-// C * F * 4 bytes up to 227 KB, C up to 2641 at F = 22 (fno_kernels.lift
-// checks it).
+//
+// Replaces the lift of _full_fwd_kernel (B1) and _bb_fwd_kernel (B1a):
+// _prep_el (sciml_pde_tpu/ops/fno_fused_step.py:441), (win - mean) / std
+// with the two grid channels appended, and _dot(p.w0t, inp) + b0 (:473,
+// :494).  Bound by bytes at the flagship (F = T Cc + 2 = 22, C = 20): 5.24
+// MB of window read, 5.77 MB of finp and 5.41 MB of h0 written, 4.94 us at
+// 3.35 TB/s, against 58 MFLOP.  The first design gave each thread one
+// padded pixel and made its F scalar loads one after another, too few bytes
+// in flight to cover the latency of device memory.  Here:
+//   - a thread takes 2 consecutive pixels of an image row and up to
+//     LIFT_FMAX input features at once (all F = 22 of the flagship; a
+//     larger F in chunks of that many): every load of the chunk (8 bytes a
+//     feature where Y and the pointers allow, VEC; guarded scalars
+//     otherwise) goes out before any arithmetic, about 5.8 MB in flight over
+//     the card at the flagship, from 8 warps an SM;
+//   - each value is normalised by an IEEE division (finp keeps its bits),
+//     stored to finp (8 bytes at a time under VEC), and rounded once, in
+//     place, for the product;
+//   - then each output channel in turn: its 2 sums in order over f, the
+//     (C, F) weights read from shared memory two at a time where F is even
+//     (a broadcast), so any C whose weights fit in shared memory runs: C * F
+//     * 4 bytes up to 227 KB, C up to 2641 at F = 22 (fno_kernels.lift
+//     checks it).  A later chunk of F carries each sum on from the value the
+//     chunk before stored in h0 (the same in-order sum); the last adds the
+//     bias;
+//   - h0 rows (Wp = 130 floats at the flagship) start 8 bytes apart from a
+//     16-byte boundary: two floats a store where Wp is even (PAIR);
+//   - blocks of their own, after the image's, write the pad's zeros, two
+//     floats a store under PAIR: the columns Y.. of rows below X, then the
+//     rows X.. .
 // ---------------------------------------------------------------------------
 
-constexpr int LIFT_CC = 32;  // output channels a pass
+constexpr int LIFT_FMAX = 24;  // input features a chunk, 2 pixels each in registers
+constexpr int LIFT_NT = 256;   // threads a block
 
-__global__ void lift_kernel(const float* __restrict__ win, const float* __restrict__ grid2,
-                            const float* __restrict__ mean, const float* __restrict__ stdv,
-                            const float* __restrict__ w0t, const float* __restrict__ b0,
-                            float* __restrict__ h0, float* __restrict__ finp, int B, int T,
-                            int Cc, int X, int Y, int C, int Hp, int Wp, int bf) {
-  extern __shared__ float sm[];
-  const int F = T * Cc + 2;
-  float* ws = sm;  // (C, F)
-  for (int i = threadIdx.x; i < C * F; i += blockDim.x) ws[i] = w0t[i];
-  __syncthreads();
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * Hp * Wp) return;
-  const int w = idx % Wp;
-  const int h = (idx / Wp) % Hp;
-  const int b = idx / ((size_t)Hp * Wp);
+// 2 values from 2 consecutive floats: one 8-byte load (VEC), or n guarded scalars
+template <bool VEC>
+__device__ __forceinline__ float2 lift_load(const float* src, int n) {
+  if constexpr (VEC) return *reinterpret_cast<const float2*>(src);
+  return make_float2(src[0], n > 1 ? src[1] : 0.f);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(LIFT_NT)
+lift_kernel(const float* __restrict__ win, const float* __restrict__ grid2,
+            const float* __restrict__ mean, const float* __restrict__ stdv,
+            const float* __restrict__ w0t, const float* __restrict__ b0, float* __restrict__ h0,
+            float* __restrict__ finp, int B, int T, int Cc, int X, int Y, int C, int Hp, int Wp,
+            int bf, int nmain, int pair) {
   const size_t plane = (size_t)Hp * Wp;
-  float* hout = h0 + (size_t)b * C * plane + (size_t)h * Wp + w;
-  if (h >= X || w >= Y) {
-    for (int c = 0; c < C; ++c) hout[c * plane] = 0.f;
+  if ((int)blockIdx.x >= nmain) {  // the pad's zeros, a store a thread
+    const int pw = Wp - Y, step = pair ? 2 : 1;
+    const int per = (Hp * Wp - X * Y) / step;  // stores a plane
+    const int item = (blockIdx.x - nmain) * LIFT_NT + threadIdx.x;  // 32-bit index arithmetic
+    if (item >= B * C * per) return;
+    const int idx = item % per * step;
+    const int pos = idx < X * pw ? idx / pw * Wp + Y + idx % pw : X * Wp + (idx - X * pw);
+    float* dst = h0 + (size_t)(item / per) * plane + pos;
+    if (pair)
+      *reinterpret_cast<float2*>(dst) = make_float2(0.f, 0.f);
+    else
+      *dst = 0.f;
     return;
   }
-  const size_t xy = (size_t)X * Y, pix = (size_t)h * Y + w;
-  for (int c0 = 0; c0 < C; c0 += LIFT_CC) {
-    float acc[LIFT_CC];
+  extern __shared__ float ws[];  // (C, F)
+  const int TC = T * Cc, F = TC + 2;
+  for (int i = threadIdx.x; i < C * F; i += LIFT_NT) ws[i] = w0t[i];
+  __syncthreads();
+  const int YP = (Y + 1) / 2;
+  const int q = blockIdx.x * LIFT_NT + threadIdx.x;  // 32-bit index arithmetic
+  if (q >= B * X * YP) return;
+  const int y0 = q % YP * 2, x = q / YP % X, b = q / (YP * X);
+  const int n = min(2, Y - y0);  // pixels of this thread (2 under VEC)
+  const size_t XY = (size_t)X * Y, pix = (size_t)x * Y + y0;
+  const float* wsrc = win + (size_t)b * TC * XY + pix;
+  float* fdst = finp + (size_t)b * F * XY + pix;
+  float* hout = h0 + (size_t)b * C * plane + (size_t)x * Wp + y0;
+  const bool pairs = pair && n == 2, wpairs = F % 2 == 0;
+  for (int f0 = 0; f0 < F; f0 += LIFT_FMAX) {
+    float2 v[LIFT_FMAX];
 #pragma unroll
-    for (int i = 0; i < LIFT_CC; ++i) acc[i] = 0.f;
-    for (int f = 0; f < F; ++f) {
-      float v;
-      if (f < T * Cc) {
-        const int t = f / Cc, cc = f % Cc;
-        v = (win[(((size_t)b * T + t) * Cc + cc) * xy + pix] - mean[b * Cc + cc]) /
-            stdv[b * Cc + cc];
-      } else {
-        v = grid2[(size_t)(f - T * Cc) * xy + pix];
-      }
-      if (c0 == 0) finp[((size_t)b * F + f) * xy + pix] = v;
-      const float vr = rd(v, bf);
-#pragma unroll
-      for (int i = 0; i < LIFT_CC; ++i)
-        if (c0 + i < C) acc[i] += ws[(c0 + i) * F + f] * vr;
+    for (int k = 0; k < LIFT_FMAX; ++k) {  // the chunk's loads, all before any arithmetic
+      const int f = f0 + k;
+      if (f < TC)
+        v[k] = lift_load<VEC>(wsrc + f * XY, n);
+      else if (f < F)
+        v[k] = lift_load<VEC>(grid2 + (f - TC) * XY + pix, n);
     }
 #pragma unroll
-    for (int i = 0; i < LIFT_CC; ++i)
-      if (c0 + i < C) hout[(c0 + i) * plane] = acc[i] + b0[c0 + i];
+    for (int k = 0; k < LIFT_FMAX; ++k) {
+      const int f = f0 + k;
+      if (f >= F) continue;
+      if (f < TC) {
+        const float mu = mean[b * Cc + f % Cc], sd = stdv[b * Cc + f % Cc];
+        v[k] = make_float2((v[k].x - mu) / sd, (v[k].y - mu) / sd);
+      }
+      float* dst = fdst + f * XY;
+      if constexpr (VEC) {
+        *reinterpret_cast<float2*>(dst) = v[k];
+      } else {
+        dst[0] = v[k].x;
+        if (n > 1) dst[1] = v[k].y;
+      }
+      v[k] = make_float2(rd(v[k].x, bf), rd(v[k].y, bf));
+    }
+    const bool last = f0 + LIFT_FMAX >= F;
+    for (int c = 0; c < C; ++c) {
+      float* dst = hout + c * plane;
+      float2 acc = make_float2(0.f, 0.f);
+      if (f0 > 0) acc = make_float2(dst[0], n > 1 ? dst[1] : 0.f);  // the chunks before
+      const float* w = ws + c * F + f0;
+      if (wpairs) {  // f0 and F even: the weights two at a time
+#pragma unroll
+        for (int k = 0; k < LIFT_FMAX; k += 2) {
+          if (f0 + k >= F) continue;
+          const float2 wk = *reinterpret_cast<const float2*>(w + k);
+          acc.x += wk.x * v[k].x, acc.y += wk.x * v[k].y;
+          acc.x += wk.y * v[k + 1].x, acc.y += wk.y * v[k + 1].y;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < LIFT_FMAX; ++k) {
+          if (f0 + k >= F) continue;
+          acc.x += w[k] * v[k].x, acc.y += w[k] * v[k].y;
+        }
+      }
+      if (last) acc = make_float2(acc.x + b0[c], acc.y + b0[c]);
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst) = acc;
+      } else {
+        dst[0] = acc.x;
+        if (n > 1) dst[1] = acc.y;
+      }
+    }
   }
 }
 
@@ -260,11 +341,21 @@ FNO_EXPORT int fno_lift(const float* win, const float* grid2, const float* mean,
                         float* finp, int B, int T, int Cc, int X, int Y, int C, int Hp,
                         int Wp, int bf, void* stream) {
   const size_t smem = (size_t)C * (T * Cc + 2) * sizeof(float);
-  cudaError_t e = fno_set_smem(lift_kernel, smem);
+  const auto a8 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 8 == 0; };
+  const bool vec = Y % 2 == 0 && a8(win) && a8(grid2) && a8(finp);
+  // h0 pairs: Wp even keeps every row and the pad's pairs on 8 bytes; an odd
+  // pad area per plane would leave one float over
+  const int pair = Wp % 2 == 0 && Y % 2 == 0 && reinterpret_cast<uintptr_t>(h0) % 8 == 0;
+  const size_t pairs = (size_t)B * X * ((Y + 1) / 2);
+  const int nmain = (int)((pairs + LIFT_NT - 1) / LIFT_NT);
+  const size_t pads = (size_t)B * C * (((size_t)Hp * Wp - (size_t)X * Y) / (pair ? 2 : 1));
+  const unsigned grid = (unsigned)(nmain + (pads + LIFT_NT - 1) / LIFT_NT);
+  const auto kernel = vec ? lift_kernel<true> : lift_kernel<false>;
+  cudaError_t e = fno_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const size_t n = (size_t)B * Hp * Wp;
-  lift_kernel<<<(unsigned)((n + 255) / 256), 256, smem, (cudaStream_t)stream>>>(
-      win, grid2, mean, stdv, w0t, b0, h0, finp, B, T, Cc, X, Y, C, Hp, Wp, bf);
+  kernel<<<grid, LIFT_NT, smem, (cudaStream_t)stream>>>(win, grid2, mean, stdv, w0t, b0, h0,
+                                                         finp, B, T, Cc, X, Y, C, Hp, Wp, bf,
+                                                         nmain, pair);
   return (int)cudaGetLastError();
 }
 

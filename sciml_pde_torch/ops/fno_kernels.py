@@ -36,8 +36,13 @@ KERNEL_NAMES = (
 )
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
-OUTER_PB = 256  # pixels per block of outer_partial_kernel (fno_bwd.cu)
-OUTER_BT = 32   # Bm channels a pass of outer_partial_kernel (OUTER_BT, fno_bwd.cu)
+# outer_partial_kernel (fno_bwd.cu): warps a block (OP_WARPS), the most
+# persistent blocks (OP_GRID, one partial row each), Bm channels a chunk
+# (OP_BT), A's m16 tiles a warp (OP_MW), pixels a tile (OP_PIX), its
+# 16-pixel units (OP_UNITS), copy buffers (OP_STAGES), a copied row's
+# pitch in elements (OP_LD) and a row of the k slices' sums (OP_RLD)
+OUTER_WARPS, OUTER_GRID, OUTER_BT, OUTER_MW = 4, 396, 32, 4
+OUTER_PIX, OUTER_UNITS, OUTER_STAGES, OUTER_LD, OUTER_RLD = 64, 4, 3, 72, 40
 # pixels a tile and the most persistent blocks of head_bwd_kernel (HB_PIX,
 # HB_GRID, fno_bwd.cu): one partial row a block
 HEAD_BWD_PIX, HEAD_BWD_GRID = 64, 256
@@ -70,6 +75,7 @@ _SIGNATURES = {
     "fno_corner_smem": ("fno_fwd", [_I] * 5, ctypes.c_longlong),
     "fno_iwdft_smem": ("fno_fwd", [_I] * 5, ctypes.c_longlong),
     "fno_head_bwd_smem": ("fno_bwd", [_I] * 4, ctypes.c_longlong),
+    "fno_outer_smem": ("fno_bwd", [_I], ctypes.c_longlong),
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -192,6 +198,8 @@ def lift(win, grid2, mean, std, w0t, b0, hp, wp, bf):
         raise ValueError(f"lift: C = {c} at F = {f} needs {c * f * 4} bytes of shared memory "
                          f"a block, above {SMEM_MAX}; it takes C up to {SMEM_MAX // (4 * f)}")
     _need(grid2, (2, x, y), what="grid2")
+    if max(b * x * -(-y // 2), b * c * (hp * wp - x * y)) >= 2**31:  # 32-bit thread indices
+        raise ValueError(f"lift: {(b, c, hp, wp)} has 2^31 or more pixel pairs or pad values")
     h0 = torch.empty(b, c, hp, wp, device=win.device)
     finp = torch.empty(b, f, x, y, device=win.device)
     _launch("fno_lift", "fno_lift", win, grid2, mean, std, w0t, b0, h0, finp,
@@ -616,15 +624,30 @@ def outer_plain(a, bm, gelu, nh, nw, bf):
     return out, av.sum(dim=(0, 2, 3))
 
 
+def outer_rows(npix: int) -> int:
+    """Partial rows ``outer_partial_kernel`` writes for ``npix`` pixels: one
+    per persistent block, the fewest blocks up to OUTER_GRID that keep the
+    rounds of OUTER_PIX-pixel tiles the same (``outer_grid``, fno_bwd.cu)."""
+    tiles = -(-npix // OUTER_PIX)
+    if tiles < 1:
+        return 1
+    return -(-tiles // -(-tiles // OUTER_GRID))
+
+
 def outer_smem_bytes(na: int) -> int:
-    """Shared memory of one ``outer_partial_kernel`` block at most (any nB):
-    the A values of its OUTER_PB pixels and a pass of OUTER_BT Bm channels,
-    rows of OUTER_PB + 1 floats."""
-    return (na + OUTER_BT) * (OUTER_PB + 1) * 4
+    """Shared memory of one ``outer_partial_kernel`` block (``OuterLayout``,
+    fno_bwd.cu) at any nB and on either path: OUTER_STAGES copied tiles (nA
+    + OUTER_BT rows of OUTER_LD floats), then the k slices' sums of the
+    products and of A's rows.  A mirror of the library's ``fno_outer_smem``
+    (chip_smoke.py phase 3 holds it to that)."""
+    mt = -(-na // 16)
+    ks = max(1, min(OUTER_UNITS, OUTER_WARPS // -(-mt // OUTER_MW)))
+    red = OUTER_STAGES * _up((na + OUTER_BT) * OUTER_LD * 4, 16)
+    return red + _up(ks * 16 * mt * OUTER_RLD * 4, 16) + ks * 16 * mt * 4
 
 
 def _check_outer_smem(na: int) -> None:
-    """Raise, naming the widest nA (194), when one block's shared memory
+    """Raise, naming the widest nA (197), when one block's shared memory
     would pass SMEM_MAX; Bm's channels are unbounded."""
     if outer_smem_bytes(na) <= SMEM_MAX:
         return
@@ -643,8 +666,7 @@ def outer(a, bm, gelu, nh, nw, bf):
     if a.dtype != torch.float32 or bm.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("outer: a must be f32, bm f32 or bf16")
     _check_outer_smem(na)
-    nblk = -(-bn * nh * nw // OUTER_PB)
-    part = torch.empty(nblk, na * nb + na, device=a.device)
+    part = torch.empty(outer_rows(bn * nh * nw), na * nb + na, device=a.device)
     _launch("fno_outer_partial", "fno_outer_partial", a, bm, int(bm.dtype == torch.bfloat16),
             int(gelu), part, bn, na, nb, nh, nw, lha, lwa, lhb, lwb, int(bf))
     g = reduce_rows(part)

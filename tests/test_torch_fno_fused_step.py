@@ -345,8 +345,8 @@ def _reduce_rows_in_order(part):
 def test_reduce_rows_grouped_order_meets_the_card_bound(what):
     """A rehearsal of ``reduce_rows_kernel``'s arithmetic at the three shapes
     the fused step gives it (chip_smoke.rr_shapes): the rows cut into the
-    kernel's fixed groups of ceil(rows / groups) (265 rows leave a ragged
-    last group and empty ones after it), each summed in order in f32, the
+    kernel's fixed groups of ceil(rows / groups) (a layer's 353 rows leave a
+    ragged last group and empty ones after it), each summed in order in f32, the
     group sums added in warp order, then the blocks' sums in cluster-rank
     order.  It lies within chip_smoke.py's TOL_KERNEL of the plain version
     and within 1e-6 of the f64 sum."""
@@ -357,7 +357,7 @@ def test_reduce_rows_grouped_order_meets_the_card_bound(what):
     warps, cluster = _csrc_constants("fno_bwd.cu", ("RR_WARPS", "RR_CLUSTER"))
     groups = warps * cluster
     per = -(-rows // groups)
-    if rows == 265:
+    if what == "a layer's outer":
         assert 0 < rows % per and rows // per < groups - 1  # a ragged group, empty ones after
     part = np.random.default_rng(rows).normal(size=(rows, cols)).astype(np.float32)
     out = _reduce_rows_in_order(part)
@@ -477,16 +477,47 @@ def test_iwdft_smem_check_names_the_widest_c(tc, widest):
 
 
 def test_outer_smem_check_names_the_widest_na():
-    """``outer``'s check: ``outer_partial_kernel`` keeps nA rows of OUTER_PB + 1
-    floats and takes Bm's channels in passes of OUTER_BT, so it takes nA up
-    to 194 (every width the head kernels take) and any nB, and raises at nA
-    = 195, naming the limit."""
-    assert _csrc_constants("fno_bwd.cu", ("OUTER_BT",)) == [tk.OUTER_BT]
-    for na in (1, HEAD_WIDEST[True], 194):
+    """``outer``'s check on the mirror of ``OuterLayout``: OP_STAGES copied
+    tiles of nA + OP_BT rows (Bm's channels come in chunks of OP_BT) and the
+    k slices' sums, so shared memory grows with nA only, on either path: it
+    takes nA up to 197, above the 194 that fault C8's repair opened and every
+    width the head kernels take, at any nB, and raises at nA = 198, naming
+    the limit."""
+    assert _csrc_constants("fno_bwd.cu", ("OP_BT", "OP_MW", "OP_WARPS", "OP_LD", "OP_RLD")) == [
+        tk.OUTER_BT, tk.OUTER_MW, tk.OUTER_WARPS, tk.OUTER_LD, tk.OUTER_RLD]
+    for na in (1, HEAD_WIDEST[True], 194, 197):
         tk._check_outer_smem(na)
-    assert tk.outer_smem_bytes(194) <= tk.SMEM_MAX < tk.outer_smem_bytes(195)
-    with pytest.raises(ValueError, match="it takes nA up to 194$"):
-        tk._check_outer_smem(195)
+    assert tk.outer_smem_bytes(197) <= tk.SMEM_MAX < tk.outer_smem_bytes(198)
+    # its warps' rows of m16 tiles (OP_MW each) cover the widest nA
+    assert -(-197 // 16) <= tk.OUTER_MW * tk.OUTER_WARPS
+    with pytest.raises(ValueError, match="it takes nA up to 197$"):
+        tk._check_outer_smem(198)
+
+
+def test_outer_rows_follow_the_kernel():
+    """``outer`` allocates one partial row per persistent block of
+    ``outer_partial_kernel``: at most OP_GRID blocks, the fewest that keep
+    the rounds of OP_PIX-pixel tiles the same; and chip_smoke.py's
+    reduce_rows shapes of a layer's and the lift's outer products are those
+    row counts at the flagship (353 and 342, from 265 and 256 before)."""
+    grid, pix, units, stages = _csrc_constants("fno_bwd.cu", ("OP_GRID", "OP_PIX", "OP_UNITS",
+                                                              "OP_STAGES"))
+    assert (grid, pix, units, stages) == (tk.OUTER_GRID, tk.OUTER_PIX, tk.OUTER_UNITS,
+                                          tk.OUTER_STAGES)
+    cs = chip_smoke()
+    layer, lift = cs.B * (cs.XY + cs.PAD) ** 2, cs.B * cs.XY * cs.XY
+    shapes = cs.rr_shapes()
+    assert shapes["a layer's outer"] == (tk.outer_rows(layer), cs.WIDTH * cs.WIDTH + cs.WIDTH)
+    assert shapes["the lift's outer"][0] == tk.outer_rows(lift)
+    assert (tk.outer_rows(layer), tk.outer_rows(lift)) == (353, 342)
+    for npix in (0, 1, pix, pix + 1, grid * pix, grid * pix + 1, layer, 10**7):
+        tiles, rows = -(-npix // pix), tk.outer_rows(npix)
+        if tiles == 0:
+            assert rows == 1  # one row of zeros
+            continue
+        # no block without a tile, and the rounds that OP_GRID blocks take
+        assert 1 <= rows <= min(grid, tiles)
+        assert -(-tiles // rows) == -(-tiles // grid)
 
 
 def _bf(a):
@@ -779,3 +810,146 @@ def test_head_bwd_tile_order_meets_the_card_bounds():
         scale = np.abs(w).max()
         assert np.abs(g - w).max() / scale <= cs.TOL_KERNEL, (name, np.abs(g - w).max() / scale)
         assert np.abs(g - e).max() / scale <= 1e-6, (name, np.abs(g - e).max() / scale)
+
+
+def _xor_tree(v, axis):
+    """The sum over ``axis`` (32 lanes) by a warp's xor shuffle tree, offsets
+    16, 8, 4, 2, 1: lane 0's value (f32 addition commutes)."""
+    v = np.moveaxis(v, axis, 0)
+    while v.shape[0] > 1:
+        v = v[: v.shape[0] // 2] + v[v.shape[0] // 2:]
+    return v[0]
+
+
+def _outer_in_order(a, bm, gelu, nh, nw):
+    """``outer_partial_kernel``'s arithmetic under `default`, in numpy: the
+    region's pixels in the order (b, y, x) cut into tiles of OP_PIX, tile
+    k + r * grid to block k in round r; warp slice q of a block takes the
+    tile's 16-pixel units q, q + ks, ... (k16 steps of A and g(Bm) rounded
+    to bf16: each step's 16 exact products summed, rounded to f32 and added
+    to the slice's f32 accumulator), tile after tile, and its lanes' sums of
+    unrounded A (lane t of a row adds the pairs at pixels 2t, 2t + 1, then
+    2t + 8, 2t + 9 of each unit); the lanes added as (t0 + t1) + (t2 + t3),
+    the slices in order; the blocks' partial rows through
+    ``reduce_rows_kernel``'s fixed groups.  Returns (out (nA, nB), asum
+    (nA,)) and the exact f64 sums of the same rounded products and of A."""
+    grid, pix, mw, warps, units = _csrc_constants("fno_bwd.cu", ("OP_GRID", "OP_PIX", "OP_MW",
+                                                                 "OP_WARPS", "OP_UNITS"))
+    na, nb = a.shape[1], bm.shape[1]
+    av = a[:, :, :nh, :nw].transpose(1, 0, 2, 3).reshape(na, -1)
+    bv = bm[:, :, :nh, :nw].astype(np.float32)
+    if gelu:
+        bv = tk._gelu(torch.from_numpy(bv)).numpy()
+    bv = _bf(bv.transpose(1, 0, 2, 3).reshape(nb, -1))
+    npix = av.shape[1]
+    tiles = -(-npix // pix)
+    rounds = -(-tiles // grid)
+    nblk = -(-tiles // rounds)
+    assert nblk == tk.outer_rows(npix) and pix == 16 * units
+    span = rounds * nblk * pix  # whole rounds: the blocks without a last tile add zeros
+
+    def tiled(v):  # (rows, rounds, blocks, units, 16)
+        out = np.zeros((v.shape[0], span), np.float32)
+        out[:, :npix] = v
+        return out.reshape(v.shape[0], rounds, nblk, units, 16)
+
+    at, bt = tiled(av), tiled(bv)
+    mt = -(-na // 16)  # A's m16 tiles
+    mrows = -(-mt // mw)  # warp rows of OP_MW m16 tiles
+    ks = max(1, min(units, warps // mrows))
+    prods = (_bf(at).transpose(1, 2, 3, 0, 4).astype(np.float64)
+             @ bt.transpose(1, 2, 3, 4, 0)).astype(np.float32)  # (rounds, blocks, units, nA, nB)
+    lane = at.reshape(na, rounds, nblk, units, 2, 4, 2)  # pixel 8h + 2t + c of a unit
+    pairs = lane[..., 0] + lane[..., 1]  # (nA, rounds, blocks, units, h, t)
+    acc = np.zeros((ks, nblk, na, nb), np.float32)
+    sums = np.zeros((ks, 4, na, nblk), np.float32)
+    for r in range(rounds):
+        for u in range(units):
+            acc[u % ks] = acc[u % ks] + prods[r, :, u]
+            for h in range(2):
+                sums[u % ks] = sums[u % ks] + pairs[:, r, :, u, h].transpose(2, 0, 1)
+    out, asum = acc[0], (sums[0, 0] + sums[0, 1]) + (sums[0, 2] + sums[0, 3])
+    for q in range(1, ks):
+        out = out + acc[q]
+        asum = asum + ((sums[q, 0] + sums[q, 1]) + (sums[q, 2] + sums[q, 3]))
+    part = np.concatenate([out.reshape(nblk, na * nb), asum.T], 1)
+    got = _reduce_rows_in_order(part)
+    exact = (_bf(av).astype(np.float64) @ bv.T.astype(np.float64), av.astype(np.float64).sum(1))
+    return (got[: na * nb].reshape(na, nb), got[na * nb:]), exact
+
+
+@pytest.mark.parametrize("shape", ["a layer's weight gradient", "the lift's weight gradient"])
+def test_outer_mma_order_meets_the_card_bounds(shape):
+    """A rehearsal of ``outer_partial_kernel``'s tensor-core order under
+    `default` (``_outer_in_order``) at the two shapes of the flagship's
+    fused step: a layer's call (A = dpre and Bm = the bf16 pre through
+    gelu, both (4, 20, 130, 130), over the whole padded field: 353 blocks of
+    two or three tiles, the last tile 16 pixels) and the lift's (A = dh (4,
+    20, 130, 130) over its 128 x 128 image, Bm = the f32 lift input (4, 22,
+    128, 128): 342 blocks of two or three tiles).  Both outputs lie within chip_smoke.py's
+    TOL_KERNEL of the plain version and of JAX's _dot (f32 sums of bf16
+    products) and sum_cols summed over the batch in order, the products
+    below half the plain bf16-vs-f32 gap, the bound phase 3 holds the kernel
+    to; and within 1e-6 (of the largest magnitude) of the f64 sums of the
+    same rounded products and of the unrounded A."""
+    from _torch_parity import precision
+
+    cs = chip_smoke()
+    rng = np.random.default_rng(31)
+    hp = cs.XY + cs.PAD
+    a = rng.normal(size=(cs.B, cs.WIDTH, hp, hp)).astype(np.float32)
+    if shape == "a layer's weight gradient":
+        bm = torch.from_numpy(rng.normal(size=a.shape).astype(np.float32)).bfloat16()
+        gelu, nh, nw = True, hp, hp
+    else:
+        bm = torch.from_numpy(rng.normal(size=(cs.B, cs.T0 * cs.CC + 2, cs.XY, cs.XY))
+                              .astype(np.float32))
+        gelu, nh, nw = False, cs.XY, cs.XY
+    bnp = bm.float().numpy()
+    got, exact = _outer_in_order(a, bnp, gelu, nh, nw)
+    ta = torch.from_numpy(a)
+    want = [t.numpy() for t in tk.outer_plain(ta, bm, gelu, nh, nw, True)]
+    gap = np.abs(tk.outer_plain(ta, bm, gelu, nh, nw, False)[0].numpy() - want[0]).max()
+
+    bv = tk._gelu(bm.float()).numpy() if gelu else bnp
+    with precision("default"):
+        jdot = np.zeros(want[0].shape, np.float32)
+        jsum = np.zeros(want[1].shape, np.float32)
+        for b in range(cs.B):
+            ab = a[b, :, :nh, :nw].reshape(a.shape[1], -1)
+            jdot = jdot + np.asarray(jf._dot(ab, bv[b, :, :nh, :nw].reshape(bv.shape[1], -1).T))
+            jsum = jsum + np.asarray(jf._sum_cols(ab))[:, 0]
+    for g, w, j, e in zip(got, want, (jdot, jsum), exact):
+        scale = np.abs(w).max()
+        assert np.abs(g - w).max() / scale <= cs.TOL_KERNEL
+        assert np.abs(g - j).max() / scale <= cs.TOL_KERNEL
+        assert np.abs(g - e).max() / scale <= 1e-6
+    assert np.abs(got[0] - want[0]).max() < gap / 2
+
+
+@pytest.mark.parametrize("field", [(130, 130, 128, 128), (20, 44, 16, 40), (17, 13, 15, 11),
+                                   (9, 8, 9, 8)])
+def test_lift_pad_stores_cover_the_pad_once(field):
+    """A rehearsal of ``lift_kernel``'s index arithmetic on a padded (Hp, Wp)
+    plane of an (X, Y) image: the image threads' pairs of pixels along a
+    row (the last a single pixel where Y is odd), and the pad
+    threads' stores (two floats where Wp and Y are even, PAIR; the columns
+    Y.. of rows below X, then the rows X..), each store 8-byte aligned under
+    PAIR: together they write every element of the plane exactly once."""
+    hp, wp, x, y = field
+    pair = wp % 2 == 0 and y % 2 == 0
+    hits = np.zeros(hp * wp, np.int64)
+    yp = -(-y // 2)
+    for q in range(x * yp):
+        row, y0 = q // yp, q % yp * 2
+        for u in range(min(2, y - y0)):
+            hits[row * wp + y0 + u] += 1
+    step, pw = (2 if pair else 1), wp - y
+    per = (hp * wp - x * y) // step
+    assert per * step == hp * wp - x * y
+    for item in range(per):
+        idx = item * step
+        pos = idx // pw * wp + y + idx % pw if idx < x * pw else x * wp + (idx - x * pw)
+        assert not pair or pos % 2 == 0
+        hits[pos:pos + step] += 1
+    assert (hits == 1).all()
