@@ -9,7 +9,8 @@ their entry points: the fused FNO-2D diffusion-reaction baseline step (batch
 4, 128x128, 2 channels, initial_step 10, width 20, modes 12), the NS-2D
 VideoMAE transformer baseline at full width (img 256, patch 16, tubelet 2,
 3 channels, 10 frames -> 1280 tokens; encoder 768 x 12 with 12 heads,
-decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16),
+decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16,
+and in f32 under bf16=False),
 the production FNO-2D step at the DR flagship width (the plain model
 through the dft2 spectral conv, adaptive clip, torch-style Adam) with the
 fused dft2 layer op and the native-kernel probe, and the ported perf probe
@@ -22,7 +23,8 @@ FNO steps and the five split kernels):
   2. build    nvcc for sm_90a, all sources in parallel; registers and
               spills of every attention and FNO kernel and the FNO kernels'
               stack frames (ptxas -v), none spilling at head dim 64 on the
-              tensor cores, none in wdft_kernel and reduce_rows_kernel, and
+              tensor cores (the bf16 bodies and the split-TF32 f32 dQ and
+              dK/dV), none in wdft_kernel and reduce_rows_kernel, and
               neither spills nor a stack frame in both instances of
               lift_kernel, both paths of head_fwd_kernel and
               head_bwd_kernel, and every instance of corner_kernel,
@@ -33,7 +35,9 @@ FNO steps and the five split kernels):
               `highest` (f32) and `default` (bf16 dot inputs); then every
               kernel against its own plain version on the inputs the main
               path gives it, with its profiler device time beside its
-              library call's, each device time read at or above its bound
+              library call's (fno_mix_wgrad's: one complex64 einsum, checked
+              against the plain version), each device time read at or above
+              its bound
               or "not measured"; fno_stats at three more shapes (X*Y not a
               multiple of 4, a pair larger than one cluster's shared
               memory, the flagship + 1e3 with a one-pass control);
@@ -84,8 +88,10 @@ FNO steps and the five split kernels):
   6. attention the three flash-attention kernels against their plain
               versions (and the same bits from a second launch) at the
               encoder (24, 1280, 64) and decoder
-              (16, 1280, 64) shapes and at head dims 96, 24, 160, 192,
-              256, 264, 320 and 512, in f32 and bf16 (above 256 with each
+              (16, 1280, 64) shapes, at head dims 96, 24, 160, 192,
+              256, 264, 320 and 512 and at 200 tokens (ragged tiles) at
+              head dim 64, in f32 and bf16, at the encoder shape with q
+              and k times 3 (scores up to about 54) in f32 (above 256 with each
               kernel's time beside the SDPA forward or backward on the
               same inputs), and at batch*heads 70000 (70000, 16, 16) in
               bf16, with a control against a kernel that rounds p and ds
@@ -103,7 +109,13 @@ FNO steps and the five split kernels):
               device-busy share and top device ops (torch.profiler), and
               per-launch attention kernel times (CUDA events and profiler
               device time) beside their bounds and the SDPA forward and
-              backward, in bf16 and (the CUDA-core bodies) in f32
+              backward, in bf16 and in f32 (the CUDA-core forward, the
+              split-TF32 dQ and dK/dV, with their bounds on the CUDA cores)
+  9b. f32     the NS baseline through the trainer with bf16=False (2
+              optimizer steps, batch 2 x accumulation 4, on 16 windows of
+              the seeded store): finite losses, 20 launches of each f32
+              attention kernel per micro-step; then the f32 micro-step in
+              CUDA events and torch.profiler (device-busy share, top ops)
  10. layer    the fused dft2 layer (kernel) at (4, 130, 130, 20), modes 12,
               through its autograd op: against its plain f32 version within
               1e-5 of the largest magnitude, with the plain version on
@@ -170,6 +182,9 @@ N_TRAJ, N_T = 10, 101
 # run measures and checks, so a kernel that ignores its precision fails.
 TOL = {"highest": 1e-4, "default": 2e-3}
 TOL_KERNEL = 1e-3  # one kernel against its plain version, main-path inputs
+# fno_mix_wgrad's library call (one complex64 einsum, no TF32) against the
+# plain version: f32 sums of B = 4 products in another order
+TOL_LIBRARY = 1e-5
 # fno_wdft under `highest` (exact f32 products, no TF32) against its plain
 # version: readings were at most 1.2e-7 (gelu'), TF32 inputs ~1e-4
 TOL_WDFT_F32 = 1e-5
@@ -192,6 +207,7 @@ TOL_AUTOGRAD = {"highest": 1e-4, "default": 2e-2}
 # input type (f32 outside the tensor cores; bf16 dense)
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"highest": 67e12, "default": 989e12}
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores (the f32 attention dQ, dK/dV)
 # NS-2D VideoMAE recipe (reference config_transformer_aux_ns.yaml, the JAX
 # package's experiments/ns_transformer.py and run_transformer_training)
 NS_MODEL = dict(img_size=256, patch_size=16, tubelet_size=2, in_chans=3, num_frames=10,
@@ -206,8 +222,9 @@ ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 12
 # to 32), head dims above 128 (32-row f32 dQ and dK/dV tiles; two bf16
 # blocks per row tile, each for half of the output columns), head dims above
 # 256 (the wide bodies: 64-column score chunks, ceil(d / 128) column groups;
-# 200 tokens leave ragged row and key tiles), in both dtypes, and
-# batch*heads above the 65535 of a grid's y axis
+# 200 tokens leave ragged row and key tiles), 200 tokens at head dim 64 (the
+# tensor-core bodies' ragged tiles), in both dtypes, and batch*heads above
+# the 65535 of a grid's y axis
 ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "head dim 24": ((16, 1280, 24), ("float32", "bfloat16")),
              "head dim 160": ((8, 1280, 160), ("float32", "bfloat16")),
@@ -216,13 +233,19 @@ ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "head dim 264": ((4, 1280, 264), ("float32", "bfloat16")),
              "head dim 320": ((4, 200, 320), ("float32", "bfloat16")),
              "head dim 512": ((4, 1280, 512), ("float32", "bfloat16")),
+             "ragged tiles": ((8, 200, 64), ("float32", "bfloat16")),
+             # q and k times 3: scores up to about 54 (the f32 dQ and dK/dV
+             # sum each score a k8 step at a time, so that their size does
+             # not scale the bias of the MMAs' rounding into p)
+             "large logits": ((24, 1280, 64), ("float32",), 3.0),
              "batch*heads 70000": ((70_000, 16, 16), ("bfloat16",))}
-# profiler keys of the attention kernels (their demangled names): the bf16
-# tensor-core bodies and the f32 CUDA-core bodies
+# profiler keys of the attention kernels (their demangled names) at the NS
+# head dim: the bf16 tensor-core bodies, and in f32 the CUDA-core forward and
+# the split-TF32 tensor-core dQ and dK/dV
 ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "dq_tc_kernel<",
                             "attention_dkv": "dkv_tc_kernel<"},
-                   "f32": {"attention_fwd": "fwd_kernel<", "attention_dq": "dq_kernel<",
-                           "attention_dkv": "dkv_kernel<"}}
+                   "f32": {"attention_fwd": "fwd_kernel<", "attention_dq": "dq_tf32_kernel<",
+                           "attention_dkv": "dkv_tf32_kernel<"}}
 # attention kernels vs plain versions: f32 outputs within 1e-5 of the
 # largest magnitude (f32 sums in another order); bf16 outputs within one
 # bf16 rounding step of the value (2^-7 of its magnitude: the two round
@@ -1481,20 +1504,35 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     two bf16 terms: the forward q.k^T and p.v (three products), dQ q.k^T,
     do.v^T and ds.k (four), dK/dV k.q^T, v.do^T, ds^T.q and p^T.do (six);
     at the encoder shape (24, 1280, 64) 0.01527, 0.02036 and 0.03054 ms.
-    The f32 kernels take every product at the CUDA cores' 67 TFLOP/s: two,
-    three and four products.  Before their tensor-core designs the bf16
-    kernels' bounds counted the products that take p or ds at the f32 rate:
-    0.08021 (forward), 0.08530 (dQ) and 0.16042 ms (dK/dV) at the encoder
-    shape."""
+    The f32 forward takes its two products at the CUDA cores' 67 TFLOP/s
+    (0.15024 ms).  The f32 dQ and dK/dV up to head dim 128 take each product
+    as three TF32 passes at the TF32 tensor-core rate (495 TFLOP/s): 9 and
+    12 passes, 0.09150 and 0.12200 ms at the encoder shape; before that
+    design they took three and four products at the f32 rate, 0.22537 and
+    0.30049 ms (``att_work_f32_cores``).  Before their tensor-core designs
+    the bf16 kernels' bounds counted the products that take p or ds at the
+    f32 rate: 0.08021 (forward), 0.08530 (dQ) and 0.16042 ms (dK/dV) at the
+    encoder shape."""
     es = 2 if bf else 4
     panel, row = bh * n * d * es, bh * n * 4
     prod = 2 * bh * n * n * d
-    rate = PEAK_FLOPS["default" if bf else "highest"]
     nbytes = {"attention_fwd": 3 * panel + panel + row,
               "attention_dq": 4 * panel + 2 * row + panel,
               "attention_dkv": 4 * panel + 2 * row + 2 * panel}[name]
-    products = {"attention_fwd": (3, 2), "attention_dq": (4, 3), "attention_dkv": (6, 4)}[name]
-    return nbytes, products[0 if bf else 1] * prod / rate
+    if bf:
+        products = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name]
+        return nbytes, products * prod / PEAK_FLOPS["default"]
+    if name == "attention_fwd" or d > 128:
+        return nbytes, att_work_f32_cores(name, bh, n, d)
+    passes = {"attention_dq": 9, "attention_dkv": 12}[name]
+    return nbytes, passes * prod / TF32_FLOPS
+
+
+def att_work_f32_cores(name: str, bh: int, n: int, d: int) -> float:
+    """Seconds of an f32 attention kernel's products on the CUDA cores (67
+    TFLOP/s): the forward's two, dQ's three and dK/dV's four."""
+    products = {"attention_fwd": 2, "attention_dq": 3, "attention_dkv": 4}[name]
+    return products * 2 * bh * n * n * d / PEAK_FLOPS["highest"]
 
 
 def att_bf16p(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.0):
@@ -1533,19 +1571,22 @@ def check_attention(ta, dev, card: str) -> dict:
     """Phase 6: each kernel against its plain version (and a second launch
     of itself, which must give the same bits) at the encoder and decoder
     shapes and at the head dims of ATT_EXTRA in f32 and bf16 (above 256
-    with its profiler device time), and at batch*heads 70000 in bf16.
+    with its profiler device time), at batch*heads 70000 in bf16, and with
+    q and k times 3 (scores up to about 54) in f32.
     Returns the bf16 encoder-shape inputs of each kernel (the main path's
     most frequent launch) for timing."""
     import torch
 
     g = torch.Generator().manual_seed(3)
     main_inputs = {}
-    cases = [(where, shape, ("float32", "bfloat16")) for where, shape in ATT_SHAPES.items()]
-    cases += [(where, shape, dts) for where, (shape, dts) in ATT_EXTRA.items()]
-    for where, (bh, n, d), dts in cases:
+    cases = [(where, shape, ("float32", "bfloat16"), 1.0) for where, shape in ATT_SHAPES.items()]
+    cases += [(where, spec[0], spec[1], spec[2] if len(spec) > 2 else 1.0)
+              for where, spec in ATT_EXTRA.items()]
+    for where, (bh, n, d), dts, amp in cases:
         for dt in (getattr(torch, name) for name in dts):
             bf = dt == torch.bfloat16
             q, k, v, do = (torch.randn(bh, n, d, generator=g).to(dev, dt) for _ in range(4))
+            q, k = q * amp, k * amp
             scale = d**-0.5
             o_p, l_p = ta.attention_fwd_plain(q, k, v, scale)
             delta = torch.sum(do.float() * o_p.float(), dim=-1, keepdim=True)
@@ -1658,6 +1699,78 @@ def check_model(dev, x, y) -> None:
           f"version's {worst(gap)}")
 
 
+def train_ns(ds, run_dir: Path, dev, bf16: bool, epochs: int, model_name: str):
+    """The NS baseline through the trainer at the full recipe (NS_MODEL,
+    batch NS_BATCH x accumulation NS_ACCUM); returns its result, its seconds
+    and the attention kernels' launches in it."""
+    import torch
+    from sciml_pde_torch.ops import attention as ta
+    from sciml_pde_torch.train.transformer_train import train_transformer_baseline
+
+    ta.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_transformer_baseline(
+        ds, img_size=NS_MODEL["img_size"], patch_size=NS_MODEL["patch_size"],
+        tubelet_size=NS_MODEL["tubelet_size"], in_chans=NS_MODEL["in_chans"],
+        encoder_embed_dim=NS_MODEL["encoder_dim"], encoder_depth=NS_MODEL["encoder_depth"],
+        encoder_num_heads=NS_MODEL["encoder_heads"], decoder_embed_dim=NS_MODEL["decoder_dim"],
+        decoder_depth=NS_MODEL["decoder_depth"], decoder_num_heads=NS_MODEL["decoder_heads"],
+        drop_path_rate=0.1, bf16=bf16, initial_step=NS_MODEL["num_frames"],
+        batch_size=NS_BATCH, grad_accum=NS_ACCUM, epochs=epochs, learning_rate_share=NS_LR,
+        learning_rate_heads=NS_LR, seed=0, run_dir=str(run_dir), model_name=model_name,
+        log_every=0, device=dev)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(ta.LAUNCHES)
+
+
+def check_ns_launches(what: str, launches: dict, micro: int, val_batches: int) -> None:
+    """NS_LAYERS launches of each attention kernel a micro-step, and of the
+    forward a val batch too."""
+    want = {"attention_fwd": NS_LAYERS * (micro + val_batches),
+            "attention_dq": NS_LAYERS * micro, "attention_dkv": NS_LAYERS * micro}
+    for name, n in want.items():
+        check(launches[name] == n > 0,
+              f"{what} launched {name} {launches[name]}x ({NS_LAYERS} per micro-step"
+              f"{' and per val batch' if name == 'attention_fwd' else ''}: {n} expected)")
+
+
+def time_ns_micro_step(dev, card: str, ds, batches, dtype, ours) -> float:
+    """ms per micro-step (CUDA events over ``batches``, after NS_ACCUM warm
+    ones) of a fresh full-width NS model in ``dtype`` through the trainer's
+    step; then one optimizer step under ``device_profile`` (``ours``: the
+    profiler keys of the port's kernels)."""
+    import torch
+    from sciml_pde_torch.models.transformer import VideoMAEOperator
+    from sciml_pde_torch.train.transformer_train import (
+        build_transformer_baseline_step,
+        make_transformer_optimizer,
+    )
+
+    model = VideoMAEOperator(**NS_MODEL, drop_path_rate=0.1, dtype=dtype,
+                             generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_transformer_optimizer(dict(model.named_parameters()), NS_LR, NS_LR, 1000,
+                                     grad_accum=NS_ACCUM)
+    step, _ = build_transformer_baseline_step(model, opt, NS_MODEL["num_frames"])
+    for b in batches[:NS_ACCUM]:
+        step(ds.train.data, b)
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for b in batches:
+        loss, _ = step(ds.train.data, b)
+    e.record()
+    e.synchronize()
+    micro_ms = s.elapsed_time(e) / len(batches)
+    label = str(dtype)[6:]
+    check(bool(torch.isfinite(loss)), f"[timing] NS {label} loss finite")
+    print(f"[timing] {card}: NS VideoMAE micro-step {micro_ms:.4f} ms, optimizer step "
+          f"{micro_ms * NS_ACCUM:.4f} ms ({NS_ACCUM} micro-steps, batch {NS_BATCH}, "
+          f"1280 tokens, {label})", flush=True)
+    device_profile(card, lambda: [step(ds.train.data, b) for b in batches[:NS_ACCUM]],
+                   NS_ACCUM, "micro-step", micro_ms, ours)
+    return micro_ms
+
+
 def transformer_path(dev, card: str, run_dir: Path) -> dict:
     """Phases 6-9 (the NS VideoMAE path); returns the attention kernels'
     rows of the kernel table."""
@@ -1665,13 +1778,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
 
     from sciml_pde_torch.data.ns import NSBaselineDataset
     from sciml_pde_torch.data.windows import WindowedTrajectories
-    from sciml_pde_torch.models.transformer import VideoMAEOperator
     from sciml_pde_torch.ops import attention as ta
-    from sciml_pde_torch.train.transformer_train import (
-        build_transformer_baseline_step,
-        make_transformer_optimizer,
-        train_transformer_baseline,
-    )
 
     rows = {}
     # ---- 6. attention kernels vs plain versions -------------------------------
@@ -1693,21 +1800,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     )
     micro = len(ns_ds.train.window_index()) // NS_BATCH * NS_EPOCHS
     val_batches = -(-NS_TEST // NS_BATCH) * NS_EPOCHS
-    ta.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = train_transformer_baseline(
-        ns_ds, img_size=NS_MODEL["img_size"], patch_size=NS_MODEL["patch_size"],
-        tubelet_size=NS_MODEL["tubelet_size"], in_chans=NS_MODEL["in_chans"],
-        encoder_embed_dim=NS_MODEL["encoder_dim"], encoder_depth=NS_MODEL["encoder_depth"],
-        encoder_num_heads=NS_MODEL["encoder_heads"], decoder_embed_dim=NS_MODEL["decoder_dim"],
-        decoder_depth=NS_MODEL["decoder_depth"], decoder_num_heads=NS_MODEL["decoder_heads"],
-        drop_path_rate=0.1, bf16=True, initial_step=t_in, batch_size=NS_BATCH,
-        grad_accum=NS_ACCUM, epochs=NS_EPOCHS, learning_rate_share=NS_LR,
-        learning_rate_heads=NS_LR, seed=0, run_dir=str(run_dir),
-        model_name="NS_smoke_VMAE", log_every=0, device=dev)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    att_launches = dict(ta.LAUNCHES)
+    res, train_s, att_launches = train_ns(ns_ds, run_dir, dev, True, NS_EPOCHS, "NS_smoke_VMAE")
     hist = res.history
     print(f"[train] NS VideoMAE, {micro} micro-steps = {micro // NS_ACCUM} optimizer steps "
           f"(batch {NS_BATCH} x accumulation {NS_ACCUM}, lr {NS_LR} cosine, bf16) + "
@@ -1723,42 +1816,13 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
           "below the first)")
     check((run_dir / "NS_smoke_VMAE_ckpt.pt").exists(), "[train] NS best-val checkpoint written")
     print(f"[train] launches: {json.dumps(att_launches)}", flush=True)
-    want = {"attention_fwd": NS_LAYERS * (micro + val_batches),
-            "attention_dq": NS_LAYERS * micro, "attention_dkv": NS_LAYERS * micro}
-    for name in ta.KERNEL_NAMES:
-        check(att_launches[name] == want[name] > 0,
-              f"[train] main path launched {name} {att_launches[name]}x ({NS_LAYERS} per "
-              f"micro-step{' and per val batch' if name == 'attention_fwd' else ''}: "
-              f"{want[name]} expected)")
+    check_ns_launches("[train] main path", att_launches, micro, val_batches)
 
     # ---- 9. timing of the transformer path ------------------------------------
-    model = VideoMAEOperator(**NS_MODEL, drop_path_rate=0.1, dtype=torch.bfloat16,
-                             generator=torch.Generator().manual_seed(0)).to(dev)
-    params = dict(model.named_parameters())
-    opt = make_transformer_optimizer(params, NS_LR, NS_LR, 1000, grad_accum=NS_ACCUM)
-    step, _ = build_transformer_baseline_step(model, opt, t_in)
     idx_all = torch.as_tensor(ns_ds.train.window_index(), dtype=torch.long, device=dev)
     batches = [idx_all[i * NS_BATCH:(i + 1) * NS_BATCH] for i in range(2 * NS_ACCUM)]
-    for b in batches[:NS_ACCUM]:
-        step(ns_ds.train.data, b)
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for b in batches:
-        loss, _ = step(ns_ds.train.data, b)
-    e.record()
-    e.synchronize()
-    micro_ms = s.elapsed_time(e) / len(batches)
-    check(bool(torch.isfinite(loss)), "[timing] NS loss finite")
-    print(f"[timing] {card}: NS VideoMAE micro-step {micro_ms:.4f} ms, optimizer step "
-          f"{micro_ms * NS_ACCUM:.4f} ms ({NS_ACCUM} micro-steps, batch {NS_BATCH}, "
-          f"1280 tokens, bf16)", flush=True)
-    def one_optimizer_step():
-        for b in batches[:NS_ACCUM]:
-            step(ns_ds.train.data, b)
-    device_profile(card, one_optimizer_step, NS_ACCUM, "micro-step", micro_ms,
-                   tuple(key for keys in ATT_KERNEL_KEYS.values() for key in keys.values()))
-    del model, opt, step, params
+    time_ns_micro_step(dev, card, ns_ds, batches, torch.bfloat16,
+                       tuple(key for keys in ATT_KERNEL_KEYS.values() for key in keys.values()))
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     (q, k, v), scale = att_inputs["attention_fwd"]
@@ -1816,9 +1880,9 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
               f"attention_dkv "
               f"{cuda_ms(lambda: ta.attention_dkv(qd, kd, vd, dod, ld, deltad, scale)):.4f} ms",
               flush=True)
-    # the f32 kernels keep the CUDA-core bodies: their times at the encoder
-    # shape beside their plain versions and the f32 SDPA forward and backward
-    # on the same inputs
+    # the f32 kernels (the CUDA-core forward, the split-TF32 dQ and dK/dV):
+    # their times at the encoder shape beside their plain versions and the
+    # f32 SDPA forward and backward on the same inputs
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     q4f, k4f, v4f = (as4(t).detach().requires_grad_(True) for t in (qf, kf, vf))
     o4f = sdpa(q4f, k4f, v4f, scale=scale)
@@ -1840,13 +1904,43 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
         r["f32_plain_ms"] = cuda_ms(lambda: getattr(ta, f"{name}_plain")(*args, scale))
         r["f32_library_ms"] = cuda_ms(sdpa_f32[name])
         r["f32_library_device_ms"] = profiler_ms(sdpa_f32[name], bound_ms=r["f32_bound_ms"])
-        print(f"[timing] {card}: {name} at {tuple(q.shape)} f32 (CUDA-core body): "
+        body = ("CUDA-core body" if name == "attention_fwd" else
+                f"split-TF32 tensor-core body; bound on the CUDA cores "
+                f"{att_work_f32_cores(name, bh, n, d) * 1e3:.5f} ms")
+        print(f"[timing] {card}: {name} at {tuple(q.shape)} f32 ({body}): "
               f"{r['f32_ms']:.4f} ms/launch (profiler device time {fmt(r['f32_device_ms'])}), "
               f"plain {r['f32_plain_ms']:.4f} ms, bound {r['f32_bound_ms']:.5f} ms "
               f"(operations), library {r['f32_library_ms']:.4f} ms "
               f"(scaled_dot_product_attention "
               f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV together'}"
               f", f32; profiler device time {fmt(r['f32_library_device_ms'])})", flush=True)
+    del q4f, k4f, v4f, o4f, f32_args
+
+    # ---- 9b. the f32 path: the trainer with bf16=False, then its micro-step -
+    f32_ds = NSBaselineDataset(
+        train=WindowedTrajectories(store[:1, :t_in + 2 * NS_ACCUM * NS_BATCH], ns_grid,
+                                   initial_step=t_in, rollout=1, train=True, device=dev),
+        test=WindowedTrajectories(store[NS_TRAJ:NS_TRAJ + 1, :t_in + 1], ns_grid,
+                                  initial_step=t_in, rollout=1, train=False, device=dev),
+    )
+    micro32 = len(f32_ds.train.window_index()) // NS_BATCH
+    val32 = -(-len(f32_ds.test.window_index()) // NS_BATCH)
+    res32, train32_s, launches32 = train_ns(f32_ds, run_dir, dev, False, 1, "NS_smoke_VMAE_f32")
+    h32 = res32.history[0]
+    print(f"[train f32] NS VideoMAE with bf16=False, {micro32} micro-steps = "
+          f"{micro32 // NS_ACCUM} optimizer steps (batch {NS_BATCH} x accumulation {NS_ACCUM}) "
+          f"+ {val32} val batch in {train32_s:.3f} s: first step loss "
+          f"{h32['first_step_loss']:.6g}, last step loss {h32['last_step_loss']:.6g}, train "
+          f"loss {h32['train_loss']:.6g}, val loss {h32['val_loss']:.6g}; launches "
+          f"{json.dumps(launches32)}", flush=True)
+    check(micro32 // NS_ACCUM >= 2 and all(math.isfinite(h32[k]) for k in (
+        "first_step_loss", "last_step_loss", "train_loss", "val_loss")),
+          f"[train f32] {micro32 // NS_ACCUM} optimizer steps, losses finite")
+    check_ns_launches("[train f32] the f32 path", launches32, micro32, val32)
+    for name in ta.KERNEL_NAMES:
+        rows[name]["f32_launches"] = launches32[name]
+    time_ns_micro_step(dev, card, ns_ds, batches, torch.float32,
+                       tuple(ATT_KERNEL_KEYS["f32"].values()))
 
     return rows
 
@@ -2317,6 +2411,11 @@ def main() -> int:
     main_tc = [u for u in usage if u[0].endswith("tc_kernel<64>")]
     check(len(main_tc) == 3 and all(st == ld == 0 for _, _, st, ld, _ in main_tc),
           "[build] the NS path's tensor-core attention kernels (head dim 64) spill nothing")
+    main_tf32 = sorted(u for u in usage if u[0].endswith("tf32_kernel<64>"))
+    check([u[0] for u in main_tf32] == ["dkv_tf32_kernel<64>", "dq_tf32_kernel<64>"]
+          and all(st == ld == 0 for _, _, st, ld, _ in main_tf32),
+          "[build] the f32 NS path's split-TF32 dQ and dK/dV kernels (head dim 64) spill "
+          "nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in main_tf32))
     fno_usage = _build.ptxas_report("fno_fwd") + _build.ptxas_report("fno_bwd")
     for kern, regs, st, ld, frame in fno_usage:
         print(f"[build] fno {kern}: {regs} registers, {st} bytes spill stores, {ld} bytes "
@@ -2403,6 +2502,10 @@ def main() -> int:
             return lambda: torch.matmul(args[0], args[1])
         if key == "fno_reduce_rows":
             return lambda: torch.sum(args[0], dim=0)
+        if key == "fno_mix_wgrad":  # dwr + i dwi = sum_b conj(spec) * dspec
+            x = torch.complex(args[0].float(), args[1].float())
+            gc = torch.complex(args[2], args[3])
+            return lambda: torch.einsum("bckr,bokr->cokr", x.conj(), gc)
         return None
 
     kernel_rows = {}
@@ -2429,6 +2532,12 @@ def main() -> int:
         peak = PEAK_FLOPS[spectral.get_dft_precision()]
         bound_s = max(nbytes / HBM_BPS, fl / peak)
         lib = library_fn(key, fname, args)
+        if key == "fno_mix_wgrad":  # the library call computes the same function
+            got_lib = lib()
+            lib_rel = worst((got_lib.real, got_lib.imag), out_p)[1]
+            check(lib_rel <= TOL_LIBRARY, f"[kernel] fno_mix_wgrad's library call (complex64 "
+                  f"einsum of conj(spec) and dspec) vs the plain version: rel-to-max "
+                  f"{lib_rel:.3e} (tol {TOL_LIBRARY:.0e})")
         kernel_rows[key] = {
             "name": key, "route": "cuda",
             "source": f"sciml_pde_torch/ops/csrc/fno_{KERNEL_SOURCE[key]}.cu",

@@ -23,16 +23,16 @@
 // for the padded dims 16, 32, 64, 96, 128, 160, 192 and 256; a panel's head
 // dim is padded in shared memory to the next of them with zero columns,
 // which change no score and no product and are never stored.  Above 128 the
-// CUDA-core dQ and dK/dV bodies own 32-row tiles, and each tensor-core body
-// splits its output columns over two blocks, which both compute the scores
-// (see below).  Above 256, in both input types, the wide bodies
-// (fwd_wide_kernel, dq_wide_kernel, dkv_wide_kernel) take any d with no
-// upper limit: the head dim is padded to a multiple of 64 with zero columns,
-// the scores run over it in 64-column chunks staged through shared memory
-// (neither panel is held whole, in shared memory or in registers), and the
-// output columns are split over ceil(d / 128) blocks per 32-row tile, each
-// of which computes the scores itself.  They run the f32 bodies' arithmetic
-// (inputs widened to f32, p and ds f32, f32 FMAs on the CUDA cores, one
+// f32 dQ and dK/dV bodies run on the CUDA cores over 32-row tiles, and each
+// bf16 tensor-core body splits its output columns over two blocks, which
+// both compute the scores (see below).  Above 256, in both input types, the
+// wide bodies (fwd_wide_kernel, dq_wide_kernel, dkv_wide_kernel) take any d
+// with no upper limit: the head dim is padded to a multiple of 64 with zero
+// columns, the scores run over it in 64-column chunks staged through shared
+// memory (neither panel is held whole, in shared memory or in registers),
+// and the output columns are split over ceil(d / 128) blocks per 32-row
+// tile, each of which computes the scores itself.  They run the CUDA-core
+// f32 arithmetic (inputs widened to f32, p and ds f32, f32 FMAs, one
 // rounding at the store); no configuration reaches these dims, so they are
 // written to be right, not fast.
 //
@@ -89,17 +89,74 @@
 //   are double-buffered; do and q enter the gradient products through
 //   ldmatrix.trans.  p^T as in dQ, per 32 queries.
 //
-// f32 (fwd_kernel, dq_kernel, dkv_kernel; phase-6 and phase-7 checks, no
-// trainer launch): every product as f32 FMAs on the CUDA cores, bound by
-// operations at the f32 rate (67 TFLOP/s).  256 threads; each owns a 4x4 tile
-// of the 64x64 score tile and R x DP/16 of the output tile, operands read
-// from row-major shared-memory tiles padded by 4 floats (rows stay 16-byte
-// aligned and the reads are free of bank conflicts).  In-order FMAs: the
-// products match cuBLAS's f32 GEMM bit for bit at the checked shapes.  dQ
-// and dK/dV own 64-row tiles (R = 4) up to d = 128 and 32-row tiles (R = 2)
-// above: four f32 64-row panels of 256 columns (266 KB) would overflow
-// shared memory, and dK/dV's two accumulators (8 x 16 floats a thread) the
-// registers.
+// f32 (the NS trainer's launches under bf16=False, and the checks of
+// chip_smoke.py):
+//
+//   dQ and dK/dV up to head dim 128 (dq_tf32_kernel, dkv_tf32_kernel) run
+//   on the tensor cores in split TF32, bound by operations at the TF32 rate
+//   (495 TFLOP/s dense).  Every f32 operand x enters as hi = tf32(x) and lo =
+//   tf32(x - hi), both rounded to nearest (split_tf32), and every product
+//   a.b as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, three mma.sync m16n8k8 a k8
+//   step with f32 accumulation (a_lo.b_lo, about 2^-22 of the product, is
+//   dropped):
+//   dQ's q.k^T, do.v^T and ds.k are 9 TF32 passes, dK/dV's k.q^T, v.do^T,
+//   p^T.do and ds^T.q 12, and each body counts those as its bound.  One pass
+//   of TF32 (10 mantissa bits) would leave the outputs near 1e-3 of the
+//   largest magnitude from the plain versions, far above the f32 bound of
+//   1e-5; three keep them near 1e-6 (tests/test_torch_attention.py
+//   rehearses both on the CPU).  The layout is the bf16 bodies': 4 warps, 16
+//   rows of the block's own 64-row tile a warp, the other panel's 64-row
+//   tiles double-buffered by cp.async so the next tile's loads overlap this
+//   tile's products, rows padded by 4 floats.  Fragments are read by
+//   ldmatrix .b16 on the f32 tiles (lane (g, t) receives f32 element [g][t]
+//   of each 8 x 4 block, the TF32 A and B layout) and split as they are
+//   read, each split fragment feeding every product of its step; q * scale
+//   is formed in f32 before its split, as the Pallas body's q * scale.  p =
+//   2^((s - l) * log2(e)), s - l in f32 first as in the plain version's
+//   exp(s - l) (l * log2(e) alone would round by 2^-24 of |l|).  Scores run
+//   in steps of SC keys (dQ: 64, 32 above head dim 64) or queries (dK/dV:
+//   32, 16 above 64), s and dp of 16 x SC a warp in registers.
+//     The accumulator fragment (columns 2t and 2t + 1 of row g) is not the
+//   TF32 A fragment (columns t and t + 4), so p and ds enter their products
+//   with the contraction index permuted: k-slot t takes key (or query) 2t
+//   and k-slot t + 4 takes 2t + 1, which makes {c0, c2, c1, c3} the A
+//   fragment, and the B operand is read in the same order (rows 2t and
+//   2t + 1 of each k8 step, plain 32-bit loads: banks 8t + g, conflict-free).
+//   The sum is the same; only the order of the MMA's own adds changes.
+//     An MMA rounds its result once, and not to nearest (a first design's
+//   errors grew with the size of the scores and with the MMAs a score
+//   took): a truncating adder biases every sum towards zero by up to a unit
+//   in the last place of the accumulator, once an MMA.  So no sum runs long
+//   in one accumulator.  The
+//   long sums (ds.k over the keys, p^T.do and ds^T.q over the queries) are
+//   taken per score step into fresh accumulators, which an f32 add (to
+//   nearest) then adds to the running sums: 480 MMAs into one accumulator
+//   over 1280 keys would carry the bias to the bound, per step it stays
+//   within 24 MMAs (the CPU rehearsal models both).  The scores take each k8
+//   step's three MMAs into fresh accumulators and add them in f32, since an
+//   error in s moves p through the exponential by as much relative to p,
+//   and s reaches tens where p is largest (dp's error stays relative to
+//   dp, which keeps one accumulator).  dK/dV takes p^T.do over all columns
+//   before ds^T.q, so that one set of split A fragments is live at a time.
+//     Bound by the instruction rate, not the tensor cores: each operand is
+//   split by every warp that reads it, four integer or f32 instructions a
+//   value, beside each three MMAs.  Above head dim 64 a block's shared memory (six
+//   f32 tiles) leaves one block an SM, and at 96 and 128 dK/dV's two f32
+//   accumulators over all columns overflow the registers into spills; no
+//   configuration uses those head dims.  Above 128 the accumulators and split fragments would
+//   not fit at all, so dq_kernel and dkv_kernel keep those head dims on the
+//   CUDA cores.
+//
+//   The CUDA-core bodies (fwd_kernel at every head dim up to 256; dq_kernel
+//   and dkv_kernel at 160-256) take every product as f32 FMAs, bound by
+//   operations at the f32 rate (67 TFLOP/s).  256 threads; each owns a 4x4
+//   tile of the 64x64 score tile and R x DP/16 of the output tile, operands
+//   read from row-major shared-memory tiles padded by 4 floats (rows stay
+//   16-byte aligned and the reads are free of bank conflicts).  In-order
+//   FMAs: the products match cuBLAS's f32 GEMM bit for bit at the checked
+//   shapes.  The forward owns 64-row tiles; dQ and dK/dV own 32-row tiles
+//   (R = 2): four f32 64-row panels of 256 columns (266 KB) would overflow
+//   shared memory, and dK/dV's two accumulators the registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,9 +185,9 @@ __device__ __forceinline__ void block_pair(int ntiles, size_t& bh, int& tile) {
 // CUDA-core tiles (f32 forward, dQ, dK/dV)
 // ---------------------------------------------------------------------------
 
-// rows per thread of the CUDA-core dQ and dK/dV bodies' own tile (16 R rows)
-template <int DP>
-constexpr int RPT = DP <= 128 ? 4 : 2;
+// rows per thread of the CUDA-core dQ and dK/dV bodies' own tile (16 RC
+// rows; head dims 160-256)
+constexpr int RC = 2;
 
 // Rows [r0, r0 + rows) of a (n, d) panel into a row-major f32 tile with row
 // stride DP + 4, each value times `mul` in f32 (1 leaves it exact); rows at
@@ -330,7 +387,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
           const float* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, float* __restrict__ dq, int n, int d, int ntiles,
           float scale) {
-  constexpr int R = RPT<DP>, TR = 16 * R, DPT = DP / 16;
+  constexpr int R = RC, TR = 16 * R, DPT = DP / 16;
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                     // [TR][DP + 4], q * scale
   float* dos = qs + TR * (DP + 4);
@@ -392,7 +449,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
            const float* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
            int n, int d, int ntiles, float scale) {
-  constexpr int R = RPT<DP>, TR = 16 * R, DPT = DP / 16;
+  constexpr int R = RC, TR = 16 * R, DPT = DP / 16;
   extern __shared__ __align__(16) float sm[];
   float* ks = sm;                     // [TR keys][DP + 4]
   float* vs = ks + TR * (DP + 4);
@@ -702,22 +759,22 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Rows [r0, r0 + TILE) of a (n, d) bf16 panel into a [TILE][DP + 8] tile by
-// cp.async, 16 bytes (8 columns) per copy, DP / 16 copies a thread; rows at
-// or past n and columns at or past d (d % 8 == 0) are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int r0, int n, int d) {
-  constexpr int CPR = DP / 8;  // copies per row
-  const __nv_bfloat16* tile = src + (size_t)r0 * d;
+// Rows [r0, r0 + TILE) of a (n, d) panel of T (bf16 or f32) into a
+// [TILE][DP + E] tile by cp.async, 16 bytes (E = 16 / sizeof(T) columns) per
+// copy, DP / 2E copies a thread; rows at or past n and columns at or past d
+// (d % 8 == 0) are zero-filled.
+template <int DP, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src, int r0, int n, int d) {
+  constexpr int E = 16 / sizeof(T), CPR = DP / E;  // columns per copy, copies per row
+  const T* tile = src + (size_t)r0 * d;
 #pragma unroll
   for (int it = 0; it < TILE * CPR / NT_TC; ++it) {
     const int i = threadIdx.x + it * NT_TC;
-    const int r = i / CPR, c = (i - r * CPR) * 8;
+    const int r = i / CPR, c = (i - r * CPR) * E;
     const bool ok = r0 + r < n && c < d;
-    const __nv_bfloat16* g = ok ? tile + r * d + c : src;
+    const T* g = ok ? tile + r * d + c : src;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst + r * (DP + 8) + c)),
+                     smem_addr(dst + r * (DP + E) + c)),
                  "l"(g), "r"(ok ? 16 : 0)
                  : "memory");
   }
@@ -742,7 +799,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p))
@@ -821,22 +878,26 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // Stores rows row0 and row0 + 8 of a 16 x 8 NC f32 accumulator tile, times
-// mul0 and mul1, as bf16 at columns c0 + 8 i + 2t; rows at or past n and column
+// mul0 and mul1, in T at columns c0 + 8 i + 2t; rows at or past n and column
 // tiles at or past d are not stored.
-template <int NC>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float acc[NC][4], int row0,
-                                          int c0, int t, int n, int d, float mul0, float mul1) {
+template <int NC, typename T>
+__device__ __forceinline__ void store_acc(T* out, const float acc[NC][4], int row0, int c0,
+                                          int t, int n, int d, float mul0, float mul1) {
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int col = c0 + i * 8 + 2 * t;
     if (c0 + i * 8 >= d) continue;
-    if (row0 < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row0 * d + col) =
-          __floats2bfloat162_rn(acc[i][0] * mul0, acc[i][1] * mul0);
+    if (row0 < n) store2(out + (size_t)row0 * d + col, acc[i][0] * mul0, acc[i][1] * mul0);
     if (row0 + 8 < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row0 + 8) * d + col) =
-          __floats2bfloat162_rn(acc[i][2] * mul1, acc[i][3] * mul1);
+      store2(out + (size_t)(row0 + 8) * d + col, acc[i][2] * mul1, acc[i][3] * mul1);
   }
 }
 
@@ -1358,6 +1419,391 @@ dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 }
 
 // ---------------------------------------------------------------------------
+// split-TF32 tensor-core building blocks (f32 inputs)
+// ---------------------------------------------------------------------------
+
+// x = hi + lo to about 2^-22 of x: hi = tf32(x), lo = tf32(x - hi), both
+// rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, by
+// adding half a TF32 unit to the bits (finite x; cvt.rna.tf32.f32 gives the
+// same values but compiles to five instructions with its NaN and infinity
+// cases).  An MMA reads the upper 19 bits of a .tf32 operand, so lo is left
+// unmasked; hi is masked, for x - hi.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c += a (16x8 tf32, row) . b (8x8 tf32, col), f32 accumulation.  Fragment
+// layout (PTX m16n8k8 .tf32; lane = 4 g + t): a0, a2 row g and a1, a3 row
+// g + 8, at columns t (a0, a1) and t + 4 (a2, a3); b0 row t and b1 row t + 4
+// of column g; the accumulator as in m16n8k16.
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a . b, the same MMA from a zero accumulator
+__device__ __forceinline__ void mma_tf32_from0(float c[4], const uint32_t a[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// Four 8x4 f32 blocks of a tile by one ldmatrix x4 (p: this lane's row, as
+// Lanes' lm_* for an A fragment or lk_* for the B fragments of two n8
+// tiles), each value times `scale` in f32 when SCALED, split into hi and lo
+template <bool SCALED>
+__device__ __forceinline__ void ld_split(uint32_t hi[4], uint32_t lo[4], const float* p,
+                                         float scale) {
+  uint32_t r[4];
+  ldsm_x4(r, p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float x = __uint_as_float(r[e]);
+    split_tf32(SCALED ? x * scale : x, hi[e], lo[e]);
+  }
+}
+
+// The A fragment of an accumulator tile c (rows g, g + 8; columns 2t,
+// 2t + 1) with k-slot t taking column 2t and k-slot t + 4 column 2t + 1:
+// {c0, c2, c1, c3}, split.  Its B operand is read in the same order.
+__device__ __forceinline__ void split_acc_as_a(const float c[4], uint32_t hi[4], uint32_t lo[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// part[c] += a . b_c in split TF32 over one k8 step, for CG n8 column tiles
+// c whose B operands are rows 2t and 2t + 1 of an f32 tile (p: row 2t,
+// column g of the first tile; ld: row stride), pass by pass over the CG
+// accumulators so that an MMA does not wait on the one before it
+template <int CG>
+__device__ __forceinline__ void mma_split_rows(float part[CG][4], const uint32_t ah[4],
+                                               const uint32_t al[4], const float* p, int ld) {
+  uint32_t bh[CG][2], bl[CG][2];
+#pragma unroll
+  for (int c = 0; c < CG; ++c) {
+    split_tf32(p[8 * c], bh[c][0], bl[c][0]);
+    split_tf32(p[8 * c + ld], bh[c][1], bl[c][1]);
+  }
+#pragma unroll
+  for (int c = 0; c < CG; ++c) mma_tf32(part[c], al, bh[c][0], bh[c][1]);
+#pragma unroll
+  for (int c = 0; c < CG; ++c) mma_tf32(part[c], ah, bl[c][0], bl[c][1]);
+#pragma unroll
+  for (int c = 0; c < CG; ++c) mma_tf32(part[c], ah, bh[c][0], bh[c][1]);
+}
+
+// acc += a . b over NS k8 steps (a: split A fragments; b: rows of an f32
+// tile, p at row 2t and column g of the first step's first n8 tile), for
+// NC n8 column tiles, four at a time; each tile's sum is begun at 0 and
+// added to acc in f32
+template <int NC, int NS>
+__device__ __forceinline__ void grad_step(float acc[NC][4], const uint32_t ah[NS][4],
+                                          const uint32_t al[NS][4], const float* p, int ld) {
+  constexpr int CG = NC < 4 ? NC : 4;
+#pragma unroll
+  for (int c0 = 0; c0 < NC; c0 += CG) {
+    float part[CG][4];
+#pragma unroll
+    for (int c = 0; c < CG; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[c][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      mma_split_rows<CG>(part, ah[i], al[i], p + 8 * i * ld + 8 * c0, ld);
+#pragma unroll
+    for (int c = 0; c < CG; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 + c][e] += part[c][e];
+  }
+}
+
+// s0, s1 += a . b (two n8 tiles: b[0..1], b[2..3]) and d0, d1 += a2 . b2 in
+// split TF32 over one k8 step, pass by pass over the four products.  The
+// scores' three MMAs go into fresh accumulators, which f32 adds (to
+// nearest) then add to s0 and s1: a truncating MMA so biases a score by a
+// share of its step's partial sum, not of the whole score three times a
+// step (an error in s scales p through the exponential; one in dp stays
+// relative to it).
+__device__ __forceinline__ void mma_split_2x2(float s0[4], float s1[4], float d0[4], float d1[4],
+                                              const uint32_t ah[4], const uint32_t al[4],
+                                              const uint32_t bh[4], const uint32_t bl[4],
+                                              const uint32_t a2h[4], const uint32_t a2l[4],
+                                              const uint32_t b2h[4], const uint32_t b2l[4]) {
+  float t0[4], t1[4];
+  mma_tf32_from0(t0, al, bh[0], bh[1]);
+  mma_tf32_from0(t1, al, bh[2], bh[3]);
+  mma_tf32(d0, a2l, b2h[0], b2h[1]);
+  mma_tf32(d1, a2l, b2h[2], b2h[3]);
+  mma_tf32(t0, ah, bl[0], bl[1]);
+  mma_tf32(t1, ah, bl[2], bl[3]);
+  mma_tf32(d0, a2h, b2l[0], b2l[1]);
+  mma_tf32(d1, a2h, b2l[2], b2l[3]);
+  mma_tf32(t0, ah, bh[0], bh[1]);
+  mma_tf32(t1, ah, bh[2], bh[3]);
+  mma_tf32(d0, a2h, b2h[0], b2h[1]);
+  mma_tf32(d1, a2h, b2h[2], b2h[3]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    s0[e] += t0[e];
+    s1[e] += t1[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ, tensor cores in split TF32 (f32 inputs): one block per (bh, 64
+// queries), 16 a warp
+// ---------------------------------------------------------------------------
+
+// keys per score step (s and dp of 16 x SC a warp in registers)
+template <int DP>
+constexpr int DQ32_SC = DP <= 64 ? 64 : 32;
+
+template <int DP>
+__global__ void __launch_bounds__(NT_TC, 2)
+dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, int n, int d, int ntiles, float scale) {
+  constexpr int LD = DP + 4, KS = DP / 8, NC = DP / 8, TS = TILE * LD;
+  constexpr int SC = DQ32_SC<DP>, NS = SC / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [TILE][LD], q unscaled
+  float* dos = qs + TS;                            // [TILE][LD]
+  float* ks = dos + TS;                            // 2 x [TILE][LD]
+  float* vs = ks + 2 * TS;                         // 2 x [TILE][LD]
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile * TILE;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int nkt = (n + TILE - 1) / TILE;
+  // this lane's ldmatrix rows (f32 columns: half the bf16 offsets)
+  const int a_off = (ln.warp * 16 + ln.lm_row) * LD + ln.lm_col / 2;
+  const int b_off = ln.lk_row * LD + ln.lk_col / 2;
+
+  load_tile_async<DP>(qs, q + base, q0, n, d);
+  load_tile_async<DP>(dos, dout + base, q0, n, d);
+  load_tile_async<DP>(ks, k + base, 0, n, d);
+  load_tile_async<DP>(vs, v + base, 0, n, d);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp's tile: l and delta; rows past n read row
+  // n - 1 and are never stored
+  const int row0 = q0 + ln.warp * 16 + ln.g;
+  float lr[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = bh * n + min(row0 + 8 * h, n - 1);
+    lr[h] = lse[r];
+    dl[h] = delta[r];
+  }
+  float acc[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < nkt) {
+      load_tile_async<DP>(ks + (buf ^ 1) * TS, k + base, (j + 1) * TILE, n, d);
+      load_tile_async<DP>(vs + (buf ^ 1) * TS, v + base, (j + 1) * TILE, n, d);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kb = ks + buf * TS;
+    const float* vb = vs + buf * TS;
+
+#pragma unroll
+    for (int kc = 0; kc < TILE; kc += SC) {
+      // s = (q * scale) . k^T and dp = do . v^T over SC keys: NS n8 tiles each
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll 2  // fully unrolled, the hoisted loads outgrow the registers
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qh[4], ql[4], dh[4], dlo[4];
+        ld_split<true>(qh, ql, qs + a_off + kk * 8, scale);
+        ld_split<false>(dh, dlo, dos + a_off + kk * 8, 1.f);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          const int off = (kc + np * 16) * LD + b_off + kk * 8;
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          ld_split<false>(kh, kl, kb + off, 1.f);
+          ld_split<false>(vh, vl, vb + off, 1.f);
+          mma_split_2x2(s[2 * np], s[2 * np + 1], dp[2 * np], dp[2 * np + 1], qh, ql, kh, kl,
+                        dh, dlo, vh, vl);
+        }
+      }
+      if (j * TILE + kc + SC > n) {  // keys at or past n: p = 0
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j * TILE + kc + i * 8 + 2 * ln.t + (e & 1) >= n) s[i][e] = -INFINITY;
+      }
+      // p = 2^((s - l) * log2(e)), ds = p * (dp - delta), as split A
+      // fragments over the keys
+      uint32_t ah[NS][4], al[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[i][e] = ex2((s[i][e] - lr[e >> 1]) * LOG2E) * (dp[i][e] - dl[e >> 1]);
+        split_acc_as_a(s[i], ah[i], al[i]);
+      }
+      // acc += ds . k over these SC keys
+      grad_step<NC, NS>(acc, ah, al, kb + (kc + 2 * ln.t) * LD + ln.g, LD);
+    }
+    __syncthreads();  // this buffer is refilled by the next iteration's copies
+  }
+  store_acc<NC>(dq + base, acc, row0, 0, ln.t, n, d, scale, scale);
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV, tensor cores in split TF32 (f32 inputs): one block per (bh, 64
+// keys), 16 a warp
+// ---------------------------------------------------------------------------
+
+// queries per score step (s^T and dp^T of 16 x SC a warp in registers)
+template <int DP>
+constexpr int DKV32_SC = DP <= 64 ? 32 : 16;
+
+template <int DP>
+__global__ void __launch_bounds__(NT_TC, 2)
+dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv, int n, int d, int ntiles,
+                float scale) {
+  constexpr int LD = DP + 4, KS = DP / 8, NC = DP / 8, TS = TILE * LD;
+  constexpr int SC = DKV32_SC<DP>, NS = SC / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // [TILE][LD]
+  float* vs = ks + TS;                             // [TILE][LD]
+  float* qs = vs + TS;                             // 2 x [TILE][LD], q unscaled
+  float* dos = qs + 2 * TS;                        // 2 x [TILE][LD]
+  float* ls = dos + 2 * TS;                        // 2 x [TILE] logsumexp of the query tile
+  float* dls = ls + 2 * TILE;                      // 2 x [TILE] delta of the query tile
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int k0 = tile * TILE;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int nqt = (n + TILE - 1) / TILE;
+  const int row0 = k0 + ln.warp * 16 + ln.g;  // this lane's keys row0 and row0 + 8
+  const int a_off = (ln.warp * 16 + ln.lm_row) * LD + ln.lm_col / 2;
+  const int b_off = ln.lk_row * LD + ln.lk_col / 2;
+
+  load_tile_async<DP>(ks, k + base, k0, n, d);
+  load_tile_async<DP>(vs, v + base, k0, n, d);
+  load_tile_async<DP>(qs, q + base, 0, n, d);
+  load_tile_async<DP>(dos, dout + base, 0, n, d);
+  load_rows_async(ls, lse + bh * n, 0, n);
+  load_rows_async(dls, delta + bh * n, 0, n);
+  cp_async_commit();
+
+  float gk[NC][4], gv[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[c][e] = gv[c][e] = 0.f;
+
+  for (int j = 0; j < nqt; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < nqt) {
+      const int r1 = (j + 1) * TILE;
+      load_tile_async<DP>(qs + (buf ^ 1) * TS, q + base, r1, n, d);
+      load_tile_async<DP>(dos + (buf ^ 1) * TS, dout + base, r1, n, d);
+      load_rows_async(ls + (buf ^ 1) * TILE, lse + bh * n, r1, n);
+      load_rows_async(dls + (buf ^ 1) * TILE, delta + bh * n, r1, n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* qb = qs + buf * TS;
+    const float* db = dos + buf * TS;
+    const float* lb = ls + buf * TILE;
+    const float* dlb = dls + buf * TILE;
+
+#pragma unroll
+    for (int qc = 0; qc < TILE; qc += SC) {
+      // s^T = k . (q * scale)^T and dp^T = v . do^T over SC queries
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll 2  // fully unrolled, the hoisted loads outgrow the registers
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        ld_split<false>(kh, kl, ks + a_off + kk * 8, 1.f);
+        ld_split<false>(vh, vl, vs + a_off + kk * 8, 1.f);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          const int off = (qc + np * 16) * LD + b_off + kk * 8;
+          uint32_t qh[4], ql[4], doh[4], dol[4];
+          ld_split<true>(qh, ql, qb + off, scale);
+          ld_split<false>(doh, dol, db + off, 1.f);
+          mma_split_2x2(s[2 * np], s[2 * np + 1], dp[2 * np], dp[2 * np + 1], kh, kl, qh, ql,
+                        vh, vl, doh, dol);
+        }
+      }
+      if (k0 + TILE > n || j * TILE + qc + SC > n) {  // keys or queries at or past n: p = 0
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j * TILE + qc + i * 8 + 2 * ln.t + (e & 1) >= n || row0 + (e >> 1) * 8 >= n)
+              s[i][e] = -INFINITY;
+      }
+      // p^T = 2^((s^T - l) * log2(e)) and ds^T = p^T * (dp^T -
+      // delta); then dv += p^T . do over these SC queries, and after it dk +=
+      // ds^T . q, each from split A fragments over the queries (one set
+      // live at a time)
+      uint32_t ah[NS][4], al[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int col = qc + i * 8 + 2 * ln.t;  // query in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lb + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dlb + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2((s[i][e] - (e & 1 ? l2.y : l2.x)) * LOG2E);
+          s[i][e] = p;
+          dp[i][e] = p * (dp[i][e] - (e & 1 ? d2.y : d2.x));
+        }
+        split_acc_as_a(s[i], ah[i], al[i]);
+      }
+      grad_step<NC, NS>(gv, ah, al, db + (qc + 2 * ln.t) * LD + ln.g, LD);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) split_acc_as_a(dp[i], ah[i], al[i]);
+      grad_step<NC, NS>(gk, ah, al, qb + (qc + 2 * ln.t) * LD + ln.g, LD);
+    }
+    __syncthreads();  // this buffer is refilled by the next iteration's copies
+  }
+  store_acc<NC>(dk + base, gk, row0, 0, ln.t, n, d, scale, scale);
+  store_acc<NC>(dv + base, gv, row0, 0, ln.t, n, d, 1.f, 1.f);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1415,8 +1861,16 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout
     using T = __nv_bfloat16;
     kern<<<grid, NT_TC, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout,
                                         l, delta, (T*)dq, n, d, ntiles, scale);
+  } else if constexpr (DP <= 128) {
+    const size_t smem = 6 * f32_tile_bytes(TILE, DP);
+    auto kern = dq_tf32_kernel<DP>;
+    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, TILE);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, NT_TC, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                        (const float*)dout, l, delta, (float*)dq, n, d, ntiles,
+                                        scale);
   } else {
-    constexpr int TR = 16 * RPT<DP>;
+    constexpr int TR = 16 * RC;
     const size_t smem = 2 * f32_tile_bytes(TR, DP) + 2 * f32_tile_bytes(TILE, DP) +
                         f32_tile_bytes(TR, TILE);
     auto kern = dq_kernel<DP>;
@@ -1443,8 +1897,16 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
     using T = __nv_bfloat16;
     kern<<<grid, NT_TC, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout,
                                         l, delta, (T*)dk, (T*)dv, n, d, ntiles, scale);
+  } else if constexpr (DP <= 128) {
+    const size_t smem = 6 * f32_tile_bytes(TILE, DP) + 4 * TILE * sizeof(float);
+    auto kern = dkv_tf32_kernel<DP>;
+    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, TILE);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, NT_TC, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                        (const float*)dout, l, delta, (float*)dk, (float*)dv, n,
+                                        d, ntiles, scale);
   } else {
-    constexpr int TR = 16 * RPT<DP>;
+    constexpr int TR = 16 * RC;
     const size_t smem = 2 * f32_tile_bytes(TR, DP) + 2 * f32_tile_bytes(TILE, DP) +
                         2 * f32_tile_bytes(TR, TILE) + 2 * TILE * sizeof(float);
     auto kern = dkv_kernel<DP>;

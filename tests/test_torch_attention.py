@@ -1,8 +1,10 @@
 """Port ops/attention.py vs the JAX package: flash_attention values and q/k/v
 gradients (JAX Pallas in interpret mode on the CPU), each plain version
-against the Pallas body it stands for, and the shape rule.  One more test
-rehearses the bf16 backward kernels' numerics (p and ds split into two bf16
-terms) against chip_smoke.py's bounds.
+against the Pallas body it stands for, and the shape rule.  Three more
+tests rehearse the backward kernels' numerics against chip_smoke.py's
+bounds: the bf16 kernels' p and ds split into two bf16 terms, the f32
+kernels' products in split TF32 (three passes against one), and their long
+sums taken per score step under a model of an MMA that truncates its sum.
 
 Tolerances, relative to the largest magnitude of the JAX result: f32 1e-5
 (sums in another order); bf16 3e-2 (roundings to bf16 at other points)."""
@@ -225,3 +227,97 @@ def test_split_bf16_backward_meets_the_card_bounds():
         k_mean = (got - want).abs().mean()
         c_mean = (ctl[name].float() - want).abs().mean()
         assert k_mean < c_mean / 2, (name, k_mean, c_mean)
+
+
+def _tf32_dot(a, b, passes):
+    """a @ b (f32) as the f32 backward kernels take it on the tensor cores:
+    with three passes a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, x_hi = tf32(x),
+    x_lo = tf32(x - x_hi) (chip_smoke.tf32's rounding); with one pass
+    a_hi.b_hi.  Summed in f64, rounded to f32 once."""
+    cs = chip_smoke()
+    ah, bh = cs.tf32(a), cs.tf32(b)
+    if passes == 1:
+        return (ah.double() @ bh.double()).float()
+    al, bl = cs.tf32(a - ah), cs.tf32(b - bh)
+    return (al.double() @ bh.double() + ah.double() @ bl.double()
+            + ah.double() @ bh.double()).float()
+
+
+@pytest.mark.parametrize("out", ["dq", "dk", "dv"])
+@pytest.mark.parametrize("d", [64, 96])
+def test_split_tf32_backward_meets_the_f32_bound(d, out):
+    """The f32 dQ and dK/dV kernels take every product in split TF32: s =
+    (q * scale).k^T and dp = do.v^T, then p = exp(s - l), ds = p (dp -
+    delta), then dq = (ds.k) scale, dk = (ds^T.q) scale and dv = p^T.do,
+    each product three TF32 passes.  That emulation at (2, 256, d) lies
+    within chip_smoke.py's f32 bound (1e-5 of the largest magnitude) of
+    attention_dq_plain and attention_dkv_plain; one pass per product (the
+    control) lies outside it."""
+    cs = chip_smoke()
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.tensor(rng.normal(size=(2, 256, d)).astype(np.float32))
+                   for _ in range(4))
+    scale = d**-0.5
+    o, l = ta.attention_fwd_plain(q, k, v, scale)
+    delta = torch.sum(do * o, dim=-1, keepdim=True)
+    plain = dict(zip(("dq", "dk", "dv"), (ta.attention_dq_plain(q, k, v, do, l, delta, scale),
+                                          *ta.attention_dkv_plain(q, k, v, do, l, delta, scale))))
+
+    def emulate(passes):
+        s = _tf32_dot(q * scale, k.transpose(-1, -2), passes)
+        dp = _tf32_dot(do, v.transpose(-1, -2), passes)
+        p = torch.exp(s - l)
+        ds = p * (dp - delta)
+        return {"dq": _tf32_dot(ds, k, passes) * scale,
+                "dk": _tf32_dot(ds.transpose(-1, -2), q, passes) * scale,
+                "dv": _tf32_dot(p.transpose(-1, -2), do, passes)}[out]
+
+    want = plain[out]
+    err = {n: ((emulate(n) - want).abs().max() / want.abs().max()).item() for n in (3, 1)}
+    assert err[3] <= cs.ATT_TOL_F32, (out, d, err)
+    assert err[1] > cs.ATT_TOL_F32, (out, d, err)
+
+
+def _rz(x):
+    """f64 ``x`` rounded to f32 towards zero."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+@pytest.mark.parametrize("per_step", [False, True])
+def test_split_tf32_step_sums_bound_a_truncating_accumulator(per_step):
+    """dq = (ds.k) scale over 1280 keys, each k8 step three split-TF32 MMAs,
+    under a model of an MMA that rounds its sum towards zero (products and
+    their sum exact, one truncation to f32 per MMA).  Into one accumulator
+    (480 MMAs) the bias leaves dq outside chip_smoke.py's f32 bound; summed
+    per 64-key score step into a fresh accumulator and added to the
+    running sum in f32 (to nearest), as dq_tf32_kernel does, it stays within
+    half of it.  The kernel's scores are exact here (the plain p and ds)."""
+    cs = chip_smoke()
+    rng = np.random.default_rng(11)
+    n, d, sc = 1280, 64, 64
+    q, k, v, do = (torch.tensor(rng.normal(size=(1, n, d)).astype(np.float32))
+                   for _ in range(4))
+    scale = d**-0.5
+    o, l = ta.attention_fwd_plain(q, k, v, scale)
+    delta = torch.sum(do * o, dim=-1, keepdim=True)
+    _, ds = ta._p_ds(q, k, v, do, l, delta, scale)
+    want = ta.attention_dq_plain(q, k, v, do, l, delta, scale)[0]
+    a, b = ds[0], k[0]
+    ah, bh = cs.tf32(a), cs.tf32(b)
+    al, bl = cs.tf32(a - ah), cs.tf32(b - bh)
+    total = torch.zeros(n, d)
+    acc = torch.zeros(n, d)
+    for k0 in range(0, n, 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = _rz(acc.double() + x[:, ks].double() @ y[ks].double())
+        if per_step and (k0 + 8) % sc == 0:
+            total, acc = total + acc, torch.zeros(n, d)
+    got = (total + acc) * scale
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    if per_step:
+        assert err <= cs.ATT_TOL_F32 / 2, err
+    else:
+        assert err > cs.ATT_TOL_F32, err
