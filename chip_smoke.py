@@ -23,13 +23,16 @@ FNO steps and the five split kernels):
   2. build    nvcc for sm_90a, all sources in parallel; registers and
               spills of every attention and FNO kernel and the FNO kernels'
               stack frames (ptxas -v), none spilling at head dim 64 on the
-              tensor cores (the bf16 bodies and the split-TF32 f32 dQ and
-              dK/dV), none in wdft_kernel and reduce_rows_kernel, and
+              tensor cores (the bf16 bodies and the split-TF32 f32
+              forward, dQ and dK/dV), none in wdft_kernel and
+              reduce_rows_kernel, and
               neither spills nor a stack frame in both instances of
               lift_kernel, both paths of head_fwd_kernel and
               head_bwd_kernel, and every instance of corner_kernel,
               iwdft_pw_kernel, wdft_kernel and outer_partial_kernel (the
-              four of the last by name)
+              four of the last by name); the order of each
+              mix_wgrad_kernel instance's global loads, f32 arithmetic
+              and stores in its SASS (cuobjdump)
   3. check    the fused forward and all ten gradients from the kernels
               against the plain PyTorch versions on the card, under
               `highest` (f32) and `default` (bf16 dot inputs); then every
@@ -38,7 +41,10 @@ FNO steps and the five split kernels):
               library call's (fno_mix_wgrad's: one complex64 einsum, checked
               against the plain version), each device time read at or above
               its bound
-              or "not measured"; fno_stats at three more shapes (X*Y not a
+              or "not measured"; fno_mix_wgrad within 1e-5 and the same
+              bits twice at batches 1, 3, 4, 8 and widths 20, 40, 64 and at
+              (K, R) = (6, 3) and (5, 3), with a bf16 and an f32 spectrum;
+              fno_stats at three more shapes (X*Y not a
               multiple of 4, a pair larger than one cluster's shared
               memory, the flagship + 1e3 with a one-pass control);
               fno_wdft in all six variants its callers use (forward,
@@ -109,8 +115,8 @@ FNO steps and the five split kernels):
               device-busy share and top device ops (torch.profiler), and
               per-launch attention kernel times (CUDA events and profiler
               device time) beside their bounds and the SDPA forward and
-              backward, in bf16 and in f32 (the CUDA-core forward, the
-              split-TF32 dQ and dK/dV, with their bounds on the CUDA cores)
+              backward, in bf16 and in f32 (the split-TF32 forward, dQ and
+              dK/dV, with their bounds on the CUDA cores)
   9b. f32     the NS baseline through the trainer with bf16=False (2
               optimizer steps, batch 2 x accumulation 4, on 16 windows of
               the seeded store): finite losses, 20 launches of each f32
@@ -185,6 +191,16 @@ TOL_KERNEL = 1e-3  # one kernel against its plain version, main-path inputs
 # fno_mix_wgrad's library call (one complex64 einsum, no TF32) against the
 # plain version: f32 sums of B = 4 products in another order
 TOL_LIBRARY = 1e-5
+# fno_mix_wgrad beyond the main path's calls: batches (the unrolled 1, 4 and
+# 8, and 3 through the generic body), widths C = O, and (K, R): the
+# flagship's 24 x 12 (16-byte vectors along k * r), 6 x 3 (k * r = 18:
+# 8-byte vectors) and 5 x 3 (odd: 4-byte).  The kernel takes every product
+# and sum in f32 as JAX writes them, the plain version through einsum (no
+# TF32): f32 sums of B products in another order
+MIX_BATCHES = (1, 3, 4, 8)
+MIX_WIDTHS = (WIDTH, 40, 64)
+MIX_KR = ((2 * MODES, MODES), (6, 3), (5, 3))
+TOL_MIX = 1e-5
 # fno_wdft under `highest` (exact f32 products, no TF32) against its plain
 # version: readings were at most 1.2e-7 (gelu'), TF32 inputs ~1e-4
 TOL_WDFT_F32 = 1e-5
@@ -207,7 +223,7 @@ TOL_AUTOGRAD = {"highest": 1e-4, "default": 2e-2}
 # input type (f32 outside the tensor cores; bf16 dense)
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"highest": 67e12, "default": 989e12}
-TF32_FLOPS = 495e12  # dense TF32 on the tensor cores (the f32 attention dQ, dK/dV)
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores (the f32 attention kernels)
 # NS-2D VideoMAE recipe (reference config_transformer_aux_ns.yaml, the JAX
 # package's experiments/ns_transformer.py and run_transformer_training)
 NS_MODEL = dict(img_size=256, patch_size=16, tubelet_size=2, in_chans=3, num_frames=10,
@@ -240,11 +256,11 @@ ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "large logits": ((24, 1280, 64), ("float32",), 3.0),
              "batch*heads 70000": ((70_000, 16, 16), ("bfloat16",))}
 # profiler keys of the attention kernels (their demangled names) at the NS
-# head dim: the bf16 tensor-core bodies, and in f32 the CUDA-core forward and
-# the split-TF32 tensor-core dQ and dK/dV
+# head dim: the bf16 tensor-core bodies, and in f32 the split-TF32
+# tensor-core bodies
 ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "dq_tc_kernel<",
                             "attention_dkv": "dkv_tc_kernel<"},
-                   "f32": {"attention_fwd": "fwd_kernel<", "attention_dq": "dq_tf32_kernel<",
+                   "f32": {"attention_fwd": "fwd_tf32_kernel<", "attention_dq": "dq_tf32_kernel<",
                            "attention_dkv": "dkv_tf32_kernel<"}}
 # attention kernels vs plain versions: f32 outputs within 1e-5 of the
 # largest magnitude (f32 sums in another order); bf16 outputs within one
@@ -613,6 +629,47 @@ def device_profile(card: str, run, n: int, unit: str, unprofiled_ms: float, ours
     for ev in sorted(evs, key=lambda ev: -ev.self_device_time_total)[:12]:
         print(f"[profile]   {ev.self_device_time_total / n:9.1f} us/{unit} "
               f"{ev.count / n:6.1f}x  {ev.key[:90]}", flush=True)
+
+
+def print_mix_wgrad_sass() -> None:
+    """Phase 2: the order of each mix_wgrad_kernel instance's global loads,
+    f32 arithmetic and global stores in its SASS (ptxas interleaves
+    products with the later loads)."""
+    from sciml_pde_torch.ops import _build
+
+    kernels = _build.sass(_build.library_path("fno_bwd"))
+    for kern in sorted(k for k in kernels if k.startswith("mix_wgrad_kernel<")):
+        print(f"[build] fno_bwd.cu {kern} in SASS (L global loads, F f32 arithmetic, S global "
+              f"stores): {_build.memory_order(kernels[kern])}", flush=True)
+
+
+def check_mix_wgrad(dev) -> None:
+    """Phase 3: fno_mix_wgrad against its plain version (TOL_MIX) and a
+    second launch of itself (the same bits) at every batch of MIX_BATCHES
+    and width of MIX_WIDTHS at the flagship's modes, and at the other
+    (K, R) of MIX_KR at the flagship width, each with a bf16 and an f32
+    spectrum."""
+    import torch
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    g = torch.Generator().manual_seed(12)
+    cases = [(b, w, MIX_KR[0]) for b in MIX_BATCHES for w in MIX_WIDTHS]
+    cases += [(b, WIDTH, kr) for kr in MIX_KR[1:] for b in MIX_BATCHES]
+    for b, w, (k, r) in cases:
+        for sdt in (torch.bfloat16, torch.float32):
+            spr, spi = (torch.randn(b, w, k, r, generator=g).to(dev, sdt) for _ in range(2))
+            dcr, dci = (torch.randn(b, w, k, r, generator=g).to(dev) for _ in range(2))
+            got = fk.mix_wgrad(spr, spi, dcr, dci)
+            again = fk.mix_wgrad(spr, spi, dcr, dci)
+            want = fk.mix_wgrad_plain(spr, spi, dcr, dci)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            err, rel = worst(got, want)
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            check(same and finite and rel <= TOL_MIX,
+                  f"[kernel] fno_mix_wgrad B {b}, C = O = {w}, (K, R) = ({k}, {r}), spectrum "
+                  f"{str(sdt)[6:]}: max abs err {err:.3e}, rel-to-max {rel:.3e} (tol "
+                  f"{TOL_MIX:.0e}); same bits twice {same}")
 
 
 def check_stats(dev) -> None:
@@ -1504,12 +1561,12 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     two bf16 terms: the forward q.k^T and p.v (three products), dQ q.k^T,
     do.v^T and ds.k (four), dK/dV k.q^T, v.do^T, ds^T.q and p^T.do (six);
     at the encoder shape (24, 1280, 64) 0.01527, 0.02036 and 0.03054 ms.
-    The f32 forward takes its two products at the CUDA cores' 67 TFLOP/s
-    (0.15024 ms).  The f32 dQ and dK/dV up to head dim 128 take each product
-    as three TF32 passes at the TF32 tensor-core rate (495 TFLOP/s): 9 and
-    12 passes, 0.09150 and 0.12200 ms at the encoder shape; before that
-    design they took three and four products at the f32 rate, 0.22537 and
-    0.30049 ms (``att_work_f32_cores``).  Before their tensor-core designs
+    The f32 kernels up to head dim 128 take each product as three TF32
+    passes at the TF32 tensor-core rate (495 TFLOP/s): the forward 6, dQ 9
+    and dK/dV 12 passes, 0.06101, 0.09150 and 0.12200 ms at the encoder
+    shape; before those designs they took two, three and four products at
+    the CUDA cores' f32 rate (67 TFLOP/s), 0.15024, 0.22537 and 0.30049 ms
+    (``att_work_f32_cores``), as they still do above 128.  Before their tensor-core designs
     the bf16 kernels' bounds counted the products that take p or ds at the
     f32 rate: 0.08021 (forward), 0.08530 (dQ) and 0.16042 ms (dK/dV) at the
     encoder shape."""
@@ -1522,9 +1579,9 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     if bf:
         products = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name]
         return nbytes, products * prod / PEAK_FLOPS["default"]
-    if name == "attention_fwd" or d > 128:
+    if d > 128:
         return nbytes, att_work_f32_cores(name, bh, n, d)
-    passes = {"attention_dq": 9, "attention_dkv": 12}[name]
+    passes = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}[name]
     return nbytes, passes * prod / TF32_FLOPS
 
 
@@ -1880,9 +1937,9 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
               f"attention_dkv "
               f"{cuda_ms(lambda: ta.attention_dkv(qd, kd, vd, dod, ld, deltad, scale)):.4f} ms",
               flush=True)
-    # the f32 kernels (the CUDA-core forward, the split-TF32 dQ and dK/dV):
-    # their times at the encoder shape beside their plain versions and the
-    # f32 SDPA forward and backward on the same inputs
+    # the f32 kernels (split TF32): their times at the encoder shape beside
+    # their plain versions and the f32 SDPA forward and backward on the same
+    # inputs
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     q4f, k4f, v4f = (as4(t).detach().requires_grad_(True) for t in (qf, kf, vf))
     o4f = sdpa(q4f, k4f, v4f, scale=scale)
@@ -1904,8 +1961,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
         r["f32_plain_ms"] = cuda_ms(lambda: getattr(ta, f"{name}_plain")(*args, scale))
         r["f32_library_ms"] = cuda_ms(sdpa_f32[name])
         r["f32_library_device_ms"] = profiler_ms(sdpa_f32[name], bound_ms=r["f32_bound_ms"])
-        body = ("CUDA-core body" if name == "attention_fwd" else
-                f"split-TF32 tensor-core body; bound on the CUDA cores "
+        body = (f"split-TF32 tensor-core body; bound on the CUDA cores "
                 f"{att_work_f32_cores(name, bh, n, d) * 1e3:.5f} ms")
         print(f"[timing] {card}: {name} at {tuple(q.shape)} f32 ({body}): "
               f"{r['f32_ms']:.4f} ms/launch (profiler device time {fmt(r['f32_device_ms'])}), "
@@ -2412,10 +2468,11 @@ def main() -> int:
     check(len(main_tc) == 3 and all(st == ld == 0 for _, _, st, ld, _ in main_tc),
           "[build] the NS path's tensor-core attention kernels (head dim 64) spill nothing")
     main_tf32 = sorted(u for u in usage if u[0].endswith("tf32_kernel<64>"))
-    check([u[0] for u in main_tf32] == ["dkv_tf32_kernel<64>", "dq_tf32_kernel<64>"]
+    check([u[0] for u in main_tf32] == ["dkv_tf32_kernel<64>", "dq_tf32_kernel<64>",
+                                        "fwd_tf32_kernel<64>"]
           and all(st == ld == 0 for _, _, st, ld, _ in main_tf32),
-          "[build] the f32 NS path's split-TF32 dQ and dK/dV kernels (head dim 64) spill "
-          "nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in main_tf32))
+          "[build] the f32 NS path's split-TF32 forward, dQ and dK/dV kernels (head dim 64) "
+          "spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in main_tf32))
     fno_usage = _build.ptxas_report("fno_fwd") + _build.ptxas_report("fno_bwd")
     for kern, regs, st, ld, frame in fno_usage:
         print(f"[build] fno {kern}: {regs} registers, {st} bytes spill stores, {ld} bytes "
@@ -2439,6 +2496,7 @@ def main() -> int:
           "[build] every instance of corner_kernel, iwdft_pw_kernel, wdft_kernel and "
           "outer_partial_kernel spills nothing and keeps no stack frame: "
           + ", ".join(u[0] for u in c78))
+    print_mix_wgrad_sass()
 
     # ---- 3. kernels vs plain versions ----------------------------------------
     g = torch.Generator().manual_seed(1)
@@ -2559,6 +2617,7 @@ def main() -> int:
                                                     FNO_KERNEL_KEYS[key], bound_ms=bound_ms)
         kernel_rows[key]["library_device_ms"] = (None if lib is None
                                                  else profiler_ms(lib, bound_ms=bound_ms))
+    check_mix_wgrad(dev)
     check_stats(dev)
     check_wdft(dev, card, records["fno_wdft"][1][0], records["fno_wdft.adj"][1][0],
                sv.pres[0].float())

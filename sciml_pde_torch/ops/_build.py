@@ -8,7 +8,10 @@ the library it is asked for.  A library's file name carries a
 hash of its sources and flags, so an edited source is rebuilt and a stale
 library is never loaded.  A failed build raises with the compiler's output;
 a good one keeps it beside the library (``ptxas -v``: registers, spills and
-stack frame of each kernel, read by ``ptxas_report``).
+stack frame of each kernel, read by ``ptxas_report``).  ``sass`` reads a
+built library's machine code back (``cuobjdump -sass``) and
+``memory_order`` the order of each kernel's global loads, stores and f32
+arithmetic in it.
 """
 
 from __future__ import annotations
@@ -145,3 +148,40 @@ def ptxas_report(name: str) -> list[tuple[str, int, int, int, int]]:
             rows.append((fn, int(m.group(1)), *usage))
             fn = None
     return rows
+
+
+def sass(lib: Path) -> dict[str, list[str]]:
+    """The SASS instructions of each kernel of the built library ``lib``
+    (``cuobjdump -sass``), by kernel name."""
+    out = subprocess.run([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    return parse_sass(out)
+
+
+def parse_sass(text: str) -> dict[str, list[str]]:
+    """``cuobjdump -sass`` output -> {kernel name: its instructions, in order}."""
+    kernels, cur = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            cur = kernels.setdefault(_kernel_name(m.group(1)), [])
+        elif cur is not None and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(.+?)\s*;", line)):
+            cur.append(m.group(1))
+    return kernels
+
+
+def memory_order(instrs: list[str]) -> str:
+    """The order of a kernel's global loads (L), global stores (S) and f32
+    adds, multiplies and FMAs (F) in its SASS, each run of one kind as its
+    count: ``"L24 F64 S8"``."""
+    runs: list[list] = []
+    for ins in instrs:
+        op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+        kind = ("L" if op.startswith("LDG") else "S" if op.startswith("STG")
+                else "F" if op.split(".")[0] in ("FFMA", "FMUL", "FADD") else None)
+        if kind is None:
+            continue
+        if runs and runs[-1][0] == kind:
+            runs[-1][1] += 1
+        else:
+            runs.append([kind, 1])
+    return " ".join(f"{k}{n}" for k, n in runs)

@@ -12,10 +12,10 @@ a failed build or launch.  Every launch adds one to ``LAUNCHES[name]``.
 on flat ``(BH, N, D)`` panels in f32 or bf16, any head dim ``D % 8 == 0``
 and any ``BH``; ``l`` (the row logsumexp) and ``delta = rowsum(do *
 o)`` are ``(BH, N, 1)`` f32.  The bf16 kernels run their products on the
-tensor cores (``p`` and ``ds`` split into two bf16 terms each); the f32 dQ
-and dK/dV kernels too up to head dim 128, in split TF32 (every f32 operand
-as two TF32 terms, three passes a product), and the f32 forward and the
-rest on the CUDA cores (see the source's note).  The plain versions
+tensor cores (``p`` and ``ds`` split into two bf16 terms each); the f32
+kernels too up to head dim 128, in split TF32 (every f32 operand as two
+TF32 terms, three passes a product), and above it on the CUDA cores (see
+the source's note).  The plain versions
 compute the Pallas bodies over whole rows: inputs widened to f32, ``q``
 scaled in f32, ``p`` and ``ds`` kept in f32, outputs rounded to the input
 type once.

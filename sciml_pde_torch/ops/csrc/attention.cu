@@ -23,7 +23,7 @@
 // for the padded dims 16, 32, 64, 96, 128, 160, 192 and 256; a panel's head
 // dim is padded in shared memory to the next of them with zero columns,
 // which change no score and no product and are never stored.  Above 128 the
-// f32 dQ and dK/dV bodies run on the CUDA cores over 32-row tiles, and each
+// f32 bodies run on the CUDA cores (dQ and dK/dV over 32-row tiles), and each
 // bf16 tensor-core body splits its output columns over two blocks, which
 // both compute the scores (see below).  Above 256, in both input types, the
 // wide bodies (fwd_wide_kernel, dq_wide_kernel, dkv_wide_kernel) take any d
@@ -92,45 +92,50 @@
 // f32 (the NS trainer's launches under bf16=False, and the checks of
 // chip_smoke.py):
 //
-//   dQ and dK/dV up to head dim 128 (dq_tf32_kernel, dkv_tf32_kernel) run
-//   on the tensor cores in split TF32, bound by operations at the TF32 rate
-//   (495 TFLOP/s dense).  Every f32 operand x enters as hi = tf32(x) and lo =
-//   tf32(x - hi), both rounded to nearest (split_tf32), and every product
-//   a.b as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, three mma.sync m16n8k8 a k8
-//   step with f32 accumulation (a_lo.b_lo, about 2^-22 of the product, is
-//   dropped):
-//   dQ's q.k^T, do.v^T and ds.k are 9 TF32 passes, dK/dV's k.q^T, v.do^T,
-//   p^T.do and ds^T.q 12, and each body counts those as its bound.  One pass
-//   of TF32 (10 mantissa bits) would leave the outputs near 1e-3 of the
-//   largest magnitude from the plain versions, far above the f32 bound of
-//   1e-5; three keep them near 1e-6 (tests/test_torch_attention.py
+//   The forward, dQ and dK/dV up to head dim 128 (fwd_tf32_kernel,
+//   dq_tf32_kernel, dkv_tf32_kernel) run on the tensor cores in split TF32,
+//   bound by operations at the TF32 rate (495 TFLOP/s dense).  Every f32
+//   operand x enters as hi = tf32(x) and lo = tf32(x - hi), both rounded to
+//   nearest (split_tf32), and every product a.b as a_lo.b_hi + a_hi.b_lo +
+//   a_hi.b_hi, three mma.sync m16n8k8 a k8 step with f32 accumulation
+//   (a_lo.b_lo, about 2^-22 of the product, is dropped): the forward's
+//   q.k^T and p.v are 6 TF32 passes, dQ's q.k^T, do.v^T and ds.k 9, dK/dV's
+//   k.q^T, v.do^T, p^T.do and ds^T.q 12, and each body counts those as its
+//   bound.  One pass of TF32 (10 mantissa bits) would leave the outputs near
+//   1e-3 of the largest magnitude from the plain versions, far above the f32
+//   bound of 1e-5; three keep them near 1e-6 (tests/test_torch_attention.py
 //   rehearses both on the CPU).  The layout is the bf16 bodies': 4 warps, 16
-//   rows of the block's own 64-row tile a warp, the other panel's 64-row
-//   tiles double-buffered by cp.async so the next tile's loads overlap this
-//   tile's products, rows padded by 4 floats.  Fragments are read by
+//   rows of the block's own 64-row tile a warp, the other panel's tiles
+//   (64 rows; the forward's FWD32_TK = 32 keys) double-buffered by cp.async
+//   so the next tile's loads overlap this tile's products, rows padded by
+//   4 floats.  Fragments are read by
 //   ldmatrix .b16 on the f32 tiles (lane (g, t) receives f32 element [g][t]
 //   of each 8 x 4 block, the TF32 A and B layout) and split as they are
 //   read, each split fragment feeding every product of its step; q * scale
 //   is formed in f32 before its split, as the Pallas body's q * scale.  p =
-//   2^((s - l) * log2(e)), s - l in f32 first as in the plain version's
-//   exp(s - l) (l * log2(e) alone would round by 2^-24 of |l|).  Scores run
-//   in steps of SC keys (dQ: 64, 32 above head dim 64) or queries (dK/dV:
-//   32, 16 above 64), s and dp of 16 x SC a warp in registers.
+//   2^((s - l) * log2(e)) in the backward, 2^((s - m) * log2(e)) with the
+//   running max m in the forward, s - l (s - m) in f32 first as in the plain
+//   versions' exp(s - l) and exp(s - m) (l * log2(e) alone would round by
+//   2^-24 of |l|).  Scores run in steps of SC keys (the forward: 32, its
+//   whole K tile; dQ: 64, 32 above head dim 64) or queries (dK/dV: 32, 16
+//   above 64), s and dp of 16 x SC a warp in registers.
 //     The accumulator fragment (columns 2t and 2t + 1 of row g) is not the
 //   TF32 A fragment (columns t and t + 4), so p and ds enter their products
 //   with the contraction index permuted: k-slot t takes key (or query) 2t
 //   and k-slot t + 4 takes 2t + 1, which makes {c0, c2, c1, c3} the A
 //   fragment, and the B operand is read in the same order (rows 2t and
 //   2t + 1 of each k8 step, plain 32-bit loads: banks 8t + g, conflict-free).
-//   The sum is the same; only the order of the MMA's own adds changes.
+//   The sum is the same; only the order of the MMA's own adds changes.  So
+//   p and ds never pass through shared memory.
 //     An MMA rounds its result once, and not to nearest (a first design's
 //   errors grew with the size of the scores and with the MMAs a score
 //   took): a truncating adder biases every sum towards zero by up to a unit
 //   in the last place of the accumulator, once an MMA.  So no sum runs long
 //   in one accumulator.  The
-//   long sums (ds.k over the keys, p^T.do and ds^T.q over the queries) are
-//   taken per score step into fresh accumulators, which an f32 add (to
-//   nearest) then adds to the running sums: 480 MMAs into one accumulator
+//   long sums (p.v and ds.k over the keys, p^T.do and ds^T.q over the
+//   queries) are taken per step into fresh accumulators, which an f32 add (to
+//   nearest) then adds to the running sums (the forward's after its online
+//   rescale by alpha, a K/V tile a step): 480 MMAs into one accumulator
 //   over 1280 keys would carry the bias to the bound, per step it stays
 //   within 24 MMAs (the CPU rehearsal models both).  The scores take each k8
 //   step's three MMAs into fresh accumulators and add them in f32, since an
@@ -138,17 +143,28 @@
 //   and s reaches tens where p is largest (dp's error stays relative to
 //   dp, which keeps one accumulator).  dK/dV takes p^T.do over all columns
 //   before ds^T.q, so that one set of split A fragments is live at a time.
-//     Bound by the instruction rate, not the tensor cores: each operand is
-//   split by every warp that reads it, four integer or f32 instructions a
-//   value, beside each three MMAs.  Above head dim 64 a block's shared memory (six
-//   f32 tiles) leaves one block an SM, and at 96 and 128 dK/dV's two f32
-//   accumulators over all columns overflow the registers into spills; no
-//   configuration uses those head dims.  Above 128 the accumulators and split fragments would
-//   not fit at all, so dq_kernel and dkv_kernel keep those head dims on the
-//   CUDA cores.
+//     The forward keeps its online max and sum in f32 registers (the max
+//   over the quad by shuffles each K tile; the sum per thread, over the quad
+//   at the end), normalises o by 1/sum once at the store and writes l = m +
+//   log(sum) in f32.  Its K/V tiles hold 32 keys and each k8 step reads and
+//   splits q again: 52 KB of shared memory and 160 registers a thread at
+//   head dim 64, so three blocks (12 warps) share an SM.  A first design
+//   (64-key tiles, q's split fragments held in registers, 255 registers,
+//   two blocks an SM) and one that split K and V once a tile into hi and
+//   lo planes in shared memory (40% fewer instructions) were slower on
+//   the card: the body waits on latency more than it issues.
+//     Far from the tensor cores' rate: each operand is split by every warp
+//   that reads it, four integer or f32 instructions a value, beside each
+//   three MMAs, and with 8-12 warps an SM the chains of ldmatrix, split,
+//   MMA and add wait on latency.  Above head dim 64 dQ's and dK/dV's
+//   shared memory (six f32 tiles) leaves one block an SM, and at 96 and 128 dK/dV's
+//   two f32 accumulators over all columns overflow the registers into
+//   spills; no configuration uses those head dims.  Above 128 the
+//   accumulators and split fragments would not fit at all, so fwd_kernel,
+//   dq_kernel and dkv_kernel keep those head dims on the CUDA cores.
 //
-//   The CUDA-core bodies (fwd_kernel at every head dim up to 256; dq_kernel
-//   and dkv_kernel at 160-256) take every product as f32 FMAs, bound by
+//   The CUDA-core bodies (fwd_kernel, dq_kernel and dkv_kernel at 160-256)
+//   take every product as f32 FMAs, bound by
 //   operations at the f32 rate (67 TFLOP/s).  256 threads; each owns a 4x4
 //   tile of the 64x64 score tile and R x DP/16 of the output tile, operands
 //   read from row-major shared-memory tiles padded by 4 floats (rows stay
@@ -307,7 +323,7 @@ __device__ __forceinline__ void store_row(T* dst, const float* acc, int tx, int 
 }
 
 // ---------------------------------------------------------------------------
-// forward, CUDA cores (f32 inputs): o = softmax(q*scale . k^T) . v
+// forward, CUDA cores (f32 inputs, head dims 160-256): o = softmax(q*scale . k^T) . v
 // ---------------------------------------------------------------------------
 
 template <int DP>
@@ -759,16 +775,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Rows [r0, r0 + TILE) of a (n, d) panel of T (bf16 or f32) into a
-// [TILE][DP + E] tile by cp.async, 16 bytes (E = 16 / sizeof(T) columns) per
-// copy, DP / 2E copies a thread; rows at or past n and columns at or past d
-// (d % 8 == 0) are zero-filled.
-template <int DP, typename T>
+// Rows [r0, r0 + ROWS) of a (n, d) panel of T (bf16 or f32) into a
+// [ROWS][DP + E] tile by cp.async, 16 bytes (E = 16 / sizeof(T) columns) per
+// copy, ROWS * DP / (E * NT_TC) copies a thread; rows at or past n and
+// columns at or past d (d % 8 == 0) are zero-filled.
+template <int DP, int ROWS = TILE, typename T>
 __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int r0, int n, int d) {
   constexpr int E = 16 / sizeof(T), CPR = DP / E;  // columns per copy, copies per row
   const T* tile = src + (size_t)r0 * d;
 #pragma unroll
-  for (int it = 0; it < TILE * CPR / NT_TC; ++it) {
+  for (int it = 0; it < ROWS * CPR / NT_TC; ++it) {
     const int i = threadIdx.x + it * NT_TC;
     const int r = i / CPR, c = (i - r * CPR) * E;
     const bool ok = r0 + r < n && c < d;
@@ -1804,6 +1820,172 @@ dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// forward, tensor cores in split TF32 (f32 inputs): one block per (bh, 64
+// queries), 16 a warp, over K/V tiles of FWD32_TK keys
+// ---------------------------------------------------------------------------
+
+// keys a K/V tile, and a p.v step (its sums begin at 0): with 32 the block
+// holds 52 KB of shared memory at head dim 64 and 160 registers a thread,
+// so three blocks share an SM
+constexpr int FWD32_TK = 32;
+
+// s (FWD32_TK keys) += a . k^T over one k8 step in split TF32 (kp: this
+// lane's ldmatrix row of the step in the K tile), each n8 tile's three MMAs
+// into a fresh accumulator that an f32 add then adds to s
+template <int LD>
+__device__ __forceinline__ void score_step(float s[FWD32_TK / 8][4], const uint32_t ah[4],
+                                           const uint32_t al[4], const float* kp) {
+#pragma unroll
+  for (int np = 0; np < FWD32_TK / 16; ++np) {
+    uint32_t kh[4], kl[4];
+    ld_split<false>(kh, kl, kp + np * 16 * LD, 1.f);
+    float t0[4], t1[4];
+    mma_tf32_from0(t0, al, kh[0], kh[1]);
+    mma_tf32_from0(t1, al, kh[2], kh[3]);
+    mma_tf32(t0, ah, kl[0], kl[1]);
+    mma_tf32(t1, ah, kl[2], kl[3]);
+    mma_tf32(t0, ah, kh[0], kh[1]);
+    mma_tf32(t1, ah, kh[2], kh[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[2 * np][e] += t0[e];
+      s[2 * np + 1][e] += t1[e];
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NT_TC, 3)
+fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                int n, int d, int ntiles, float scale) {
+  constexpr int LD = DP + 4, KS = DP / 8, NC = DP / 8, TK = FWD32_TK, TS = TK * LD;
+  constexpr int NT8 = TK / 8;  // n8 tiles of the scores, k8 steps of p.v
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [TILE][LD], q unscaled
+  float* ks = qs + TILE * LD;                      // 2 x [TK][LD]
+  float* vs = ks + 2 * TS;                         // 2 x [TK][LD]
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile * TILE;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int nkt = (n + TK - 1) / TK;
+  const int a_off = (ln.warp * 16 + ln.lm_row) * LD + ln.lm_col / 2;
+  const int b_off = ln.lk_row * LD + ln.lk_col / 2;
+
+  load_tile_async<DP>(qs, q + base, q0, n, d);
+  load_tile_async<DP, TK>(ks, k + base, 0, n, d);
+  load_tile_async<DP, TK>(vs, v + base, 0, n, d);
+  cp_async_commit();
+
+  float acc[NC][4];
+  // rows g and g + 8 of the warp's tile: running max, and the running sum
+  // over this thread's columns (summed over the quad at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < nkt) {  // the next tile's copies fly while this one is used
+      load_tile_async<DP, TK>(ks + (buf ^ 1) * TS, k + base, (j + 1) * TK, n, d);
+      load_tile_async<DP, TK>(vs + (buf ^ 1) * TS, v + base, (j + 1) * TK, n, d);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kb = ks + buf * TS;
+    const float* vb = vs + buf * TS;
+
+    // s = (q * scale) . k^T over this tile's keys
+    float s[NT8][4];
+#pragma unroll
+    for (int i = 0; i < NT8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4];
+      ld_split<true>(ah, al, qs + a_off + kk * 8, scale);
+      score_step<LD>(s, ah, al, kb + b_off + kk * 8);
+    }
+    if (j * TK + TK > n) {  // keys at or past n: p = 0
+#pragma unroll
+      for (int i = 0; i < NT8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * TK + i * 8 + 2 * ln.t + (e & 1) >= n) s[i][e] = -INFINITY;
+    }
+
+    // online max and sum (f32): p = 2^((s - m_new) * log2(e)), s - m_new in
+    // f32 first; the running output is rescaled by alpha
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[i][0], s[i][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[i][2], s[i][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // finite: the tile holds a key
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    const float a0 = ex2((m[0] - mn0) * LOG2E), a1 = ex2((m[1] - mn1) * LOG2E);
+    m[0] = mn0;
+    m[1] = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) {
+      s[i][0] = ex2((s[i][0] - mn0) * LOG2E);
+      s[i][1] = ex2((s[i][1] - mn0) * LOG2E);
+      s[i][2] = ex2((s[i][2] - mn1) * LOG2E);
+      s[i][3] = ex2((s[i][3] - mn1) * LOG2E);
+      rs0 += s[i][0] + s[i][1];
+      rs1 += s[i][2] + s[i][3];
+    }
+    l[0] = l[0] * a0 + rs0;
+    l[1] = l[1] * a1 + rs1;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[c][0] *= a0;
+      acc[c][1] *= a0;
+      acc[c][2] *= a1;
+      acc[c][3] *= a1;
+    }
+
+    // acc += p . v from split A fragments of p (the accumulator fragment,
+    // contraction index permuted), the tile's sums begun at 0 and added to
+    // acc in f32
+    uint32_t ph[NT8][4], pl[NT8][4];
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) split_acc_as_a(s[i], ph[i], pl[i]);
+    grad_step<NC, NT8>(acc, ph, pl, vb + 2 * ln.t * LD + ln.g, LD);
+    __syncthreads();  // this buffer is refilled by the next iteration's copies
+  }
+
+  float l0 = l[0], l1 = l[1];
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const int row0 = q0 + ln.warp * 16 + ln.g;
+  store_acc<NC>(o + base, acc, row0, 0, ln.t, n, d, 1.f / l0, 1.f / l1);
+  if (ln.t == 0) {
+    if (row0 < n) lse[bh * n + row0] = m[0] + logf(l0);
+    if (row0 + 8 < n) lse[bh * n + row0 + 8] = m[1] + logf(l1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1835,6 +2017,13 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, float*
     using T = __nv_bfloat16;
     kern<<<grid, NT_TC, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, l, n, d,
                                         ntiles, scale);
+  } else if constexpr (DP <= 128) {
+    const size_t smem = f32_tile_bytes(TILE, DP) + 4 * f32_tile_bytes(FWD32_TK, DP);
+    auto kern = fwd_tf32_kernel<DP>;
+    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, TILE);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, NT_TC, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                        (float*)o, l, n, d, ntiles, scale);
   } else {
     const size_t smem = 3 * f32_tile_bytes(TILE, DP) + f32_tile_bytes(TILE, TILE);
     auto kern = fwd_kernel<DP>;

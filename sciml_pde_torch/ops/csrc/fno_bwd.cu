@@ -384,45 +384,177 @@ FNO_EXPORT int fno_head_bwd(const float* dpred, const float* hf, const float* w1
 }
 
 // ---------------------------------------------------------------------------
-// mode-mix weight gradients, one thread per (c, o, k*r):
-//   dwr + i dwi = sum_b conj(spec[b, c]) * dspec[b, o]
+// mode-mix weight gradients
+//
+// Replaces the mode-mix weight gradients of _full_bwd_kernel (B2,
+// sciml_pde_tpu/ops/fno_fused_step.py:1062-1063) and of _layer_wgrad_el
+// (B2c, :382-383): for every (c, o, kr) of spec (B, C, KR) and dspec (B, O,
+// KR), dwr + i dwi = sum_b conj(spec[b, c]) * dspec[b, o].  The TPU kernel
+// adds each element's term to a revisited output block over its batch grid;
+// here the batch is summed in the same order, b = 0, 1, ... from zero, one
+// complex product a step, each term as JAX writes it (dwr += xr gr + xi gi,
+// dwi += -xi gr + xr gi, every product and sum rounded to nearest in f32, no
+// contraction into FMAs), so the bits do not depend on the launch shape.
+// Bound by bytes: at the flagship (B 4, C = O = 20, KR = 24 x 12 = 288) the
+// f32 output is 0.92 MB, dspec 0.18 MB and the bf16 spec 92 KB, 0.36 us at
+// 3.35 TB/s.  The first design ran one thread an output with the batch a
+// runtime loop (4-byte loads; each spec value loaded anew by the O threads
+// that share it).  Here:
+//   - a thread owns (c, V consecutive kr, MW_OG consecutive o): its spec
+//     values are loaded once and serve its MW_OG o's;
+//   - the batch is a template argument (1, 2, 4 or 8, fully unrolled; any
+//     other B runs a generic body, one b a round), and the source issues
+//     every load of the thread, spec and MW_OG x B dspec vectors, before
+//     its first product.  ptxas interleaves some products with the later
+//     loads, as it did the first design's (chip_smoke.py phase 2 prints
+//     the order from the SASS); a variant that staged every load in
+//     shared memory by cp.async, all in flight by construction, was no
+//     faster on the card;
+//   - loads and stores are V floats wide along kr: 4 (16 bytes; the bf16
+//     spec 8) when KR % 4 == 0, 2 when KR is even, 1 when it is odd;
+//   - the grid is (kr vectors, o groups, c): blockIdx names the thread's
+//     o group and c, so no thread divides (an index split by 64-bit
+//     division cost more than the loads' order); consecutive threads take
+//     consecutive kr vectors, so a warp's loads and stores are contiguous;
+//     at the flagship 72 kr vectors (three warps) x 10 o groups x 20 c, 200
+//     blocks, all resident at once (one wave).
 // ---------------------------------------------------------------------------
 
-template <typename S>
-__global__ void mix_wgrad_kernel(const S* __restrict__ br, const S* __restrict__ bi,
-                                 const float* __restrict__ dcr, const float* __restrict__ dci,
-                                 float* __restrict__ dwr, float* __restrict__ dwi, int B, int C,
-                                 int O, int KR) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)C * O * KR) return;
-  const int kr = idx % KR;
-  const int o = (idx / KR) % O;
-  const int c = idx / ((size_t)O * KR);
-  float sr = 0.f, si = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const size_t xs = ((size_t)b * C + c) * KR + kr, gs = ((size_t)b * O + o) * KR + kr;
-    const float xr = ldv(br + xs), xi = ldv(bi + xs);
-    const float gr = dcr[gs], gi = dci[gs];
-    sr += xr * gr + xi * gi;
-    si += xr * gi - xi * gr;
+constexpr int MW_OG = 2;       // o's per thread
+constexpr int MW_BLOCK = 128;  // most threads a block (along kr)
+
+template <int V>
+__device__ __forceinline__ void ld_vec(float (&x)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x; x[1] = t.y;
+  } else {
+    x[0] = *p;
   }
-  dwr[idx] = sr;
-  dwi[idx] = si;
 }
 
+template <int V>
+__device__ __forceinline__ void ld_vec(float (&x)[V], const __nv_bfloat16* p) {
+  if constexpr (V == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+  } else if constexpr (V == 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    x[0] = __bfloat162float(*p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void st_vec(float* p, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
+}
+
+// NB: the batch, fully unrolled (0: any B, one b a round); V: kr a thread
+template <typename S, int NB, int V>
+__global__ void __launch_bounds__(MW_BLOCK)
+mix_wgrad_kernel(const S* __restrict__ br, const S* __restrict__ bi,
+                 const float* __restrict__ dcr, const float* __restrict__ dci,
+                 float* __restrict__ dwr, float* __restrict__ dwi, int B, int C, int O, int KR) {
+  constexpr int NU = NB > 0 ? NB : 1;  // batches a round
+  const int kv = blockIdx.x * blockDim.x + threadIdx.x;  // this thread's kr vector
+  if (kv >= KR / V) return;
+  const int kr = kv * V, o0 = blockIdx.y * MW_OG, c = blockIdx.z;
+  float sr[MW_OG][V], si[MW_OG][V];
+#pragma unroll
+  for (int j = 0; j < MW_OG; ++j)
+#pragma unroll
+    for (int e = 0; e < V; ++e) sr[j][e] = si[j][e] = 0.f;
+  for (int b0 = 0; b0 < (NB > 0 ? 1 : B); ++b0) {
+    float xr[NU][V], xi[NU][V], gr[NU][MW_OG][V], gi[NU][MW_OG][V];
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int b = b0 + u;
+      const size_t xs = ((size_t)b * C + c) * KR + kr;
+      ld_vec<V>(xr[u], br + xs);
+      ld_vec<V>(xi[u], bi + xs);
+#pragma unroll
+      for (int j = 0; j < MW_OG; ++j) {  // an o past O reads O - 1 and is not stored
+        const size_t gs = ((size_t)b * O + min(o0 + j, O - 1)) * KR + kr;
+        ld_vec<V>(gr[u][j], dcr + gs);
+        ld_vec<V>(gi[u][j], dci + gs);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int j = 0; j < MW_OG; ++j)
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float xre = xr[u][e], xie = xi[u][e], gre = gr[u][j][e], gie = gi[u][j][e];
+          sr[j][e] = __fadd_rn(sr[j][e], __fadd_rn(__fmul_rn(xre, gre), __fmul_rn(xie, gie)));
+          si[j][e] = __fadd_rn(si[j][e], __fadd_rn(__fmul_rn(-xie, gre), __fmul_rn(xre, gie)));
+        }
+  }
+#pragma unroll
+  for (int j = 0; j < MW_OG; ++j) {
+    if (o0 + j >= O) break;
+    const size_t ws = ((size_t)c * O + o0 + j) * KR + kr;
+    st_vec<V>(dwr + ws, sr[j]);
+    st_vec<V>(dwi + ws, si[j]);
+  }
+}
+
+template <typename S, int V>
+cudaError_t launch_mix_wgrad(const void* br, const void* bi, const float* dcr, const float* dci,
+                             float* dwr, float* dwi, int B, int C, int O, int KR,
+                             cudaStream_t st) {
+  const int nv = KR / V, ng = (O + MW_OG - 1) / MW_OG;
+  if (C > 65535 || ng > 65535) return cudaErrorInvalidValue;
+  // a block takes up to MW_BLOCK kr vectors (whole warps) of one (c, o group)
+  const int bx = nv < MW_BLOCK ? (nv + 31) / 32 * 32 : MW_BLOCK;
+  const dim3 grid((nv + bx - 1) / bx, ng, C);
+  const S* xr = (const S*)br;
+  const S* xi = (const S*)bi;
+#define MW_LAUNCH(NB) \
+  mix_wgrad_kernel<S, NB, V><<<grid, bx, 0, st>>>(xr, xi, dcr, dci, dwr, dwi, B, C, O, KR)
+  switch (B) {
+    case 1: MW_LAUNCH(1); break;
+    case 2: MW_LAUNCH(2); break;
+    case 4: MW_LAUNCH(4); break;
+    case 8: MW_LAUNCH(8); break;
+    default: MW_LAUNCH(0);
+  }
+#undef MW_LAUNCH
+  return cudaGetLastError();
+}
+
+template <typename S>
+cudaError_t launch_mix_wgrad_v(const void* br, const void* bi, const float* dcr,
+                               const float* dci, float* dwr, float* dwi, int B, int C, int O,
+                               int KR, cudaStream_t st) {
+  if (KR % 4 == 0) return launch_mix_wgrad<S, 4>(br, bi, dcr, dci, dwr, dwi, B, C, O, KR, st);
+  if (KR % 2 == 0) return launch_mix_wgrad<S, 2>(br, bi, dcr, dci, dwr, dwi, B, C, O, KR, st);
+  return launch_mix_wgrad<S, 1>(br, bi, dcr, dci, dwr, dwi, B, C, O, KR, st);
+}
+
+// Pointers 16-byte aligned (the wrapper's _aligned); B, C, O, KR >= 1.
 FNO_EXPORT int fno_mix_wgrad(const void* br, const void* bi, const float* dcr,
                              const float* dci, float* dwr, float* dwi, int B, int C, int O,
                              int KR, int spec_bf16, void* stream) {
-  const size_t n = (size_t)C * O * KR;
-  const unsigned grid = (unsigned)((n + 255) / 256);
+  if (B <= 0 || C <= 0 || O <= 0 || KR <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (spec_bf16)
-    mix_wgrad_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        (const __nv_bfloat16*)br, (const __nv_bfloat16*)bi, dcr, dci, dwr, dwi, B, C, O, KR);
-  else
-    mix_wgrad_kernel<float><<<grid, 256, 0, st>>>((const float*)br, (const float*)bi, dcr,
-                                                  dci, dwr, dwi, B, C, O, KR);
-  return (int)cudaGetLastError();
+  return (int)(spec_bf16 ? launch_mix_wgrad_v<__nv_bfloat16>(br, bi, dcr, dci, dwr, dwi, B, C,
+                                                             O, KR, st)
+                         : launch_mix_wgrad_v<float>(br, bi, dcr, dci, dwr, dwi, B, C, O, KR,
+                                                     st));
 }
 
 // ---------------------------------------------------------------------------

@@ -119,7 +119,8 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
 def _aligned(t):
     """``t`` (or None), or a copy of it when its data do not start on 16
     bytes: the kernels that copy tensors into shared memory by cp.async
-    (wdft, the bf16 attention bodies) move 16 bytes at a time."""
+    (wdft, the attention bodies) or load them as vectors (mix_wgrad) move
+    16 bytes at a time."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -600,8 +601,12 @@ def mix_wgrad(spr, spi, dcr, dci):
     _need(spi, spr.shape, spr.dtype, "spec_i")
     _need(dcr, (b, o, k, r), what="dspec_r")
     _need(dci, (b, o, k, r), what="dspec_i")
+    if spr.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"spec_r: expected f32 or bf16, got {spr.dtype}")
     dwr = torch.empty(c, o, k, r, device=spr.device)
     dwi = torch.empty_like(dwr)
+    # the kernel moves up to 16 bytes at a time along k * r
+    spr, spi, dcr, dci = (_aligned(t) for t in (spr, spi, dcr, dci))
     _launch("fno_mix_wgrad", "fno_mix_wgrad", spr, spi, dcr, dci, dwr, dwi, b, c, o, k * r,
             int(spr.dtype == torch.bfloat16))
     return dwr, dwi

@@ -1,10 +1,11 @@
 """Port ops/attention.py vs the JAX package: flash_attention values and q/k/v
 gradients (JAX Pallas in interpret mode on the CPU), each plain version
-against the Pallas body it stands for, and the shape rule.  Three more
-tests rehearse the backward kernels' numerics against chip_smoke.py's
-bounds: the bf16 kernels' p and ds split into two bf16 terms, the f32
-kernels' products in split TF32 (three passes against one), and their long
-sums taken per score step under a model of an MMA that truncates its sum.
+against the Pallas body it stands for, and the shape rule.  Four more
+tests rehearse the kernels' numerics against chip_smoke.py's bounds: the
+bf16 backward kernels' p and ds split into two bf16 terms, the f32 forward
+(against the Pallas body) and backward kernels' products in split TF32
+(three passes against one), and the backward's long sums taken per score
+step under a model of an MMA that truncates its sum.
 
 Tolerances, relative to the largest magnitude of the JAX result: f32 1e-5
 (sums in another order); bf16 3e-2 (roundings to bf16 at other points)."""
@@ -276,6 +277,58 @@ def test_split_tf32_backward_meets_the_f32_bound(d, out):
     err = {n: ((emulate(n) - want).abs().max() / want.abs().max()).item() for n in (3, 1)}
     assert err[3] <= cs.ATT_TOL_F32, (out, d, err)
     assert err[1] > cs.ATT_TOL_F32, (out, d, err)
+
+
+def _split_tf32_forward(q, k, v, scale, passes):
+    """attention_fwd as fwd_tf32_kernel takes it: s = (q * scale).k^T a k8
+    step at a time, each step's TF32 passes summed afresh and added to s in
+    f32; over the kernel's 32-key K/V tiles the online max m and sum, p =
+    exp(s - m_new), the running output rescaled by exp(m - m_new) and the
+    tile's p.v summed afresh and added in f32; o = acc * (1 / sum), l = m +
+    log(sum)."""
+    bh, n, d = q.shape
+    qs, kt = q * scale, k.transpose(-1, -2)
+    s = torch.zeros(bh, n, n)
+    for k0 in range(0, d, 8):
+        s = s + _tf32_dot(qs[..., k0:k0 + 8], kt[..., k0:k0 + 8, :], passes)
+    m = torch.full((bh, n, 1), -torch.inf)
+    total = torch.zeros(bh, n, 1)
+    acc = torch.zeros(bh, n, d)
+    for j in range(0, n, 32):
+        st = s[..., j:j + 32]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        total = total * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_dot(p, v[:, j:j + 32], passes)
+        m = m_new
+    return acc * (1 / total), m + torch.log(total)
+
+
+@pytest.mark.parametrize("amp", [1.0, 3.0])
+@pytest.mark.parametrize("d", [64, 96])
+def test_split_tf32_forward_meets_the_f32_bound(d, amp):
+    """The f32 forward kernel's arithmetic (``_split_tf32_forward``, three
+    TF32 passes a product) at (2, 256, d), q and k times ``amp`` (3: scores
+    to about 40), lies within chip_smoke.py's f32 bound (1e-5 of the largest
+    magnitude) of the JAX Pallas body ``_fwd_kernel`` (interpret mode), in o
+    and in l; one pass a product (the control) lies outside it."""
+    cs = chip_smoke()
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.normal(size=(2, 256, d)).astype(np.float32) for _ in range(3))
+    q, k = q * np.float32(amp), k * np.float32(amp)
+    scale = d**-0.5
+    o_want, l_want = ja._attention_fwd_flat(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    o_want, l_want = np.asarray(o_want), np.asarray(l_want)
+
+    def errs(passes):
+        o, l = _split_tf32_forward(*(torch.tensor(a) for a in (q, k, v)), scale, passes)
+        return [float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+                for got, want in ((o, o_want), (l, l_want))]
+
+    split, one = errs(3), errs(1)
+    assert max(split) <= cs.ATT_TOL_F32, (d, amp, split)
+    assert min(one) > cs.ATT_TOL_F32, (d, amp, one)
 
 
 def _rz(x):

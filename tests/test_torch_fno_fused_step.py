@@ -2,7 +2,8 @@
 kernels' plain versions composed as on the card) against the JAX reference
 composition and the JAX Pallas kernels run in interpret mode, values and
 all ten gradients, at width 8, at width 40 and on a 16 x 40 field; the lift
-and head kernels' plain versions at width 64 with 9 output channels; CPU
+and head kernels' plain versions at width 64 with 9 output channels, and
+the mode mix's weight-gradient plain version over batches 1-8; CPU
 rehearsals of the kernels' summation orders against the bounds
 chip_smoke.py holds them to; the wrappers' shared-memory plans and the
 limits they name."""
@@ -256,6 +257,51 @@ def test_lift_and_head_plain_match_jax_at_width_64(op_setup, op, prec):
     if bf:
         gap = errs(_plain_op(op, op_setup, False, jstats))
         assert max(gap) > 2 * OP_TOL[prec], gap
+
+
+@pytest.mark.parametrize("spec", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 3, 4, 8])
+def test_mix_wgrad_plain_matches_jax_layer_wgrad(b, spec, monkeypatch):
+    """mix_wgrad_plain, which fno_mix_wgrad is held to on the card, against
+    JAX's dwmr and dwmi of ``_layer_wgrad_el`` summed over the batch from
+    zero in order (as ``_full_bwd_kernel`` adds each element's to its
+    revisited output block), on the spectra of JAX's ``_spectral_fwd_el``
+    and ``_spectral_adj_el``, the forward spectrum in f32 (B2c) or rounded
+    to bf16 (as ``_full_bwd_kernel`` saves it under `default`): within
+    1e-5 of the largest magnitude (f32 sums of b products in another
+    order)."""
+    rng = np.random.default_rng(20 + b)
+    c, o, hp, wp = 3, 5, X, Y
+    f = jf.spectral_factors(hp, wp, MODES, MODES)
+    (hpad, rp), (wpad, kp) = f.gr.shape, f.fr.shape
+    wmr, wmi = (rng.normal(size=(c, o, kp, rp)).astype(np.float32) for _ in range(2))
+    hs = rng.normal(size=(b, c, hpad, wpad)).astype(np.float32)
+    dps = rng.normal(size=(b, o, hpad, wpad)).astype(np.float32)
+    sdt = jnp.dtype(spec)
+    real_fwd_el = jf._spectral_fwd_el
+
+    def fwd_el(h, wr, wi, fac):
+        out, (br, bi) = real_fwd_el(h, wr, wi, fac)
+        return out, (br.astype(sdt), bi.astype(sdt))
+
+    monkeypatch.setattr(jf, "_spectral_fwd_el", fwd_el)
+    with precision("highest"):
+        want = [jnp.zeros((c, o, kp, rp), jnp.float32)] * 2
+        specs, dspecs = [], []
+        for i in range(b):
+            dwr, dwi, _, _ = jf._layer_wgrad_el(hs[i], dps[i], wmr, wmi, f)
+            want = [want[0] + dwr, want[1] + dwi]
+            specs.append(fwd_el(hs[i], wmr, wmi, f)[1])
+            dspecs.append(jf._spectral_adj_el(dps[i], wmr, wmi, f)[1])
+    as_t = lambda xs, j: torch.from_numpy(  # noqa: E731
+        np.stack([np.asarray(x[j].astype(jnp.float32)) for x in xs]))
+    spr, spi = (as_t(specs, j).to(getattr(torch, spec)) for j in (0, 1))
+    got = tk.mix_wgrad_plain(spr, spi, as_t(dspecs, 0), as_t(dspecs, 1))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= 1e-5, (b, spec, err)
 
 
 def test_pack_unpack_roundtrip(setup):
