@@ -24,7 +24,10 @@ FNO steps and the five split kernels):
               spills of every attention and FNO kernel and the FNO kernels'
               stack frames (ptxas -v), none spilling at head dim 64 on the
               tensor cores (the bf16 bodies and the split-TF32 f32
-              forward, dQ and dK/dV), none in wdft_kernel and
+              forward, dQ and dK/dV) nor in the four instances of the
+              cluster bodies above head dim 256 (fwd_wide_kernel and
+              dkv_wide_kernel, bf16 and f32; each with the clusters of 8
+              blocks the card holds at once), none in wdft_kernel and
               reduce_rows_kernel, and
               neither spills nor a stack frame in both instances of
               lift_kernel, both paths of head_fwd_kernel and
@@ -95,13 +98,18 @@ FNO steps and the five split kernels):
               versions (and the same bits from a second launch) at the
               encoder (24, 1280, 64) and decoder
               (16, 1280, 64) shapes, at head dims 96, 24, 160, 192,
-              256, 264, 320 and 512 and at 200 tokens (ragged tiles) at
-              head dim 64, in f32 and bf16, at the encoder shape with q
-              and k times 3 (scores up to about 54) in f32 (above 256 with each
-              kernel's time beside the SDPA forward or backward on the
-              same inputs), and at batch*heads 70000 (70000, 16, 16) in
-              bf16, with a control against a kernel that rounds p and ds
-              to bf16
+              256, 264, 320, 512, 1024 and 1032 and at 200 tokens (ragged
+              tiles) at head dim 64, in f32 and bf16, at the encoder shape
+              and at (4, 1280, 512) with q and k times 3 (scores up to
+              about 54) in f32 (above 256 with each kernel's time beside
+              its bound and the SDPA forward or backward on the same
+              inputs), and at batch*heads 70000 (70000, 16, 16) in bf16,
+              with a control against a kernel that rounds p and ds to
+              bf16 (f32 outputs held against the exact result, the plain
+              versions' arithmetic in f64, within 1e-5 or the f32 plain
+              version's own distance from it); flash_attention at (2, 4,
+              1280, 512) through the kernels against plain=True, values
+              and q/k/v gradients, in both types
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
               every gradient) through the kernels against the same model
               through the plain versions, with the bf16-vs-f32 gap as a
@@ -237,10 +245,11 @@ ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 12
 # padded in shared memory (96 is plume-3D's decoder, 768 / 8 heads; 24 pads
 # to 32), head dims above 128 (32-row f32 dQ and dK/dV tiles; two bf16
 # blocks per row tile, each for half of the output columns), head dims above
-# 256 (the wide bodies: 64-column score chunks, ceil(d / 128) column groups;
-# 200 tokens leave ragged row and key tiles), 200 tokens at head dim 64 (the
-# tensor-core bodies' ragged tiles), in both dtypes, and batch*heads above
-# the 65535 of a grid's y axis
+# 256 (the wide bodies: ceil(d / 128) column groups, the forward and dK/dV as
+# thread-block clusters of that many ranks up to 1024 (8 ranks), on the CUDA
+# cores above; 200 tokens leave ragged row and key tiles), 200 tokens at head
+# dim 64 (the tensor-core bodies' ragged tiles), in both dtypes, and
+# batch*heads above the 65535 of a grid's y axis
 ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "head dim 24": ((16, 1280, 24), ("float32", "bfloat16")),
              "head dim 160": ((8, 1280, 160), ("float32", "bfloat16")),
@@ -249,11 +258,14 @@ ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "head dim 264": ((4, 1280, 264), ("float32", "bfloat16")),
              "head dim 320": ((4, 200, 320), ("float32", "bfloat16")),
              "head dim 512": ((4, 1280, 512), ("float32", "bfloat16")),
+             "head dim 1024": ((2, 1280, 1024), ("float32", "bfloat16")),
+             "head dim 1032": ((2, 256, 1032), ("float32", "bfloat16")),
              "ragged tiles": ((8, 200, 64), ("float32", "bfloat16")),
              # q and k times 3: scores up to about 54 (the f32 dQ and dK/dV
              # sum each score a k8 step at a time, so that their size does
              # not scale the bias of the MMAs' rounding into p)
              "large logits": ((24, 1280, 64), ("float32",), 3.0),
+             "large logits, head dim 512": ((4, 1280, 512), ("float32",), 3.0),
              "batch*heads 70000": ((70_000, 16, 16), ("bfloat16",))}
 # profiler keys of the attention kernels (their demangled names) at the NS
 # head dim: the bf16 tensor-core bodies, and in f32 the split-TF32
@@ -262,10 +274,14 @@ ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "
                             "attention_dkv": "dkv_tc_kernel<"},
                    "f32": {"attention_fwd": "fwd_tf32_kernel<", "attention_dq": "dq_tf32_kernel<",
                            "attention_dkv": "dkv_tf32_kernel<"}}
-# attention kernels vs plain versions: f32 outputs within 1e-5 of the
-# largest magnitude (f32 sums in another order); bf16 outputs within one
-# bf16 rounding step of the value (2^-7 of its magnitude: the two round
-# f32 results that differ in the last f32 bits) plus the f32 bound
+# attention kernels: f32 outputs within 1e-5 of the largest magnitude of the
+# exact result (the plain version's arithmetic in f64: att_f64), or no
+# farther from it than the f32 plain version (with q and k times 3 at head
+# dim 512 the f32 plain versions lie up to 2.1e-5 from it, and dq_wide_kernel,
+# bit for bit the plain dQ, 1.2e-5); bf16 outputs against the plain
+# version, within one bf16 rounding step of the value (2^-7 of its
+# magnitude: the two round f32 results that differ in the last f32 bits)
+# plus the f32 bound
 ATT_TOL_F32 = 1e-5
 BF16_STEP = 2.0**-7
 ATT_SITES = {"attention_fwd": "sciml_pde_tpu/ops/attention.py:52",
@@ -1566,9 +1582,14 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     and dK/dV 12 passes, 0.06101, 0.09150 and 0.12200 ms at the encoder
     shape; before those designs they took two, three and four products at
     the CUDA cores' f32 rate (67 TFLOP/s), 0.15024, 0.22537 and 0.30049 ms
-    (``att_work_f32_cores``), as they still do above 128.  Before their tensor-core designs
-    the bf16 kernels' bounds counted the products that take p or ds at the
-    f32 rate: 0.08021 (forward), 0.08530 (dQ) and 0.16042 ms (dK/dV) at the
+    (``att_work_f32_cores``), as they still do from 160 to 256 and, above,
+    dQ at every head dim and the forward and dK/dV above CLUSTER_MAX_D.
+    Above 256 the forward and dK/dV cluster bodies count the same TF32
+    passes (at (4, 1280, 512) 0.08134 and 0.16269 ms; dQ 0.30050 on the
+    CUDA cores), and the bf16 wide bodies their bf16 products (0.02036,
+    0.02714 and 0.04071 ms there).  Before their tensor-core designs the
+    bf16 kernels' bounds counted the products that take p or ds at the f32
+    rate: 0.08021 (forward), 0.08530 (dQ) and 0.16042 ms (dK/dV) at the
     encoder shape."""
     es = 2 if bf else 4
     panel, row = bh * n * d * es, bh * n * 4
@@ -1579,7 +1600,9 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     if bf:
         products = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name]
         return nbytes, products * prod / PEAK_FLOPS["default"]
-    if d > 128:
+    from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
+
+    if d > 128 and not (256 < d <= CLUSTER_MAX_D and name != "attention_dq"):
         return nbytes, att_work_f32_cores(name, bh, n, d)
     passes = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}[name]
     return nbytes, passes * prod / TF32_FLOPS
@@ -1611,6 +1634,76 @@ def att_bf16p(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.
             torch.matmul(r(p).transpose(-1, -2), do.float()).to(q.dtype))
 
 
+def att_f64(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.0):
+    """The exact result of one attention kernel: its plain version's
+    arithmetic in f64 on the same inputs (the f32 bound's reference: at
+    (4, 1280, 512) with q and k times 3 the f32 plain versions themselves
+    lie up to 2.1e-5 from it)."""
+    import torch
+
+    q, k, v = q.double(), k.double(), v.double()
+    s = (q * scale) @ k.transpose(-1, -2)
+    if name == "attention_fwd":
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        return e / e.sum(-1, keepdim=True) @ v, m + torch.log(e.sum(-1, keepdim=True))
+    do = do.double()
+    p = torch.exp(s - l.double())
+    ds = p * (do @ v.transpose(-1, -2) - delta.double())
+    if name == "attention_dq":
+        return (ds @ k * scale,)
+    return ds.transpose(-1, -2) @ q * scale, p.transpose(-1, -2) @ do
+
+
+def att_kernel_key(name: str, d: int) -> str:
+    """The profiler key of the CUDA kernel that attention kernel ``name``
+    launches above head dim 256: the cluster bodies fwd_wide_kernel and
+    dkv_wide_kernel up to CLUSTER_MAX_D, their CUDA-core bodies above it,
+    dq_wide_kernel at every head dim."""
+    from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
+
+    short = name.replace("attention_", "")
+    return f"{short}_wide_cc_kernel<" if short != "dq" and d > CLUSTER_MAX_D else \
+        f"{short}_wide_kernel<"
+
+
+def check_flash_wide(ta, dev) -> None:
+    """Phase 6: flash_attention at (2, 4, 1280, 512) through the kernels (the
+    wide bodies) against plain=True, values and q/k/v gradients, in both
+    dtypes: f32 within the f32 bound; bf16 the output within one bf16 step
+    plus the f32 bound, the gradients (from the kernels' own bf16 output,
+    whose one-step flips move delta) within the model's bf16 bound."""
+    import torch
+
+    g = torch.Generator().manual_seed(5)
+    b, h, n, d = 2, 4, 1280, 512
+    q, k, v, go = (torch.randn(b, h, n, d, generator=g) for _ in range(4))
+    for dt in (torch.float32, torch.bfloat16):
+        outs = {}
+        for plain in (False, True):
+            qq, kk, vv = (t.to(dev, dt).requires_grad_(True) for t in (q, k, v))
+            o = ta.flash_attention(qq, kk, vv, d**-0.5, plain=plain)
+            grads = torch.autograd.grad(o, (qq, kk, vv), go.to(dev, dt))
+            outs[plain] = [o.detach(), *grads]
+        torch.cuda.synchronize()
+        msgs, ok = [], all(bool(torch.isfinite(t).all()) for t in outs[False])
+        for what, a, w in zip(("o", "dq", "dk", "dv"), outs[False], outs[True]):
+            rel = rel_err(a, w)[1]
+            if dt == torch.float32:
+                ok &= rel <= ATT_TOL_F32
+            elif what == "o":
+                lim = BF16_STEP * torch.maximum(a.float().abs(), w.float().abs()) \
+                    + ATT_TOL_F32 * w.float().abs().max()
+                ok &= ((a.float() - w.float()).abs() / lim).max().item() <= 1.0
+            else:
+                ok &= rel <= TOL_MODEL["bf16"]
+            msgs.append(f"{what} rel-to-max {rel:.3e}")
+        tol = (f"tol {ATT_TOL_F32:.0e}" if dt == torch.float32 else
+               f"o one bf16 step + {ATT_TOL_F32:.0e}, grads {TOL_MODEL['bf16']:.0e}")
+        check(ok, f"[attention] flash_attention {(b, h, n, d)} {str(dt)[6:]} through the "
+              f"kernels vs plain=True: " + ", ".join(msgs) + f" ({tol})")
+
+
 def sdpa_calls(q, k, v, do, scale: float) -> dict:
     """One PyTorch call per attention kernel on its inputs (bh, n, d): the
     SDPA forward, and for dQ and dK/dV the SDPA backward (both together)."""
@@ -1628,8 +1721,11 @@ def check_attention(ta, dev, card: str) -> dict:
     """Phase 6: each kernel against its plain version (and a second launch
     of itself, which must give the same bits) at the encoder and decoder
     shapes and at the head dims of ATT_EXTRA in f32 and bf16 (above 256
-    with its profiler device time), at batch*heads 70000 in bf16, and with
-    q and k times 3 (scores up to about 54) in f32.
+    with its profiler device time beside its bound and the SDPA call's), at
+    batch*heads 70000 in bf16, and with q and k times 3 (scores up to about
+    54) in f32.  f32 outputs are held against the exact result (att_f64),
+    within ATT_TOL_F32 or the f32 plain version's own distance from it,
+    printed beside; bf16 outputs against the plain version.
     Returns the bf16 encoder-shape inputs of each kernel (the main path's
     most frequent launch) for timing."""
     import torch
@@ -1654,15 +1750,20 @@ def check_attention(ta, dev, card: str) -> dict:
                 got = as_tuple(getattr(ta, name)(*args[name], scale))
                 again = as_tuple(getattr(ta, name)(*args[name], scale))
                 want = as_tuple(getattr(ta, f"{name}_plain")(*args[name], scale))
+                exact = att_f64(name, *args[name], scale=scale)
                 torch.cuda.synchronize()
                 ok = all(torch.equal(a, b) for a, b in zip(got, again))
                 msgs = [f"same bits twice {ok}"]
-                for i, (a, b) in enumerate(zip(got, want)):
+                for i, (a, b, x) in enumerate(zip(got, want, exact)):
                     err, rel = rel_err(a, b)
                     ok &= bool(torch.isfinite(a).all()) and a.dtype == b.dtype
                     if a.dtype == torch.float32:
-                        ok &= rel <= ATT_TOL_F32
-                        msgs.append(f"out{i} rel-to-max {rel:.3e} (tol {ATT_TOL_F32:.0e})")
+                        rel_x, plain_x = rel_err(a, x)[1], rel_err(b, x)[1]
+                        ok &= rel_x <= max(ATT_TOL_F32, plain_x)
+                        msgs.append(f"out{i} rel-to-max {rel_x:.3e} from the exact result (tol "
+                                    f"{ATT_TOL_F32:.0e}, or the f32 plain version's own "
+                                    f"{plain_x:.3e} from it; the plain version {rel:.3e} from "
+                                    "the kernel)")
                     else:
                         a32, b32 = a.float(), b.float()
                         lim = (BF16_STEP * torch.maximum(a32.abs(), b32.abs())
@@ -1685,20 +1786,26 @@ def check_attention(ta, dev, card: str) -> dict:
                         main_inputs[name] = (args[name], scale)
                 check(ok, f"[attention] {name} {where} {tuple(q.shape)} {str(dt)[6:]}: "
                       + "; ".join(msgs))
-                if d > 256:  # the wide bodies: their times, on no configuration's path
+                if d > 256 and amp == 1.0:  # the wide bodies: on no configuration's path
                     kfn, pfn = getattr(ta, name), getattr(ta, f"{name}_plain")
-                    key = name.replace("attention_", "") + "_wide_kernel"
-                    dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key)
+                    key = att_kernel_key(name, d)
+                    nbytes, ops_s = att_work(name, *q.shape, bf)
+                    bound_ms = max(nbytes / HBM_BPS, ops_s) * 1e3
+                    dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key,
+                                         bound_ms=bound_ms)
                     plain_ms = cuda_ms(lambda: pfn(*args[name], scale))
                     lib = sdpa_calls(q, k, v, do, scale)[name]
-                    print(f"[timing] {card}: {name} {where} {tuple(q.shape)} {str(dt)[6:]}: "
-                          f"{cuda_ms(lambda: kfn(*args[name], scale)):.4f} ms/launch, profiler "
-                          f"device time {fmt(dev_ms)}; plain {plain_ms:.4f} ms; library "
-                          f"{cuda_ms(lib):.4f} ms, profiler device time {fmt(profiler_ms(lib))} "
-                          f"(scaled_dot_product_attention "
+                    print(f"[timing] {card}: {name} {where} {tuple(q.shape)} {str(dt)[6:]} "
+                          f"({key[:-1]}): {cuda_ms(lambda: kfn(*args[name], scale)):.4f} "
+                          f"ms/launch, profiler device time {fmt(dev_ms)}, bound "
+                          f"{bound_ms:.5f} ms "
+                          f"({'operations' if ops_s >= nbytes / HBM_BPS else 'bytes'}); "
+                          f"plain {plain_ms:.4f} ms; library {cuda_ms(lib):.4f} ms, profiler "
+                          f"device time {fmt(profiler_ms(lib))} (scaled_dot_product_attention "
                           f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV'})",
                           flush=True)
             del q, k, v, do, o_p, l_p, delta, args
+    check_flash_wide(ta, dev)
     return main_inputs
 
 
@@ -2473,6 +2580,17 @@ def main() -> int:
           and all(st == ld == 0 for _, _, st, ld, _ in main_tf32),
           "[build] the f32 NS path's split-TF32 forward, dQ and dK/dV kernels (head dim 64) "
           "spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in main_tf32))
+    wide = sorted(u for u in usage if u[0].startswith(("fwd_wide_kernel<", "dkv_wide_kernel<")))
+    check([u[0] for u in wide] == [f"{w}_wide_kernel<{t}>" for w in ("dkv", "fwd")
+                                   for t in ("__nv_bfloat16", "float")]
+          and all(st == ld == 0 for _, _, st, ld, _ in wide),
+          "[build] the cluster bodies above head dim 256 (the forward and dK/dV, both types) "
+          "spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in wide))
+    for dkv in (False, True):
+        for bf in (True, False):
+            name = f"{'dkv' if dkv else 'fwd'}_wide_kernel<{'__nv_bfloat16' if bf else 'float'}>"
+            print(f"[build] {name}: at most {ta.wide_max_clusters(dkv, bf, 8)} clusters of 8 "
+                  "blocks (head dim 1024) at once (cudaOccupancyMaxActiveClusters)", flush=True)
     fno_usage = _build.ptxas_report("fno_fwd") + _build.ptxas_report("fno_bwd")
     for kern, regs, st, ld, frame in fno_usage:
         print(f"[build] fno {kern}: {regs} registers, {st} bytes spill stores, {ld} bytes "

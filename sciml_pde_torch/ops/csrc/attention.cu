@@ -25,16 +25,44 @@
 // which change no score and no product and are never stored.  Above 128 the
 // f32 bodies run on the CUDA cores (dQ and dK/dV over 32-row tiles), and each
 // bf16 tensor-core body splits its output columns over two blocks, which
-// both compute the scores (see below).  Above 256, in both input types, the
-// wide bodies (fwd_wide_kernel, dq_wide_kernel, dkv_wide_kernel) take any d
-// with no upper limit: the head dim is padded to a multiple of 64 with zero
-// columns, the scores run over it in 64-column chunks staged through shared
-// memory (neither panel is held whole, in shared memory or in registers),
-// and the output columns are split over ceil(d / 128) blocks per 32-row
-// tile, each of which computes the scores itself.  They run the CUDA-core
-// f32 arithmetic (inputs widened to f32, p and ds f32, f32 FMAs, one
-// rounding at the store); no configuration reaches these dims, so they are
-// written to be right, not fast.
+// both compute the scores (see below).  Above 256, in both input types (the
+// wide bodies; no configuration reaches these dims), the output columns are
+// split over P = ceil(d / 128) groups of 128, the last one padded with zero
+// columns:
+//
+//   The forward and dK/dV up to d = 1024 (fwd_wide_kernel, dkv_wide_kernel)
+//   run as one thread-block cluster of P blocks (at most the portable 8) per
+//   (bh, 64 rows), the cluster size a launch attribute (cudaLaunchKernelEx).
+//   Rank r stages only columns [128 r, 128 r + 128) of each panel by
+//   cp.async (its own rows' for the block's life, the other panel's tiles
+//   double-buffered) and takes its partial scores over them on the tensor
+//   cores as the narrower bodies do: bf16 raw mma.sync m16n8k16, f32 split
+//   TF32 with each k8 step's three MMAs into fresh accumulators.  The
+//   cluster adds the P partials through distributed shared memory
+//   (cluster_exchange): rank r adds rows [r R, r R + R) of every rank's
+//   partials in rank order 0..P-1 and writes the sums back into every
+//   rank's tile in place (a reduce-scatter, then a broadcast), so each sum
+//   is formed once, in one order, and every rank holds the same bits, launch
+//   after launch.  The forward's ranks then run the same online softmax and
+//   p.v over their own 128 output columns (rank 0 writes l); in dK/dV the
+//   rank that adds a score also forms p^T and ds^T from it, and every rank
+//   takes p^T.do and ds^T.q over its columns (8 warps, 16 keys x 64 columns
+//   each).  One cluster barrier a tile (barrier.cluster, its arrive and wait
+//   apart): tile j's exchange, tile j + 1's partials while the exchange's
+//   stores land, the arrive, (forward) tile j - 1's p.v while the other
+//   ranks arrive, the wait.  Bound by operations: bf16 3 and 6 products at
+//   989 TFLOP/s, f32 6 and 12 TF32 passes at 495.  On the card the exchange
+//   moves 8 (P - 1) bytes a score through distributed shared memory, near
+//   that network's rate, and the barriers cost beside it (PERF.md).
+//
+//   dQ (dq_wide_kernel) at every d above 256, and the forward and dK/dV
+//   above 1024 (fwd_wide_cc_kernel, dkv_wide_cc_kernel), take any d with no
+//   upper limit on the CUDA cores: the head dim padded to a multiple of 64
+//   with zero columns, the scores over it in 64-column chunks staged
+//   through shared memory, and the output columns split over P blocks per
+//   32-row tile, each of which computes the scores itself; f32 arithmetic
+//   (inputs widened to f32, p and ds f32, f32 FMAs, one rounding at the
+//   store), written to be right, not fast.
 //
 // Numerics follow the Pallas bodies: every input is widened to f32, p and ds
 // stay f32 into their products, dq = (ds.k) * scale and dk = (ds^T.q) * scale
@@ -174,6 +202,7 @@
 //   (R = 2): four f32 64-row panels of 256 columns (266 KB) would overflow
 //   shared memory, and dK/dV's two accumulators the registers.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -533,7 +562,8 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 256, f32 or bf16 inputs, CUDA cores
+// head dims above 256 (dQ; the forward and dK/dV above 1024), f32 or bf16
+// inputs, CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int WC = 64;   // head-dim columns per score chunk
@@ -553,14 +583,14 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* src, int r0, int
   }
 }
 
-// forward: one block per (bh, 32 queries, 128 output columns); the scores
-// over 64-column chunks of q * scale and k, then the online softmax and p.v
-// over the block's columns of v, as fwd_kernel
+// forward above head dim 1024: one block per (bh, 32 queries, 128 output
+// columns); the scores over 64-column chunks of q * scale and k, then the
+// online softmax and p.v over the block's columns of v, as fwd_kernel
 template <typename T>
 __global__ void __launch_bounds__(NT)
-fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, float* __restrict__ lse, int n, int d, int ntiles, int parts,
-                float scale) {
+fwd_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   T* __restrict__ o, float* __restrict__ lse, int n, int d, int ntiles,
+                   int parts, float scale) {
   constexpr int R = WR / 16, DPT = WO / 16;
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                      // [WR][WC + 4], a chunk of q * scale
@@ -687,15 +717,15 @@ dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 }
 
-// dK/dV: one block per (bh, 32 keys, 128 output columns); s^T and dp^T
-// over 64-column chunks, then p^T.do and ds^T.q over the block's columns of
-// do and q, as dkv_kernel
+// dK/dV above head dim 1024: one block per (bh, 32 keys, 128 output
+// columns); s^T and dp^T over 64-column chunks, then p^T.do and ds^T.q over
+// the block's columns of do and q, as dkv_kernel
 template <typename T>
 __global__ void __launch_bounds__(NT)
-dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int n,
-                int d, int ntiles, int parts, float scale) {
+dkv_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                   int n, int d, int ntiles, int parts, float scale) {
   constexpr int R = WR / 16, DPT = WO / 16;
   extern __shared__ __align__(16) float sm[];
   float* ks = sm;                      // [WR keys][WC + 4], a chunk of k
@@ -775,19 +805,21 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Rows [r0, r0 + ROWS) of a (n, d) panel of T (bf16 or f32) into a
-// [ROWS][DP + E] tile by cp.async, 16 bytes (E = 16 / sizeof(T) columns) per
-// copy, ROWS * DP / (E * NT_TC) copies a thread; rows at or past n and
-// columns at or past d (d % 8 == 0) are zero-filled.
-template <int DP, int ROWS = TILE, typename T>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, int r0, int n, int d) {
+// Rows [r0, r0 + ROWS) and columns [c0, c0 + DP) of a (n, d) panel of T
+// (bf16 or f32) into a [ROWS][DP + E] tile by cp.async, 16 bytes (E = 16 /
+// sizeof(T) columns) per copy, ROWS * DP / (E * NTH) copies a thread; rows
+// at or past n and columns at or past d (d % 8 == 0) are zero-filled.
+template <int DP, int ROWS = TILE, int NTH = NT_TC, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src, int r0, int n, int d,
+                                                int c0 = 0) {
   constexpr int E = 16 / sizeof(T), CPR = DP / E;  // columns per copy, copies per row
-  const T* tile = src + (size_t)r0 * d;
+  static_assert(ROWS * CPR % NTH == 0, "whole copies a thread");
+  const T* tile = src + (size_t)r0 * d + c0;
 #pragma unroll
-  for (int it = 0; it < ROWS * CPR / NT_TC; ++it) {
-    const int i = threadIdx.x + it * NT_TC;
+  for (int it = 0; it < ROWS * CPR / NTH; ++it) {
+    const int i = threadIdx.x + it * NTH;
     const int r = i / CPR, c = (i - r * CPR) * E;
-    const bool ok = r0 + r < n && c < d;
+    const bool ok = r0 + r < n && c0 + c < d;
     const T* g = ok ? tile + r * d + c : src;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                      smem_addr(dst + r * (DP + E) + c)),
@@ -796,10 +828,11 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int r0, in
   }
 }
 
-// Rows [r0, r0 + TILE) of an f32 (n) row vector by cp.async, 4 bytes per
+// Rows [r0, r0 + ROWS) of an f32 (n) row vector by cp.async, 4 bytes per
 // copy (a row's offset need not be 16-byte aligned); rows at or past n are 0.
+template <int ROWS = TILE>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src, int r0, int n) {
-  for (int i = threadIdx.x; i < TILE; i += NT_TC) {
+  for (int i = threadIdx.x; i < ROWS; i += blockDim.x) {
     const bool ok = r0 + i < n;
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst + i)),
                  "l"(ok ? src + r0 + i : src), "r"(ok ? 4 : 0)
@@ -1986,6 +2019,555 @@ fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// head dims 264-1024, forward and dK/dV: thread-block clusters that share the
+// scores (f32 in split TF32, bf16 raw; see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int CL_MAX = 8;               // ranks of a cluster at most (the portable size)
+constexpr int CL_MAX_D = CL_MAX * WO;   // the largest head dim of the cluster bodies
+constexpr int CL_ROWS = 64;             // own rows (queries or keys) of a cluster
+constexpr int XP = 8;                   // padding of an exchange row: conflict-free float2 stores
+constexpr int NT_WKV = 256;             // threads of a dK/dV block: 8 warps
+constexpr int WKV_TQ = 32;              // queries of a dK/dV Q/dO tile
+
+// row stride of a staged column slice: 16 bytes of padding (conflict-free ldmatrix)
+template <typename T>
+constexpr int CL_LD = WO + 16 / (int)sizeof(T);
+// keys of a forward K/V tile: 64 bf16 (as fwd_tc_kernel), 32 f32 (as fwd_tf32_kernel)
+template <typename T>
+constexpr int WF_TK = sizeof(T) == 2 ? 32 : FWD32_TK;
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// The exchange of a cluster of P ranks, between two cluster barriers: rank r
+// takes rows [r R, r R + R) (R = ceil(CL_ROWS / P)) of the NA [CL_ROWS][LX]
+// tiles xs, adds the P ranks' partials of each value in rank order 0..P-1
+// (NL ranks' loads in flight at a time, all of them with NL = CL_MAX; every
+// rank's, its own too, through its cluster address: a local path for its
+// own was slower on the card), hands the sums to f(sum, row, col) (col: the
+// first of four columns; f may replace them by what it computes from them)
+// and stores the results into the same place of the NA tiles ys of every
+// rank (ys may be xs: only rank r touches these rows of any rank).  Each
+// value is added once a cluster, in one fixed order, so every rank holds the
+// same bits and a second launch gives them again.
+template <int NA, int LX, int NTH, int NL, typename F>
+__device__ __forceinline__ void cluster_exchange(int P, int rank, float* xs, float* ys, F f) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int C4 = (LX - XP) / 4, XS = CL_ROWS * LX;
+  const int R = (CL_ROWS + P - 1) / P, r0 = rank * R, rows = min(CL_ROWS - r0, R);
+  auto at = [&](float* base, int q) { return cluster.map_shared_rank(base, q); };
+  for (int i = threadIdx.x; i < rows * C4; i += NTH) {
+    const int row = r0 + i / C4, col = (i % C4) * 4, off = row * LX + col;
+    float4 sum[NA];
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+#pragma unroll
+      for (int q0 = 0; q0 < CL_MAX; q0 += NL) {
+        if (q0 >= P) break;
+        float4 x[NL];
+#pragma unroll
+        for (int u = 0; u < NL; ++u)
+          if (q0 + u < P) x[u] = *reinterpret_cast<const float4*>(at(xs + a * XS + off, q0 + u));
+#pragma unroll
+        for (int u = 0; u < NL; ++u) {
+          if (q0 + u >= P) break;
+          if (q0 + u == 0)
+            sum[a] = x[u];
+          else
+            add4(sum[a], x[u]);
+        }
+      }
+    }
+    f(sum, row, col);
+#pragma unroll
+    for (int q = 0; q < CL_MAX; ++q)
+      if (q < P)
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+          *reinterpret_cast<float4*>(at(ys + a * XS + off, q)) = sum[a];
+  }
+}
+
+// The bf16 A fragment (16 rows x k16) of an f32 [rows][LX] tile at p (this
+// lane's row g, column 2t), split into hi + lo (split_frag)
+template <int LX>
+__device__ __forceinline__ void p_frag(const float* p, uint32_t hi[4], uint32_t lo[4]) {
+  const float2 a0 = *reinterpret_cast<const float2*>(p);
+  const float2 a1 = *reinterpret_cast<const float2*>(p + 8 * LX);
+  const float2 b0 = *reinterpret_cast<const float2*>(p + 8);
+  const float2 b1 = *reinterpret_cast<const float2*>(p + 8 * LX + 8);
+  const float c0[4] = {a0.x, a0.y, a1.x, a1.y}, c1[4] = {b0.x, b0.y, b1.x, b1.y};
+  split_frag(c0, c1, hi, lo);
+}
+
+// The two halves of a cluster barrier (barrier.cluster): the arrive
+// releases this thread's writes, the wait acquires every rank's, so work
+// between the two overlaps the other ranks' arrival.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// forward: a cluster of P = ceil(d / 128) blocks per (bh, 64 queries); rank
+// r stages columns [128 r, 128 r + 128) of q, k and v, takes its partial
+// scores over them, the cluster adds the P partials (cluster_exchange, in
+// place: the sums overwrite the partials), and each rank runs the same
+// online softmax on the same scores and p.v over its own 128 output
+// columns.  4 warps, 16 queries each; K/V tiles of WF_TK keys; bf16 three
+// blocks an SM (168 registers), so that every cluster of (4, 1280, 512) is
+// resident at once, f32 two.  One cluster barrier a tile, with work on both
+// sides of it: tile j's exchange, tile j + 1's partials (into the other
+// partial buffer) while the exchange's stores land, the arrive, tile j - 1's
+// p.v (p held in registers) while the other ranks arrive, the wait (tile j's
+// scores and tile j + 1's partials are everywhere), tile j's softmax.
+template <typename T>
+__global__ void __launch_bounds__(NT_TC, sizeof(T) == 2 ? 3 : 2)
+fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ o, float* __restrict__ lse, int n, int d, int ntiles,
+                float scale) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int LD = CL_LD<T>, TK = WF_TK<T>, NT8 = TK / 8, LX = TK + XP, NO = WO / 8;
+  constexpr int TS = TK * LD, XS = CL_ROWS * LX;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [CL_ROWS][LD]: the rank's columns of q, unscaled
+  T* ks = qs + CL_ROWS * LD;               // 2 x [TK][LD]: of k
+  T* vs = ks + 2 * TS;                     // [TK][LD]: of v
+  float* xs = reinterpret_cast<float*>(vs + TS);  // 2 x [CL_ROWS][LX]: partial, then summed scores
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile / P * CL_ROWS, c0 = rank * WO;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int warp = ln.warp, g = ln.g, t = ln.t;
+  const int nkt = (n + TK - 1) / TK;
+
+  // copy groups in order: q and K_0, K_1; then in tile j's step K_{j+2}
+  // (after tile j + 1's partials wait for K_{j+1}) and V_j (after tile
+  // j - 1's p.v), so that K_{j+1} and V_{j-1} are the oldest two pending
+  load_tile_async<WO, CL_ROWS, NT_TC>(qs, q + base, q0, n, d, c0);
+  load_tile_async<WO, TK, NT_TC>(ks, k + base, 0, n, d, c0);
+  cp_async_commit();
+  if (nkt > 1) {
+    load_tile_async<WO, TK, NT_TC>(ks + TS, k + base, TK, n, d, c0);
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // this rank's partial scores of K tile jt over its 128 columns into
+  // partial buffer jt % 2: bf16 q.k^T raw, f32 (q * scale).k^T in split TF32
+  // (each k8 step's passes into fresh accumulators added in f32)
+  auto partial = [&](int jt) {
+    const T* kb = ks + (jt & 1) * TS;
+    float s[NT8][4];
+#pragma unroll
+    for (int i = 0; i < NT8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+    if constexpr (BF) {
+#pragma unroll
+      for (int kk = 0; kk < WO / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, qs + (warp * 16 + ln.lm_row) * LD + kk * 16 + ln.lm_col);
+#pragma unroll
+        for (int np = 0; np < TK / 16; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, kb + (np * 16 + ln.lk_row) * LD + kk * 16 + ln.lk_col);
+          mma_bf16(s[2 * np], a, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    } else {
+      const int a_off = (warp * 16 + ln.lm_row) * LD + ln.lm_col / 2;
+      const int b_off = ln.lk_row * LD + ln.lk_col / 2;
+#pragma unroll 2
+      for (int kk = 0; kk < WO / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        ld_split<true>(ah, al, qs + a_off + kk * 8, scale);
+        score_step<LD>(s, ah, al, kb + b_off + kk * 8);
+      }
+    }
+    float* xr = xs + (jt & 1) * XS + (warp * 16 + g) * LX + 2 * t;
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) {
+      store2(xr + 8 * i, s[i][0], s[i][1]);
+      store2(xr + 8 * LX + 8 * i, s[i][2], s[i][3]);
+    }
+  };
+
+  float acc[NO][4];
+  float p[NT8][4];  // the last tile's p, until its p.v
+  // rows g and g + 8 of the warp's tile: running max, and the running sum
+  // over this thread's columns (summed over the quad at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  // acc += p . v over the rank's columns: bf16 p split into hi + lo, v read
+  // transposed; f32 split TF32, the tile's sums begun at 0 and added to acc
+  // in f32
+  auto pv = [&]() {
+    if constexpr (BF) {
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_frag(p[2 * kk], p[2 * kk + 1], hi, lo);
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, reinterpret_cast<const __nv_bfloat16*>(vs) +
+                               (kk * 16 + ln.lm_row) * LD + dp * 16 + ln.lm_col);
+          mma_bf16(acc[2 * dp], hi, b[0], b[1]);
+          mma_bf16(acc[2 * dp], lo, b[0], b[1]);
+          mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
+          mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+        }
+      }
+    } else {
+      uint32_t ph[NT8][4], pl[NT8][4];
+#pragma unroll
+      for (int i = 0; i < NT8; ++i) split_acc_as_a(p[i], ph[i], pl[i]);
+      grad_step<NO, NT8>(acc, ph, pl, reinterpret_cast<const float*>(vs) + 2 * t * LD + g, LD);
+    }
+  };
+
+  partial(0);
+  cluster_arrive();
+  cluster_wait();  // every rank's partials of tile 0 are written
+  for (int j = 0; j < nkt; ++j) {
+    float* xj = xs + (j & 1) * XS;
+    cluster_exchange<1, LX, NT_TC, BF ? 4 : CL_MAX>(P, rank, xj, xj, [](float4*, int, int) {});
+    bool k_next = false;  // K_{j+2} issued
+    if (j + 1 < nkt) {
+      if (j == 0)
+        cp_async_wait<0>();  // K_1
+      else
+        cp_async_wait<1>();  // K_{j+1}
+      __syncthreads();
+      partial(j + 1);
+      if (j + 2 < nkt) {  // into the buffer of K_j, which no warp reads any more
+        load_tile_async<WO, TK, NT_TC>(ks + (j & 1) * TS, k + base, (j + 2) * TK, n, d, c0);
+        cp_async_commit();
+        k_next = true;
+      }
+    }
+    cluster_arrive();
+    if (j > 0) {  // tile j - 1's p.v while the other ranks arrive
+      if (k_next)
+        cp_async_wait<1>();  // V_{j-1}
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      pv();
+      __syncthreads();  // every warp is done with V_{j-1}
+    }
+    load_tile_async<WO, TK, NT_TC>(vs, v + base, j * TK, n, d, c0);
+    cp_async_commit();
+    cluster_wait();  // tile j's scores and tile j + 1's partials are everywhere
+
+    const float* sr = xj + (warp * 16 + g) * LX + 2 * t;
+    const float mul = BF ? scale : 1.f;
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) {
+      const float2 a = *reinterpret_cast<const float2*>(sr + 8 * i);
+      const float2 b = *reinterpret_cast<const float2*>(sr + 8 * LX + 8 * i);
+      p[i][0] = a.x * mul;
+      p[i][1] = a.y * mul;
+      p[i][2] = b.x * mul;
+      p[i][3] = b.y * mul;
+    }
+    if (j * TK + TK > n) {  // keys at or past n: p = 0
+#pragma unroll
+      for (int i = 0; i < NT8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * TK + i * 8 + 2 * t + (e & 1) >= n) p[i][e] = -INFINITY;
+    }
+
+    // online max and sum (f32), as fwd_tf32_kernel: p = 2^((s - m_new) *
+    // log2(e)), the running output rescaled by alpha
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(p[i][0], p[i][1]));
+      mx1 = fmaxf(mx1, fmaxf(p[i][2], p[i][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // finite: the tile holds a key
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    const float a0 = ex2((m[0] - mn0) * LOG2E), a1 = ex2((m[1] - mn1) * LOG2E);
+    m[0] = mn0;
+    m[1] = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) {
+      p[i][0] = ex2((p[i][0] - mn0) * LOG2E);
+      p[i][1] = ex2((p[i][1] - mn0) * LOG2E);
+      p[i][2] = ex2((p[i][2] - mn1) * LOG2E);
+      p[i][3] = ex2((p[i][3] - mn1) * LOG2E);
+      rs0 += p[i][0] + p[i][1];
+      rs1 += p[i][2] + p[i][3];
+    }
+    l[0] = l[0] * a0 + rs0;
+    l[1] = l[1] * a1 + rs1;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      acc[c][0] *= a0;
+      acc[c][1] *= a0;
+      acc[c][2] *= a1;
+      acc[c][3] *= a1;
+    }
+  }
+  cp_async_wait<0>();  // V of the last tile
+  __syncthreads();
+  pv();
+
+  float l0 = l[0], l1 = l[1];
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const int row0 = q0 + warp * 16 + g;
+  store_acc<NO>(o + base, acc, row0, c0, t, n, d, 1.f / l0, 1.f / l1);
+  if (rank == 0 && t == 0) {
+    if (row0 < n) lse[bh * n + row0] = m[0] + logf(l0);
+    if (row0 + 8 < n) lse[bh * n + row0 + 8] = m[1] + logf(l1);
+  }
+}
+
+// dK/dV: a cluster of P = ceil(d / 128) blocks per (bh, 64 keys); rank r
+// holds columns [128 r, 128 r + 128) of k and v and stages those of q and do
+// over Q/dO tiles of WKV_TQ queries, double-buffered.  Per tile: the partial
+// s^T and dp^T over the rank's columns (warp w: keys 16 (w % 4), queries 16
+// (w / 4)); the cluster adds them, and the rank that adds a value also forms
+// p^T and ds^T from it in place of the partials (cluster_exchange), so that
+// each exponential is taken once a cluster; then dv += p^T.do and dk +=
+// ds^T.q over the rank's columns (warp w: keys 16 (w % 4), columns 64
+// (w / 4)).  8 warps.  One cluster barrier a tile, as in the forward: tile
+// j + 1's partials are taken while tile j's exchange lands.
+template <typename T>
+__global__ void __launch_bounds__(NT_WKV, 1)
+dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int n,
+                int d, int ntiles, float scale) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int LD = CL_LD<T>, TQ = WKV_TQ, LX = TQ + XP, XS = CL_ROWS * LX;
+  constexpr int NC = WO / 16;  // n8 tiles of a warp's 64 output columns
+  constexpr int TS = TQ * LD;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [CL_ROWS][LD]: the rank's columns of k
+  T* vs = ks + CL_ROWS * LD;               // [CL_ROWS][LD]: of v
+  T* qs = vs + CL_ROWS * LD;               // 2 x [TQ][LD]: of q, unscaled
+  T* dos = qs + 2 * TS;                    // 2 x [TQ][LD]: of do
+  // 2 x {s^T, dp^T} partials, then {p^T, ds^T} [CL_ROWS][LX]
+  float* xs = reinterpret_cast<float*>(dos + 2 * TS);
+  float* ls = xs + 4 * XS;                             // 2 x [TQ] logsumexp of the Q tile
+  float* dls = ls + 2 * TQ;                            // 2 x [TQ] delta of the Q tile
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int k0 = tile / P * CL_ROWS, c0 = rank * WO;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int kg = ln.warp & 3, half = ln.warp >> 2, g = ln.g, t = ln.t;
+  const int nqt = (n + TQ - 1) / TQ;
+  const float sl = scale * LOG2E;
+
+  // copy groups in order: k, v and Q/dO tile 0, tile 1; then tile j + 2
+  // after tile j's gradients
+  auto load_q_tile = [&](int jt) {
+    const int b = jt & 1, r = jt * TQ;
+    load_tile_async<WO, TQ, NT_WKV>(qs + b * TS, q + base, r, n, d, c0);
+    load_tile_async<WO, TQ, NT_WKV>(dos + b * TS, dout + base, r, n, d, c0);
+    load_rows_async<TQ>(ls + b * TQ, lse + bh * n, r, n);
+    load_rows_async<TQ>(dls + b * TQ, delta + bh * n, r, n);
+    cp_async_commit();
+  };
+  load_tile_async<WO, CL_ROWS, NT_WKV>(ks, k + base, k0, n, d, c0);
+  load_tile_async<WO, CL_ROWS, NT_WKV>(vs, v + base, k0, n, d, c0);
+  load_q_tile(0);
+  if (nqt > 1) {
+    load_q_tile(1);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // 1. this rank's partial s^T (bf16 k.q^T raw, f32 k.(q * scale)^T in
+  // split TF32, each k8 step's passes into fresh accumulators) and dp^T =
+  // v.do^T of Q tile jt over its 128 columns, 16 keys x 16 queries a warp,
+  // into partial buffer jt % 2
+  auto partial = [&](int jt) {
+    const T* qb = qs + (jt & 1) * TS;
+    const T* db = dos + (jt & 1) * TS;
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    if constexpr (BF) {
+      const T* ka = ks + (kg * 16 + ln.lm_row) * LD + ln.lm_col;
+      const T* va = vs + (kg * 16 + ln.lm_row) * LD + ln.lm_col;
+      const int b_off = (half * 16 + ln.lk_row) * LD + ln.lk_col;
+#pragma unroll
+      for (int kk = 0; kk < WO / 16; ++kk) {
+        uint32_t a[4], b[4];
+        ldsm_x4(a, ka + kk * 16);
+        ldsm_x4(b, qb + b_off + kk * 16);
+        mma_bf16(s[0], a, b[0], b[1]);
+        mma_bf16(s[1], a, b[2], b[3]);
+        ldsm_x4(a, va + kk * 16);
+        ldsm_x4(b, db + b_off + kk * 16);
+        mma_bf16(dp[0], a, b[0], b[1]);
+        mma_bf16(dp[1], a, b[2], b[3]);
+      }
+    } else {
+      const int a_off = (kg * 16 + ln.lm_row) * LD + ln.lm_col / 2;
+      const int b_off = (half * 16 + ln.lk_row) * LD + ln.lk_col / 2;
+#pragma unroll 2
+      for (int kk = 0; kk < WO / 8; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4], qh[4], ql[4], doh[4], dol[4];
+        ld_split<false>(kh, kl, ks + a_off + kk * 8, 1.f);
+        ld_split<false>(vh, vl, vs + a_off + kk * 8, 1.f);
+        ld_split<true>(qh, ql, qb + b_off + kk * 8, scale);
+        ld_split<false>(doh, dol, db + b_off + kk * 8, 1.f);
+        mma_split_2x2(s[0], s[1], dp[0], dp[1], kh, kl, qh, ql, vh, vl, doh, dol);
+      }
+    }
+    float* xr = xs + (jt & 1) * 2 * XS + (kg * 16 + g) * LX + half * 16 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      store2(xr + 8 * i, s[i][0], s[i][1]);
+      store2(xr + 8 * LX + 8 * i, s[i][2], s[i][3]);
+      store2(xr + XS + 8 * i, dp[i][0], dp[i][1]);
+      store2(xr + XS + 8 * LX + 8 * i, dp[i][2], dp[i][3]);
+    }
+  };
+
+  float gk[NC][4], gv[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[c][e] = gv[c][e] = 0.f;
+
+  partial(0);
+  cluster_arrive();
+  cluster_wait();  // every rank's partials of tile 0 are written
+  for (int j = 0; j < nqt; ++j) {
+    const int buf = j & 1;
+    const T* qb = qs + buf * TS;
+    const T* db = dos + buf * TS;
+    const float* lb = ls + buf * TQ;
+    const float* dlb = dls + buf * TQ;
+    float* pb = xs + buf * 2 * XS;
+
+    // 2. the cluster's s^T and dp^T, and from them p^T = exp(s^T - l) and
+    // ds^T = p^T (dp^T - delta) (0 for keys or queries at or past n), to
+    // every rank
+    cluster_exchange<2, LX, NT_WKV, CL_MAX>(P, rank, pb, pb, [&](float4* x, int row, int col) {
+      const bool key_ok = k0 + row < n;
+      float sv[4] = {x[0].x, x[0].y, x[0].z, x[0].w}, dv4[4] = {x[1].x, x[1].y, x[1].z, x[1].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = col + e;
+        const bool ok = key_ok && j * TQ + qi < n;
+        const float p = !ok ? 0.f
+                        : BF ? ex2(fmaf(sv[e], sl, -lb[qi] * LOG2E))
+                             : ex2((sv[e] - lb[qi]) * LOG2E);
+        sv[e] = p;
+        dv4[e] = p * (dv4[e] - dlb[qi]);
+      }
+      x[0] = make_float4(sv[0], sv[1], sv[2], sv[3]);
+      x[1] = make_float4(dv4[0], dv4[1], dv4[2], dv4[3]);
+    });
+    if (j + 1 < nqt) {  // the next tile's partials while the exchange lands
+      cp_async_wait<0>();
+      __syncthreads();
+      partial(j + 1);
+    }
+    cluster_arrive();
+    cluster_wait();  // tile j's p^T and ds^T and tile j + 1's partials are everywhere
+
+    // 3. dv += p^T . do and dk += ds^T . q over the warp's 64 columns
+    const float* pr = pb + (kg * 16 + g) * LX + 2 * t;
+    if constexpr (BF) {
+#pragma unroll
+      for (int kq = 0; kq < TQ / 16; ++kq) {
+        uint32_t phi[4], plo[4], dhi[4], dlo[4];
+        p_frag<LX>(pr + kq * 16, phi, plo);
+        p_frag<LX>(pr + XS + kq * 16, dhi, dlo);
+#pragma unroll
+        for (int dc = 0; dc < NC / 2; ++dc) {
+          const int off = (kq * 16 + ln.lm_row) * LD + half * 64 + dc * 16 + ln.lm_col;
+          uint32_t b[4];
+          ldsm_x4_trans(b, reinterpret_cast<const __nv_bfloat16*>(db) + off);
+          mma_bf16(gv[2 * dc], phi, b[0], b[1]);
+          mma_bf16(gv[2 * dc], plo, b[0], b[1]);
+          mma_bf16(gv[2 * dc + 1], phi, b[2], b[3]);
+          mma_bf16(gv[2 * dc + 1], plo, b[2], b[3]);
+          ldsm_x4_trans(b, reinterpret_cast<const __nv_bfloat16*>(qb) + off);
+          mma_bf16(gk[2 * dc], dhi, b[0], b[1]);
+          mma_bf16(gk[2 * dc], dlo, b[0], b[1]);
+          mma_bf16(gk[2 * dc + 1], dhi, b[2], b[3]);
+          mma_bf16(gk[2 * dc + 1], dlo, b[2], b[3]);
+        }
+      }
+    } else {
+      constexpr int NS = TQ / 8;
+      uint32_t ah[NS][4], al[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(pr + 8 * i);
+        const float2 b = *reinterpret_cast<const float2*>(pr + 8 * LX + 8 * i);
+        const float c[4] = {a.x, a.y, b.x, b.y};
+        split_acc_as_a(c, ah[i], al[i]);
+      }
+      const int b_off = 2 * t * LD + half * 64 + g;
+      grad_step<NC, NS>(gv, ah, al, reinterpret_cast<const float*>(db) + b_off, LD);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(pr + XS + 8 * i);
+        const float2 b = *reinterpret_cast<const float2*>(pr + XS + 8 * LX + 8 * i);
+        const float c[4] = {a.x, a.y, b.x, b.y};
+        split_acc_as_a(c, ah[i], al[i]);
+      }
+      grad_step<NC, NS>(gk, ah, al, reinterpret_cast<const float*>(qb) + b_off, LD);
+    }
+    __syncthreads();  // tile j's buffers are free
+    if (j + 2 < nqt) load_q_tile(j + 2);
+  }
+  const int row0 = k0 + kg * 16 + g;  // this lane's keys row0 and row0 + 8
+  store_acc<NC>(dk + base, gk, row0, c0 + half * 64, t, n, d, scale, scale);
+  store_acc<NC>(dv + base, gv, row0, c0 + half * 64, t, n, d, 1.f, 1.f);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -2108,7 +2690,8 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
   return cudaGetLastError();
 }
 
-// head dims above 256: grid = bh * ceil(n / WR) * parts blocks of NT threads
+// head dims above 256 on the CUDA cores: grid = bh * ceil(n / WR) * parts
+// blocks of NT threads
 template <typename K, typename... A>
 cudaError_t run_wide(K kern, size_t smem, int bh, int n, int d, float scale,
                      cudaStream_t stream, A... args) {
@@ -2122,13 +2705,62 @@ cudaError_t run_wide(K kern, size_t smem, int bh, int n, int d, float scale,
 }
 
 // chunk tiles [rows][WC + 4], column tiles [TILE][WO + 4], score tiles [WR][SP]
-constexpr size_t FWD_WIDE_SMEM = f32_tile_bytes(WR, WC) + f32_tile_bytes(TILE, WC) +
-                                 f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
+constexpr size_t FWD_WIDE_CC_SMEM = f32_tile_bytes(WR, WC) + f32_tile_bytes(TILE, WC) +
+                                    f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
 constexpr size_t DQ_WIDE_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
                                 f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
-constexpr size_t DKV_WIDE_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
-                                 2 * f32_tile_bytes(TILE, WO) + 2 * f32_tile_bytes(WR, TILE) +
-                                 2 * TILE * sizeof(float);
+constexpr size_t DKV_WIDE_CC_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
+                                    2 * f32_tile_bytes(TILE, WO) + 2 * f32_tile_bytes(WR, TILE) +
+                                    2 * TILE * sizeof(float);
+
+// the cluster bodies' shared memory: the forward's q slice, two K tiles and
+// one V tile, two score tiles (106,496 bytes bf16, 104,960 f32: two blocks
+// an SM); dK/dV's k and v slices, two Q and dO tiles, two of s^T and dp^T,
+// two l and delta rows (111,104 bytes bf16, 176,640 f32)
+template <typename T>
+constexpr size_t fwd_wide_smem() {
+  return (size_t)(CL_ROWS + 3 * WF_TK<T>) * CL_LD<T> * sizeof(T) +
+         2 * (size_t)CL_ROWS * (WF_TK<T> + XP) * sizeof(float);
+}
+template <typename T>
+constexpr size_t dkv_wide_smem() {
+  return (size_t)(2 * CL_ROWS + 4 * WKV_TQ) * CL_LD<T> * sizeof(T) +
+         4 * (size_t)CL_ROWS * (WKV_TQ + XP) * sizeof(float) + 4 * WKV_TQ * sizeof(float);
+}
+
+// The launch of a cluster body for head dims 264-1024: clusters of P =
+// ceil(d / 128) blocks (the cluster's size is a launch attribute, since it
+// depends on d), grid = bh * ceil(n / 64) * P blocks with the ranks of a
+// cluster adjacent.  A launch the card refuses returns its error.
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, unsigned grid, int threads,
+                                  size_t smem, int parts, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = parts;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename... K, typename... A>
+cudaError_t run_cluster(void (*kern)(K...), size_t smem, int threads, int bh, int n, int d,
+                        float scale, cudaStream_t stream, A... args) {
+  unsigned grid;
+  int ntiles;
+  const int parts = (d + WO - 1) / WO;
+  cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, CL_ROWS, parts);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(attr, grid, threads, smem, parts, stream);
+  e = cudaLaunchKernelEx(&cfg, kern, args..., n, d, ntiles, scale);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
 
 // Dispatch on the padded head dim (16, 32, 64, 96, 128, 160, 192, 256, and
 // any d above 256 through the WIDE bodies; d % 8 == 0) and the input type
@@ -2150,9 +2782,12 @@ constexpr size_t DKV_WIDE_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes
 ATT_EXPORT int attention_fwd(const void* q, const void* k, const void* v, void* o, float* l,
                              int bh, int n, int d, int bf, float scale, void* stream) {
 #define CALL(DP, BF) run_fwd<DP, BF>(q, k, v, o, l, bh, n, d, scale, (cudaStream_t)stream)
-#define WIDE(T)                                                                       \
-  run_wide(fwd_wide_kernel<T>, FWD_WIDE_SMEM, bh, n, d, scale, (cudaStream_t)stream,      \
-              (const T*)q, (const T*)k, (const T*)v, (T*)o, l)
+#define WIDE(T)                                                                          \
+  (d <= CL_MAX_D                                                                         \
+       ? run_cluster(fwd_wide_kernel<T>, fwd_wide_smem<T>(), NT_TC, bh, n, d, scale,     \
+                     (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, l) \
+       : run_wide(fwd_wide_cc_kernel<T>, FWD_WIDE_CC_SMEM, bh, n, d, scale,              \
+                  (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, l))
   ATT_DISPATCH(d, bf, CALL, WIDE)
 #undef WIDE
 #undef CALL
@@ -2176,11 +2811,44 @@ ATT_EXPORT int attention_dkv(const void* q, const void* k, const void* v, const 
                              int n, int d, int bf, float scale, void* stream) {
 #define CALL(DP, BF) \
   run_dkv<DP, BF>(q, k, v, dout, l, delta, dk, dv, bh, n, d, scale, (cudaStream_t)stream)
-#define WIDE(T)                                                                       \
-  run_wide(dkv_wide_kernel<T>, DKV_WIDE_SMEM, bh, n, d, scale, (cudaStream_t)stream,      \
-              (const T*)q, (const T*)k, (const T*)v, (const T*)dout, l, delta, (T*)dk, \
-              (T*)dv)
+#define WIDE(T)                                                                            \
+  (d <= CL_MAX_D                                                                           \
+       ? run_cluster(dkv_wide_kernel<T>, dkv_wide_smem<T>(), NT_WKV, bh, n, d, scale,      \
+                     (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,          \
+                     (const T*)dout, l, delta, (T*)dk, (T*)dv)                             \
+       : run_wide(dkv_wide_cc_kernel<T>, DKV_WIDE_CC_SMEM, bh, n, d, scale,                \
+                  (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,             \
+                  (const T*)dout, l, delta, (T*)dk, (T*)dv))
   ATT_DISPATCH(d, bf, CALL, WIDE)
 #undef WIDE
 #undef CALL
+}
+
+namespace {
+template <typename... K>
+int max_clusters(void (*kern)(K...), size_t smem, int threads, int parts, int* clusters) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(attr, (unsigned)(parts * 1024), threads, smem,
+                                                parts, 0);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+}
+}  // namespace
+
+// The most clusters of `parts` blocks of the forward (dkv = 0) or dK/dV
+// (dkv = 1) cluster body, in bf16 or f32, that the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *clusters.
+ATT_EXPORT int attention_wide_clusters(int dkv, int bf, int parts, int* clusters) {
+  if (parts < 1 || parts > CL_MAX) return (int)cudaErrorInvalidValue;
+  if (dkv)
+    return bf ? max_clusters(dkv_wide_kernel<__nv_bfloat16>, dkv_wide_smem<__nv_bfloat16>(),
+                             NT_WKV, parts, clusters)
+              : max_clusters(dkv_wide_kernel<float>, dkv_wide_smem<float>(), NT_WKV, parts,
+                             clusters);
+  return bf ? max_clusters(fwd_wide_kernel<__nv_bfloat16>, fwd_wide_smem<__nv_bfloat16>(), NT_TC,
+                           parts, clusters)
+            : max_clusters(fwd_wide_kernel<float>, fwd_wide_smem<float>(), NT_TC, parts,
+                           clusters);
 }

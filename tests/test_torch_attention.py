@@ -1,11 +1,14 @@
 """Port ops/attention.py vs the JAX package: flash_attention values and q/k/v
 gradients (JAX Pallas in interpret mode on the CPU), each plain version
-against the Pallas body it stands for, and the shape rule.  Four more
+against the Pallas body it stands for, and the shape rule.  Six more
 tests rehearse the kernels' numerics against chip_smoke.py's bounds: the
 bf16 backward kernels' p and ds split into two bf16 terms, the f32 forward
 (against the Pallas body) and backward kernels' products in split TF32
-(three passes against one), and the backward's long sums taken per score
-step under a model of an MMA that truncates its sum.
+(three passes against one), the backward's long sums taken per score
+step under a model of an MMA that truncates its sum, and the cluster bodies
+above head dim 256 (partial scores over each rank's 128 columns added in
+rank order, then the forward's and dK/dV's arithmetic) against the Pallas
+bodies and the exact result.
 
 Tolerances, relative to the largest magnitude of the JAX result: f32 1e-5
 (sums in another order); bf16 3e-2 (roundings to bf16 at other points)."""
@@ -129,13 +132,14 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [96, 24, 160, 192, 256, 264, 320, 512])
+@pytest.mark.parametrize("d", [96, 24, 160, 192, 256, 264, 320, 512, 1024, 1032])
 def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
     """Head dims that are multiples of 8 but not powers of two, and those above
     128, take the fused path in both packages (the kernels pad 24 to 32 in
-    shared memory, are built for 96, 160, 192 and 256, and take 264, 320 and
-    512 through their wide bodies): values and q/k/v gradients against JAX
-    in interpret mode."""
+    shared memory, are built for 96, 160, 192 and 256, and take 264, 320,
+    512 and 1024 through their wide bodies, the forward and dK/dV as
+    clusters, and 1032 through the CUDA-core bodies): values and q/k/v
+    gradients against JAX in interpret mode."""
     jdt, tdt, tol = DTYPES[dtype]
     n = 64
     rng = np.random.default_rng(d)
@@ -163,15 +167,20 @@ def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
 
 def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
     """The wrappers' shape check takes every head dim d % 8 == 0, with no
-    upper limit (264, 320, 512 and 1024 go to the wide bodies), and a
+    upper limit (264, 320, 512 and 1024 go to the wide bodies, the forward
+    and dK/dV as clusters; 1032 to their CUDA-core bodies), and a
     batch*heads count above 65535; it raises on a head dim that is not a
     multiple of 8, on a grid past 2^31 - 1 blocks (counting the wide
-    bodies' column groups), and on a non-contiguous panel."""
+    bodies' column groups: dQ's 32-row tiles, which outnumber the clusters'
+    64-row tiles of as many blocks), and on a non-contiguous panel."""
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
-    for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256, 264, 320, 512, 1024):
+    for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256, 264, 320, 512, 1024, 1032):
         for dt in (torch.bfloat16, torch.float32):
             want = (3, 64, d, dt == torch.bfloat16)
             assert ta._check(meta(3, 64, d, dt=dt), (meta(3, 64, d, dt=dt),)) == want
+        if 256 < d <= ta.CLUSTER_MAX_D:
+            for n in (64, 200, 2048):
+                assert -(-n // 64) * -(-d // 128) <= ta._blocks_per_panel(n, d)
     q = meta(70_000, 16, 16)
     rows = (meta(70_000, 16, 1, dt=torch.float32),) * 2
     assert ta._check(q, (q, q, q), rows) == (70_000, 16, 16, True)
@@ -374,3 +383,256 @@ def test_split_tf32_step_sums_bound_a_truncating_accumulator(per_step):
         assert err <= cs.ATT_TOL_F32 / 2, err
     else:
         assert err > cs.ATT_TOL_F32, err
+
+
+# ---------------------------------------------------------------------------
+# the cluster bodies above head dim 256 (fwd_wide_kernel, dkv_wide_kernel)
+# ---------------------------------------------------------------------------
+
+WIDE_COLS = 128  # head-dim columns of one cluster rank
+WIDE_TK = {"split_tf32": 32, "bf16": 64}  # keys of a forward K/V tile
+WIDE_TQ = 32  # queries of a dK/dV Q/dO tile
+
+
+def _bf16_split(x):
+    """x = bf16(x) + bf16(x - bf16(x)), as the bf16 kernels split p and ds."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def _dot64(a, b):
+    """a @ b with exact products and one rounding to f32 (a k16 MMA chain's
+    sum, which the model does not round step by step)."""
+    return (a.double() @ b.double()).float()
+
+
+def _rank_partials(a, b, mode, passes, per_step):
+    """The partial products a[..., cols] @ b[cols, :] of each rank's 128
+    columns, in rank order: bf16 raw; split TF32 each k8 step's passes summed
+    afresh and added in f32 (per_step, the scores) or the slice's passes in
+    one sum (dp)."""
+    d = a.shape[-1]
+    parts = []
+    for c0 in range(0, d, WIDE_COLS):
+        cols = slice(c0, min(d, c0 + WIDE_COLS))
+        if mode == "bf16":
+            parts.append(_dot64(a[..., cols], b[..., cols, :]))
+        elif per_step:
+            steps = _tf32_steps(a[..., cols], b[..., cols, :], passes)
+            s = torch.zeros(a.shape[:-1] + b.shape[-1:])
+            for i in range(steps.shape[-3]):
+                s = s + steps[..., i, :, :]
+            parts.append(s)
+        else:
+            parts.append(_tf32_dot(a[..., cols], b[..., cols, :], passes))
+    return parts
+
+
+def _tf32_steps(a, b, passes):
+    """_tf32_dot of every k8 step of a @ b at once: (..., steps, rows, cols)."""
+    cs = chip_smoke()
+    k = a.shape[-1]
+    a = a.reshape(*a.shape[:-1], k // 8, 8).movedim(-2, -3)
+    b = b.reshape(*b.shape[:-2], k // 8, 8, b.shape[-1])
+    ah, bh = cs.tf32(a), cs.tf32(b)
+    if passes == 1:
+        return (ah.double() @ bh.double()).float()
+    al, bl = cs.tf32(a - ah), cs.tf32(b - bh)
+    return (al.double() @ bh.double() + ah.double() @ bl.double()
+            + ah.double() @ bh.double()).float()
+
+
+def _cluster_sum(parts):
+    """The cluster's sum: the ranks' partials added in rank order 0..P-1."""
+    s = parts[0]
+    for p in parts[1:]:
+        s = s + p
+    return s
+
+
+def _grad_dot(a, b, mode, passes, control):
+    """a @ b over one tile of the long contraction: split TF32, or bf16 with a
+    split into hi + lo (the control rounds a to bf16 instead)."""
+    if mode == "bf16":
+        return _dot64(a.bfloat16().float() if control else _bf16_split(a), b)
+    return _tf32_dot(a, b, passes)
+
+
+def _wide_forward(q, k, v, scale, mode, passes=3, control=False):
+    """attention_fwd as fwd_wide_kernel takes it: the ranks' partial scores
+    (bf16 q.k^T raw, then times scale; f32 (q * scale).k^T) summed in rank
+    order; over the K/V tiles the online max and sum, p = exp(s - m_new), the
+    running output rescaled and the tile's p.v added; o = acc * (1 / sum),
+    l = m + log(sum)."""
+    bh, n, _ = q.shape
+    kt = k.transpose(-1, -2)
+    if mode == "bf16":
+        s = _cluster_sum(_rank_partials(q, kt, mode, passes, True)) * scale
+    else:
+        s = _cluster_sum(_rank_partials(q * scale, kt, mode, passes, True))
+    m = torch.full((bh, n, 1), -torch.inf)
+    total = torch.zeros(bh, n, 1)
+    acc = torch.zeros_like(v)
+    tk = WIDE_TK[mode]
+    for j in range(0, n, tk):
+        st = s[..., j:j + tk]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        total = total * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _grad_dot(p, v[:, j:j + tk], mode, passes, control)
+        m = m_new
+    return acc * (1 / total), m + torch.log(total)
+
+
+def _wide_dkv(q, k, v, do, l, delta, scale, mode, passes=3, control=False):
+    """attention_dkv as dkv_wide_kernel takes it: the ranks' partial s^T and
+    dp^T summed in rank order, p^T = exp(s^T - l) and ds^T = p^T (dp^T -
+    delta) formed once from the sums, then over the Q/dO tiles dv += p^T.do
+    and dk += ds^T.q (times scale at the store)."""
+    bh, n, _ = q.shape
+    if mode == "bf16":
+        s = _cluster_sum(_rank_partials(k, q.transpose(-1, -2), mode, passes, True)) * scale
+    else:
+        s = _cluster_sum(_rank_partials(k, (q * scale).transpose(-1, -2), mode, passes, True))
+    dp = _cluster_sum(_rank_partials(v, do.transpose(-1, -2), mode, passes, False))
+    lt, dt = l.transpose(-1, -2), delta.transpose(-1, -2)
+    p = torch.exp(s - lt)
+    ds = p * (dp - dt)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for j in range(0, n, WIDE_TQ):
+        cols = slice(j, j + WIDE_TQ)
+        dv = dv + _grad_dot(p[..., cols], do[:, cols], mode, passes, control)
+        dk = dk + _grad_dot(ds[..., cols], q[:, cols], mode, passes, control)
+    return dk * scale, dv
+
+
+def _wide_inputs(d, mode, amp, count):
+    """(2, 160, d) inputs from a seed, q and k times amp; bf16 mode rounds them
+    to bf16 (both packages take the same values)."""
+    rng = np.random.default_rng(d)
+    xs = [rng.normal(size=(2, 160, d)).astype(np.float32) for _ in range(count)]
+    xs[0], xs[1] = xs[0] * np.float32(amp), xs[1] * np.float32(amp)
+    if mode == "bf16":
+        xs = [torch.tensor(x).bfloat16().float().numpy() for x in xs]
+    return xs
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over the largest magnitude of ``want`` (a tensor or a
+    JAX array)."""
+    if not isinstance(want, torch.Tensor):
+        want = torch.tensor(np.asarray(jnp.asarray(want, jnp.float32)))
+    want = want.double()
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def _wide_check(got, want, exact, mode, what):
+    """chip_smoke.py's bounds.  f32: within 1e-5 of the largest magnitude of
+    the exact result (chip_smoke.att_f64), and of JAX's result within 1e-5 plus JAX's own
+    distance from the exact one (at scores times 3 JAX's f32 sums alone lie
+    up to 1.4e-5 from it).  bf16: the f32 sums within 1e-5 of the exact
+    result, and rounded to bf16 within one bf16 step of the value plus 1e-5
+    of the largest magnitude of JAX's result.  Returns the mean absolute
+    error against JAX."""
+    cs = chip_smoke()
+    err_exact = _rel(got, exact)
+    assert err_exact <= cs.ATT_TOL_F32, f"{what}: rel-to-max {err_exact:.3e} from the f64 result"
+    want = torch.tensor(np.asarray(jnp.asarray(want, jnp.float32)))
+    if mode == "bf16":
+        got = got.bfloat16().float()
+        lim = cs.BF16_STEP * torch.maximum(got.abs(), want.abs()) + cs.ATT_TOL_F32 * want.abs().max()
+        worst = ((got - want).abs() / lim).max().item()
+        assert worst <= 1.0, f"{what}: worst error over one bf16 step {worst:.3f}"
+    else:
+        err, ref = _rel(got, want), _rel(want, exact)
+        assert err <= cs.ATT_TOL_F32 + ref, f"{what}: rel-to-max {err:.3e} (JAX's own {ref:.3e})"
+    return (got - want).abs().mean().item()
+
+
+def _wide_control(got, want, mode):
+    """The control's error: rel-to-max (split TF32, one pass a product) or
+    mean abs after the bf16 store (bf16, p and ds rounded to bf16)."""
+    want = torch.tensor(np.asarray(jnp.asarray(want, jnp.float32)))
+    if mode == "bf16":
+        return (got.bfloat16().float() - want).abs().mean().item()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("amp", [1.0, 3.0])
+@pytest.mark.parametrize("mode", ["split_tf32", "bf16"])
+@pytest.mark.parametrize("d", [264, 512, 1024])
+def test_cluster_forward_meets_the_card_bounds(d, mode, amp):
+    """The forward cluster body's arithmetic (``_wide_forward``: partial
+    scores over each rank's 128 columns added in rank order, online softmax
+    over its K/V tiles) at (2, 160, d), q and k times ``amp``, lies within
+    chip_smoke.py's bounds of JAX's ``_fwd_kernel`` (interpret mode) and of
+    the exact result (``_wide_check``) in o and l; the control (one TF32 pass a product; p rounded to bf16) does not
+    (f32: outside the bound; bf16: at least twice the mean error)."""
+    cs = chip_smoke()
+    jdt = jnp.bfloat16 if mode == "bf16" else jnp.float32
+    q, k, v = _wide_inputs(d, mode, amp, 3)
+    scale = d**-0.5
+    o_want, l_want = ja._attention_fwd_flat(*(jnp.asarray(a, jdt) for a in (q, k, v)), scale)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    o, l = _wide_forward(tq, tk, tv, scale, mode)
+    o_exact, l_exact = cs.att_f64("attention_fwd", tq, tk, tv, scale=scale)
+    mean = _wide_check(o, o_want, o_exact, mode, "o")
+    assert _rel(l, l_want) <= cs.ATT_TOL_F32 and _rel(l, l_exact) <= cs.ATT_TOL_F32
+    ctl_o, _ = _wide_forward(tq, tk, tv, scale, mode, passes=1, control=True)
+    ctl = _wide_control(ctl_o, o_want, mode)
+    if mode == "bf16":
+        assert mean < ctl / 2, (mean, ctl)
+    else:
+        assert ctl > cs.ATT_TOL_F32, ctl
+
+
+@pytest.mark.parametrize("amp", [1.0, 3.0])
+@pytest.mark.parametrize("mode", ["split_tf32", "bf16"])
+@pytest.mark.parametrize("d", [264, 512, 1024])
+def test_cluster_dkv_meets_the_card_bounds(d, mode, amp):
+    """The dK/dV cluster body's arithmetic (``_wide_dkv``: partial s^T and
+    dp^T over each rank's 128 columns added in rank order, p^T and ds^T from
+    the sums, dv and dk over its Q/dO tiles) at (2, 160, d), q and k times
+    ``amp``, from JAX's own o and l, lies within chip_smoke.py's bounds of
+    JAX's ``_dkv_kernel`` (interpret mode) and of the exact result
+    (``_wide_check``); the control (one TF32 pass a
+    product; p and ds rounded to bf16) does not."""
+    cs = chip_smoke()
+    jdt = jnp.bfloat16 if mode == "bf16" else jnp.float32
+    q, k, v, do = _wide_inputs(d, mode, amp, 4)
+    scale = d**-0.5
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o_j, l_j = ja._attention_fwd_flat(jq, jk, jv, scale)
+    _, dk_want, dv_want = ja._attention_bwd_flat(jq, jk, jv, o_j, l_j, jdo, scale)
+    tq, tk, tv, tdo = (torch.tensor(a) for a in (q, k, v, do))
+    l = torch.tensor(np.asarray(l_j))
+    delta = torch.sum(tdo * torch.tensor(np.asarray(o_j.astype(jnp.float32))), -1, keepdim=True)
+    dk, dv = _wide_dkv(tq, tk, tv, tdo, l, delta, scale, mode)
+    dk_exact, dv_exact = cs.att_f64("attention_dkv", tq, tk, tv, tdo, l, delta, scale=scale)
+    means = [_wide_check(dk, dk_want, dk_exact, mode, "dk"),
+             _wide_check(dv, dv_want, dv_exact, mode, "dv")]
+    ctl_dk, ctl_dv = _wide_dkv(tq, tk, tv, tdo, l, delta, scale, mode, passes=1, control=True)
+    ctls = [_wide_control(ctl_dk, dk_want, mode), _wide_control(ctl_dv, dv_want, mode)]
+    if mode == "bf16":
+        assert all(m < c / 2 for m, c in zip(means, ctls)), (means, ctls)
+    else:
+        assert min(ctls) > cs.ATT_TOL_F32, ctls
+
+
+def test_wide_ablation_cuts_what_it_names():
+    """experiments/wide_attention_ablation.py times copies of attention.cu
+    with the cluster bodies' exchange, then also their barriers, removed: its
+    markers occur in the source, and each copy lacks exactly those."""
+    from sciml_pde_torch.experiments import wide_attention_ablation as wa
+    from sciml_pde_torch.ops import _build
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    vs = wa.variants(src)
+    assert vs["shipped"] == src
+    for name, text in vs.items():
+        exchanges = text.count(wa.FWD_EXCHANGE) + text.count(wa.DKV_EXCHANGE)
+        barriers = sum(text.count(b) for b in wa.BARRIERS)
+        assert exchanges == (2 if name == "shipped" else 0), name
+        assert barriers == (0 if "barriers" in name else 2), name
+        assert text.count("__global__") == src.count("__global__"), name
