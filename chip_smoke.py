@@ -18,16 +18,20 @@ fused dft2 layer op and the native-kernel probe, and the ported perf probe
 FNO steps and the five split kernels):
 
   0. probe    build the probe kernel alone and launch it through the
-              experiment's probe_native: native, and exactly 2 * x
+              experiment's probe_native: native, and exactly 2 * x; its
+              profiler device time beside torch.mul's, the median of three
+              sessions of 200 launches of each, interleaved
   1. card     name and power limit (nvidia-smi), torch and CUDA versions
   2. build    nvcc for sm_90a, all sources in parallel; registers and
               spills of every attention and FNO kernel and the FNO kernels'
               stack frames (ptxas -v), none spilling at head dim 64 on the
               tensor cores (the bf16 bodies and the split-TF32 f32
-              forward, dQ and dK/dV) nor in the four instances of the
-              cluster bodies above head dim 256 (fwd_wide_kernel and
-              dkv_wide_kernel, bf16 and f32; each with the clusters of 8
-              blocks the card holds at once), none in wdft_kernel and
+              forward, dQ and dK/dV) nor in the six instances of the
+              cluster bodies above head dim 256 (fwd_wide_kernel,
+              dq_wide_kernel and dkv_wide_kernel, bf16 and f32; each with
+              the clusters of 8 blocks the card holds at once), HMMA
+              instructions in both dq_wide_kernel instances' SASS (their
+              products on the tensor cores), none in wdft_kernel and
               reduce_rows_kernel, and
               neither spills nor a stack frame in both instances of
               lift_kernel, both paths of head_fwd_kernel and
@@ -101,13 +105,15 @@ FNO steps and the five split kernels):
               256, 264, 320, 512, 1024 and 1032 and at 200 tokens (ragged
               tiles) at head dim 64, in f32 and bf16, at the encoder shape
               and at (4, 1280, 512) with q and k times 3 (scores up to
-              about 54) in f32 (above 256 with each kernel's time beside
+              about 54) in f32 (from 160 up with each kernel's time beside
               its bound and the SDPA forward or backward on the same
-              inputs), and at batch*heads 70000 (70000, 16, 16) in bf16,
+              inputs, and dQ + dK/dV beside the SDPA backward), and at
+              batch*heads 70000 (70000, 16, 16) in bf16,
               with a control against a kernel that rounds p and ds to
               bf16 (f32 outputs held against the exact result, the plain
-              versions' arithmetic in f64, within 1e-5 or the f32 plain
-              version's own distance from it); flash_attention at (2, 4,
+              versions' arithmetic in f64, within 1e-5; the CUDA-core
+              bodies within 1e-5 or the f32 plain version's own distance
+              from it); flash_attention at (2, 4,
               1280, 512) through the kernels against plain=True, values
               and q/k/v gradients, in both types
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
@@ -170,7 +176,7 @@ FNO steps and the five split kernels):
               no error, finite results, the steps/s table, and launches of
               every split function and stage kernel
 
-The probe's row carries its profiler device time beside torch.mul's.
+The probe's row carries phase 0's profiler device time beside torch.mul's.
 It prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero and
 prints no result.  Without a CUDA device it exits non-zero at once.
@@ -184,6 +190,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from sciml_pde_torch.utils.profiling import cuda_ms, profiler_ms
 
 # flagship DR shape (configs/config_dr.yaml, the JAX package's bench.py)
 B, T0, CC, XY, WIDTH, MODES, PAD, NH = 4, 10, 2, 128, 20, 12, 2, 128
@@ -245,9 +253,9 @@ ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 12
 # padded in shared memory (96 is plume-3D's decoder, 768 / 8 heads; 24 pads
 # to 32), head dims above 128 (32-row f32 dQ and dK/dV tiles; two bf16
 # blocks per row tile, each for half of the output columns), head dims above
-# 256 (the wide bodies: ceil(d / 128) column groups, the forward and dK/dV as
-# thread-block clusters of that many ranks up to 1024 (8 ranks), on the CUDA
-# cores above; 200 tokens leave ragged row and key tiles), 200 tokens at head
+# 256 (the wide bodies: ceil(d / 128) column groups, the forward, dQ and
+# dK/dV as thread-block clusters of that many ranks up to 1024 (8 ranks), on
+# the CUDA cores above; 200 tokens leave ragged row and key tiles), 200 tokens at head
 # dim 64 (the tensor-core bodies' ragged tiles), in both dtypes, and
 # batch*heads above the 65535 of a grid's y axis
 ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
@@ -275,10 +283,12 @@ ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "
                    "f32": {"attention_fwd": "fwd_tf32_kernel<", "attention_dq": "dq_tf32_kernel<",
                            "attention_dkv": "dkv_tf32_kernel<"}}
 # attention kernels: f32 outputs within 1e-5 of the largest magnitude of the
-# exact result (the plain version's arithmetic in f64: att_f64), or no
-# farther from it than the f32 plain version (with q and k times 3 at head
-# dim 512 the f32 plain versions lie up to 2.1e-5 from it, and dq_wide_kernel,
-# bit for bit the plain dQ, 1.2e-5); bf16 outputs against the plain
+# exact result (the plain version's arithmetic in f64: att_f64); the bodies
+# on the CUDA cores (att_cuda_cores), whose f32 sums are the plain version's,
+# may instead lie no farther from it than the f32 plain version (with q and
+# k times 3 at head dim 512 the f32 plain versions lie up to 2.1e-5 from
+# it, and the CUDA-core dQ then above 256, bit for bit the plain dQ,
+# 1.2e-5); bf16 outputs against the plain
 # version, within one bf16 rounding step of the value (2^-7 of its
 # magnitude: the two round f32 results that differ in the last f32 bits)
 # plus the f32 bound
@@ -410,6 +420,10 @@ def rr_shapes() -> dict:
 SF_TOL = 1e-5
 SF_SITE = "sciml_pde_tpu/ops/spectral_fused.py:63"
 PROBE_SITE = "experiments/spectral_impl_bench.py:106"
+# phase 0: launches of the probe and of torch.mul(x, 2) in one profiler
+# session, and the profiler key of torch.mul's kernel
+# (vectorized_elementwise_kernel<4, AUnaryFunctor<..., MulFunctor>>)
+PROBE_REPS, MUL_KEY = 200, "elementwise_kernel"
 # production step against the fused step over 10 steps under `highest`: the
 # JAX package's drop-in bounds (tests/test_fast_step.py)
 PROD_STEPS, PROD_RTOL, PARAM_RTOL, PARAM_ATOL = 10, 2e-3, 5e-3, 1e-5
@@ -572,45 +586,6 @@ def kernel_flops(fname: str, args, out) -> int:
     if fname == "reduce_rows":
         return args[0].numel()
     raise KeyError(fname)
-
-
-def cuda_ms(fn, reps: int = 20) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / reps
-
-
-def profiler_ms(fn, kernel_key: str = "", reps: int = 20, bound_ms: float = 0.0):
-    """Device time per call of ``fn`` in kernels whose name holds
-    ``kernel_key`` (all of its device time by default), from torch.profiler
-    over ``reps`` back-to-back calls (no host issue gaps); None ("not
-    measured") when none of three profiler sessions in a row reads a time at
-    or above ``bound_ms``, the least time the card could take for the call:
-    a session can come back empty on the card (twice in a row once) or with
-    events lost, below the bound (0.0019 ms for a 0.00353 ms bound once)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if ev.device_type.name == "CUDA" and kernel_key in ev.key)
-        if us > 0 and us / reps / 1e3 >= bound_ms:
-            return us / reps / 1e3
-    return None
 
 
 def fmt(ms) -> str:
@@ -1582,15 +1557,14 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     and dK/dV 12 passes, 0.06101, 0.09150 and 0.12200 ms at the encoder
     shape; before those designs they took two, three and four products at
     the CUDA cores' f32 rate (67 TFLOP/s), 0.15024, 0.22537 and 0.30049 ms
-    (``att_work_f32_cores``), as they still do from 160 to 256 and, above,
-    dQ at every head dim and the forward and dK/dV above CLUSTER_MAX_D.
-    Above 256 the forward and dK/dV cluster bodies count the same TF32
-    passes (at (4, 1280, 512) 0.08134 and 0.16269 ms; dQ 0.30050 on the
-    CUDA cores), and the bf16 wide bodies their bf16 products (0.02036,
-    0.02714 and 0.04071 ms there).  Before their tensor-core designs the
-    bf16 kernels' bounds counted the products that take p or ds at the f32
-    rate: 0.08021 (forward), 0.08530 (dQ) and 0.16042 ms (dK/dV) at the
-    encoder shape."""
+    (``att_work_f32_cores``), as they still do from 160 to 256 and above
+    CLUSTER_MAX_D.  Above 256 the three cluster bodies count the same TF32
+    passes (at (4, 1280, 512) 0.08134, 0.12202 and 0.16269 ms; dQ 0.30050
+    on the CUDA cores before its cluster body), and the bf16 wide bodies
+    their bf16 products (0.02036, 0.02714 and 0.04071 ms there).  Before
+    their tensor-core designs the bf16 kernels' bounds counted the products
+    that take p or ds at the f32 rate: 0.08021 (forward), 0.08530 (dQ) and
+    0.16042 ms (dK/dV) at the encoder shape."""
     es = 2 if bf else 4
     panel, row = bh * n * d * es, bh * n * 4
     prod = 2 * bh * n * n * d
@@ -1600,12 +1574,19 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     if bf:
         products = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name]
         return nbytes, products * prod / PEAK_FLOPS["default"]
-    from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
-
-    if d > 128 and not (256 < d <= CLUSTER_MAX_D and name != "attention_dq"):
+    if att_cuda_cores(d, bf):
         return nbytes, att_work_f32_cores(name, bh, n, d)
     passes = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}[name]
     return nbytes, passes * prod / TF32_FLOPS
+
+
+def att_cuda_cores(d: int, bf: bool) -> bool:
+    """Whether the attention kernels take head dim ``d`` on the CUDA cores:
+    f32 from 160 to 256 (fwd_kernel, dq_kernel, dkv_kernel) and both types
+    above CLUSTER_MAX_D (the *_wide_cc_kernel bodies)."""
+    from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
+
+    return (not bf and 128 < d <= 256) or d > CLUSTER_MAX_D
 
 
 def att_work_f32_cores(name: str, bh: int, n: int, d: int) -> float:
@@ -1655,16 +1636,18 @@ def att_f64(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.0)
     return ds.transpose(-1, -2) @ q * scale, p.transpose(-1, -2) @ do
 
 
-def att_kernel_key(name: str, d: int) -> str:
+def att_kernel_key(name: str, d: int, bf: bool) -> str:
     """The profiler key of the CUDA kernel that attention kernel ``name``
-    launches above head dim 256: the cluster bodies fwd_wide_kernel and
-    dkv_wide_kernel up to CLUSTER_MAX_D, their CUDA-core bodies above it,
-    dq_wide_kernel at every head dim."""
+    launches from head dim 160 up: from 160 to 256 the bf16 tensor-core
+    bodies (*_tc_kernel) and the f32 CUDA-core bodies (*_kernel); above 256
+    the cluster bodies (*_wide_kernel) up to CLUSTER_MAX_D, their CUDA-core
+    bodies (*_wide_cc_kernel) above it."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
     short = name.replace("attention_", "")
-    return f"{short}_wide_cc_kernel<" if short != "dq" and d > CLUSTER_MAX_D else \
-        f"{short}_wide_kernel<"
+    if d <= 256:
+        return f"{short}_tc_kernel<" if bf else f"{short}_kernel<"
+    return f"{short}_wide_cc_kernel<" if d > CLUSTER_MAX_D else f"{short}_wide_kernel<"
 
 
 def check_flash_wide(ta, dev) -> None:
@@ -1720,12 +1703,13 @@ def sdpa_calls(q, k, v, do, scale: float) -> dict:
 def check_attention(ta, dev, card: str) -> dict:
     """Phase 6: each kernel against its plain version (and a second launch
     of itself, which must give the same bits) at the encoder and decoder
-    shapes and at the head dims of ATT_EXTRA in f32 and bf16 (above 256
-    with its profiler device time beside its bound and the SDPA call's), at
-    batch*heads 70000 in bf16, and with q and k times 3 (scores up to about
-    54) in f32.  f32 outputs are held against the exact result (att_f64),
-    within ATT_TOL_F32 or the f32 plain version's own distance from it,
-    printed beside; bf16 outputs against the plain version.
+    shapes and at the head dims of ATT_EXTRA in f32 and bf16 (from 160 up
+    with its profiler device time beside its bound and the SDPA call's, and
+    dQ + dK/dV beside the SDPA backward), at batch*heads 70000 in bf16, and
+    with q and k times 3 (scores up to about 54) in f32.  f32 outputs are
+    held against the exact result (att_f64), within ATT_TOL_F32 (the
+    CUDA-core bodies: or the f32 plain version's own distance from it,
+    printed beside); bf16 outputs against the plain version.
     Returns the bf16 encoder-shape inputs of each kernel (the main path's
     most frequent launch) for timing."""
     import torch
@@ -1746,6 +1730,9 @@ def check_attention(ta, dev, card: str) -> dict:
             args = {"attention_fwd": (q, k, v),
                     "attention_dq": (q, k, v, do, l_p, delta),
                     "attention_dkv": (q, k, v, do, l_p, delta)}
+            escape = att_cuda_cores(d, bf)
+            timed = d >= 160 and amp == 1.0  # on no configuration's path
+            dev_times = {}
             for name in ta.KERNEL_NAMES:
                 got = as_tuple(getattr(ta, name)(*args[name], scale))
                 again = as_tuple(getattr(ta, name)(*args[name], scale))
@@ -1759,11 +1746,13 @@ def check_attention(ta, dev, card: str) -> dict:
                     ok &= bool(torch.isfinite(a).all()) and a.dtype == b.dtype
                     if a.dtype == torch.float32:
                         rel_x, plain_x = rel_err(a, x)[1], rel_err(b, x)[1]
-                        ok &= rel_x <= max(ATT_TOL_F32, plain_x)
+                        ok &= rel_x <= (max(ATT_TOL_F32, plain_x) if escape else ATT_TOL_F32)
                         msgs.append(f"out{i} rel-to-max {rel_x:.3e} from the exact result (tol "
-                                    f"{ATT_TOL_F32:.0e}, or the f32 plain version's own "
-                                    f"{plain_x:.3e} from it; the plain version {rel:.3e} from "
-                                    "the kernel)")
+                                    f"{ATT_TOL_F32:.0e}"
+                                    + (", or the f32 plain version's own" if escape else
+                                       "; the f32 plain version")
+                                    + f" {plain_x:.3e} from it; the plain version {rel:.3e} "
+                                    "from the kernel)")
                     else:
                         a32, b32 = a.float(), b.float()
                         lim = (BF16_STEP * torch.maximum(a32.abs(), b32.abs())
@@ -1786,24 +1775,35 @@ def check_attention(ta, dev, card: str) -> dict:
                         main_inputs[name] = (args[name], scale)
                 check(ok, f"[attention] {name} {where} {tuple(q.shape)} {str(dt)[6:]}: "
                       + "; ".join(msgs))
-                if d > 256 and amp == 1.0:  # the wide bodies: on no configuration's path
+                if timed:
                     kfn, pfn = getattr(ta, name), getattr(ta, f"{name}_plain")
-                    key = att_kernel_key(name, d)
+                    key = att_kernel_key(name, d, bf)
                     nbytes, ops_s = att_work(name, *q.shape, bf)
                     bound_ms = max(nbytes / HBM_BPS, ops_s) * 1e3
                     dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key,
                                          bound_ms=bound_ms)
                     plain_ms = cuda_ms(lambda: pfn(*args[name], scale))
                     lib = sdpa_calls(q, k, v, do, scale)[name]
+                    lib_dev = profiler_ms(lib)
+                    dev_times[name], dev_times["library " + name] = dev_ms, lib_dev
                     print(f"[timing] {card}: {name} {where} {tuple(q.shape)} {str(dt)[6:]} "
                           f"({key[:-1]}): {cuda_ms(lambda: kfn(*args[name], scale)):.4f} "
                           f"ms/launch, profiler device time {fmt(dev_ms)}, bound "
                           f"{bound_ms:.5f} ms "
                           f"({'operations' if ops_s >= nbytes / HBM_BPS else 'bytes'}); "
                           f"plain {plain_ms:.4f} ms; library {cuda_ms(lib):.4f} ms, profiler "
-                          f"device time {fmt(profiler_ms(lib))} (scaled_dot_product_attention "
+                          f"device time {fmt(lib_dev)} (scaled_dot_product_attention "
                           f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV'})",
                           flush=True)
+            if timed:
+                dq_ms, dkv_ms = dev_times["attention_dq"], dev_times["attention_dkv"]
+                lib_ms = dev_times["library attention_dq"]
+                both = None if dq_ms is None or dkv_ms is None else dq_ms + dkv_ms
+                ratio = ("not measured" if both is None or lib_ms is None
+                         else f"{both / lib_ms:.2f}x")
+                print(f"[timing] {card}: dQ + dK/dV {where} {tuple(q.shape)} {str(dt)[6:]}: "
+                      f"profiler device time {fmt(both)} against the SDPA backward's "
+                      f"{fmt(lib_ms)} ({ratio})", flush=True)
             del q, k, v, do, o_p, l_p, delta, args
     check_flash_wide(ta, dev)
     return main_inputs
@@ -2554,6 +2554,23 @@ def main() -> int:
     xp = torch.randn(8, 128, generator=torch.Generator().manual_seed(8)).cuda()
     yp = pb.probe(xp)
     check(bool(torch.equal(yp, pb.probe_plain(xp))), "[probe] probe(x) == 2 * x exactly")
+    for shape in ((1021,), (3,), (1 << 20,)):  # a scalar tail; a grid of 1024 blocks
+        xt = torch.randn(*shape, generator=torch.Generator().manual_seed(9)).cuda()
+        check(bool(torch.equal(pb.probe(xt), pb.probe_plain(xt))),
+              f"[probe] probe(x) == 2 * x exactly at {shape}")
+    xu = torch.randn(1025, generator=torch.Generator().manual_seed(10)).cuda()[1:]
+    check(xu.data_ptr() % 16 != 0 and bool(torch.equal(pb.probe(xu), pb.probe_plain(xu))),
+          "[probe] probe(x) == 2 * x exactly on a pointer not 16-byte aligned")
+    # the probe's device time beside torch.mul's, launched in turns in each session
+    bytes_s, ops_s = 2 * xp.numel() * 4 / HBM_BPS, xp.numel() / PEAK_FLOPS["highest"]
+    probe_bound = max(bytes_s, ops_s) * 1e3
+    probe_dev = {what: profiler_ms(lambda: (pb.probe(xp), torch.mul(xp, 2)), key,
+                                   reps=PROBE_REPS, bound_ms=probe_bound, sessions=3)
+                 for what, key in (("probe", "probe_kernel"), ("mul", MUL_KEY))}
+    print(f"[timing] {card_line()}: probe at (8, 128) f32, profiler device time (median of "
+          f"three sessions of {PROBE_REPS} launches, each interleaved with torch.mul): "
+          f"{probe_dev['probe'] or 'not measured'} ms; torch.mul "
+          f"{probe_dev['mul'] or 'not measured'} ms", flush=True)
 
     # ---- 1. card -------------------------------------------------------------
     card = card_line()
@@ -2580,17 +2597,26 @@ def main() -> int:
           and all(st == ld == 0 for _, _, st, ld, _ in main_tf32),
           "[build] the f32 NS path's split-TF32 forward, dQ and dK/dV kernels (head dim 64) "
           "spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in main_tf32))
-    wide = sorted(u for u in usage if u[0].startswith(("fwd_wide_kernel<", "dkv_wide_kernel<")))
-    check([u[0] for u in wide] == [f"{w}_wide_kernel<{t}>" for w in ("dkv", "fwd")
+    wide = sorted(u for u in usage
+                  if u[0].startswith(("fwd_wide_kernel<", "dq_wide_kernel<", "dkv_wide_kernel<")))
+    check([u[0] for u in wide] == [f"{w}_wide_kernel<{t}>" for w in ("dkv", "dq", "fwd")
                                    for t in ("__nv_bfloat16", "float")]
           and all(st == ld == 0 for _, _, st, ld, _ in wide),
-          "[build] the cluster bodies above head dim 256 (the forward and dK/dV, both types) "
-          "spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in wide))
-    for dkv in (False, True):
+          "[build] the cluster bodies above head dim 256 (the forward, dQ and dK/dV, both "
+          "types) spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in wide))
+    att_sass = _build.sass(_build.library_path("attention"))
+    hmma = {t: sum(i.split()[0].startswith("HMMA")
+                   for i in att_sass.get(f"dq_wide_kernel<{t}>", []))
+            for t in ("__nv_bfloat16", "float")}
+    check(all(c > 0 for c in hmma.values()),
+          "[build] dq_wide_kernel takes its products on the tensor cores: HMMA instructions in "
+          "its SASS " + ", ".join(f"<{t}> {c}" for t, c in hmma.items()))
+    for kind in ta.WIDE_KINDS:
         for bf in (True, False):
-            name = f"{'dkv' if dkv else 'fwd'}_wide_kernel<{'__nv_bfloat16' if bf else 'float'}>"
-            print(f"[build] {name}: at most {ta.wide_max_clusters(dkv, bf, 8)} clusters of 8 "
-                  "blocks (head dim 1024) at once (cudaOccupancyMaxActiveClusters)", flush=True)
+            name = f"{kind}_wide_kernel<{'__nv_bfloat16' if bf else 'float'}>"
+            print(f"[build] {name}: at most {ta.wide_max_clusters(kind, bf, 8)} clusters of 8 "
+                  f"blocks (head dim 1024), {ta.wide_max_clusters(kind, bf, 4)} of 4 (head dim "
+                  "512) at once (cudaOccupancyMaxActiveClusters)", flush=True)
     fno_usage = _build.ptxas_report("fno_fwd") + _build.ptxas_report("fno_bwd")
     for kern, regs, st, ld, frame in fno_usage:
         print(f"[build] fno {kern}: {regs} registers, {st} bytes spill stores, {ld} bytes "
@@ -2840,25 +2866,21 @@ def main() -> int:
     for name, row in split_rows.items():
         row["launches"] = path_launches[name]
     kernel_rows.update(split_rows)
-    bytes_s, ops_s = 2 * xp.numel() * 4 / HBM_BPS, xp.numel() / PEAK_FLOPS["highest"]
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,
         "max_abs_err": rel_err(yp, pb.probe_plain(xp))[0],
         "ms": cuda_ms(lambda: pb.probe(xp)), "plain_ms": cuda_ms(lambda: pb.probe_plain(xp)),
-        "bound_ms": max(bytes_s, ops_s) * 1e3,
-        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "bound_ms": probe_bound, "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "library_ms": cuda_ms(lambda: torch.mul(xp, 2)),
-        "device_ms": profiler_ms(lambda: pb.probe(xp), "probe_kernel",
-                                 bound_ms=max(bytes_s, ops_s) * 1e3),
-        "library_device_ms": profiler_ms(lambda: torch.mul(xp, 2),
-                                         bound_ms=max(bytes_s, ops_s) * 1e3),
+        "device_ms": probe_dev["probe"], "library_device_ms": probe_dev["mul"],
     }
     r = kernel_rows["probe"]
     print(f"[timing] {card}: probe at (8, 128) f32: {r['ms']:.4f} ms/launch (profiler device "
-          f"time {fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, bound "
+          f"time {fmt(r['device_ms'])}, phase 0), plain {r['plain_ms']:.4f} ms, bound "
           f"{r['bound_ms']:.7f} ms ({r['bound_by']}), library {r['library_ms']:.4f} ms "
-          f"(torch.mul; profiler device time {fmt(r['library_device_ms'])}), {r['launches']} "
+          f"(torch.mul; profiler device time {fmt(r['library_device_ms'])}, phase 0), "
+          f"{r['launches']} "
           "launch in probe_native", flush=True)
 
     if failures:

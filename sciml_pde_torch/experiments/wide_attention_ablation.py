@@ -2,16 +2,16 @@
 
     python -m sciml_pde_torch.experiments.wide_attention_ablation
 
-``fwd_wide_kernel`` and ``dkv_wide_kernel`` (``ops/csrc/attention.cu``, head
-dims 264-1024) add their ranks' partial scores through distributed shared
-memory (``cluster_exchange``) between cluster barriers.  This builds copies
-of the source with parts removed (``variants``: the exchange; the exchange
-and the barriers), whose results are wrong, and times the forward and dK/dV
-of each copy beside the shipped source in CUDA events, in turns (the
-variants, then in reverse order), at (4, 1280, 512) and (2, 1280, 1024) in
-bf16 and f32.  The differences are what the exchange and the barriers
-cost.  Needs the card and nvcc; prints the card's name and power limit and
-one line per timing.
+``fwd_wide_kernel``, ``dq_wide_kernel`` and ``dkv_wide_kernel``
+(``ops/csrc/attention.cu``, head dims 264-1024) add their ranks' partial
+scores through distributed shared memory (``cluster_exchange``) between
+cluster barriers.  This builds copies of the source with parts removed
+(``variants``: the exchanges; the exchanges and the barriers), whose results
+are wrong, and times the forward, dQ and dK/dV of each copy beside the
+shipped source in CUDA events, in turns (the variants, then in reverse
+order), at (4, 1280, 512) and (2, 1280, 1024) in bf16 and f32.  The
+differences are what the exchange and the barriers cost.  Needs the card
+and nvcc; prints the card's name and power limit and one line per timing.
 """
 
 from __future__ import annotations
@@ -26,12 +26,16 @@ import torch
 
 from sciml_pde_torch.ops import _build
 from sciml_pde_torch.ops import attention as ta
+from sciml_pde_torch.utils.profiling import cuda_ms
 
 SHAPES = ((4, 1280, 512), (2, 1280, 1024))
-# the exchange calls of the forward and of dK/dV (the latter up to the end of
-# its lambda), and the two halves of the cluster barrier
+# the exchange calls of the forward, of dQ and of dK/dV (the last two up to
+# the end of their lambdas), each with the end of its statement, and the two
+# halves of the cluster barrier
 FWD_EXCHANGE = "cluster_exchange<1, LX, NT_TC, BF ? 4 : CL_MAX>("
+DQ_EXCHANGE = "cluster_exchange<2, LX, NT_WKV, CL_MAX, 1>("
 DKV_EXCHANGE = "cluster_exchange<2, LX, NT_WKV, CL_MAX>("
+EXCHANGES = {FWD_EXCHANGE: ");", DQ_EXCHANGE: "});", DKV_EXCHANGE: "});"}
 BARRIERS = ('asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: "memory");',
             'asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");')
 
@@ -47,7 +51,9 @@ def _cut_call(src: str, head: str, end: str) -> str:
 
 def variants(src: str) -> dict[str, str]:
     """The shipped source and the copies with parts removed."""
-    no_exchange = _cut_call(_cut_call(src, FWD_EXCHANGE, ");"), DKV_EXCHANGE, "});")
+    no_exchange = src
+    for head, end in EXCHANGES.items():
+        no_exchange = _cut_call(no_exchange, head, end)
     no_barriers = no_exchange
     for b in BARRIERS:
         if b not in src:
@@ -55,35 +61,6 @@ def variants(src: str) -> dict[str, str]:
         no_barriers = no_barriers.replace(b, "")
     return {"shipped": src, "no exchange": no_exchange,
             "no exchange, no barriers": no_barriers}
-
-
-def _build_all(texts: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
-    procs = {}
-    for i, (name, text) in enumerate(texts.items()):
-        cu = out / f"v{i}.cu"
-        cu.write_text(text)
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out / f"libv{i}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out / f"libv{i}.so")
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the {name!r} copy:\n{log[-4000:]}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
-
-
-def _events_ms(fn, reps: int = 30) -> float:
-    fn()
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / reps
 
 
 def main() -> int:
@@ -94,7 +71,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     src = (_build.CSRC / "attention.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        libs = _build_all(variants(src), Path(tmp))
+        libs = _build.build_copies(variants(src), Path(tmp))
         print(f"[ablation] {card}: built {', '.join(libs)}", flush=True)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         g = torch.Generator().manual_seed(3)
@@ -105,10 +82,11 @@ def main() -> int:
                 scale = d**-0.5
                 o, l = ta.attention_fwd_plain(q, k, v, scale)
                 delta = torch.sum(do.float() * o.float(), -1, keepdim=True)
-                out, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+                out, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
                 lo = torch.empty_like(l)
                 bf = int(dt == torch.bfloat16)
                 calls = {"forward": ("attention_fwd", (q, k, v, out, lo)),
+                         "dQ": ("attention_dq", (q, k, v, do, l, delta, dq)),
                          "dK/dV": ("attention_dkv", (q, k, v, do, l, delta, dk, dv))}
                 for name in (*libs, *reversed(libs)):
                     for what, (fname, ts) in calls.items():
@@ -119,10 +97,10 @@ def main() -> int:
                         def launch():
                             if f(*args) != 0:
                                 raise RuntimeError(f"{fname} of the {name!r} copy failed")
-                        ms = _events_ms(launch)
+                        ms = cuda_ms(launch, reps=30)
                         print(f"[ablation] {card}: {what} {(bh, n, d)} {str(dt)[6:]} "
                               f"{name}: {ms:.4f} ms", flush=True)
-                del q, k, v, do, o, l, delta, out, dk, dv, lo
+                del q, k, v, do, o, l, delta, out, dq, dk, dv, lo
     return 0
 
 

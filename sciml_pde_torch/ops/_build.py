@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` source becomes one shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into ``ops/_build/`` (listed
 in ``.gitignore``) and bound with ``ctypes``.  ``build_all`` compiles every
 missing source in parallel, one ``nvcc`` process each; ``load`` builds only
-the library it is asked for.  A library's file name carries a
+the library it is asked for; ``build_copies`` compiles edited copies of a
+source's text side by side, for the experiments that time them.  A
+library's file name carries a
 hash of its sources and flags, so an edited source is rebuilt and a stale
 library is never loaded.  A failed build raises with the compiler's output;
 a good one keeps it beside the library (``ptxas -v``: registers, spills and
@@ -92,6 +94,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def build_copies(texts: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
+    """Compile each of ``texts`` (name: the text of one CUDA source, which
+    includes nothing from ``csrc/``) in ``out`` with the package's flags,
+    all at once, and load them: {name: library}.  A failed build raises
+    with the compiler's output.  For timing copies of a source side by side
+    (the experiments); the package's own kernels go through ``load``."""
+    procs = {}
+    for i, (name, text) in enumerate(texts.items()):
+        cu, so = out / f"copy{i}.cu", out / f"libcopy{i}.so"
+        cu.write_text(text)
+        procs[name] = (subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(so), str(cu)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the {name!r} copy:\n{log[-4000:]}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
 
 
 def _template_args(s: str):

@@ -15,12 +15,12 @@ o)`` are ``(BH, N, 1)`` f32.  The bf16 kernels run their products on the
 tensor cores (``p`` and ``ds`` split into two bf16 terms each); the f32
 kernels too up to head dim 128, in split TF32 (every f32 operand as two
 TF32 terms, three passes a product), and from 160 to 256 on the CUDA cores.
-Above 256 (the wide bodies) the forward and dK/dV run, in both types up to
-head dim ``CLUSTER_MAX_D``, as thread-block clusters of ``ceil(d / 128)``
-blocks that each take the products of 128 head-dim columns on the tensor
-cores and add their partial scores through distributed shared memory; dQ,
-and the forward and dK/dV above ``CLUSTER_MAX_D``, on the CUDA cores (see
-the source's note).  The plain versions
+Above 256 (the wide bodies) the forward, dQ and dK/dV run, in both types
+up to head dim ``CLUSTER_MAX_D``, as thread-block clusters of ``ceil(d /
+128)`` blocks that each take the products of 128 head-dim columns on the
+tensor cores and add their partial scores through distributed shared
+memory; above ``CLUSTER_MAX_D`` on the CUDA cores (see the source's note).
+The plain versions
 compute the Pallas bodies over whole rows: inputs widened to f32, ``q``
 scaled in f32, ``p`` and ``ds`` kept in f32, outputs rounded to the input
 type once.
@@ -47,9 +47,11 @@ BLOCK_K = 256
 # 160, 192 and 256, and takes any head dim d % 8 == 0 above 256 through its
 # wide bodies; rows of a tile (the blocks per panel: _blocks_per_panel)
 TILE = 64
-# the largest head dim of the forward and dK/dV cluster bodies: 8 blocks (the
-# portable cluster size) of 128 columns (csrc/attention.cu CL_MAX_D)
+# the largest head dim of the cluster bodies: 8 blocks (the portable cluster
+# size) of 128 columns (csrc/attention.cu CL_MAX_D)
 CLUSTER_MAX_D = 1024
+# the cluster bodies, as attention_wide_clusters numbers them
+WIDE_KINDS = {"fwd": 0, "dkv": 1, "dq": 2}
 
 KERNEL_NAMES = ("attention_fwd", "attention_dq", "attention_dkv")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
@@ -91,24 +93,25 @@ def _blocks_per_panel(n: int, d: int) -> int:
     """Blocks of one (N, D) panel on the kernels' grid.x, the most of the
     three kernels: 64-row tiles up to head dim 128 (the f32 dQ and dK/dV
     kernels' too); above, 32-row f32 dQ and dK/dV tiles or two bf16 blocks
-    per 64-row tile; above 256, dQ's 32-row tiles times ceil(d / 128) column
-    groups (the forward's and dK/dV's clusters take 64-row tiles times as
-    many blocks)."""
+    per 64-row tile; above 256, ceil(d / 128) blocks per 64-row tile (the
+    three cluster bodies) up to ``CLUSTER_MAX_D``, per 32-row tile (the
+    CUDA-core bodies) above it."""
     if d <= 128:
         return -(-n // TILE)
     if d <= 256:
         return -(-n // TILE) * 2
-    return -(-n // 32) * -(-d // 128)
+    return -(-n // (TILE if d <= CLUSTER_MAX_D else 32)) * -(-d // 128)
 
 
-def wide_max_clusters(dkv: bool, bf16: bool, parts: int) -> int:
-    """The most clusters of ``parts`` blocks of the forward (or dK/dV)
-    cluster body, in bf16 or f32, that the card holds at once
-    (``cudaOccupancyMaxActiveClusters``).  Needs the card."""
+def wide_max_clusters(kind: str, bf16: bool, parts: int) -> int:
+    """The most clusters of ``parts`` blocks of the forward, dK/dV or dQ
+    cluster body (``kind`` "fwd", "dkv" or "dq"), in bf16 or f32, that the
+    card holds at once (``cudaOccupancyMaxActiveClusters``).  Needs the
+    card."""
     f = _build.load("attention").attention_wide_clusters
     f.argtypes, f.restype = [_I, _I, _I, ctypes.POINTER(_I)], ctypes.c_int
     out = _I(0)
-    rc = f(int(dkv), int(bf16), parts, ctypes.byref(out))
+    rc = f(WIDE_KINDS[kind], int(bf16), parts, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"attention_wide_clusters: CUDA error {rc}")
     return out.value

@@ -30,9 +30,10 @@
 // split over P = ceil(d / 128) groups of 128, the last one padded with zero
 // columns:
 //
-//   The forward and dK/dV up to d = 1024 (fwd_wide_kernel, dkv_wide_kernel)
-//   run as one thread-block cluster of P blocks (at most the portable 8) per
-//   (bh, 64 rows), the cluster size a launch attribute (cudaLaunchKernelEx).
+//   The forward, dQ and dK/dV up to d = 1024 (fwd_wide_kernel,
+//   dq_wide_kernel, dkv_wide_kernel) run as one thread-block cluster of P
+//   blocks (at most the portable 8) per (bh, 64 rows), the cluster size a
+//   launch attribute (cudaLaunchKernelEx).
 //   Rank r stages only columns [128 r, 128 r + 128) of each panel by
 //   cp.async (its own rows' for the block's life, the other panel's tiles
 //   double-buffered) and takes its partial scores over them on the tensor
@@ -47,23 +48,28 @@
 //   p.v over their own 128 output columns (rank 0 writes l); in dK/dV the
 //   rank that adds a score also forms p^T and ds^T from it, and every rank
 //   takes p^T.do and ds^T.q over its columns (8 warps, 16 keys x 64 columns
-//   each).  One cluster barrier a tile (barrier.cluster, its arrive and wait
-//   apart): tile j's exchange, tile j + 1's partials while the exchange's
-//   stores land, the arrive, (forward) tile j - 1's p.v while the other
-//   ranks arrive, the wait.  Bound by operations: bf16 3 and 6 products at
-//   989 TFLOP/s, f32 6 and 12 TF32 passes at 495.  On the card the exchange
-//   moves 8 (P - 1) bytes a score through distributed shared memory, near
-//   that network's rate, and the barriers cost beside it (PERF.md).
+//   each); dQ is dK/dV with the panels' roles swapped: the adding rank forms
+//   ds and broadcasts only ds (half of dK/dV's stores back), and every rank
+//   takes ds.k over its columns with the same k slice it took q.k^T from
+//   (8 warps, 16 queries x 64 columns each).  One cluster barrier a tile
+//   (barrier.cluster, its arrive and wait apart): tile j's exchange, tile
+//   j + 1's partials while the exchange's stores land, the arrive,
+//   (forward) tile j - 1's p.v while the other ranks arrive, the wait.
+//   Bound by operations: bf16 3, 4 and 6 products at 989 TFLOP/s, f32 6, 9
+//   and 12 TF32 passes at 495.  On the card the exchange moves 4 (P - 1)
+//   bytes through distributed shared memory for each partial it reads and
+//   each sum it stores (a score: the forward 8 (P - 1), dQ 12 (P - 1),
+//   dK/dV 16 (P - 1)), near that network's rate, and the barriers cost
+//   beside it (PERF.md).
 //
-//   dQ (dq_wide_kernel) at every d above 256, and the forward and dK/dV
-//   above 1024 (fwd_wide_cc_kernel, dkv_wide_cc_kernel), take any d with no
-//   upper limit on the CUDA cores: the head dim padded to a multiple of 64
-//   with zero columns, the scores over it in 64-column chunks staged
-//   through shared memory, and the output columns split over P blocks per
-//   32-row tile, each of which computes the scores itself; f32 arithmetic
-//   (inputs widened to f32, p and ds f32, f32 FMAs, one rounding at the
-//   store), written to be right, not fast.
-//
+//   Above 1024 the three take any d with no upper limit on the CUDA cores
+//   (fwd_wide_cc_kernel, dq_wide_cc_kernel, dkv_wide_cc_kernel): the head
+//   dim padded to a multiple of 64 with zero columns, the scores over it in
+//   64-column chunks staged through shared memory, and the output columns
+//   split over P blocks per 32-row tile, each of which computes the scores
+//   itself; f32 arithmetic (inputs widened to f32, p and ds f32, f32 FMAs,
+//   one rounding at the store), written to be right, not fast.
+
 // Numerics follow the Pallas bodies: every input is widened to f32, p and ds
 // stay f32 into their products, dq = (ds.k) * scale and dk = (ds^T.q) * scale
 // with the unscaled q, and the outputs are rounded to the input type once,
@@ -562,8 +568,8 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 256 (dQ; the forward and dK/dV above 1024), f32 or bf16
-// inputs, CUDA cores
+// head dims above 1024 (the forward, dQ and dK/dV), f32 or bf16 inputs,
+// CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int WC = 64;   // head-dim columns per score chunk
@@ -655,14 +661,15 @@ fwd_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
-// dQ: one block per (bh, 32 queries, 128 output columns); s and dp over
-// 64-column chunks, then ds.k over the block's columns of k, as dq_kernel
+// dQ above head dim 1024: one block per (bh, 32 queries, 128 output
+// columns); s and dp over 64-column chunks, then ds.k over the block's
+// columns of k, as dq_kernel
 template <typename T>
 __global__ void __launch_bounds__(NT)
-dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dq, int n, int d, int ntiles,
-               int parts, float scale) {
+dq_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dq, int n, int d, int ntiles,
+                  int parts, float scale) {
   constexpr int R = WR / 16, DPT = WO / 16;
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                      // [WR][WC + 4], a chunk of q * scale
@@ -2019,8 +2026,8 @@ fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// head dims 264-1024, forward and dK/dV: thread-block clusters that share the
-// scores (f32 in split TF32, bf16 raw; see the note at the top)
+// head dims 264-1024, forward, dK/dV and dQ: thread-block clusters that share
+// the scores (f32 in split TF32, bf16 raw; see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int CL_MAX = 8;               // ranks of a cluster at most (the portable size)
@@ -2051,11 +2058,11 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
 // rank's, its own too, through its cluster address: a local path for its
 // own was slower on the card), hands the sums to f(sum, row, col) (col: the
 // first of four columns; f may replace them by what it computes from them)
-// and stores the results into the same place of the NA tiles ys of every
-// rank (ys may be xs: only rank r touches these rows of any rank).  Each
-// value is added once a cluster, in one fixed order, so every rank holds the
-// same bits and a second launch gives them again.
-template <int NA, int LX, int NTH, int NL, typename F>
+// and stores the first NO results into the same place of the first NO tiles
+// ys of every rank (ys may be xs: only rank r touches these rows of any
+// rank).  Each value is added once a cluster, in one fixed order, so every
+// rank holds the same bits and a second launch gives them again.
+template <int NA, int LX, int NTH, int NL, int NO = NA, typename F>
 __device__ __forceinline__ void cluster_exchange(int P, int rank, float* xs, float* ys, F f) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -2089,7 +2096,7 @@ __device__ __forceinline__ void cluster_exchange(int P, int rank, float* xs, flo
     for (int q = 0; q < CL_MAX; ++q)
       if (q < P)
 #pragma unroll
-        for (int a = 0; a < NA; ++a)
+        for (int a = 0; a < NO; ++a)
           *reinterpret_cast<float4*>(at(ys + a * XS + off, q)) = sum[a];
   }
 }
@@ -2567,6 +2574,201 @@ dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   store_acc<NC>(dv + base, gv, row0, c0 + half * 64, t, n, d, 1.f, 1.f);
 }
 
+// dQ: a cluster of P = ceil(d / 128) blocks per (bh, 64 queries), dK/dV's
+// design with the panels' roles swapped; rank r holds columns [128 r,
+// 128 r + 128) of q and do and stages those of k and v over K/V tiles of
+// WDQ_TK keys, double-buffered.  Per tile: the partial s and dp over the
+// rank's columns (warp w: queries 16 (w % 4), keys 16 (w / 4)); the cluster
+// adds them, and the rank that adds a value also forms ds from it and writes
+// only ds back (cluster_exchange with one output: dQ has no use for p), so
+// that each exponential is taken once a cluster; then dq += ds.k over the
+// rank's columns, its k slice serving both products (warp w: queries 16
+// (w % 4), columns 64 (w / 4)).  8 warps, one accumulator set (32 f32 a
+// thread), so bf16 fits two blocks an SM.  One cluster barrier a tile, as in
+// dK/dV: tile j + 1's partials are taken while tile j's exchange lands.
+constexpr int WDQ_TK = 32;  // keys of a dQ K/V tile
+
+template <typename T>
+__global__ void __launch_bounds__(NT_WKV, sizeof(T) == 2 ? 2 : 1)
+dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dq, int n, int d, int ntiles,
+               float scale) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int LD = CL_LD<T>, TK = WDQ_TK, LX = TK + XP, XS = CL_ROWS * LX;
+  constexpr int NC = WO / 16;  // n8 tiles of a warp's 64 output columns
+  constexpr int TS = TK * LD;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [CL_ROWS][LD]: the rank's columns of q, unscaled
+  T* dos = qs + CL_ROWS * LD;              // [CL_ROWS][LD]: of do
+  T* ks = dos + CL_ROWS * LD;              // 2 x [TK][LD]: of k
+  T* vs = ks + 2 * TS;                     // 2 x [TK][LD]: of v
+  // 2 x {s, dp} partials [CL_ROWS][LX], then ds in place of s
+  float* xs = reinterpret_cast<float*>(vs + 2 * TS);
+  float* ls = xs + 4 * XS;    // [CL_ROWS] logsumexp of the block's queries
+  float* dls = ls + CL_ROWS;  // [CL_ROWS] delta of the block's queries
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile / P * CL_ROWS, c0 = rank * WO;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int qg = ln.warp & 3, half = ln.warp >> 2, g = ln.g, t = ln.t;
+  const int nkt = (n + TK - 1) / TK;
+  const float sl = scale * LOG2E;
+
+  // copy groups in order: q, do, l, delta and K/V tile 0, tile 1; then tile
+  // j + 2 after tile j's ds.k
+  auto load_kv_tile = [&](int jt) {
+    const int b = jt & 1, r = jt * TK;
+    load_tile_async<WO, TK, NT_WKV>(ks + b * TS, k + base, r, n, d, c0);
+    load_tile_async<WO, TK, NT_WKV>(vs + b * TS, v + base, r, n, d, c0);
+    cp_async_commit();
+  };
+  load_tile_async<WO, CL_ROWS, NT_WKV>(qs, q + base, q0, n, d, c0);
+  load_tile_async<WO, CL_ROWS, NT_WKV>(dos, dout + base, q0, n, d, c0);
+  load_rows_async<CL_ROWS>(ls, lse + bh * n, q0, n);
+  load_rows_async<CL_ROWS>(dls, delta + bh * n, q0, n);
+  load_kv_tile(0);
+  if (nkt > 1) {
+    load_kv_tile(1);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // 1. this rank's partial s (bf16 q.k^T raw, f32 (q * scale).k^T in split
+  // TF32, each k8 step's passes into fresh accumulators) and dp = do.v^T of
+  // K/V tile jt over its 128 columns, 16 queries x 16 keys a warp, into
+  // partial buffer jt % 2
+  auto partial = [&](int jt) {
+    const T* kb = ks + (jt & 1) * TS;
+    const T* vb = vs + (jt & 1) * TS;
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    if constexpr (BF) {
+      const T* qa = qs + (qg * 16 + ln.lm_row) * LD + ln.lm_col;
+      const T* da = dos + (qg * 16 + ln.lm_row) * LD + ln.lm_col;
+      const int b_off = (half * 16 + ln.lk_row) * LD + ln.lk_col;
+#pragma unroll
+      for (int kk = 0; kk < WO / 16; ++kk) {
+        uint32_t a[4], b[4];
+        ldsm_x4(a, qa + kk * 16);
+        ldsm_x4(b, kb + b_off + kk * 16);
+        mma_bf16(s[0], a, b[0], b[1]);
+        mma_bf16(s[1], a, b[2], b[3]);
+        ldsm_x4(a, da + kk * 16);
+        ldsm_x4(b, vb + b_off + kk * 16);
+        mma_bf16(dp[0], a, b[0], b[1]);
+        mma_bf16(dp[1], a, b[2], b[3]);
+      }
+    } else {
+      const int a_off = (qg * 16 + ln.lm_row) * LD + ln.lm_col / 2;
+      const int b_off = (half * 16 + ln.lk_row) * LD + ln.lk_col / 2;
+#pragma unroll 2
+      for (int kk = 0; kk < WO / 8; ++kk) {
+        uint32_t qh[4], ql[4], doh[4], dol[4], kh[4], kl[4], vh[4], vl[4];
+        ld_split<true>(qh, ql, qs + a_off + kk * 8, scale);
+        ld_split<false>(doh, dol, dos + a_off + kk * 8, 1.f);
+        ld_split<false>(kh, kl, kb + b_off + kk * 8, 1.f);
+        ld_split<false>(vh, vl, vb + b_off + kk * 8, 1.f);
+        mma_split_2x2(s[0], s[1], dp[0], dp[1], qh, ql, kh, kl, doh, dol, vh, vl);
+      }
+    }
+    float* xr = xs + (jt & 1) * 2 * XS + (qg * 16 + g) * LX + half * 16 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      store2(xr + 8 * i, s[i][0], s[i][1]);
+      store2(xr + 8 * LX + 8 * i, s[i][2], s[i][3]);
+      store2(xr + XS + 8 * i, dp[i][0], dp[i][1]);
+      store2(xr + XS + 8 * LX + 8 * i, dp[i][2], dp[i][3]);
+    }
+  };
+
+  float acc[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  partial(0);
+  cluster_arrive();
+  cluster_wait();  // every rank's partials of tile 0 are written
+  for (int j = 0; j < nkt; ++j) {
+    const int buf = j & 1;
+    const T* kb = ks + buf * TS;
+    float* pb = xs + buf * 2 * XS;
+
+    // 2. the cluster's s and dp, and from them ds = p (dp - delta) with p =
+    // exp(s - l) (0 for queries or keys at or past n), to every rank
+    cluster_exchange<2, LX, NT_WKV, CL_MAX, 1>(P, rank, pb, pb, [&](float4* x, int row, int col) {
+      const bool q_ok = q0 + row < n;
+      const float lr = ls[row], dl = dls[row];
+      float sv[4] = {x[0].x, x[0].y, x[0].z, x[0].w}, dv4[4] = {x[1].x, x[1].y, x[1].z, x[1].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = q_ok && j * TK + col + e < n;
+        const float p = !ok ? 0.f
+                        : BF ? ex2(fmaf(sv[e], sl, -lr * LOG2E))
+                             : ex2((sv[e] - lr) * LOG2E);
+        sv[e] = p * (dv4[e] - dl);
+      }
+      x[0] = make_float4(sv[0], sv[1], sv[2], sv[3]);
+    });
+    if (j + 1 < nkt) {  // the next tile's partials while the exchange lands
+      cp_async_wait<0>();
+      __syncthreads();
+      partial(j + 1);
+    }
+    cluster_arrive();
+    cluster_wait();  // tile j's ds and tile j + 1's partials are everywhere
+
+    // 3. dq += ds . k over the warp's 64 columns: bf16 ds split into hi + lo,
+    // k read transposed; f32 split TF32, the tile's sums begun at 0 and added
+    // to acc in f32
+    const float* pr = pb + (qg * 16 + g) * LX + 2 * t;
+    if constexpr (BF) {
+#pragma unroll
+      for (int kq = 0; kq < TK / 16; ++kq) {
+        uint32_t hi[4], lo[4];
+        p_frag<LX>(pr + kq * 16, hi, lo);
+#pragma unroll
+        for (int dc = 0; dc < NC / 2; ++dc) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, reinterpret_cast<const __nv_bfloat16*>(kb) +
+                               (kq * 16 + ln.lm_row) * LD + half * 64 + dc * 16 + ln.lm_col);
+          mma_bf16(acc[2 * dc], hi, b[0], b[1]);
+          mma_bf16(acc[2 * dc], lo, b[0], b[1]);
+          mma_bf16(acc[2 * dc + 1], hi, b[2], b[3]);
+          mma_bf16(acc[2 * dc + 1], lo, b[2], b[3]);
+        }
+      }
+    } else {
+      constexpr int NS = TK / 8;
+      uint32_t ah[NS][4], al[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(pr + 8 * i);
+        const float2 b = *reinterpret_cast<const float2*>(pr + 8 * LX + 8 * i);
+        const float c[4] = {a.x, a.y, b.x, b.y};
+        split_acc_as_a(c, ah[i], al[i]);
+      }
+      grad_step<NC, NS>(acc, ah, al,
+                        reinterpret_cast<const float*>(kb) + 2 * t * LD + half * 64 + g, LD);
+    }
+    __syncthreads();  // tile j's buffers are free
+    if (j + 2 < nkt) load_kv_tile(j + 2);
+  }
+  store_acc<NC>(dq + base, acc, q0 + qg * 16 + g, c0 + half * 64, t, n, d, scale, scale);
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -2707,7 +2909,7 @@ cudaError_t run_wide(K kern, size_t smem, int bh, int n, int d, float scale,
 // chunk tiles [rows][WC + 4], column tiles [TILE][WO + 4], score tiles [WR][SP]
 constexpr size_t FWD_WIDE_CC_SMEM = f32_tile_bytes(WR, WC) + f32_tile_bytes(TILE, WC) +
                                     f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
-constexpr size_t DQ_WIDE_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
+constexpr size_t DQ_WIDE_CC_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
                                 f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
 constexpr size_t DKV_WIDE_CC_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
                                     2 * f32_tile_bytes(TILE, WO) + 2 * f32_tile_bytes(WR, TILE) +
@@ -2726,6 +2928,13 @@ template <typename T>
 constexpr size_t dkv_wide_smem() {
   return (size_t)(2 * CL_ROWS + 4 * WKV_TQ) * CL_LD<T> * sizeof(T) +
          4 * (size_t)CL_ROWS * (WKV_TQ + XP) * sizeof(float) + 4 * WKV_TQ * sizeof(float);
+}
+// dQ's q and do slices, two K and V tiles, two of s and dp, its queries' l
+// and delta (111,104 bytes bf16: two blocks an SM; 176,640 f32)
+template <typename T>
+constexpr size_t dq_wide_smem() {
+  return (size_t)(2 * CL_ROWS + 4 * WDQ_TK) * CL_LD<T> * sizeof(T) +
+         4 * (size_t)CL_ROWS * (WDQ_TK + XP) * sizeof(float) + 2 * CL_ROWS * sizeof(float);
 }
 
 // The launch of a cluster body for head dims 264-1024: clusters of P =
@@ -2798,9 +3007,14 @@ ATT_EXPORT int attention_dq(const void* q, const void* k, const void* v, const v
                             int d, int bf, float scale, void* stream) {
 #define CALL(DP, BF) \
   run_dq<DP, BF>(q, k, v, dout, l, delta, dq, bh, n, d, scale, (cudaStream_t)stream)
-#define WIDE(T)                                                                       \
-  run_wide(dq_wide_kernel<T>, DQ_WIDE_SMEM, bh, n, d, scale, (cudaStream_t)stream,        \
-              (const T*)q, (const T*)k, (const T*)v, (const T*)dout, l, delta, (T*)dq)
+#define WIDE(T)                                                                            \
+  (d <= CL_MAX_D                                                                           \
+       ? run_cluster(dq_wide_kernel<T>, dq_wide_smem<T>(), NT_WKV, bh, n, d, scale,        \
+                     (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,          \
+                     (const T*)dout, l, delta, (T*)dq)                                     \
+       : run_wide(dq_wide_cc_kernel<T>, DQ_WIDE_CC_SMEM, bh, n, d, scale,                  \
+                  (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,             \
+                  (const T*)dout, l, delta, (T*)dq))
   ATT_DISPATCH(d, bf, CALL, WIDE)
 #undef WIDE
 #undef CALL
@@ -2837,18 +3051,26 @@ int max_clusters(void (*kern)(K...), size_t smem, int threads, int parts, int* c
 }
 }  // namespace
 
-// The most clusters of `parts` blocks of the forward (dkv = 0) or dK/dV
-// (dkv = 1) cluster body, in bf16 or f32, that the card holds at once
+// The most clusters of `parts` blocks of the forward (kind 0), dK/dV (1) or
+// dQ (2) cluster body, in bf16 or f32, that the card holds at once
 // (cudaOccupancyMaxActiveClusters), into *clusters.
-ATT_EXPORT int attention_wide_clusters(int dkv, int bf, int parts, int* clusters) {
+ATT_EXPORT int attention_wide_clusters(int kind, int bf, int parts, int* clusters) {
   if (parts < 1 || parts > CL_MAX) return (int)cudaErrorInvalidValue;
-  if (dkv)
-    return bf ? max_clusters(dkv_wide_kernel<__nv_bfloat16>, dkv_wide_smem<__nv_bfloat16>(),
-                             NT_WKV, parts, clusters)
-              : max_clusters(dkv_wide_kernel<float>, dkv_wide_smem<float>(), NT_WKV, parts,
-                             clusters);
-  return bf ? max_clusters(fwd_wide_kernel<__nv_bfloat16>, fwd_wide_smem<__nv_bfloat16>(), NT_TC,
-                           parts, clusters)
-            : max_clusters(fwd_wide_kernel<float>, fwd_wide_smem<float>(), NT_TC, parts,
-                           clusters);
+  using B = __nv_bfloat16;
+  switch (kind) {
+    case 0:
+      return bf ? max_clusters(fwd_wide_kernel<B>, fwd_wide_smem<B>(), NT_TC, parts, clusters)
+                : max_clusters(fwd_wide_kernel<float>, fwd_wide_smem<float>(), NT_TC, parts,
+                               clusters);
+    case 1:
+      return bf ? max_clusters(dkv_wide_kernel<B>, dkv_wide_smem<B>(), NT_WKV, parts, clusters)
+                : max_clusters(dkv_wide_kernel<float>, dkv_wide_smem<float>(), NT_WKV, parts,
+                               clusters);
+    case 2:
+      return bf ? max_clusters(dq_wide_kernel<B>, dq_wide_smem<B>(), NT_WKV, parts, clusters)
+                : max_clusters(dq_wide_kernel<float>, dq_wide_smem<float>(), NT_WKV, parts,
+                               clusters);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,0 +1,80 @@
+"""Kernel timing on the card: CUDA events and torch.profiler device time.
+
+``cuda_ms`` times a call in CUDA events (host issue included);
+``profiler_ms`` reads the device time of the kernels a call launches from
+``torch.profiler``.  ``chip_smoke.py`` and the experiments that compare
+kernels on the card take every time from here.  Needs the card.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import torch
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """ms per call of ``fn``: CUDA events around ``reps`` calls, after one."""
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def profiled_kernels(run) -> list:
+    """The device kernels (torch.profiler's key_averages, CUDA rows) of a
+    second call of ``run()``: the profiler records a first call as a warm-up
+    and keeps only the second (on an H100 a session that kept what it
+    recorded from its start read isolated kernels at 0.69-0.73 of their
+    CUDA-event times at times, at 0.94 at others).  Each call ends
+    synchronised."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda prof: got.append(prof.key_averages())) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    # the schedule's step annotation comes back as a CUDA row too
+    return [ev for ev in (got[0] if got else [])
+            if ev.device_type.name == "CUDA" and not ev.key.startswith("ProfilerStep")]
+
+
+def profiler_ms(fn, kernel_key: str = "", reps: int = 20, bound_ms: float = 0.0,
+                sessions: int = 1):
+    """Device time per call of ``fn`` in kernels whose name holds
+    ``kernel_key`` (all of its device time by default), from torch.profiler
+    over ``reps`` back-to-back calls (no host issue gaps; ``profiled_kernels``):
+    the median of the first ``sessions`` profiler sessions that record a
+    whole number of those kernels a call and a time at or above
+    ``bound_ms``, the least time the card could take for the call.  None
+    ("not measured") when fewer than that many of ``sessions + 2`` sessions
+    in a row do: a session can come back empty on the card (twice in a row
+    once) or with events lost, below the bound (0.0019 ms for a 0.00353 ms
+    bound once).  ``fn`` may launch other kernels beside the timed ones, so
+    that two kernels interleaved in one ``fn`` are read under the same
+    conditions, each by its own key."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    got = []
+    for _ in range(sessions + 2):
+        evs = [ev for ev in profiled_kernels(run) if kernel_key in ev.key]
+        us, count = sum(ev.self_device_time_total for ev in evs), sum(ev.count for ev in evs)
+        if us > 0 and count % reps == 0 and us / reps / 1e3 >= bound_ms:
+            got.append(us / reps / 1e3)
+            if len(got) == sessions:
+                return statistics.median(got)
+    return None

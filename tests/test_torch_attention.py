@@ -7,8 +7,8 @@ bf16 backward kernels' p and ds split into two bf16 terms, the f32 forward
 (three passes against one), the backward's long sums taken per score
 step under a model of an MMA that truncates its sum, and the cluster bodies
 above head dim 256 (partial scores over each rank's 128 columns added in
-rank order, then the forward's and dK/dV's arithmetic) against the Pallas
-bodies and the exact result.
+rank order, then the forward's, dQ's and dK/dV's arithmetic) against the
+Pallas bodies and the exact result.
 
 Tolerances, relative to the largest magnitude of the JAX result: f32 1e-5
 (sums in another order); bf16 3e-2 (roundings to bf16 at other points)."""
@@ -137,7 +137,7 @@ def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
     """Head dims that are multiples of 8 but not powers of two, and those above
     128, take the fused path in both packages (the kernels pad 24 to 32 in
     shared memory, are built for 96, 160, 192 and 256, and take 264, 320,
-    512 and 1024 through their wide bodies, the forward and dK/dV as
+    512 and 1024 through their wide bodies, the forward, dQ and dK/dV as
     clusters, and 1032 through the CUDA-core bodies): values and q/k/v
     gradients against JAX in interpret mode."""
     jdt, tdt, tol = DTYPES[dtype]
@@ -167,28 +167,36 @@ def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
 
 def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
     """The wrappers' shape check takes every head dim d % 8 == 0, with no
-    upper limit (264, 320, 512 and 1024 go to the wide bodies, the forward
-    and dK/dV as clusters; 1032 to their CUDA-core bodies), and a
+    upper limit (264, 320, 512 and 1024 go to the wide bodies, the forward,
+    dQ and dK/dV as clusters; 1032 to their CUDA-core bodies), and a
     batch*heads count above 65535; it raises on a head dim that is not a
     multiple of 8, on a grid past 2^31 - 1 blocks (counting the wide
-    bodies' column groups: dQ's 32-row tiles, which outnumber the clusters'
-    64-row tiles of as many blocks), and on a non-contiguous panel."""
+    bodies' column groups: the clusters' 64-row tiles up to head dim 1024,
+    the CUDA-core bodies' 32-row tiles above), and on a non-contiguous
+    panel."""
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
     for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256, 264, 320, 512, 1024, 1032):
         for dt in (torch.bfloat16, torch.float32):
             want = (3, 64, d, dt == torch.bfloat16)
             assert ta._check(meta(3, 64, d, dt=dt), (meta(3, 64, d, dt=dt),)) == want
-        if 256 < d <= ta.CLUSTER_MAX_D:
-            for n in (64, 200, 2048):
-                assert -(-n // 64) * -(-d // 128) <= ta._blocks_per_panel(n, d)
+        for n in (64, 200, 2048):
+            if 256 < d <= ta.CLUSTER_MAX_D:
+                assert -(-n // 64) * -(-d // 128) == ta._blocks_per_panel(n, d)
+            elif d > ta.CLUSTER_MAX_D:
+                assert -(-n // 32) * -(-d // 128) == ta._blocks_per_panel(n, d)
     q = meta(70_000, 16, 16)
     rows = (meta(70_000, 16, 1, dt=torch.float32),) * 2
     assert ta._check(q, (q, q, q), rows) == (70_000, 16, 16, True)
-    # 2^31 / (2048 / 32 row tiles x 8 column groups) batch*heads fill the grid
-    assert ta._blocks_per_panel(2048, 1024) == 512
-    ta._check(meta(2**22 - 1, 2048, 1024))
+    # 2^31 / (2048 / 64 row tiles x 8 ranks) batch*heads fill the clusters'
+    # grid, 2^31 / (2048 / 32 row tiles x 9 column groups) the CUDA-core one
+    assert ta._blocks_per_panel(2048, 1024) == 256
+    ta._check(meta(2**23 - 1, 2048, 1024))
     with pytest.raises(ValueError, match="grid"):
-        ta._check(meta(2**22, 2048, 1024))
+        ta._check(meta(2**23, 2048, 1024))
+    assert ta._blocks_per_panel(2048, 1032) == 576
+    ta._check(meta(2**31 // 576, 2048, 1032))
+    with pytest.raises(ValueError, match="grid"):
+        ta._check(meta(2**31 // 576 + 1, 2048, 1032))
     with pytest.raises(ValueError, match="head dim"):
         ta._check(meta(2, 64, 20))
     with pytest.raises(ValueError, match="contiguous"):
@@ -392,6 +400,7 @@ def test_split_tf32_step_sums_bound_a_truncating_accumulator(per_step):
 WIDE_COLS = 128  # head-dim columns of one cluster rank
 WIDE_TK = {"split_tf32": 32, "bf16": 64}  # keys of a forward K/V tile
 WIDE_TQ = 32  # queries of a dK/dV Q/dO tile
+WIDE_DQ_TK = 32  # keys of a dQ K/V tile
 
 
 def _bf16_split(x):
@@ -507,6 +516,26 @@ def _wide_dkv(q, k, v, do, l, delta, scale, mode, passes=3, control=False):
     return dk * scale, dv
 
 
+def _wide_dq(q, k, v, do, l, delta, scale, mode, passes=3, control=False):
+    """attention_dq as dq_wide_kernel takes it: the ranks' partial s (per-step
+    sums) and dp summed in rank order, ds = p (dp - delta) with p = exp(s -
+    l) formed once from the sums, then over the K/V tiles dq += ds.k (times
+    scale at the store)."""
+    n = q.shape[1]
+    kt = k.transpose(-1, -2)
+    if mode == "bf16":
+        s = _cluster_sum(_rank_partials(q, kt, mode, passes, True)) * scale
+    else:
+        s = _cluster_sum(_rank_partials(q * scale, kt, mode, passes, True))
+    dp = _cluster_sum(_rank_partials(do, v.transpose(-1, -2), mode, passes, False))
+    ds = torch.exp(s - l) * (dp - delta)
+    dq = torch.zeros_like(q)
+    for j in range(0, n, WIDE_DQ_TK):
+        cols = slice(j, j + WIDE_DQ_TK)
+        dq = dq + _grad_dot(ds[..., cols], k[:, cols], mode, passes, control)
+    return dq * scale
+
+
 def _wide_inputs(d, mode, amp, count):
     """(2, 160, d) inputs from a seed, q and k times amp; bf16 mode rounds them
     to bf16 (both packages take the same values)."""
@@ -620,19 +649,52 @@ def test_cluster_dkv_meets_the_card_bounds(d, mode, amp):
         assert min(ctls) > cs.ATT_TOL_F32, ctls
 
 
+@pytest.mark.parametrize("amp", [1.0, 3.0])
+@pytest.mark.parametrize("mode", ["split_tf32", "bf16"])
+@pytest.mark.parametrize("d", [264, 512, 1024])
+def test_cluster_dq_meets_the_card_bounds(d, mode, amp):
+    """The dQ cluster body's arithmetic (``_wide_dq``: partial s and dp over
+    each rank's 128 columns added in rank order, ds from the sums, dq over
+    its K/V tiles) at (2, 160, d), q and k times ``amp``, from JAX's own o
+    and l, lies within chip_smoke.py's bounds of JAX's ``_dq_kernel``
+    (interpret mode) and of the exact result (``_wide_check``); the control
+    (one TF32 pass a product; ds rounded to bf16) does not."""
+    cs = chip_smoke()
+    jdt = jnp.bfloat16 if mode == "bf16" else jnp.float32
+    q, k, v, do = _wide_inputs(d, mode, amp, 4)
+    scale = d**-0.5
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o_j, l_j = ja._attention_fwd_flat(jq, jk, jv, scale)
+    dq_want, _, _ = ja._attention_bwd_flat(jq, jk, jv, o_j, l_j, jdo, scale)
+    tq, tk, tv, tdo = (torch.tensor(a) for a in (q, k, v, do))
+    l = torch.tensor(np.asarray(l_j))
+    delta = torch.sum(tdo * torch.tensor(np.asarray(o_j.astype(jnp.float32))), -1, keepdim=True)
+    dq = _wide_dq(tq, tk, tv, tdo, l, delta, scale, mode)
+    (dq_exact,) = cs.att_f64("attention_dq", tq, tk, tv, tdo, l, delta, scale=scale)
+    mean = _wide_check(dq, dq_want, dq_exact, mode, "dq")
+    ctl_dq = _wide_dq(tq, tk, tv, tdo, l, delta, scale, mode, passes=1, control=True)
+    ctl = _wide_control(ctl_dq, dq_want, mode)
+    if mode == "bf16":
+        assert mean < ctl / 2, (mean, ctl)
+    else:
+        assert ctl > cs.ATT_TOL_F32, ctl
+
+
 def test_wide_ablation_cuts_what_it_names():
     """experiments/wide_attention_ablation.py times copies of attention.cu
-    with the cluster bodies' exchange, then also their barriers, removed: its
-    markers occur in the source, and each copy lacks exactly those."""
+    with the three cluster bodies' exchanges, then also their barriers,
+    removed: its markers occur in the source, and each copy lacks exactly
+    those."""
     from sciml_pde_torch.experiments import wide_attention_ablation as wa
     from sciml_pde_torch.ops import _build
 
     src = (_build.CSRC / "attention.cu").read_text()
     vs = wa.variants(src)
     assert vs["shipped"] == src
+    assert len(wa.EXCHANGES) == 3
     for name, text in vs.items():
-        exchanges = text.count(wa.FWD_EXCHANGE) + text.count(wa.DKV_EXCHANGE)
+        exchanges = sum(text.count(e) for e in wa.EXCHANGES)
         barriers = sum(text.count(b) for b in wa.BARRIERS)
-        assert exchanges == (2 if name == "shipped" else 0), name
+        assert exchanges == (3 if name == "shipped" else 0), name
         assert barriers == (0 if "barriers" in name else 2), name
         assert text.count("__global__") == src.count("__global__"), name

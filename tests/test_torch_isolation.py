@@ -11,23 +11,6 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-MODULES = [
-    "sciml_pde_torch", "sciml_pde_torch._device", "sciml_pde_torch.ops.spectral",
-    "sciml_pde_torch.ops._build", "sciml_pde_torch.ops.fno_kernels",
-    "sciml_pde_torch.ops.fno_fused_step", "sciml_pde_torch.models",
-    "sciml_pde_torch.models.common", "sciml_pde_torch.models.fno",
-    "sciml_pde_torch.utils.weights", "sciml_pde_torch.utils.checkpoint",
-    "sciml_pde_torch.utils.config", "sciml_pde_torch.utils.logging", "sciml_pde_torch.metrics",
-    "sciml_pde_torch.train.fast_step", "sciml_pde_torch.train.fno_train",
-    "sciml_pde_torch.train.cli", "sciml_pde_torch.io.h5",
-    "sciml_pde_torch.data.windows", "sciml_pde_torch.data.dr",
-    "sciml_pde_torch.ops.attention", "sciml_pde_torch.models.transformer",
-    "sciml_pde_torch.train.optim", "sciml_pde_torch.train.transformer_train",
-    "sciml_pde_torch.data.ns", "sciml_pde_torch.ops.spectral_fused",
-    "sciml_pde_torch.ops.probe", "sciml_pde_torch.experiments",
-    "sciml_pde_torch.experiments.spectral_impl_bench",
-    "sciml_pde_torch.experiments.perf_probe",
-]
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -37,13 +20,21 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, as pkgutil.walk_packages finds it, imports
+    without pulling in JAX or the JAX package."""
     code = (
-        "import importlib, sys\n"
-        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "import importlib, pkgutil, sys\n"
+        "import sciml_pde_torch as pkg\n"
+        "mods = ['sciml_pde_torch'] + [m.name for m in "
+        "pkgutil.walk_packages(pkg.__path__, 'sciml_pde_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print('MODULES', len(mods), mods)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sciml_pde_tpu'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
+        "assert {'sciml_pde_torch.experiments.wide_attention_ablation', "
+        "'sciml_pde_torch.metrics.metrics', 'sciml_pde_torch.ops.attention'} <= set(mods)\n"
     )
     r = _run(code)
     assert r.returncode == 0, r.stdout + r.stderr
