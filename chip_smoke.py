@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``sciml_pde_torch/ops/csrc`` and drives the port's three main paths through
+``sciml_pde_torch/ops/csrc`` and drives the port's main paths through
 their entry points: the fused FNO-2D diffusion-reaction baseline step (batch
-4, 128x128, 2 channels, initial_step 10, width 20, modes 12), the NS-2D
+4, 128x128, 2 channels, initial_step 10, width 20, modes 12) with the
+rollout evaluation of its checkpoint and two-head aux joint training at the
+same width, the NS-2D
 VideoMAE transformer baseline at full width (img 256, patch 16, tubelet 2,
 3 channels, 10 frames -> 1280 tokens; encoder 768 x 12 with 12 heads,
 decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16,
@@ -98,6 +100,20 @@ FNO steps and the five split kernels):
               falling loss, launch counts of every kernel
   5. timing   fused step steps/s and per-launch kernel times (CUDA events;
               fno_stats also in profiler device time)
+  4b. eval    phase 4's checkpoint through the evaluation entry on the card
+              (plain FNO2d, `default`) at rollout 1 and 5 over the test split:
+              six metrics and mse_time finite, within 1e-4 (rollout 1) and
+              1e-3 (rollout 5) of the same evaluation on the CPU, the pickle
+              six floats and the npz rollout_test steps, convention_table
+              at 5; then aux joint training at the flagship width: an aux
+              store of 27 trajectories x 50 frames x 96^2 upsampled on the
+              card (within 1e-6 of the CPU), one aux step (3 aux samples,
+              weight 0.7, `highest`) on the card against the CPU from one
+              tree (loss, lp, la, grad norm and the updated parameters
+              within 1e-4), the aux step's time (CUDA events), 2 epochs of
+              train_aux with a best-primary-val checkpoint, and that
+              checkpoint's primary head through the evaluation; each wall
+              time with the card's name and power limit
   6. attention the three flash-attention kernels against their plain
               versions (and the same bits from a second launch) at the
               encoder (24, 1280, 64) and decoder
@@ -449,6 +465,15 @@ SPLIT_STAGES = {  # stage-kernel launches of one call of each
 }
 TOL_SPLIT_CHAIN = 1e-4  # the five chained vs the plain fused VJP, `highest`
 PROBE_SCAN_K = 50  # steps per scan in the probe phase (the probe's own default is 200)
+# phase 4b: the rollout evaluation of phase 4's checkpoint, on the card against
+# the CPU (relative, per metric): f32 sums in another order through the model,
+# compounding over the unrolled steps
+EVAL_ROLLOUTS = {1: 1e-4, 5: 1e-3}  # rollout_test: tolerance
+# the aux store (the downsampled DR file's shape, 50 frames at 96^2), its
+# pairing and loss weight (configs/config_dr.yaml)
+AUX_T, AUX_XY, AUX_NA, AUX_WEIGHT = 50, 96, 3, 0.7
+TOL_RESIZE = 1e-6  # the trilinear upsample on the card vs the CPU, rel-to-max
+TOL_AUX_STEP = 1e-4  # one aux step on the card vs the CPU (`highest`), relative
 
 failures: list[str] = []
 
@@ -1496,19 +1521,19 @@ def bb_backward_witness(dev, args, p_bf16_mix, bbout, stats, p) -> None:
                   f"abs {means}", flush=True)
 
 
-def make_store(seed: int = 0):
+def make_store(seed: int = 0, n_traj: int = N_TRAJ, n_t: int = N_T, xy: int = XY):
     """Smooth DR-shaped trajectories (N, T, X, Y, C): decaying superposed
     sinusoids with seeded amplitudes, wave numbers, phases and rates."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    lin = np.linspace(-1, 1, XY, dtype=np.float32)
+    lin = np.linspace(-1, 1, xy, dtype=np.float32)
     gx, gy = np.meshgrid(lin, lin)
-    t = np.linspace(0, 5, N_T, dtype=np.float32)
-    data = np.empty((N_TRAJ, N_T, XY, XY, CC), np.float32)
-    for n in range(N_TRAJ):
+    t = np.linspace(0, 5, n_t, dtype=np.float32)
+    data = np.empty((n_traj, n_t, xy, xy, CC), np.float32)
+    for n in range(n_traj):
         for c in range(CC):
-            field = np.zeros((N_T, XY, XY), np.float32)
+            field = np.zeros((n_t, xy, xy), np.float32)
             for _ in range(4):
                 a, kx, ky = rng.normal(), rng.integers(1, 5), rng.integers(1, 5)
                 px, py, lam = rng.uniform(0, 2 * np.pi, 2).tolist() + [rng.uniform(0.1, 0.6)]
@@ -2344,6 +2369,208 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
     return {"spectral_fused": row}
 
 
+def rel_to_max(got, want) -> float:
+    """max |got - want| over max |want| of tensors or arrays on any device,
+    or the largest of that over the leaves of two flax trees."""
+    import torch
+
+    if isinstance(want, dict):
+        return max(rel_to_max(got[k], v) for k, v in want.items())
+    return rel_err(torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu())[1]
+
+
+def eval_aux_path(dev, card: str, run_dir: Path, store, grid, ds) -> None:
+    """Phase 4b: the rollout evaluation of phase 4's checkpoint (trained on
+    the fused step) and aux joint training at the flagship width."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.data.dr import DRAuxDataset, _resize_trilinear
+    from sciml_pde_torch.data.windows import WindowedTrajectories
+    from sciml_pde_torch.eval.rollout import METRIC_NAMES, convention_table
+    from sciml_pde_torch.models.fno import FNO2d, FNO2dAux
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.train.fno_train import (
+        build_aux_step,
+        default_init_tree,
+        evaluate_checkpoint,
+        train_aux,
+    )
+    from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer
+    from sciml_pde_torch.utils.checkpoint import restore_checkpoint
+    from sciml_pde_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
+
+    # ---- the main path's evaluation: the card against the CPU --------------------
+    name, cpu_dir = "DR_smoke_FNO", run_dir / "cpu"
+    cpu_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copy(run_dir / f"{name}_ckpt.pt", cpu_dir / f"{name}_ckpt.pt")
+    test_cpu = WindowedTrajectories(ds.test.data.cpu(), grid, initial_step=T0, train=False)
+    kw = dict(modes=MODES, width=WIDTH, batch_size=B, model_name=name)
+    # Under `default`, the main path's precision, the card and the CPU round
+    # f32 values that differ in their last bits to bf16 DFT inputs, and a
+    # value on a rounding step moves by 2^-8 of itself: their distance is
+    # printed as that noise.  Under `highest` the two differ only in f32
+    # summation order and are held to EVAL_ROLLOUTS.
+    for prec in ("default", "highest"):
+        spectral.set_dft_precision(prec)
+        for rollout, tol in EVAL_ROLLOUTS.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = evaluate_checkpoint(ds.test, rollout_test=rollout, run_dir=str(run_dir),
+                                      device=dev, **kw)
+            eval_s = time.perf_counter() - t0
+            errs = res.history[0]
+            with (run_dir / f"{name}.pickle").open("rb") as f:
+                six = pickle.load(f)
+            mse = np.load(run_dir / f"{name}_mse_time.npz")
+            want = evaluate_checkpoint(test_cpu, rollout_test=rollout, run_dir=str(cpu_dir),
+                                       device="cpu", **kw).history[0]
+            vals = [errs[k] for k in METRIC_NAMES] + errs["mse_time"]
+            rels = {k: abs(errs[k] - want[k]) / abs(want[k]) for k in METRIC_NAMES}
+            rels["mse_time"] = max(abs(a - b) / abs(b) for a, b in zip(errs["mse_time"],
+                                                                      want["mse_time"]))
+            what = f"[eval] {prec}, rollout {rollout}"
+            print(f"{what}, {card}: {ds.test.num_trajectories} test trajectories (batch {B}) "
+                  f"in {eval_s:.3f} s wall: "
+                  + ", ".join(f"{k} {errs[k]:.6g}" for k in METRIC_NAMES)
+                  + f", mse_time {errs['mse_time']}", flush=True)
+            check(all(map(math.isfinite, vals)), f"{what}: six metrics and mse_time finite")
+            dist = (", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+                    + " relative")
+            if prec == "highest":
+                check(max(rels.values()) <= tol, f"{what} on the card vs the CPU: {dist} "
+                      f"(tol {tol:.0e})")
+            else:
+                print(f"{what} on the card vs the CPU (bf16 noise, not checked): {dist}",
+                      flush=True)
+            check(isinstance(six, tuple) and len(six) == 6
+                  and all(isinstance(v, float) for v in six)
+                  and [float(v) for v in six] == [errs[k] for k in METRIC_NAMES]
+                  and list(mse["t"]) == list(range(T0, T0 + rollout))
+                  and mse["mse"].shape == (rollout,),
+                  f"{what}: the pickle reads back as six floats and the npz holds {rollout} "
+                  "steps")
+    model = FNO2d(CC, MODES, MODES, WIDTH, T0)
+    model.load_state_dict(flax_to_state_dict(res.params))
+    model.to(dev)
+    table = convention_table(model, ds.test, 5, batch_size=B)
+    print(f"[eval] convention_table, rollout 1..5: {json.dumps(table)}", flush=True)
+    check(all(math.isfinite(v) for row in table.values() for v in row)
+          and all(len(row) == 5 for row in table.values())
+          and abs(table["perch_final"][-1] - errs["nRMSE"]) <= 1e-5 * errs["nRMSE"],
+          f"[eval] convention_table finite, perch_final at 5 ({table['perch_final'][-1]:.6g}) "
+          f"is the rollout-5 nRMSE ({errs['nRMSE']:.6g})")
+
+    # ---- aux: the store, upsampled on the card and on the CPU ---------------------
+    n_train = ds.train.num_trajectories
+    aux_np, _ = make_store(seed=5, n_traj=n_train * AUX_NA, n_t=AUX_T, xy=AUX_XY)
+    t0 = time.perf_counter()
+    aux_dev = _resize_trilinear(aux_np, (N_T, XY, XY), device=dev)
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t0
+    aux_cpu = _resize_trilinear(aux_np, (N_T, XY, XY), device="cpu")
+    rel = rel_to_max(aux_dev, aux_cpu)
+    check(tuple(aux_dev.shape) == (n_train * AUX_NA, N_T, XY, XY, CC) and rel <= TOL_RESIZE,
+          f"[aux] {aux_np.shape} upsampled to {tuple(aux_dev.shape)} on the card in "
+          f"{resize_s:.3f} s: rel-to-max {rel:.3e} from the CPU's (tol {TOL_RESIZE:.0e})")
+
+    # ---- one aux step on the card and on the CPU from the same tree ---------------
+    spectral.set_dft_precision("highest")
+    tree = default_init_tree(CC, MODES, WIDTH, T0, seed=1, aux=True)
+    lrs = {"shared": 1e-3, "primary_head": 1e-3, "aux_head": 1e-3}
+    idx = np.array([[0, 0], [3, 17], [5, 40], [n_train - 1, 90]])
+    outs = {}
+    for where, data, aux in (("card", ds.train.data, aux_dev),
+                             ("cpu", ds.train.data.cpu(), aux_cpu)):
+        m = FNO2dAux(CC, MODES, MODES, WIDTH, T0)
+        m.load_state_dict(flax_to_state_dict(tree))
+        m.to(data.device)
+        opt = make_grouped_optimizer(dict(m.named_parameters()), aux_group_of, lrs, 1000)
+        step, _ = build_aux_step(m, opt, T0, 1, AUX_NA, AUX_WEIGHT)
+        losses, g_norm = step(data, aux, torch.from_numpy(grid).to(data.device),
+                              torch.as_tensor(idx, device=data.device))
+        outs[where] = ([float(v) for v in (*losses, g_norm)], state_dict_to_flax(m.state_dict()),
+                       state_dict_to_flax(opt.m), (m, step, data, aux))
+    (lc, tc, mc, card_run), (lw, tw, mw, _) = outs["card"], outs["cpu"]
+    rels = [abs(a - b) / abs(b) for a, b in zip(lc, lw)]
+    # Adam's first moment after one step is 0.1 (g + 1e-4 p): the clipped
+    # gradient it saw, held leaf by leaf.  Its first update is lr g / (|g| +
+    # 1e-8), which turns f32 noise in a gradient near 1e-8 into up to lr / 4e-8
+    # times as much: so the updated parameters are held to the tree's largest
+    # magnitude, and the worst leaf's own reading is printed beside it.
+    mrel = rel_to_max(mc, mw)
+    leaf_rel = {k: rel_to_max(v, flat_leaves(tw)[k]) for k, v in flat_leaves(tc).items()}
+    worst_leaf = max(leaf_rel, key=leaf_rel.get)
+    tree_max = max(float(np.abs(v).max()) for v in flat_leaves(tw).values())
+    prel = max(float(np.abs(np.asarray(v) - np.asarray(flat_leaves(tw)[k])).max())
+               for k, v in flat_leaves(tc).items()) / tree_max
+    check(max(rels) <= TOL_AUX_STEP and mrel <= TOL_AUX_STEP and prel <= TOL_AUX_STEP,
+          f"[aux] one step ({AUX_NA} aux samples, weight {AUX_WEIGHT}, highest) on the card vs "
+          f"the CPU: loss {lc[0]:.6g} ({rels[0]:.3e}), lp {lc[1]:.6g} ({rels[1]:.3e}), la "
+          f"{lc[2]:.6g} ({rels[2]:.3e}), g_norm {lc[3]:.6g} ({rels[3]:.3e}); Adam's first "
+          f"moment, each leaf rel-to-max {mrel:.3e}; updated params {prel:.3e} of the tree's "
+          f"largest magnitude {tree_max:.4g} (tol {TOL_AUX_STEP:.0e}; worst leaf {worst_leaf} "
+          f"{leaf_rel[worst_leaf]:.3e} of its own)")
+    m, step, data, aux = card_run
+    gd, idx_d = torch.from_numpy(grid).to(dev), torch.as_tensor(idx, device=dev)
+    spectral.set_dft_precision("default")
+    for _ in range(3):
+        step(data, aux, gd, idx_d)
+    torch.cuda.synchronize()
+    n = 20
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        (loss, _, _), _ = step(data, aux, gd, idx_d)
+    e.record()
+    e.synchronize()
+    aux_ms = s.elapsed_time(e) / n
+    check(math.isfinite(float(loss)), "[timing] aux step loss finite")
+    print(f"[timing] {card}: aux step (default, {B} primary + {B * AUX_NA} aux windows, "
+          f"{XY}^2, width {WIDTH}, modes {MODES}) {aux_ms:.4f} ms = {1e3 / aux_ms:.2f} "
+          "steps/s (CUDA events, warm)", flush=True)
+    del outs, card_run, m, step, aux_cpu
+
+    # ---- aux joint training through the trainer, then its evaluation --------------
+    aux_ds = DRAuxDataset(primary_train=ds.train, primary_test=ds.test,
+                          aux_train=WindowedTrajectories(aux_dev, grid, initial_step=T0,
+                                                         train=True, device=dev))
+    t0 = time.perf_counter()
+    res = train_aux(aux_ds, modes=MODES, width=WIDTH, initial_step=T0, num_channels=CC,
+                    batch_size=B, epochs=2, num_aux_samples=AUX_NA,
+                    auxiliary_weight=AUX_WEIGHT, seed=0, run_dir=str(run_dir),
+                    model_name="DR_smoke_aux_FNO", log_every=0, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = len(ds.train.window_index()) // B
+    print(f"[aux] train_aux, 2 epochs x {steps} steps + val in {train_s:.3f} s: "
+          + "; ".join(f"epoch {h['epoch']} train loss {h['train_loss']:.6g}, val loss "
+                      f"{h['val_loss']:.6g}" for h in res.history), flush=True)
+    ckpt = run_dir / "DR_smoke_aux_FNO_ckpt.pt"
+    vals = [v for h in res.history for v in (h["train_loss"], h["val_loss"])]
+    best = min(res.history, key=lambda h: h["val_loss"])
+    ck = restore_checkpoint(ckpt) if ckpt.exists() else {"meta": {}, "params": {}}
+    check(len(res.history) == 2 and all(map(math.isfinite, vals))
+          and ck["meta"].get("epoch") == best["epoch"]
+          and sorted(ck["params"]) == ["backbone", "fc2_auxiliary", "fc2_primary"],
+          f"[aux] losses finite; the checkpoint holds the best primary val loss's epoch "
+          f"({best['epoch']}) and both heads")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluate_checkpoint(ds.test, if_aux=True, rollout_test=5, run_dir=str(run_dir),
+                              modes=MODES, width=WIDTH, batch_size=B,
+                              model_name="DR_smoke_aux_FNO", device=dev)
+    eval_s = time.perf_counter() - t0
+    errs = res.history[0]
+    print(f"[eval] {card}: the aux checkpoint's primary head, rollout 5 in {eval_s:.3f} s "
+          "wall: " + ", ".join(f"{k} {errs[k]:.6g}" for k in METRIC_NAMES), flush=True)
+    check(all(math.isfinite(errs[k]) for k in METRIC_NAMES),
+          "[eval] the aux checkpoint's six metrics finite")
+
+
 def split_flops(name: str, b: int, t: int) -> int:
     """FLOPs one call of a split function needs at the flagship shape: the
     products of the JAX kernel's body, dot and mode mix, 2 per
@@ -2855,6 +3082,9 @@ def main() -> int:
               f"{fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib}, "
               f"{r['launches']} launches in the epoch", flush=True)
+
+    # ---- 4b. evaluation of phase 4's checkpoint; aux joint training ------------
+    eval_aux_path(dev, card, run_dir, store, grid, ds)
 
     kernel_rows.update(transformer_path(dev, card, run_dir))
     kernel_rows.update(production_path(dev, card, run_dir, store, grid, tree, ds))

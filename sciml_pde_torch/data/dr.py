@@ -1,10 +1,17 @@
-"""2D diffusion-reaction baseline loader (port of ``sciml_pde_tpu/data/dr.py``).
+"""2D diffusion-reaction loaders, primary and aux (port of
+``sciml_pde_tpu/data/dr.py``).
 
-Single HDF5 file keyed by zero-padded seed groups; 90/10 train/test split
+Single HDF5 files keyed by zero-padded seed groups; 90/10 train/test split
 by sorted key order; ``train_subsample`` keeps the first N train keys (a
 float < 1 keeps that fraction; a float >= 1 is a count, as an int is) and
-raises when the split holds fewer.  The selected trajectories become device
-tensors.  Not ported yet: ``extra_train_files`` and ``leaky_clip``.
+raises when the pool holds fewer.  ``extra_train_files`` continue the train
+pool past the primary file's seeds while its split, and so the test set,
+stays the same; ``leaky_clip`` reproduces the reference's unguarded
+``sorted(keys)[:N]`` train list, test tail included (for measuring that
+leak only).  The aux loader pairs primary trajectory ``p`` with aux rows
+``p * num_aux + j`` (the train step does the pairing) and upsamples an aux
+file of another resolution trilinearly to the primary's.  The selected
+trajectories become device tensors.
 """
 
 from __future__ import annotations
@@ -13,17 +20,29 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from sciml_pde_torch.data.windows import WindowedTrajectories
 from sciml_pde_torch.io.h5 import list_seed_groups, read_seed_data, read_seed_grid
 
 PRIMARY_FILE = "2D_diff-react_test_all.h5"
+AUX_FILE = "2D_diff-react_test_diff.h5"
+AUX_FILE_DOWNSAMPLED = "2D_diff-react_downsample_t50_96.h5"
 
 
 @dataclasses.dataclass
 class DRBaselineDataset:
     train: WindowedTrajectories
     test: WindowedTrajectories
+
+
+@dataclasses.dataclass
+class DRAuxDataset:
+    """The two streams of aux joint training.  DR pairs by the default
+    ``p * num_aux + j`` rule, so there is no row map."""
+    primary_train: WindowedTrajectories
+    primary_test: WindowedTrajectories
+    aux_train: WindowedTrajectories
 
 
 def _read_keys(path: Path, keys) -> np.ndarray:
@@ -42,12 +61,56 @@ def _split_keys(keys: list[str]) -> tuple[list[str], list[str]]:
     return keys[:n_train], keys[n_train:]
 
 
-def _resolve_count(train_keys: list[str], subsample) -> int:
-    """Train trajectories asked for: a float below 1 is a fraction of the
-    split (at least one), anything else a count (a float >= 1 truncated)."""
+def _resolve_count(n_keys: int, subsample) -> int:
+    """Trajectories asked for: a float below 1 is a fraction of ``n_keys``
+    (at least one), anything else a count (a float >= 1 truncated)."""
     if isinstance(subsample, float) and subsample < 1:
-        return max(int(subsample * len(train_keys)), 1)
+        return max(int(subsample * n_keys), 1)
     return int(subsample)
+
+
+def load_dr_test(base_path: str, *, initial_step: int = 10, rollout_test: int = 1,
+                 primary_file: str = PRIMARY_FILE, device=None) -> WindowedTrajectories:
+    """The test split alone (the 10% tail, one window at t0 = 0 each), for
+    evaluation, which reads nothing of the train pool."""
+    path = Path(base_path) / primary_file
+    train_keys, test_keys = _split_keys(list_seed_groups(path))
+    grid = _read_grid(path, train_keys[0] if train_keys else test_keys[0])
+    return WindowedTrajectories(_read_keys(path, test_keys), grid, initial_step=initial_step,
+                                rollout=rollout_test, train=False, device=device)
+
+
+def _load_train_pool(base: Path, primary_file: str, want, extra_train_files,
+                     leaky_clip: bool = False) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Train pool (continued through ``extra_train_files``), test split and
+    grid.  A fraction is resolved before any clip, so 0.5 means half the
+    train split with and without ``leaky_clip``."""
+    ppath = base / primary_file
+    all_keys = list_seed_groups(ppath)
+    train_keys, test_keys = _split_keys(all_keys)
+    if leaky_clip:
+        train_keys = all_keys
+    grid = _read_grid(ppath, train_keys[0] if train_keys else test_keys[0])
+    want = _resolve_count(len(train_keys), want)
+    if leaky_clip:  # the reference clips silently where N exceeds the file
+        want = min(want, len(all_keys))
+
+    chunks = [_read_keys(ppath, train_keys[:min(want, len(train_keys))])]
+    got = chunks[0].shape[0]
+    for name in extra_train_files or []:
+        if got >= want:
+            break
+        epath = base / name
+        chunk = _read_keys(epath, list_seed_groups(epath)[:want - got])
+        chunks.append(chunk)
+        got += chunk.shape[0]
+    if got < want:
+        raise ValueError(
+            f"requested {want} train trajectories but only {got} available in "
+            f"{primary_file} (+{len(extra_train_files or [])} extension files)"
+        )
+    train = np.concatenate(chunks) if len(chunks) > 1 else chunks[0]
+    return train, _read_keys(ppath, test_keys), grid
 
 
 def load_dr_baseline(
@@ -56,25 +119,93 @@ def load_dr_baseline(
     train_subsample=900,
     initial_step: int = 10,
     rollout_test: int = 1,
+    extra_train_files: list[str] | None = None,
     primary_file: str = PRIMARY_FILE,
+    leaky_clip: bool = False,
     device=None,
 ) -> DRBaselineDataset:
-    """Train = the first ``train_subsample`` keys of the 90% split, test =
+    """Train = the first ``train_subsample`` trajectories of the pool, test =
     the 10% tail with one window at t0 = 0 per trajectory."""
-    path = Path(base_path) / primary_file
-    train_keys, test_keys = _split_keys(list_seed_groups(path))
-    count = _resolve_count(train_keys, train_subsample)
-    if len(train_keys) < count:
-        raise ValueError(
-            f"requested {count} train trajectories but only "
-            f"{len(train_keys)} available in {primary_file}"
-        )
-    want = train_keys[:count]
-    grid = _read_grid(path, train_keys[0] if train_keys else test_keys[0])
+    train, test, grid = _load_train_pool(Path(base_path), primary_file, train_subsample,
+                                         extra_train_files, leaky_clip=leaky_clip)
     return DRBaselineDataset(
-        train=WindowedTrajectories(_read_keys(path, want), grid, initial_step=initial_step,
+        train=WindowedTrajectories(train, grid, initial_step=initial_step,
                                    rollout=rollout_test, train=True, device=device),
-        test=WindowedTrajectories(_read_keys(path, test_keys), grid,
-                                  initial_step=initial_step, rollout=rollout_test,
-                                  train=False, device=device),
+        test=WindowedTrajectories(test, grid, initial_step=initial_step,
+                                  rollout=rollout_test, train=False, device=device),
     )
+
+
+def _linear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) weights of ``jax.image.resize(..., "linear")`` along one
+    axis, in f64: a triangle kernel at the output samples, widened by the
+    scale where the axis shrinks (JAX antialiases), columns normalised to
+    sum to 1, and zero where a sample falls outside the input."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(sample[None, :] - np.arange(n_in)[:, None]) / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    return np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
+
+
+def _resize_trilinear(data, target_thw: tuple[int, int, int], device=None) -> torch.Tensor:
+    """(N, T', H', W', C) -> (N, T, H, W, C) on ``device``: JAX's linear
+    ``jax.image.resize`` as three products, one per axis that changes, with
+    weights built in f64 and applied in f32.  It equals
+    ``F.interpolate(mode="trilinear", align_corners=False)`` where every axis
+    grows; where one shrinks, JAX's kernel, and so this one, antialiases."""
+    x = torch.as_tensor(data, dtype=torch.float32, device=device)
+    for axis, n_out in zip((1, 2, 3), target_thw):
+        n_in = x.shape[axis]
+        if n_in == n_out:
+            continue
+        w = torch.as_tensor(_linear_weights(n_in, n_out), dtype=torch.float32,
+                            device=x.device)
+        x = torch.movedim(torch.tensordot(x, w, dims=([axis], [0])), -1, axis)
+    return x.contiguous()
+
+
+def load_dr_aux(
+    base_path: str,
+    aux_path: str | None = None,
+    *,
+    train_subsample=(900, 900, 900),
+    num_aux_samples: int = 3,
+    initial_step: int = 10,
+    rollout_test: int = 1,
+    if_downsample: bool = False,
+    extra_train_files: list[str] | None = None,
+    primary_file: str = PRIMARY_FILE,
+    aux_file: str | None = None,
+    device=None,
+) -> DRAuxDataset:
+    """Two-stream DR dataset for aux joint training: ``train_subsample[1]``
+    primary and ``train_subsample[2]`` aux trajectories.  The aux pool must
+    hold ``n_primary * num_aux_samples`` rows; an aux file of another
+    resolution (``if_downsample`` picks the downsampled one) is upsampled to
+    the primary's T x H x W on ``device``."""
+    base = Path(base_path)
+    apath = Path(aux_path) if aux_path else base
+    primary_train, primary_test, grid = _load_train_pool(base, primary_file,
+                                                         train_subsample[1], extra_train_files)
+    aux_name = aux_file or (AUX_FILE_DOWNSAMPLED if if_downsample else AUX_FILE)
+    aux_keys = list_seed_groups(apath / aux_name)
+    aux = _read_keys(apath / aux_name, aux_keys[:_resolve_count(len(aux_keys),
+                                                                  train_subsample[2])])
+    need = primary_train.shape[0] * num_aux_samples
+    if aux.shape[0] < need:
+        raise ValueError(f"aux pool has {aux.shape[0]} trajectories < "
+                         f"{primary_train.shape[0]} primary x {num_aux_samples} aux samples")
+    if if_downsample or aux.shape[1:4] != primary_train.shape[1:4]:
+        aux = _resize_trilinear(aux, primary_train.shape[1:4], device=device)
+
+    def windows(data, train):
+        return WindowedTrajectories(data, grid, initial_step=initial_step,
+                                    rollout=rollout_test, train=train, device=device)
+
+    return DRAuxDataset(primary_train=windows(primary_train, True),
+                        primary_test=windows(primary_test, False),
+                        aux_train=windows(aux, True))

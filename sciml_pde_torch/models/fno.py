@@ -1,16 +1,17 @@
-"""Baseline 2D Fourier Neural Operator (port of ``sciml_pde_tpu/models/fno.py``).
+"""2D Fourier Neural Operators, baseline and two-head (port of
+``FNO2d`` and ``FNO2dAux`` in ``sciml_pde_tpu/models/fno.py``).
 
-The plain model: what the production step trains, the reference the fused
-step is held against, and the form checkpoints take (``utils/weights.py`` converts between its
-``state_dict``, the flax parameter tree and the fused step's packed
-parameters).
+The plain models: what the production and aux steps train, the reference
+the fused step is held against, and the form checkpoints take
+(``utils/weights.py`` converts between their ``state_dict``, the flax
+parameter tree and the fused step's packed parameters).
 
 Call signature as the JAX package's: ``(x: [B,X,Y,T,C], grid: [B,X,Y,2])
 -> [B,X,Y,1,C]``, channels-last throughout.  ``impl`` picks the spectral
 conv's form; None means the module default of ``ops/spectral.py`` (``dft2``
 unless ``SCIML_SPECTRAL_IMPL`` says otherwise), as in the flax model.  The
 dense layers are f32 products.  ``remat`` (rematerialised blocks) is not
-ported: ``remat=True`` raises.
+ported: ``remat=True`` raises (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -85,7 +86,8 @@ class FNO2d(nn.Module):
                  generator: torch.Generator | None = None, remat: bool = False):
         super().__init__()
         if remat:
-            raise NotImplementedError("remat (rematerialised spectral blocks) is not ported yet")
+            raise NotImplementedError("remat (rematerialised spectral blocks) is not ported "
+                                      "yet (ROADMAP A4)")
         self.num_channels, self.modes1, self.modes2 = num_channels, modes1, modes2
         self.width, self.initial_step = width, initial_step
         self.backbone = FNOBackbone2d(initial_step * num_channels + 2, modes1, modes2,
@@ -95,3 +97,40 @@ class FNO2d(nn.Module):
     def forward(self, x: torch.Tensor, grid: torch.Tensor, impl: str | None = None) -> torch.Tensor:
         inp, std, mean = _prep_2d(x, grid)
         return _denorm(self.fc2(self.backbone(inp, impl)), std, mean)
+
+
+class FNO2dAux(nn.Module):
+    """Two-head 2D FNO of multiphysics joint training: one backbone, the
+    heads ``fc2_primary`` and ``fc2_auxiliary``.  The joint ``forward`` runs
+    the backbone once over the concatenated batch and splits it; instance
+    norm is per sample, so ``primary`` and ``auxiliary`` alone compute the
+    same.  Parameter names follow flax's paths (``backbone``,
+    ``fc2_primary``, ``fc2_auxiliary``)."""
+
+    def __init__(self, num_channels: int, modes1: int = 12, modes2: int = 12,
+                 width: int = 20, initial_step: int = 10,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.num_channels, self.modes1, self.modes2 = num_channels, modes1, modes2
+        self.width, self.initial_step = width, initial_step
+        self.backbone = FNOBackbone2d(initial_step * num_channels + 2, modes1, modes2,
+                                      width, generator=generator)
+        self.fc2_primary = torch_linear(128, num_channels, generator)
+        self.fc2_auxiliary = torch_linear(128, num_channels, generator)
+
+    def primary(self, x: torch.Tensor, grid: torch.Tensor, impl: str | None = None):
+        inp, std, mean = _prep_2d(x, grid)
+        return _denorm(self.fc2_primary(self.backbone(inp, impl)), std, mean)
+
+    def auxiliary(self, x_aux: torch.Tensor, grid_aux: torch.Tensor, impl: str | None = None):
+        inp, std, mean = _prep_2d(x_aux, grid_aux)
+        return _denorm(self.fc2_auxiliary(self.backbone(inp, impl)), std, mean)
+
+    def forward(self, x: torch.Tensor, grid: torch.Tensor, x_aux: torch.Tensor,
+                grid_aux: torch.Tensor, impl: str | None = None):
+        b = x.shape[0]
+        inp_p, std_p, mean_p = _prep_2d(x, grid)
+        inp_a, std_a, mean_a = _prep_2d(x_aux, grid_aux)
+        feats = self.backbone(torch.cat([inp_p, inp_a], dim=0), impl)
+        return (_denorm(self.fc2_primary(feats[:b]), std_p, mean_p),
+                _denorm(self.fc2_auxiliary(feats[b:]), std_a, mean_a))

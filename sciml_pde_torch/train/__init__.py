@@ -1,1 +1,2 @@
-"""Training: the fused FNO-2D baseline step, the trainer and its CLI."""
+"""Training: the FNO-2D steps (fused and production baseline, aux joint
+training), the trainers with their evaluation branch, and the CLI."""

@@ -1,18 +1,22 @@
-"""Training CLI (port of the ``train`` and ``transformer`` subcommands of
-``sciml_pde_tpu/train/cli.py``):
+"""Training CLI (port of ``sciml_pde_tpu/train/cli.py``):
 
   python -m sciml_pde_torch.train.cli train --config config_dr --dataset basic_ds8 \\
       base_path=data/ [key=value ...]
+  python -m sciml_pde_torch.train.cli aux --config config_dr --dataset basic_ds8 \\
+      base_path=data/ aux_path=data/ [key=value ...]
   python -m sciml_pde_torch.train.cli transformer --config config_ns \\
       --dataset basic_ds4 base_path=data/ns_256/ if_aux=False [key=value ...]
 
-``train`` runs the production step unless ``fast_step=True`` (or
-``SCIML_FAST_STEP=1``) asks for the fused one, as the JAX CLI does; every
-key of ``run_training`` (``scheduler``, ``scheduler_step``,
-``scheduler_gamma``, ``training_type``, ``t_train``, ``rollout_test``,
-``continue_training`` ...) passes through from the config or an override.
-Runs on ``cuda``; ``device=cpu`` runs the plain PyTorch versions on the CPU.
-The ``aux`` subcommand comes with a later slice.
+``train`` is the FNO baseline and ``aux`` the two-head joint training
+whatever the config's ``if_aux`` says, as in the JAX CLI.  ``train`` runs
+the production step unless ``fast_step=True`` (or ``SCIML_FAST_STEP=1``)
+asks for the fused one; every key of ``run_training`` (``scheduler``,
+``training_type``, ``rollout_test``, ``continue_training``,
+``auxiliary_weight`` ...) passes through from the config or an override,
+and ``if_training=False`` evaluates the run's checkpoint (the six-metric
+pickle and ``mse_time.npz``; ``python -m sciml_pde_torch.eval.analyse``
+gathers the pickles into ``Results.csv``).  Runs on ``cuda``;
+``device=cpu`` runs the plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
@@ -45,14 +49,22 @@ def _parse(argv):
     return load_config(a.config, a.dataset, a.overrides), keys
 
 
-def main(argv=None):
+def _fno(argv, if_aux: bool):
     from sciml_pde_torch.train.fno_train import run_training
 
     cfg, keys = _parse(argv)
-    # `train` is the baseline whatever the config says, as in the JAX CLI
-    res = _call_with_supported(run_training, {**cfg, "if_aux": False}, keys)
+    # the subcommand picks the branch whatever the config says, as in the JAX CLI
+    res = _call_with_supported(run_training, {**cfg, "if_aux": if_aux}, keys)
     print(f"best_val={res.best_val:.6g}", flush=True)
     return res
+
+
+def main(argv=None):
+    return _fno(argv, if_aux=False)
+
+
+def main_aux(argv=None):
+    return _fno(argv, if_aux=True)
 
 
 # FNO-config keys that name the same knob differently in the transformer
@@ -73,7 +85,7 @@ def main_transformer(argv=None):
     return res
 
 
-_SUBCOMMANDS = {"train": main, "transformer": main_transformer}
+_SUBCOMMANDS = {"train": main, "aux": main_aux, "transformer": main_transformer}
 
 if __name__ == "__main__":
     cmd = sys.argv[1] if len(sys.argv) > 1 else "train"

@@ -1,8 +1,7 @@
-"""FNO-2D baseline trainer (port of the baseline branch of
-``sciml_pde_tpu/train/fno_train.py``: ``build_baseline_step``,
-``run_training``).
+"""FNO-2D trainers and evaluation (port of ``sciml_pde_tpu/train/fno_train.py``:
+``build_baseline_step``, ``build_aux_step``, ``run_training``).
 
-Two steps train the same plain 2D FNO, chosen as the JAX package chooses:
+Three steps train a 2D FNO, chosen as the JAX package chooses:
 
   production (the default)  the plain ``FNO2d`` (the ``dft2`` spectral conv
                             unless ``SCIML_SPECTRAL_IMPL`` says otherwise),
@@ -14,26 +13,42 @@ Two steps train the same plain 2D FNO, chosen as the JAX package chooses:
                             whole model in hand-written CUDA kernels and the
                             flat-vector optimizer of ``train/fast_step.py``,
                             for the single-step, rollout-1, cosine
-                            configuration only.  An explicit ``True`` on
+                            baseline only.  An explicit ``True`` on
                             another configuration raises; the environment
                             variable gives way to the production step there.
+  aux                       ``if_aux=True``: the two-head ``FNO2dAux`` on the
+                            primary stream and its decomposed forms (DR:
+                            primary ``p`` with aux rows ``p * nA + j`` at the
+                            same t0), loss ``lp + auxiliary_weight * la``,
+                            the optimizer per group (backbone
+                            ``learning_rate_share``, heads
+                            ``learning_rate_fc2``), checkpoints on the best
+                            primary validation loss.
 
-``run_training`` loads the DR store from its HDF5 file and calls
-``train_baseline``; a caller that already holds the store in memory enters
-at ``train_baseline`` with a ``DRBaselineDataset``.  Per epoch: shuffled
-window batches (one copy to the device) -> a step each -> validation loss
--> best-validation checkpoint (the flax-layout parameter tree plus the
-step's optimizer state), written at most once a minute and flushed at the
-end.  ``utils/logging.py::MetricLogger`` writes
+``run_training`` loads the DR stores from their HDF5 files and calls
+``train_baseline`` or ``train_aux``; a caller that already holds the stores
+in memory enters there with a ``DRBaselineDataset`` or ``DRAuxDataset``.
+Per epoch: shuffled window batches (one copy to the device) -> a step each
+-> validation loss -> best-validation checkpoint (the flax-layout parameter
+tree plus the step's optimizer state), written at most once a minute and
+flushed at the end.  ``utils/logging.py::MetricLogger`` writes
 ``{run_dir}/{model_name}.jsonl`` (and echoes it): the training scalars when
-``log_every`` crosses, the validation loss on every validated epoch.  Not
-ported yet, each raising ``NotImplementedError``: the evaluation
-path (``if_training=False``), aux, NS / 3D, ``lie_augment``, ``fno_remat``,
-``shard_store``, ``host_stream``, ``resident_rotate``,
-``extra_train_files``, ``dr_leaky_clip``.  The production step carries
-JAX's ``scan`` (K steps over an index chunk, no host sync in the loop) and
-``xy`` (pre-gathered windows) variants; the step's ``lie_augment`` and
-``train_gather`` are not ported.
+``log_every`` crosses, the validation loss on every validated epoch.
+
+``if_training=False`` evaluates instead (``evaluate_checkpoint``, which
+takes the test split in memory): it restores
+``{run_dir}/{model_name}_ckpt.pt``, unrolls ``rollout_test`` steps over the
+test split, and writes the six metrics to ``{model_name}.pickle`` and the
+RMSE of each step to ``{model_name}_mse_time.npz``, as JAX writes them.
+
+Not ported, each raising ``NotImplementedError`` that names its ROADMAP
+item: NS / 3D and their aux knobs (``aux_chunks``, ``aux_store_dtype``,
+``aux_upsample_at_gather``, ``aux_native_compute``), ``lie_augment`` and
+``fno_remat`` (A4); the 3D transformer (A5); ``plot`` (A6);
+``shard_store``, ``host_stream`` and ``resident_rotate`` (A8).  The
+production step carries JAX's ``scan`` (K steps over an index chunk, no host
+sync in the loop) and ``xy`` (pre-gathered windows) variants; the aux step
+has neither (A8).
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import pickle
 import time
 from pathlib import Path
 from typing import Any
@@ -49,13 +65,20 @@ import numpy as np
 import torch
 
 from sciml_pde_torch._device import resolve_device
-from sciml_pde_torch.data.dr import DRBaselineDataset, load_dr_baseline
-from sciml_pde_torch.data.windows import epoch_batches, gather_windows
+from sciml_pde_torch.data.dr import (
+    DRAuxDataset,
+    DRBaselineDataset,
+    load_dr_aux,
+    load_dr_baseline,
+    load_dr_test,
+)
+from sciml_pde_torch.data.windows import WindowedTrajectories, epoch_batches, gather_windows
+from sciml_pde_torch.eval.rollout import METRIC_NAMES, evaluate_rollout
 from sciml_pde_torch.metrics import nrmse_loss
-from sciml_pde_torch.models.fno import FNO2d
+from sciml_pde_torch.models.fno import FNO2d, FNO2dAux
 from sciml_pde_torch.ops.fno_fused_step import fno2d_fused_apply
 from sciml_pde_torch.train import fast_step as fs
-from sciml_pde_torch.train.optim import make_optimizer
+from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer, make_optimizer
 from sciml_pde_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from sciml_pde_torch.utils.logging import MetricLogger
 from sciml_pde_torch.utils.weights import flax_to_state_dict, state_dict_to_flax, tree_map
@@ -65,7 +88,7 @@ _CKPT_MIN_INTERVAL_S = 60.0
 
 @dataclasses.dataclass
 class FNOTrainResult:
-    params: Any  # flax-layout FNO2d tree of numpy arrays
+    params: Any  # flax-layout FNO2d or FNO2dAux tree of numpy arrays
     best_val: float
     history: list[dict]
 
@@ -96,10 +119,11 @@ def select_fast_step(fast_step: bool | None, *, if_aux=False, model_family="fno"
 
 
 def default_init_tree(num_channels: int, modes: int, width: int, initial_step: int,
-                      seed: int) -> dict:
-    """Flax-layout tree of a freshly initialised port ``FNO2d``."""
-    model = FNO2d(num_channels, modes, modes, width, initial_step,
-                  generator=torch.Generator().manual_seed(seed))
+                      seed: int, aux: bool = False) -> dict:
+    """Flax-layout tree of a freshly initialised port ``FNO2d`` (``FNO2dAux``
+    with ``aux``)."""
+    model = (FNO2dAux if aux else FNO2d)(num_channels, modes, modes, width, initial_step,
+                                         generator=torch.Generator().manual_seed(seed))
     return state_dict_to_flax(model.state_dict())
 
 
@@ -170,20 +194,59 @@ def build_baseline_step(model: FNO2d, opt, initial_step: int, rollout: int,
     return step, val_loss
 
 
-class _ProductionRun:
-    """Model, optimizer and step of the production branch."""
+def build_aux_step(model: FNO2dAux, opt, initial_step: int, rollout: int,
+                   num_aux_samples: int, auxiliary_weight: float):
+    """The aux joint-training step on the device stores (port of JAX's
+    ``build_aux_step`` with the DR pairing).  Returns ``step(data_p, data_a,
+    grid, idx) -> ((loss, lp, la), g_norm)``, which updates the model's
+    parameters in place through ``opt`` (``g_norm`` is the pre-clip global
+    norm), and ``val_primary_loss(data_p, grid, idx) -> loss``.
 
-    def __init__(self, tree, dev, *, num_channels, modes, width, initial_step, rollout,
-                 learning_rate, total_steps, scheduler, scheduler_step, scheduler_gamma,
-                 training_type, t_train):
-        model = FNO2d(num_channels, modes, modes, width, initial_step)
+    Primary trajectory ``p`` pairs with aux rows ``p * num_aux_samples + j``
+    at the same t0, the aux batch flattened p-major to B * num_aux_samples;
+    the backbone runs once over both, and loss = lp + auxiliary_weight * la.
+    Validation scores the primary head alone: the primary stream goes to
+    both inputs and the aux output is dropped, as in JAX."""
+    params = dict(model.named_parameters())
+
+    def aux_indices(idx):
+        offs = torch.arange(num_aux_samples, device=idx.device, dtype=idx.dtype)
+        ap = (idx[:, 0, None] * num_aux_samples + offs[None, :]).reshape(-1)
+        return torch.stack([ap, idx[:, 1].repeat_interleave(num_aux_samples)], dim=1)
+
+    def step(data_p, data_a, grid, idx):
+        x, y = gather_windows(data_p, idx, initial_step, rollout)
+        xa, ya = gather_windows(data_a, aux_indices(idx), initial_step, rollout)
+        pred_p, pred_a = model(x.float(), grid.expand(x.shape[0], *grid.shape), xa.float(),
+                               grid.expand(xa.shape[0], *grid.shape))
+        lp, la = nrmse_loss(pred_p, y.float()), nrmse_loss(pred_a, ya.float())
+        loss = lp + auxiliary_weight * la
+        grads = torch.autograd.grad(loss, list(params.values()))
+        g_norm = opt.step(params, dict(zip(params, grads)))
+        return (loss.detach(), lp.detach(), la.detach()), g_norm
+
+    @torch.no_grad()
+    def val_primary_loss(data_p, grid, idx):
+        x, y = gather_windows(data_p, idx, initial_step, rollout)
+        gb = grid.expand(idx.shape[0], *grid.shape)
+        pred_p, _ = model(x.float(), gb, x.float(), gb)
+        return nrmse_loss(pred_p, y.float())
+
+    return step, val_primary_loss
+
+
+class _ProductionRun:
+    """Model, optimizer and step of a branch that trains the plain model:
+    the production baseline or aux joint training.  ``make_opt(params)``
+    builds the optimizer and ``make_step(model, opt)`` returns ``step(data,
+    grid, idx) -> (loss, g_norm)`` and ``val(data, grid, idx) -> loss``."""
+
+    def __init__(self, model, tree, dev, make_opt, make_step):
         model.load_state_dict(flax_to_state_dict(tree))
         self.model = model.to(dev)
         self.params = dict(self.model.named_parameters())
-        self.opt = make_optimizer(self.params, learning_rate, total_steps, scheduler, 1e-4,
-                                  scheduler_step, scheduler_gamma)
-        self.step, self.val = build_baseline_step(self.model, self.opt, initial_step, rollout,
-                                                  training_type, t_train)
+        self.opt = make_opt(self.params)
+        self.step, self.val = make_step(self.model, self.opt)
 
     def snapshot(self):
         return ({n: p.detach().clone() for n, p in self.params.items()},
@@ -240,62 +303,16 @@ class _FusedRun:
         self.opt = fs.FlatOptState(o["m"].to(self.dev), o["v"].to(self.dev), int(o["count"]))
 
 
-def train_baseline(
-    dataset: DRBaselineDataset,
-    *,
-    modes: int = 12,
-    width: int = 20,
-    initial_step: int = 10,
-    num_channels: int = 2,
-    batch_size: int = 4,
-    epochs: int = 100,
-    learning_rate: float = 1e-3,
-    scheduler: str = "cosine",
-    scheduler_step: int = 100,
-    scheduler_gamma: float = 0.5,
-    training_type: str = "single",
-    t_train: int = 101,
-    model_update: int = 1,
-    seed: int = 16,
-    run_dir: str = "runs/fno",
-    model_name: str = "fno2d_dr",
-    continue_training: bool = False,
-    log_every: int = 50,
-    init_params: dict | None = None,
-    fast_step: bool | None = None,
-    device=None,
-) -> FNOTrainResult:
-    """Train the baseline FNO-2D on an in-memory DR store.
-
-    The windows' rollout (``dataset.train.rollout``) is ``rollout_test``.
-    ``init_params`` (flax-layout tree) replaces the seeded initialisation,
-    so a run can start from the same weights as a JAX run.  Batches come
-    from ``numpy.random.default_rng(seed)``, as in the JAX trainer."""
-    dev = resolve_device(device)
+def _fit(run, train_w: WindowedTrajectories, test_w: WindowedTrajectories, *,
+         batch_size: int, epochs: int, model_update: int, seed: int, run_dir: str,
+         model_name: str, continue_training: bool, log_every: int) -> FNOTrainResult:
+    """The epoch loop of every step: batches from
+    ``numpy.random.default_rng(seed)``, validation every ``model_update``
+    epochs, best-validation checkpoints at ``{run_dir}/{model_name}_ckpt.pt``."""
     logger = MetricLogger(run_dir, name=model_name, echo_every=1)
-    train_w, test_w = dataset.train, dataset.test
-    use_fast = select_fast_step(fast_step, training_type=training_type,
-                                rollout_test=train_w.rollout, scheduler=scheduler)
-    if train_w.data.ndim != 5:
-        raise NotImplementedError("the port trains only the 2D FNO (store (N, T, X, Y, C))")
     rng = np.random.default_rng(seed)
     train_idx, test_idx = train_w.window_index(), test_w.window_index()
-    steps_per_epoch = max(len(train_idx) // batch_size, 1)
-    total_steps = epochs * steps_per_epoch
-
-    tree = init_params if init_params is not None else default_init_tree(
-        num_channels, modes, width, initial_step, seed)
-    if use_fast:
-        run = _FusedRun(tree, dev, modes=modes, initial_step=initial_step,
-                        learning_rate=learning_rate, total_steps=total_steps)
-    else:
-        run = _ProductionRun(tree, dev, num_channels=num_channels, modes=modes, width=width,
-                             initial_step=initial_step, rollout=train_w.rollout,
-                             learning_rate=learning_rate, total_steps=total_steps,
-                             scheduler=scheduler, scheduler_step=scheduler_step,
-                             scheduler_gamma=scheduler_gamma, training_type=training_type,
-                             t_train=t_train)
-
+    dev = train_w.data.device
     ckpt_path = Path(run_dir) / f"{model_name}_ckpt.pt"
     best_val, start_epoch = math.inf, 0
     if continue_training and ckpt_path.exists():
@@ -347,13 +364,201 @@ def train_baseline(
     return FNOTrainResult(params=run.tree(), best_val=best_val, history=history)
 
 
+def _total_steps(train_w: WindowedTrajectories, batch_size: int, epochs: int) -> int:
+    return epochs * max(len(train_w.window_index()) // batch_size, 1)
+
+
+def train_baseline(
+    dataset: DRBaselineDataset,
+    *,
+    modes: int = 12,
+    width: int = 20,
+    initial_step: int = 10,
+    num_channels: int = 2,
+    batch_size: int = 4,
+    epochs: int = 100,
+    learning_rate: float = 1e-3,
+    scheduler: str = "cosine",
+    scheduler_step: int = 100,
+    scheduler_gamma: float = 0.5,
+    training_type: str = "single",
+    t_train: int = 101,
+    model_update: int = 1,
+    seed: int = 16,
+    run_dir: str = "runs/fno",
+    model_name: str = "fno2d_dr",
+    continue_training: bool = False,
+    log_every: int = 50,
+    init_params: dict | None = None,
+    fast_step: bool | None = None,
+    device=None,
+) -> FNOTrainResult:
+    """Train the baseline FNO-2D on an in-memory DR store.
+
+    The windows' rollout (``dataset.train.rollout``) is ``rollout_test``.
+    ``init_params`` (flax-layout tree) replaces the seeded initialisation,
+    so a run can start from the same weights as a JAX run.  Batches come
+    from ``numpy.random.default_rng(seed)``, as in the JAX trainer."""
+    dev = resolve_device(device)
+    train_w = dataset.train
+    use_fast = select_fast_step(fast_step, training_type=training_type,
+                                rollout_test=train_w.rollout, scheduler=scheduler)
+    if train_w.data.ndim != 5:
+        raise NotImplementedError("the port trains only the 2D FNO (store (N, T, X, Y, C); "
+                                  "3D is ROADMAP A4)")
+    total_steps = _total_steps(train_w, batch_size, epochs)
+    tree = init_params if init_params is not None else default_init_tree(
+        num_channels, modes, width, initial_step, seed)
+    if use_fast:
+        run = _FusedRun(tree, dev, modes=modes, initial_step=initial_step,
+                        learning_rate=learning_rate, total_steps=total_steps)
+    else:
+        run = _ProductionRun(
+            FNO2d(num_channels, modes, modes, width, initial_step), tree, dev,
+            lambda ps: make_optimizer(ps, learning_rate, total_steps, scheduler, 1e-4,
+                                      scheduler_step, scheduler_gamma),
+            lambda m, o: build_baseline_step(m, o, initial_step, train_w.rollout,
+                                             training_type, t_train))
+    return _fit(run, train_w, dataset.test, batch_size=batch_size, epochs=epochs,
+                model_update=model_update, seed=seed, run_dir=run_dir, model_name=model_name,
+                continue_training=continue_training, log_every=log_every)
+
+
+def train_aux(
+    dataset: DRAuxDataset,
+    *,
+    modes: int = 12,
+    width: int = 20,
+    initial_step: int = 10,
+    num_channels: int = 2,
+    batch_size: int = 4,
+    epochs: int = 100,
+    learning_rate_share: float = 1e-3,
+    learning_rate_fc2: float = 1e-3,
+    num_aux_samples: int = 3,
+    auxiliary_weight: float = 0.7,
+    scheduler: str = "cosine",
+    scheduler_step: int = 100,
+    scheduler_gamma: float = 0.5,
+    model_update: int = 1,
+    seed: int = 16,
+    run_dir: str = "runs/fno",
+    model_name: str = "fno2d_dr",
+    continue_training: bool = False,
+    log_every: int = 50,
+    init_params: dict | None = None,
+    device=None,
+) -> FNOTrainResult:
+    """Aux joint training of ``FNO2dAux`` on in-memory DR stores.
+
+    The primary windows (``dataset.primary_train``) set the epoch; each step
+    adds the paired aux windows.  The aux store must hold ``n_primary *
+    num_aux_samples`` rows.  Validation and the checkpoint follow the
+    primary head's loss on ``dataset.primary_test``.  ``init_params`` (a
+    flax ``FNO2dAux`` tree) replaces the seeded initialisation."""
+    dev = resolve_device(device)
+    train_w, aux_w = dataset.primary_train, dataset.aux_train
+    need = train_w.num_trajectories * num_aux_samples
+    if aux_w.num_trajectories < need:
+        raise ValueError(f"aux store has {aux_w.num_trajectories} trajectories < "
+                         f"{train_w.num_trajectories} primary x {num_aux_samples} aux samples")
+    if aux_w.data.shape[1:] != train_w.data.shape[1:]:
+        raise NotImplementedError("aux and primary stores of different shapes (the aux "
+                                  "stream at its own resolution is ROADMAP A4)")
+    total_steps = _total_steps(train_w, batch_size, epochs)
+    tree = init_params if init_params is not None else default_init_tree(
+        num_channels, modes, width, initial_step, seed, aux=True)
+
+    def make_step(model, opt):
+        step, val = build_aux_step(model, opt, initial_step, train_w.rollout, num_aux_samples,
+                                   auxiliary_weight)
+
+        def primary_step(data, grid, idx):
+            (loss, _, _), g_norm = step(data, aux_w.data, grid, idx)
+            return loss, g_norm
+        return primary_step, val
+
+    lrs = {"shared": learning_rate_share, "primary_head": learning_rate_fc2,
+           "aux_head": learning_rate_fc2}
+    run = _ProductionRun(
+        FNO2dAux(num_channels, modes, modes, width, initial_step), tree, dev,
+        lambda ps: make_grouped_optimizer(ps, aux_group_of, lrs, total_steps, scheduler, 1e-4,
+                                          scheduler_step, scheduler_gamma),
+        make_step)
+    return _fit(run, train_w, dataset.primary_test, batch_size=batch_size, epochs=epochs,
+                model_update=model_update, seed=seed, run_dir=run_dir, model_name=model_name,
+                continue_training=continue_training, log_every=log_every)
+
+
+def evaluate_checkpoint(
+    test: WindowedTrajectories,
+    *,
+    modes: int = 12,
+    width: int = 20,
+    if_aux: bool = False,
+    rollout_test: int = 1,
+    batch_size: int = 4,
+    iLow: int = 4,
+    iHigh: int = 12,
+    run_dir: str = "runs/fno",
+    model_name: str = "fno2d_dr",
+    device=None,
+) -> FNOTrainResult:
+    """The evaluation branch on an in-memory test split: restore
+    ``{run_dir}/{model_name}_ckpt.pt`` (written by any of the three steps),
+    unroll ``rollout_test`` steps over ``test`` in batches of
+    ``batch_size``, and write
+
+      ``{model_name}.pickle``        (RMSE, nRMSE, CSV, Max, BD, F), numpy
+                                     float64 each, as JAX pickles them
+      ``{model_name}_mse_time.npz``  ``t`` = the unrolled frames' indices,
+                                     ``mse`` = each step's RMSE
+
+    With ``if_aux`` the checkpoint is an ``FNO2dAux`` and the primary head
+    is scored (the primary stream goes to both inputs, as in JAX).  Returns
+    ``best_val`` = nRMSE and ``history`` = [the metrics dict]."""
+    dev = resolve_device(device)
+    # on the device, and checked to hold initial_step + rollout_test frames
+    test = WindowedTrajectories(test.data.to(dev), test.grid.to(dev),
+                                initial_step=test.initial_step, rollout=rollout_test,
+                                train=False)
+    ck = restore_checkpoint(Path(run_dir) / f"{model_name}_ckpt.pt")
+    model = (FNO2dAux if if_aux else FNO2d)(test.data.shape[-1], modes, modes, width,
+                                            test.initial_step)
+    model.load_state_dict(flax_to_state_dict(ck["params"]))
+    model = model.to(dev)
+
+    def apply_fn(x, g):
+        return model(x, g, x, g)[0] if if_aux else model(x, g)
+
+    errs = evaluate_rollout(apply_fn, test, rollout_test, batch_size, iLow, iHigh)
+    with (Path(run_dir) / f"{model_name}.pickle").open("wb") as f:
+        pickle.dump(tuple(errs[k] for k in METRIC_NAMES), f)
+    np.savez(Path(run_dir) / f"{model_name}_mse_time.npz",
+             t=np.arange(test.initial_step, test.initial_step + rollout_test),
+             mse=np.asarray(errs["mse_time"]))
+    return FNOTrainResult(params=state_dict_to_flax(model.state_dict()),
+                          best_val=errs["nRMSE"], history=[errs])
+
+
 def run_training(
     *,
     base_path: str,
+    aux_path: str | None = None,
     dataset_family: str = "dr",
     if_aux: bool = False,
+    if_downsample: bool = False,
+    aux_file: str | None = None,
     model_family: str = "fno",
+    extra_train_files=None,
     train_subsample=(900, 900, 900),
+    num_aux_samples: int = 3,
+    auxiliary_weight: float = 0.7,
+    aux_store_dtype: str | None = None,
+    aux_chunks: int = 1,
+    aux_upsample_at_gather: bool = False,
+    aux_native_compute: bool = False,
+    fno_remat: bool = False,
     modes: int = 12,
     width: int = 20,
     initial_step: int = 10,
@@ -363,17 +568,21 @@ def run_training(
     batch_size: int = 4,
     epochs: int = 100,
     learning_rate: float = 1e-3,
+    learning_rate_share: float = 1e-3,
+    learning_rate_fc2: float = 1e-3,
     scheduler: str = "cosine",
     scheduler_step: int = 100,
     scheduler_gamma: float = 0.5,
     training_type: str = "single",
     if_training: bool = True,
+    iLow: int = 4,
+    iHigh: int = 12,
+    plot: bool = False,
+    channel_plot: int = 0,
     lie_augment: bool = False,
-    fno_remat: bool = False,
     shard_store: bool = False,
     host_stream: bool = False,
     resident_rotate: int = 0,
-    extra_train_files=None,
     dr_leaky_clip: bool = False,
     model_update: int = 1,
     seed: int = 16,
@@ -385,35 +594,60 @@ def run_training(
     fast_step: bool | None = None,
     device=None,
 ) -> FNOTrainResult:
-    """Train the DR baseline FNO-2D from its HDF5 file
-    (``base_path``/2D_diff-react_test_all.h5) on the step ``fast_step``
-    selects.  A configuration that cannot run raises before any data is
-    read."""
+    """Train a 2D FNO on DR from its HDF5 files, or evaluate one
+    (``if_training=False``).
+
+    ``base_path``/2D_diff-react_test_all.h5 holds the primary trajectories
+    (``extra_train_files`` beside it continue the train pool); with
+    ``if_aux`` the aux trajectories come from ``aux_path`` (``aux_file``, or
+    the decomposed file, or with ``if_downsample`` its downsampled copy,
+    upsampled on load).  ``train_subsample`` = (baseline, aux primary, aux)
+    counts.  The evaluation reads the test split alone.  A configuration
+    that cannot run raises before any data is read; ``channel_plot`` goes
+    with ``plot``."""
     use_fast = select_fast_step(
         fast_step, if_aux=if_aux, model_family=model_family, training_type=training_type,
         rollout_test=rollout_test, lie_augment=lie_augment, shard_store=shard_store,
         host_stream=host_stream, resident_rotate=resident_rotate, scheduler=scheduler)
-    unported = {
-        "if_aux": if_aux, "if_training=False": not if_training,
-        f"dataset_family={dataset_family!r}": dataset_family != "dr",
-        f"model_family={model_family!r}": model_family != "fno",
-        "lie_augment": lie_augment, "fno_remat": fno_remat, "shard_store": shard_store,
-        "host_stream": host_stream, "resident_rotate": int(resident_rotate or 0) > 1,
-        "extra_train_files": bool(extra_train_files), "dr_leaky_clip": dr_leaky_clip,
+    unported = {  # option -> (asked for, ROADMAP item)
+        f"dataset_family={dataset_family!r}": (dataset_family != "dr", "A4"),
+        f"model_family={model_family!r}": (model_family != "fno", "A5"),
+        "lie_augment": (lie_augment, "A4"), "fno_remat": (fno_remat, "A4"),
+        "aux_chunks > 1": (int(aux_chunks) > 1, "A4"),
+        "aux_store_dtype": (aux_store_dtype is not None, "A4"),
+        "aux_upsample_at_gather": (aux_upsample_at_gather, "A4"),
+        "aux_native_compute": (aux_native_compute, "A4"),
+        "plot": (plot, "A6"), "shard_store": (shard_store, "A8"),
+        "host_stream": (host_stream, "A8"),
+        "resident_rotate": (int(resident_rotate or 0) > 1, "A8"),
     }
-    bad = [k for k, v in unported.items() if v]
+    bad = [f"{k} (ROADMAP {item})" for k, (on, item) in unported.items() if on]
     if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)} (the port trains the "
-                                  "2D FNO baseline on DR from a device-resident store)")
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
     dev = resolve_device(device)
+    common = dict(modes=modes, width=width, batch_size=batch_size, run_dir=run_dir,
+                  model_name=model_name, device=dev)
+    if not if_training:
+        test = load_dr_test(base_path, initial_step=initial_step, rollout_test=rollout_test,
+                            device=dev)
+        return evaluate_checkpoint(test, if_aux=if_aux, rollout_test=rollout_test, iLow=iLow,
+                                   iHigh=iHigh, **common)
+    fit = dict(initial_step=initial_step, num_channels=num_channels, epochs=epochs,
+               scheduler=scheduler, scheduler_step=scheduler_step,
+               scheduler_gamma=scheduler_gamma, model_update=model_update, seed=seed,
+               continue_training=continue_training, log_every=log_every,
+               init_params=init_params, **common)
+    if if_aux:
+        ds = load_dr_aux(base_path, aux_path, train_subsample=tuple(train_subsample),
+                         num_aux_samples=num_aux_samples, initial_step=initial_step,
+                         rollout_test=rollout_test, if_downsample=if_downsample,
+                         extra_train_files=extra_train_files, aux_file=aux_file, device=dev)
+        return train_aux(ds, learning_rate_share=learning_rate_share,
+                         learning_rate_fc2=learning_rate_fc2, num_aux_samples=num_aux_samples,
+                         auxiliary_weight=auxiliary_weight, **fit)
     sub = train_subsample[0] if isinstance(train_subsample, (list, tuple)) else train_subsample
     ds = load_dr_baseline(base_path, train_subsample=sub, initial_step=initial_step,
-                          rollout_test=rollout_test, device=dev)
-    return train_baseline(
-        ds, modes=modes, width=width, initial_step=initial_step, num_channels=num_channels,
-        batch_size=batch_size, epochs=epochs, learning_rate=learning_rate,
-        scheduler=scheduler, scheduler_step=scheduler_step, scheduler_gamma=scheduler_gamma,
-        training_type=training_type, t_train=t_train, model_update=model_update, seed=seed,
-        run_dir=run_dir, model_name=model_name, continue_training=continue_training,
-        log_every=log_every, init_params=init_params, fast_step=use_fast, device=dev,
-    )
+                          rollout_test=rollout_test, extra_train_files=extra_train_files,
+                          leaky_clip=dr_leaky_clip, device=dev)
+    return train_baseline(ds, learning_rate=learning_rate, training_type=training_type,
+                          t_train=t_train, fast_step=use_fast, **fit)

@@ -1,11 +1,15 @@
 """Learning-rate schedules and the optimizers of the plain-model trainers
 (port of ``sciml_pde_tpu/train/optim.py`` -- ``adaptive_clip``,
-``make_lr_schedule``, ``_torch_adam``, ``make_optimizer`` -- and of the optax
-chain of ``sciml_pde_tpu/train/transformer_train.py::make_transformer_optimizer``).
+``make_lr_schedule``, ``_torch_adam``, ``make_optimizer``,
+``make_grouped_optimizer``, ``aux_group_of`` -- and of the optax chain of
+``sciml_pde_tpu/train/transformer_train.py::make_transformer_optimizer``).
 
 The FNO production chain (``make_optimizer`` -> ``TorchAdam``), as optax
 runs it: adaptive clip to max(5, 0.1 * ||g||) on the global norm ->
-g + wd * p -> Adam(0.9, 0.999, 1e-8) -> times -lr(count).
+g + wd * p -> Adam(0.9, 0.999, 1e-8) -> times -lr(count).  The aux chain
+(``make_grouped_optimizer``) is the same with one schedule per parameter
+group: the clip sees the global norm over every group, then each group
+takes its L2, Adam and learning rate (optax ``multi_transform``).
 
 The transformer chain (``GroupedAdamMultiSteps``), as optax runs it:
 
@@ -106,15 +110,20 @@ def adam_update_(params: list[torch.Tensor], updates: list[torch.Tensor],
 
 class TorchAdam:
     """The FNO production optimizer on named parameters, in place (port of
-    ``_torch_adam``): ``step(params, grads)`` clips the gradients
-    adaptively, adds ``weight_decay * p``, applies Adam and the learning rate
-    ``schedule(count)`` read before the count advances, and returns the
-    pre-clip global norm."""
+    ``_torch_adam``, and of ``make_grouped_optimizer``'s chain): ``groups``
+    maps each group to its parameter names and ``schedules`` to its
+    learning-rate schedule.  ``step(params, grads)`` clips the gradients
+    adaptively on their global norm, then per group adds ``weight_decay *
+    p``, applies Adam and the learning rate ``schedules[group](count)`` read
+    before the count advances, and returns the pre-clip global norm."""
 
-    def __init__(self, params: dict[str, torch.Tensor], schedule: Schedule,
-                 weight_decay: float = 1e-4):
+    def __init__(self, params: dict[str, torch.Tensor], groups: dict[str, list[str]],
+                 schedules: dict[str, Schedule], weight_decay: float = 1e-4):
         self.names = list(params)
-        self.schedule, self.weight_decay = schedule, float(weight_decay)
+        if sorted(n for g in groups.values() for n in g) != sorted(self.names):
+            raise ValueError("the groups must cover every parameter exactly once")
+        self.groups, self.schedules = groups, schedules
+        self.weight_decay = float(weight_decay)
         self.m = {n: torch.zeros_like(p) for n, p in params.items()}
         self.v = {n: torch.zeros_like(p) for n, p in params.items()}
         self.count = 0
@@ -122,9 +131,12 @@ class TorchAdam:
     @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]):
         upd, g_norm = adaptive_clip([grads[n] for n in self.names])
-        adam_update_([params[n] for n in self.names], upd, [self.m[n] for n in self.names],
-                     [self.v[n] for n in self.names], self.count, self.schedule(self.count),
-                     self.weight_decay)
+        by_name = dict(zip(self.names, upd))
+        for group, names in self.groups.items():
+            if names:
+                adam_update_([params[n] for n in names], [by_name[n] for n in names],
+                             [self.m[n] for n in names], [self.v[n] for n in names],
+                             self.count, self.schedules[group](self.count), self.weight_decay)
         self.count += 1
         return g_norm
 
@@ -147,7 +159,34 @@ def make_optimizer(params: dict[str, torch.Tensor], learning_rate: float, total_
     """The single-group production optimizer of the baseline FNO trainer."""
     sched = make_lr_schedule(scheduler, learning_rate, total_steps, scheduler_step,
                              scheduler_gamma)
-    return TorchAdam(params, sched, weight_decay)
+    return TorchAdam(params, {"all": list(params)}, {"all": sched}, weight_decay)
+
+
+def make_grouped_optimizer(params: dict[str, torch.Tensor], group_of: Callable[[tuple], str],
+                           learning_rates: dict[str, float], total_steps: int,
+                           scheduler: str = "cosine", weight_decay: float = 1e-4,
+                           scheduler_step: int = 100,
+                           scheduler_gamma: float = 0.5) -> TorchAdam:
+    """Per-group learning rates: ``group_of`` maps a parameter's path (its
+    name split at the dots) to a group of ``learning_rates``, each group
+    with its own schedule of the same kind.  The adaptive clip stays on the
+    global norm, before the partition, as the reference clips."""
+    groups: dict[str, list[str]] = {g: [] for g in learning_rates}
+    for n in params:
+        groups[group_of(tuple(n.split(".")))].append(n)
+    schedules = {g: make_lr_schedule(scheduler, lr, total_steps, scheduler_step,
+                                     scheduler_gamma) for g, lr in learning_rates.items()}
+    return TorchAdam(params, groups, schedules, weight_decay)
+
+
+def aux_group_of(path: tuple) -> str:
+    """FNO2dAux parameter path -> ``shared``, ``primary_head`` or ``aux_head``."""
+    top = str(path[0]) if path else ""
+    if top.startswith("fc2_primary"):
+        return "primary_head"
+    if top.startswith("fc2_auxiliary"):
+        return "aux_head"
+    return "shared"
 
 
 class GroupedAdamMultiSteps:

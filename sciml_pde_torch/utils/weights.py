@@ -1,5 +1,7 @@
-"""Weight conversion between the flax ``FNO2d`` parameter tree, the port's
-``FNO2d`` ``state_dict`` and the fused step's packed parameters.
+"""Weight conversion between the flax ``FNO2d`` and ``FNO2dAux`` parameter
+trees, the port's ``state_dict`` of either model and the fused step's
+packed parameters.  ``FNO2d`` has one head (``fc2``), ``FNO2dAux`` two
+(``fc2_primary``, ``fc2_auxiliary``); each is a flax ``TorchDense``.
 
 Flax layouts: ``Dense`` kernels are ``(in, out)`` (torch ``nn.Linear``
 weights are ``(out, in)``); spectral weights are ``(2, Cin, Cout, m1, m2)``
@@ -26,7 +28,8 @@ def _np(t) -> np.ndarray:
 
 
 def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
-    """Flax FNO2d tree -> the port's ``FNO2d`` ``state_dict``."""
+    """Flax FNO2d or FNO2dAux tree -> the port's ``state_dict``: the backbone
+    and every head the tree holds."""
     bb = tree["backbone"]
     t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))  # noqa: E731
     sd = {}
@@ -41,12 +44,14 @@ def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
         sd[f"backbone.convs.{i}.w1"] = t(bb[f"conv{i}"]["w1"])
         sd[f"backbone.convs.{i}.w2"] = t(bb[f"conv{i}"]["w2"])
         dense(f"backbone.ws.{i}", bb[f"w{i}"])
-    dense("fc2", tree["fc2"])
+    for head in sorted(k for k in tree if k != "backbone"):
+        dense(head, tree[head])
     return sd
 
 
 def state_dict_to_flax(sd) -> dict:
-    """The port's ``FNO2d`` ``state_dict`` -> flax FNO2d tree of numpy arrays."""
+    """The port's FNO2d or FNO2dAux ``state_dict`` -> flax tree of numpy
+    arrays."""
     def dense(prefix):
         return {"Dense_0": {"kernel": _np(sd[f"{prefix}.weight"]).T.copy(),
                             "bias": _np(sd[f"{prefix}.bias"])}}
@@ -56,7 +61,8 @@ def state_dict_to_flax(sd) -> dict:
         bb[f"conv{i}"] = {"w1": _np(sd[f"backbone.convs.{i}.w1"]),
                           "w2": _np(sd[f"backbone.convs.{i}.w2"])}
         bb[f"w{i}"] = dense(f"backbone.ws.{i}")
-    return {"backbone": bb, "fc2": dense("fc2")}
+    heads = sorted({n.split(".")[0] for n in sd if not n.startswith("backbone.")})
+    return {"backbone": bb, **{h: dense(h) for h in heads}}
 
 
 def flax_to_packed(tree, modes: int, device=None) -> FastFNOParams:
