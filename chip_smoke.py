@@ -8,7 +8,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 their entry points: the fused FNO-2D diffusion-reaction baseline step (batch
 4, 128x128, 2 channels, initial_step 10, width 20, modes 12) with the
 rollout evaluation of its checkpoint and two-head aux joint training at the
-same width, the NS-2D
+same width, the same fused step on NS-2D at batch 16, 256^2, 3 channels with
+the NS production step, Lie augmentation, remat, NS aux joint training
+(8 + 192 windows a step) and the 3D FNO on the plume shape, the NS-2D
 VideoMAE transformer baseline at full width (img 256, patch 16, tubelet 2,
 3 channels, 10 frames -> 1280 tokens; encoder 768 x 12 with 12 heads,
 decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16,
@@ -191,6 +193,30 @@ FNO steps and the five split kernels):
               (PROBE_SCAN_K 50) and one more through its subprocess runner:
               no error, finite results, the steps/s table, and launches of
               every split function and stage kernel
+ 16. ns-fno   the FNO on NS-2D at full width (batch 16, 256^2, 3 channels,
+              initial_step 10, width 20, modes 12; seeded store of 4 + 1
+              trajectories x 50 frames): the fused forward and its ten
+              gradients through the kernels against the plain versions
+              under `highest` and `default` (phase 3's bounds and control),
+              every FNO kernel against its plain version at this shape with
+              its device time, one epoch of train_baseline(fast_step=True)
+              (finite, falling, every kernel's launches, counted from 0),
+              the fused step's time, device-busy share and top ops; 10
+              production steps against 10 fused steps (phase 11's bounds),
+              the production step's time and profile, an epoch on a bf16
+              train store, one lie_augment step on the card against the CPU
+              with both samplers fixed (phase 4b's rule), remat against no
+              remat (loss and gradients within 1e-6, peak memory); NS aux at
+              8 primary + 192 aux windows (aux store 128^2, explicit row
+              map): aux_chunks 1 against 4 (1e-5, peak memory), one step
+              under aux_native_compute and one on a bf16 aux store, one step
+              at 2 + 4 windows on the card against the CPU (phase 4b's
+              rule), 2 epochs of train_aux (aux_chunks 4) with its
+              best-primary-val checkpoint evaluated; the 3D FNO at
+              (50, 50, 89), 4 channels, modes 8, batch 1: the plain forward
+              on the card against the CPU (1e-5), a step's time, 2 epochs of
+              the baseline and of FNO3dAux (nA 3), each checkpoint evaluated
+              at rollout 1
 
 The probe's row carries phase 0's profiler device time beside torch.mul's.
 It prints the kernel table as one JSON line, the card line, and last
@@ -474,6 +500,19 @@ EVAL_ROLLOUTS = {1: 1e-4, 5: 1e-3}  # rollout_test: tolerance
 AUX_T, AUX_XY, AUX_NA, AUX_WEIGHT = 50, 96, 3, 0.7
 TOL_RESIZE = 1e-6  # the trilinear upsample on the card vs the CPU, rel-to-max
 TOL_AUX_STEP = 1e-4  # one aux step on the card vs the CPU (`highest`), relative
+# phase 16: the FNO on NS-2D (configs/config_ns.yaml; the JAX package's
+# experiments/ns_production.py:179: batch 16 for the baseline, 8 with 24 aux
+# samples for aux) on a seeded store of 4 train trajectories x 50 frames (1
+# test), the aux store at 128^2 (48 trajectories x 30 frames, the primary 2 x
+# 30); and the 3D FNO at configs/config_ns_3d.yaml's shape (3 primary, 9 aux
+# trajectories x 20 frames)
+NSF_B, NSF_XY, NSF_C, NSF_TRAJ, NSF_T = 16, 256, 3, 4, 50
+NSF_AUX_B, NSF_AUX_NA, NSF_AUX_XY, NSF_AUX_T = 8, 24, 128, 30
+NS3D_SP, NS3D_C, NS3D_MODES, NS3D_NA, NS3D_TRAJ, NS3D_T = (50, 50, 89), 4, 8, 3, 3, 20
+# one aux step with aux_chunks 4 against 1 (`highest`): the same sums per
+# sample, chunked; remat against no remat (`highest`): the same products
+# recomputed
+TOL_CHUNKS, TOL_REMAT = 1e-5, 1e-6
 
 failures: list[str] = []
 
@@ -657,6 +696,90 @@ def print_mix_wgrad_sass() -> None:
     for kern in sorted(k for k in kernels if k.startswith("mix_wgrad_kernel<")):
         print(f"[build] fno_bwd.cu {kern} in SASS (L global loads, F f32 arithmetic, S global "
               f"stores): {_build.memory_order(kernels[kern])}", flush=True)
+
+
+def plain_call(fname: str, args: tuple):
+    from sciml_pde_torch.ops import fno_kernels as fk
+
+    return getattr(fk, f"{fname}_plain")(*args)
+
+
+def check_kernels(records: dict, tag: str) -> dict:
+    """Every FNO kernel of KERNEL_NAMES against its plain version on the
+    recorded main-path inputs ``records`` (``record_calls``), under the
+    current precision: the error, the same bits for outputs kept in bf16, the
+    bf16-vs-f32 control; its time in events beside its plain version's, its
+    library call's and its bound, then each device time (torch.profiler).
+    Returns the kernel table's rows (launches 0)."""
+    import torch
+    from sciml_pde_torch.ops import fno_kernels as fk
+    from sciml_pde_torch.ops import spectral
+
+    def library_fn(key, fname, args):
+        if key == "fno_stats":
+            return lambda: torch.std_mean(args[0], dim=(1, 3, 4))
+        if key in ("fno_wdft", "fno_wdft.adj"):
+            return lambda: torch.matmul(args[0], args[1])
+        if key == "fno_reduce_rows":
+            return lambda: torch.sum(args[0], dim=0)
+        if key == "fno_mix_wgrad":  # dwr + i dwi = sum_b conj(spec) * dspec
+            x = torch.complex(args[0].float(), args[1].float())
+            gc = torch.complex(args[2], args[3])
+            return lambda: torch.einsum("bckr,bokr->cokr", x.conj(), gc)
+        return None
+
+    kernel_rows = {}
+    for key in fk.KERNEL_NAMES:
+        fname, args, kw = records[key]
+        kfn = getattr(fk, fname)
+        out_k = kfn(*args, **kw)
+        out_p = plain_call(fname, args)
+        worst_abs, raw_rel = worst(out_k, out_p)
+        worst_rel, exact = kernel_rel(fname, args, out_k)
+        # control: the kernel lies nearer its plain version than the plain
+        # version with f32 dot inputs does (kernels that take ``bf``)
+        gap = None
+        if fname not in ("stats", "mix_wgrad", "reduce_rows") and args[-1] is True:
+            gap = worst(plain_call(fname, args[:-1] + (False,)), out_p)[1]
+        torch.cuda.synchronize()
+        check(worst_rel <= TOL_KERNEL and exact and (gap is None or worst_rel < gap / 2),
+              f"{tag} {key}: max abs err {worst_abs:.3e}, rel-to-max {raw_rel:.3e} "
+              f"({worst_rel:.3e} before bf16 rounding; tol {TOL_KERNEL:.0e}; bf16 outputs its "
+              f"f32 values rounded: {exact}; plain bf16-vs-f32 gap "
+              + ("n/a" if gap is None else f"{gap:.3e}") + ")")
+        nbytes = moved_bytes(fname, args, out_k)
+        fl = kernel_flops(fname, args, out_k)
+        peak = PEAK_FLOPS[spectral.get_dft_precision()]
+        bound_s = max(nbytes / HBM_BPS, fl / peak)
+        lib = library_fn(key, fname, args)
+        if key == "fno_mix_wgrad":  # the library call computes the same function
+            got_lib = lib()
+            lib_rel = worst((got_lib.real, got_lib.imag), out_p)[1]
+            check(lib_rel <= TOL_LIBRARY, f"{tag} fno_mix_wgrad's library call (complex64 "
+                  f"einsum of conj(spec) and dspec) vs the plain version: rel-to-max "
+                  f"{lib_rel:.3e} (tol {TOL_LIBRARY:.0e})")
+        kernel_rows[key] = {
+            "name": key, "route": "cuda",
+            "source": f"sciml_pde_torch/ops/csrc/fno_{KERNEL_SOURCE[key]}.cu",
+            "replaces": FWD_SITE if KERNEL_SOURCE[key] == "fwd" else BWD_SITE,
+            "launches": 0, "max_abs_err": worst_abs,
+            "ms": cuda_ms(lambda: kfn(*args, **kw)),
+            "plain_ms": cuda_ms(lambda: plain_call(fname, args)),
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BPS >= fl / peak else "operations",
+            "library_ms": cuda_ms(lib) if lib is not None else None,
+        }
+
+    # every row's device time (torch.profiler), and its library call's
+    for key in fk.KERNEL_NAMES:
+        fname, args, kw = records[key]
+        kfn, lib = getattr(fk, fname), library_fn(key, fname, args)
+        bound_ms = kernel_rows[key]["bound_ms"]
+        kernel_rows[key]["device_ms"] = profiler_ms(lambda: kfn(*args, **kw),
+                                                    FNO_KERNEL_KEYS[key], bound_ms=bound_ms)
+        kernel_rows[key]["library_device_ms"] = (None if lib is None
+                                                 else profiler_ms(lib, bound_ms=bound_ms))
+    return kernel_rows
 
 
 def check_mix_wgrad(dev) -> None:
@@ -1543,15 +1666,14 @@ def make_store(seed: int = 0, n_traj: int = N_TRAJ, n_t: int = N_T, xy: int = XY
     return data, np.stack([gx, gy], axis=-1)
 
 
-def make_ns_store(n_traj: int, n_t: int, seed: int, dev):
-    """Smooth NS-shaped trajectories (N, T, 256, 256, 3) made on the card:
+def make_ns_store(n_traj: int, n_t: int, seed: int, dev, xy: int = NS_MODEL["img_size"]):
+    """Smooth NS-shaped trajectories (N, T, xy, xy, 3) made on the card:
     per channel four travelling, decaying sinusoids with seeded amplitudes,
     wave numbers, phases, speeds and rates."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    xy = NS_MODEL["img_size"]
     lin = torch.linspace(-1, 1, xy, device=dev)
     gx, gy = torch.meshgrid(lin, lin, indexing="ij")
     t = torch.linspace(0, 3, n_t, device=dev)[:, None, None]
@@ -2401,7 +2523,7 @@ def eval_aux_path(dev, card: str, run_dir: Path, store, grid, ds) -> None:
     )
     from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer
     from sciml_pde_torch.utils.checkpoint import restore_checkpoint
-    from sciml_pde_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
+    from sciml_pde_torch.utils.weights import flax_to_state_dict
 
     # ---- the main path's evaluation: the card against the CPU --------------------
     name, cpu_dir = "DR_smoke_FNO", run_dir / "cpu"
@@ -2482,57 +2604,27 @@ def eval_aux_path(dev, card: str, run_dir: Path, store, grid, ds) -> None:
     tree = default_init_tree(CC, MODES, WIDTH, T0, seed=1, aux=True)
     lrs = {"shared": 1e-3, "primary_head": 1e-3, "aux_head": 1e-3}
     idx = np.array([[0, 0], [3, 17], [5, 40], [n_train - 1, 90]])
-    outs = {}
-    for where, data, aux in (("card", ds.train.data, aux_dev),
-                             ("cpu", ds.train.data.cpu(), aux_cpu)):
+
+    def make_aux(where):
         m = FNO2dAux(CC, MODES, MODES, WIDTH, T0)
         m.load_state_dict(flax_to_state_dict(tree))
-        m.to(data.device)
+        m.to(where)
         opt = make_grouped_optimizer(dict(m.named_parameters()), aux_group_of, lrs, 1000)
-        step, _ = build_aux_step(m, opt, T0, 1, AUX_NA, AUX_WEIGHT)
-        losses, g_norm = step(data, aux, torch.from_numpy(grid).to(data.device),
-                              torch.as_tensor(idx, device=data.device))
-        outs[where] = ([float(v) for v in (*losses, g_norm)], state_dict_to_flax(m.state_dict()),
-                       state_dict_to_flax(opt.m), (m, step, data, aux))
-    (lc, tc, mc, card_run), (lw, tw, mw, _) = outs["card"], outs["cpu"]
-    rels = [abs(a - b) / abs(b) for a, b in zip(lc, lw)]
-    # Adam's first moment after one step is 0.1 (g + 1e-4 p): the clipped
-    # gradient it saw, held leaf by leaf.  Its first update is lr g / (|g| +
-    # 1e-8), which turns f32 noise in a gradient near 1e-8 into up to lr / 4e-8
-    # times as much: so the updated parameters are held to the tree's largest
-    # magnitude, and the worst leaf's own reading is printed beside it.
-    mrel = rel_to_max(mc, mw)
-    leaf_rel = {k: rel_to_max(v, flat_leaves(tw)[k]) for k, v in flat_leaves(tc).items()}
-    worst_leaf = max(leaf_rel, key=leaf_rel.get)
-    tree_max = max(float(np.abs(v).max()) for v in flat_leaves(tw).values())
-    prel = max(float(np.abs(np.asarray(v) - np.asarray(flat_leaves(tw)[k])).max())
-               for k, v in flat_leaves(tc).items()) / tree_max
-    check(max(rels) <= TOL_AUX_STEP and mrel <= TOL_AUX_STEP and prel <= TOL_AUX_STEP,
-          f"[aux] one step ({AUX_NA} aux samples, weight {AUX_WEIGHT}, highest) on the card vs "
-          f"the CPU: loss {lc[0]:.6g} ({rels[0]:.3e}), lp {lc[1]:.6g} ({rels[1]:.3e}), la "
-          f"{lc[2]:.6g} ({rels[2]:.3e}), g_norm {lc[3]:.6g} ({rels[3]:.3e}); Adam's first "
-          f"moment, each leaf rel-to-max {mrel:.3e}; updated params {prel:.3e} of the tree's "
-          f"largest magnitude {tree_max:.4g} (tol {TOL_AUX_STEP:.0e}; worst leaf {worst_leaf} "
-          f"{leaf_rel[worst_leaf]:.3e} of its own)")
-    m, step, data, aux = card_run
+        return build_aux_step(m, opt, T0, 1, AUX_NA, AUX_WEIGHT)[0], m, opt
     gd, idx_d = torch.from_numpy(grid).to(dev), torch.as_tensor(idx, device=dev)
+    card_vs_cpu(f"[aux] one step ({AUX_NA} aux samples, weight {AUX_WEIGHT}, highest)",
+                make_aux, (ds.train.data, aux_dev, gd, idx_d),
+                (ds.train.data.cpu(), aux_cpu, torch.from_numpy(grid), torch.as_tensor(idx)),
+                TOL_AUX_STEP)
+    step, data, aux = make_aux(dev)[0], ds.train.data, aux_dev
     spectral.set_dft_precision("default")
-    for _ in range(3):
-        step(data, aux, gd, idx_d)
-    torch.cuda.synchronize()
-    n = 20
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(n):
-        (loss, _, _), _ = step(data, aux, gd, idx_d)
-    e.record()
-    e.synchronize()
-    aux_ms = s.elapsed_time(e) / n
+    aux_ms = timed_steps(lambda: step(data, aux, gd, idx_d), 20)
+    (loss, _, _), _ = step(data, aux, gd, idx_d)
     check(math.isfinite(float(loss)), "[timing] aux step loss finite")
     print(f"[timing] {card}: aux step (default, {B} primary + {B * AUX_NA} aux windows, "
           f"{XY}^2, width {WIDTH}, modes {MODES}) {aux_ms:.4f} ms = {1e3 / aux_ms:.2f} "
           "steps/s (CUDA events, warm)", flush=True)
-    del outs, card_run, m, step, aux_cpu
+    del step, aux_cpu
 
     # ---- aux joint training through the trainer, then its evaluation --------------
     aux_ds = DRAuxDataset(primary_train=ds.train, primary_test=ds.test,
@@ -2738,6 +2830,507 @@ def probe_path(dev, card: str, run_dir: Path) -> dict:
     return launches
 
 
+def make_plume_store(n_traj: int, n_t: int, seed: int, dev):
+    """Smooth plume-shaped trajectories (N, T, 50, 50, 89, 4) made on the
+    card: per channel four travelling, decaying 3D sinusoids with seeded
+    amplitudes, wave numbers, phases, speeds and rates."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    axes = [torch.linspace(-1, 1, n, device=dev) for n in NS3D_SP]
+    gx, gy, gz = torch.meshgrid(*axes, indexing="ij")
+    t = torch.linspace(0, 3, n_t, device=dev)[:, None, None, None]
+    data = torch.zeros(n_traj, n_t, *NS3D_SP, NS3D_C, device=dev)
+    for n in range(n_traj):
+        for c in range(NS3D_C):
+            for _ in range(4):
+                a = rng.normal()
+                kx, ky, kz = (int(k) for k in rng.integers(1, 4, 3))
+                px, py, pz, cz = rng.uniform(0, 2 * np.pi, 4).tolist()
+                lam = rng.uniform(0.1, 0.5)
+                data[n, ..., c] += (a * torch.exp(-lam * t)
+                                    * torch.sin(np.pi * kx * gx + px)
+                                    * torch.cos(np.pi * ky * gy + py)
+                                    * torch.sin(np.pi * kz * gz + pz + cz * t))
+            data[n, ..., c] += 0.1 * rng.normal()
+    return data
+
+
+def timed_steps(step, n: int) -> float:
+    """ms per call of ``step()`` in CUDA events over ``n`` warm calls."""
+    import torch
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        step()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def card_vs_cpu(what: str, make_step, args_card: tuple, args_cpu: tuple, tol: float) -> None:
+    """One step on the card and on the CPU from the same tree (``make_step(dev)
+    -> (step, model, opt)``; ``step(*args) -> (losses, g_norm)``): the losses
+    and the grad norm relative, Adam's first moment leaf by leaf, and the
+    updated parameters against the tree's largest magnitude, each within
+    ``tol`` (phase 4b's rule: Adam's first update amplifies f32 noise in
+    gradients near 1e-8, so single leaves are printed, not checked)."""
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.utils.weights import state_dict_to_flax
+
+    outs = {}
+    for where, args in (("card", args_card), ("cpu", args_cpu)):
+        step, model, opt = make_step(args[0].device)
+        losses, g_norm = step(*args)
+        losses = losses if isinstance(losses, tuple) else (losses,)
+        outs[where] = ([float(v) for v in (*losses, g_norm)], state_dict_to_flax(model.state_dict()),
+                       state_dict_to_flax(opt.m))
+    (lc, tc, mc), (lw, tw, mw) = outs["card"], outs["cpu"]
+    rels = [abs(a - b) / abs(b) for a, b in zip(lc, lw)]
+    mrel = rel_to_max(mc, mw)
+    fc, fw = flat_leaves(tc), flat_leaves(tw)
+    tree_max = max(float(np.abs(v).max()) for v in fw.values())
+    prel = max(float(np.abs(np.asarray(v) - np.asarray(fw[k])).max()) for k, v in fc.items())
+    leaf = {k: rel_to_max(v, fw[k]) for k, v in fc.items()}
+    worst_leaf = max(leaf, key=leaf.get)
+    check(max(rels) <= tol and mrel <= tol and prel / tree_max <= tol,
+          f"{what} on the card vs the CPU: losses and grad norm "
+          + ", ".join(f"{v:.6g} ({r:.3e})" for v, r in zip(lc, rels))
+          + f"; Adam's first moment, each leaf rel-to-max {mrel:.3e}; updated params "
+          f"{prel / tree_max:.3e} of the tree's largest magnitude {tree_max:.4g} (tol "
+          f"{tol:.0e}; worst leaf {worst_leaf} {leaf[worst_leaf]:.3e} of its own)")
+    torch.cuda.synchronize()
+
+
+def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
+    """Phase 16: the FNO on NS-2D at full width (the fused baseline through the
+    kernels, the production step and its knobs, NS aux joint training) and
+    the 3D FNO on the plume shape.  Returns each FNO kernel's launches in the
+    NS fused epoch."""
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.data.dr import resize_linear
+    from sciml_pde_torch.data.ns import NSAuxDataset, NSBaselineDataset, ns_aux_row_map, unit_grid
+    from sciml_pde_torch.data.ns3d import NS3DAuxDataset, unit_grid_3d
+    from sciml_pde_torch.data.windows import WindowedTrajectories, gather_windows
+    from sciml_pde_torch.eval.rollout import METRIC_NAMES
+    from sciml_pde_torch.metrics import nrmse_loss
+    from sciml_pde_torch.models.fno import FNO2d, FNO3d
+    from sciml_pde_torch.ops import fno_fused_step as ff
+    from sciml_pde_torch.ops import fno_kernels as fk
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.sim import lie
+    from sciml_pde_torch.train import fast_step as fs
+    from sciml_pde_torch.train.fno_train import (
+        build_aux_step,
+        build_baseline_step,
+        default_init_tree,
+        evaluate_checkpoint,
+        make_fno,
+        train_aux,
+        train_baseline,
+    )
+    from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer, make_optimizer
+    from sciml_pde_torch.utils.checkpoint import restore_checkpoint
+    from sciml_pde_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
+
+    t_phase = time.perf_counter()
+    xy, cc, b = NSF_XY, NSF_C, NSF_B
+    shape = f"batch {b}, {xy}^2, {cc} channels, width {WIDTH}, modes {MODES}"
+
+    # ---- 16a. the fused NS-2D baseline through the kernels ----------------------
+    tree = default_init_tree(cc, MODES, WIDTH, T0, seed=1)
+    p = ff.pack_params(tree, MODES, MODES, dev)
+    store = make_ns_store(NSF_TRAJ + 1, NSF_T, seed=11, dev=dev, xy=xy)
+    grid_np = unit_grid(xy, xy)
+    grid = torch.from_numpy(grid_np).to(dev)
+    grid2 = grid.permute(2, 0, 1).contiguous()
+    train_w = WindowedTrajectories(store[:NSF_TRAJ], grid_np, initial_step=T0, train=True,
+                                   device=dev)
+    test_w = WindowedTrajectories(store[NSF_TRAJ:, :T0 + 1], grid_np, initial_step=T0,
+                                  train=False, device=dev)
+    widx = train_w.window_index()
+    rng = np.random.default_rng(12)
+    batches = [torch.as_tensor(widx[rng.choice(len(widx), b, replace=False)], dtype=torch.long,
+                               device=dev) for _ in range(PROD_STEPS)]
+    win, _ = fs.fast_gather(train_w.data, batches[0], T0)
+    cot = torch.randn(b, cc, xy, xy, generator=torch.Generator().manual_seed(13)).to(dev)
+    names = ["pred"] + [f"d{n}" for n in ff.FastFNOParams._fields]
+    plain_outs = {}
+    for prec in ("highest", "default"):
+        spectral.set_dft_precision(prec)
+        pk = ff.FastFNOParams(*(t.detach().clone().requires_grad_(True) for t in p))
+        pred = ff.fno2d_fused_apply(win, grid2, pk, MODES, MODES, PAD)
+        (pred * cot).sum().backward()
+        plain_outs[prec] = ([ff.fno2d_fused_reference(win, grid2, p, MODES, MODES, PAD)]
+                            + list(ff.fno2d_fused_vjp_reference(cot, win, grid2, p, MODES,
+                                                                MODES, PAD)))
+        for name, got, ref in zip(names, [pred.detach()] + [a.grad for a in pk],
+                                  plain_outs[prec]):
+            err, rel = rel_err(got, ref)
+            check(bool(torch.isfinite(got).all()) and rel <= TOL[prec],
+                  f"[ns check {prec}] {name} at {tuple(win.shape)}: max abs err {err:.3e}, "
+                  f"rel-to-max {rel:.3e} (tol {TOL[prec]:.0e})")
+        del pk, pred
+    gaps = {n: rel_err(lo, hi)[1]
+            for n, lo, hi in zip(names, plain_outs["default"], plain_outs["highest"])}
+    check(max(gaps.values()) > 2 * TOL["default"],
+          f"[ns check] the default tolerance {TOL['default']:.0e} lies below half the largest "
+          f"plain bf16-vs-f32 gap ({max(gaps.values()):.3e}; "
+          + ", ".join(f"{n} {v:.3e}" for n, v in gaps.items()) + ")")
+    del plain_outs
+
+    # every FNO kernel against its plain version at this shape (`default`)
+    spectral.set_dft_precision("default")
+    records, _ = record_calls(win, grid2, cot, p)
+    # reduce_rows at the shape the head backward hands it at this size
+    part = torch.randn(fk.head_bwd_rows(b * xy * xy), NH * WIDTH + NH + cc * NH + cc,
+                       generator=torch.Generator().manual_seed(15)).to(dev)
+    records["fno_reduce_rows"] = ("reduce_rows", (part,), {})
+    rows = check_kernels(records, "[ns kernel]")
+    for key in fk.KERNEL_NAMES:
+        r = rows[key]
+        lib = ("n/a" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms (profiler device time {fmt(r['library_device_ms'])})")
+        print(f"[ns timing] {card}: {key} at the NS shape: {r['ms']:.4f} ms/launch (profiler "
+              f"device time {fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib}", flush=True)
+    del records
+
+    # one epoch of the fused step through the trainer: the path's launches
+    ds = NSBaselineDataset(train=train_w, test=test_w)
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_baseline(ds, modes=MODES, width=WIDTH, initial_step=T0, num_channels=cc,
+                         batch_size=b, epochs=1, learning_rate=1e-3, seed=0,
+                         run_dir=str(run_dir), model_name="NS_smoke_fused_FNO", log_every=0,
+                         fast_step=True, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    h = res.history[0]
+    print(f"[ns train] {card}: fused step, {len(widx) // b} steps + val in {train_s:.3f} s "
+          f"({shape}): first step loss {h['first_step_loss']:.6g}, last step loss "
+          f"{h['last_step_loss']:.6g}, epoch train loss {h['train_loss']:.6g}, val loss "
+          f"{h['val_loss']:.6g}; launches {json.dumps(launches)}", flush=True)
+    check(all(math.isfinite(h[k]) for k in ("first_step_loss", "last_step_loss", "train_loss",
+                                            "val_loss"))
+          and h["last_step_loss"] < h["first_step_loss"]
+          and (run_dir / "NS_smoke_fused_FNO_ckpt.pt").exists(),
+          "[ns train] fused NS epoch: losses finite, the last step below the first, a "
+          "best-val checkpoint")
+    for key in fk.KERNEL_NAMES:
+        check(launches[key] > 0, f"[ns train] the NS fused path launched {key} "
+              f"({launches[key]}x)")
+    theta, spec = fs.fast_state_from_tree(tree, MODES, dev)
+    fopt = fs.init_opt(theta)
+    fstep, _ = fs.build_fast_baseline_step(MODES, T0, spec, 1e-3, 10_000)
+
+    def fused_step():
+        nonlocal theta, fopt
+        theta, fopt, _, _ = fstep(theta, fopt, train_w.data, grid2, batches[0])
+    fused_ms = timed_steps(fused_step, 20)
+    print(f"[ns timing] {card}: fused step {fused_ms:.4f} ms = {1e3 / fused_ms:.2f} steps/s "
+          f"({shape}, default; CUDA events over 20 warm steps)", flush=True)
+
+    def fused_steps():
+        for _ in range(10):
+            fused_step()
+    device_profile(card, fused_steps, 10, "step", fused_ms, tuple(set(FNO_KERNEL_KEYS.values())))
+    del theta, fopt, fstep
+
+    # ---- 16b. the production step at the NS shape ---------------------------------
+    spectral.set_dft_precision("highest")
+    model = FNO2d(cc, MODES, MODES, WIDTH, T0)
+    model.load_state_dict(flax_to_state_dict(tree))
+    model.to(dev)
+    params = dict(model.named_parameters())
+    step, _ = build_baseline_step(model, make_optimizer(params, 1e-3, 10_000), T0, 1)
+    theta, spec = fs.fast_state_from_tree(tree, MODES, dev)
+    fopt = fs.init_opt(theta)
+    fstep, _ = fs.build_fast_baseline_step(MODES, T0, spec, 1e-3, 10_000)
+    worst_rel = {"loss": 0.0, "grad norm": 0.0}
+    for idx in batches:
+        loss_p, gn_p = step(train_w.data, grid, idx)
+        theta, fopt, loss_f, gn_f = fstep(theta, fopt, train_w.data, grid2, idx)
+        for key, x, y in (("loss", loss_f, loss_p), ("grad norm", gn_f, gn_p)):
+            worst_rel[key] = max(worst_rel[key], abs(float(x) - float(y)) / abs(float(y)))
+    got = flat_leaves(fs.tree_from_fast_state(theta, spec, MODES))
+    want = flat_leaves(state_dict_to_flax(params))
+    excess = max(((got[k].to(dev) - torch.as_tensor(v, device=dev)).abs()
+                  - PARAM_RTOL * torch.as_tensor(v, device=dev).abs()).max().item()
+                 for k, v in want.items())
+    check(max(worst_rel.values()) <= PROD_RTOL and excess <= PARAM_ATOL,
+          f"[ns step] {PROD_STEPS} production steps vs fused steps ({shape}, highest): worst "
+          f"rel loss {worst_rel['loss']:.3e}, grad norm {worst_rel['grad norm']:.3e} (rtol "
+          f"{PROD_RTOL:.0e}); params |a-b| - {PARAM_RTOL:.0e}|b| at most {excess:.3e} (atol "
+          f"{PARAM_ATOL:.0e})")
+    del theta, fopt, fstep
+    spectral.set_dft_precision("default")
+    prod_ms = timed_steps(lambda: step(train_w.data, grid, batches[0]), 10)
+    print(f"[ns timing] {card}: production step (dft2, default) {prod_ms:.4f} ms = "
+          f"{1e3 / prod_ms:.2f} steps/s ({shape}; CUDA events over 10 warm steps)", flush=True)
+
+    def prod_steps():
+        for _ in range(5):
+            step(train_w.data, grid, batches[0])
+    device_profile(card, prod_steps, 5, "step", prod_ms, ())
+    del model, params, step
+
+    # primary_store_dtype="bf16": the train store in bf16 through the trainer
+    ds_bf = NSBaselineDataset(
+        train=WindowedTrajectories(store[:NSF_TRAJ], grid_np, initial_step=T0, train=True,
+                                   device=dev, dtype=torch.bfloat16), test=test_w)
+    res = train_baseline(ds_bf, modes=MODES, width=WIDTH, initial_step=T0, num_channels=cc,
+                         batch_size=b, epochs=1, seed=0, run_dir=str(run_dir),
+                         model_name="NS_smoke_bf16_FNO", log_every=0, fast_step=False,
+                         device=dev)
+    h = res.history[0]
+    check(ds_bf.train.data.dtype == torch.bfloat16
+          and all(math.isfinite(h[k]) for k in ("first_step_loss", "train_loss", "val_loss")),
+          f"[ns step] production epoch on a bf16 train store ({ds_bf.train.data.numel() * 2} "
+          f"bytes): train loss {h['train_loss']:.6g}, val loss {h['val_loss']:.6g}, finite")
+    del ds_bf
+
+    # lie_augment: one step on the card and on the CPU, both samplers fixed
+    spectral.set_dft_precision("highest")
+    vec = torch.tensor([0.05, -0.07, 0.03, 0.02, -0.1, 0.15, -0.12, 0.04, -0.03])
+    sampler = lie.sample_strengths
+    lie.sample_strengths = lambda gen, batch, device=None: vec.to(device).expand(batch, 9)
+    data_cpu, grid_cpu, idx_cpu = train_w.data.cpu(), grid.cpu(), batches[1].cpu()
+
+    def lie_step(where):
+        m = FNO2d(cc, MODES, MODES, WIDTH, T0)
+        m.load_state_dict(flax_to_state_dict(tree))
+        m.to(where)
+        opt = make_optimizer(dict(m.named_parameters()), 1e-3, 10_000)
+        st, _ = build_baseline_step(m, opt, T0, 1, lie_augment=True)
+        return st, m, opt
+    try:
+        card_vs_cpu(f"[ns lie] one lie_augment step ({shape}, highest, strengths "
+                    f"{vec.tolist()})", lie_step, (train_w.data, grid, batches[1]),
+                    (data_cpu, grid_cpu, idx_cpu), TOL_AUX_STEP)
+    finally:
+        lie.sample_strengths = sampler
+    del data_cpu
+
+    # remat: the same loss and gradients, less memory
+    x, y = gather_windows(train_w.data, batches[2], T0, 1)
+    gb = grid.expand(b, *grid.shape)
+    res_r = {}
+    for remat in (False, True):
+        m = FNO2d(cc, MODES, MODES, WIDTH, T0, remat=remat)
+        m.load_state_dict(flax_to_state_dict(tree))
+        m.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = nrmse_loss(m(x, gb), y)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        res_r[remat] = (float(loss.detach()), grads, (torch.cuda.max_memory_allocated() - base) / 2**20)
+        del m
+    grel = max(rel_err(a, c)[1] for a, c in zip(res_r[True][1], res_r[False][1]))
+    lrel = abs(res_r[True][0] - res_r[False][0]) / abs(res_r[False][0])
+    check(lrel <= TOL_REMAT and grel <= TOL_REMAT,
+          f"[ns remat] {card}: remat=True vs False ({shape}, highest): loss {lrel:.3e}, "
+          f"gradients rel-to-max {grel:.3e} (tol {TOL_REMAT:.0e}); peak memory above the "
+          f"inputs {res_r[True][2]:.1f} MiB (remat) vs {res_r[False][2]:.1f} MiB")
+    del res_r, x, y, gb
+
+    # ---- 16c. NS aux at full width ---------------------------------------------
+    na = NSF_AUX_NA
+    prim = store[:2, :NSF_AUX_T]
+    aux = make_ns_store(2 * na, NSF_AUX_T, seed=14, dev=dev, xy=NSF_AUX_XY)
+    row_map = ns_aux_row_map([[0, 1]], na, 2)  # one primary file of 2, 24 aux files of 2
+    aux_ds = NSAuxDataset(
+        primary_train=WindowedTrajectories(prim, grid_np, initial_step=T0, train=True,
+                                           device=dev),
+        primary_test=test_w,
+        aux_train=WindowedTrajectories(aux, grid_np, initial_step=T0, train=True, device=dev),
+        aux_row_map=row_map)
+    awidx = aux_ds.primary_train.window_index()
+    aidx = torch.as_tensor(awidx[rng.choice(len(awidx), NSF_AUX_B, replace=False)],
+                           dtype=torch.long, device=dev)
+    tree_a = default_init_tree(cc, MODES, WIDTH, T0, seed=2, aux=True)
+    lrs = {"shared": 1e-3, "primary_head": 1e-3, "aux_head": 1e-3}
+    aux_shape = (f"{NSF_AUX_B} primary at {xy}^2 + {NSF_AUX_B * na} aux windows at "
+                 f"{NSF_AUX_XY}^2")
+
+    def aux_step(where, n_aux=na, rmap=row_map, **kw):
+        m = make_fno(cc, MODES, WIDTH, T0, aux=True)
+        m.load_state_dict(flax_to_state_dict(tree_a))
+        m.to(where)
+        opt = make_grouped_optimizer(dict(m.named_parameters()), aux_group_of, lrs, 1000)
+        st, _ = build_aux_step(m, opt, T0, 1, n_aux, AUX_WEIGHT, aux_row_map=rmap, **kw)
+        return st, m, opt
+
+    spectral.set_dft_precision("highest")
+    chunk_out = {}
+    for chunks in (1, 4):
+        st, _, _ = aux_step(dev, aux_chunks=chunks, aux_resize_to=(xy, xy))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, g_norm = st(prim, aux, grid, aidx)
+        torch.cuda.synchronize()
+        chunk_out[chunks] = ([float(v) for v in (*losses, g_norm)],
+                             (torch.cuda.max_memory_allocated() - base) / 2**20)
+        del st
+    rels = [abs(x - y) / abs(y) for x, y in zip(chunk_out[4][0], chunk_out[1][0])]
+    check(max(rels) <= TOL_CHUNKS,
+          f"[ns aux] {card}: one step upsampled in the step ({aux_shape}, highest), "
+          f"aux_chunks 4 vs 1: loss, lp, la, grad norm "
+          + ", ".join(f"{v:.6g} ({r:.3e})" for v, r in zip(chunk_out[4][0], rels))
+          + f" (tol {TOL_CHUNKS:.0e}); peak memory above the stores "
+          f"{chunk_out[4][1]:.1f} MiB (4 chunks) vs {chunk_out[1][1]:.1f} MiB (1)")
+    spectral.set_dft_precision("default")
+    native = resize_linear(grid, {0: NSF_AUX_XY, 1: NSF_AUX_XY})
+    for what, data_a, kw, profiled in (
+            ("aux_chunks 4, upsampled in the step (train_aux's setting below)", aux,
+             dict(aux_resize_to=(xy, xy), aux_chunks=4), True),
+            ("aux_native_compute (the aux stream at 128^2)", aux, dict(aux_native_grid=native),
+             False),
+            ("aux_store_dtype bf16, upsampled in the step", aux.to(torch.bfloat16),
+             dict(aux_resize_to=(xy, xy), aux_chunks=4), False)):
+        st, _, _ = aux_step(dev, **kw)
+        ms = timed_steps(lambda: st(prim, data_a, grid, aidx), 3)
+        (loss, lp, la), g_norm = st(prim, data_a, grid, aidx)
+        check(all(math.isfinite(float(v)) for v in (loss, lp, la, g_norm)),
+              f"[ns aux] {card}: one step under {what} ({aux_shape}, default): loss "
+              f"{float(loss):.6g}, lp {float(lp):.6g}, la {float(la):.6g}, finite; "
+              f"{ms:.4f} ms a step (CUDA events over 3 warm steps)")
+        if profiled:
+            def aux_steps():
+                for _ in range(3):
+                    st(prim, data_a, grid, aidx)
+            device_profile(card, aux_steps, 3, "step", ms, ())
+        del st
+    spectral.set_dft_precision("highest")
+    prim_cpu, aux_cpu, grid_cpu = prim.cpu(), aux.cpu(), grid.cpu()
+    card_vs_cpu("[ns aux] one aux step at a reduced batch (2 primary + 4 aux windows: the "
+                f"full {NSF_AUX_B} + {NSF_AUX_B * na} at {xy}^2 are too slow on the CPU; "
+                "upsampled in the step, row map, highest)",
+                lambda where: aux_step(where, n_aux=2, rmap=row_map[:, :2],
+                                       aux_resize_to=(xy, xy)),
+                (prim, aux, grid, aidx[:2]), (prim_cpu, aux_cpu, grid_cpu, aidx[:2].cpu()),
+                TOL_AUX_STEP)
+    del prim_cpu, aux_cpu
+    spectral.set_dft_precision("default")
+    t0 = time.perf_counter()
+    res = train_aux(aux_ds, modes=MODES, width=WIDTH, initial_step=T0, num_channels=cc,
+                    batch_size=NSF_AUX_B, epochs=2, num_aux_samples=na,
+                    auxiliary_weight=AUX_WEIGHT, aux_chunks=4, seed=0, run_dir=str(run_dir),
+                    model_name="NS_smoke_aux_FNO", log_every=0, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = len(awidx) // NSF_AUX_B
+    ck_path = run_dir / "NS_smoke_aux_FNO_ckpt.pt"
+    ck = restore_checkpoint(ck_path) if ck_path.exists() else {"meta": {}, "params": {}}
+    best = min(res.history, key=lambda hh: hh["val_loss"])
+    vals = [v for hh in res.history for v in (hh["train_loss"], hh["val_loss"])]
+    print(f"[ns aux] {card}: train_aux, 2 epochs x {steps} steps ({aux_shape}, aux_chunks 4, "
+          f"default) + val in {train_s:.3f} s ({train_s / (2 * steps):.3f} s a step with the "
+          "epoch's validation): "
+          + "; ".join(f"epoch {hh['epoch']} train loss {hh['train_loss']:.6g}, val loss "
+                      f"{hh['val_loss']:.6g}" for hh in res.history), flush=True)
+    check(all(map(math.isfinite, vals)) and ck["meta"].get("epoch") == best["epoch"]
+          and sorted(ck["params"]) == ["backbone", "fc2_auxiliary", "fc2_primary"],
+          f"[ns aux] losses finite; the checkpoint holds the best primary val loss's epoch "
+          f"({best['epoch']}) and both heads")
+    ev = evaluate_checkpoint(test_w, if_aux=True, rollout_test=1, run_dir=str(run_dir),
+                             modes=MODES, width=WIDTH, batch_size=NSF_AUX_B,
+                             model_name="NS_smoke_aux_FNO", device=dev).history[0]
+    print(f"[ns eval] {card}: the NS aux checkpoint's primary head at rollout 1: "
+          + ", ".join(f"{k} {ev[k]:.6g}" for k in METRIC_NAMES), flush=True)
+    check(all(math.isfinite(ev[k]) for k in METRIC_NAMES),
+          "[ns eval] the NS aux checkpoint's six metrics finite")
+    del aux_ds, aux, prim, store, train_w
+    torch.cuda.empty_cache()
+
+    # ---- 16d. the 3D FNO at the plume shape ---------------------------------------
+    sp3 = f"{NS3D_SP}, {NS3D_C} channels, width {WIDTH}, modes {NS3D_MODES}, batch 1"
+    grid3_np = unit_grid_3d(*NS3D_SP)
+    grid3 = torch.from_numpy(grid3_np).to(dev)
+    prim3 = make_plume_store(NS3D_TRAJ, NS3D_T, seed=21, dev=dev)
+    test3 = make_plume_store(1, T0 + 1, seed=22, dev=dev)
+    aux3 = make_plume_store(NS3D_TRAJ * NS3D_NA, NS3D_T, seed=23, dev=dev)
+    tree3 = default_init_tree(NS3D_C, NS3D_MODES, WIDTH, T0, seed=3, ndim=3)
+    spectral.set_dft_precision("highest")
+    m3 = FNO3d(NS3D_C, NS3D_MODES, NS3D_MODES, NS3D_MODES, WIDTH, T0)
+    m3.load_state_dict(flax_to_state_dict(tree3))
+    x3, _ = gather_windows(prim3, torch.tensor([[0, 3]], device=dev), T0, 1)
+    with torch.no_grad():
+        on_cpu = m3(x3.cpu(), grid3.cpu()[None])
+        on_card = m3.to(dev)(x3, grid3[None]).cpu()
+    err, rel = rel_err(on_card, on_cpu)
+    check(on_card.shape == (1, *NS3D_SP, 1, NS3D_C) and rel <= TOL_FORWARD,
+          f"[ns3d] plain FNO3d forward ({sp3}, highest) on the card vs the CPU in f32: max abs "
+          f"err {err:.3e}, rel-to-max {rel:.3e} (tol {TOL_FORWARD:.0e})")
+    spectral.set_dft_precision("default")
+    params3 = dict(m3.named_parameters())
+    st3, _ = build_baseline_step(m3, make_optimizer(params3, 1e-3, 10_000), T0, 1)
+    i3 = torch.tensor([[1, 2]], device=dev)
+    ms3 = timed_steps(lambda: st3(prim3, grid3, i3), 10)
+    print(f"[ns3d timing] {card}: production step of FNO3d (dft2, default, {sp3}) "
+          f"{ms3:.4f} ms = {1e3 / ms3:.2f} steps/s (CUDA events over 10 warm steps)", flush=True)
+
+    def steps3():
+        for _ in range(10):
+            st3(prim3, grid3, i3)
+    device_profile(card, steps3, 10, "step", ms3, ())
+    del m3, st3, params3
+    test3_w = WindowedTrajectories(test3, grid3_np, initial_step=T0, train=False, device=dev)
+    train3_w = WindowedTrajectories(prim3, grid3_np, initial_step=T0, train=True, device=dev)
+    runs = (("baseline", "NS3D_smoke_FNO", False),
+            ("aux (nA 3)", "NS3D_smoke_aux_FNO", True))
+    for what, name, if_aux in runs:
+        t0 = time.perf_counter()
+        kw = dict(modes=NS3D_MODES, width=WIDTH, initial_step=T0, num_channels=NS3D_C,
+                  batch_size=1, epochs=2, seed=0, run_dir=str(run_dir), model_name=name,
+                  log_every=0, device=dev)
+        if if_aux:
+            res = train_aux(NS3DAuxDataset(
+                primary_train=train3_w, primary_test=test3_w,
+                aux_train=WindowedTrajectories(aux3, grid3_np, initial_step=T0, train=True,
+                                               device=dev)),
+                num_aux_samples=NS3D_NA, auxiliary_weight=AUX_WEIGHT, **kw)
+        else:
+            res = train_baseline(NSBaselineDataset(train=train3_w, test=test3_w),
+                                 fast_step=False, **kw)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        hs = res.history
+        n3 = len(train3_w.window_index())
+        ev = evaluate_checkpoint(test3_w, if_aux=if_aux, rollout_test=1, run_dir=str(run_dir),
+                                 modes=NS3D_MODES, width=WIDTH, batch_size=1,
+                                 model_name=name, device=dev).history[0]
+        print(f"[ns3d train] {card}: {what}, 2 epochs x {n3} steps + val in {train_s:.3f} s: "
+              + "; ".join(f"epoch {hh['epoch']} train loss {hh['train_loss']:.6g}, val loss "
+                          f"{hh['val_loss']:.6g}" for hh in hs)
+              + "; evaluation at rollout 1: "
+              + ", ".join(f"{k} {ev[k]:.6g}" for k in METRIC_NAMES), flush=True)
+        check(len(hs) == 2 and all(math.isfinite(v) for hh in hs
+                                   for v in (hh["train_loss"], hh["val_loss"]))
+              and hs[1]["train_loss"] < hs[0]["train_loss"]
+              and (run_dir / f"{name}_ckpt.pt").exists()
+              and all(math.isfinite(ev[k]) for k in METRIC_NAMES),
+              f"[ns3d train] {what}: finite losses, the second epoch's train loss below the "
+              "first's, a checkpoint, six finite metrics from it")
+    del prim3, aux3, test3
+    torch.cuda.empty_cache()
+    print(f"[ns] {card}: phase 16 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "sciml_pde_torch" / "ops" / "csrc").is_dir():
@@ -2921,73 +3514,7 @@ def main() -> int:
     records["fno_reduce_rows"] = ("reduce_rows", (part,), {})
     torch.cuda.synchronize()
 
-    def plain_call(fname, args, kw):
-        return getattr(fk, f"{fname}_plain")(*args)
-
-    def library_fn(key, fname, args):
-        if key == "fno_stats":
-            return lambda: torch.std_mean(args[0], dim=(1, 3, 4))
-        if key in ("fno_wdft", "fno_wdft.adj"):
-            return lambda: torch.matmul(args[0], args[1])
-        if key == "fno_reduce_rows":
-            return lambda: torch.sum(args[0], dim=0)
-        if key == "fno_mix_wgrad":  # dwr + i dwi = sum_b conj(spec) * dspec
-            x = torch.complex(args[0].float(), args[1].float())
-            gc = torch.complex(args[2], args[3])
-            return lambda: torch.einsum("bckr,bokr->cokr", x.conj(), gc)
-        return None
-
-    kernel_rows = {}
-    for key in fk.KERNEL_NAMES:
-        fname, args, kw = records[key]
-        kfn = getattr(fk, fname)
-        out_k = kfn(*args, **kw)
-        out_p = plain_call(fname, args, kw)
-        worst_abs, raw_rel = worst(out_k, out_p)
-        worst_rel, exact = kernel_rel(fname, args, out_k)
-        # control: the kernel lies nearer its plain version than the plain
-        # version with f32 dot inputs does (kernels that take ``bf``)
-        gap = None
-        if fname not in ("stats", "mix_wgrad", "reduce_rows") and args[-1] is True:
-            gap = worst(plain_call(fname, args[:-1] + (False,), kw), out_p)[1]
-        torch.cuda.synchronize()
-        check(worst_rel <= TOL_KERNEL and exact and (gap is None or worst_rel < gap / 2),
-              f"[kernel] {key}: max abs err {worst_abs:.3e}, rel-to-max {raw_rel:.3e} "
-              f"({worst_rel:.3e} before bf16 rounding; tol {TOL_KERNEL:.0e}; bf16 outputs its "
-              f"f32 values rounded: {exact}; plain bf16-vs-f32 gap "
-              + ("n/a" if gap is None else f"{gap:.3e}") + ")")
-        nbytes = moved_bytes(fname, args, out_k)
-        fl = kernel_flops(fname, args, out_k)
-        peak = PEAK_FLOPS[spectral.get_dft_precision()]
-        bound_s = max(nbytes / HBM_BPS, fl / peak)
-        lib = library_fn(key, fname, args)
-        if key == "fno_mix_wgrad":  # the library call computes the same function
-            got_lib = lib()
-            lib_rel = worst((got_lib.real, got_lib.imag), out_p)[1]
-            check(lib_rel <= TOL_LIBRARY, f"[kernel] fno_mix_wgrad's library call (complex64 "
-                  f"einsum of conj(spec) and dspec) vs the plain version: rel-to-max "
-                  f"{lib_rel:.3e} (tol {TOL_LIBRARY:.0e})")
-        kernel_rows[key] = {
-            "name": key, "route": "cuda",
-            "source": f"sciml_pde_torch/ops/csrc/fno_{KERNEL_SOURCE[key]}.cu",
-            "replaces": FWD_SITE if KERNEL_SOURCE[key] == "fwd" else BWD_SITE,
-            "launches": 0, "max_abs_err": worst_abs,
-            "ms": cuda_ms(lambda: kfn(*args, **kw)),
-            "plain_ms": cuda_ms(lambda: plain_call(fname, args, kw)),
-            "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BPS >= fl / peak else "operations",
-            "library_ms": cuda_ms(lib) if lib is not None else None,
-        }
-
-    # every row's device time (torch.profiler), and its library call's
-    for key in fk.KERNEL_NAMES:
-        fname, args, kw = records[key]
-        kfn, lib = getattr(fk, fname), library_fn(key, fname, args)
-        bound_ms = kernel_rows[key]["bound_ms"]
-        kernel_rows[key]["device_ms"] = profiler_ms(lambda: kfn(*args, **kw),
-                                                    FNO_KERNEL_KEYS[key], bound_ms=bound_ms)
-        kernel_rows[key]["library_device_ms"] = (None if lib is None
-                                                 else profiler_ms(lib, bound_ms=bound_ms))
+    kernel_rows = check_kernels(records, "[kernel]")
     check_mix_wgrad(dev)
     check_stats(dev)
     check_wdft(dev, card, records["fno_wdft"][1][0], records["fno_wdft.adj"][1][0],
@@ -3096,6 +3623,11 @@ def main() -> int:
     for name, row in split_rows.items():
         row["launches"] = path_launches[name]
     kernel_rows.update(split_rows)
+
+    # ---- 16. the FNO on NS-2D and 3D NS -----------------------------------------
+    ns_launches = ns_fno_path(dev, card, run_dir)
+    for key in fk.KERNEL_NAMES:
+        kernel_rows[key]["ns_launches"] = ns_launches[key]
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,

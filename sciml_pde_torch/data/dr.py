@@ -151,14 +151,14 @@ def _linear_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
 
 
-def _resize_trilinear(data, target_thw: tuple[int, int, int], device=None) -> torch.Tensor:
-    """(N, T', H', W', C) -> (N, T, H, W, C) on ``device``: JAX's linear
-    ``jax.image.resize`` as three products, one per axis that changes, with
-    weights built in f64 and applied in f32.  It equals
-    ``F.interpolate(mode="trilinear", align_corners=False)`` where every axis
-    grows; where one shrinks, JAX's kernel, and so this one, antialiases."""
-    x = torch.as_tensor(data, dtype=torch.float32, device=device)
-    for axis, n_out in zip((1, 2, 3), target_thw):
+def resize_linear(x: torch.Tensor, sizes: dict[int, int]) -> torch.Tensor:
+    """JAX's linear ``jax.image.resize`` of ``x`` along each ``axis: n_out``
+    of ``sizes``: one product per axis that changes, with weights built in
+    f64 and applied in f32 on ``x``'s device.  It equals ``F.interpolate``'s
+    linear modes (``align_corners=False``) where every axis grows; where one
+    shrinks, JAX's kernel, and so this one, antialiases."""
+    x = x.float()
+    for axis, n_out in sizes.items():
         n_in = x.shape[axis]
         if n_in == n_out:
             continue
@@ -166,6 +166,13 @@ def _resize_trilinear(data, target_thw: tuple[int, int, int], device=None) -> to
                             device=x.device)
         x = torch.movedim(torch.tensordot(x, w, dims=([axis], [0])), -1, axis)
     return x.contiguous()
+
+
+def _resize_trilinear(data, target_thw: tuple[int, int, int], device=None) -> torch.Tensor:
+    """(N, T', H', W', C) -> (N, T, H, W, C) on ``device`` (``resize_linear``
+    over axes 1-3)."""
+    x = torch.as_tensor(data, device=device)
+    return resize_linear(x, dict(zip((1, 2, 3), target_thw)))
 
 
 def load_dr_aux(

@@ -32,11 +32,14 @@ def gather_windows(data: torch.Tensor, idx: torch.Tensor, initial_step: int, rol
 class WindowedTrajectories:
     """A trajectory store (a device tensor) with its grid and window
     bookkeeping.  ``train=True`` enumerates every sliding window;
-    ``train=False`` exposes one window per trajectory at t0 = 0."""
+    ``train=False`` exposes one window per trajectory at t0 = 0.  The store
+    is f32, or ``dtype`` (``torch.bfloat16`` halves a large train store;
+    the steps cast gathered windows to f32 before any compute); f32 data
+    converts to bf16 rounding to nearest even, as ``ml_dtypes`` does."""
 
     def __init__(self, data, grid, *, initial_step: int, rollout: int = 1,
-                 train: bool = True, device=None):
-        self.data = torch.as_tensor(data, dtype=torch.float32, device=device)
+                 train: bool = True, device=None, dtype=torch.float32):
+        self.data = torch.as_tensor(data, dtype=dtype, device=device)
         self.grid = torch.as_tensor(grid, dtype=torch.float32, device=device)
         self.initial_step = int(initial_step)
         self.rollout = int(rollout)

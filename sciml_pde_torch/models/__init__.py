@@ -1,5 +1,5 @@
 """Neural operator models."""
 
-from sciml_pde_torch.models.fno import FNO2d, FNO2dAux
+from sciml_pde_torch.models.fno import FNO2d, FNO2dAux, FNO3d, FNO3dAux
 
-__all__ = ["FNO2d", "FNO2dAux"]
+__all__ = ["FNO2d", "FNO2dAux", "FNO3d", "FNO3dAux"]

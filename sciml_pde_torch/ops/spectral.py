@@ -13,7 +13,8 @@ inverse is the adjoint pair with Hermitian doubling along the rfft axis.
 ``impl="dft2"`` packs each complex contraction of that chain into one real
 contraction with the block factor [[Br, Bi], [-Bi, Br]] (the real
 embedding of complex multiplication): five products per layer instead of
-fourteen.  ``impl="fft"`` goes through ``torch.fft`` for cross-checking.
+fourteen (seven instead of 22 in 3D, ``spectral_conv_3d``).  ``impl="fft"``
+goes through ``torch.fft`` for cross-checking.
 The module default is ``dft2``, or ``SCIML_SPECTRAL_IMPL={dft,dft2,fft}``
 as in the JAX package; ``impl=None`` means the module default.
 
@@ -261,13 +262,83 @@ def spectral_conv_2d(
     return _einsum("bhko,kw->bhwo", yhr, iwr) - _einsum("bhko,kw->bhwo", yhi, iwi)
 
 
-def spectral_weight_init(in_channels: int, out_channels: int, modes1: int, modes2: int,
+def _corner_grid(w1, w2, w3, w4, part: int) -> torch.Tensor:
+    """The four 3D corner blocks on the (2m1, 2m2) corner grid: rows [:m1]
+    +x and [m1:] -x, columns [:m2] +y and [m2:] -y -> (Ci, Co, 2m1, 2m2, m3)."""
+    top = torch.cat([w1[part], w3[part]], dim=3)
+    bot = torch.cat([w2[part], w4[part]], dim=3)
+    return torch.cat([top, bot], dim=2)
+
+
+def spectral_conv_3d(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    w3: torch.Tensor,
+    w4: torch.Tensor,
+    modes1: int,
+    modes2: int,
+    modes3: int,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """3D spectral convolution with the four corner blocks (+x, +y), (-x, +y),
+    (+x, -y), (-x, -y), all at the low z modes of the rfft axis.
+
+    x: (B, X, Y, Z, Cin) real; w*: (2, Cin, Cout, m1, m2, m3) real/imag
+    stacks.  Returns (B, X, Y, Z, Cout) real.  ``dft2`` is seven real
+    contractions, ``dft`` the partial-DFT chain (22 real products), both
+    with the 2D conv's rounding of every product's inputs; ``fft`` goes
+    through ``torch.fft``.  ``impl`` None: the module default."""
+    impl = impl or _DEFAULT_IMPL
+    nx, ny, nz = x.shape[1], x.shape[2], x.shape[3]
+    if impl == "fft":
+        xf = torch.fft.rfftn(x, dim=(1, 2, 3))  # (B, X, Y, Z//2+1, Cin)
+        blocks = ((slice(0, modes1), slice(0, modes2), w1),
+                  (slice(nx - modes1, nx), slice(0, modes2), w2),
+                  (slice(0, modes1), slice(ny - modes2, ny), w3),
+                  (slice(nx - modes1, nx), slice(ny - modes2, ny), w4))
+        out_ft = torch.zeros((x.shape[0], nx, ny, nz // 2 + 1, w1.shape[2]),
+                             dtype=torch.complex64, device=x.device)
+        for sx, sy, w in blocks:
+            out_ft[:, sx, sy, :modes3] = torch.einsum(
+                "bxyzi,ioxyz->bxyzo", xf[:, sx, sy, :modes3], torch.complex(w[0], w[1]))
+        return torch.fft.irfftn(out_ft, s=(nx, ny, nz), dim=(1, 2, 3))
+    if impl == "dft2":
+        fz, vz = _device_factors("dft2_real", nz, modes3, x.device)
+        gy, gyi = _device_factors("dft2_corner", ny, modes2, x.device)
+        gx, gxi = _device_factors("dft2_corner", nx, modes1, x.device)
+        a = _einsum("bxyzc,zpk->bxypkc", x, fz)
+        a = _einsum("bxypkc,pyqs->bxqskc", a, gy)
+        a = _einsum("bxqskc,qxtr->btrskc", a, gx)
+        w2b = _weight_block(_corner_grid(w1, w2, w3, w4, 0), _corner_grid(w1, w2, w3, w4, 1))
+        a = _einsum("btrskc,tcuorsk->bursko", a, w2b)
+        a = _einsum("bursko,urvx->bvxsko", a, gxi)
+        a = _einsum("bvxsko,vswy->bwxyko", a, gyi)
+        return _einsum("bwxyko,wkz->bxyzo", a, vz)
+    if impl != "dft":
+        raise ValueError(f"unknown spectral impl {impl!r}")
+
+    fzr, fzi, izr, izi = _device_factors("real", nz, modes3, x.device)
+    fxr, fxi, ixr, ixi = _device_factors("corner", nx, modes1, x.device)
+    fyr, fyi, iyr, iyi = _device_factors("corner", ny, modes2, x.device)
+    ar, ai = _cmul_mm(x, None, fzr, fzi, "bxyzc,zk->bxykc")
+    ar, ai = _cmul_mm(ar, ai, fyr, fyi, "bxykc,ys->bxskc")
+    ar, ai = _cmul_mm(ar, ai, fxr, fxi, "bxskc,xr->brskc")
+    ar, ai = _cmul_mm(ar, ai, _corner_grid(w1, w2, w3, w4, 0), _corner_grid(w1, w2, w3, w4, 1),
+                      "brskc,corsk->brsko")
+    ar, ai = _cmul_mm(ar, ai, ixr, ixi, "brsko,rx->bxsko")
+    ar, ai = _cmul_mm(ar, ai, iyr, iyi, "bxsko,sy->bxyko")
+    return _einsum("bxyko,kz->bxyzo", ar, izr) - _einsum("bxyko,kz->bxyzo", ai, izi)
+
+
+def spectral_weight_init(in_channels: int, out_channels: int, *modes: int,
                          generator: torch.Generator | None = None,
                          device=None) -> torch.Tensor:
     """Reference init: scale * U[0, 1) for real and imag, scale = 1/(Cin*Cout),
-    as a (2, Cin, Cout, m1, m2) real stack."""
+    as a (2, Cin, Cout, *modes) real stack (two mode counts in 2D, three in
+    3D)."""
     scale = 1.0 / (in_channels * out_channels)
-    shape = (2, in_channels, out_channels, modes1, modes2)
+    shape = (2, in_channels, out_channels, *modes)
     return scale * torch.rand(shape, generator=generator, device=device)
 
 

@@ -1,2 +1,3 @@
-"""Training: the FNO-2D steps (fused and production baseline, aux joint
-training), the trainers with their evaluation branch, and the CLI."""
+"""Training: the FNO steps (fused and production baseline in 2D, the
+production step in 3D, aux joint training), the trainers with their
+evaluation branch, and the CLI."""

@@ -6,13 +6,19 @@
       base_path=data/ aux_path=data/ [key=value ...]
   python -m sciml_pde_torch.train.cli transformer --config config_ns \\
       --dataset basic_ds4 base_path=data/ns_256/ if_aux=False [key=value ...]
+  python -m sciml_pde_torch.train.cli aux --config config_ns --dataset basic_ds8 \\
+      base_path=data/ns_256/ aux_path=data/basic_eq/ [key=value ...]
+  python -m sciml_pde_torch.train.cli train --config config_ns_3d --dataset basic_ds4 \\
+      base_path=data/3D_NS/ [key=value ...]
 
 ``train`` is the FNO baseline and ``aux`` the two-head joint training
-whatever the config's ``if_aux`` says, as in the JAX CLI.  ``train`` runs
+whatever the config's ``if_aux`` says, as in the JAX CLI, on the config's
+``dataset_family`` (DR, NS-2D, or the 3D plume with the 3D FNO).  ``train`` runs
 the production step unless ``fast_step=True`` (or ``SCIML_FAST_STEP=1``)
 asks for the fused one; every key of ``run_training`` (``scheduler``,
 ``training_type``, ``rollout_test``, ``continue_training``,
-``auxiliary_weight`` ...) passes through from the config or an override,
+``auxiliary_weight``, ``sim_name``, ``test_range``, ``lie_augment``,
+``aux_chunks`` ...) passes through from the config or an override,
 and ``if_training=False`` evaluates the run's checkpoint (the six-metric
 pickle and ``mse_time.npz``; ``python -m sciml_pde_torch.eval.analyse``
 gathers the pickles into ``Results.csv``).  Runs on ``cuda``;

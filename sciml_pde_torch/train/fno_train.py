@@ -1,33 +1,45 @@
-"""FNO-2D trainers and evaluation (port of ``sciml_pde_tpu/train/fno_train.py``:
-``build_baseline_step``, ``build_aux_step``, ``run_training``).
+"""FNO trainers and evaluation, 2D and 3D (port of
+``sciml_pde_tpu/train/fno_train.py``: ``build_baseline_step``,
+``build_aux_step``, ``run_training``).
 
-Three steps train a 2D FNO, chosen as the JAX package chooses:
+Three steps train an FNO, chosen as the JAX package chooses:
 
-  production (the default)  the plain ``FNO2d`` (the ``dft2`` spectral conv
-                            unless ``SCIML_SPECTRAL_IMPL`` says otherwise),
-                            nRMSE loss, single-step or teacher-forced
-                            autoregressive, and the production optimizer of
-                            ``train/optim.py`` (adaptive clip, L2 + Adam,
-                            cosine or StepLR)
+  production (the default)  the plain ``FNO2d`` or ``FNO3d`` (the ``dft2``
+                            spectral conv unless ``SCIML_SPECTRAL_IMPL``
+                            says otherwise), nRMSE loss, single-step or
+                            teacher-forced autoregressive, the production
+                            optimizer of ``train/optim.py`` (adaptive clip,
+                            L2 + Adam, cosine or StepLR); with
+                            ``lie_augment`` each gathered window is
+                            Lie-transformed on the device (``sim/lie.py``)
   fused                     ``fast_step=True`` or ``SCIML_FAST_STEP=1``: the
-                            whole model in hand-written CUDA kernels and the
-                            flat-vector optimizer of ``train/fast_step.py``,
-                            for the single-step, rollout-1, cosine
-                            baseline only.  An explicit ``True`` on
-                            another configuration raises; the environment
-                            variable gives way to the production step there.
-  aux                       ``if_aux=True``: the two-head ``FNO2dAux`` on the
-                            primary stream and its decomposed forms (DR:
-                            primary ``p`` with aux rows ``p * nA + j`` at the
-                            same t0), loss ``lp + auxiliary_weight * la``,
-                            the optimizer per group (backbone
+                            whole 2D model in hand-written CUDA kernels and
+                            the flat-vector optimizer of
+                            ``train/fast_step.py``, for the single-step,
+                            rollout-1, cosine 2D baseline only (DR or NS).
+                            An explicit ``True`` on another configuration
+                            raises; the environment variable gives way to
+                            the production step there.
+  aux                       ``if_aux=True``: the two-head ``FNO2dAux`` or
+                            ``FNO3dAux`` on the primary stream and its
+                            decomposed forms (primary ``p`` with aux rows
+                            ``p * nA + j`` at the same t0, or NS's per-file
+                            ``aux_row_map``), loss ``lp + auxiliary_weight *
+                            la``, the optimizer per group (backbone
                             ``learning_rate_share``, heads
                             ``learning_rate_fc2``), checkpoints on the best
-                            primary validation loss.
+                            primary validation loss.  ``aux_chunks`` splits
+                            the aux stream into equal chunks, each
+                            recomputed in the backward pass; an aux store of
+                            another resolution is upsampled to the primary
+                            grid inside the step, or with
+                            ``aux_native_compute`` runs at its own grid.
 
-``run_training`` loads the DR stores from their HDF5 files and calls
-``train_baseline`` or ``train_aux``; a caller that already holds the stores
-in memory enters there with a ``DRBaselineDataset`` or ``DRAuxDataset``.
+``fno_remat`` recomputes each spectral block in the backward pass.
+``run_training`` loads the stores of ``dataset_family`` (``dr``, ``ns``,
+``ns3d``) from their HDF5 files and calls ``train_baseline`` or
+``train_aux``; a caller that already holds the stores in memory enters
+there with a dataset of ``data/dr.py``, ``data/ns.py`` or ``data/ns3d.py``.
 Per epoch: shuffled window batches (one copy to the device) -> a step each
 -> validation loss -> best-validation checkpoint (the flax-layout parameter
 tree plus the step's optimizer state), written at most once a minute and
@@ -42,13 +54,11 @@ test split, and writes the six metrics to ``{model_name}.pickle`` and the
 RMSE of each step to ``{model_name}_mse_time.npz``, as JAX writes them.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: NS / 3D and their aux knobs (``aux_chunks``, ``aux_store_dtype``,
-``aux_upsample_at_gather``, ``aux_native_compute``), ``lie_augment`` and
-``fno_remat`` (A4); the 3D transformer (A5); ``plot`` (A6);
-``shard_store``, ``host_stream`` and ``resident_rotate`` (A8).  The
-production step carries JAX's ``scan`` (K steps over an index chunk, no host
-sync in the loop) and ``xy`` (pre-gathered windows) variants; the aux step
-has neither (A8).
+item: the 3D transformer and ``transformer_kwargs`` (A5); ``plot`` (A6);
+``shard_store``, ``host_stream``, ``resident_rotate`` and
+``resident_rotate_schedule`` (A8).  The production step carries JAX's
+``scan`` (K steps over an index chunk, no host sync in the loop) and ``xy``
+(pre-gathered windows) variants; the aux step has neither (A8).
 """
 
 from __future__ import annotations
@@ -64,18 +74,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from sciml_pde_torch._device import resolve_device
 from sciml_pde_torch.data.dr import (
-    DRAuxDataset,
     DRBaselineDataset,
     load_dr_aux,
     load_dr_baseline,
     load_dr_test,
+    resize_linear,
 )
+from sciml_pde_torch.data.ns import NSBaselineDataset, load_ns_aux, load_ns_baseline, load_ns_test
+from sciml_pde_torch.data.ns3d import load_ns3d_aux, load_ns3d_test
 from sciml_pde_torch.data.windows import WindowedTrajectories, epoch_batches, gather_windows
 from sciml_pde_torch.eval.rollout import METRIC_NAMES, evaluate_rollout
 from sciml_pde_torch.metrics import nrmse_loss
-from sciml_pde_torch.models.fno import FNO2d, FNO2dAux
+from sciml_pde_torch.models.fno import FNO2d, FNO2dAux, FNO3d, FNO3dAux
+from sciml_pde_torch.sim import lie
 from sciml_pde_torch.ops.fno_fused_step import fno2d_fused_apply
 from sciml_pde_torch.train import fast_step as fs
 from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer, make_optimizer
@@ -118,17 +133,27 @@ def select_fast_step(fast_step: bool | None, *, if_aux=False, model_family="fno"
     return bool(requested)
 
 
+def make_fno(num_channels: int, modes: int, width: int, initial_step: int, *,
+             aux: bool = False, ndim: int = 2, remat: bool = False,
+             generator: torch.Generator | None = None):
+    """The plain FNO the trainers build: ``FNO2d`` / ``FNO3d`` (``ndim``
+    spatial axes), two-head with ``aux``, ``modes`` on every axis."""
+    cls = {(2, False): FNO2d, (2, True): FNO2dAux, (3, False): FNO3d, (3, True): FNO3dAux}
+    return cls[ndim, aux](num_channels, *(modes,) * ndim, width=width,
+                          initial_step=initial_step, generator=generator, remat=remat)
+
+
 def default_init_tree(num_channels: int, modes: int, width: int, initial_step: int,
-                      seed: int, aux: bool = False) -> dict:
-    """Flax-layout tree of a freshly initialised port ``FNO2d`` (``FNO2dAux``
-    with ``aux``)."""
-    model = (FNO2dAux if aux else FNO2d)(num_channels, modes, modes, width, initial_step,
-                                         generator=torch.Generator().manual_seed(seed))
+                      seed: int, aux: bool = False, ndim: int = 2) -> dict:
+    """Flax-layout tree of a freshly initialised port FNO (``make_fno``)."""
+    model = make_fno(num_channels, modes, width, initial_step, aux=aux, ndim=ndim,
+                     generator=torch.Generator().manual_seed(seed))
     return state_dict_to_flax(model.state_dict())
 
 
-def build_baseline_step(model: FNO2d, opt, initial_step: int, rollout: int,
-                        training_type: str = "single", t_train: int | None = None):
+def build_baseline_step(model, opt, initial_step: int, rollout: int,
+                        training_type: str = "single", t_train: int | None = None,
+                        lie_augment: bool = False, generator: torch.Generator | None = None):
     """The production step on the plain model (port of JAX's
     ``build_baseline_step``).  Returns ``step(data, grid, idx) -> (loss,
     g_norm)``, which updates the model's parameters in place through ``opt``
@@ -145,7 +170,12 @@ def build_baseline_step(model: FNO2d, opt, initial_step: int, rollout: int,
     ``(t_train or initial_step + rollout) - initial_step`` target frames --
     the model predicts from the window, the loss adds up, the true frame
     slides in -- so a window may run past the end of its trajectory, where
-    the gather clamps."""
+    the gather clamps.
+
+    ``lie_augment``: each training window (input and target frames
+    together) is Lie-transformed on the device with its own strengths, drawn
+    from ``generator`` (on the step's device) by ``lie.sample_strengths``;
+    validation sees the windows as they are."""
     params = dict(model.named_parameters())
     if training_type == "autoregressive":
         gather_rollout = (t_train or initial_step + rollout) - initial_step
@@ -170,8 +200,16 @@ def build_baseline_step(model: FNO2d, opt, initial_step: int, rollout: int,
         x, y = gather_windows(data, idx, initial_step, gather_rollout)
         return x.float(), y.float(), grid.expand(idx.shape[0], *grid.shape)
 
+    def maybe_augment(x, y):
+        if not lie_augment:
+            return x, y
+        win = torch.cat([x, y], dim=-2)
+        win = lie.augment_ns_window(win, lie.sample_strengths(generator, win.shape[0],
+                                                              win.device))
+        return win[..., :initial_step, :], win[..., initial_step:, :]
+
     def update(x, y, gb):
-        loss = loss_fn(x, y, gb)
+        loss = loss_fn(*maybe_augment(x, y), gb)
         grads = torch.autograd.grad(loss, list(params.values()))
         g_norm = opt.step(params, dict(zip(params, grads)))
         return loss.detach(), g_norm
@@ -194,32 +232,83 @@ def build_baseline_step(model: FNO2d, opt, initial_step: int, rollout: int,
     return step, val_loss
 
 
-def build_aux_step(model: FNO2dAux, opt, initial_step: int, rollout: int,
-                   num_aux_samples: int, auxiliary_weight: float):
+def build_aux_step(model, opt, initial_step: int, rollout: int, num_aux_samples: int,
+                   auxiliary_weight: float, aux_row_map: np.ndarray | None = None,
+                   aux_chunks: int = 1, aux_resize_to: tuple[int, ...] | None = None,
+                   aux_native_grid: torch.Tensor | None = None):
     """The aux joint-training step on the device stores (port of JAX's
-    ``build_aux_step`` with the DR pairing).  Returns ``step(data_p, data_a,
-    grid, idx) -> ((loss, lp, la), g_norm)``, which updates the model's
-    parameters in place through ``opt`` (``g_norm`` is the pre-clip global
-    norm), and ``val_primary_loss(data_p, grid, idx) -> loss``.
+    ``build_aux_step``).  Returns ``step(data_p, data_a, grid, idx) ->
+    ((loss, lp, la), g_norm)``, which updates the model's parameters in
+    place through ``opt`` (``g_norm`` is the pre-clip global norm), and
+    ``val_primary_loss(data_p, grid, idx) -> loss``.
 
-    Primary trajectory ``p`` pairs with aux rows ``p * num_aux_samples + j``
-    at the same t0, the aux batch flattened p-major to B * num_aux_samples;
-    the backbone runs once over both, and loss = lp + auxiliary_weight * la.
+    Pairing: primary trajectory ``p`` with aux rows ``p * num_aux_samples +
+    j`` at the same t0 (DR, 3D), or ``aux_row_map[p, j]`` ((Np, nA), NS's
+    per-file pairing); the aux batch is flattened p-major to B *
+    num_aux_samples and cast to f32 after the gather (a store may be bf16).
+    By default the backbone runs once over both streams, and loss = lp +
+    auxiliary_weight * la.  Otherwise the primary stream runs through
+    ``model.primary`` and the aux stream through ``model.auxiliary`` in
+    ``aux_chunks`` equal chunks, each recomputed in the backward pass, la
+    the mean of the chunks' losses (the same gradient: instance norm is per
+    sample):
+
+      ``aux_chunks > 1``   the chunks alone;
+      ``aux_resize_to``    each chunk's windows, input and target, upsampled
+                           to that spatial shape (JAX's linear resize), the
+                           aux stream on the primary grid;
+      ``aux_native_grid``  the aux stream at the store's resolution on this
+                           grid.  Exclusive with ``aux_resize_to``.
+
     Validation scores the primary head alone: the primary stream goes to
     both inputs and the aux output is dropped, as in JAX."""
+    if aux_resize_to is not None and aux_native_grid is not None:
+        raise ValueError("aux_resize_to and aux_native_grid are exclusive")
     params = dict(model.named_parameters())
+    row_map = None if aux_row_map is None else torch.as_tensor(np.asarray(aux_row_map),
+                                                               dtype=torch.long)
+    row_maps: dict = {}  # the row map on each device, copied there once
+    chunked = aux_chunks > 1 or aux_resize_to is not None or aux_native_grid is not None
 
     def aux_indices(idx):
-        offs = torch.arange(num_aux_samples, device=idx.device, dtype=idx.dtype)
-        ap = (idx[:, 0, None] * num_aux_samples + offs[None, :]).reshape(-1)
+        if row_map is None:
+            offs = torch.arange(num_aux_samples, device=idx.device, dtype=idx.dtype)
+            ap = (idx[:, 0, None] * num_aux_samples + offs[None, :]).reshape(-1)
+        else:
+            rm = row_maps.setdefault(idx.device, row_map.to(idx.device))
+            ap = rm[idx[:, 0]].reshape(-1).to(idx.dtype)
         return torch.stack([ap, idx[:, 1].repeat_interleave(num_aux_samples)], dim=1)
+
+    def to_model_res(a):
+        """f32 cast and linear upsample of (B, *spatial, T, C) aux windows."""
+        a = a.float()
+        if aux_resize_to is not None and tuple(a.shape[1:-2]) != tuple(aux_resize_to):
+            a = resize_linear(a, dict(enumerate(aux_resize_to, start=1)))
+        return a
+
+    def chunk_loss(xa_c, ya_c, ga):
+        return nrmse_loss(model.auxiliary(to_model_res(xa_c), ga), to_model_res(ya_c))
+
+    def losses(x, y, xa, ya, grid):
+        gb = grid.expand(x.shape[0], *grid.shape)
+        if not chunked:
+            pred_p, pred_a = model(x, gb, xa.float(), grid.expand(xa.shape[0], *grid.shape))
+            return nrmse_loss(pred_p, y), nrmse_loss(pred_a, ya.float())
+        lp = nrmse_loss(model.primary(x, gb), y)
+        n_aux = xa.shape[0]
+        if n_aux % aux_chunks:
+            raise ValueError(f"aux batch {n_aux} not divisible by aux_chunks={aux_chunks}")
+        cb = n_aux // aux_chunks
+        g_a = grid if aux_native_grid is None else aux_native_grid
+        ga = g_a.expand(cb, *g_a.shape)
+        la = sum(checkpoint(chunk_loss, xa[k * cb:(k + 1) * cb], ya[k * cb:(k + 1) * cb], ga,
+                            use_reentrant=False) for k in range(aux_chunks))
+        return lp, la / aux_chunks
 
     def step(data_p, data_a, grid, idx):
         x, y = gather_windows(data_p, idx, initial_step, rollout)
         xa, ya = gather_windows(data_a, aux_indices(idx), initial_step, rollout)
-        pred_p, pred_a = model(x.float(), grid.expand(x.shape[0], *grid.shape), xa.float(),
-                               grid.expand(xa.shape[0], *grid.shape))
-        lp, la = nrmse_loss(pred_p, y.float()), nrmse_loss(pred_a, ya.float())
+        lp, la = losses(x.float(), y.float(), xa, ya, grid)
         loss = lp + auxiliary_weight * la
         grads = torch.autograd.grad(loss, list(params.values()))
         g_norm = opt.step(params, dict(zip(params, grads)))
@@ -368,8 +457,17 @@ def _total_steps(train_w: WindowedTrajectories, batch_size: int, epochs: int) ->
     return epochs * max(len(train_w.window_index()) // batch_size, 1)
 
 
+def _spatial_ndim(w: WindowedTrajectories) -> int:
+    """Spatial axes of a store (N, T, *spatial, C): 2 or 3."""
+    ndim = w.data.ndim - 3
+    if ndim not in (2, 3):
+        raise ValueError(f"a store (N, T, *spatial, C) with 2 or 3 spatial axes, got "
+                         f"{tuple(w.data.shape)}")
+    return ndim
+
+
 def train_baseline(
-    dataset: DRBaselineDataset,
+    dataset: DRBaselineDataset | NSBaselineDataset,
     *,
     modes: int = 12,
     width: int = 20,
@@ -383,6 +481,8 @@ def train_baseline(
     scheduler_gamma: float = 0.5,
     training_type: str = "single",
     t_train: int = 101,
+    lie_augment: bool = False,
+    fno_remat: bool = False,
     model_update: int = 1,
     seed: int = 16,
     run_dir: str = "runs/fno",
@@ -393,39 +493,49 @@ def train_baseline(
     fast_step: bool | None = None,
     device=None,
 ) -> FNOTrainResult:
-    """Train the baseline FNO-2D on an in-memory DR store.
+    """Train the baseline FNO on an in-memory store: ``FNO2d`` on a store
+    (N, T, X, Y, C), ``FNO3d`` on (N, T, X, Y, Z, C) (``dataset.train`` /
+    ``dataset.test``, any family).
 
     The windows' rollout (``dataset.train.rollout``) is ``rollout_test``.
     ``init_params`` (flax-layout tree) replaces the seeded initialisation,
     so a run can start from the same weights as a JAX run.  Batches come
-    from ``numpy.random.default_rng(seed)``, as in the JAX trainer."""
+    from ``numpy.random.default_rng(seed)``, as in the JAX trainer; the Lie
+    strengths from a ``torch.Generator`` on the device seeded with
+    ``seed``.  The fused step runs the 2D model only: an explicit
+    ``fast_step=True`` on a 3D store raises, as in JAX."""
     dev = resolve_device(device)
     train_w = dataset.train
+    ndim = _spatial_ndim(train_w)
     use_fast = select_fast_step(fast_step, training_type=training_type,
-                                rollout_test=train_w.rollout, scheduler=scheduler)
-    if train_w.data.ndim != 5:
-        raise NotImplementedError("the port trains only the 2D FNO (store (N, T, X, Y, C); "
-                                  "3D is ROADMAP A4)")
+                                rollout_test=train_w.rollout, lie_augment=lie_augment,
+                                scheduler=scheduler)
+    if use_fast and ndim == 3:
+        if fast_step:
+            raise ValueError("fast_step=True supports only the 2D FNO (3D store)")
+        use_fast = False
     total_steps = _total_steps(train_w, batch_size, epochs)
     tree = init_params if init_params is not None else default_init_tree(
-        num_channels, modes, width, initial_step, seed)
+        num_channels, modes, width, initial_step, seed, ndim=ndim)
     if use_fast:
         run = _FusedRun(tree, dev, modes=modes, initial_step=initial_step,
                         learning_rate=learning_rate, total_steps=total_steps)
     else:
+        gen = torch.Generator(device=dev).manual_seed(seed) if lie_augment else None
         run = _ProductionRun(
-            FNO2d(num_channels, modes, modes, width, initial_step), tree, dev,
+            make_fno(num_channels, modes, width, initial_step, ndim=ndim, remat=fno_remat),
+            tree, dev,
             lambda ps: make_optimizer(ps, learning_rate, total_steps, scheduler, 1e-4,
                                       scheduler_step, scheduler_gamma),
             lambda m, o: build_baseline_step(m, o, initial_step, train_w.rollout,
-                                             training_type, t_train))
+                                             training_type, t_train, lie_augment, gen))
     return _fit(run, train_w, dataset.test, batch_size=batch_size, epochs=epochs,
                 model_update=model_update, seed=seed, run_dir=run_dir, model_name=model_name,
                 continue_training=continue_training, log_every=log_every)
 
 
 def train_aux(
-    dataset: DRAuxDataset,
+    dataset,
     *,
     modes: int = 12,
     width: int = 20,
@@ -437,6 +547,9 @@ def train_aux(
     learning_rate_fc2: float = 1e-3,
     num_aux_samples: int = 3,
     auxiliary_weight: float = 0.7,
+    aux_chunks: int = 1,
+    aux_native_compute: bool = False,
+    fno_remat: bool = False,
     scheduler: str = "cosine",
     scheduler_step: int = 100,
     scheduler_gamma: float = 0.5,
@@ -449,29 +562,49 @@ def train_aux(
     init_params: dict | None = None,
     device=None,
 ) -> FNOTrainResult:
-    """Aux joint training of ``FNO2dAux`` on in-memory DR stores.
+    """Aux joint training of ``FNO2dAux`` / ``FNO3dAux`` on in-memory stores
+    (``DRAuxDataset``, ``NSAuxDataset``, ``NS3DAuxDataset``).
 
     The primary windows (``dataset.primary_train``) set the epoch; each step
-    adds the paired aux windows.  The aux store must hold ``n_primary *
-    num_aux_samples`` rows.  Validation and the checkpoint follow the
-    primary head's loss on ``dataset.primary_test``.  ``init_params`` (a
-    flax ``FNO2dAux`` tree) replaces the seeded initialisation."""
+    adds the paired aux windows: ``dataset.aux_row_map`` where the dataset
+    has one (NS), else rows ``p * num_aux_samples + j``, which the aux store
+    must hold.  An aux store at another spatial resolution is upsampled to
+    the primary grid inside the step, or with ``aux_native_compute`` runs at
+    its own resolution on the primary grid resized to it (JAX's linear
+    resize, which antialiases where it shrinks).  Validation and the
+    checkpoint follow the primary head's loss on ``dataset.primary_test``.
+    ``init_params`` (a flax aux tree) replaces the seeded initialisation."""
     dev = resolve_device(device)
     train_w, aux_w = dataset.primary_train, dataset.aux_train
-    need = train_w.num_trajectories * num_aux_samples
-    if aux_w.num_trajectories < need:
-        raise ValueError(f"aux store has {aux_w.num_trajectories} trajectories < "
-                         f"{train_w.num_trajectories} primary x {num_aux_samples} aux samples")
-    if aux_w.data.shape[1:] != train_w.data.shape[1:]:
-        raise NotImplementedError("aux and primary stores of different shapes (the aux "
-                                  "stream at its own resolution is ROADMAP A4)")
+    ndim = _spatial_ndim(train_w)
+    row_map = getattr(dataset, "aux_row_map", None)
+    if row_map is None:
+        need = train_w.num_trajectories * num_aux_samples
+        if aux_w.num_trajectories < need:
+            raise ValueError(f"aux store has {aux_w.num_trajectories} trajectories < "
+                             f"{train_w.num_trajectories} primary x {num_aux_samples} aux "
+                             "samples")
+    elif np.asarray(row_map).shape != (train_w.num_trajectories, num_aux_samples) \
+            or int(np.max(row_map)) >= aux_w.num_trajectories:
+        raise ValueError(f"aux_row_map {np.asarray(row_map).shape} does not map "
+                         f"{train_w.num_trajectories} primary rows x {num_aux_samples} aux "
+                         f"samples into the aux store's {aux_w.num_trajectories} rows")
+    prim_sp, aux_sp = tuple(train_w.data.shape[2:-1]), tuple(aux_w.data.shape[2:-1])
+    aux_resize_to = aux_native_grid = None
+    if aux_sp != prim_sp:
+        if aux_native_compute:
+            aux_native_grid = resize_linear(train_w.grid, dict(enumerate(aux_sp)))
+        else:
+            aux_resize_to = prim_sp
     total_steps = _total_steps(train_w, batch_size, epochs)
     tree = init_params if init_params is not None else default_init_tree(
-        num_channels, modes, width, initial_step, seed, aux=True)
+        num_channels, modes, width, initial_step, seed, aux=True, ndim=ndim)
 
     def make_step(model, opt):
         step, val = build_aux_step(model, opt, initial_step, train_w.rollout, num_aux_samples,
-                                   auxiliary_weight)
+                                   auxiliary_weight, aux_row_map=row_map,
+                                   aux_chunks=aux_chunks, aux_resize_to=aux_resize_to,
+                                   aux_native_grid=aux_native_grid)
 
         def primary_step(data, grid, idx):
             (loss, _, _), g_norm = step(data, aux_w.data, grid, idx)
@@ -481,7 +614,8 @@ def train_aux(
     lrs = {"shared": learning_rate_share, "primary_head": learning_rate_fc2,
            "aux_head": learning_rate_fc2}
     run = _ProductionRun(
-        FNO2dAux(num_channels, modes, modes, width, initial_step), tree, dev,
+        make_fno(num_channels, modes, width, initial_step, aux=True, ndim=ndim,
+                 remat=fno_remat), tree, dev,
         lambda ps: make_grouped_optimizer(ps, aux_group_of, lrs, total_steps, scheduler, 1e-4,
                                           scheduler_step, scheduler_gamma),
         make_step)
@@ -514,17 +648,18 @@ def evaluate_checkpoint(
       ``{model_name}_mse_time.npz``  ``t`` = the unrolled frames' indices,
                                      ``mse`` = each step's RMSE
 
-    With ``if_aux`` the checkpoint is an ``FNO2dAux`` and the primary head
-    is scored (the primary stream goes to both inputs, as in JAX).  Returns
-    ``best_val`` = nRMSE and ``history`` = [the metrics dict]."""
+    The model is 2D or 3D as the test store is.  With ``if_aux`` the
+    checkpoint is a two-head model and the primary head is scored (the
+    primary stream goes to both inputs, as in JAX).  Returns ``best_val`` =
+    nRMSE and ``history`` = [the metrics dict]."""
     dev = resolve_device(device)
     # on the device, and checked to hold initial_step + rollout_test frames
     test = WindowedTrajectories(test.data.to(dev), test.grid.to(dev),
                                 initial_step=test.initial_step, rollout=rollout_test,
                                 train=False)
     ck = restore_checkpoint(Path(run_dir) / f"{model_name}_ckpt.pt")
-    model = (FNO2dAux if if_aux else FNO2d)(test.data.shape[-1], modes, modes, width,
-                                            test.initial_step)
+    model = make_fno(test.data.shape[-1], modes, width, test.initial_step, aux=if_aux,
+                     ndim=_spatial_ndim(test))
     model.load_state_dict(flax_to_state_dict(ck["params"]))
     model = model.to(dev)
 
@@ -541,15 +676,23 @@ def evaluate_checkpoint(
                           best_val=errs["nRMSE"], history=[errs])
 
 
+_FAMILIES = ("dr", "ns", "ns3d")
+
+
 def run_training(
     *,
     base_path: str,
     aux_path: str | None = None,
     dataset_family: str = "dr",
+    lie_augment: bool = False,
+    sim_name: str = "ns_incom_inhom_2d_256",
+    aux_name: str = "ns_aux_2d_256",
+    test_range=(250, 275),
     if_aux: bool = False,
     if_downsample: bool = False,
     aux_file: str | None = None,
     model_family: str = "fno",
+    transformer_kwargs: dict | None = None,
     extra_train_files=None,
     train_subsample=(900, 900, 900),
     num_aux_samples: int = 3,
@@ -559,6 +702,7 @@ def run_training(
     aux_upsample_at_gather: bool = False,
     aux_native_compute: bool = False,
     fno_remat: bool = False,
+    primary_store_dtype: str | None = None,
     modes: int = 12,
     width: int = 20,
     initial_step: int = 10,
@@ -579,75 +723,123 @@ def run_training(
     iHigh: int = 12,
     plot: bool = False,
     channel_plot: int = 0,
-    lie_augment: bool = False,
-    shard_store: bool = False,
-    host_stream: bool = False,
-    resident_rotate: int = 0,
-    dr_leaky_clip: bool = False,
     model_update: int = 1,
     seed: int = 16,
     run_dir: str = "runs/fno",
     model_name: str = "fno2d_dr",
     continue_training: bool = False,
     log_every: int = 50,
+    shard_store: bool = False,
+    host_stream: bool = False,
+    resident_rotate: int = 0,
+    dr_leaky_clip: bool = False,
+    resident_rotate_schedule: str = "block",
     init_params: dict | None = None,
     fast_step: bool | None = None,
     device=None,
 ) -> FNOTrainResult:
-    """Train a 2D FNO on DR from its HDF5 files, or evaluate one
-    (``if_training=False``).
+    """Train an FNO from the HDF5 files of ``dataset_family``, or evaluate
+    one (``if_training=False``).  Defaults are JAX's.
 
-    ``base_path``/2D_diff-react_test_all.h5 holds the primary trajectories
-    (``extra_train_files`` beside it continue the train pool); with
-    ``if_aux`` the aux trajectories come from ``aux_path`` (``aux_file``, or
-    the decomposed file, or with ``if_downsample`` its downsampled copy,
-    upsampled on load).  ``train_subsample`` = (baseline, aux primary, aux)
-    counts.  The evaluation reads the test split alone.  A configuration
-    that cannot run raises before any data is read; ``channel_plot`` goes
-    with ``plot``."""
-    use_fast = select_fast_step(
-        fast_step, if_aux=if_aux, model_family=model_family, training_type=training_type,
-        rollout_test=rollout_test, lie_augment=lie_augment, shard_store=shard_store,
-        host_stream=host_stream, resident_rotate=resident_rotate, scheduler=scheduler)
+      ``dr``    ``base_path``/2D_diff-react_test_all.h5 (``extra_train_files``
+                beside it continue the train pool); with ``if_aux`` the aux
+                trajectories from ``aux_path`` (``aux_file``, or the
+                decomposed file, or with ``if_downsample`` its downsampled
+                copy, upsampled on load).
+      ``ns``    ``{sim_name}-{i}.h5`` (test files ``test_range``), with
+                ``if_aux`` the aux files ``{aux_name}-{i}.h5`` paired per
+                file (``data/ns.py``); ``primary_store_dtype`` and
+                ``aux_store_dtype`` ``"bf16"`` keep the train stores in
+                bf16, ``aux_upsample_at_gather`` keeps an aux store of
+                another resolution at its own (the step upsamples), and
+                ``aux_native_compute`` then runs the aux stream there.
+      ``ns3d``  the plume seeds (``data/ns3d.py``; test seeds
+                ``range(*test_range)``): the 3D FNO.
+
+    ``train_subsample`` = (baseline, aux primary, aux) counts.  The
+    evaluation reads the test split alone.  A configuration that cannot run
+    raises before any data is read; ``channel_plot`` goes with ``plot``."""
+    fast_args = dict(model_family=model_family, training_type=training_type,
+                     rollout_test=rollout_test, lie_augment=lie_augment,
+                     shard_store=shard_store, host_stream=host_stream,
+                     resident_rotate=resident_rotate, scheduler=scheduler)
+    select_fast_step(fast_step, if_aux=if_aux, **fast_args)  # an explicit True raises here
     unported = {  # option -> (asked for, ROADMAP item)
-        f"dataset_family={dataset_family!r}": (dataset_family != "dr", "A4"),
         f"model_family={model_family!r}": (model_family != "fno", "A5"),
-        "lie_augment": (lie_augment, "A4"), "fno_remat": (fno_remat, "A4"),
-        "aux_chunks > 1": (int(aux_chunks) > 1, "A4"),
-        "aux_store_dtype": (aux_store_dtype is not None, "A4"),
-        "aux_upsample_at_gather": (aux_upsample_at_gather, "A4"),
-        "aux_native_compute": (aux_native_compute, "A4"),
+        "transformer_kwargs": (transformer_kwargs is not None, "A5"),
         "plot": (plot, "A6"), "shard_store": (shard_store, "A8"),
         "host_stream": (host_stream, "A8"),
         "resident_rotate": (int(resident_rotate or 0) > 1, "A8"),
+        f"resident_rotate_schedule={resident_rotate_schedule!r}":
+            (resident_rotate_schedule != "block", "A8"),
     }
     bad = [f"{k} (ROADMAP {item})" for k, (on, item) in unported.items() if on]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if dataset_family not in _FAMILIES:
+        raise ValueError(f"unknown dataset_family {dataset_family!r}; one of {_FAMILIES}")
+    if dataset_family == "dr":
+        # the DR loaders take none of these (JAX ignores them there)
+        ns_only = {"aux_store_dtype": aux_store_dtype is not None,
+                   "primary_store_dtype": primary_store_dtype is not None,
+                   "aux_upsample_at_gather": aux_upsample_at_gather}
+        given = [k for k, on in ns_only.items() if on]
+        if given:
+            raise ValueError(f"{', '.join(given)}: NS-family store options; the DR stores "
+                             "stay f32 at the primary resolution")
     dev = resolve_device(device)
     common = dict(modes=modes, width=width, batch_size=batch_size, run_dir=run_dir,
                   model_name=model_name, device=dev)
+    windows = dict(initial_step=initial_step, rollout_test=rollout_test, device=dev)
     if not if_training:
-        test = load_dr_test(base_path, initial_step=initial_step, rollout_test=rollout_test,
-                            device=dev)
+        if dataset_family == "ns":
+            test = load_ns_test(base_path, sim_name=sim_name, test_range=test_range, **windows)
+        elif dataset_family == "ns3d":
+            test = load_ns3d_test(base_path, test_seeds=range(*test_range), **windows)
+        else:
+            test = load_dr_test(base_path, **windows)
         return evaluate_checkpoint(test, if_aux=if_aux, rollout_test=rollout_test, iLow=iLow,
                                    iHigh=iHigh, **common)
     fit = dict(initial_step=initial_step, num_channels=num_channels, epochs=epochs,
                scheduler=scheduler, scheduler_step=scheduler_step,
-               scheduler_gamma=scheduler_gamma, model_update=model_update, seed=seed,
-               continue_training=continue_training, log_every=log_every,
-               init_params=init_params, **common)
+               scheduler_gamma=scheduler_gamma, fno_remat=fno_remat,
+               model_update=model_update, seed=seed, continue_training=continue_training,
+               log_every=log_every, init_params=init_params, **common)
     if if_aux:
-        ds = load_dr_aux(base_path, aux_path, train_subsample=tuple(train_subsample),
-                         num_aux_samples=num_aux_samples, initial_step=initial_step,
-                         rollout_test=rollout_test, if_downsample=if_downsample,
-                         extra_train_files=extra_train_files, aux_file=aux_file, device=dev)
+        sub = tuple(train_subsample)
+        if dataset_family == "ns":
+            ds = load_ns_aux(base_path, aux_path, train_subsample=sub,
+                             num_aux_samples=num_aux_samples, sim_name=sim_name,
+                             aux_name=aux_name, if_downsample=if_downsample,
+                             test_range=test_range, aux_store_dtype=aux_store_dtype,
+                             store_dtype=primary_store_dtype,
+                             aux_upsample_at_gather=aux_upsample_at_gather, **windows)
+        elif dataset_family == "ns3d":
+            ds = load_ns3d_aux(base_path, aux_path, train_subsample=sub,
+                               num_aux_samples=num_aux_samples,
+                               test_seeds=range(*test_range), aux_store_dtype=aux_store_dtype,
+                               store_dtype=primary_store_dtype, **windows)
+        else:
+            ds = load_dr_aux(base_path, aux_path, train_subsample=sub,
+                             num_aux_samples=num_aux_samples, if_downsample=if_downsample,
+                             extra_train_files=extra_train_files, aux_file=aux_file, **windows)
         return train_aux(ds, learning_rate_share=learning_rate_share,
                          learning_rate_fc2=learning_rate_fc2, num_aux_samples=num_aux_samples,
-                         auxiliary_weight=auxiliary_weight, **fit)
+                         auxiliary_weight=auxiliary_weight, aux_chunks=aux_chunks,
+                         aux_native_compute=aux_native_compute, **fit)
     sub = train_subsample[0] if isinstance(train_subsample, (list, tuple)) else train_subsample
-    ds = load_dr_baseline(base_path, train_subsample=sub, initial_step=initial_step,
-                          rollout_test=rollout_test, extra_train_files=extra_train_files,
-                          leaky_clip=dr_leaky_clip, device=dev)
+    if dataset_family == "ns":
+        ds = load_ns_baseline(base_path, train_subsample=sub, sim_name=sim_name,
+                              test_range=test_range, store_dtype=primary_store_dtype,
+                              **windows)
+    elif dataset_family == "ns3d":
+        d3 = load_ns3d_aux(base_path, aux_path, train_subsample=tuple(train_subsample),
+                           num_aux_samples=num_aux_samples, test_seeds=range(*test_range),
+                           with_aux=False, store_dtype=primary_store_dtype, **windows)
+        ds = NSBaselineDataset(train=d3.primary_train, test=d3.primary_test)
+    else:
+        ds = load_dr_baseline(base_path, train_subsample=sub,
+                              extra_train_files=extra_train_files, leaky_clip=dr_leaky_clip,
+                              **windows)
     return train_baseline(ds, learning_rate=learning_rate, training_type=training_type,
-                          t_train=t_train, fast_step=use_fast, **fit)
+                          t_train=t_train, lie_augment=lie_augment, fast_step=fast_step, **fit)

@@ -1,7 +1,8 @@
 """YAML configs with dataset-size presets (port of
 ``sciml_pde_tpu/utils/config.py``): a base ``args`` mapping plus ``basic_dsN``
 presets, and dotted ``key=value`` overrides.  The port keeps its own copy
-of ``config_dr.yaml`` and ``config_ns.yaml`` under ``sciml_pde_torch/configs``.
+of ``config_dr.yaml``, ``config_ns.yaml`` and ``config_ns_3d.yaml`` under
+``sciml_pde_torch/configs``.
 """
 
 from __future__ import annotations

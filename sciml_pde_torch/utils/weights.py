@@ -1,12 +1,14 @@
-"""Weight conversion between the flax ``FNO2d`` and ``FNO2dAux`` parameter
-trees, the port's ``state_dict`` of either model and the fused step's
-packed parameters.  ``FNO2d`` has one head (``fc2``), ``FNO2dAux`` two
-(``fc2_primary``, ``fc2_auxiliary``); each is a flax ``TorchDense``.
+"""Weight conversion between the flax FNO parameter trees (``FNO2d``,
+``FNO2dAux``, ``FNO3d``, ``FNO3dAux``), the port's ``state_dict`` of the
+same model and the fused step's packed parameters.  The baselines have one
+head (``fc2``), the aux models two (``fc2_primary``, ``fc2_auxiliary``);
+each is a flax ``TorchDense``.
 
 Flax layouts: ``Dense`` kernels are ``(in, out)`` (torch ``nn.Linear``
-weights are ``(out, in)``); spectral weights are ``(2, Cin, Cout, m1, m2)``
-real/imag stacks, ``w1`` for the low corner rows and ``w2`` for the high
-ones (the same stack in both packages).  The tree is nested dicts of
+weights are ``(out, in)``); spectral weights are ``(2, Cin, Cout, *modes)``
+real/imag stacks (the same stack in both packages): in 2D ``w1`` for the
+low corner rows and ``w2`` for the high ones, in 3D ``w1`` … ``w4`` for the
+corners (+x, +y), (-x, +y), (+x, -y), (-x, -y).  The tree is nested dicts of
 numpy arrays, as ``flax`` hands it out after ``jax.device_get``.
 """
 
@@ -27,9 +29,12 @@ def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+_SPECTRAL = ("w1", "w2", "w3", "w4")
+
+
 def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
-    """Flax FNO2d or FNO2dAux tree -> the port's ``state_dict``: the backbone
-    and every head the tree holds."""
+    """Flax FNO tree (2D or 3D, one head or two) -> the port's
+    ``state_dict``: the backbone and every head the tree holds."""
     bb = tree["backbone"]
     t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))  # noqa: E731
     sd = {}
@@ -41,8 +46,9 @@ def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
     dense("backbone.fc0", bb["fc0"])
     dense("backbone.fc1", bb["fc1"])
     for i in range(L_LAYERS):
-        sd[f"backbone.convs.{i}.w1"] = t(bb[f"conv{i}"]["w1"])
-        sd[f"backbone.convs.{i}.w2"] = t(bb[f"conv{i}"]["w2"])
+        for w in _SPECTRAL:
+            if w in bb[f"conv{i}"]:
+                sd[f"backbone.convs.{i}.{w}"] = t(bb[f"conv{i}"][w])
         dense(f"backbone.ws.{i}", bb[f"w{i}"])
     for head in sorted(k for k in tree if k != "backbone"):
         dense(head, tree[head])
@@ -50,16 +56,16 @@ def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
 
 
 def state_dict_to_flax(sd) -> dict:
-    """The port's FNO2d or FNO2dAux ``state_dict`` -> flax tree of numpy
-    arrays."""
+    """The port's FNO ``state_dict`` (2D or 3D, one head or two) -> flax tree
+    of numpy arrays."""
     def dense(prefix):
         return {"Dense_0": {"kernel": _np(sd[f"{prefix}.weight"]).T.copy(),
                             "bias": _np(sd[f"{prefix}.bias"])}}
 
     bb = {"fc0": dense("backbone.fc0"), "fc1": dense("backbone.fc1")}
     for i in range(L_LAYERS):
-        bb[f"conv{i}"] = {"w1": _np(sd[f"backbone.convs.{i}.w1"]),
-                          "w2": _np(sd[f"backbone.convs.{i}.w2"])}
+        bb[f"conv{i}"] = {w: _np(sd[f"backbone.convs.{i}.{w}"]) for w in _SPECTRAL
+                          if f"backbone.convs.{i}.{w}" in sd}
         bb[f"w{i}"] = dense(f"backbone.ws.{i}")
     heads = sorted({n.split(".")[0] for n in sd if not n.startswith("backbone.")})
     return {"backbone": bb, **{h: dense(h) for h in heads}}
