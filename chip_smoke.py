@@ -33,8 +33,11 @@ FNO steps and the five split kernels):
               forward, dQ and dK/dV) nor in the six instances of the
               cluster bodies above head dim 256 (fwd_wide_kernel,
               dq_wide_kernel and dkv_wide_kernel, bf16 and f32; each with
-              the clusters of 8 blocks the card holds at once), HMMA
-              instructions in both dq_wide_kernel instances' SASS (their
+              the clusters of 8 blocks the card holds at once) nor in the
+              six of the f32 forward and dK/dV of head dims 160-256
+              (fwd_tf32w_kernel, dkv_tf32w_kernel at 160, 192, 256; each
+              with the blocks an SM holds at once), HMMA instructions in
+              both dq_wide_kernel instances' SASS and in those six (their
               products on the tensor cores), none in wdft_kernel and
               reduce_rows_kernel, and
               neither spills nor a stack frame in both instances of
@@ -119,19 +122,21 @@ FNO steps and the five split kernels):
   6. attention the three flash-attention kernels against their plain
               versions (and the same bits from a second launch) at the
               encoder (24, 1280, 64) and decoder
-              (16, 1280, 64) shapes, at head dims 96, 24, 160, 192,
-              256, 264, 320, 512, 1024 and 1032 and at 200 tokens (ragged
-              tiles) at head dim 64, in f32 and bf16, at the encoder shape
-              and at (4, 1280, 512) with q and k times 3 (scores up to
-              about 54) in f32 (from 160 up with each kernel's time beside
+              (16, 1280, 64) shapes, at head dims 96, 24, 136 (at 200
+              tokens), 160, 192, 256, 264, 320, 512, 1024 and 1032 and at
+              200 tokens (ragged tiles) at head dim 64, in f32 and bf16, at
+              the encoder shape and at (8, 1280, 256) and (4, 1280, 512)
+              with q and k times 3 (scores up to about 54) in f32 (from 160
+              up with each kernel's time beside
               its bound and the SDPA forward or backward on the same
               inputs, and dQ + dK/dV beside the SDPA backward), and at
               batch*heads 70000 (70000, 16, 16) in bf16,
               with a control against a kernel that rounds p and ds to
               bf16 (f32 outputs held against the exact result, the plain
               versions' arithmetic in f64, within 1e-5; the CUDA-core
-              bodies within 1e-5 or the f32 plain version's own distance
-              from it); flash_attention at (2, 4,
+              bodies, the f32 dQ from 160 to 256 and all three above 1024,
+              within 1e-5 or the f32 plain version's own distance from
+              it); flash_attention at (2, 4,
               1280, 512) through the kernels against plain=True, values
               and q/k/v gradients, in both types
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
@@ -293,8 +298,10 @@ NS_LAYERS = NS_MODEL["encoder_depth"] + NS_MODEL["decoder_depth"]
 ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 1280, 64)}
 # shapes the JAX package's kernels take beyond the NS recipe: head dims
 # padded in shared memory (96 is plume-3D's decoder, 768 / 8 heads; 24 pads
-# to 32), head dims above 128 (32-row f32 dQ and dK/dV tiles; two bf16
-# blocks per row tile, each for half of the output columns), head dims above
+# to 32; 136 pads to 160, with ragged tiles at 200 tokens), head dims above
+# 128 (the f32 forward and dK/dV as one block of two warpgroups per 96-query
+# or 64-key tile, the f32 dQ over 32-row tiles; two bf16 blocks per row
+# tile, each for half of the output columns), head dims above
 # 256 (the wide bodies: ceil(d / 128) column groups, the forward, dQ and
 # dK/dV as thread-block clusters of that many ranks up to 1024 (8 ranks), on
 # the CUDA cores above; 200 tokens leave ragged row and key tiles), 200 tokens at head
@@ -302,6 +309,7 @@ ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 12
 # batch*heads above the 65535 of a grid's y axis
 ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "head dim 24": ((16, 1280, 24), ("float32", "bfloat16")),
+             "head dim 136": ((8, 200, 136), ("float32", "bfloat16")),
              "head dim 160": ((8, 1280, 160), ("float32", "bfloat16")),
              "head dim 192": ((8, 1280, 192), ("float32", "bfloat16")),
              "head dim 256": ((8, 1280, 256), ("float32", "bfloat16")),
@@ -315,6 +323,7 @@ ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              # sum each score a k8 step at a time, so that their size does
              # not scale the bias of the MMAs' rounding into p)
              "large logits": ((24, 1280, 64), ("float32",), 3.0),
+             "large logits, head dim 256": ((8, 1280, 256), ("float32",), 3.0),
              "large logits, head dim 512": ((4, 1280, 512), ("float32",), 3.0),
              "batch*heads 70000": ((70_000, 16, 16), ("bfloat16",))}
 # profiler keys of the attention kernels (their demangled names) at the NS
@@ -326,7 +335,8 @@ ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "
                            "attention_dkv": "dkv_tf32_kernel<"}}
 # attention kernels: f32 outputs within 1e-5 of the largest magnitude of the
 # exact result (the plain version's arithmetic in f64: att_f64); the bodies
-# on the CUDA cores (att_cuda_cores), whose f32 sums are the plain version's,
+# on the CUDA cores (att_cuda_cores: the f32 dQ from head dim 160 to 256 and
+# both types above CLUSTER_MAX_D), whose f32 sums are the plain version's,
 # may instead lie no farther from it than the f32 plain version (with q and
 # k times 3 at head dim 512 the f32 plain versions lie up to 2.1e-5 from
 # it, and the CUDA-core dQ then above 256, bit for bit the plain dQ,
@@ -1704,8 +1714,11 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     and dK/dV 12 passes, 0.06101, 0.09150 and 0.12200 ms at the encoder
     shape; before those designs they took two, three and four products at
     the CUDA cores' f32 rate (67 TFLOP/s), 0.15024, 0.22537 and 0.30049 ms
-    (``att_work_f32_cores``), as they still do from 160 to 256 and above
-    CLUSTER_MAX_D.  Above 256 the three cluster bodies count the same TF32
+    (``att_work_f32_cores``), as the f32 dQ still does from 160 to 256 and
+    all three above CLUSTER_MAX_D.  From 160 to 256 the f32 forward and
+    dK/dV count their TF32 passes (at (8, 1280, 256) 0.08134 and 0.16269 ms;
+    0.20032 and 0.40065 on the CUDA cores before their tensor-core bodies).
+    Above 256 the three cluster bodies count the same TF32
     passes (at (4, 1280, 512) 0.08134, 0.12202 and 0.16269 ms; dQ 0.30050
     on the CUDA cores before its cluster body), and the bf16 wide bodies
     their bf16 products (0.02036, 0.02714 and 0.04071 ms there).  Before
@@ -1721,19 +1734,19 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     if bf:
         products = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name]
         return nbytes, products * prod / PEAK_FLOPS["default"]
-    if att_cuda_cores(d, bf):
+    if att_cuda_cores(name, d, bf):
         return nbytes, att_work_f32_cores(name, bh, n, d)
     passes = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}[name]
     return nbytes, passes * prod / TF32_FLOPS
 
 
-def att_cuda_cores(d: int, bf: bool) -> bool:
-    """Whether the attention kernels take head dim ``d`` on the CUDA cores:
-    f32 from 160 to 256 (fwd_kernel, dq_kernel, dkv_kernel) and both types
-    above CLUSTER_MAX_D (the *_wide_cc_kernel bodies)."""
+def att_cuda_cores(name: str, d: int, bf: bool) -> bool:
+    """Whether attention kernel ``name`` takes head dim ``d`` on the CUDA
+    cores: the f32 dQ from 160 to 256 (dq_kernel) and all three in both
+    types above CLUSTER_MAX_D (the *_wide_cc_kernel bodies)."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
-    return (not bf and 128 < d <= 256) or d > CLUSTER_MAX_D
+    return (name == "attention_dq" and not bf and 128 < d <= 256) or d > CLUSTER_MAX_D
 
 
 def att_work_f32_cores(name: str, bh: int, n: int, d: int) -> float:
@@ -1786,14 +1799,17 @@ def att_f64(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.0)
 def att_kernel_key(name: str, d: int, bf: bool) -> str:
     """The profiler key of the CUDA kernel that attention kernel ``name``
     launches from head dim 160 up: from 160 to 256 the bf16 tensor-core
-    bodies (*_tc_kernel) and the f32 CUDA-core bodies (*_kernel); above 256
-    the cluster bodies (*_wide_kernel) up to CLUSTER_MAX_D, their CUDA-core
-    bodies (*_wide_cc_kernel) above it."""
+    bodies (*_tc_kernel), in f32 the split-TF32 forward and dK/dV of two
+    warpgroups (fwd_tf32w_kernel, dkv_tf32w_kernel) and the CUDA-core dQ
+    (dq_kernel); above 256 the cluster bodies (*_wide_kernel) up to
+    CLUSTER_MAX_D, their CUDA-core bodies (*_wide_cc_kernel) above it."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
     short = name.replace("attention_", "")
     if d <= 256:
-        return f"{short}_tc_kernel<" if bf else f"{short}_kernel<"
+        if bf:
+            return f"{short}_tc_kernel<"
+        return "dq_kernel<" if short == "dq" else f"{short}_tf32w_kernel<"
     return f"{short}_wide_cc_kernel<" if d > CLUSTER_MAX_D else f"{short}_wide_kernel<"
 
 
@@ -1855,8 +1871,9 @@ def check_attention(ta, dev, card: str) -> dict:
     dQ + dK/dV beside the SDPA backward), at batch*heads 70000 in bf16, and
     with q and k times 3 (scores up to about 54) in f32.  f32 outputs are
     held against the exact result (att_f64), within ATT_TOL_F32 (the
-    CUDA-core bodies: or the f32 plain version's own distance from it,
-    printed beside); bf16 outputs against the plain version.
+    CUDA-core bodies, att_cuda_cores: or the f32 plain version's own
+    distance from it, printed beside); bf16 outputs against the plain
+    version.
     Returns the bf16 encoder-shape inputs of each kernel (the main path's
     most frequent launch) for timing."""
     import torch
@@ -1877,10 +1894,10 @@ def check_attention(ta, dev, card: str) -> dict:
             args = {"attention_fwd": (q, k, v),
                     "attention_dq": (q, k, v, do, l_p, delta),
                     "attention_dkv": (q, k, v, do, l_p, delta)}
-            escape = att_cuda_cores(d, bf)
             timed = d >= 160 and amp == 1.0  # on no configuration's path
             dev_times = {}
             for name in ta.KERNEL_NAMES:
+                escape = att_cuda_cores(name, d, bf)
                 got = as_tuple(getattr(ta, name)(*args[name], scale))
                 again = as_tuple(getattr(ta, name)(*args[name], scale))
                 want = as_tuple(getattr(ta, f"{name}_plain")(*args[name], scale))
@@ -3424,13 +3441,22 @@ def main() -> int:
           and all(st == ld == 0 for _, _, st, ld, _ in wide),
           "[build] the cluster bodies above head dim 256 (the forward, dQ and dK/dV, both "
           "types) spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in wide))
+    tf32w_names = [f"{w}_tf32w_kernel<{dp}>" for w in ("dkv", "fwd") for dp in (160, 192, 256)]
+    tf32w = sorted(u for u in usage if u[0].startswith(("fwd_tf32w_kernel<", "dkv_tf32w_kernel<")))
+    blocks = {u[0]: ta.tf32w_max_blocks(u[0][:3], int(u[0][-4:-1])) for u in tf32w}
+    check([u[0] for u in tf32w] == tf32w_names and all(st == ld == 0 for _, _, st, ld, _ in tf32w),
+          "[build] the f32 forward and dK/dV of head dims 160-256 (split TF32, two warpgroups) "
+          "spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers, {blocks[u[0]][0]} "
+                                        f"block(s) of {blocks[u[0]][1]} warps an SM"
+                                        for u in tf32w)
+          + " (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     att_sass = _build.sass(_build.library_path("attention"))
-    hmma = {t: sum(i.split()[0].startswith("HMMA")
-                   for i in att_sass.get(f"dq_wide_kernel<{t}>", []))
-            for t in ("__nv_bfloat16", "float")}
+    hmma = {k: sum(i.split()[0].startswith("HMMA") for i in att_sass.get(k, []))
+            for k in ("dq_wide_kernel<__nv_bfloat16>", "dq_wide_kernel<float>", *tf32w_names)}
     check(all(c > 0 for c in hmma.values()),
-          "[build] dq_wide_kernel takes its products on the tensor cores: HMMA instructions in "
-          "its SASS " + ", ".join(f"<{t}> {c}" for t, c in hmma.items()))
+          "[build] dq_wide_kernel and the f32 forward and dK/dV of head dims 160-256 take their "
+          "products on the tensor cores: HMMA instructions in their SASS "
+          + ", ".join(f"{k} {c}" for k, c in hmma.items()))
     for kind in ta.WIDE_KINDS:
         for bf in (True, False):
             name = f"{kind}_wide_kernel<{'__nv_bfloat16' if bf else 'float'}>"

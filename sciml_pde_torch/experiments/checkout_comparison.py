@@ -1,5 +1,6 @@
-"""Time the probe and wide attention kernels of two checkouts side by side on
-the card, by one method in the same profiler sessions.
+"""Time the probe and the attention kernels above head dim 128 of two
+checkouts side by side on the card, by one method in the same profiler
+sessions.
 
     python -m sciml_pde_torch.experiments.checkout_comparison OTHER
 
@@ -11,6 +12,8 @@ tells the two apart, and times
 
 - the probe kernel of each at (8, 128) f32, and ``torch.mul(x, 2)``;
 - the forward, dQ and dK/dV of each at (4, 1280, 512), in bf16 and f32;
+- the forward, dQ and dK/dV of each at (8, 1280, 256) in f32 (each tree's
+  body of that head dim: ``_key_256``);
 
 in profiler device time (``profiler_ms``: the median of three sessions in
 which the two checkouts' launches, and the probe's with ``torch.mul``'s,
@@ -37,6 +40,7 @@ from sciml_pde_torch.utils.profiling import cuda_ms, profiler_ms
 TREES = ("this", "other")
 KEY_SUFFIX = {"this": "_kernel", "other": "_pkernel"}
 SHAPE = (4, 1280, 512)
+SHAPE_256 = (8, 1280, 256)
 PROBE_REPS = 200
 HBM_BPS = 3.35e12  # H100 SXM data-sheet HBM rate: the probe's bound (bytes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -49,6 +53,15 @@ def _launcher(f, args: tuple, what: str):
         if f(*args) != 0:
             raise RuntimeError(f"{what} failed")
     return launch
+
+
+def _key_256(text: str, short: str, suffix: str) -> str:
+    """The profiler key of the f32 kernel that ``short`` ("fwd", "dq" or
+    "dkv") launches at head dim 256 in the tree whose attention.cu is
+    ``text``: its split-TF32 body of two warpgroups where the tree has one
+    (``fwd_tf32w_kernel``), else its CUDA-core body (``fwd_kernel``)."""
+    tf32w = f"{short}_tf32w{suffix}"
+    return f"{tf32w}<" if tf32w in text else f"{short}{suffix}<"
 
 
 def _report(card: str, what: str, launches: dict, keys: dict, outs: dict, reps: int,
@@ -109,9 +122,9 @@ def main(argv: list[str]) -> int:
                 {t: [outs[t]] for t in TREES}, PROBE_REPS, bound_ms=2 * x.numel() * 4 / HBM_BPS
                 * 1e3, extra=("torch.mul", lambda: torch.mul(x, 2), "elementwise_kernel"))
 
-        bh, n, d = SHAPE
         g = torch.Generator().manual_seed(3)
-        for dt in (torch.bfloat16, torch.float32):
+        for (bh, n, d), dt in ((SHAPE, torch.bfloat16), (SHAPE, torch.float32),
+                               (SHAPE_256, torch.float32)):
             q, k, v, do = (torch.randn(bh, n, d, generator=g).to("cuda", dt) for _ in range(4))
             scale = d**-0.5
             o, l = ta.attention_fwd_plain(q, k, v, scale)
@@ -127,8 +140,11 @@ def main(argv: list[str]) -> int:
                                          (*(_P(a.data_ptr()) for a in (*ins, *outs[t])), *tail),
                                          f"{fname} of {t}")
                             for t in TREES}
-                _report(card, f"{fname} {SHAPE} {str(dt)[6:]}", launches,
-                        {t: f"{short}_wide{KEY_SUFFIX[t]}<" for t in TREES}, outs, 20)
+                keys = {t: (f"{short}_wide{KEY_SUFFIX[t]}<" if d > 256 else
+                            _key_256(texts[("attention", t)], short, KEY_SUFFIX[t]))
+                        for t in TREES}
+                _report(card, f"{fname} {(bh, n, d)} {str(dt)[6:]} ({', '.join(keys.values())})",
+                        launches, keys, outs, 20)
             del q, k, v, do, o, l, delta
     return 0
 

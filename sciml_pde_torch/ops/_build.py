@@ -100,8 +100,9 @@ def build_copies(texts: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
     """Compile each of ``texts`` (name: the text of one CUDA source, which
     includes nothing from ``csrc/``) in ``out`` with the package's flags,
     all at once, and load them: {name: library}.  A failed build raises
-    with the compiler's output.  For timing copies of a source side by side
-    (the experiments); the package's own kernels go through ``load``."""
+    with the compiler's output; a good one keeps it beside the library
+    (``copy_ptxas``).  For timing copies of a source side by side (the
+    experiments); the package's own kernels go through ``load``."""
     procs = {}
     for i, (name, text) in enumerate(texts.items()):
         cu, so = out / f"copy{i}.cu", out / f"libcopy{i}.so"
@@ -114,8 +115,14 @@ def build_copies(texts: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {name!r} copy:\n{log[-4000:]}")
+        so.with_suffix(".log").write_text(log)
         libs[name] = ctypes.CDLL(str(so))
     return libs
+
+
+def copy_ptxas(lib: ctypes.CDLL) -> list[tuple[str, int, int, int, int]]:
+    """``ptxas_report`` of a library that ``build_copies`` built."""
+    return parse_ptxas(Path(lib._name).with_suffix(".log").read_text())
 
 
 def _template_args(s: str):
@@ -161,8 +168,14 @@ def ptxas_report(name: str) -> list[tuple[str, int, int, int, int]]:
     """(kernel, registers, spill store bytes, spill load bytes, stack frame
     bytes) of each kernel of the built library ``name``, from the ``ptxas
     -v`` output of its build."""
+    return parse_ptxas(library_path(name).with_suffix(".log").read_text())
+
+
+def parse_ptxas(log: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes, stack frame
+    bytes) of each kernel in the ``ptxas -v`` output ``log``."""
     rows, fn, usage = [], None, (0, 0, 0)
-    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+    for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
             fn, usage = _kernel_name(m.group(1)), (0, 0, 0)
         elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

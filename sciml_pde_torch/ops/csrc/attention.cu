@@ -23,9 +23,11 @@
 // for the padded dims 16, 32, 64, 96, 128, 160, 192 and 256; a panel's head
 // dim is padded in shared memory to the next of them with zero columns,
 // which change no score and no product and are never stored.  Above 128 the
-// f32 bodies run on the CUDA cores (dQ and dK/dV over 32-row tiles), and each
-// bf16 tensor-core body splits its output columns over two blocks, which
-// both compute the scores (see below).  Above 256, in both input types (the
+// f32 forward and dK/dV run as one block of two warpgroups that share each
+// score through shared memory (fwd_tf32w_kernel, dkv_tf32w_kernel), the f32
+// dQ on the CUDA cores over 32-row tiles, and each bf16 tensor-core body
+// splits its output columns over two blocks, which both compute the scores
+// (see below).  Above 256, in both input types (the
 // wide bodies; no configuration reaches these dims), the output columns are
 // split over P = ceil(d / 128) groups of 128, the last one padded with zero
 // columns:
@@ -193,20 +195,37 @@
 //   MMA and add wait on latency.  Above head dim 64 dQ's and dK/dV's
 //   shared memory (six f32 tiles) leaves one block an SM, and at 96 and 128 dK/dV's
 //   two f32 accumulators over all columns overflow the registers into
-//   spills; no configuration uses those head dims.  Above 128 the
-//   accumulators and split fragments would not fit at all, so fwd_kernel,
-//   dq_kernel and dkv_kernel keep those head dims on the CUDA cores.
+//   spills; no configuration uses those head dims.
 //
-//   The CUDA-core bodies (fwd_kernel, dq_kernel and dkv_kernel at 160-256)
-//   take every product as f32 FMAs, bound by
-//   operations at the f32 rate (67 TFLOP/s).  256 threads; each owns a 4x4
-//   tile of the 64x64 score tile and R x DP/16 of the output tile, operands
-//   read from row-major shared-memory tiles padded by 4 floats (rows stay
-//   16-byte aligned and the reads are free of bank conflicts).  In-order
-//   FMAs: the products match cuBLAS's f32 GEMM bit for bit at the checked
-//   shapes.  The forward owns 64-row tiles; dQ and dK/dV own 32-row tiles
-//   (R = 2): four f32 64-row panels of 256 columns (266 KB) would overflow
-//   shared memory, and dK/dV's two accumulators the registers.
+//   Above 128 one warp's f32 accumulators over all columns and its split
+//   fragments would not fit the registers, so from 160 to 256 the forward and
+//   dK/dV give the output columns to two warpgroups of one block
+//   (fwd_tf32w_kernel, dkv_tf32w_kernel: a warp pair per 16 rows, the in-block
+//   form of the cluster bodies below, with no partial sums).  Each warp of a
+//   pair forms the 16 x 16 block of scores of the pair's rows against half of
+//   the other panel's tile over all columns, once and in the order above; it
+//   writes p (the forward: the two warps of a pair first exchange their row
+//   maxima and both form the same running max and alpha) or p^T and ds^T
+//   (dK/dV) in f32 to staging tiles, and after its pair's named barrier takes
+//   the long products of its 16 rows over its warpgroup's half of the columns
+//   from them, read back in the accumulator layout (split_acc_as_a) with each
+//   tile's sums begun at 0.  The forward owns 96-row tiles (12 warps, one
+//   block an SM: (8, 1280, d) is 112 blocks, one wave; 64-row tiles left a
+//   second wave, or SMs with two blocks, and took over a third longer on the
+//   card) and holds one K and one V tile of 32 keys (each tile's copies fly
+//   while the other tile is in use); dK/dV owns 64-key tiles, holds k and v
+//   for the block's life and Q/dO tiles of 32 queries, two of each at 160 and
+//   192, one at 256 (the next dO tile flies during ds^T.q), one block an SM.
+//
+//   The f32 dQ from 160 to 256 (dq_kernel) runs on the CUDA cores: every
+//   product as f32 FMAs, bound by operations at the f32 rate (67 TFLOP/s).
+//   256 threads; each owns a 2x4 tile of the 32x64 score tile and 2 x DP/16
+//   of the output tile, operands read from row-major shared-memory tiles
+//   padded by 4 floats (rows stay 16-byte aligned and the reads are free of
+//   bank conflicts).  In-order FMAs: the products match cuBLAS's f32 GEMM
+//   bit for bit at the checked shapes.  It owns 32-row tiles (R = 2): four
+//   f32 64-row panels of 256 columns (266 KB) would overflow shared
+//   memory.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -233,11 +252,11 @@ __device__ __forceinline__ void block_pair(int ntiles, size_t& bh, int& tile) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core tiles (f32 forward, dQ, dK/dV)
+// CUDA-core tiles (f32 dQ at head dims 160-256; both types above 1024)
 // ---------------------------------------------------------------------------
 
-// rows per thread of the CUDA-core dQ and dK/dV bodies' own tile (16 RC
-// rows; head dims 160-256)
+// rows per thread of the CUDA-core dQ body's own tile (16 RC rows; head dims
+// 160-256)
 constexpr int RC = 2;
 
 // Rows [r0, r0 + rows) of a (n, d) panel into a row-major f32 tile with row
@@ -358,77 +377,6 @@ __device__ __forceinline__ void store_row(T* dst, const float* acc, int tx, int 
 }
 
 // ---------------------------------------------------------------------------
-// forward, CUDA cores (f32 inputs, head dims 160-256): o = softmax(q*scale . k^T) . v
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__global__ void __launch_bounds__(NT)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           float* __restrict__ o, float* __restrict__ lse, int n, int d, int ntiles, float scale) {
-  constexpr int DPT = DP / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                     // [TILE][DP + 4], q * scale
-  float* ks = qs + TILE * (DP + 4);
-  float* vs = ks + TILE * (DP + 4);
-  float* ps = vs + TILE * (DP + 4);   // [TILE queries][SP]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, ra = ty * 4;
-  size_t bh;
-  int tile;
-  block_pair(ntiles, bh, tile);
-  const int q0 = tile * TILE;
-  const size_t base = bh * n * d;
-  load_tile<DP>(qs, q + base, q0, TILE, n, d, scale);
-
-  float m[4], lsum[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    lsum[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    __syncthreads();  // the previous tile's products are done with ks, vs, ps
-    load_tile<DP>(ks, k + base, k0, TILE, n, d);
-    load_tile<DP>(vs, v + base, k0, TILE, n, d);
-    __syncthreads();
-    float s[4][4];
-    dot_tile<DP, false, 4, 4>(s, qs, ra, ks, tx, 0.f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= n) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));  // finite: the tile holds a key
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ra + i) * SP + tx + 16 * j] = p;
-        rs += p;
-      }
-      lsum[i] = lsum[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    acc_tile<DP, 4>(acc, ps, ra, vs, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ra + i;
-    if (row >= n) continue;
-    store_row<DPT>(o + base + (size_t)row * d, acc[i], tx, d, 1.f / lsum[i]);
-    if (tx == 0) lse[bh * n + row] = m[i] + logf(lsum[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // dQ, CUDA cores: p = exp(s - l), ds = p * (do.v^T - delta), dq = (ds.k) * scale
 // ---------------------------------------------------------------------------
 
@@ -490,84 +438,6 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV, CUDA cores: dk = (ds^T.q) * scale, dv = p^T.do, over the queries of
-// each key
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__global__ void __launch_bounds__(NT)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const float* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-           int n, int d, int ntiles, float scale) {
-  constexpr int R = RC, TR = 16 * R, DPT = DP / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* ks = sm;                     // [TR keys][DP + 4]
-  float* vs = ks + TR * (DP + 4);
-  float* qs = vs + TR * (DP + 4);     // [TILE queries][DP + 4], unscaled
-  float* dos = qs + TILE * (DP + 4);
-  float* pt = dos + TILE * (DP + 4);  // [TR keys][SP]: p transposed
-  float* dst = pt + TR * SP;          // [TR keys][SP]: ds transposed
-  float* ls = dst + TR * SP;          // [TILE] logsumexp of the query tile
-  float* dls = ls + TILE;             // [TILE] delta of the query tile
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int rq = ty * 4, rk = ty * R;  // this thread's query rows (scores), key rows (output)
-  size_t bh;
-  int tile;
-  block_pair(ntiles, bh, tile);
-  const int k0 = tile * TR;
-  const size_t base = bh * n * d;
-  const size_t rbase = bh * n;
-  load_tile<DP>(ks, k + base, k0, TR, n, d);
-  load_tile<DP>(vs, v + base, k0, TR, n, d);
-  float gk[R][DPT], gv[R][DPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) gk[i][c] = gv[i][c] = 0.f;
-
-  for (int r0 = 0; r0 < n; r0 += TILE) {
-    __syncthreads();
-    load_tile<DP>(qs, q + base, r0, TILE, n, d);
-    load_tile<DP>(dos, dout + base, r0, TILE, n, d);
-    load_rows(ls, lse + rbase, r0, n);
-    load_rows(dls, delta + rbase, r0, n);
-    __syncthreads();
-    // scores of the query rows rq.. against the keys tx + 16 j
-    float s[4][R], dp[4][R];
-    dot_tile<DP, true, 4, R>(s, qs, rq, ks, tx, scale);
-    dot_tile<DP, false, 4, R>(dp, dos, rq, vs, tx, 0.f);
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const bool key_ok = k0 + tx + 16 * j < n;
-      float pp[4], dd[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = key_ok && r0 + rq + i < n;
-        const float p = ok ? expf(s[i][j] - ls[rq + i]) : 0.f;
-        pp[i] = p;
-        dd[i] = p * (dp[i][j] - dls[rq + i]);
-      }
-      *reinterpret_cast<float4*>(pt + (tx + 16 * j) * SP + rq) =
-          make_float4(pp[0], pp[1], pp[2], pp[3]);
-      *reinterpret_cast<float4*>(dst + (tx + 16 * j) * SP + rq) =
-          make_float4(dd[0], dd[1], dd[2], dd[3]);
-    }
-    __syncthreads();
-    // keys rk.. of this block against the query rows of the tile
-    acc_tile<DP, R>(gv, pt, rk, dos, tx);
-    acc_tile<DP, R>(gk, dst, rk, qs, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int key = k0 + rk + i;
-    if (key >= n) continue;
-    store_row<DPT>(dk + base + (size_t)key * d, gk[i], tx, d, scale);
-    store_row<DPT>(dv + base + (size_t)key * d, gv[i], tx, d, 1.f);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // head dims above 1024 (the forward, dQ and dK/dV), f32 or bf16 inputs,
 // CUDA cores
 // ---------------------------------------------------------------------------
@@ -591,7 +461,7 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* src, int r0, int
 
 // forward above head dim 1024: one block per (bh, 32 queries, 128 output
 // columns); the scores over 64-column chunks of q * scale and k, then the
-// online softmax and p.v over the block's columns of v, as fwd_kernel
+// online softmax and p.v over the block's columns of v
 template <typename T>
 __global__ void __launch_bounds__(NT)
 fwd_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -726,7 +596,7 @@ dq_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
 // dK/dV above head dim 1024: one block per (bh, 32 keys, 128 output
 // columns); s^T and dp^T over 64-column chunks, then p^T.do and ds^T.q over
-// the block's columns of do and q, as dkv_kernel
+// the block's columns of do and q
 template <typename T>
 __global__ void __launch_bounds__(NT)
 dkv_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -814,17 +684,18 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // Rows [r0, r0 + ROWS) and columns [c0, c0 + DP) of a (n, d) panel of T
 // (bf16 or f32) into a [ROWS][DP + E] tile by cp.async, 16 bytes (E = 16 /
-// sizeof(T) columns) per copy, ROWS * DP / (E * NTH) copies a thread; rows
-// at or past n and columns at or past d (d % 8 == 0) are zero-filled.
+// sizeof(T) columns) per copy, ceil(ROWS * DP / (E * NTH)) copies a thread;
+// rows at or past n and columns at or past d (d % 8 == 0) are zero-filled.
 template <int DP, int ROWS = TILE, int NTH = NT_TC, typename T>
 __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int r0, int n, int d,
                                                 int c0 = 0) {
   constexpr int E = 16 / sizeof(T), CPR = DP / E;  // columns per copy, copies per row
-  static_assert(ROWS * CPR % NTH == 0, "whole copies a thread");
+  constexpr int COPIES = ROWS * CPR;
   const T* tile = src + (size_t)r0 * d + c0;
 #pragma unroll
-  for (int it = 0; it < ROWS * CPR / NTH; ++it) {
+  for (int it = 0; it < (COPIES + NTH - 1) / NTH; ++it) {
     const int i = threadIdx.x + it * NTH;
+    if (COPIES % NTH != 0 && i >= COPIES) break;
     const int r = i / CPR, c = (i - r * CPR) * E;
     const bool ok = r0 + r < n && c0 + c < d;
     const T* g = ok ? tile + r * d + c : src;
@@ -1556,29 +1427,36 @@ __device__ __forceinline__ void mma_split_rows(float part[CG][4], const uint32_t
   for (int c = 0; c < CG; ++c) mma_tf32(part[c], ah, bh[c][0], bh[c][1]);
 }
 
+// acc[0..CG) += a . b over NS k8 steps for CG n8 column tiles (see
+// grad_step), their sums begun at 0 and added to acc in f32
+template <int CG, int NS>
+__device__ __forceinline__ void grad_group(float (*acc)[4], const uint32_t ah[NS][4],
+                                           const uint32_t al[NS][4], const float* p, int ld) {
+  float part[CG][4];
+#pragma unroll
+  for (int c = 0; c < CG; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[c][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) mma_split_rows<CG>(part, ah[i], al[i], p + 8 * i * ld, ld);
+#pragma unroll
+  for (int c = 0; c < CG; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] += part[c][e];
+}
+
 // acc += a . b over NS k8 steps (a: split A fragments; b: rows of an f32
 // tile, p at row 2t and column g of the first step's first n8 tile), for
-// NC n8 column tiles, four at a time; each tile's sum is begun at 0 and
-// added to acc in f32
+// NC n8 column tiles, four at a time (the last NC % 4 together); each
+// tile's sum is begun at 0 and added to acc in f32
 template <int NC, int NS>
 __device__ __forceinline__ void grad_step(float acc[NC][4], const uint32_t ah[NS][4],
                                           const uint32_t al[NS][4], const float* p, int ld) {
-  constexpr int CG = NC < 4 ? NC : 4;
+  constexpr int NC4 = NC / 4 * 4;
 #pragma unroll
-  for (int c0 = 0; c0 < NC; c0 += CG) {
-    float part[CG][4];
-#pragma unroll
-    for (int c = 0; c < CG; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[c][e] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NS; ++i)
-      mma_split_rows<CG>(part, ah[i], al[i], p + 8 * i * ld + 8 * c0, ld);
-#pragma unroll
-    for (int c = 0; c < CG; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c0 + c][e] += part[c][e];
-  }
+  for (int c0 = 0; c0 < NC4; c0 += 4) grad_group<4, NS>(acc + c0, ah, al, p + 8 * c0, ld);
+  if constexpr (NC % 4 != 0)
+    grad_group<NC % 4, NS>(acc + NC4, ah, al, p + 8 * NC4, ld);
 }
 
 // s0, s1 += a . b (two n8 tiles: b[0..1], b[2..3]) and d0, d1 += a2 . b2 in
@@ -1869,14 +1747,14 @@ dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // so three blocks share an SM
 constexpr int FWD32_TK = 32;
 
-// s (FWD32_TK keys) += a . k^T over one k8 step in split TF32 (kp: this
-// lane's ldmatrix row of the step in the K tile), each n8 tile's three MMAs
-// into a fresh accumulator that an f32 add then adds to s
-template <int LD>
-__device__ __forceinline__ void score_step(float s[FWD32_TK / 8][4], const uint32_t ah[4],
+// s (NK keys) += a . k^T over one k8 step in split TF32 (kp: this lane's
+// ldmatrix row of the step in the K tile), each n8 tile's three MMAs into a
+// fresh accumulator that an f32 add then adds to s
+template <int LD, int NK = FWD32_TK>
+__device__ __forceinline__ void score_step(float s[NK / 8][4], const uint32_t ah[4],
                                            const uint32_t al[4], const float* kp) {
 #pragma unroll
-  for (int np = 0; np < FWD32_TK / 16; ++np) {
+  for (int np = 0; np < NK / 16; ++np) {
     uint32_t kh[4], kl[4];
     ld_split<false>(kh, kl, kp + np * 16 * LD, 1.f);
     float t0[4], t1[4];
@@ -2770,6 +2648,389 @@ dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ---------------------------------------------------------------------------
+// head dims 160-256, the f32 forward and dK/dV: split TF32 on the tensor
+// cores, one block of two warpgroups per (bh, 96 queries or 64 keys) that
+// share each score through shared memory (the in-block form of the cluster
+// bodies)
+// ---------------------------------------------------------------------------
+
+// The two warps of a pair (w and w + 4 of dK/dV's 8) share 16 rows
+// (queries, or keys in dK/dV): each forms the scores of those rows against
+// half of a tile, and each takes the products of those rows over half of
+// the output columns.  Pair i meets at named barrier 1 + i (0 is
+// __syncthreads).
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
+// query rows of a forward block, 16 a warp pair (four threads a row): 96,
+// so that (8, 1280, d) gives 112 blocks (14 row tiles a panel), one wave of
+// one block an SM (168 registers a thread)
+constexpr int TW_ROWS = 96;
+// dK/dV's Q/dO tile buffers (WKV_TQ queries): two where they fit (160,
+// 192); one at 256, where dO's next tile flies during ds^T.q and q's is
+// waited for
+template <int DP>
+constexpr int TW_QB = DP == 256 ? 1 : 2;
+
+// forward, head dims 160-256: one block of 2 TW_ROWS / 16 warps per (bh,
+// TW_ROWS queries), over K/V tiles of FWD32_TK keys, one of each in shared
+// memory (a K tile's copies fly while the block takes the last tile's p.v,
+// a V tile's while it takes the next scores).  Warp pair i (warps i and i +
+// TW_ROWS / 16) owns rows 16 i.  Each warp of a pair forms the scores of its
+// rows against half of the tile's keys over all DP columns, each k8 step's
+// three MMAs into fresh accumulators (score_step), so each score is formed
+// once, in fwd_tf32_kernel's order.  The pair exchanges its row maxima
+// through shared memory and both warps form the same running max and
+// alpha; each writes its p (f32) to the staging tile, and after a barrier
+// takes p.v for its 16 rows over its half of the DP columns: p read back in
+// the accumulator layout and split (split_acc_as_a), the tile's sums begun
+// at 0 and added to the running output after its alpha rescale
+// (grad_step), as fwd_tf32_kernel.  The row sums of the two halves are
+// added at the end.
+template <int DP>
+__global__ void __launch_bounds__(4 * TW_ROWS, 1)
+fwd_tf32w_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int n, int d, int ntiles, float scale) {
+  constexpr int LD = DP + 4, KS = DP / 8, TK = FWD32_TK, TS = TK * LD, LX = TK + XP;
+  constexpr int NC = DP / 16;  // n8 tiles of a warp's DP / 2 output columns
+  constexpr int RWS = TW_ROWS, NTH = 4 * RWS, NP = RWS / 16;  // rows, threads, warp pairs
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [RWS][LD], q unscaled
+  float* ks = qs + RWS * LD;                       // [TK][LD]
+  float* vs = ks + TS;                             // [TK][LD]
+  float* ps = vs + TS;                             // [RWS][LX]: the tile's p
+  float* xm = ps + RWS * LX;                       // 2 x [RWS]: each half's row max, then sum
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile * RWS;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int warp = ln.warp, g = ln.g, t = ln.t, pair = warp % NP, half = warp / NP;
+  const int rw = pair * 16;        // the warp's 16 rows
+  const int kw = half * 16;        // its 16 keys of a tile (scores)
+  const int cw = half * (DP / 2);  // its output columns (p.v)
+  const int nkt = (n + TK - 1) / TK;
+  const int a_off = (rw + ln.lm_row) * LD + ln.lm_col / 2;
+  const int b_off = (kw + ln.lk_row) * LD + ln.lk_col / 2;
+
+  // copy groups in order K_0 (with q), V_0, K_1, V_1, ...: K_{j+1} is
+  // issued once every warp is done with K_j's scores, V_{j+1} once every
+  // warp is done with V_j's p.v
+  auto load_k = [&](int jt) {
+    load_tile_async<DP, TK, NTH>(ks, k + base, jt * TK, n, d);
+    cp_async_commit();
+  };
+  auto load_v = [&](int jt) {
+    load_tile_async<DP, TK, NTH>(vs, v + base, jt * TK, n, d);
+    cp_async_commit();
+  };
+  load_tile_async<DP, RWS, NTH>(qs, q + base, q0, n, d);
+  load_k(0);
+  load_v(0);
+
+  float acc[NC][4];
+  // rows g and g + 8 of the warp's tile: running max, and the running sum
+  // over this thread's columns of the warp's keys
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    // K_j is in (V_0 may still fly; V_j, j > 0, is not issued yet)
+    if (j == 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // K_j everywhere; every warp is done with V_{j-1} and the last p
+    if (j > 0) load_v(j);
+
+    // s = (q * scale) . k^T over the warp's 16 keys
+    float s[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4];
+      ld_split<true>(ah, al, qs + a_off + kk * 8, scale);
+      score_step<LD, 16>(s, ah, al, ks + b_off + kk * 8);
+    }
+    if (j * TK + TK > n) {  // keys at or past n: p = 0
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * TK + kw + i * 8 + 2 * t + (e & 1) >= n) s[i][e] = -INFINITY;
+    }
+
+    // the tile's row max over both halves (the two warps form the same
+    // bits: fmaxf of the same values), then the online max and sum in f32
+    // as fwd_tf32_kernel
+    float mx0 = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
+    float mx1 = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    if (t == 0) {
+      xm[half * RWS + rw + g] = mx0;
+      xm[half * RWS + rw + g + 8] = mx1;
+    }
+    pair_sync(pair);
+    // finite: the tile holds a key
+    const float mn0 = fmaxf(m[0], fmaxf(xm[rw + g], xm[RWS + rw + g]));
+    const float mn1 = fmaxf(m[1], fmaxf(xm[rw + g + 8], xm[RWS + rw + g + 8]));
+    const float a0 = ex2((m[0] - mn0) * LOG2E), a1 = ex2((m[1] - mn1) * LOG2E);
+    m[0] = mn0;
+    m[1] = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+    float* xr = ps + (rw + g) * LX + kw + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s[i][0] = ex2((s[i][0] - mn0) * LOG2E);
+      s[i][1] = ex2((s[i][1] - mn0) * LOG2E);
+      s[i][2] = ex2((s[i][2] - mn1) * LOG2E);
+      s[i][3] = ex2((s[i][3] - mn1) * LOG2E);
+      rs0 += s[i][0] + s[i][1];
+      rs1 += s[i][2] + s[i][3];
+      store2(xr + 8 * i, s[i][0], s[i][1]);
+      store2(xr + 8 * LX + 8 * i, s[i][2], s[i][3]);
+    }
+    l[0] = l[0] * a0 + rs0;
+    l[1] = l[1] * a1 + rs1;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[c][0] *= a0;
+      acc[c][1] *= a0;
+      acc[c][2] *= a1;
+      acc[c][3] *= a1;
+    }
+
+    cp_async_wait<0>();  // V_j
+    __syncthreads();     // V_j and the tile's p everywhere; every warp is done with K_j
+    if (j + 1 < nkt) load_k(j + 1);
+
+    // acc += p . v over the warp's columns from split A fragments of its
+    // rows of p (all FWD32_TK keys), the tile's sums begun at 0
+    uint32_t ph[TK / 8][4], pl[TK / 8][4];
+    const float* pr = ps + (rw + g) * LX + 2 * t;
+#pragma unroll
+    for (int i = 0; i < TK / 8; ++i) {
+      const float2 a = *reinterpret_cast<const float2*>(pr + 8 * i);
+      const float2 b = *reinterpret_cast<const float2*>(pr + 8 * LX + 8 * i);
+      const float c[4] = {a.x, a.y, b.x, b.y};
+      split_acc_as_a(c, ph[i], pl[i]);
+    }
+    grad_step<NC, TK / 8>(acc, ph, pl, vs + 2 * t * LD + cw + g, LD);
+  }
+
+  // each row's sum: over the quad, then the two halves' in order
+  float l0 = l[0], l1 = l[1];
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (t == 0) {  // every warp read the last maxima before the last __syncthreads
+    xm[half * RWS + rw + g] = l0;
+    xm[half * RWS + rw + g + 8] = l1;
+  }
+  pair_sync(pair);
+  l0 = xm[rw + g] + xm[RWS + rw + g];
+  l1 = xm[rw + g + 8] + xm[RWS + rw + g + 8];
+  const int row0 = q0 + rw + g;
+  store_acc<NC>(o + base, acc, row0, cw, t, n, d, 1.f / l0, 1.f / l1);
+  if (half == 0 && t == 0) {
+    if (row0 < n) lse[bh * n + row0] = m[0] + logf(l0);
+    if (row0 + 8 < n) lse[bh * n + row0 + 8] = m[1] + logf(l1);
+  }
+}
+
+// dK/dV, head dims 160-256: one block of 8 warps per (bh, 64 keys), which
+// stages k and v for its life and loops over Q/dO tiles of WKV_TQ queries
+// (with each tile's l and delta).  Per tile, warp w forms s^T = k.(q *
+// scale)^T and dp^T = v.do^T of keys 16 (w % 4) against queries 16 (w / 4)
+// over all DP columns (mma_split_2x2: the scores' k8 steps into fresh
+// accumulators, dp^T in one), then p^T = exp(s^T - l) and ds^T = p^T (dp^T -
+// delta), which it writes (f32) to two 64 x 32 staging tiles; after its
+// pair's barrier it takes dv += p^T.do and then dk += ds^T.q for its 16
+// keys over its warpgroup's DP / 2 columns, each tile's sums begun at 0
+// (grad_step), as dkv_tf32_kernel.
+template <int DP>
+__global__ void __launch_bounds__(NT_WKV, 1)
+dkv_tf32w_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk, float* __restrict__ dv, int n, int d, int ntiles,
+                 float scale) {
+  constexpr int LD = DP + 4, KS = DP / 8, TQ = WKV_TQ, TS = TQ * LD, LX = TQ + XP;
+  constexpr int XS = TILE * LX, QB = TW_QB<DP>, NC = DP / 16, NS = TQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // [TILE][LD]
+  float* vs = ks + TILE * LD;                      // [TILE][LD]
+  float* qs = vs + TILE * LD;                      // QB x [TQ][LD], q unscaled
+  float* dos = qs + QB * TS;                       // QB x [TQ][LD]
+  float* xs = dos + QB * TS;                       // [TILE][LX] p^T, then [TILE][LX] ds^T
+  float* ls = xs + 2 * XS;                         // QB x [TQ] logsumexp of the Q tile
+  float* dls = ls + QB * TQ;                       // QB x [TQ] delta of the Q tile
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int k0 = tile * TILE;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int warp = ln.warp, g = ln.g, t = ln.t, half = warp >> 2;
+  const int kr = (warp & 3) * 16;  // the warp's 16 keys
+  const int qw = half * 16;        // its 16 queries of a tile (scores)
+  const int cw = half * (DP / 2);  // its output columns (gradients)
+  const int nqt = (n + TQ - 1) / TQ;
+  const int row0 = k0 + kr + g;  // this lane's keys row0 and row0 + 8
+  const int a_off = (kr + ln.lm_row) * LD + ln.lm_col / 2;
+  const int b_off = (qw + ln.lk_row) * LD + ln.lk_col / 2;
+
+  auto load_q = [&](int jt) {  // q, l and delta of Q tile jt
+    const int b = jt % QB, r = jt * TQ;
+    load_tile_async<DP, TQ, NT_WKV>(qs + b * TS, q + base, r, n, d);
+    load_rows_async<TQ>(ls + b * TQ, lse + bh * n, r, n);
+    load_rows_async<TQ>(dls + b * TQ, delta + bh * n, r, n);
+  };
+  auto load_do = [&](int jt) {
+    load_tile_async<DP, TQ, NT_WKV>(dos + (jt % QB) * TS, dout + base, jt * TQ, n, d);
+  };
+  load_tile_async<DP, TILE, NT_WKV>(ks, k + base, k0, n, d);
+  load_tile_async<DP, TILE, NT_WKV>(vs, v + base, k0, n, d);
+  load_q(0);
+  load_do(0);
+  cp_async_commit();
+
+  float gk[NC][4], gv[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[c][e] = gv[c][e] = 0.f;
+
+  for (int j = 0; j < nqt; ++j) {
+    const int buf = j % QB;
+    cp_async_wait<0>();  // Q/dO tile j, the newest group
+    __syncthreads();     // tile j everywhere; every warp is done with tile j - 1
+    if (QB == 2 && j + 1 < nqt) {  // into the buffer of tile j - 1
+      load_q(j + 1);
+      load_do(j + 1);
+      cp_async_commit();
+    }
+    const float* qb = qs + buf * TS;
+    const float* db = dos + buf * TS;
+    const float* lb = ls + buf * TQ;
+    const float* dlb = dls + buf * TQ;
+
+    // s^T = k . (q * scale)^T and dp^T = v . do^T over the warp's 16 queries
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kh[4], kl[4], vh[4], vl[4], qh[4], ql[4], doh[4], dol[4];
+      ld_split<false>(kh, kl, ks + a_off + kk * 8, 1.f);
+      ld_split<false>(vh, vl, vs + a_off + kk * 8, 1.f);
+      ld_split<true>(qh, ql, qb + b_off + kk * 8, scale);
+      ld_split<false>(doh, dol, db + b_off + kk * 8, 1.f);
+      mma_split_2x2(s[0], s[1], dp[0], dp[1], kh, kl, qh, ql, vh, vl, doh, dol);
+    }
+    if (k0 + TILE > n || j * TQ + TQ > n) {  // keys or queries at or past n: p = 0
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * TQ + qw + i * 8 + 2 * t + (e & 1) >= n || row0 + (e >> 1) * 8 >= n)
+            s[i][e] = -INFINITY;
+    }
+    // p^T = 2^((s^T - l) * log2(e)) and ds^T = p^T * (dp^T - delta) into the
+    // staging tiles
+    float* xr = xs + (kr + g) * LX + qw + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int col = qw + i * 8 + 2 * t;  // query in the tile
+      const float2 l2 = *reinterpret_cast<const float2*>(lb + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(dlb + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2((s[i][e] - (e & 1 ? l2.y : l2.x)) * LOG2E);
+        s[i][e] = p;
+        dp[i][e] = p * (dp[i][e] - (e & 1 ? d2.y : d2.x));
+      }
+      store2(xr + 8 * i, s[i][0], s[i][1]);
+      store2(xr + 8 * LX + 8 * i, s[i][2], s[i][3]);
+      store2(xr + XS + 8 * i, dp[i][0], dp[i][1]);
+      store2(xr + XS + 8 * LX + 8 * i, dp[i][2], dp[i][3]);
+    }
+    pair_sync(warp & 3);  // the pair's keys' p^T and ds^T over all TQ queries are in
+
+    // dv += p^T . do, then dk += ds^T . q, over the warp's columns from
+    // split A fragments of its keys' rows (one set live at a time)
+    const float* pr = xs + (kr + g) * LX + 2 * t;
+    uint32_t ah[NS][4], al[NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float2 a = *reinterpret_cast<const float2*>(pr + 8 * i);
+      const float2 b = *reinterpret_cast<const float2*>(pr + 8 * LX + 8 * i);
+      const float c[4] = {a.x, a.y, b.x, b.y};
+      split_acc_as_a(c, ah[i], al[i]);
+    }
+    grad_step<NC, NS>(gv, ah, al, db + 2 * t * LD + cw + g, LD);
+    if (QB == 1) {
+      __syncthreads();  // every warp is done with dO tile j
+      if (j + 1 < nqt) {
+        load_do(j + 1);
+        cp_async_commit();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float2 a = *reinterpret_cast<const float2*>(pr + XS + 8 * i);
+      const float2 b = *reinterpret_cast<const float2*>(pr + XS + 8 * LX + 8 * i);
+      const float c[4] = {a.x, a.y, b.x, b.y};
+      split_acc_as_a(c, ah[i], al[i]);
+    }
+    grad_step<NC, NS>(gk, ah, al, qb + 2 * t * LD + cw + g, LD);
+    if (QB == 1) {
+      __syncthreads();  // every warp is done with Q tile j, its l and delta
+      if (j + 1 < nqt) {
+        load_q(j + 1);
+        cp_async_commit();
+      }
+    }
+  }
+  store_acc<NC>(dk + base, gk, row0, cw, t, n, d, scale, scale);
+  store_acc<NC>(dv + base, gv, row0, cw, t, n, d, 1.f, 1.f);
+}
+
+// their shared memory: the forward's q, one K and one V tile, the p staging
+// tile and two row vectors (121,088 bytes at head dim 160, 141,568 at 192,
+// 182,528 at 256: one block an SM); dK/dV's k and v, QB Q and dO tiles, the
+// p^T and ds^T staging tiles, QB l and delta rows (188,928, 221,696 and
+// 220,416 bytes: one block an SM)
+template <int DP>
+constexpr size_t fwd_tf32w_smem() {
+  return (size_t)(TW_ROWS + 2 * FWD32_TK) * (DP + 4) * sizeof(float) +
+         (size_t)TW_ROWS * (FWD32_TK + XP) * sizeof(float) + 2 * TW_ROWS * sizeof(float);
+}
+template <int DP>
+constexpr size_t dkv_tf32w_smem() {
+  return (size_t)(2 * TILE + 2 * TW_QB<DP> * WKV_TQ) * (DP + 4) * sizeof(float) +
+         2 * (size_t)TILE * (WKV_TQ + XP) * sizeof(float) +
+         2 * TW_QB<DP> * WKV_TQ * sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -2809,12 +3070,12 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, float*
     kern<<<grid, NT_TC, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
                                         (float*)o, l, n, d, ntiles, scale);
   } else {
-    const size_t smem = 3 * f32_tile_bytes(TILE, DP) + f32_tile_bytes(TILE, TILE);
-    auto kern = fwd_kernel<DP>;
-    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, TILE);
+    const size_t smem = fwd_tf32w_smem<DP>();
+    auto kern = fwd_tf32w_kernel<DP>;
+    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, TW_ROWS);
     if (e != cudaSuccess) return e;
-    kern<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
-                                     (float*)o, l, n, d, ntiles, scale);
+    kern<<<grid, 4 * TW_ROWS, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                              (float*)o, l, n, d, ntiles, scale);
   }
   return cudaGetLastError();
 }
@@ -2879,15 +3140,13 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
                                         (const float*)dout, l, delta, (float*)dk, (float*)dv, n,
                                         d, ntiles, scale);
   } else {
-    constexpr int TR = 16 * RC;
-    const size_t smem = 2 * f32_tile_bytes(TR, DP) + 2 * f32_tile_bytes(TILE, DP) +
-                        2 * f32_tile_bytes(TR, TILE) + 2 * TILE * sizeof(float);
-    auto kern = dkv_kernel<DP>;
-    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, TR);
+    const size_t smem = dkv_tf32w_smem<DP>();
+    auto kern = dkv_tf32w_kernel<DP>;
+    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, TILE);
     if (e != cudaSuccess) return e;
-    kern<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
-                                     (const float*)dout, l, delta, (float*)dk, (float*)dv, n, d,
-                                     ntiles, scale);
+    kern<<<grid, NT_WKV, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                         (const float*)dout, l, delta, (float*)dk, (float*)dv,
+                                         n, d, ntiles, scale);
   }
   return cudaGetLastError();
 }
@@ -3040,6 +3299,14 @@ ATT_EXPORT int attention_dkv(const void* q, const void* k, const void* v, const 
 
 namespace {
 template <typename... K>
+int occupancy(void (*kern)(K...), size_t smem, int threads, int* blocks) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+}
+
+template <typename... K>
 int max_clusters(void (*kern)(K...), size_t smem, int threads, int parts, int* clusters) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -3073,4 +3340,27 @@ ATT_EXPORT int attention_wide_clusters(int kind, int bf, int parts, int* cluster
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The most blocks of the split-TF32 forward (kind 0) or dK/dV (1) body of
+// head dims 160-256 at padded head dim dp (160, 192 or 256) that one SM
+// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *blocks, and its threads a block into *threads.
+ATT_EXPORT int attention_tf32w_blocks(int kind, int dp, int* blocks, int* threads) {
+  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
+  *threads = kind == 0 ? 4 * TW_ROWS : NT_WKV;
+#define TF32W_OCC(DP)                                                                    \
+  (kind == 0 ? occupancy(fwd_tf32w_kernel<DP>, fwd_tf32w_smem<DP>(), *threads, blocks) \
+             : occupancy(dkv_tf32w_kernel<DP>, dkv_tf32w_smem<DP>(), *threads, blocks))
+  switch (dp) {
+    case 160:
+      return TF32W_OCC(160);
+    case 192:
+      return TF32W_OCC(192);
+    case 256:
+      return TF32W_OCC(256);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef TF32W_OCC
 }

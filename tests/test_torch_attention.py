@@ -170,17 +170,21 @@ def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
     upper limit (264, 320, 512 and 1024 go to the wide bodies, the forward,
     dQ and dK/dV as clusters; 1032 to their CUDA-core bodies), and a
     batch*heads count above 65535; it raises on a head dim that is not a
-    multiple of 8, on a grid past 2^31 - 1 blocks (counting the wide
-    bodies' column groups: the clusters' 64-row tiles up to head dim 1024,
-    the CUDA-core bodies' 32-row tiles above), and on a non-contiguous
-    panel."""
+    multiple of 8, on a grid past 2^31 - 1 blocks (from 136 to 256 the f32
+    dQ's 32-row tiles and the bf16 bodies' two blocks per 64-row tile, the
+    f32 forward taking one block per 96-row tile and dK/dV per 64-row tile;
+    above, the wide bodies' column groups: the clusters' 64-row tiles up to
+    head dim 1024, the CUDA-core bodies' 32-row tiles above), and on a
+    non-contiguous panel."""
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
     for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256, 264, 320, 512, 1024, 1032):
         for dt in (torch.bfloat16, torch.float32):
             want = (3, 64, d, dt == torch.bfloat16)
             assert ta._check(meta(3, 64, d, dt=dt), (meta(3, 64, d, dt=dt),)) == want
         for n in (64, 200, 2048):
-            if 256 < d <= ta.CLUSTER_MAX_D:
+            if 128 < d <= 256:
+                assert max(-(-n // 32), 2 * -(-n // 64)) == ta._blocks_per_panel(n, d)
+            elif 256 < d <= ta.CLUSTER_MAX_D:
                 assert -(-n // 64) * -(-d // 128) == ta._blocks_per_panel(n, d)
             elif d > ta.CLUSTER_MAX_D:
                 assert -(-n // 32) * -(-d // 128) == ta._blocks_per_panel(n, d)
@@ -248,7 +252,7 @@ def test_split_bf16_backward_meets_the_card_bounds():
 
 
 def _tf32_dot(a, b, passes):
-    """a @ b (f32) as the f32 backward kernels take it on the tensor cores:
+    """a @ b (f32) as the f32 kernels take it on the tensor cores:
     with three passes a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, x_hi = tf32(x),
     x_lo = tf32(x - x_hi) (chip_smoke.tf32's rounding); with one pass
     a_hi.b_hi.  Summed in f64, rounded to f32 once."""
@@ -261,16 +265,38 @@ def _tf32_dot(a, b, passes):
             + ah.double() @ bh.double()).float()
 
 
+def _step_dot(a, b, step, passes):
+    """a @ b over the contraction in steps of ``step``, each step's
+    _tf32_dot begun afresh and added to the running sum in f32, as the f32
+    kernels take their long sums."""
+    total = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for c0 in range(0, a.shape[-1], step):
+        total = total + _tf32_dot(a[..., c0:c0 + step], b[..., c0:c0 + step, :], passes)
+    return total
+
+
+# keys of a dQ score step and queries of a dK/dV one (their long sums' steps):
+# dq_tf32_kernel's DQ32_SC and dkv_tf32_kernel's DKV32_SC up to head dim 128;
+# from 160 the Q/dO tiles of dkv_tf32w_kernel (WKV_TQ), and for dQ the same
+# 32 (dq_kernel takes those head dims on the CUDA cores)
+def _bwd_steps(d):
+    return {"dq": 64 if d <= 64 else 32, "dkv": 32 if d <= 64 or d > 128 else 16}
+
+
 @pytest.mark.parametrize("out", ["dq", "dk", "dv"])
-@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("d", [64, 96, 160, 192, 256])
 def test_split_tf32_backward_meets_the_f32_bound(d, out):
     """The f32 dQ and dK/dV kernels take every product in split TF32: s =
-    (q * scale).k^T and dp = do.v^T, then p = exp(s - l), ds = p (dp -
+    (q * scale).k^T a k8 step at a time (each step's passes summed afresh
+    and added in f32) and dp = do.v^T, then p = exp(s - l), ds = p (dp -
     delta), then dq = (ds.k) scale, dk = (ds^T.q) scale and dv = p^T.do,
-    each product three TF32 passes.  That emulation at (2, 256, d) lies
+    each product three TF32 passes and each long sum taken per score step
+    (``_bwd_steps``) and added in f32.  That emulation at (2, 256, d) lies
     within chip_smoke.py's f32 bound (1e-5 of the largest magnitude) of
     attention_dq_plain and attention_dkv_plain; one pass per product (the
-    control) lies outside it."""
+    control) lies outside it.  From head dim 160 dK/dV is dkv_tf32w_kernel's
+    arithmetic; dQ there runs on the CUDA cores (dq_kernel), and its cases
+    rehearse the same arithmetic for it."""
     cs = chip_smoke()
     rng = np.random.default_rng(11)
     q, k, v, do = (torch.tensor(rng.normal(size=(2, 256, d)).astype(np.float32))
@@ -280,15 +306,16 @@ def test_split_tf32_backward_meets_the_f32_bound(d, out):
     delta = torch.sum(do * o, dim=-1, keepdim=True)
     plain = dict(zip(("dq", "dk", "dv"), (ta.attention_dq_plain(q, k, v, do, l, delta, scale),
                                           *ta.attention_dkv_plain(q, k, v, do, l, delta, scale))))
+    steps = _bwd_steps(d)
 
     def emulate(passes):
-        s = _tf32_dot(q * scale, k.transpose(-1, -2), passes)
+        s = _step_dot(q * scale, k.transpose(-1, -2), 8, passes)
         dp = _tf32_dot(do, v.transpose(-1, -2), passes)
         p = torch.exp(s - l)
         ds = p * (dp - delta)
-        return {"dq": _tf32_dot(ds, k, passes) * scale,
-                "dk": _tf32_dot(ds.transpose(-1, -2), q, passes) * scale,
-                "dv": _tf32_dot(p.transpose(-1, -2), do, passes)}[out]
+        return {"dq": _step_dot(ds, k, steps["dq"], passes) * scale,
+                "dk": _step_dot(ds.transpose(-1, -2), q, steps["dkv"], passes) * scale,
+                "dv": _step_dot(p.transpose(-1, -2), do, steps["dkv"], passes)}[out]
 
     want = plain[out]
     err = {n: ((emulate(n) - want).abs().max() / want.abs().max()).item() for n in (3, 1)}
@@ -297,7 +324,9 @@ def test_split_tf32_backward_meets_the_f32_bound(d, out):
 
 
 def _split_tf32_forward(q, k, v, scale, passes):
-    """attention_fwd as fwd_tf32_kernel takes it: s = (q * scale).k^T a k8
+    """attention_fwd as fwd_tf32_kernel (and from head dim 160
+    fwd_tf32w_kernel, whose two warps of a row pair each form half of a
+    tile's scores in the same order) takes it: s = (q * scale).k^T a k8
     step at a time, each step's TF32 passes summed afresh and added to s in
     f32; over the kernel's 32-key K/V tiles the online max m and sum, p =
     exp(s - m_new), the running output rescaled by exp(m - m_new) and the
@@ -323,7 +352,7 @@ def _split_tf32_forward(q, k, v, scale, passes):
 
 
 @pytest.mark.parametrize("amp", [1.0, 3.0])
-@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("d", [64, 96, 160, 192, 256])
 def test_split_tf32_forward_meets_the_f32_bound(d, amp):
     """The f32 forward kernel's arithmetic (``_split_tf32_forward``, three
     TF32 passes a product) at (2, 256, d), q and k times ``amp`` (3: scores
@@ -698,3 +727,46 @@ def test_wide_ablation_cuts_what_it_names():
         assert exchanges == (3 if name == "shipped" else 0), name
         assert barriers == (0 if "barriers" in name else 2), name
         assert text.count("__global__") == src.count("__global__"), name
+
+
+def test_tf32w_control_lowers_the_cluster_floor():
+    """experiments/tf32w_attention_control.py times the f32 forward and dK/dV
+    of head dims 160-256 against the P = 2 cluster route and against copies
+    with the forward's blocks cut otherwise: its control copy of attention.cu sends
+    f32 above head dim 128 (not 256) to the cluster bodies, every copy makes
+    its edits once and renames every kernel, keeps every kernel of the
+    source, and holds the kernels its profiler keys name."""
+    from sciml_pde_torch.experiments import tf32w_attention_control as tc
+    from sciml_pde_torch.ops import _build
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    vs = tc.variants(src)
+    assert list(vs) == list(tc.DESIGNS) and vs["shipped"] == src
+    assert src.count(tc.FLOOR) == 1 and src.count(tc.ROWS) == 1 and src.count(tc.BLOCKS) == 1
+    control = vs["cluster control"]
+    assert control.count(tc.CONTROL_FLOOR) == 1 and tc.FLOOR not in control
+    for i, (name, text) in enumerate(vs.items()):
+        assert text.count("__global__") == src.count("__global__"), name
+        if i:
+            assert "fwd_tf32w_kernel" not in text and "dkv_wide_kernel" not in text, name
+            assert text != src.replace("_kernel", tc.suffix(i)), name
+        for key in tc.keys(i, name).values():
+            assert key[:-1] in text, (name, key)
+
+
+def test_checkout_comparison_keys_each_trees_body():
+    """experiments/checkout_comparison.py reads each tree's f32 kernel of head
+    dim 256 under its own name: the split-TF32 bodies of two warpgroups in
+    this tree (dQ: the CUDA-core dq_kernel), the CUDA-core bodies in a tree
+    from before them, renamed as the experiment renames the other tree."""
+    from sciml_pde_torch.experiments import checkout_comparison as cc
+    from sciml_pde_torch.ops import _build
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    assert [cc._key_256(src, s, "_kernel") for s in ("fwd", "dq", "dkv")] == [
+        "fwd_tf32w_kernel<", "dq_kernel<", "dkv_tf32w_kernel<"]
+    for key in ("fwd_tf32w_kernel<", "dq_kernel<", "dkv_tf32w_kernel<"):
+        assert key[:-1] + "(" in src.replace("<DP>", ""), key  # a body of that name
+    older = "fwd_pkernel(...) dq_pkernel(...) dkv_pkernel(...) fwd_tf32_pkernel(...)"
+    assert [cc._key_256(older, s, "_pkernel") for s in ("fwd", "dq", "dkv")] == [
+        "fwd_pkernel<", "dq_pkernel<", "dkv_pkernel<"]
