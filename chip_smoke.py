@@ -34,11 +34,12 @@ FNO steps and the five split kernels):
               cluster bodies above head dim 256 (fwd_wide_kernel,
               dq_wide_kernel and dkv_wide_kernel, bf16 and f32; each with
               the clusters of 8 blocks the card holds at once) nor in the
-              six of the f32 forward and dK/dV of head dims 160-256
-              (fwd_tf32w_kernel, dkv_tf32w_kernel at 160, 192, 256; each
-              with the blocks an SM holds at once), HMMA instructions in
-              both dq_wide_kernel instances' SASS and in those six (their
-              products on the tensor cores), none in wdft_kernel and
+              nine of the f32 forward, dQ and dK/dV of head dims 160-256
+              (fwd_tf32w_kernel, dq_tf32w_kernel, dkv_tf32w_kernel at 160,
+              192, 256; each with the blocks an SM holds at once), HMMA
+              instructions in both dq_wide_kernel instances' SASS and in
+              those nine (their products on the tensor cores), none in
+              wdft_kernel and
               reduce_rows_kernel, and
               neither spills nor a stack frame in both instances of
               lift_kernel, both paths of head_fwd_kernel and
@@ -134,9 +135,8 @@ FNO steps and the five split kernels):
               with a control against a kernel that rounds p and ds to
               bf16 (f32 outputs held against the exact result, the plain
               versions' arithmetic in f64, within 1e-5; the CUDA-core
-              bodies, the f32 dQ from 160 to 256 and all three above 1024,
-              within 1e-5 or the f32 plain version's own distance from
-              it); flash_attention at (2, 4,
+              bodies, all three above 1024, within 1e-5 or the f32 plain
+              version's own distance from it); flash_attention at (2, 4,
               1280, 512) through the kernels against plain=True, values
               and q/k/v gradients, in both types
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
@@ -335,12 +335,11 @@ ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "
                            "attention_dkv": "dkv_tf32_kernel<"}}
 # attention kernels: f32 outputs within 1e-5 of the largest magnitude of the
 # exact result (the plain version's arithmetic in f64: att_f64); the bodies
-# on the CUDA cores (att_cuda_cores: the f32 dQ from head dim 160 to 256 and
-# both types above CLUSTER_MAX_D), whose f32 sums are the plain version's,
-# may instead lie no farther from it than the f32 plain version (with q and
-# k times 3 at head dim 512 the f32 plain versions lie up to 2.1e-5 from
-# it, and the CUDA-core dQ then above 256, bit for bit the plain dQ,
-# 1.2e-5); bf16 outputs against the plain
+# on the CUDA cores (att_cuda_cores: all three in both types above
+# CLUSTER_MAX_D), whose f32 sums are the plain version's, may instead lie
+# no farther from it than the f32 plain version (with q and k times 3 at
+# head dim 512 the f32 plain versions lie up to 2.1e-5 from it); bf16
+# outputs against the plain
 # version, within one bf16 rounding step of the value (2^-7 of its
 # magnitude: the two round f32 results that differ in the last f32 bits)
 # plus the f32 bound
@@ -1714,14 +1713,16 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     and dK/dV 12 passes, 0.06101, 0.09150 and 0.12200 ms at the encoder
     shape; before those designs they took two, three and four products at
     the CUDA cores' f32 rate (67 TFLOP/s), 0.15024, 0.22537 and 0.30049 ms
-    (``att_work_f32_cores``), as the f32 dQ still does from 160 to 256 and
-    all three above CLUSTER_MAX_D.  From 160 to 256 the f32 forward and
-    dK/dV count their TF32 passes (at (8, 1280, 256) 0.08134 and 0.16269 ms;
-    0.20032 and 0.40065 on the CUDA cores before their tensor-core bodies).
-    Above 256 the three cluster bodies count the same TF32
-    passes (at (4, 1280, 512) 0.08134, 0.12202 and 0.16269 ms; dQ 0.30050
-    on the CUDA cores before its cluster body), and the bf16 wide bodies
-    their bf16 products (0.02036, 0.02714 and 0.04071 ms there).  Before
+    (``att_work_f32_cores``).  From 160 to 256 the f32 forward, dQ and dK/dV
+    count their TF32 passes (at (8, 1280, 256) 0.08134, 0.12202 and 0.16269
+    ms; 0.20032, 0.30049 and 0.40065 on the CUDA cores before their
+    tensor-core bodies).  Above 256 the three cluster bodies count the same
+    TF32 passes (at (4, 1280, 512) 0.08134, 0.12202 and 0.16269 ms; dQ
+    0.30050 on the CUDA cores before its cluster body), and the bf16 wide
+    bodies their bf16 products (0.02036, 0.02714 and 0.04071 ms there).
+    The bodies above CLUSTER_MAX_D take the same bounds, though they compute
+    on the CUDA cores in f32 (bf16 inputs widened): the bound is what the
+    function needs, not what its body does.  Before
     their tensor-core designs the bf16 kernels' bounds counted the products
     that take p or ds at the f32 rate: 0.08021 (forward), 0.08530 (dQ) and
     0.16042 ms (dK/dV) at the encoder shape."""
@@ -1734,19 +1735,18 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     if bf:
         products = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name]
         return nbytes, products * prod / PEAK_FLOPS["default"]
-    if att_cuda_cores(name, d, bf):
-        return nbytes, att_work_f32_cores(name, bh, n, d)
     passes = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}[name]
     return nbytes, passes * prod / TF32_FLOPS
 
 
 def att_cuda_cores(name: str, d: int, bf: bool) -> bool:
     """Whether attention kernel ``name`` takes head dim ``d`` on the CUDA
-    cores: the f32 dQ from 160 to 256 (dq_kernel) and all three in both
-    types above CLUSTER_MAX_D (the *_wide_cc_kernel bodies)."""
+    cores: all three in both types above CLUSTER_MAX_D (the
+    *_wide_cc_kernel bodies); every other head dim runs on the tensor
+    cores."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
-    return (name == "attention_dq" and not bf and 128 < d <= 256) or d > CLUSTER_MAX_D
+    return d > CLUSTER_MAX_D
 
 
 def att_work_f32_cores(name: str, bh: int, n: int, d: int) -> float:
@@ -1799,17 +1799,15 @@ def att_f64(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.0)
 def att_kernel_key(name: str, d: int, bf: bool) -> str:
     """The profiler key of the CUDA kernel that attention kernel ``name``
     launches from head dim 160 up: from 160 to 256 the bf16 tensor-core
-    bodies (*_tc_kernel), in f32 the split-TF32 forward and dK/dV of two
-    warpgroups (fwd_tf32w_kernel, dkv_tf32w_kernel) and the CUDA-core dQ
-    (dq_kernel); above 256 the cluster bodies (*_wide_kernel) up to
-    CLUSTER_MAX_D, their CUDA-core bodies (*_wide_cc_kernel) above it."""
+    bodies (*_tc_kernel), in f32 the split-TF32 forward, dQ and dK/dV of two
+    warpgroups (*_tf32w_kernel); above 256 the cluster bodies
+    (*_wide_kernel) up to CLUSTER_MAX_D, their CUDA-core bodies
+    (*_wide_cc_kernel) above it."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
     short = name.replace("attention_", "")
     if d <= 256:
-        if bf:
-            return f"{short}_tc_kernel<"
-        return "dq_kernel<" if short == "dq" else f"{short}_tf32w_kernel<"
+        return f"{short}_tc_kernel<" if bf else f"{short}_tf32w_kernel<"
     return f"{short}_wide_cc_kernel<" if d > CLUSTER_MAX_D else f"{short}_wide_kernel<"
 
 
@@ -3441,12 +3439,13 @@ def main() -> int:
           and all(st == ld == 0 for _, _, st, ld, _ in wide),
           "[build] the cluster bodies above head dim 256 (the forward, dQ and dK/dV, both "
           "types) spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers" for u in wide))
-    tf32w_names = [f"{w}_tf32w_kernel<{dp}>" for w in ("dkv", "fwd") for dp in (160, 192, 256)]
-    tf32w = sorted(u for u in usage if u[0].startswith(("fwd_tf32w_kernel<", "dkv_tf32w_kernel<")))
-    blocks = {u[0]: ta.tf32w_max_blocks(u[0][:3], int(u[0][-4:-1])) for u in tf32w}
+    tf32w_names = [f"{w}_tf32w_kernel<{dp}>" for w in ("dkv", "dq", "fwd")
+                   for dp in (160, 192, 256)]
+    tf32w = sorted(u for u in usage if "_tf32w_kernel<" in u[0])
+    blocks = {u[0]: ta.tf32w_max_blocks(u[0].split("_")[0], int(u[0][-4:-1])) for u in tf32w}
     check([u[0] for u in tf32w] == tf32w_names and all(st == ld == 0 for _, _, st, ld, _ in tf32w),
-          "[build] the f32 forward and dK/dV of head dims 160-256 (split TF32, two warpgroups) "
-          "spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers, {blocks[u[0]][0]} "
+          "[build] the f32 forward, dQ and dK/dV of head dims 160-256 (split TF32, two "
+          "warpgroups) spill nothing: " + ", ".join(f"{u[0]} {u[1]} registers, {blocks[u[0]][0]} "
                                         f"block(s) of {blocks[u[0]][1]} warps an SM"
                                         for u in tf32w)
           + " (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
@@ -3454,7 +3453,7 @@ def main() -> int:
     hmma = {k: sum(i.split()[0].startswith("HMMA") for i in att_sass.get(k, []))
             for k in ("dq_wide_kernel<__nv_bfloat16>", "dq_wide_kernel<float>", *tf32w_names)}
     check(all(c > 0 for c in hmma.values()),
-          "[build] dq_wide_kernel and the f32 forward and dK/dV of head dims 160-256 take their "
+          "[build] dq_wide_kernel and the f32 forward, dQ and dK/dV of head dims 160-256 take their "
           "products on the tensor cores: HMMA instructions in their SASS "
           + ", ".join(f"{k} {c}" for k, c in hmma.items()))
     for kind in ta.WIDE_KINDS:

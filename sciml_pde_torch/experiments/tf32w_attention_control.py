@@ -1,31 +1,32 @@
-"""The f32 attention forward and dK/dV at head dims 160-256 against their
-control on the card.
+"""The f32 attention forward, dQ and dK/dV at head dims 160-256 against
+their control on the card.
 
     python -m sciml_pde_torch.experiments.tf32w_attention_control
 
-From head dim 160 to 256 ``attention_fwd`` and ``attention_dkv`` take f32
-panels through ``fwd_tf32w_kernel`` and ``dkv_tf32w_kernel``
-(``ops/csrc/attention.cu``): one block of two warpgroups per 80-query or
-64-key tile that share each score through shared memory.  The control is
-the cluster
-route of the wider head dims at P = 2: ``fwd_wide_kernel<float>`` and
-``dkv_wide_kernel<float>``, clusters of two blocks that add their partial
-scores through distributed shared memory, reached by a copy of the source
-whose dispatch (``ATT_DISPATCH``) sends f32 above head dim 128, not 256, to
-the cluster bodies.  Beside them stand copies with the forward's blocks
-cut otherwise (``DESIGNS``: 64 query rows, 8 warps, two blocks an SM at
-160 and 192; 80 query rows, 10 warps; the shipped source: 96 rows, 12
-warps, one block an SM).  This builds every copy (``variants``; each
-copy's kernels renamed, ``_kernel`` to
-``_v1_kernel`` and so on, so that a profiler session tells them apart),
-prints their registers and spills, and at (8, 1280, d), d = 160, 192 and
-256, checks each copy's outputs against the exact result (the plain
-arithmetic in f64: largest error over the largest magnitude, and whether a
-second launch gives the same bits) and times them in the same profiler
-sessions (``profiler_ms``: the median of three sessions in which the
-copies' launches take turns) beside the f32 SDPA forward or backward.
-Needs the card and nvcc; prints the card's name and power limit and one
-line per reading.
+From head dim 160 to 256 ``attention_fwd``, ``attention_dq`` and
+``attention_dkv`` take f32 panels through ``fwd_tf32w_kernel``,
+``dq_tf32w_kernel`` and ``dkv_tf32w_kernel`` (``ops/csrc/attention.cu``):
+one block of two warpgroups per 96-query, 80-query or 64-key tile that
+share each score through shared memory.  The control is the cluster route
+of the wider head dims at P = 2: ``fwd_wide_kernel<float>``,
+``dq_wide_kernel<float>`` and ``dkv_wide_kernel<float>``, clusters of two
+blocks that add their partial scores through distributed shared memory,
+reached by a copy of the source whose dispatch (``ATT_DISPATCH``) sends
+f32 above head dim 128, not 256, to the cluster bodies.  Beside them stand
+copies with the forward's blocks cut otherwise (``DESIGNS``: 64 query
+rows, 8 warps, two blocks an SM at 160 and 192, or 80 query rows, 10
+warps, where the shipped source has 96 rows, 12 warps, one block an SM).
+This builds every copy
+(``variants``; each copy's kernels renamed, ``_kernel`` to ``_v1_kernel``
+and so on, so that a profiler session tells them apart), prints their
+registers and spills, and at (8, 1280, d), d = 160, 192 and 256, checks
+each copy's outputs against the exact result (the plain arithmetic in f64:
+largest error over the largest magnitude, and whether a second launch
+gives the same bits) and times them in the same profiler sessions
+(``profiler_ms``: the median of three sessions in which the copies'
+launches take turns) beside the f32 SDPA forward or backward.  Needs the
+card and nvcc; prints the card's name and power limit and one line per
+reading.
 """
 
 from __future__ import annotations
@@ -50,16 +51,18 @@ FLOOR = "if ((d) > 256) return"
 CONTROL_FLOOR = "if ((d) > 256 || (!(bf) && (d) > 128)) return"
 ROWS = "constexpr int TW_ROWS = 96;"
 BLOCKS = "__launch_bounds__(4 * TW_ROWS, 1)"
+TF32W = ("fwd_tf32w", "dq_tf32w", "dkv_tf32w")
 # each copy: its edits of the source (each text occurs once), and the
-# kernels it launches at these head dims
+# kernels it launches at these head dims (forward, dQ, dK/dV)
 DESIGNS = {
-    "shipped": ((), ("fwd_tf32w", "dkv_tf32w")),
-    "cluster control": (((FLOOR, CONTROL_FLOOR),), ("fwd_wide", "dkv_wide")),
+    "shipped": ((), TF32W),
+    "cluster control": (((FLOOR, CONTROL_FLOOR),), ("fwd_wide", "dq_wide", "dkv_wide")),
     "64 query rows": (((ROWS, ROWS.replace("96", "64")),
-                       (BLOCKS, BLOCKS.replace("1)", "DP == 256 ? 1 : 2)"))),
-                      ("fwd_tf32w", "dkv_tf32w")),
-    "80 query rows": (((ROWS, ROWS.replace("96", "80")),), ("fwd_tf32w", "dkv_tf32w")),
+                       (BLOCKS, BLOCKS.replace("1)", "DP == 256 ? 1 : 2)"))), TF32W),
+    "80 query rows": (((ROWS, ROWS.replace("96", "80")),), TF32W),
 }
+FNAMES = ("attention_fwd", "attention_dq", "attention_dkv")
+PASSES = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}
 TF32_FLOPS = 495e12  # H100 SXM data-sheet dense TF32 rate: the bound (operations)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -70,9 +73,8 @@ def suffix(i: int) -> str:
 
 
 def keys(i: int, name: str) -> dict[str, str]:
-    """The profiler keys of copy i's forward and dK/dV kernels."""
-    fwd, dkv = DESIGNS[name][1]
-    return {"attention_fwd": f"{fwd}{suffix(i)}<", "attention_dkv": f"{dkv}{suffix(i)}<"}
+    """The profiler keys of copy i's forward, dQ and dK/dV kernels."""
+    return {f: f"{kern}{suffix(i)}<" for f, kern in zip(FNAMES, DESIGNS[name][1])}
 
 
 def variants(src: str) -> dict[str, str]:
@@ -99,6 +101,8 @@ def exact(name: str, q, k, v, do, l, delta, scale: float):
         return e / e.sum(-1, keepdim=True) @ v, m + torch.log(e.sum(-1, keepdim=True))
     p = torch.exp(s - l.double())
     ds = p * (do @ v.transpose(-1, -2) - delta.double())
+    if name == "attention_dq":
+        return (ds @ k * scale,)
     return ds.transpose(-1, -2) @ q * scale, p.transpose(-1, -2) @ do
 
 
@@ -129,17 +133,19 @@ def main() -> int:
             sdpa = torch.nn.functional.scaled_dot_product_attention
             q4, k4, v4 = (t[None].requires_grad_(True) for t in (q, k, v))
             o4 = sdpa(q4, k4, v4, scale=scale)
+            bwd = lambda: torch.autograd.grad(o4, (q4, k4, v4), do[None],  # noqa: E731
+                                              retain_graph=True)
             library = {"attention_fwd": lambda: sdpa(q[None], k[None], v[None], scale=scale),
-                       "attention_dkv": lambda: torch.autograd.grad(
-                           o4, (q4, k4, v4), do[None], retain_graph=True)}
-            for fname in ("attention_fwd", "attention_dkv"):
+                       "attention_dq": bwd, "attention_dkv": bwd}
+            for fname in FNAMES:
                 ins = (q, k, v) if fname == "attention_fwd" else (q, k, v, do, l, delta)
                 want = exact(fname, q, k, v, do, l, delta, scale)
-                passes = 6 if fname == "attention_fwd" else 12
+                passes = PASSES[fname]
                 bound_ms = passes * 2 * BH * N * N * d / TF32_FLOPS * 1e3
                 launches, errs = {}, {}
                 for name, lib in libs.items():
                     outs = ([torch.empty_like(q), torch.empty_like(l)] if fname == "attention_fwd"
+                            else [torch.empty_like(q)] if fname == "attention_dq"
                             else [torch.empty_like(q), torch.empty_like(q)])
                     f = getattr(lib, fname)
                     f.restype = ctypes.c_int

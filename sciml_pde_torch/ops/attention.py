@@ -14,9 +14,9 @@ and any ``BH``; ``l`` (the row logsumexp) and ``delta = rowsum(do *
 o)`` are ``(BH, N, 1)`` f32.  The bf16 kernels run their products on the
 tensor cores (``p`` and ``ds`` split into two bf16 terms each); the f32
 kernels too, in split TF32 (every f32 operand as two TF32 terms, three
-passes a product), except dQ from head dim 160 to 256, which runs on the
-CUDA cores; from 160 to 256 the f32 forward and dK/dV run as one block of
-two warpgroups that share each score through shared memory.  Above 256
+passes a product); from 160 to 256 the f32 forward, dQ and dK/dV run as
+one block of two warpgroups that share each score through shared
+memory.  Above 256
 (the wide bodies) the forward, dQ and dK/dV run, in both types up to head
 dim ``CLUSTER_MAX_D``, as thread-block clusters of ``ceil(d / 128)``
 blocks that each take the products of 128 head-dim columns on the tensor
@@ -93,9 +93,8 @@ def _launch(name: str, tensors, bh: int, n: int, d: int, bf: bool, scale: float)
 def _blocks_per_panel(n: int, d: int) -> int:
     """Blocks of one (N, D) panel on the kernels' grid.x, the most of the
     three kernels: 64-row tiles up to head dim 128 (the f32 dQ and dK/dV
-    kernels' too); above, the f32 dQ's 32-row tiles or two bf16 blocks per
-    64-row tile (the f32 forward: one block per 96-row tile, dK/dV per
-    64-row tile);
+    kernels' too); above, two bf16 blocks per 64-row tile (the f32 forward:
+    one block per 96-row tile, dQ per 80-row tile, dK/dV per 64-row tile);
     above 256, ceil(d / 128) blocks per 64-row tile (the three cluster
     bodies) up to ``CLUSTER_MAX_D``, per 32-row tile (the CUDA-core bodies)
     above it."""
@@ -121,11 +120,12 @@ def wide_max_clusters(kind: str, bf16: bool, parts: int) -> int:
 
 
 def tf32w_max_blocks(kind: str, dp: int) -> tuple[int, int]:
-    """(blocks, warps a block): the most blocks of the f32 forward or dK/dV
-    body of head dims 160-256 (``kind`` "fwd" or "dkv"; ``fwd_tf32w_kernel``,
-    ``dkv_tf32w_kernel``) at padded head dim ``dp`` (160, 192 or 256) that
-    one SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    and the warps of one block.  Needs the card."""
+    """(blocks, warps a block): the most blocks of the f32 forward, dQ or
+    dK/dV body of head dims 160-256 (``kind`` "fwd", "dq" or "dkv";
+    ``fwd_tf32w_kernel``, ``dq_tf32w_kernel``, ``dkv_tf32w_kernel``) at
+    padded head dim ``dp`` (160, 192 or 256) that one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and the warps of
+    one block.  Needs the card."""
     f = _build.load("attention").attention_tf32w_blocks
     f.argtypes, f.restype = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
     blocks, threads = _I(0), _I(0)

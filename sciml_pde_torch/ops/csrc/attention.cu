@@ -23,11 +23,11 @@
 // for the padded dims 16, 32, 64, 96, 128, 160, 192 and 256; a panel's head
 // dim is padded in shared memory to the next of them with zero columns,
 // which change no score and no product and are never stored.  Above 128 the
-// f32 forward and dK/dV run as one block of two warpgroups that share each
-// score through shared memory (fwd_tf32w_kernel, dkv_tf32w_kernel), the f32
-// dQ on the CUDA cores over 32-row tiles, and each bf16 tensor-core body
-// splits its output columns over two blocks, which both compute the scores
-// (see below).  Above 256, in both input types (the
+// f32 forward, dQ and dK/dV run as one block of two warpgroups that share
+// each score through shared memory (fwd_tf32w_kernel, dq_tf32w_kernel,
+// dkv_tf32w_kernel), and each bf16 tensor-core body splits its output
+// columns over two blocks, which both compute the scores (see below).
+// Above 256, in both input types (the
 // wide bodies; no configuration reaches these dims), the output columns are
 // split over P = ceil(d / 128) groups of 128, the last one padded with zero
 // columns:
@@ -198,34 +198,33 @@
 //   spills; no configuration uses those head dims.
 //
 //   Above 128 one warp's f32 accumulators over all columns and its split
-//   fragments would not fit the registers, so from 160 to 256 the forward and
-//   dK/dV give the output columns to two warpgroups of one block
-//   (fwd_tf32w_kernel, dkv_tf32w_kernel: a warp pair per 16 rows, the in-block
-//   form of the cluster bodies below, with no partial sums).  Each warp of a
-//   pair forms the 16 x 16 block of scores of the pair's rows against half of
-//   the other panel's tile over all columns, once and in the order above; it
-//   writes p (the forward: the two warps of a pair first exchange their row
-//   maxima and both form the same running max and alpha) or p^T and ds^T
-//   (dK/dV) in f32 to staging tiles, and after its pair's named barrier takes
-//   the long products of its 16 rows over its warpgroup's half of the columns
-//   from them, read back in the accumulator layout (split_acc_as_a) with each
-//   tile's sums begun at 0.  The forward owns 96-row tiles (12 warps, one
-//   block an SM: (8, 1280, d) is 112 blocks, one wave; 64-row tiles left a
-//   second wave, or SMs with two blocks, and took over a third longer on the
-//   card) and holds one K and one V tile of 32 keys (each tile's copies fly
-//   while the other tile is in use); dK/dV owns 64-key tiles, holds k and v
-//   for the block's life and Q/dO tiles of 32 queries, two of each at 160 and
-//   192, one at 256 (the next dO tile flies during ds^T.q), one block an SM.
-//
-//   The f32 dQ from 160 to 256 (dq_kernel) runs on the CUDA cores: every
-//   product as f32 FMAs, bound by operations at the f32 rate (67 TFLOP/s).
-//   256 threads; each owns a 2x4 tile of the 32x64 score tile and 2 x DP/16
-//   of the output tile, operands read from row-major shared-memory tiles
-//   padded by 4 floats (rows stay 16-byte aligned and the reads are free of
-//   bank conflicts).  In-order FMAs: the products match cuBLAS's f32 GEMM
-//   bit for bit at the checked shapes.  It owns 32-row tiles (R = 2): four
-//   f32 64-row panels of 256 columns (266 KB) would overflow shared
-//   memory.
+//   fragments would not fit the registers, so from 160 to 256 the forward, dQ
+//   and dK/dV give the output columns to two warpgroups of one block
+//   (fwd_tf32w_kernel, dq_tf32w_kernel, dkv_tf32w_kernel: a warp pair per 16
+//   rows, the in-block form of the cluster bodies below, with no partial
+//   sums).  The pair forms the scores of its rows against the other panel's
+//   tile over all columns, once and in the order above: in the forward and
+//   dK/dV each warp the 16 x 16 block against half of the tile; in dQ one
+//   warp s and the other dp over the whole 16-key tile, so that each operand
+//   of the scores is split by one warp.  It writes p (the forward: the two
+//   warps of a pair first exchange their row maxima and both form the same
+//   running max and alpha), p^T and ds^T (dK/dV) or p and dp - delta (dQ,
+//   whose two warps then form the same ds) in f32 to staging tiles, and after
+//   a barrier each warp takes the long products of its 16 rows over its
+//   warpgroup's half of the columns from them, read back in the accumulator
+//   layout (split_acc_as_a) with each tile's sums begun at 0.  The forward
+//   owns 96-row tiles (12 warps, one block an SM: (8, 1280, d) is 112 blocks,
+//   one wave; 64-row tiles left a second wave, or SMs with two blocks, and
+//   took over a third longer on the card) and holds one K and one V tile of
+//   32 keys (each tile's copies fly while the other tile is in use); dQ owns
+//   80-row tiles (10 warps, one block an SM: 128 blocks, one wave; 64-row
+//   blocks over 32-key tiles left a second wave and took 14-26% longer on
+//   the card), holds q and do for the block's life and two K tiles and one V
+//   tile of 16 keys (the next K tile flies during a whole tile, the next V
+//   tile during ds.k);
+//   dK/dV owns 64-key tiles, holds k and v for the block's life and Q/dO
+//   tiles of 32 queries, two of each at 160 and 192, one at 256 (the next dO
+//   tile flies during ds^T.q), one block an SM.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -252,24 +251,8 @@ __device__ __forceinline__ void block_pair(int ntiles, size_t& bh, int& tile) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core tiles (f32 dQ at head dims 160-256; both types above 1024)
+// CUDA-core tiles (both types above head dim 1024)
 // ---------------------------------------------------------------------------
-
-// rows per thread of the CUDA-core dQ body's own tile (16 RC rows; head dims
-// 160-256)
-constexpr int RC = 2;
-
-// Rows [r0, r0 + rows) of a (n, d) panel into a row-major f32 tile with row
-// stride DP + 4, each value times `mul` in f32 (1 leaves it exact); rows at
-// or past n and columns at or past d are zero.
-template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int rows, int n,
-                                          int d, float mul = 1.f) {
-  for (int i = threadIdx.x; i < rows * DP; i += NT) {
-    const int r = i / DP, c = i - r * DP;
-    dst[r * (DP + 4) + c] = (r0 + r < n && c < d) ? src[(size_t)(r0 + r) * d + c] * mul : 0.f;
-  }
-}
 
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int n) {
   for (int i = threadIdx.x; i < TILE; i += NT) dst[i] = (r0 + i < n) ? src[r0 + i] : 0.f;
@@ -278,16 +261,10 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, 
 // s[i][j] = sum_d a'[ra + i][d] * b[tx + 16 j][d]: RI rows of a tile at ra
 // against RJ strided rows of another, both row stride D + 4.  With SCALED,
 // a' = a * scale in f32 before the product (q.astype(f32) * scale), else a.
-// With ACC the sums continue from s (the next chunk of a longer row).
-template <int D, bool SCALED, int RI, int RJ, bool ACC = false>
+// The sums continue from s (the next chunk of a longer row).
+template <int D, bool SCALED, int RI, int RJ>
 __device__ __forceinline__ void dot_tile(float s[RI][RJ], const float* a, int ra,
                                          const float* b, int tx, float scale) {
-  if constexpr (!ACC) {
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
-  }
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float4 av[RI], bv[RJ];
@@ -377,67 +354,6 @@ __device__ __forceinline__ void store_row(T* dst, const float* acc, int tx, int 
 }
 
 // ---------------------------------------------------------------------------
-// dQ, CUDA cores: p = exp(s - l), ds = p * (do.v^T - delta), dq = (ds.k) * scale
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__global__ void __launch_bounds__(NT)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          const float* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, float* __restrict__ dq, int n, int d, int ntiles,
-          float scale) {
-  constexpr int R = RC, TR = 16 * R, DPT = DP / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                     // [TR][DP + 4], q * scale
-  float* dos = qs + TR * (DP + 4);
-  float* ks = dos + TR * (DP + 4);    // [TILE][DP + 4]
-  float* vs = ks + TILE * (DP + 4);
-  float* dss = vs + TILE * (DP + 4);  // [TR queries][SP]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, ra = ty * R;
-  size_t bh;
-  int tile;
-  block_pair(ntiles, bh, tile);
-  const int q0 = tile * TR;
-  const size_t base = bh * n * d;
-  const size_t rbase = bh * n;
-  load_tile<DP>(qs, q + base, q0, TR, n, d, scale);
-  load_tile<DP>(dos, dout + base, q0, TR, n, d);
-  float l[R], dl[R], acc[R][DPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = min(q0 + ra + i, n - 1);
-    l[i] = lse[rbase + row];
-    dl[i] = delta[rbase + row];
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    __syncthreads();
-    load_tile<DP>(ks, k + base, k0, TILE, n, d);
-    load_tile<DP>(vs, v + base, k0, TILE, n, d);
-    __syncthreads();
-    float s[R][4], dp[R][4];
-    dot_tile<DP, false, R, 4>(s, qs, ra, ks, tx, 0.f);
-    dot_tile<DP, false, R, 4>(dp, dos, ra, vs, tx, 0.f);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = k0 + tx + 16 * j < n;
-        const float p = ok ? expf(s[i][j] - l[i]) : 0.f;
-        dss[(ra + i) * SP + tx + 16 * j] = p * (dp[i][j] - dl[i]);
-      }
-    __syncthreads();
-    acc_tile<DP, R>(acc, dss, ra, ks, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ra + i;
-    if (row < n) store_row<DPT>(dq + base + (size_t)row * d, acc[i], tx, d, scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // head dims above 1024 (the forward, dQ and dK/dV), f32 or bf16 inputs,
 // CUDA cores
 // ---------------------------------------------------------------------------
@@ -494,7 +410,7 @@ fwd_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       load_chunk<WC>(qs, q + base, q0, WR, dc, n, d, scale);
       load_chunk<WC>(ks, k + base, k0, TILE, dc, n, d);
       __syncthreads();
-      dot_tile<WC, false, R, 4, true>(s, qs, ra, ks, tx, 0.f);
+      dot_tile<WC, false, R, 4>(s, qs, ra, ks, tx, 0.f);
     }
     load_chunk<WO>(vs, v + base, k0, TILE, c0, n, d);
 #pragma unroll
@@ -532,8 +448,8 @@ fwd_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 }
 
 // dQ above head dim 1024: one block per (bh, 32 queries, 128 output
-// columns); s and dp over 64-column chunks, then ds.k over the block's
-// columns of k, as dq_kernel
+// columns); s and dp over 64-column chunks, then p = exp(s - l), ds = p (dp -
+// delta) and ds.k over the block's columns of k
 template <typename T>
 __global__ void __launch_bounds__(NT)
 dq_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -572,8 +488,8 @@ dq_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       load_chunk<WC>(ks, k + base, k0, TILE, dc, n, d);
       load_chunk<WC>(vs, v + base, k0, TILE, dc, n, d);
       __syncthreads();
-      dot_tile<WC, false, R, 4, true>(s, qs, ra, ks, tx, 0.f);
-      dot_tile<WC, false, R, 4, true>(dp, dos, ra, vs, tx, 0.f);
+      dot_tile<WC, false, R, 4>(s, qs, ra, ks, tx, 0.f);
+      dot_tile<WC, false, R, 4>(dp, dos, ra, vs, tx, 0.f);
     }
     load_chunk<WO>(kc, k + base, k0, TILE, c0, n, d);
 #pragma unroll
@@ -637,8 +553,8 @@ dkv_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       load_chunk<WC>(qs, q + base, r0, TILE, dc, n, d);
       load_chunk<WC>(dos, dout + base, r0, TILE, dc, n, d);
       __syncthreads();
-      dot_tile<WC, true, 4, R, true>(s, qs, rq, ks, tx, scale);
-      dot_tile<WC, false, 4, R, true>(dp, dos, rq, vs, tx, 0.f);
+      dot_tile<WC, true, 4, R>(s, qs, rq, ks, tx, scale);
+      dot_tile<WC, false, 4, R>(dp, dos, rq, vs, tx, 0.f);
     }
     load_chunk<WO>(qc, q + base, r0, TILE, c0, n, d);
     load_chunk<WO>(doc, dout + base, r0, TILE, c0, n, d);
@@ -3013,11 +2929,185 @@ dkv_tf32w_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_acc<NC>(dv + base, gv, row0, cw, t, n, d, 1.f, 1.f);
 }
 
+// query rows of a dQ block, 16 a warp pair: 80 (10 warps, at most 200
+// registers a thread), so that (8, 1280, d) gives 128 blocks, one wave of
+// one block an SM; and keys of its K/V tiles: 16, so that two K tiles (each
+// tile's copies fly during the tile before it) fit beside q and do at head
+// dim 256
+constexpr int DQW_ROWS = 80;
+constexpr int DQW_TK = 16;
+
+// dp (NK keys) += a . v^T over one k8 step in split TF32 (vp: this lane's
+// ldmatrix row of the step in the V tile), the three passes into dp itself
+// in mma_split_2x2's order
+template <int LD, int NK>
+__device__ __forceinline__ void dp_step(float dp[NK / 8][4], const uint32_t ah[4],
+                                        const uint32_t al[4], const float* vp) {
+#pragma unroll
+  for (int np = 0; np < NK / 16; ++np) {
+    uint32_t vh[4], vl[4];
+    ld_split<false>(vh, vl, vp + np * 16 * LD, 1.f);
+    mma_tf32(dp[2 * np], al, vh[0], vh[1]);
+    mma_tf32(dp[2 * np + 1], al, vh[2], vh[3]);
+    mma_tf32(dp[2 * np], ah, vl[0], vl[1]);
+    mma_tf32(dp[2 * np + 1], ah, vl[2], vl[3]);
+    mma_tf32(dp[2 * np], ah, vh[0], vh[1]);
+    mma_tf32(dp[2 * np + 1], ah, vh[2], vh[3]);
+  }
+}
+
+// dQ, head dims 160-256: one block of 2 DQW_ROWS / 16 warps per (bh,
+// DQW_ROWS queries), which stages q and do for its life and loops over K/V
+// tiles of DQW_TK keys (two K tiles, one V tile).  Warp pair i (warps i
+// and i + DQW_ROWS / 16) owns queries 16 i.  Per tile the pair's first warp
+// forms s = (q * scale).k^T of its rows against the tile over all DP
+// columns, each k8 step's three MMAs into fresh accumulators (score_step),
+// and writes p = 2^((s - l) * log2(e)) (f32) to a staging tile; its second
+// warp forms dp = do.v^T, three passes into one accumulator (dp_step), and
+// writes dp - delta to another.  So each score is formed once, in
+// dq_tf32_kernel's order, and each operand of the scores is split by one
+// warp.  After a block barrier (the next V tile's copies then fly) both
+// warps read the two tiles back in the accumulator layout, form the same
+// ds = p (dp - delta), and each takes ds.k for its 16 rows over its
+// warpgroup's DP / 2 columns from split A fragments (split_acc_as_a), the
+// tile's sums begun at 0 and added to the running sum in f32 (grad_step).
+template <int DP>
+__global__ void __launch_bounds__(4 * DQW_ROWS, 1)
+dq_tf32w_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dq, int n, int d, int ntiles, float scale) {
+  constexpr int LD = DP + 4, KS = DP / 8, TK = DQW_TK, TS = TK * LD, LX = TK + XP;
+  constexpr int NC = DP / 16, NS = TK / 8;  // NC: n8 tiles of DP / 2 columns
+  constexpr int RWS = DQW_ROWS, NTH = 4 * RWS, NP = RWS / 16, XS = RWS * LX;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [RWS][LD], q unscaled
+  float* dos = qs + RWS * LD;                      // [RWS][LD]
+  float* ks = dos + RWS * LD;                      // 2 x [TK][LD]
+  float* vs = ks + 2 * TS;                         // [TK][LD]
+  float* xs = vs + TS;                             // [RWS][LX] p, then [RWS][LX] dp - delta
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile * RWS;
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int warp = ln.warp, g = ln.g, t = ln.t, pair = warp % NP, half = warp / NP;
+  const int rw = pair * 16;        // the pair's 16 queries
+  const int cw = half * (DP / 2);  // the warp's output columns (ds.k)
+  const int nkt = (n + TK - 1) / TK;
+  const int row0 = q0 + rw + g;  // this lane's queries row0 and row0 + 8
+  const int a_off = (rw + ln.lm_row) * LD + ln.lm_col / 2;
+  const int b_off = ln.lk_row * LD + ln.lk_col / 2;
+
+  // copy groups in order q, do and K_0; V_0; K_1; V_1; ...: K_{j+1} is
+  // issued once every warp is done with K_{j-1}, V_{j+1} once every
+  // warp is done with V_j's dp
+  auto load_k = [&](int jt) {
+    load_tile_async<DP, TK, NTH>(ks + (jt % 2) * TS, k + base, jt * TK, n, d);
+    cp_async_commit();
+  };
+  auto load_v = [&](int jt) {
+    load_tile_async<DP, TK, NTH>(vs, v + base, jt * TK, n, d);
+    cp_async_commit();
+  };
+  load_tile_async<DP, RWS, NTH>(qs, q + base, q0, n, d);
+  load_tile_async<DP, RWS, NTH>(dos, dout + base, q0, n, d);
+  load_k(0);
+  load_v(0);
+
+  // rows g and g + 8 of the pair: l and delta; rows past n read row n - 1
+  // and are never stored
+  float lr[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = bh * n + min(row0 + 8 * h, n - 1);
+    lr[h] = lse[r];
+    dl[h] = delta[r];
+  }
+  float acc[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    cp_async_wait<0>();  // K_j and V_j
+    __syncthreads();     // K_j and V_j everywhere; every warp is done with tile j - 1
+    if (j + 1 < nkt) load_k(j + 1);
+    const float* kb = ks + (j % 2) * TS;
+
+    // the first warp of a pair p = 2^((s - l) * log2(e)), the second dp -
+    // delta, over the tile's TK keys
+    float x[NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
+    if (half == 0) {
+#pragma unroll 2
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ah[4], al[4];
+        ld_split<true>(ah, al, qs + a_off + kk * 8, scale);
+        score_step<LD, TK>(x, ah, al, kb + b_off + kk * 8);
+      }
+      if (j * TK + TK > n) {  // keys at or past n: p = 0
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j * TK + i * 8 + 2 * t + (e & 1) >= n) x[i][e] = -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[i][e] = ex2((x[i][e] - lr[e >> 1]) * LOG2E);
+    } else {
+#pragma unroll 2
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ah[4], al[4];
+        ld_split<false>(ah, al, dos + a_off + kk * 8, 1.f);
+        dp_step<LD, TK>(x, ah, al, vs + b_off + kk * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[i][e] -= dl[e >> 1];
+    }
+    float* xr = xs + half * XS + (rw + g) * LX + 2 * t;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      store2(xr + 8 * i, x[i][0], x[i][1]);
+      store2(xr + 8 * LX + 8 * i, x[i][2], x[i][3]);
+    }
+    __syncthreads();  // p and dp - delta everywhere; every warp is done with V_j
+    if (j + 1 < nkt) load_v(j + 1);
+
+    // acc += ds . k over the warp's columns, ds = p (dp - delta) of the
+    // pair's rows as split A fragments over the tile's keys
+    const float* pr = xs + (rw + g) * LX + 2 * t;
+    uint32_t ah[NS][4], al[NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float2 p0 = *reinterpret_cast<const float2*>(pr + 8 * i);
+      const float2 p1 = *reinterpret_cast<const float2*>(pr + 8 * LX + 8 * i);
+      const float2 x0 = *reinterpret_cast<const float2*>(pr + XS + 8 * i);
+      const float2 x1 = *reinterpret_cast<const float2*>(pr + XS + 8 * LX + 8 * i);
+      const float c[4] = {p0.x * x0.x, p0.y * x0.y, p1.x * x1.x, p1.y * x1.y};
+      split_acc_as_a(c, ah[i], al[i]);
+    }
+    grad_step<NC, NS>(acc, ah, al, kb + 2 * t * LD + cw + g, LD);
+  }
+  store_acc<NC>(dq + base, acc, row0, cw, t, n, d, scale, scale);
+}
+
 // their shared memory: the forward's q, one K and one V tile, the p staging
 // tile and two row vectors (121,088 bytes at head dim 160, 141,568 at 192,
 // 182,528 at 256: one block an SM); dK/dV's k and v, QB Q and dO tiles, the
 // p^T and ds^T staging tiles, QB l and delta rows (188,928, 221,696 and
-// 220,416 bytes: one block an SM)
+// 220,416 bytes: one block an SM); dQ's q and do, two K tiles and one V
+// tile, the p and dp - delta staging tiles (151,808, 178,432 and 231,680
+// bytes: one block an SM)
 template <int DP>
 constexpr size_t fwd_tf32w_smem() {
   return (size_t)(TW_ROWS + 2 * FWD32_TK) * (DP + 4) * sizeof(float) +
@@ -3029,6 +3119,13 @@ constexpr size_t dkv_tf32w_smem() {
          2 * (size_t)TILE * (WKV_TQ + XP) * sizeof(float) +
          2 * TW_QB<DP> * WKV_TQ * sizeof(float);
 }
+template <int DP>
+constexpr size_t dq_tf32w_smem() {
+  return (size_t)(2 * DQW_ROWS + 3 * DQW_TK) * (DP + 4) * sizeof(float) +
+         2 * (size_t)DQW_ROWS * (DQW_TK + XP) * sizeof(float);
+}
+// at most the 227 KB of dynamic shared memory a block may use
+static_assert(dq_tf32w_smem<256>() <= 232448, "dQ's tiles overflow shared memory at 256");
 
 // ---------------------------------------------------------------------------
 // launches
@@ -3104,15 +3201,13 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout
                                         (const float*)dout, l, delta, (float*)dq, n, d, ntiles,
                                         scale);
   } else {
-    constexpr int TR = 16 * RC;
-    const size_t smem = 2 * f32_tile_bytes(TR, DP) + 2 * f32_tile_bytes(TILE, DP) +
-                        f32_tile_bytes(TR, TILE);
-    auto kern = dq_kernel<DP>;
-    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, TR);
+    const size_t smem = dq_tf32w_smem<DP>();
+    auto kern = dq_tf32w_kernel<DP>;
+    cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, DQW_ROWS);
     if (e != cudaSuccess) return e;
-    kern<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
-                                     (const float*)dout, l, delta, (float*)dq, n, d, ntiles,
-                                     scale);
+    kern<<<grid, 4 * DQW_ROWS, smem, stream>>>((const float*)q, (const float*)k,
+                                               (const float*)v, (const float*)dout, l, delta,
+                                               (float*)dq, n, d, ntiles, scale);
   }
   return cudaGetLastError();
 }
@@ -3342,16 +3437,17 @@ ATT_EXPORT int attention_wide_clusters(int kind, int bf, int parts, int* cluster
   }
 }
 
-// The most blocks of the split-TF32 forward (kind 0) or dK/dV (1) body of
-// head dims 160-256 at padded head dim dp (160, 192 or 256) that one SM
-// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// The most blocks of the split-TF32 forward (kind 0), dK/dV (1) or dQ (2)
+// body of head dims 160-256 at padded head dim dp (160, 192 or 256) that one
+// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
 // *blocks, and its threads a block into *threads.
 ATT_EXPORT int attention_tf32w_blocks(int kind, int dp, int* blocks, int* threads) {
-  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
-  *threads = kind == 0 ? 4 * TW_ROWS : NT_WKV;
-#define TF32W_OCC(DP)                                                                    \
-  (kind == 0 ? occupancy(fwd_tf32w_kernel<DP>, fwd_tf32w_smem<DP>(), *threads, blocks) \
-             : occupancy(dkv_tf32w_kernel<DP>, dkv_tf32w_smem<DP>(), *threads, blocks))
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  *threads = kind == 0 ? 4 * TW_ROWS : kind == 1 ? NT_WKV : 4 * DQW_ROWS;
+#define TF32W_OCC(DP)                                                                        \
+  (kind == 0   ? occupancy(fwd_tf32w_kernel<DP>, fwd_tf32w_smem<DP>(), *threads, blocks)     \
+   : kind == 1 ? occupancy(dkv_tf32w_kernel<DP>, dkv_tf32w_smem<DP>(), *threads, blocks)     \
+               : occupancy(dq_tf32w_kernel<DP>, dq_tf32w_smem<DP>(), *threads, blocks))
   switch (dp) {
     case 160:
       return TF32W_OCC(160);

@@ -170,10 +170,10 @@ def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
     upper limit (264, 320, 512 and 1024 go to the wide bodies, the forward,
     dQ and dK/dV as clusters; 1032 to their CUDA-core bodies), and a
     batch*heads count above 65535; it raises on a head dim that is not a
-    multiple of 8, on a grid past 2^31 - 1 blocks (from 136 to 256 the f32
-    dQ's 32-row tiles and the bf16 bodies' two blocks per 64-row tile, the
-    f32 forward taking one block per 96-row tile and dK/dV per 64-row tile;
-    above, the wide bodies' column groups: the clusters' 64-row tiles up to
+    multiple of 8, on a grid past 2^31 - 1 blocks (from 136 to 256 the bf16
+    bodies' two blocks per 64-row tile, the f32 forward taking one block per
+    96-row tile, dQ per 80-row tile and dK/dV per 64-row tile; above, the
+    wide bodies' column groups: the clusters' 64-row tiles up to
     head dim 1024, the CUDA-core bodies' 32-row tiles above), and on a
     non-contiguous panel."""
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
@@ -183,7 +183,7 @@ def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
             assert ta._check(meta(3, 64, d, dt=dt), (meta(3, 64, d, dt=dt),)) == want
         for n in (64, 200, 2048):
             if 128 < d <= 256:
-                assert max(-(-n // 32), 2 * -(-n // 64)) == ta._blocks_per_panel(n, d)
+                assert max(-(-n // 80), 2 * -(-n // 64)) == ta._blocks_per_panel(n, d)
             elif 256 < d <= ta.CLUSTER_MAX_D:
                 assert -(-n // 64) * -(-d // 128) == ta._blocks_per_panel(n, d)
             elif d > ta.CLUSTER_MAX_D:
@@ -277,15 +277,22 @@ def _step_dot(a, b, step, passes):
 
 # keys of a dQ score step and queries of a dK/dV one (their long sums' steps):
 # dq_tf32_kernel's DQ32_SC and dkv_tf32_kernel's DKV32_SC up to head dim 128;
-# from 160 the Q/dO tiles of dkv_tf32w_kernel (WKV_TQ), and for dQ the same
-# 32 (dq_kernel takes those head dims on the CUDA cores)
+# from 160 the K/V tiles of dq_tf32w_kernel (DQW_TK) and the Q/dO tiles of
+# dkv_tf32w_kernel (WKV_TQ)
 def _bwd_steps(d):
-    return {"dq": 64 if d <= 64 else 32, "dkv": 32 if d <= 64 or d > 128 else 16}
+    return {"dq": 64 if d <= 64 else 32 if d <= 128 else 16,
+            "dkv": 32 if d <= 64 or d > 128 else 16}
 
 
-@pytest.mark.parametrize("out", ["dq", "dk", "dv"])
-@pytest.mark.parametrize("d", [64, 96, 160, 192, 256])
-def test_split_tf32_backward_meets_the_f32_bound(d, out):
+# (d, out, amp): each output at each head dim, and dQ at 256 with q and k
+# times 3 (scores to about 40) against JAX's _dq_kernel
+BWD_CASES = [pytest.param(d, out, 1.0, id=f"{d}-{out}")
+             for d in (64, 96, 160, 192, 256) for out in ("dq", "dk", "dv")]
+BWD_CASES.append(pytest.param(256, "dq", 3.0, id="256-dq-amp3"))
+
+
+@pytest.mark.parametrize("d, out, amp", BWD_CASES)
+def test_split_tf32_backward_meets_the_f32_bound(d, out, amp):
     """The f32 dQ and dK/dV kernels take every product in split TF32: s =
     (q * scale).k^T a k8 step at a time (each step's passes summed afresh
     and added in f32) and dp = do.v^T, then p = exp(s - l), ds = p (dp -
@@ -294,18 +301,30 @@ def test_split_tf32_backward_meets_the_f32_bound(d, out):
     (``_bwd_steps``) and added in f32.  That emulation at (2, 256, d) lies
     within chip_smoke.py's f32 bound (1e-5 of the largest magnitude) of
     attention_dq_plain and attention_dkv_plain; one pass per product (the
-    control) lies outside it.  From head dim 160 dK/dV is dkv_tf32w_kernel's
-    arithmetic; dQ there runs on the CUDA cores (dq_kernel), and its cases
-    rehearse the same arithmetic for it."""
+    control) lies outside it.  From head dim 160 it is dq_tf32w_kernel's and
+    dkv_tf32w_kernel's arithmetic (each score formed once over all columns,
+    dQ's long sums per 16-key tile).  With q and k times ``amp`` (3: dQ at
+    256) the emulation, from JAX's own o and l, lies within chip_smoke.py's
+    bounds of JAX's ``_dq_kernel`` (interpret mode) and of the exact result
+    (``_wide_check``), and the control outside the f32 bound."""
     cs = chip_smoke()
     rng = np.random.default_rng(11)
-    q, k, v, do = (torch.tensor(rng.normal(size=(2, 256, d)).astype(np.float32))
-                   for _ in range(4))
+    q, k, v, do = (rng.normal(size=(2, 256, d)).astype(np.float32) for _ in range(4))
+    q, k = q * np.float32(amp), k * np.float32(amp)
     scale = d**-0.5
-    o, l = ta.attention_fwd_plain(q, k, v, scale)
-    delta = torch.sum(do * o, dim=-1, keepdim=True)
-    plain = dict(zip(("dq", "dk", "dv"), (ta.attention_dq_plain(q, k, v, do, l, delta, scale),
-                                          *ta.attention_dkv_plain(q, k, v, do, l, delta, scale))))
+    q, k, v, do = (torch.tensor(a) for a in (q, k, v, do))
+    if amp == 1.0:
+        o, l = ta.attention_fwd_plain(q, k, v, scale)
+        delta = torch.sum(do * o, dim=-1, keepdim=True)
+        plain = dict(zip(("dq", "dk", "dv"),
+                         (ta.attention_dq_plain(q, k, v, do, l, delta, scale),
+                          *ta.attention_dkv_plain(q, k, v, do, l, delta, scale))))
+    else:
+        jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+        o_j, l_j = ja._attention_fwd_flat(jq, jk, jv, scale)
+        dq_want, _, _ = ja._attention_bwd_flat(jq, jk, jv, o_j, l_j, jdo, scale)
+        l = torch.tensor(np.asarray(l_j))
+        delta = torch.sum(do * torch.tensor(np.asarray(o_j)), -1, keepdim=True)
     steps = _bwd_steps(d)
 
     def emulate(passes):
@@ -317,10 +336,16 @@ def test_split_tf32_backward_meets_the_f32_bound(d, out):
                 "dk": _step_dot(ds.transpose(-1, -2), q, steps["dkv"], passes) * scale,
                 "dv": _step_dot(p.transpose(-1, -2), do, steps["dkv"], passes)}[out]
 
-    want = plain[out]
-    err = {n: ((emulate(n) - want).abs().max() / want.abs().max()).item() for n in (3, 1)}
-    assert err[3] <= cs.ATT_TOL_F32, (out, d, err)
-    assert err[1] > cs.ATT_TOL_F32, (out, d, err)
+    if amp == 1.0:
+        want = plain[out]
+        err = {n: ((emulate(n) - want).abs().max() / want.abs().max()).item() for n in (3, 1)}
+        assert err[3] <= cs.ATT_TOL_F32, (out, d, err)
+        assert err[1] > cs.ATT_TOL_F32, (out, d, err)
+        return
+    (exact,) = cs.att_f64("attention_dq", q, k, v, do, l, delta, scale=scale)
+    _wide_check(emulate(3), dq_want, exact, "split_tf32", f"dq at {d}, q and k times {amp}")
+    ctl = _wide_control(emulate(1), dq_want, "split_tf32")
+    assert ctl > cs.ATT_TOL_F32, (d, amp, ctl)
 
 
 def _split_tf32_forward(q, k, v, scale, passes):
@@ -730,12 +755,13 @@ def test_wide_ablation_cuts_what_it_names():
 
 
 def test_tf32w_control_lowers_the_cluster_floor():
-    """experiments/tf32w_attention_control.py times the f32 forward and dK/dV
-    of head dims 160-256 against the P = 2 cluster route and against copies
-    with the forward's blocks cut otherwise: its control copy of attention.cu sends
-    f32 above head dim 128 (not 256) to the cluster bodies, every copy makes
-    its edits once and renames every kernel, keeps every kernel of the
-    source, and holds the kernels its profiler keys name."""
+    """experiments/tf32w_attention_control.py times the f32 forward, dQ and
+    dK/dV of head dims 160-256 against the P = 2 cluster route and against
+    copies with the forward's blocks cut otherwise: its control copy
+    of attention.cu sends f32 above head dim 128 (not 256) to the cluster
+    bodies, every copy makes its edits once and renames every kernel, keeps
+    every kernel of the source, and holds the kernels its profiler keys
+    name (the three of each copy)."""
     from sciml_pde_torch.experiments import tf32w_attention_control as tc
     from sciml_pde_torch.ops import _build
 
@@ -750,6 +776,7 @@ def test_tf32w_control_lowers_the_cluster_floor():
         if i:
             assert "fwd_tf32w_kernel" not in text and "dkv_wide_kernel" not in text, name
             assert text != src.replace("_kernel", tc.suffix(i)), name
+        assert list(tc.keys(i, name)) == list(tc.FNAMES), name
         for key in tc.keys(i, name).values():
             assert key[:-1] in text, (name, key)
 
@@ -757,16 +784,51 @@ def test_tf32w_control_lowers_the_cluster_floor():
 def test_checkout_comparison_keys_each_trees_body():
     """experiments/checkout_comparison.py reads each tree's f32 kernel of head
     dim 256 under its own name: the split-TF32 bodies of two warpgroups in
-    this tree (dQ: the CUDA-core dq_kernel), the CUDA-core bodies in a tree
-    from before them, renamed as the experiment renames the other tree."""
+    this tree, the CUDA-core bodies in a tree from before them, renamed as
+    the experiment renames the other tree."""
     from sciml_pde_torch.experiments import checkout_comparison as cc
     from sciml_pde_torch.ops import _build
 
     src = (_build.CSRC / "attention.cu").read_text()
-    assert [cc._key_256(src, s, "_kernel") for s in ("fwd", "dq", "dkv")] == [
-        "fwd_tf32w_kernel<", "dq_kernel<", "dkv_tf32w_kernel<"]
-    for key in ("fwd_tf32w_kernel<", "dq_kernel<", "dkv_tf32w_kernel<"):
+    keys = ["fwd_tf32w_kernel<", "dq_tf32w_kernel<", "dkv_tf32w_kernel<"]
+    assert [cc._key_256(src, s, "_kernel") for s in ("fwd", "dq", "dkv")] == keys
+    for key in keys:
         assert key[:-1] + "(" in src.replace("<DP>", ""), key  # a body of that name
+    assert "dq_kernel(" not in src.replace("<DP>", "")
     older = "fwd_pkernel(...) dq_pkernel(...) dkv_pkernel(...) fwd_tf32_pkernel(...)"
     assert [cc._key_256(older, s, "_pkernel") for s in ("fwd", "dq", "dkv")] == [
         "fwd_pkernel<", "dq_pkernel<", "dkv_pkernel<"]
+
+
+def test_f32_dq_above_128_runs_on_the_tensor_cores():
+    """chip_smoke.py holds the f32 dQ from head dim 136 to 256 to 1e-5 of the
+    exact result with no escape (``att_cuda_cores`` false), bounds it by its
+    9 TF32 passes and times it under the split-TF32 body's name
+    (``att_kernel_key``: dq_tf32w_kernel, a body of attention.cu); only the
+    bodies above CLUSTER_MAX_D keep the CUDA cores' escape, in bf16 too
+    (their inputs widened to f32), and are bounded as the function needs
+    whatever body computes it: bf16 products at the bf16 tensor-core rate,
+    f32 ones as 6, 9 and 12 TF32 passes (or by bytes, where larger)."""
+    from sciml_pde_torch.ops import _build
+
+    cs = chip_smoke()
+    src = (_build.CSRC / "attention.cu").read_text().replace("<DP>", "")
+    for d in (136, 160, 192, 256):
+        assert not cs.att_cuda_cores("attention_dq", d, False), d
+        key = cs.att_kernel_key("attention_dq", d, False)
+        assert key == "dq_tf32w_kernel<" and key[:-1] + "(" in src, (d, key)
+        assert cs.att_work("attention_dq", 8, 1280, d, False)[1] == pytest.approx(
+            9 * 2 * 8 * 1280**2 * d / cs.TF32_FLOPS)
+    assert cs.att_work("attention_dq", 8, 1280, 256, False)[1] * 1e3 == pytest.approx(
+        0.12202, abs=1e-5)
+    for name in ta.KERNEL_NAMES:
+        assert cs.att_cuda_cores(name, ta.CLUSTER_MAX_D + 8, False)
+        assert cs.att_cuda_cores(name, ta.CLUSTER_MAX_D + 8, True)
+        assert not cs.att_cuda_cores(name, ta.CLUSTER_MAX_D, False)
+        prod = 2 * 2 * 256**2 * 1032
+        bf16_s = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name] * prod
+        tf32_s = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}[name] * prod
+        assert cs.att_work(name, 2, 256, 1032, True)[1] == pytest.approx(
+            bf16_s / cs.PEAK_FLOPS["default"])
+        assert cs.att_work(name, 2, 256, 1032, False)[1] == pytest.approx(
+            tf32_s / cs.TF32_FLOPS)
