@@ -36,9 +36,12 @@ FNO steps and the five split kernels):
               the clusters of 8 blocks the card holds at once) nor in the
               nine of the f32 forward, dQ and dK/dV of head dims 160-256
               (fwd_tf32w_kernel, dq_tf32w_kernel, dkv_tf32w_kernel at 160,
-              192, 256; each with the blocks an SM holds at once), HMMA
+              192, 256; each with the blocks an SM holds at once) nor in
+              the bf16 forward and dK/dV above head dim 1024
+              (fwd_wide_tc_kernel, dkv_wide_tc_kernel; the f32 instances'
+              registers and spills printed beside them), HMMA
               instructions in both dq_wide_kernel instances' SASS and in
-              those nine (their products on the tensor cores), none in
+              those thirteen (their products on the tensor cores), none in
               wdft_kernel and
               reduce_rows_kernel, and
               neither spills nor a stack frame in both instances of
@@ -124,9 +127,11 @@ FNO steps and the five split kernels):
               versions (and the same bits from a second launch) at the
               encoder (24, 1280, 64) and decoder
               (16, 1280, 64) shapes, at head dims 96, 24, 136 (at 200
-              tokens), 160, 192, 256, 264, 320, 512, 1024 and 1032 and at
+              tokens), 160, 192, 256, 264, 320, 512, 1024, 1032 (also at
+              200 tokens) and 2056 and at
               200 tokens (ragged tiles) at head dim 64, in f32 and bf16, at
-              the encoder shape and at (8, 1280, 256) and (4, 1280, 512)
+              the encoder shape and at (8, 1280, 256), (4, 1280, 512) and
+              (2, 256, 1032)
               with q and k times 3 (scores up to about 54) in f32 (from 160
               up with each kernel's time beside
               its bound and the SDPA forward or backward on the same
@@ -134,9 +139,9 @@ FNO steps and the five split kernels):
               batch*heads 70000 (70000, 16, 16) in bf16,
               with a control against a kernel that rounds p and ds to
               bf16 (f32 outputs held against the exact result, the plain
-              versions' arithmetic in f64, within 1e-5; the CUDA-core
-              bodies, all three above 1024, within 1e-5 or the f32 plain
-              version's own distance from it); flash_attention at (2, 4,
+              versions' arithmetic in f64, within 1e-5; dQ's CUDA-core
+              body above 1024 within 1e-5 or the f32 plain version's own
+              distance from it); flash_attention at (2, 4,
               1280, 512) through the kernels against plain=True, values
               and q/k/v gradients, in both types
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
@@ -303,8 +308,10 @@ ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 12
 # or 64-key tile, the f32 dQ over 32-row tiles; two bf16 blocks per row
 # tile, each for half of the output columns), head dims above
 # 256 (the wide bodies: ceil(d / 128) column groups, the forward, dQ and
-# dK/dV as thread-block clusters of that many ranks up to 1024 (8 ranks), on
-# the CUDA cores above; 200 tokens leave ragged row and key tiles), 200 tokens at head
+# dK/dV as thread-block clusters of that many ranks up to 1024 (8 ranks);
+# above, the forward and dK/dV as one block per column group that loops over
+# all of d on the tensor cores (2056: no upper limit), dQ on the CUDA cores;
+# 200 tokens leave ragged row and key tiles), 200 tokens at head
 # dim 64 (the tensor-core bodies' ragged tiles), in both dtypes, and
 # batch*heads above the 65535 of a grid's y axis
 ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
@@ -318,6 +325,8 @@ ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "head dim 512": ((4, 1280, 512), ("float32", "bfloat16")),
              "head dim 1024": ((2, 1280, 1024), ("float32", "bfloat16")),
              "head dim 1032": ((2, 256, 1032), ("float32", "bfloat16")),
+             "head dim 1032, ragged": ((2, 200, 1032), ("float32", "bfloat16")),
+             "head dim 2056": ((1, 256, 2056), ("float32", "bfloat16")),
              "ragged tiles": ((8, 200, 64), ("float32", "bfloat16")),
              # q and k times 3: scores up to about 54 (the f32 dQ and dK/dV
              # sum each score a k8 step at a time, so that their size does
@@ -325,6 +334,7 @@ ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
              "large logits": ((24, 1280, 64), ("float32",), 3.0),
              "large logits, head dim 256": ((8, 1280, 256), ("float32",), 3.0),
              "large logits, head dim 512": ((4, 1280, 512), ("float32",), 3.0),
+             "large logits, head dim 1032": ((2, 256, 1032), ("float32",), 3.0),
              "batch*heads 70000": ((70_000, 16, 16), ("bfloat16",))}
 # profiler keys of the attention kernels (their demangled names) at the NS
 # head dim: the bf16 tensor-core bodies, and in f32 the split-TF32
@@ -335,7 +345,7 @@ ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "
                            "attention_dkv": "dkv_tf32_kernel<"}}
 # attention kernels: f32 outputs within 1e-5 of the largest magnitude of the
 # exact result (the plain version's arithmetic in f64: att_f64); the bodies
-# on the CUDA cores (att_cuda_cores: all three in both types above
+# on the CUDA cores (att_cuda_cores: dQ in both types above
 # CLUSTER_MAX_D), whose f32 sums are the plain version's, may instead lie
 # no farther from it than the f32 plain version (with q and k times 3 at
 # head dim 512 the f32 plain versions lie up to 2.1e-5 from it); bf16
@@ -1720,9 +1730,11 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     TF32 passes (at (4, 1280, 512) 0.08134, 0.12202 and 0.16269 ms; dQ
     0.30050 on the CUDA cores before its cluster body), and the bf16 wide
     bodies their bf16 products (0.02036, 0.02714 and 0.04071 ms there).
-    The bodies above CLUSTER_MAX_D take the same bounds, though they compute
-    on the CUDA cores in f32 (bf16 inputs widened): the bound is what the
-    function needs, not what its body does.  Before
+    The bodies above CLUSTER_MAX_D take the same bounds, though the
+    forward's and dK/dV's form the scores once for each block of 256 output
+    columns and dQ's computes on the CUDA cores in f32 (bf16 inputs
+    widened): the bound is what the function needs, not what its body
+    does.  Before
     their tensor-core designs the bf16 kernels' bounds counted the products
     that take p or ds at the f32 rate: 0.08021 (forward), 0.08530 (dQ) and
     0.16042 ms (dK/dV) at the encoder shape."""
@@ -1741,12 +1753,12 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
 
 def att_cuda_cores(name: str, d: int, bf: bool) -> bool:
     """Whether attention kernel ``name`` takes head dim ``d`` on the CUDA
-    cores: all three in both types above CLUSTER_MAX_D (the
-    *_wide_cc_kernel bodies); every other head dim runs on the tensor
-    cores."""
+    cores: dQ in both types above CLUSTER_MAX_D (dq_wide_cc_kernel); the
+    forward and dK/dV above it run on the tensor cores (fwd_wide_tc_kernel,
+    dkv_wide_tc_kernel), as every other head dim does."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
-    return d > CLUSTER_MAX_D
+    return name == "attention_dq" and d > CLUSTER_MAX_D
 
 
 def att_work_f32_cores(name: str, bh: int, n: int, d: int) -> float:
@@ -1801,14 +1813,17 @@ def att_kernel_key(name: str, d: int, bf: bool) -> str:
     launches from head dim 160 up: from 160 to 256 the bf16 tensor-core
     bodies (*_tc_kernel), in f32 the split-TF32 forward, dQ and dK/dV of two
     warpgroups (*_tf32w_kernel); above 256 the cluster bodies
-    (*_wide_kernel) up to CLUSTER_MAX_D, their CUDA-core bodies
-    (*_wide_cc_kernel) above it."""
+    (*_wide_kernel) up to CLUSTER_MAX_D; above it the forward's and dK/dV's
+    tensor-core bodies (*_wide_tc_kernel) and dQ's CUDA-core body
+    (dq_wide_cc_kernel)."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
     short = name.replace("attention_", "")
     if d <= 256:
         return f"{short}_tc_kernel<" if bf else f"{short}_tf32w_kernel<"
-    return f"{short}_wide_cc_kernel<" if d > CLUSTER_MAX_D else f"{short}_wide_kernel<"
+    if d <= CLUSTER_MAX_D:
+        return f"{short}_wide_kernel<"
+    return "dq_wide_cc_kernel<" if short == "dq" else f"{short}_wide_tc_kernel<"
 
 
 def check_flash_wide(ta, dev) -> None:
@@ -3449,13 +3464,23 @@ def main() -> int:
                                         f"block(s) of {blocks[u[0]][1]} warps an SM"
                                         for u in tf32w)
           + " (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    wide_tc_names = [f"{w}_wide_tc_kernel<{t}>" for w in ("dkv", "fwd")
+                     for t in ("__nv_bfloat16", "float")]
+    wide_tc = sorted(u for u in usage if "_wide_tc_kernel<" in u[0])
+    check([u[0] for u in wide_tc] == wide_tc_names
+          and all(st == ld == 0 for name, _, st, ld, _ in wide_tc if "bfloat16" in name),
+          "[build] the forward and dK/dV above head dim 1024 (one block's tensor-core score loop "
+          "over all of d, both types; the bf16 instances spill nothing): "
+          + ", ".join(f"{u[0]} {u[1]} registers, {u[2]} bytes spill stores, {u[3]} bytes spill "
+                      "loads" for u in wide_tc))
     att_sass = _build.sass(_build.library_path("attention"))
     hmma = {k: sum(i.split()[0].startswith("HMMA") for i in att_sass.get(k, []))
-            for k in ("dq_wide_kernel<__nv_bfloat16>", "dq_wide_kernel<float>", *tf32w_names)}
+            for k in ("dq_wide_kernel<__nv_bfloat16>", "dq_wide_kernel<float>", *tf32w_names,
+                      *wide_tc_names)}
     check(all(c > 0 for c in hmma.values()),
-          "[build] dq_wide_kernel and the f32 forward, dQ and dK/dV of head dims 160-256 take their "
-          "products on the tensor cores: HMMA instructions in their SASS "
-          + ", ".join(f"{k} {c}" for k, c in hmma.items()))
+          "[build] dq_wide_kernel, the f32 forward, dQ and dK/dV of head dims 160-256 and the "
+          "forward and dK/dV above 1024 take their products on the tensor cores: HMMA "
+          "instructions in their SASS " + ", ".join(f"{k} {c}" for k, c in hmma.items()))
     for kind in ta.WIDE_KINDS:
         for bf in (True, False):
             name = f"{kind}_wide_kernel<{'__nv_bfloat16' if bf else 'float'}>"

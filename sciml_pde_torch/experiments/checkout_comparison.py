@@ -14,12 +14,15 @@ tells the two apart, and times
 - the forward, dQ and dK/dV of each at (4, 1280, 512), in bf16 and f32;
 - the forward, dQ and dK/dV of each at (8, 1280, 256) in f32 (each tree's
   body of that head dim: ``_key_256``);
+- the forward, dQ and dK/dV of each at (2, 256, 1032), in bf16 and f32
+  (each tree's body above head dim 1024: ``_key_wide``);
 
 in profiler device time (``profiler_ms``: the median of three sessions in
 which the two checkouts' launches, and the probe's with ``torch.mul``'s,
 take turns) and in CUDA events (each alone, this checkout's first, then
 the other's, then both again in reverse order).  Each line also gives the
-largest difference between the two checkouts' outputs.  Needs the card and
+largest difference between the two checkouts' outputs, absolute and over
+the largest magnitude of the other's.  Needs the card and
 nvcc; prints the card's name and power limit and one line per kernel.
 """
 
@@ -41,6 +44,7 @@ TREES = ("this", "other")
 KEY_SUFFIX = {"this": "_kernel", "other": "_pkernel"}
 SHAPE = (4, 1280, 512)
 SHAPE_256 = (8, 1280, 256)
+SHAPE_WIDE = (2, 256, 1032)
 PROBE_REPS = 200
 HBM_BPS = 3.35e12  # H100 SXM data-sheet HBM rate: the probe's bound (bytes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -64,6 +68,16 @@ def _key_256(text: str, short: str, suffix: str) -> str:
     return f"{tf32w}<" if tf32w in text else f"{short}{suffix}<"
 
 
+def _key_wide(text: str, short: str, suffix: str) -> str:
+    """The profiler key of the kernel that ``short`` ("fwd", "dq" or "dkv")
+    launches above head dim 1024 in the tree whose attention.cu is
+    ``text``: its tensor-core body where the tree has one
+    (``fwd_wide_tc_kernel``), else its CUDA-core body
+    (``fwd_wide_cc_kernel``)."""
+    tc = f"{short}_wide_tc{suffix}"
+    return f"{tc}<" if tc in text else f"{short}_wide_cc{suffix}<"
+
+
 def _report(card: str, what: str, launches: dict, keys: dict, outs: dict, reps: int,
             bound_ms: float = 0.0, extra=None) -> None:
     """Print the device and event times of both checkouts' ``launches``
@@ -81,6 +95,8 @@ def _report(card: str, what: str, launches: dict, keys: dict, outs: dict, reps: 
         ev[t].append(cuda_ms(launches[t]))
     diff = max(float((a.float() - b.float()).abs().max())
                for a, b in zip(outs["this"], outs["other"]))
+    rel = max(float((a.double() - b.double()).abs().max() / b.double().abs().max())
+              for a, b in zip(outs["this"], outs["other"]))
     line = (f"[compare] {card}: {what}: profiler device time (median of three sessions) "
             + "; ".join(f"{t} {dev[t]} ms" for t in TREES))
     if extra:
@@ -88,7 +104,8 @@ def _report(card: str, what: str, launches: dict, keys: dict, outs: dict, reps: 
                  f"{profiler_ms(both, extra[2], reps=reps, bound_ms=bound_ms, sessions=3)} ms")
     line += ("; events " + "; ".join(f"{t} {', '.join(f'{x:.4f}' for x in ev[t])} ms"
                                      for t in TREES)
-             + f"; largest difference between the outputs {diff:.3e}")
+             + f"; largest difference between the outputs {diff:.3e} ({rel:.3e} of the "
+             "largest magnitude)")
     print(line, flush=True)
 
 
@@ -124,7 +141,8 @@ def main(argv: list[str]) -> int:
 
         g = torch.Generator().manual_seed(3)
         for (bh, n, d), dt in ((SHAPE, torch.bfloat16), (SHAPE, torch.float32),
-                               (SHAPE_256, torch.float32)):
+                               (SHAPE_256, torch.float32), (SHAPE_WIDE, torch.bfloat16),
+                               (SHAPE_WIDE, torch.float32)):
             q, k, v, do = (torch.randn(bh, n, d, generator=g).to("cuda", dt) for _ in range(4))
             scale = d**-0.5
             o, l = ta.attention_fwd_plain(q, k, v, scale)
@@ -140,8 +158,9 @@ def main(argv: list[str]) -> int:
                                          (*(_P(a.data_ptr()) for a in (*ins, *outs[t])), *tail),
                                          f"{fname} of {t}")
                             for t in TREES}
-                keys = {t: (f"{short}_wide{KEY_SUFFIX[t]}<" if d > 256 else
-                            _key_256(texts[("attention", t)], short, KEY_SUFFIX[t]))
+                keys = {t: (_key_wide(texts[("attention", t)], short, KEY_SUFFIX[t])
+                            if d > ta.CLUSTER_MAX_D else f"{short}_wide{KEY_SUFFIX[t]}<"
+                            if d > 256 else _key_256(texts[("attention", t)], short, KEY_SUFFIX[t]))
                         for t in TREES}
                 _report(card, f"{fname} {(bh, n, d)} {str(dt)[6:]} ({', '.join(keys.values())})",
                         launches, keys, outs, 20)

@@ -20,8 +20,11 @@ memory.  Above 256
 (the wide bodies) the forward, dQ and dK/dV run, in both types up to head
 dim ``CLUSTER_MAX_D``, as thread-block clusters of ``ceil(d / 128)``
 blocks that each take the products of 128 head-dim columns on the tensor
-cores and add their partial scores through distributed shared memory;
-above ``CLUSTER_MAX_D`` on the CUDA cores (see the source's note).  The
+cores and add their partial scores through distributed shared memory.
+Above ``CLUSTER_MAX_D``, with no upper limit, the forward and dK/dV run on
+the tensor cores as one block per 256 output columns that forms the
+scores over all of d itself, and dQ on the CUDA cores (see the source's
+note).  The
 plain versions compute the Pallas bodies over whole rows: inputs widened
 to f32, ``q`` scaled in f32, ``p`` and ``ds`` kept in f32, outputs
 rounded to the input type once.
@@ -51,6 +54,11 @@ TILE = 64
 # the largest head dim of the cluster bodies: 8 blocks (the portable cluster
 # size) of 128 columns (csrc/attention.cu CL_MAX_D)
 CLUSTER_MAX_D = 1024
+# above it, (rows, output columns) of a block: dQ's (dq_wide_cc_kernel), and
+# the forward's and dK/dV's (fwd_wide_tc_kernel, dkv_wide_tc_kernel: two
+# groups of 128 columns, WT_G)
+WIDE_DQ_TILE = (32, 128)
+WIDE_TC_TILE = (TILE, 256)
 # the cluster bodies, as attention_wide_clusters numbers them
 WIDE_KINDS = {"fwd": 0, "dkv": 1, "dq": 2}
 
@@ -96,13 +104,17 @@ def _blocks_per_panel(n: int, d: int) -> int:
     kernels' too); above, two bf16 blocks per 64-row tile (the f32 forward:
     one block per 96-row tile, dQ per 80-row tile, dK/dV per 64-row tile);
     above 256, ceil(d / 128) blocks per 64-row tile (the three cluster
-    bodies) up to ``CLUSTER_MAX_D``, per 32-row tile (the CUDA-core bodies)
-    above it."""
+    bodies) up to ``CLUSTER_MAX_D``; above it the most of the three: the
+    forward and dK/dV ceil(d / 256) blocks per 64-row tile (their
+    tensor-core bodies), dQ ceil(d / 128) per 32-row tile (its CUDA-core
+    body)."""
     if d <= 128:
         return -(-n // TILE)
     if d <= 256:
         return -(-n // TILE) * 2
-    return -(-n // (TILE if d <= CLUSTER_MAX_D else 32)) * -(-d // 128)
+    if d <= CLUSTER_MAX_D:
+        return -(-n // TILE) * -(-d // 128)
+    return max(-(-n // rows) * -(-d // cols) for rows, cols in (WIDE_TC_TILE, WIDE_DQ_TILE))
 
 
 def wide_max_clusters(kind: str, bf16: bool, parts: int) -> int:

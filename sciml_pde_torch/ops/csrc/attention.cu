@@ -64,13 +64,25 @@
 //   dK/dV 16 (P - 1)), near that network's rate, and the barriers cost
 //   beside it (PERF.md).
 //
-//   Above 1024 the three take any d with no upper limit on the CUDA cores
-//   (fwd_wide_cc_kernel, dq_wide_cc_kernel, dkv_wide_cc_kernel): the head
-//   dim padded to a multiple of 64 with zero columns, the scores over it in
-//   64-column chunks staged through shared memory, and the output columns
-//   split over P blocks per 32-row tile, each of which computes the scores
-//   itself; f32 arithmetic (inputs widened to f32, p and ds f32, f32 FMAs,
-//   one rounding at the store), written to be right, not fast.
+//   Above 1024, with no upper limit on d, the forward and dK/dV run on
+//   the tensor cores as one block per (bh, 64 rows, 256 output columns)
+//   that loops over all of d itself (fwd_wide_tc_kernel,
+//   dkv_wide_tc_kernel): per tile of the other panel the block walks the
+//   slices of d in order (256 bytes of a row: 64 f32 or 128 bf16 columns),
+//   each slice of both panels staged by cp.async, double-buffered, and
+//   accumulates the scores in registers over every slice, with the cluster
+//   bodies' arithmetic (bf16 raw, f32 split TF32 with each k8 step's score
+//   MMAs into fresh accumulators); then the forward's online softmax and
+//   p.v, or dK/dV's p^T, ds^T, p^T.do and ds^T.q, over the block's 256
+//   columns.  Every one of the ceil(d / 256) blocks of a row tile forms
+//   the tile's scores over all of d, the price of no exchange and no
+//   limit; the bounds count the function's own products.  dQ above 1024
+//   stays on the CUDA cores (dq_wide_cc_kernel): the head dim padded to a
+//   multiple of 64 with zero columns, the scores over it in 64-column
+//   chunks staged through shared memory, the output columns split over P
+//   blocks per 32-row tile, each of which computes the scores itself; f32
+//   arithmetic (inputs widened to f32, p and ds f32, f32 FMAs, one rounding
+//   at the store), written to be right, not fast.
 
 // Numerics follow the Pallas bodies: every input is widened to f32, p and ds
 // stay f32 into their products, dq = (ds.k) * scale and dk = (ds^T.q) * scale
@@ -251,30 +263,21 @@ __device__ __forceinline__ void block_pair(int ntiles, size_t& bh, int& tile) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core tiles (both types above head dim 1024)
+// CUDA-core tiles (dQ above head dim 1024, both types)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int n) {
-  for (int i = threadIdx.x; i < TILE; i += NT) dst[i] = (r0 + i < n) ? src[r0 + i] : 0.f;
-}
-
-// s[i][j] = sum_d a'[ra + i][d] * b[tx + 16 j][d]: RI rows of a tile at ra
-// against RJ strided rows of another, both row stride D + 4.  With SCALED,
-// a' = a * scale in f32 before the product (q.astype(f32) * scale), else a.
-// The sums continue from s (the next chunk of a longer row).
-template <int D, bool SCALED, int RI, int RJ>
+// s[i][j] = sum_d a[ra + i][d] * b[tx + 16 j][d]: RI rows of a tile at ra
+// against RJ strided rows of another, both row stride D + 4.  The sums
+// continue from s (the next chunk of a longer row).
+template <int D, int RI, int RJ>
 __device__ __forceinline__ void dot_tile(float s[RI][RJ], const float* a, int ra,
-                                         const float* b, int tx, float scale) {
+                                         const float* b, int tx) {
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float4 av[RI], bv[RJ];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
+    for (int i = 0; i < RI; ++i)
       av[i] = *reinterpret_cast<const float4*>(a + (ra + i) * (D + 4) + d);
-      if (SCALED) {
-        av[i].x *= scale; av[i].y *= scale; av[i].z *= scale; av[i].w *= scale;
-      }
-    }
 #pragma unroll
     for (int j = 0; j < RJ; ++j)
       bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * (D + 4) + d);
@@ -325,18 +328,6 @@ __device__ __forceinline__ void acc_tile(float acc[RI][D / 16], const float* p, 
   }
 }
 
-// max / sum over the 16 threads (tx) that share a row
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
@@ -354,8 +345,7 @@ __device__ __forceinline__ void store_row(T* dst, const float* acc, int tx, int 
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 1024 (the forward, dQ and dK/dV), f32 or bf16 inputs,
-// CUDA cores
+// dQ above head dim 1024, f32 or bf16 inputs, CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int WC = 64;   // head-dim columns per score chunk
@@ -372,78 +362,6 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* src, int r0, int
     const int r = i / W, c = i - r * W;
     dst[r * (W + 4) + c] =
         (r0 + r < n && c0 + c < d) ? to_f32(src[(size_t)(r0 + r) * d + c0 + c]) * mul : 0.f;
-  }
-}
-
-// forward above head dim 1024: one block per (bh, 32 queries, 128 output
-// columns); the scores over 64-column chunks of q * scale and k, then the
-// online softmax and p.v over the block's columns of v
-template <typename T>
-__global__ void __launch_bounds__(NT)
-fwd_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   T* __restrict__ o, float* __restrict__ lse, int n, int d, int ntiles,
-                   int parts, float scale) {
-  constexpr int R = WR / 16, DPT = WO / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                      // [WR][WC + 4], a chunk of q * scale
-  float* ks = qs + WR * (WC + 4);      // [TILE][WC + 4], a chunk of k
-  float* vs = ks + TILE * (WC + 4);    // [TILE][WO + 4], the block's columns of v
-  float* ps = vs + TILE * (WO + 4);    // [WR queries][SP]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, ra = ty * R;
-  size_t bh;
-  int tile;
-  block_pair(ntiles, bh, tile);
-  const int q0 = tile / parts * WR, c0 = tile % parts * WO;
-  const size_t base = bh * n * d;
-  float m[R], lsum[R], acc[R][DPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = -INFINITY;
-    lsum[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    float s[R][4] = {};
-    for (int dc = 0; dc < d; dc += WC) {
-      __syncthreads();  // the previous products are done with qs, ks (and vs, ps)
-      load_chunk<WC>(qs, q + base, q0, WR, dc, n, d, scale);
-      load_chunk<WC>(ks, k + base, k0, TILE, dc, n, d);
-      __syncthreads();
-      dot_tile<WC, false, R, 4>(s, qs, ra, ks, tx, 0.f);
-    }
-    load_chunk<WO>(vs, v + base, k0, TILE, c0, n, d);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= n) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));  // finite: the tile holds a key
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ra + i) * SP + tx + 16 * j] = p;
-        rs += p;
-      }
-      lsum[i] = lsum[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    acc_tile<WO, R>(acc, ps, ra, vs, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ra + i;
-    if (row >= n) continue;
-    store_row<DPT>(o + base + (size_t)row * d + c0, acc[i], tx, d - c0, 1.f / lsum[i]);
-    if (tx == 0 && c0 == 0) lse[bh * n + row] = m[i] + logf(lsum[i]);
   }
 }
 
@@ -488,8 +406,8 @@ dq_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       load_chunk<WC>(ks, k + base, k0, TILE, dc, n, d);
       load_chunk<WC>(vs, v + base, k0, TILE, dc, n, d);
       __syncthreads();
-      dot_tile<WC, false, R, 4>(s, qs, ra, ks, tx, 0.f);
-      dot_tile<WC, false, R, 4>(dp, dos, ra, vs, tx, 0.f);
+      dot_tile<WC, R, 4>(s, qs, ra, ks, tx);
+      dot_tile<WC, R, 4>(dp, dos, ra, vs, tx);
     }
     load_chunk<WO>(kc, k + base, k0, TILE, c0, n, d);
 #pragma unroll
@@ -507,86 +425,6 @@ dq_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ra + i;
     if (row < n) store_row<DPT>(dq + base + (size_t)row * d + c0, acc[i], tx, d - c0, scale);
-  }
-}
-
-// dK/dV above head dim 1024: one block per (bh, 32 keys, 128 output
-// columns); s^T and dp^T over 64-column chunks, then p^T.do and ds^T.q over
-// the block's columns of do and q
-template <typename T>
-__global__ void __launch_bounds__(NT)
-dkv_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                   int n, int d, int ntiles, int parts, float scale) {
-  constexpr int R = WR / 16, DPT = WO / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* ks = sm;                      // [WR keys][WC + 4], a chunk of k
-  float* vs = ks + WR * (WC + 4);      // [WR keys][WC + 4], a chunk of v
-  float* qs = vs + WR * (WC + 4);      // [TILE queries][WC + 4], a chunk of q, unscaled
-  float* dos = qs + TILE * (WC + 4);   // [TILE][WC + 4], a chunk of do
-  float* qc = dos + TILE * (WC + 4);   // [TILE][WO + 4], the block's columns of q
-  float* doc = qc + TILE * (WO + 4);   // [TILE][WO + 4], the block's columns of do
-  float* pt = doc + TILE * (WO + 4);   // [WR keys][SP]: p transposed
-  float* dst = pt + WR * SP;           // [WR keys][SP]: ds transposed
-  float* ls = dst + WR * SP;           // [TILE] logsumexp of the query tile
-  float* dls = ls + TILE;              // [TILE] delta of the query tile
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int rq = ty * 4, rk = ty * R;  // this thread's query rows (scores), key rows (output)
-  size_t bh;
-  int tile;
-  block_pair(ntiles, bh, tile);
-  const int k0 = tile / parts * WR, c0 = tile % parts * WO;
-  const size_t base = bh * n * d, rbase = bh * n;
-  float gk[R][DPT], gv[R][DPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) gk[i][c] = gv[i][c] = 0.f;
-
-  for (int r0 = 0; r0 < n; r0 += TILE) {
-    float s[4][R] = {}, dp[4][R] = {};
-    for (int dc = 0; dc < d; dc += WC) {
-      __syncthreads();
-      load_chunk<WC>(ks, k + base, k0, WR, dc, n, d);
-      load_chunk<WC>(vs, v + base, k0, WR, dc, n, d);
-      load_chunk<WC>(qs, q + base, r0, TILE, dc, n, d);
-      load_chunk<WC>(dos, dout + base, r0, TILE, dc, n, d);
-      __syncthreads();
-      dot_tile<WC, true, 4, R>(s, qs, rq, ks, tx, scale);
-      dot_tile<WC, false, 4, R>(dp, dos, rq, vs, tx, 0.f);
-    }
-    load_chunk<WO>(qc, q + base, r0, TILE, c0, n, d);
-    load_chunk<WO>(doc, dout + base, r0, TILE, c0, n, d);
-    load_rows(ls, lse + rbase, r0, n);
-    load_rows(dls, delta + rbase, r0, n);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const bool key_ok = k0 + tx + 16 * j < n;
-      float pp[4], dd[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = key_ok && r0 + rq + i < n;
-        const float p = ok ? expf(s[i][j] - ls[rq + i]) : 0.f;
-        pp[i] = p;
-        dd[i] = p * (dp[i][j] - dls[rq + i]);
-      }
-      *reinterpret_cast<float4*>(pt + (tx + 16 * j) * SP + rq) =
-          make_float4(pp[0], pp[1], pp[2], pp[3]);
-      *reinterpret_cast<float4*>(dst + (tx + 16 * j) * SP + rq) =
-          make_float4(dd[0], dd[1], dd[2], dd[3]);
-    }
-    __syncthreads();
-    acc_tile<WO, R>(gv, pt, rk, doc, tx);
-    acc_tile<WO, R>(gk, dst, rk, qc, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int key = k0 + rk + i;
-    if (key >= n) continue;
-    store_row<DPT>(dk + base + (size_t)key * d + c0, gk[i], tx, d - c0, scale);
-    store_row<DPT>(dv + base + (size_t)key * d + c0, gv[i], tx, d - c0, 1.f);
   }
 }
 
@@ -2564,6 +2402,474 @@ dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ---------------------------------------------------------------------------
+// head dims above 1024, the forward and dK/dV: one block's tensor-core score
+// loop over all of d (f32 in split TF32, bf16 raw; see the note at the top)
+// ---------------------------------------------------------------------------
+
+// groups of WO output columns a block: two (256 columns, 8 warps in the
+// forward), so that half as many blocks form each score as with one.  One
+// group a block (experiments/wide_tc_attention_control.py builds it as a
+// copy) was slower on the card at (4, 1280, 1032), which fills it, in the
+// f32 forward and in dK/dV in both types, and a little faster in the bf16
+// forward and at (2, 256, 1032) (PERF.md).
+constexpr int WT_G = 2;
+// columns of d a staged slice: 256 bytes of a row in either type (f32 64,
+// bf16 128)
+template <typename T>
+constexpr int WT_S = 256 / (int)sizeof(T);
+// row strides of a slice and of the block's column tiles: 16 bytes of
+// padding (conflict-free ldmatrix and B-operand loads)
+template <typename T>
+constexpr int WT_LD = WT_S<T> + 16 / (int)sizeof(T);
+template <typename T>
+constexpr int WT_CLD = WT_G * WO + 16 / (int)sizeof(T);
+constexpr int WT_TK = 64;  // keys of a forward K/V tile
+// V's columns (the forward) and q's, do's, l and delta (dK/dV) of a tile
+// are copied with the tile's first slice step and waited for with its
+// second, so the bodies need two slices at least
+static_assert(CL_MAX_D >= 2 * WT_S<float> && CL_MAX_D >= 2 * WT_S<__nv_bfloat16>,
+              "the bodies above CL_MAX_D take two slices at least");
+
+// The bodies' shared memory: the forward's two slice buffers of q and of a
+// K tile and the V tile's columns (with WT_G > 1 the tile's scores too);
+// dK/dV's two slice buffers of k, v, q and do, the Q and dO tiles' columns,
+// p^T and ds^T, l and delta.  With two groups a block: 154,624 bytes f32
+// and 121,856 bf16 (the forward), 191,744 and 158,976 (dK/dV), one block
+// an SM; a third slice buffer was no faster on the card (PERF.md).
+template <typename T>
+constexpr size_t fwd_wide_tc_smem() {
+  return (size_t)2 * (CL_ROWS + WT_TK) * WT_LD<T> * sizeof(T) +
+         (size_t)WT_TK * WT_CLD<T> * sizeof(T) +
+         (WT_G > 1 ? (size_t)CL_ROWS * (WT_TK + XP) * sizeof(float) : 0);
+}
+template <typename T>
+constexpr size_t dkv_wide_tc_smem() {
+  return (size_t)2 * (2 * CL_ROWS + 2 * WKV_TQ) * WT_LD<T> * sizeof(T) +
+         2 * (size_t)WKV_TQ * WT_CLD<T> * sizeof(T) +
+         2 * (size_t)CL_ROWS * (WKV_TQ + XP) * sizeof(float) + 2 * WKV_TQ * sizeof(float);
+}
+static_assert(fwd_wide_tc_smem<float>() <= 232448 && dkv_wide_tc_smem<float>() <= 232448,
+              "the tiles of the bodies above 1024 overflow shared memory");
+
+// forward above head dim 1024: one block per (bh, 64 queries, WT_G groups
+// of 128 output columns), 4 WT_G warps; warp w owns queries 16 (w % 4) and
+// output columns 128 (w / 4) of the block's.  Per K/V tile of WT_TK keys
+// the block walks the slices of d in order, each slice of q and of the K
+// tile staged by cp.async, double-buffered (the next slice's copies fly
+// while this slice's MMAs run), and accumulates the scores in registers
+// over all of d: bf16 q.k^T raw (one f32 accumulator chain, times scale
+// after), f32 (q * scale).k^T in split TF32, each k8 step's three MMAs into
+// fresh accumulators added in f32 (score_step).  With two groups a warp
+// takes the scores of half of the tile's keys and the block shares them
+// through shared memory.  Then the online max and sum in f32 registers, as
+// fwd_wide_kernel, and p.v over the warp's 128 columns of the V tile
+// (staged with the tile's first slice): bf16 p split into hi + lo, f32
+// split TF32 with the sums of each 32 keys begun at 0 and added to acc in
+// f32.  The block of column group 0 writes l.  q is streamed again for
+// every K tile, in bf16 too: a resident 64 x d slice of q (132 KB at d =
+// 1032) would put a limit on d; q's slices come from L2, 64 d elements a
+// tile beside K's 64 d.  Each block of a row tile
+// forms the tile's scores over all of d: ceil(d / 128 WT_G) times the
+// score products of the function, the price of no exchange and no limit.
+template <typename T>
+__global__ void __launch_bounds__(NT_TC * WT_G, WT_G == 1 ? 2 : 1)
+fwd_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   T* __restrict__ o, float* __restrict__ lse, int n, int d, int ntiles,
+                   int parts, float scale) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int NTH = NT_TC * WT_G, WS = WT_S<T>, LD = WT_LD<T>, VLD = WT_CLD<T>;
+  constexpr int TK = WT_TK, KW = TK / WT_G, NT8 = TK / 8, LX = TK + XP, NO = WO / 8;
+  constexpr int QS = CL_ROWS * LD, KS = TK * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // 2 x [CL_ROWS][LD]: a slice of q, unscaled
+  T* ks = qs + 2 * QS;                     // 2 x [TK][LD]: the same slice of a K tile
+  T* vs = ks + 2 * KS;                     // [TK][VLD]: the block's columns of a V tile
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile / parts * CL_ROWS, c0 = tile % parts * (WT_G * WO);
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int rg = ln.warp & 3, kp = ln.warp >> 2, g = ln.g, t = ln.t;
+  const int ns = (d + WS - 1) / WS, nkt = (n + TK - 1) / TK, steps = nkt * ns;
+
+  // step st: slice st % ns of q and of K tile st / ns, into buffer st % 2
+  auto load_step = [&](int st) {
+    const int b = st & 1, c = st % ns * WS;
+    load_tile_async<WS, CL_ROWS, NTH>(qs + b * QS, q + base, q0, n, d, c);
+    load_tile_async<WS, TK, NTH>(ks + b * KS, k + base, st / ns * TK, n, d, c);
+  };
+  load_step(0);
+  cp_async_commit();
+
+  float acc[NO][4];
+  // rows g and g + 8 of the warp's 16: running max, and the running sum
+  // over this thread's columns (summed over the quad at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    float s[KW / 8][4];
+#pragma unroll
+    for (int i = 0; i < KW / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+    for (int c = 0; c < ns; ++c) {
+      const int st = j * ns + c;
+      cp_async_wait<0>();  // step st's slices (and at c = 1 V_j)
+      __syncthreads();     // ... everywhere; every warp is done with step st - 1 (and V_{j-1})
+      if (st + 1 < steps) load_step(st + 1);
+      if (c == 0) load_tile_async<WT_G * WO, TK, NTH>(vs, v + base, j * TK, n, d, c0);
+      cp_async_commit();
+      const T* qb = qs + (st & 1) * QS;
+      const T* kb = ks + (st & 1) * KS + kp * KW * LD;
+      if constexpr (BF) {
+#pragma unroll
+        for (int kk = 0; kk < WS / 16; ++kk) {
+          uint32_t a[4];
+          ldsm_x4(a, qb + (rg * 16 + ln.lm_row) * LD + kk * 16 + ln.lm_col);
+#pragma unroll
+          for (int np = 0; np < KW / 16; ++np) {
+            uint32_t b[4];
+            ldsm_x4(b, kb + (np * 16 + ln.lk_row) * LD + kk * 16 + ln.lk_col);
+            mma_bf16(s[2 * np], a, b[0], b[1]);
+            mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+      } else {
+        const float* qf = reinterpret_cast<const float*>(qb) + (rg * 16 + ln.lm_row) * LD +
+                          ln.lm_col / 2;
+        const float* kf = reinterpret_cast<const float*>(kb) + ln.lk_row * LD + ln.lk_col / 2;
+#pragma unroll 1
+        for (int kk = 0; kk < WS / 8; ++kk) {
+          uint32_t ah[4], al[4];
+          ld_split<true>(ah, al, qf + kk * 8, scale);
+          score_step<LD, KW>(s, ah, al, kf + kk * 8);
+        }
+      }
+    }
+
+    // the scores of the warp's rows over the whole tile (bf16 times scale)
+    const float mul = BF ? scale : 1.f;
+    float p[NT8][4];
+    if constexpr (WT_G == 1) {
+#pragma unroll
+      for (int i = 0; i < NT8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[i][e] = s[i][e] * mul;
+    } else {
+      float* xs = reinterpret_cast<float*>(vs + TK * VLD);  // [CL_ROWS][LX]: the tile's scores
+      float* xr = xs + (rg * 16 + g) * LX + kp * KW + 2 * t;
+#pragma unroll
+      for (int i = 0; i < KW / 8; ++i) {
+        store2(xr + 8 * i, s[i][0], s[i][1]);
+        store2(xr + 8 * LX + 8 * i, s[i][2], s[i][3]);
+      }
+      __syncthreads();
+      const float* sr = xs + (rg * 16 + g) * LX + 2 * t;
+#pragma unroll
+      for (int i = 0; i < NT8; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(sr + 8 * i);
+        const float2 b = *reinterpret_cast<const float2*>(sr + 8 * LX + 8 * i);
+        p[i][0] = a.x * mul;
+        p[i][1] = a.y * mul;
+        p[i][2] = b.x * mul;
+        p[i][3] = b.y * mul;
+      }
+    }
+    if (j * TK + TK > n) {  // keys at or past n: p = 0
+#pragma unroll
+      for (int i = 0; i < NT8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * TK + i * 8 + 2 * t + (e & 1) >= n) p[i][e] = -INFINITY;
+    }
+
+    // online max and sum (f32), as fwd_wide_kernel
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(p[i][0], p[i][1]));
+      mx1 = fmaxf(mx1, fmaxf(p[i][2], p[i][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // finite: the tile holds a key
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    const float a0 = ex2((m[0] - mn0) * LOG2E), a1 = ex2((m[1] - mn1) * LOG2E);
+    m[0] = mn0;
+    m[1] = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NT8; ++i) {
+      p[i][0] = ex2((p[i][0] - mn0) * LOG2E);
+      p[i][1] = ex2((p[i][1] - mn0) * LOG2E);
+      p[i][2] = ex2((p[i][2] - mn1) * LOG2E);
+      p[i][3] = ex2((p[i][3] - mn1) * LOG2E);
+      rs0 += p[i][0] + p[i][1];
+      rs1 += p[i][2] + p[i][3];
+    }
+    l[0] = l[0] * a0 + rs0;
+    l[1] = l[1] * a1 + rs1;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      acc[c][0] *= a0;
+      acc[c][1] *= a0;
+      acc[c][2] *= a1;
+      acc[c][3] *= a1;
+    }
+
+    // acc += p . v over the warp's 128 columns (V_j landed with step j ns + 1)
+    if constexpr (BF) {
+      const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(vs) + kp * WO + ln.lm_col;
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_frag(p[2 * kk], p[2 * kk + 1], hi, lo);
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, vb + (kk * 16 + ln.lm_row) * VLD + dp * 16);
+          mma_bf16(acc[2 * dp], hi, b[0], b[1]);
+          mma_bf16(acc[2 * dp], lo, b[0], b[1]);
+          mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
+          mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+        }
+      }
+    } else {
+      const float* vb = reinterpret_cast<const float*>(vs) + 2 * t * VLD + kp * WO + g;
+#pragma unroll
+      for (int h = 0; h < TK / 32; ++h) {
+        uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_acc_as_a(p[4 * h + i], ph[i], pl[i]);
+        grad_step<NO, 4>(acc, ph, pl, vb + 32 * h * VLD, VLD);
+      }
+    }
+  }
+
+  float l0 = l[0], l1 = l[1];
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const int row0 = q0 + rg * 16 + g;
+  store_acc<NO>(o + base, acc, row0, c0 + kp * WO, t, n, d, 1.f / l0, 1.f / l1);
+  if (c0 == 0 && kp == 0 && t == 0) {
+    if (row0 < n) lse[bh * n + row0] = m[0] + logf(l0);
+    if (row0 + 8 < n) lse[bh * n + row0 + 8] = m[1] + logf(l1);
+  }
+}
+
+// dK/dV above head dim 1024: one block per (bh, 64 keys, WT_G groups of 128
+// output columns), 8 warps.  Per Q/dO tile of WKV_TQ queries the block
+// walks the slices of d in order, each slice of k, v, q and do staged by
+// cp.async, double-buffered, and accumulates s^T = k.(q * scale)^T and dp^T
+// = v.do^T in registers over all of d (warp w: keys 16 (w % 4), queries 16
+// (w / 4)): bf16 raw (s^T times scale after), f32 in split TF32 with each
+// k8 step's score MMAs into fresh accumulators and each slice's dp^T MMAs
+// into a fresh accumulator, added in f32 (mma_split_2x2), so no sum runs
+// long in one accumulator.  Each warp forms p^T = exp(s^T - l) and ds^T =
+// p^T (dp^T - delta) in registers (0 for keys or queries at or past n) and
+// stages them in shared memory; then dv += p^T.do and dk += ds^T.q over the
+// block's columns of the tile's q and do (staged with its first slice;
+// warp w: keys 16 (w % 4), columns 64 WT_G (w / 4)), split as
+// dkv_wide_kernel splits them.  dk is multiplied by scale at the store.  k
+// and v are streamed again for every Q/dO tile (64 d each beside q's and
+// do's 32 d), and every block of a key tile forms the tile's s^T and dp^T
+// over all of d: ceil(d / 128 WT_G) times those products of the function.
+template <typename T>
+__global__ void __launch_bounds__(NT_WKV, 1)
+dkv_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                   int n, int d, int ntiles, int parts, float scale) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int WS = WT_S<T>, LD = WT_LD<T>, CLD = WT_CLD<T>, TQ = WKV_TQ, LX = TQ + XP;
+  constexpr int XS = CL_ROWS * LX, CW = WT_G * WO / 2, NC = CW / 8;
+  constexpr int KS = CL_ROWS * LD, QS = TQ * LD, CS = TQ * CLD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // 2 x [CL_ROWS][LD]: a slice of k
+  T* vs = ks + 2 * KS;                     // 2 x [CL_ROWS][LD]: of v
+  T* qs = vs + 2 * KS;                     // 2 x [TQ][LD]: of a Q tile, unscaled
+  T* dos = qs + 2 * QS;                    // 2 x [TQ][LD]: of a dO tile
+  T* qc = dos + 2 * QS;                    // [TQ][CLD]: the block's columns of the Q tile
+  T* dc = qc + CS;                         // [TQ][CLD]: of the dO tile
+  float* xs = reinterpret_cast<float*>(dc + CS);  // [CL_ROWS][LX] p^T, then ds^T
+  float* ls = xs + 2 * XS;                        // [TQ] logsumexp of the Q tile
+  float* dls = ls + TQ;                           // [TQ] delta of the Q tile
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int k0 = tile / parts * CL_ROWS, c0 = tile % parts * (WT_G * WO);
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int kg = ln.warp & 3, half = ln.warp >> 2, g = ln.g, t = ln.t;
+  const int ns = (d + WS - 1) / WS, nqt = (n + TQ - 1) / TQ, steps = nqt * ns;
+  const float sl = scale * LOG2E;
+
+  // step st: slice st % ns of k, v and of Q/dO tile st / ns, into buffer st % 2
+  auto load_step = [&](int st) {
+    const int b = st & 1, c = st % ns * WS, r = st / ns * TQ;
+    load_tile_async<WS, CL_ROWS, NT_WKV>(ks + b * KS, k + base, k0, n, d, c);
+    load_tile_async<WS, CL_ROWS, NT_WKV>(vs + b * KS, v + base, k0, n, d, c);
+    load_tile_async<WS, TQ, NT_WKV>(qs + b * QS, q + base, r, n, d, c);
+    load_tile_async<WS, TQ, NT_WKV>(dos + b * QS, dout + base, r, n, d, c);
+  };
+  load_step(0);
+  cp_async_commit();
+
+  float gk[NC][4], gv[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[c][e] = gv[c][e] = 0.f;
+
+  for (int j = 0; j < nqt; ++j) {
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    for (int c = 0; c < ns; ++c) {
+      const int st = j * ns + c;
+      cp_async_wait<0>();  // step st's slices (and at c = 1 the tile's columns, l, delta)
+      __syncthreads();     // ... everywhere; every warp is done with step st - 1 (and tile j - 1)
+      if (st + 1 < steps) load_step(st + 1);
+      if (c == 0) {
+        load_tile_async<WT_G * WO, TQ, NT_WKV>(qc, q + base, j * TQ, n, d, c0);
+        load_tile_async<WT_G * WO, TQ, NT_WKV>(dc, dout + base, j * TQ, n, d, c0);
+        load_rows_async<TQ>(ls, lse + bh * n, j * TQ, n);
+        load_rows_async<TQ>(dls, delta + bh * n, j * TQ, n);
+      }
+      cp_async_commit();
+      const int b = st & 1;
+      if constexpr (BF) {
+        const T* ka = ks + b * KS + (kg * 16 + ln.lm_row) * LD + ln.lm_col;
+        const T* va = vs + b * KS + (kg * 16 + ln.lm_row) * LD + ln.lm_col;
+        const int b_off = b * QS + (half * 16 + ln.lk_row) * LD + ln.lk_col;
+#pragma unroll
+        for (int kk = 0; kk < WS / 16; ++kk) {
+          uint32_t a[4], bb[4];
+          ldsm_x4(a, ka + kk * 16);
+          ldsm_x4(bb, qs + b_off + kk * 16);
+          mma_bf16(s[0], a, bb[0], bb[1]);
+          mma_bf16(s[1], a, bb[2], bb[3]);
+          ldsm_x4(a, va + kk * 16);
+          ldsm_x4(bb, dos + b_off + kk * 16);
+          mma_bf16(dp[0], a, bb[0], bb[1]);
+          mma_bf16(dp[1], a, bb[2], bb[3]);
+        }
+      } else {
+        const float* kf = reinterpret_cast<const float*>(ks + b * KS);
+        const float* vf = reinterpret_cast<const float*>(vs + b * KS);
+        const float* qf = reinterpret_cast<const float*>(qs + b * QS);
+        const float* df = reinterpret_cast<const float*>(dos + b * QS);
+        const int a_off = (kg * 16 + ln.lm_row) * LD + ln.lm_col / 2;
+        const int b_off = (half * 16 + ln.lk_row) * LD + ln.lk_col / 2;
+        float dpp[2][4];  // the slice's dp^T
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dpp[i][e] = 0.f;
+#pragma unroll 2
+        for (int kk = 0; kk < WS / 8; ++kk) {
+          uint32_t kh[4], kl[4], vh[4], vl[4], qh[4], ql[4], doh[4], dol[4];
+          ld_split<false>(kh, kl, kf + a_off + kk * 8, 1.f);
+          ld_split<false>(vh, vl, vf + a_off + kk * 8, 1.f);
+          ld_split<true>(qh, ql, qf + b_off + kk * 8, scale);
+          ld_split<false>(doh, dol, df + b_off + kk * 8, 1.f);
+          mma_split_2x2(s[0], s[1], dpp[0], dpp[1], kh, kl, qh, ql, vh, vl, doh, dol);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[i][e] += dpp[i][e];
+      }
+    }
+
+    // p^T = exp(s^T - l) and ds^T = p^T (dp^T - delta) of the warp's 16 keys
+    // x 16 queries, to the staging tiles
+    float* xw = xs + (kg * 16 + g) * LX + half * 16 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float pv[4], dv4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = half * 16 + 8 * i + 2 * t + (e & 1);
+        const bool ok = k0 + kg * 16 + g + (e >> 1) * 8 < n && j * TQ + qi < n;
+        const float p = !ok ? 0.f
+                        : BF ? ex2(fmaf(s[i][e], sl, -ls[qi] * LOG2E))
+                             : ex2((s[i][e] - ls[qi]) * LOG2E);
+        pv[e] = p;
+        dv4[e] = p * (dp[i][e] - dls[qi]);
+      }
+      store2(xw + 8 * i, pv[0], pv[1]);
+      store2(xw + 8 * LX + 8 * i, pv[2], pv[3]);
+      store2(xw + XS + 8 * i, dv4[0], dv4[1]);
+      store2(xw + XS + 8 * LX + 8 * i, dv4[2], dv4[3]);
+    }
+    __syncthreads();
+
+    // dv += p^T . do and dk += ds^T . q over the warp's CW columns
+    const float* pr = xs + (kg * 16 + g) * LX + 2 * t;
+    if constexpr (BF) {
+#pragma unroll
+      for (int kq = 0; kq < TQ / 16; ++kq) {
+        uint32_t phi[4], plo[4], dhi[4], dlo[4];
+        p_frag<LX>(pr + kq * 16, phi, plo);
+        p_frag<LX>(pr + XS + kq * 16, dhi, dlo);
+#pragma unroll
+        for (int cc = 0; cc < NC / 2; ++cc) {
+          const int off = (kq * 16 + ln.lm_row) * CLD + half * CW + cc * 16 + ln.lm_col;
+          uint32_t bb[4];
+          ldsm_x4_trans(bb, reinterpret_cast<const __nv_bfloat16*>(dc) + off);
+          mma_bf16(gv[2 * cc], phi, bb[0], bb[1]);
+          mma_bf16(gv[2 * cc], plo, bb[0], bb[1]);
+          mma_bf16(gv[2 * cc + 1], phi, bb[2], bb[3]);
+          mma_bf16(gv[2 * cc + 1], plo, bb[2], bb[3]);
+          ldsm_x4_trans(bb, reinterpret_cast<const __nv_bfloat16*>(qc) + off);
+          mma_bf16(gk[2 * cc], dhi, bb[0], bb[1]);
+          mma_bf16(gk[2 * cc], dlo, bb[0], bb[1]);
+          mma_bf16(gk[2 * cc + 1], dhi, bb[2], bb[3]);
+          mma_bf16(gk[2 * cc + 1], dlo, bb[2], bb[3]);
+        }
+      }
+    } else {
+      constexpr int NS = TQ / 8;
+      uint32_t ah[NS][4], al[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(pr + 8 * i);
+        const float2 b = *reinterpret_cast<const float2*>(pr + 8 * LX + 8 * i);
+        const float c[4] = {a.x, a.y, b.x, b.y};
+        split_acc_as_a(c, ah[i], al[i]);
+      }
+      const int b_off = 2 * t * CLD + half * CW + g;
+      grad_step<NC, NS>(gv, ah, al, reinterpret_cast<const float*>(dc) + b_off, CLD);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(pr + XS + 8 * i);
+        const float2 b = *reinterpret_cast<const float2*>(pr + XS + 8 * LX + 8 * i);
+        const float c[4] = {a.x, a.y, b.x, b.y};
+        split_acc_as_a(c, ah[i], al[i]);
+      }
+      grad_step<NC, NS>(gk, ah, al, reinterpret_cast<const float*>(qc) + b_off, CLD);
+    }
+  }
+  const int row0 = k0 + kg * 16 + g;  // this lane's keys row0 and row0 + 8
+  store_acc<NC>(dk + base, gk, row0, c0 + half * CW, t, n, d, scale, scale);
+  store_acc<NC>(dv + base, gv, row0, c0 + half * CW, t, n, d, 1.f, 1.f);
+}
+
+// ---------------------------------------------------------------------------
 // head dims 160-256, the f32 forward and dK/dV: split TF32 on the tensor
 // cores, one block of two warpgroups per (bh, 96 queries or 64 keys) that
 // share each score through shared memory (the in-block form of the cluster
@@ -3246,28 +3552,26 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
   return cudaGetLastError();
 }
 
-// head dims above 256 on the CUDA cores: grid = bh * ceil(n / WR) * parts
-// blocks of NT threads
+// head dims above 1024: grid = bh * ceil(n / rows) * ceil(d / cols) blocks
+// of `threads` (dQ's CUDA-core body: 32-row tiles of 128 columns, NT
+// threads; the forward's and dK/dV's tensor-core bodies: 64-row tiles of
+// 128 WT_G columns)
 template <typename K, typename... A>
-cudaError_t run_wide(K kern, size_t smem, int bh, int n, int d, float scale,
-                     cudaStream_t stream, A... args) {
+cudaError_t run_wide(K kern, size_t smem, int rows, int cols, int threads, int bh, int n, int d,
+                     float scale, cudaStream_t stream, A... args) {
   unsigned grid;
   int ntiles;
-  const int parts = (d + WO - 1) / WO;
-  cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, WR, parts);
+  const int parts = (d + cols - 1) / cols;
+  cudaError_t e = prepare(kern, smem, bh, n, grid, ntiles, rows, parts);
   if (e != cudaSuccess) return e;
-  kern<<<grid, NT, smem, stream>>>(args..., n, d, ntiles, parts, scale);
+  kern<<<grid, threads, smem, stream>>>(args..., n, d, ntiles, parts, scale);
   return cudaGetLastError();
 }
 
-// chunk tiles [rows][WC + 4], column tiles [TILE][WO + 4], score tiles [WR][SP]
-constexpr size_t FWD_WIDE_CC_SMEM = f32_tile_bytes(WR, WC) + f32_tile_bytes(TILE, WC) +
-                                    f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
+// dQ's chunk tiles [rows][WC + 4], column tile [TILE][WO + 4], score tile [WR][SP]
 constexpr size_t DQ_WIDE_CC_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
-                                f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
-constexpr size_t DKV_WIDE_CC_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
-                                    2 * f32_tile_bytes(TILE, WO) + 2 * f32_tile_bytes(WR, TILE) +
-                                    2 * TILE * sizeof(float);
+                                   f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
+
 
 // the cluster bodies' shared memory: the forward's q slice, two K tiles and
 // one V tile, two score tiles (106,496 bytes bf16, 104,960 f32: two blocks
@@ -3349,8 +3653,9 @@ ATT_EXPORT int attention_fwd(const void* q, const void* k, const void* v, void* 
   (d <= CL_MAX_D                                                                         \
        ? run_cluster(fwd_wide_kernel<T>, fwd_wide_smem<T>(), NT_TC, bh, n, d, scale,     \
                      (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, l) \
-       : run_wide(fwd_wide_cc_kernel<T>, FWD_WIDE_CC_SMEM, bh, n, d, scale,              \
-                  (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, l))
+       : run_wide(fwd_wide_tc_kernel<T>, fwd_wide_tc_smem<T>(), CL_ROWS, WT_G * WO,     \
+                  NT_TC * WT_G, bh, n, d, scale, (cudaStream_t)stream, (const T*)q,      \
+                  (const T*)k, (const T*)v, (T*)o, l))
   ATT_DISPATCH(d, bf, CALL, WIDE)
 #undef WIDE
 #undef CALL
@@ -3366,7 +3671,7 @@ ATT_EXPORT int attention_dq(const void* q, const void* k, const void* v, const v
        ? run_cluster(dq_wide_kernel<T>, dq_wide_smem<T>(), NT_WKV, bh, n, d, scale,        \
                      (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,          \
                      (const T*)dout, l, delta, (T*)dq)                                     \
-       : run_wide(dq_wide_cc_kernel<T>, DQ_WIDE_CC_SMEM, bh, n, d, scale,                  \
+       : run_wide(dq_wide_cc_kernel<T>, DQ_WIDE_CC_SMEM, WR, WO, NT, bh, n, d, scale,      \
                   (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,             \
                   (const T*)dout, l, delta, (T*)dq))
   ATT_DISPATCH(d, bf, CALL, WIDE)
@@ -3384,9 +3689,9 @@ ATT_EXPORT int attention_dkv(const void* q, const void* k, const void* v, const 
        ? run_cluster(dkv_wide_kernel<T>, dkv_wide_smem<T>(), NT_WKV, bh, n, d, scale,      \
                      (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,          \
                      (const T*)dout, l, delta, (T*)dk, (T*)dv)                             \
-       : run_wide(dkv_wide_cc_kernel<T>, DKV_WIDE_CC_SMEM, bh, n, d, scale,                \
-                  (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,             \
-                  (const T*)dout, l, delta, (T*)dk, (T*)dv))
+       : run_wide(dkv_wide_tc_kernel<T>, dkv_wide_tc_smem<T>(), CL_ROWS, WT_G * WO,       \
+                  NT_WKV, bh, n, d, scale, (cudaStream_t)stream, (const T*)q, (const T*)k, \
+                  (const T*)v, (const T*)dout, l, delta, (T*)dk, (T*)dv))
   ATT_DISPATCH(d, bf, CALL, WIDE)
 #undef WIDE
 #undef CALL

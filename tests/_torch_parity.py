@@ -3,6 +3,7 @@ f32 products in both packages, move trees between them, and load
 chip_smoke.py for the bounds the card checks use."""
 
 import contextlib
+import functools
 
 import jax
 import numpy as np
@@ -45,9 +46,11 @@ def assert_trees_close(got, want, rtol, atol, what=""):
                                    err_msg=f"{what} mismatch at {'/'.join(key)}")
 
 
+@functools.lru_cache(maxsize=None)
 def chip_smoke():
     """chip_smoke.py as a module, for the bounds and shapes it holds the
-    kernels to on the card (importing it runs nothing)."""
+    kernels to on the card (importing it runs nothing); loaded once a
+    process."""
     import importlib.util
     from pathlib import Path
 

@@ -168,16 +168,18 @@ def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
 def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
     """The wrappers' shape check takes every head dim d % 8 == 0, with no
     upper limit (264, 320, 512 and 1024 go to the wide bodies, the forward,
-    dQ and dK/dV as clusters; 1032 to their CUDA-core bodies), and a
-    batch*heads count above 65535; it raises on a head dim that is not a
-    multiple of 8, on a grid past 2^31 - 1 blocks (from 136 to 256 the bf16
-    bodies' two blocks per 64-row tile, the f32 forward taking one block per
-    96-row tile, dQ per 80-row tile and dK/dV per 64-row tile; above, the
-    wide bodies' column groups: the clusters' 64-row tiles up to
-    head dim 1024, the CUDA-core bodies' 32-row tiles above), and on a
-    non-contiguous panel."""
+    dQ and dK/dV as clusters; 1032 and 2056 to the forward's and dK/dV's
+    tensor-core bodies and dQ's CUDA-core body), and a batch*heads count
+    above 65535; it raises on a head dim that is not a multiple of 8, on a
+    grid past 2^31 - 1 blocks (from 136 to 256 the bf16 bodies' two blocks
+    per 64-row tile, the f32 forward taking one block per 96-row tile, dQ
+    per 80-row tile and dK/dV per 64-row tile; above, the wide bodies'
+    column groups: the clusters' 64-row tiles up to head dim 1024; above
+    it the most blocks of the three kernels: the forward's and dK/dV's
+    64-row tiles of 256 columns, dQ's 32-row tiles of 128, so dQ's), and on
+    a non-contiguous panel."""
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
-    for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256, 264, 320, 512, 1024, 1032):
+    for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256, 264, 320, 512, 1024, 1032, 2056):
         for dt in (torch.bfloat16, torch.float32):
             want = (3, 64, d, dt == torch.bfloat16)
             assert ta._check(meta(3, 64, d, dt=dt), (meta(3, 64, d, dt=dt),)) == want
@@ -187,17 +189,20 @@ def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
             elif 256 < d <= ta.CLUSTER_MAX_D:
                 assert -(-n // 64) * -(-d // 128) == ta._blocks_per_panel(n, d)
             elif d > ta.CLUSTER_MAX_D:
-                assert -(-n // 32) * -(-d // 128) == ta._blocks_per_panel(n, d)
+                fwd_dkv, dq = -(-n // 64) * -(-d // 256), -(-n // 32) * -(-d // 128)
+                assert max(fwd_dkv, dq) == dq == ta._blocks_per_panel(n, d)
     q = meta(70_000, 16, 16)
     rows = (meta(70_000, 16, 1, dt=torch.float32),) * 2
     assert ta._check(q, (q, q, q), rows) == (70_000, 16, 16, True)
     # 2^31 / (2048 / 64 row tiles x 8 ranks) batch*heads fill the clusters'
-    # grid, 2^31 / (2048 / 32 row tiles x 9 column groups) the CUDA-core one
+    # grid, 2^31 / (2048 / 32 row tiles x 9 column groups) dQ's above 1024
+    # (the forward's and dK/dV's, 2048 / 64 x 5, hold 160 blocks a panel)
     assert ta._blocks_per_panel(2048, 1024) == 256
     ta._check(meta(2**23 - 1, 2048, 1024))
     with pytest.raises(ValueError, match="grid"):
         ta._check(meta(2**23, 2048, 1024))
     assert ta._blocks_per_panel(2048, 1032) == 576
+    assert -(-2048 // ta.WIDE_TC_TILE[0]) * -(-1032 // ta.WIDE_TC_TILE[1]) == 160
     ta._check(meta(2**31 // 576, 2048, 1032))
     with pytest.raises(ValueError, match="grid"):
         ta._check(meta(2**31 // 576 + 1, 2048, 1032))
@@ -734,6 +739,144 @@ def test_cluster_dq_meets_the_card_bounds(d, mode, amp):
         assert ctl > cs.ATT_TOL_F32, ctl
 
 
+# ---------------------------------------------------------------------------
+# the forward and dK/dV above head dim 1024 (fwd_wide_tc_kernel,
+# dkv_wide_tc_kernel): one block's tensor-core score loop over all of d
+# ---------------------------------------------------------------------------
+
+WIDE_TC_SLICE = {"split_tf32": 64, "bf16": 128}  # columns of d a staged slice (WT_S)
+WIDE_TC_TK = 64  # keys of a forward K/V tile (WT_TK)
+WIDE_TC_PV = 32  # keys of an f32 p.v sum begun at 0
+
+
+def _slice_dot(a, b, mode, passes, per_step):
+    """a @ b over all of d as the bodies above 1024 accumulate it, slice by
+    slice in order: bf16 raw (each slice's sum exact, rounded to f32 once,
+    added in f32); split TF32 each k8 step's passes summed afresh and added
+    in f32 (``per_step``: the scores) or each slice's passes in one sum and
+    added in f32 (dp^T)."""
+    if mode == "split_tf32":
+        return _step_dot(a, b, 8 if per_step else WIDE_TC_SLICE[mode], passes)
+    total = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for c0 in range(0, a.shape[-1], WIDE_TC_SLICE[mode]):
+        cols = slice(c0, c0 + WIDE_TC_SLICE[mode])
+        total = total + _dot64(a[..., cols], b[..., cols, :])
+    return total
+
+
+def _wide_tc_forward(q, k, v, scale, mode, passes=3, control=False):
+    """attention_fwd as fwd_wide_tc_kernel takes it: the scores over all of
+    d slice by slice (``_slice_dot``: bf16 q.k^T raw, then times scale; f32
+    (q * scale).k^T); over K/V tiles of 64 keys the online max and sum, p =
+    exp(s - m_new), the running output rescaled and the tile's p.v added
+    (bf16 p split into hi + lo; f32 the sums of each 32 keys begun afresh);
+    o = acc * (1 / sum), l = m + log(sum)."""
+    bh, n, _ = q.shape
+    kt = k.transpose(-1, -2)
+    if mode == "bf16":
+        s = _slice_dot(q, kt, mode, passes, True) * scale
+    else:
+        s = _slice_dot(q * scale, kt, mode, passes, True)
+    m = torch.full((bh, n, 1), -torch.inf)
+    total = torch.zeros(bh, n, 1)
+    acc = torch.zeros_like(v)
+    for j in range(0, n, WIDE_TC_TK):
+        st = s[..., j:j + WIDE_TC_TK]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        total = total * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        step = WIDE_TC_TK if mode == "bf16" else WIDE_TC_PV
+        for h in range(0, p.shape[-1], step):
+            acc = acc + _grad_dot(p[..., h:h + step], v[:, j + h:j + h + step], mode, passes,
+                                  control)
+        m = m_new
+    return acc * (1 / total), m + torch.log(total)
+
+
+def _wide_tc_dkv(q, k, v, do, l, delta, scale, mode, passes=3, control=False):
+    """attention_dkv as dkv_wide_tc_kernel takes it: s^T and dp^T over all
+    of d slice by slice (``_slice_dot``), p^T = exp(s^T - l) and ds^T = p^T
+    (dp^T - delta), then over the Q/dO tiles of 32 queries dv += p^T.do and
+    dk += ds^T.q (times scale at the store)."""
+    n = q.shape[1]
+    if mode == "bf16":
+        s = _slice_dot(k, q.transpose(-1, -2), mode, passes, True) * scale
+    else:
+        s = _slice_dot(k, (q * scale).transpose(-1, -2), mode, passes, True)
+    dp = _slice_dot(v, do.transpose(-1, -2), mode, passes, False)
+    p = torch.exp(s - l.transpose(-1, -2))
+    ds = p * (dp - delta.transpose(-1, -2))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for j in range(0, n, WIDE_TQ):
+        cols = slice(j, j + WIDE_TQ)
+        dv = dv + _grad_dot(p[..., cols], do[:, cols], mode, passes, control)
+        dk = dk + _grad_dot(ds[..., cols], q[:, cols], mode, passes, control)
+    return dk * scale, dv
+
+
+@pytest.mark.parametrize("amp", [1.0, 3.0])
+@pytest.mark.parametrize("mode", ["split_tf32", "bf16"])
+@pytest.mark.parametrize("d", [1032, 2056])
+def test_wide_tc_forward_meets_the_card_bounds(d, mode, amp):
+    """The forward body above head dim 1024 (``_wide_tc_forward``: the
+    scores summed slice by slice over all of d, online softmax over 64-key
+    tiles, split p.v) at (2, 160, d), q and k times ``amp``, lies within
+    chip_smoke.py's bounds of JAX's ``_fwd_kernel`` (interpret mode) and of
+    the exact result (``_wide_check``) in o and l; the control (one TF32
+    pass a product; p rounded to bf16) does not."""
+    cs = chip_smoke()
+    jdt = jnp.bfloat16 if mode == "bf16" else jnp.float32
+    q, k, v = _wide_inputs(d, mode, amp, 3)
+    scale = d**-0.5
+    o_want, l_want = ja._attention_fwd_flat(*(jnp.asarray(a, jdt) for a in (q, k, v)), scale)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    o, l = _wide_tc_forward(tq, tk, tv, scale, mode)
+    o_exact, l_exact = cs.att_f64("attention_fwd", tq, tk, tv, scale=scale)
+    mean = _wide_check(o, o_want, o_exact, mode, "o")
+    assert _rel(l, l_want) <= cs.ATT_TOL_F32 and _rel(l, l_exact) <= cs.ATT_TOL_F32
+    ctl_o, _ = _wide_tc_forward(tq, tk, tv, scale, mode, passes=1, control=True)
+    ctl = _wide_control(ctl_o, o_want, mode)
+    if mode == "bf16":
+        assert mean < ctl / 2, (mean, ctl)
+    else:
+        assert ctl > cs.ATT_TOL_F32, ctl
+
+
+@pytest.mark.parametrize("amp", [1.0, 3.0])
+@pytest.mark.parametrize("mode", ["split_tf32", "bf16"])
+@pytest.mark.parametrize("d", [1032, 2056])
+def test_wide_tc_dkv_meets_the_card_bounds(d, mode, amp):
+    """The dK/dV body above head dim 1024 (``_wide_tc_dkv``: s^T and dp^T
+    summed slice by slice over all of d, p^T and ds^T from the sums, dv and
+    dk over 32-query tiles) at (2, 160, d), q and k times ``amp``, from
+    JAX's own o and l, lies within chip_smoke.py's bounds of JAX's
+    ``_dkv_kernel`` (interpret mode) and of the exact result
+    (``_wide_check``); the control (one TF32 pass a product; p and ds
+    rounded to bf16) does not."""
+    cs = chip_smoke()
+    jdt = jnp.bfloat16 if mode == "bf16" else jnp.float32
+    q, k, v, do = _wide_inputs(d, mode, amp, 4)
+    scale = d**-0.5
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o_j, l_j = ja._attention_fwd_flat(jq, jk, jv, scale)
+    _, dk_want, dv_want = ja._attention_bwd_flat(jq, jk, jv, o_j, l_j, jdo, scale)
+    tq, tk, tv, tdo = (torch.tensor(a) for a in (q, k, v, do))
+    l = torch.tensor(np.asarray(l_j))
+    delta = torch.sum(tdo * torch.tensor(np.asarray(o_j.astype(jnp.float32))), -1, keepdim=True)
+    dk, dv = _wide_tc_dkv(tq, tk, tv, tdo, l, delta, scale, mode)
+    dk_exact, dv_exact = cs.att_f64("attention_dkv", tq, tk, tv, tdo, l, delta, scale=scale)
+    means = [_wide_check(dk, dk_want, dk_exact, mode, "dk"),
+             _wide_check(dv, dv_want, dv_exact, mode, "dv")]
+    ctl_dk, ctl_dv = _wide_tc_dkv(tq, tk, tv, tdo, l, delta, scale, mode, passes=1, control=True)
+    ctls = [_wide_control(ctl_dk, dk_want, mode), _wide_control(ctl_dv, dv_want, mode)]
+    if mode == "bf16":
+        assert all(m < c / 2 for m, c in zip(means, ctls)), (means, ctls)
+    else:
+        assert min(ctls) > cs.ATT_TOL_F32, ctls
+
+
 def test_wide_ablation_cuts_what_it_names():
     """experiments/wide_attention_ablation.py times copies of attention.cu
     with the three cluster bodies' exchanges, then also their barriers,
@@ -781,11 +924,44 @@ def test_tf32w_control_lowers_the_cluster_floor():
             assert key[:-1] in text, (name, key)
 
 
+def test_wide_tc_control_builds_each_layout():
+    """experiments/wide_tc_attention_control.py times the forward and dK/dV
+    above head dim 1024 with two groups of 128 output columns a block and
+    with one: the shipped source sets WT_G once, the copy sets the other
+    value and renames every kernel, every copy keeps every kernel of the
+    source, and the profiler keys each copy's forward and dK/dV under
+    (and the cluster bodies the cliff reads at 1024) name kernels of it."""
+    from sciml_pde_torch.experiments import wide_tc_attention_control as wc
+    from sciml_pde_torch.ops import _build
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    assert len(wc.GROUPS.findall(src)) == 1
+    vs = wc.variants(src)
+    assert list(vs) == list(wc.designs(src)) and list(vs.values())[0] == src
+    assert sorted(wc.designs(src).values()) == [1, 2]
+    for i, (name, text) in enumerate(vs.items()):
+        assert wc.GROUPS.findall(text) == [str(wc.designs(src)[name])], name
+        assert text.count("__global__") == src.count("__global__"), name
+        if i:
+            assert "fwd_wide_tc_kernel" not in text and "dkv_wide_kernel" not in text, name
+        assert list(wc.keys(i)) == list(wc.FNAMES), name
+        for key in wc.keys(i).values():
+            assert key[:-1] + "(" in text, (name, key)
+    for body in wc.CLUSTER.values():
+        assert f"{body}_kernel(" in src, body
+    assert wc.bound_ms("attention_fwd", 2, 256, 1032, torch.float32) == pytest.approx(
+        6 * 2 * 2 * 256**2 * 1032 / 495e12 * 1e3)
+    assert wc.bound_ms("attention_dkv", 2, 256, 1032, torch.bfloat16) == pytest.approx(
+        (6 * 2 * 256 * 1032 * 2 + 2 * 2 * 256 * 4) / 3.35e12 * 1e3)
+
+
 def test_checkout_comparison_keys_each_trees_body():
     """experiments/checkout_comparison.py reads each tree's f32 kernel of head
     dim 256 under its own name: the split-TF32 bodies of two warpgroups in
     this tree, the CUDA-core bodies in a tree from before them, renamed as
-    the experiment renames the other tree."""
+    the experiment renames the other tree; and above head dim 1024 the
+    tensor-core forward and dK/dV of this tree, the CUDA-core ones before
+    them."""
     from sciml_pde_torch.experiments import checkout_comparison as cc
     from sciml_pde_torch.ops import _build
 
@@ -798,17 +974,30 @@ def test_checkout_comparison_keys_each_trees_body():
     older = "fwd_pkernel(...) dq_pkernel(...) dkv_pkernel(...) fwd_tf32_pkernel(...)"
     assert [cc._key_256(older, s, "_pkernel") for s in ("fwd", "dq", "dkv")] == [
         "fwd_pkernel<", "dq_pkernel<", "dkv_pkernel<"]
+    # above head dim 1024: the tensor-core forward and dK/dV and dQ's
+    # CUDA-core body in this tree; the three CUDA-core bodies in a tree from
+    # before them
+    wide = ["fwd_wide_tc_kernel<", "dq_wide_cc_kernel<", "dkv_wide_tc_kernel<"]
+    assert [cc._key_wide(src, s, "_kernel") for s in ("fwd", "dq", "dkv")] == wide
+    for key in wide:
+        assert key[:-1] + "(" in src.replace("<DP>", ""), key
+    older = "fwd_wide_cc_pkernel(...) dq_wide_cc_pkernel(...) dkv_wide_cc_pkernel(...)"
+    assert [cc._key_wide(older, s, "_pkernel") for s in ("fwd", "dq", "dkv")] == [
+        "fwd_wide_cc_pkernel<", "dq_wide_cc_pkernel<", "dkv_wide_cc_pkernel<"]
 
 
 def test_f32_dq_above_128_runs_on_the_tensor_cores():
     """chip_smoke.py holds the f32 dQ from head dim 136 to 256 to 1e-5 of the
     exact result with no escape (``att_cuda_cores`` false), bounds it by its
     9 TF32 passes and times it under the split-TF32 body's name
-    (``att_kernel_key``: dq_tf32w_kernel, a body of attention.cu); only the
-    bodies above CLUSTER_MAX_D keep the CUDA cores' escape, in bf16 too
-    (their inputs widened to f32), and are bounded as the function needs
-    whatever body computes it: bf16 products at the bf16 tensor-core rate,
-    f32 ones as 6, 9 and 12 TF32 passes (or by bytes, where larger)."""
+    (``att_kernel_key``: dq_tf32w_kernel, a body of attention.cu); only dQ
+    above CLUSTER_MAX_D keeps the CUDA cores' escape, in bf16 too (its
+    inputs widened to f32): the forward and dK/dV there run on the tensor
+    cores (``att_kernel_key``: fwd_wide_tc_kernel and dkv_wide_tc_kernel,
+    bodies of attention.cu) and are held to 1e-5 with no escape; all three
+    are bounded as the function needs whatever body computes it: bf16
+    products at the bf16 tensor-core rate, f32 ones as 6, 9 and 12 TF32
+    passes (or by bytes, where larger)."""
     from sciml_pde_torch.ops import _build
 
     cs = chip_smoke()
@@ -822,9 +1011,17 @@ def test_f32_dq_above_128_runs_on_the_tensor_cores():
     assert cs.att_work("attention_dq", 8, 1280, 256, False)[1] * 1e3 == pytest.approx(
         0.12202, abs=1e-5)
     for name in ta.KERNEL_NAMES:
-        assert cs.att_cuda_cores(name, ta.CLUSTER_MAX_D + 8, False)
-        assert cs.att_cuda_cores(name, ta.CLUSTER_MAX_D + 8, True)
+        above = name == "attention_dq"
+        assert cs.att_cuda_cores(name, ta.CLUSTER_MAX_D + 8, False) == above
+        assert cs.att_cuda_cores(name, ta.CLUSTER_MAX_D + 8, True) == above
+        assert cs.att_cuda_cores(name, 2056, False) == above
         assert not cs.att_cuda_cores(name, ta.CLUSTER_MAX_D, False)
+        short = name.replace("attention_", "")
+        for bf in (False, True):
+            key = cs.att_kernel_key(name, ta.CLUSTER_MAX_D + 8, bf)
+            assert key == (f"{short}_wide_cc_kernel<" if above else f"{short}_wide_tc_kernel<")
+            assert key[:-1] + "(" in src, key
+            assert cs.att_kernel_key(name, ta.CLUSTER_MAX_D, bf) == f"{short}_wide_kernel<"
         prod = 2 * 2 * 256**2 * 1032
         bf16_s = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name] * prod
         tf32_s = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}[name] * prod
