@@ -37,18 +37,20 @@ FNO steps and the five split kernels):
               nine of the f32 forward, dQ and dK/dV of head dims 160-256
               (fwd_tf32w_kernel, dq_tf32w_kernel, dkv_tf32w_kernel at 160,
               192, 256; each with the blocks an SM holds at once) nor in
-              the bf16 forward and dK/dV above head dim 1024
-              (fwd_wide_tc_kernel, dkv_wide_tc_kernel; the f32 instances'
-              registers and spills printed beside them), HMMA
-              instructions in both dq_wide_kernel instances' SASS and in
-              those thirteen (their products on the tensor cores), none in
+              the bf16 forward, dQ and dK/dV above head dim 1024
+              (fwd_wide_tc_kernel, dq_wide_tc_kernel, dkv_wide_tc_kernel;
+              the f32 instances' registers and spills printed beside
+              them), HMMA instructions in both dq_wide_kernel instances'
+              SASS and in those fifteen (their products on the tensor
+              cores), none in
               wdft_kernel and
               reduce_rows_kernel, and
               neither spills nor a stack frame in both instances of
               lift_kernel, both paths of head_fwd_kernel and
               head_bwd_kernel, and every instance of corner_kernel,
               iwdft_pw_kernel, wdft_kernel and outer_partial_kernel (the
-              four of the last by name); the order of each
+              four of the last by name) nor in the fused dft2 layer's
+              sf_spectrum_kernel and sf_inverse_kernel; the order of each
               mix_wgrad_kernel instance's global loads, f32 arithmetic
               and stores in its SASS (cuobjdump)
   3. check    the fused forward and all ten gradients from the kernels
@@ -139,9 +141,8 @@ FNO steps and the five split kernels):
               batch*heads 70000 (70000, 16, 16) in bf16,
               with a control against a kernel that rounds p and ds to
               bf16 (f32 outputs held against the exact result, the plain
-              versions' arithmetic in f64, within 1e-5; dQ's CUDA-core
-              body above 1024 within 1e-5 or the f32 plain version's own
-              distance from it); flash_attention at (2, 4,
+              versions' arithmetic in f64, within 1e-5 at every head
+              dim); flash_attention at (2, 4,
               1280, 512) through the kernels against plain=True, values
               and q/k/v gradients, in both types
   7. model    one micro-step of the full-width VideoMAEOperator (loss and
@@ -158,18 +159,24 @@ FNO steps and the five split kernels):
               per-launch attention kernel times (CUDA events and profiler
               device time) beside their bounds and the SDPA forward and
               backward, in bf16 and in f32 (the split-TF32 forward, dQ and
-              dK/dV, with their bounds on the CUDA cores)
+              dK/dV)
   9b. f32     the NS baseline through the trainer with bf16=False (2
               optimizer steps, batch 2 x accumulation 4, on 16 windows of
               the seeded store): finite losses, 20 launches of each f32
               attention kernel per micro-step; then the f32 micro-step in
               CUDA events and torch.profiler (device-busy share, top ops)
- 10. layer    the fused dft2 layer (kernel) at (4, 130, 130, 20), modes 12,
-              through its autograd op: against its plain f32 version within
-              1e-5 of the largest magnitude, with the plain version on
-              bf16-rounded inputs more than 10x that away as the control,
-              and the gradients of sum(out^2) against autograd of the plain
-              forward within 1e-5
+ 10. layer    the fused dft2 layer (kernel: a thread-block cluster per
+              element, then the inverse) at (4, 130, 130, 20), modes 12,
+              through its autograd op: the gradients of sum(out^2) against
+              autograd of the plain forward within 1e-5; then the kernel
+              alone there and at (2, 18, 18, 6 -> 6, modes 4), (1, 13, 11,
+              5 -> 3, modes 3, 4) and (3, 67, 50, 7 -> 5, modes 8, 5: bands
+              of 5 rows, the last 2; 35 columns (k, c), not a multiple of
+              4) against its plain f32 version within
+              1e-5 of the largest magnitude, the same bits twice, with the
+              plain version on bf16-rounded inputs more than 10x that away
+              as the control, and the wrapper's shared-memory reckoning
+              equal to the library's
  11. step     the plain FNO2d forward on the card under `highest` against
               the CPU in f32 within 1e-5 (the TF32 guard); 10 production
               steps against 10 fused steps from the same tree and batches
@@ -309,9 +316,8 @@ ATT_SHAPES = {"encoder": (NS_BATCH * 12, 1280, 64), "decoder": (NS_BATCH * 8, 12
 # tile, each for half of the output columns), head dims above
 # 256 (the wide bodies: ceil(d / 128) column groups, the forward, dQ and
 # dK/dV as thread-block clusters of that many ranks up to 1024 (8 ranks);
-# above, the forward and dK/dV as one block per column group that loops over
-# all of d on the tensor cores (2056: no upper limit), dQ on the CUDA cores;
-# 200 tokens leave ragged row and key tiles), 200 tokens at head
+# above, the forward, dQ and dK/dV as one block per two column groups that
+# loops over all of d on the tensor cores (2056: no upper limit); 200 tokens leave ragged row and key tiles), 200 tokens at head
 # dim 64 (the tensor-core bodies' ragged tiles), in both dtypes, and
 # batch*heads above the 65535 of a grid's y axis
 ATT_EXTRA = {"head dim 96": ((16, 1280, 96), ("float32", "bfloat16")),
@@ -344,12 +350,9 @@ ATT_KERNEL_KEYS = {"bf16": {"attention_fwd": "fwd_tc_kernel<", "attention_dq": "
                    "f32": {"attention_fwd": "fwd_tf32_kernel<", "attention_dq": "dq_tf32_kernel<",
                            "attention_dkv": "dkv_tf32_kernel<"}}
 # attention kernels: f32 outputs within 1e-5 of the largest magnitude of the
-# exact result (the plain version's arithmetic in f64: att_f64); the bodies
-# on the CUDA cores (att_cuda_cores: dQ in both types above
-# CLUSTER_MAX_D), whose f32 sums are the plain version's, may instead lie
-# no farther from it than the f32 plain version (with q and k times 3 at
-# head dim 512 the f32 plain versions lie up to 2.1e-5 from it); bf16
-# outputs against the plain
+# exact result (the plain version's arithmetic in f64: att_f64; with q and k
+# times 3 at head dim 512 the f32 plain versions themselves lie up to 2.1e-5
+# from it), at every head dim with no escape; bf16 outputs against the plain
 # version, within one bf16 rounding step of the value (2^-7 of its
 # magnitude: the two round f32 results that differ in the last f32 bits)
 # plus the f32 bound
@@ -480,6 +483,28 @@ def rr_shapes() -> dict:
 # than 10x the bound away, so a kernel that rounds or uses TF32 fails
 SF_TOL = 1e-5
 SF_SITE = "sciml_pde_tpu/ops/spectral_fused.py:63"
+# profiler keys of its two kernels (the layer's device time is their sum)
+SF_KERNEL_KEYS = ("sf_spectrum_kernel", "sf_inverse_kernel")
+SF_FLAGSHIP = (B, XY + PAD, XY + PAD, WIDTH, WIDTH, MODES, MODES)  # phase 10's layer
+# the fused dft2 layer beyond the flagship: (B, H, W, Ci, Co, modes1,
+# modes2): the JAX test's shape, an odd one, an H that the cluster's bands of
+# ceil(H / 16) rows do not divide (67: fourteen bands of 5, the last 2, with
+# K * Ci = 35: the kernels' 4 x 4 tiles take strided columns), the NS-2D
+# layer (config_ns.yaml: 256^2, width 20, modes 12; chunks of 2 rows), 16
+# ranks of 8 rows (the largest cluster), 2 * modes1 > H, and the shapes that
+# take the plan's smaller layouts (ops/spectral_fused.py::plan): passes over
+# the modes with chunks of 1 row, passes over the corner rows, blocks of part
+# of W, blocks of 1 row, the corner rows staged in halves
+SF_SHAPES = {"JAX test": (2, 18, 18, 6, 6, 4, 4), "odd": (1, 13, 11, 5, 3, 3, 4),
+             "bands not dividing H": (3, 67, 50, 7, 5, 8, 5),
+             "NS-2D layer": (1, 256, 256, 20, 20, 12, 12),
+             "16 ranks": (1, 128, 128, 20, 20, 12, 12),
+             "2 modes1 > H": (1, 6, 10, 4, 3, 4, 3),
+             "mode passes": (1, 32, 32, 128, 4, 16, 16),
+             "corner-row passes": (1, 4, 4, 128, 1, 96, 1),
+             "column tiles": (1, 4, 512, 1, 1, 64, 32),
+             "1-row blocks": (1, 4, 512, 1, 8, 16, 32),
+             "corner rows staged": (1, 4, 4, 1, 1, 64, 64)}
 PROBE_SITE = "experiments/spectral_impl_bench.py:106"
 # phase 0: launches of the probe and of torch.mul(x, 2) in one profiler
 # session, and the profiler key of torch.mul's kernel
@@ -1722,19 +1747,17 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
     passes at the TF32 tensor-core rate (495 TFLOP/s): the forward 6, dQ 9
     and dK/dV 12 passes, 0.06101, 0.09150 and 0.12200 ms at the encoder
     shape; before those designs they took two, three and four products at
-    the CUDA cores' f32 rate (67 TFLOP/s), 0.15024, 0.22537 and 0.30049 ms
-    (``att_work_f32_cores``).  From 160 to 256 the f32 forward, dQ and dK/dV
+    the CUDA cores' f32 rate (67 TFLOP/s), 0.15024, 0.22537 and 0.30049 ms.
+    From 160 to 256 the f32 forward, dQ and dK/dV
     count their TF32 passes (at (8, 1280, 256) 0.08134, 0.12202 and 0.16269
     ms; 0.20032, 0.30049 and 0.40065 on the CUDA cores before their
     tensor-core bodies).  Above 256 the three cluster bodies count the same
     TF32 passes (at (4, 1280, 512) 0.08134, 0.12202 and 0.16269 ms; dQ
     0.30050 on the CUDA cores before its cluster body), and the bf16 wide
     bodies their bf16 products (0.02036, 0.02714 and 0.04071 ms there).
-    The bodies above CLUSTER_MAX_D take the same bounds, though the
-    forward's and dK/dV's form the scores once for each block of 256 output
-    columns and dQ's computes on the CUDA cores in f32 (bf16 inputs
-    widened): the bound is what the function needs, not what its body
-    does.  Before
+    The bodies above CLUSTER_MAX_D take the same bounds, though they form
+    the scores once for each block of 256 output columns: the bound is what
+    the function needs, not what its body does.  Before
     their tensor-core designs the bf16 kernels' bounds counted the products
     that take p or ds at the f32 rate: 0.08021 (forward), 0.08530 (dQ) and
     0.16042 ms (dK/dV) at the encoder shape."""
@@ -1749,23 +1772,6 @@ def att_work(name: str, bh: int, n: int, d: int, bf: bool) -> tuple[int, float]:
         return nbytes, products * prod / PEAK_FLOPS["default"]
     passes = {"attention_fwd": 6, "attention_dq": 9, "attention_dkv": 12}[name]
     return nbytes, passes * prod / TF32_FLOPS
-
-
-def att_cuda_cores(name: str, d: int, bf: bool) -> bool:
-    """Whether attention kernel ``name`` takes head dim ``d`` on the CUDA
-    cores: dQ in both types above CLUSTER_MAX_D (dq_wide_cc_kernel); the
-    forward and dK/dV above it run on the tensor cores (fwd_wide_tc_kernel,
-    dkv_wide_tc_kernel), as every other head dim does."""
-    from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
-
-    return name == "attention_dq" and d > CLUSTER_MAX_D
-
-
-def att_work_f32_cores(name: str, bh: int, n: int, d: int) -> float:
-    """Seconds of an f32 attention kernel's products on the CUDA cores (67
-    TFLOP/s): the forward's two, dQ's three and dK/dV's four."""
-    products = {"attention_fwd": 2, "attention_dq": 3, "attention_dkv": 4}[name]
-    return products * 2 * bh * n * n * d / PEAK_FLOPS["highest"]
 
 
 def att_bf16p(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.0):
@@ -1813,9 +1819,8 @@ def att_kernel_key(name: str, d: int, bf: bool) -> str:
     launches from head dim 160 up: from 160 to 256 the bf16 tensor-core
     bodies (*_tc_kernel), in f32 the split-TF32 forward, dQ and dK/dV of two
     warpgroups (*_tf32w_kernel); above 256 the cluster bodies
-    (*_wide_kernel) up to CLUSTER_MAX_D; above it the forward's and dK/dV's
-    tensor-core bodies (*_wide_tc_kernel) and dQ's CUDA-core body
-    (dq_wide_cc_kernel)."""
+    (*_wide_kernel) up to CLUSTER_MAX_D; above it the tensor-core bodies
+    that loop over all of d (*_wide_tc_kernel)."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
     short = name.replace("attention_", "")
@@ -1823,7 +1828,7 @@ def att_kernel_key(name: str, d: int, bf: bool) -> str:
         return f"{short}_tc_kernel<" if bf else f"{short}_tf32w_kernel<"
     if d <= CLUSTER_MAX_D:
         return f"{short}_wide_kernel<"
-    return "dq_wide_cc_kernel<" if short == "dq" else f"{short}_wide_tc_kernel<"
+    return f"{short}_wide_tc_kernel<"
 
 
 def check_flash_wide(ta, dev) -> None:
@@ -1883,10 +1888,9 @@ def check_attention(ta, dev, card: str) -> dict:
     with its profiler device time beside its bound and the SDPA call's, and
     dQ + dK/dV beside the SDPA backward), at batch*heads 70000 in bf16, and
     with q and k times 3 (scores up to about 54) in f32.  f32 outputs are
-    held against the exact result (att_f64), within ATT_TOL_F32 (the
-    CUDA-core bodies, att_cuda_cores: or the f32 plain version's own
-    distance from it, printed beside); bf16 outputs against the plain
-    version.
+    held against the exact result (att_f64), within ATT_TOL_F32 (the f32
+    plain version's own distance from it printed beside); bf16 outputs
+    against the plain version.
     Returns the bf16 encoder-shape inputs of each kernel (the main path's
     most frequent launch) for timing."""
     import torch
@@ -1910,7 +1914,6 @@ def check_attention(ta, dev, card: str) -> dict:
             timed = d >= 160 and amp == 1.0  # on no configuration's path
             dev_times = {}
             for name in ta.KERNEL_NAMES:
-                escape = att_cuda_cores(name, d, bf)
                 got = as_tuple(getattr(ta, name)(*args[name], scale))
                 again = as_tuple(getattr(ta, name)(*args[name], scale))
                 want = as_tuple(getattr(ta, f"{name}_plain")(*args[name], scale))
@@ -1923,13 +1926,10 @@ def check_attention(ta, dev, card: str) -> dict:
                     ok &= bool(torch.isfinite(a).all()) and a.dtype == b.dtype
                     if a.dtype == torch.float32:
                         rel_x, plain_x = rel_err(a, x)[1], rel_err(b, x)[1]
-                        ok &= rel_x <= (max(ATT_TOL_F32, plain_x) if escape else ATT_TOL_F32)
+                        ok &= rel_x <= ATT_TOL_F32
                         msgs.append(f"out{i} rel-to-max {rel_x:.3e} from the exact result (tol "
-                                    f"{ATT_TOL_F32:.0e}"
-                                    + (", or the f32 plain version's own" if escape else
-                                       "; the f32 plain version")
-                                    + f" {plain_x:.3e} from it; the plain version {rel:.3e} "
-                                    "from the kernel)")
+                                    f"{ATT_TOL_F32:.0e}; the f32 plain version {plain_x:.3e} "
+                                    f"from it; the plain version {rel:.3e} from the kernel)")
                     else:
                         a32, b32 = a.float(), b.float()
                         lim = (BF16_STEP * torch.maximum(a32.abs(), b32.abs())
@@ -2245,9 +2245,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
         r["f32_plain_ms"] = cuda_ms(lambda: getattr(ta, f"{name}_plain")(*args, scale))
         r["f32_library_ms"] = cuda_ms(sdpa_f32[name])
         r["f32_library_device_ms"] = profiler_ms(sdpa_f32[name], bound_ms=r["f32_bound_ms"])
-        body = (f"split-TF32 tensor-core body; bound on the CUDA cores "
-                f"{att_work_f32_cores(name, bh, n, d) * 1e3:.5f} ms")
-        print(f"[timing] {card}: {name} at {tuple(q.shape)} f32 ({body}): "
+        print(f"[timing] {card}: {name} at {tuple(q.shape)} f32 (split-TF32 tensor-core body): "
               f"{r['f32_ms']:.4f} ms/launch (profiler device time {fmt(r['f32_device_ms'])}), "
               f"plain {r['f32_plain_ms']:.4f} ms, bound {r['f32_bound_ms']:.5f} ms "
               f"(operations), library {r['f32_library_ms']:.4f} ms "
@@ -2297,9 +2295,41 @@ def sf_work(x, w1, w2, pw, bias, out, m1: int, m2: int) -> tuple[int, int]:
     return nbytes, flops
 
 
+def sf_layer_checks(sf, what: str, ins: tuple, m1: int, m2: int):
+    """The fused layer kernel on ``ins`` (x, w1, w2, pw, bias) against its
+    plain f32 version: within SF_TOL of the largest magnitude, the same bits
+    from a second launch, and the plain version on bf16-rounded inputs more
+    than 10x SF_TOL away (the control).  Prints the wrapper's plan.  Returns
+    the output and its largest absolute error."""
+    import torch
+
+    x = ins[0]
+    b, h, w, ci = x.shape
+    co = ins[3].shape[1]
+    out = sf.spectral_fused_layer(*ins, m1, m2)
+    again = sf.spectral_fused_layer(*ins, m1, m2)
+    ref = sf.fused_fno_layer_2d_plain(*ins, m1, m2)
+    ctl = sf.fused_fno_layer_2d_plain(*(t.bfloat16().float() for t in ins), m1, m2)
+    torch.cuda.synchronize()
+    err, rel = rel_err(out, ref)
+    ctl_rel = rel_err(ctl, ref)[1]
+    same = torch.equal(out, again)
+    pl = sf.plan(h, w, ci, co, m1, m2)
+    layout = ", ".join(f"{k} {pl[k]}" for k in ("P", "HB", "RB", "S", "KP", "RP", "smem1", "RT",
+                                                 "WT", "URC", "smem2"))
+    check(bool(torch.isfinite(out).all()) and rel <= SF_TOL and ctl_rel > 10 * SF_TOL and same,
+          f"[layer] spectral_fused {what} {tuple(x.shape)} -> {co}, modes ({m1}, {m2}), plan "
+          f"({layout}): max abs err {err:.3e}, rel-to-max {rel:.3e} (tol {SF_TOL:.0e}); same "
+          f"bits twice {same}; control: plain on bf16-rounded inputs {ctl_rel:.3e} above 10x "
+          "the tol")
+    return out, err
+
+
 def check_layer(dev) -> tuple:
     """Phase 10: the fused dft2 layer through its autograd op at the flagship
-    layer shape.  Returns its inputs and the launches of the run."""
+    layer shape, with its gradients, then the kernel alone there and at
+    SF_SHAPES (``sf_layer_checks``).  Returns the flagship's inputs, output,
+    largest error and the launches of the op's run."""
     import torch
     from sciml_pde_torch.ops import spectral
     from sciml_pde_torch.ops import spectral_fused as sf
@@ -2323,19 +2353,22 @@ def check_layer(dev) -> tuple:
     ref_in = [t.clone().requires_grad_(True) for t in (x, w1, w2, pw, bias)]
     ref = sf.fused_fno_layer_2d_plain(*ref_in, MODES, MODES)
     (ref * ref).sum().backward()
-    r16 = lambda t: t.bfloat16().float()  # noqa: E731
-    ctl = sf.fused_fno_layer_2d_plain(r16(x), r16(w1), r16(w2), r16(pw), r16(bias), MODES, MODES)
     torch.cuda.synchronize()
-    err, rel = rel_err(out.detach(), ref.detach())
-    ctl_rel = rel_err(ctl, ref.detach())[1]
-    check(bool(torch.isfinite(out).all()) and rel <= SF_TOL and ctl_rel > 10 * SF_TOL,
-          f"[layer] spectral_fused {tuple(x.shape)} modes {MODES}: max abs err {err:.3e}, "
-          f"rel-to-max {rel:.3e} (tol {SF_TOL:.0e}); control: plain on bf16-rounded inputs "
-          f"{ctl_rel:.3e} above 10x the tol")
+    rel = rel_err(out.detach(), ref.detach())[1]
+    check(bool(torch.isfinite(out).all()) and rel <= SF_TOL,
+          f"[layer] the op's output at {tuple(x.shape)}: rel-to-max {rel:.3e} (tol {SF_TOL:.0e})")
     for name, a, b in zip(("dx", "dw1", "dw2", "dpw", "dbias"), ins, ref_in):
         gerr, grel = rel_err(a.grad, b.grad)
         check(grel <= SF_TOL, f"[layer] {name} of sum(out^2) vs autograd of the plain forward: "
               f"max abs err {gerr:.3e}, rel-to-max {grel:.3e} (tol {SF_TOL:.0e})")
+    _, err = sf_layer_checks(sf, "flagship", (x, w1, w2, pw, bias), MODES, MODES)
+    for what, (b_, h_, w_, ci, co, m1, m2) in SF_SHAPES.items():
+        gs = torch.Generator().manual_seed(7)
+        small = (torch.randn(b_, h_, w_, ci, generator=gs),
+                 *(torch.rand(2, ci, co, m1, m2, generator=gs) / (ci * co) for _ in range(2)),
+                 (2 * torch.rand(ci, co, generator=gs) - 1) * ci**-0.5,
+                 (2 * torch.rand(co, generator=gs) - 1) * ci**-0.5)
+        sf_layer_checks(sf, what, tuple(t.to(dev) for t in small), m1, m2)
     spectral.set_dft_precision("default")
     return (x, w1, w2, pw, bias), out.detach(), err, launches
 
@@ -2508,14 +2541,21 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
         "source": "sciml_pde_torch/ops/csrc/spectral_fused.cu", "replaces": SF_SITE,
         "launches": layer_launches, "max_abs_err": layer_err,
         "ms": cuda_ms(lambda: sf.spectral_fused_layer(*layer_in, MODES, MODES)),
+        "device_ms": None,
         "plain_ms": cuda_ms(lambda: sf.fused_fno_layer_2d_plain(*layer_in, MODES, MODES)),
         "bound_ms": max(nbytes / HBM_BPS, flops / PEAK_FLOPS["highest"]) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BPS >= flops / PEAK_FLOPS["highest"]
         else "operations",
         "library_ms": None,
     }
+    parts = [profiler_ms(lambda: sf.spectral_fused_layer(*layer_in, MODES, MODES), key)
+             for key in SF_KERNEL_KEYS]
+    row["device_ms"] = None if None in parts else sum(parts)
     print(f"[timing] {card}: spectral_fused at {tuple(layer_in[0].shape)} f32: "
-          f"{row['ms']:.4f} ms/launch, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['ms']:.4f} ms/launch (profiler device time of its kernels "
+          f"{fmt(row['device_ms'])}: " + ", ".join(f"{k} {fmt(t)}" for k, t in
+                                                     zip(SF_KERNEL_KEYS, parts))
+          + f"), plain {row['plain_ms']:.4f} ms, bound "
           f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {nbytes} bytes, {flops} FLOP), "
           f"{row['launches']} launch in the layer run", flush=True)
     return {"spectral_fused": row}
@@ -3464,13 +3504,13 @@ def main() -> int:
                                         f"block(s) of {blocks[u[0]][1]} warps an SM"
                                         for u in tf32w)
           + " (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
-    wide_tc_names = [f"{w}_wide_tc_kernel<{t}>" for w in ("dkv", "fwd")
+    wide_tc_names = [f"{w}_wide_tc_kernel<{t}>" for w in ("dkv", "dq", "fwd")
                      for t in ("__nv_bfloat16", "float")]
     wide_tc = sorted(u for u in usage if "_wide_tc_kernel<" in u[0])
     check([u[0] for u in wide_tc] == wide_tc_names
           and all(st == ld == 0 for name, _, st, ld, _ in wide_tc if "bfloat16" in name),
-          "[build] the forward and dK/dV above head dim 1024 (one block's tensor-core score loop "
-          "over all of d, both types; the bf16 instances spill nothing): "
+          "[build] the forward, dQ and dK/dV above head dim 1024 (one block's tensor-core score "
+          "loop over all of d, both types; the bf16 instances spill nothing): "
           + ", ".join(f"{u[0]} {u[1]} registers, {u[2]} bytes spill stores, {u[3]} bytes spill "
                       "loads" for u in wide_tc))
     att_sass = _build.sass(_build.library_path("attention"))
@@ -3479,7 +3519,7 @@ def main() -> int:
                       *wide_tc_names)}
     check(all(c > 0 for c in hmma.values()),
           "[build] dq_wide_kernel, the f32 forward, dQ and dK/dV of head dims 160-256 and the "
-          "forward and dK/dV above 1024 take their products on the tensor cores: HMMA "
+          "forward, dQ and dK/dV above 1024 take their products on the tensor cores: HMMA "
           "instructions in their SASS " + ", ".join(f"{k} {c}" for k, c in hmma.items()))
     for kind in ta.WIDE_KINDS:
         for bf in (True, False):
@@ -3487,6 +3527,19 @@ def main() -> int:
             print(f"[build] {name}: at most {ta.wide_max_clusters(kind, bf, 8)} clusters of 8 "
                   f"blocks (head dim 1024), {ta.wide_max_clusters(kind, bf, 4)} of 4 (head dim "
                   "512) at once (cudaOccupancyMaxActiveClusters)", flush=True)
+    for what, (_, h_, w_, ci, co, m1, m2) in (("flagship", SF_FLAGSHIP),
+                                             ("16 ranks", SF_SHAPES["16 ranks"])):
+        pl = sf.plan(h_, w_, ci, co, m1, m2)
+        n_cl = sf.max_clusters(h_, w_, ci, co, m1, m2)
+        check(n_cl >= 1, f"[build] sf_spectrum_kernel at the {what} shape: clusters of "
+              f"{pl['P']} blocks of 1024 threads and {pl['smem1']} bytes, at most {n_cl} at "
+              "once (cudaOccupancyMaxActiveClusters)")
+    sf_usage = _build.ptxas_report("spectral_fused")
+    check(sorted(u[0] for u in sf_usage) == sorted(SF_KERNEL_KEYS)
+          and all(st == ld == frame == 0 for _, _, st, ld, frame in sf_usage),
+          "[build] the fused dft2 layer's two kernels spill nothing and keep no stack frame: "
+          + ", ".join(f"{u[0]} {u[1]} registers, {u[2]} bytes spill stores, {u[3]} bytes spill "
+                      f"loads, {u[4]} bytes stack frame" for u in sf_usage))
     fno_usage = _build.ptxas_report("fno_fwd") + _build.ptxas_report("fno_bwd")
     for kern, regs, st, ld, frame in fno_usage:
         print(f"[build] fno {kern}: {regs} registers, {st} bytes spill stores, {ld} bytes "

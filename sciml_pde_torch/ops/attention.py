@@ -21,10 +21,9 @@ memory.  Above 256
 dim ``CLUSTER_MAX_D``, as thread-block clusters of ``ceil(d / 128)``
 blocks that each take the products of 128 head-dim columns on the tensor
 cores and add their partial scores through distributed shared memory.
-Above ``CLUSTER_MAX_D``, with no upper limit, the forward and dK/dV run on
-the tensor cores as one block per 256 output columns that forms the
-scores over all of d itself, and dQ on the CUDA cores (see the source's
-note).  The
+Above ``CLUSTER_MAX_D``, with no upper limit, the forward, dQ and dK/dV
+run on the tensor cores as one block per 256 output columns that forms
+the scores over all of d itself (see the source's note).  The
 plain versions compute the Pallas bodies over whole rows: inputs widened
 to f32, ``q`` scaled in f32, ``p`` and ``ds`` kept in f32, outputs
 rounded to the input type once.
@@ -54,10 +53,9 @@ TILE = 64
 # the largest head dim of the cluster bodies: 8 blocks (the portable cluster
 # size) of 128 columns (csrc/attention.cu CL_MAX_D)
 CLUSTER_MAX_D = 1024
-# above it, (rows, output columns) of a block: dQ's (dq_wide_cc_kernel), and
-# the forward's and dK/dV's (fwd_wide_tc_kernel, dkv_wide_tc_kernel: two
-# groups of 128 columns, WT_G)
-WIDE_DQ_TILE = (32, 128)
+# above it, (rows, output columns) of a block of the forward, dQ and dK/dV
+# (fwd_wide_tc_kernel, dq_wide_tc_kernel, dkv_wide_tc_kernel: two groups of
+# 128 columns, WT_G)
 WIDE_TC_TILE = (TILE, 256)
 # the cluster bodies, as attention_wide_clusters numbers them
 WIDE_KINDS = {"fwd": 0, "dkv": 1, "dq": 2}
@@ -104,17 +102,16 @@ def _blocks_per_panel(n: int, d: int) -> int:
     kernels' too); above, two bf16 blocks per 64-row tile (the f32 forward:
     one block per 96-row tile, dQ per 80-row tile, dK/dV per 64-row tile);
     above 256, ceil(d / 128) blocks per 64-row tile (the three cluster
-    bodies) up to ``CLUSTER_MAX_D``; above it the most of the three: the
-    forward and dK/dV ceil(d / 256) blocks per 64-row tile (their
-    tensor-core bodies), dQ ceil(d / 128) per 32-row tile (its CUDA-core
-    body)."""
+    bodies) up to ``CLUSTER_MAX_D``; above it ceil(d / 256) blocks per
+    64-row tile (the three tensor-core bodies)."""
     if d <= 128:
         return -(-n // TILE)
     if d <= 256:
         return -(-n // TILE) * 2
     if d <= CLUSTER_MAX_D:
         return -(-n // TILE) * -(-d // 128)
-    return max(-(-n // rows) * -(-d // cols) for rows, cols in (WIDE_TC_TILE, WIDE_DQ_TILE))
+    rows, cols = WIDE_TC_TILE
+    return -(-n // rows) * -(-d // cols)
 
 
 def wide_max_clusters(kind: str, bf16: bool, parts: int) -> int:

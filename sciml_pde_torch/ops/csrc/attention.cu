@@ -64,25 +64,19 @@
 //   dK/dV 16 (P - 1)), near that network's rate, and the barriers cost
 //   beside it (PERF.md).
 //
-//   Above 1024, with no upper limit on d, the forward and dK/dV run on
+//   Above 1024, with no upper limit on d, the forward, dQ and dK/dV run on
 //   the tensor cores as one block per (bh, 64 rows, 256 output columns)
-//   that loops over all of d itself (fwd_wide_tc_kernel,
+//   that loops over all of d itself (fwd_wide_tc_kernel, dq_wide_tc_kernel,
 //   dkv_wide_tc_kernel): per tile of the other panel the block walks the
 //   slices of d in order (256 bytes of a row: 64 f32 or 128 bf16 columns),
 //   each slice of both panels staged by cp.async, double-buffered, and
 //   accumulates the scores in registers over every slice, with the cluster
 //   bodies' arithmetic (bf16 raw, f32 split TF32 with each k8 step's score
 //   MMAs into fresh accumulators); then the forward's online softmax and
-//   p.v, or dK/dV's p^T, ds^T, p^T.do and ds^T.q, over the block's 256
-//   columns.  Every one of the ceil(d / 256) blocks of a row tile forms
-//   the tile's scores over all of d, the price of no exchange and no
-//   limit; the bounds count the function's own products.  dQ above 1024
-//   stays on the CUDA cores (dq_wide_cc_kernel): the head dim padded to a
-//   multiple of 64 with zero columns, the scores over it in 64-column
-//   chunks staged through shared memory, the output columns split over P
-//   blocks per 32-row tile, each of which computes the scores itself; f32
-//   arithmetic (inputs widened to f32, p and ds f32, f32 FMAs, one rounding
-//   at the store), written to be right, not fast.
+//   p.v, dQ's ds and ds.k, or dK/dV's p^T, ds^T, p^T.do and ds^T.q, over
+//   the block's 256 columns.  Every one of the ceil(d / 256) blocks of a
+//   row tile forms the tile's scores over all of d, the price of no
+//   exchange and no limit; the bounds count the function's own products.
 
 // Numerics follow the Pallas bodies: every input is widened to f32, p and ds
 // stay f32 into their products, dq = (ds.k) * scale and dk = (ds^T.q) * scale
@@ -251,8 +245,6 @@
 namespace {
 
 constexpr int TILE = 64;       // rows of the looped-over panel per tile
-constexpr int NT = 256;        // threads per block of the CUDA-core bodies: 16 x 16
-constexpr int SP = TILE + 4;   // row stride of the score tiles
 constexpr int NT_TC = 128;     // threads per block of the tensor-core bodies: 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -260,172 +252,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 __device__ __forceinline__ void block_pair(int ntiles, size_t& bh, int& tile) {
   bh = blockIdx.x / (unsigned)ntiles;
   tile = (int)(blockIdx.x - bh * (unsigned)ntiles);
-}
-
-// ---------------------------------------------------------------------------
-// CUDA-core tiles (dQ above head dim 1024, both types)
-// ---------------------------------------------------------------------------
-
-// s[i][j] = sum_d a[ra + i][d] * b[tx + 16 j][d]: RI rows of a tile at ra
-// against RJ strided rows of another, both row stride D + 4.  The sums
-// continue from s (the next chunk of a longer row).
-template <int D, int RI, int RJ>
-__device__ __forceinline__ void dot_tile(float s[RI][RJ], const float* a, int ra,
-                                         const float* b, int tx) {
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[RI], bv[RJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ra + i) * (D + 4) + d);
-#pragma unroll
-    for (int j = 0; j < RJ; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * (D + 4) + d);
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) {
-        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
-        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
-        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
-        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
-      }
-  }
-}
-
-// acc[i][c] += sum_r p[ra + i][r] * b[r][tx * DPT + c]: RI 64-wide rows of a
-// score tile (stride SP) against a row-major D-wide tile (stride D + 4).
-template <int D, int RI>
-__device__ __forceinline__ void acc_tile(float acc[RI][D / 16], const float* p, int ra,
-                                         const float* b, int tx) {
-  constexpr int DPT = D / 16;
-#pragma unroll 2
-  for (int r = 0; r < TILE; r += 4) {
-    float4 pv[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) pv[i] = *reinterpret_cast<const float4*>(p + (ra + i) * SP + r);
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      float bv[DPT];
-      const float* brow = b + (r + rr) * (D + 4) + tx * DPT;
-      if constexpr (DPT % 4 == 0) {
-#pragma unroll
-        for (int c = 0; c < DPT; c += 4) {
-          const float4 t = *reinterpret_cast<const float4*>(brow + c);
-          bv[c] = t.x; bv[c + 1] = t.y; bv[c + 2] = t.z; bv[c + 3] = t.w;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) bv[c] = brow[c];
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float pi = rr == 0 ? pv[i].x : rr == 1 ? pv[i].y : rr == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(pi, bv[c], acc[i][c]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// Stores the first d of a thread's DPT output columns tx*DPT.. of one row,
-// rounded to T once.
-template <int DPT, typename T>
-__device__ __forceinline__ void store_row(T* dst, const float* acc, int tx, int d, float mul) {
-#pragma unroll
-  for (int c = 0; c < DPT; ++c)
-    if (tx * DPT + c < d) store_f32(dst + tx * DPT + c, acc[c] * mul);
-}
-
-// ---------------------------------------------------------------------------
-// dQ above head dim 1024, f32 or bf16 inputs, CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int WC = 64;   // head-dim columns per score chunk
-constexpr int WO = 128;  // output columns per block
-constexpr int WR = 32;   // own rows per block: 2 a thread
-
-// Rows [r0, r0 + rows) and columns [c0, c0 + W) of a (n, d) panel, widened
-// to f32 and times `mul` in f32 (1 leaves it exact), into a row-major tile
-// with row stride W + 4; rows at or past n and columns at or past d are zero.
-template <int W, typename T>
-__device__ __forceinline__ void load_chunk(float* dst, const T* src, int r0, int rows, int c0,
-                                           int n, int d, float mul = 1.f) {
-  for (int i = threadIdx.x; i < rows * W; i += NT) {
-    const int r = i / W, c = i - r * W;
-    dst[r * (W + 4) + c] =
-        (r0 + r < n && c0 + c < d) ? to_f32(src[(size_t)(r0 + r) * d + c0 + c]) * mul : 0.f;
-  }
-}
-
-// dQ above head dim 1024: one block per (bh, 32 queries, 128 output
-// columns); s and dp over 64-column chunks, then p = exp(s - l), ds = p (dp -
-// delta) and ds.k over the block's columns of k
-template <typename T>
-__global__ void __launch_bounds__(NT)
-dq_wide_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq, int n, int d, int ntiles,
-                  int parts, float scale) {
-  constexpr int R = WR / 16, DPT = WO / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                      // [WR][WC + 4], a chunk of q * scale
-  float* dos = qs + WR * (WC + 4);     // [WR][WC + 4], a chunk of do
-  float* ks = dos + WR * (WC + 4);     // [TILE][WC + 4], a chunk of k
-  float* vs = ks + TILE * (WC + 4);    // [TILE][WC + 4], a chunk of v
-  float* kc = vs + TILE * (WC + 4);    // [TILE][WO + 4], the block's columns of k
-  float* dss = kc + TILE * (WO + 4);   // [WR queries][SP]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, ra = ty * R;
-  size_t bh;
-  int tile;
-  block_pair(ntiles, bh, tile);
-  const int q0 = tile / parts * WR, c0 = tile % parts * WO;
-  const size_t base = bh * n * d, rbase = bh * n;
-  float l[R], dl[R], acc[R][DPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = min(q0 + ra + i, n - 1);
-    l[i] = lse[rbase + row];
-    dl[i] = delta[rbase + row];
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    float s[R][4] = {}, dp[R][4] = {};
-    for (int dc = 0; dc < d; dc += WC) {
-      __syncthreads();
-      load_chunk<WC>(qs, q + base, q0, WR, dc, n, d, scale);
-      load_chunk<WC>(dos, dout + base, q0, WR, dc, n, d);
-      load_chunk<WC>(ks, k + base, k0, TILE, dc, n, d);
-      load_chunk<WC>(vs, v + base, k0, TILE, dc, n, d);
-      __syncthreads();
-      dot_tile<WC, R, 4>(s, qs, ra, ks, tx);
-      dot_tile<WC, R, 4>(dp, dos, ra, vs, tx);
-    }
-    load_chunk<WO>(kc, k + base, k0, TILE, c0, n, d);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = k0 + tx + 16 * j < n;
-        const float p = ok ? expf(s[i][j] - l[i]) : 0.f;
-        dss[(ra + i) * SP + tx + 16 * j] = p * (dp[i][j] - dl[i]);
-      }
-    __syncthreads();
-    acc_tile<WO, R>(acc, dss, ra, kc, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ra + i;
-    if (row < n) store_row<DPT>(dq + base + (size_t)row * d + c0, acc[i], tx, d - c0, scale);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1662,6 +1488,7 @@ fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // the scores (f32 in split TF32, bf16 raw; see the note at the top)
 // ---------------------------------------------------------------------------
 
+constexpr int WO = 128;                 // output columns of a cluster rank or a column group
 constexpr int CL_MAX = 8;               // ranks of a cluster at most (the portable size)
 constexpr int CL_MAX_D = CL_MAX * WO;   // the largest head dim of the cluster bodies
 constexpr int CL_ROWS = 64;             // own rows (queries or keys) of a cluster
@@ -2402,12 +2229,12 @@ dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 1024, the forward and dK/dV: one block's tensor-core score
-// loop over all of d (f32 in split TF32, bf16 raw; see the note at the top)
+// head dims above 1024, the forward, dQ and dK/dV: one block's tensor-core
+// score loop over all of d (f32 in split TF32, bf16 raw; see the note at the top)
 // ---------------------------------------------------------------------------
 
-// groups of WO output columns a block: two (256 columns, 8 warps in the
-// forward), so that half as many blocks form each score as with one.  One
+// groups of WO output columns a block: two (256 columns, 8 warps), so that
+// half as many blocks form each score as with one.  One
 // group a block (experiments/wide_tc_attention_control.py builds it as a
 // copy) was slower on the card at (4, 1280, 1032), which fills it, in the
 // f32 forward and in dK/dV in both types, and a little faster in the bf16
@@ -2424,7 +2251,7 @@ constexpr int WT_LD = WT_S<T> + 16 / (int)sizeof(T);
 template <typename T>
 constexpr int WT_CLD = WT_G * WO + 16 / (int)sizeof(T);
 constexpr int WT_TK = 64;  // keys of a forward K/V tile
-// V's columns (the forward) and q's, do's, l and delta (dK/dV) of a tile
+// V's columns (the forward), K's (dQ) and q's, do's, l and delta (dK/dV) of a tile
 // are copied with the tile's first slice step and waited for with its
 // second, so the bodies need two slices at least
 static_assert(CL_MAX_D >= 2 * WT_S<float> && CL_MAX_D >= 2 * WT_S<__nv_bfloat16>,
@@ -2448,8 +2275,23 @@ constexpr size_t dkv_wide_tc_smem() {
          2 * (size_t)WKV_TQ * WT_CLD<T> * sizeof(T) +
          2 * (size_t)CL_ROWS * (WKV_TQ + XP) * sizeof(float) + 2 * WKV_TQ * sizeof(float);
 }
-static_assert(fwd_wide_tc_smem<float>() <= 232448 && dkv_wide_tc_smem<float>() <= 232448,
+// keys of a dQ K/V tile above 1024 (experiments/wide_tc_attention_control.py
+// times the other of 32 and 64)
+constexpr int WDQ_TC_TK = 64;
+// dQ's two slice buffers of q, do, k and v, the K tile's columns, ds, l and
+// delta: with two groups a block and 64-key tiles 224,768 bytes f32 and
+// 192,000 bf16 (32-key tiles: 148,480 and 132,096), one block an SM
+template <typename T>
+constexpr size_t dq_wide_tc_smem() {
+  return (size_t)2 * (2 * CL_ROWS + 2 * WDQ_TC_TK) * WT_LD<T> * sizeof(T) +
+         (size_t)WDQ_TC_TK * WT_CLD<T> * sizeof(T) +
+         (size_t)CL_ROWS * (WDQ_TC_TK + XP) * sizeof(float) + 2 * CL_ROWS * sizeof(float);
+}
+static_assert(fwd_wide_tc_smem<float>() <= 232448 && dkv_wide_tc_smem<float>() <= 232448 &&
+                  dq_wide_tc_smem<float>() <= 232448,
               "the tiles of the bodies above 1024 overflow shared memory");
+static_assert(WDQ_TC_TK % (16 * WT_G) == 0 && WDQ_TC_TK % 32 == 0,
+              "a dQ K/V tile is whole k16 steps a warp and whole 32-key ds.k sums");
 
 // forward above head dim 1024: one block per (bh, 64 queries, WT_G groups
 // of 128 output columns), 4 WT_G warps; warp w owns queries 16 (w % 4) and
@@ -2867,6 +2709,201 @@ dkv_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int row0 = k0 + kg * 16 + g;  // this lane's keys row0 and row0 + 8
   store_acc<NC>(dk + base, gk, row0, c0 + half * CW, t, n, d, scale, scale);
   store_acc<NC>(dv + base, gv, row0, c0 + half * CW, t, n, d, 1.f, 1.f);
+}
+
+// dQ above head dim 1024: one block per (bh, 64 queries, WT_G groups of 128
+// output columns), 4 WT_G warps; warp w owns queries 16 (w % 4), keys
+// WDQ_TC_TK / WT_G (w / 4) of each K/V tile's scores and output columns 128
+// (w / 4) of the block's.  Per K/V tile the block walks the slices of d in
+// order, each slice of q, do and of the K and V tiles staged by cp.async,
+// double-buffered, and accumulates s = q.k^T and dp = do.v^T in registers
+// over all of d: bf16 raw (s times scale after), f32 in split TF32 with each
+// k8 step's score MMAs into fresh accumulators and each slice's dp MMAs into
+// a fresh accumulator, added in f32 (mma_split_2x2), so no sum runs long in
+// one accumulator.  Each warp forms ds = p (dp - delta) with p = exp(s - l)
+// in registers (0 for keys at or past n) and stages it in shared memory, so
+// the block shares the tile's ds; then dq += ds.k over the warp's 128
+// columns of the K tile (staged with the tile's first slice), split as
+// dq_wide_kernel splits it: bf16 ds as hi + lo, f32 split TF32 with the sums
+// of each 32 keys begun at 0 and added to acc in f32.  dq is multiplied by
+// scale at the store.  q and do are streamed again for every K/V tile (64 d
+// each beside k's and v's WDQ_TC_TK d), and every block of a query tile
+// forms the tile's s and dp over all of d: ceil(d / 128 WT_G) times those
+// products of the function, the price of no exchange and no limit on d.
+template <typename T>
+__global__ void __launch_bounds__(NT_TC * WT_G, 1)
+dq_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dq, int n, int d, int ntiles,
+                  int parts, float scale) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int NTH = NT_TC * WT_G, WS = WT_S<T>, LD = WT_LD<T>, CLD = WT_CLD<T>;
+  constexpr int TK = WDQ_TC_TK, KW = TK / WT_G, LX = TK + XP, NO = WO / 8;
+  constexpr int QS = CL_ROWS * LD, KS = TK * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // 2 x [CL_ROWS][LD]: a slice of q, unscaled
+  T* dos = qs + 2 * QS;                    // 2 x [CL_ROWS][LD]: of do
+  T* ks = dos + 2 * QS;                    // 2 x [TK][LD]: of a K tile
+  T* vs = ks + 2 * KS;                     // 2 x [TK][LD]: of a V tile
+  T* kc = vs + 2 * KS;                     // [TK][CLD]: the block's columns of the K tile
+  float* xs = reinterpret_cast<float*>(kc + TK * CLD);  // [CL_ROWS][LX]: ds
+  float* ls = xs + CL_ROWS * LX;  // [CL_ROWS] logsumexp of the block's queries
+  float* dls = ls + CL_ROWS;      // [CL_ROWS] delta of the block's queries
+  size_t bh;
+  int tile;
+  block_pair(ntiles, bh, tile);
+  const int q0 = tile / parts * CL_ROWS, c0 = tile % parts * (WT_G * WO);
+  const size_t base = bh * n * d;
+  const Lanes ln;
+  const int rg = ln.warp & 3, kp = ln.warp >> 2, g = ln.g, t = ln.t;
+  const int ns = (d + WS - 1) / WS, nkt = (n + TK - 1) / TK, steps = nkt * ns;
+  const float sl = scale * LOG2E;
+
+  // step st: slice st % ns of q, do and of K/V tile st / ns, into buffer st % 2
+  auto load_step = [&](int st) {
+    const int b = st & 1, c = st % ns * WS, r = st / ns * TK;
+    load_tile_async<WS, CL_ROWS, NTH>(qs + b * QS, q + base, q0, n, d, c);
+    load_tile_async<WS, CL_ROWS, NTH>(dos + b * QS, dout + base, q0, n, d, c);
+    load_tile_async<WS, TK, NTH>(ks + b * KS, k + base, r, n, d, c);
+    load_tile_async<WS, TK, NTH>(vs + b * KS, v + base, r, n, d, c);
+  };
+  load_step(0);
+  load_rows_async<CL_ROWS>(ls, lse + bh * n, q0, n);
+  load_rows_async<CL_ROWS>(dls, delta + bh * n, q0, n);
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    float s[KW / 8][4], dp[KW / 8][4];
+#pragma unroll
+    for (int i = 0; i < KW / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    for (int c = 0; c < ns; ++c) {
+      const int st = j * ns + c;
+      cp_async_wait<0>();  // step st's slices (and at c = 1 the tile's K columns)
+      __syncthreads();     // ... everywhere; every warp is done with step st - 1 (and tile j - 1)
+      if (st + 1 < steps) load_step(st + 1);
+      if (c == 0) load_tile_async<WT_G * WO, TK, NTH>(kc, k + base, j * TK, n, d, c0);
+      cp_async_commit();
+      const int b = st & 1;
+      if constexpr (BF) {
+        const int a_off = (rg * 16 + ln.lm_row) * LD + ln.lm_col;
+        const int b_off = (kp * KW + ln.lk_row) * LD + ln.lk_col;
+        const T* qa = qs + b * QS + a_off;
+        const T* da = dos + b * QS + a_off;
+        const T* kb = ks + b * KS + b_off;
+        const T* vb = vs + b * KS + b_off;
+#pragma unroll
+        for (int kk = 0; kk < WS / 16; ++kk) {
+          uint32_t a[4], a2[4];
+          ldsm_x4(a, qa + kk * 16);
+          ldsm_x4(a2, da + kk * 16);
+#pragma unroll
+          for (int np = 0; np < KW / 16; ++np) {
+            uint32_t bb[4];
+            ldsm_x4(bb, kb + np * 16 * LD + kk * 16);
+            mma_bf16(s[2 * np], a, bb[0], bb[1]);
+            mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+            ldsm_x4(bb, vb + np * 16 * LD + kk * 16);
+            mma_bf16(dp[2 * np], a2, bb[0], bb[1]);
+            mma_bf16(dp[2 * np + 1], a2, bb[2], bb[3]);
+          }
+        }
+      } else {
+        const int a_off = (rg * 16 + ln.lm_row) * LD + ln.lm_col / 2;
+        const int b_off = (kp * KW + ln.lk_row) * LD + ln.lk_col / 2;
+        const float* qf = reinterpret_cast<const float*>(qs + b * QS) + a_off;
+        const float* df = reinterpret_cast<const float*>(dos + b * QS) + a_off;
+        const float* kf = reinterpret_cast<const float*>(ks + b * KS) + b_off;
+        const float* vf = reinterpret_cast<const float*>(vs + b * KS) + b_off;
+        float dpp[KW / 8][4];  // the slice's dp
+#pragma unroll
+        for (int i = 0; i < KW / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dpp[i][e] = 0.f;
+#pragma unroll 1
+        for (int kk = 0; kk < WS / 8; ++kk) {
+          uint32_t qh[4], ql[4], doh[4], dol[4];
+          ld_split<true>(qh, ql, qf + kk * 8, scale);
+          ld_split<false>(doh, dol, df + kk * 8, 1.f);
+#pragma unroll
+          for (int np = 0; np < KW / 16; ++np) {
+            uint32_t kh[4], kl[4], vh[4], vl[4];
+            ld_split<false>(kh, kl, kf + np * 16 * LD + kk * 8, 1.f);
+            ld_split<false>(vh, vl, vf + np * 16 * LD + kk * 8, 1.f);
+            mma_split_2x2(s[2 * np], s[2 * np + 1], dpp[2 * np], dpp[2 * np + 1], qh, ql, kh, kl,
+                          doh, dol, vh, vl);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < KW / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[i][e] += dpp[i][e];
+      }
+    }
+
+    // ds = p (dp - delta) with p = exp(s - l) of the warp's 16 queries x KW
+    // keys, to the staging tile
+    float* xw = xs + (rg * 16 + g) * LX + kp * KW + 2 * t;
+#pragma unroll
+    for (int i = 0; i < KW / 8; ++i) {
+      float dv4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rg * 16 + g + (e >> 1) * 8;
+        const bool ok = j * TK + kp * KW + 8 * i + 2 * t + (e & 1) < n;
+        const float p = !ok ? 0.f
+                        : BF ? ex2(fmaf(s[i][e], sl, -ls[row] * LOG2E))
+                             : ex2((s[i][e] - ls[row]) * LOG2E);
+        dv4[e] = p * (dp[i][e] - dls[row]);
+      }
+      store2(xw + 8 * i, dv4[0], dv4[1]);
+      store2(xw + 8 * LX + 8 * i, dv4[2], dv4[3]);
+    }
+    __syncthreads();
+
+    // dq += ds . k over the warp's 128 columns (the K tile's columns landed
+    // with step j ns + 1)
+    const float* pr = xs + (rg * 16 + g) * LX + 2 * t;
+    if constexpr (BF) {
+      const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(kc) + kp * WO + ln.lm_col;
+#pragma unroll
+      for (int kq = 0; kq < TK / 16; ++kq) {
+        uint32_t hi[4], lo[4];
+        p_frag<LX>(pr + kq * 16, hi, lo);
+#pragma unroll
+        for (int dc = 0; dc < NO / 2; ++dc) {
+          uint32_t bb[4];
+          ldsm_x4_trans(bb, kb + (kq * 16 + ln.lm_row) * CLD + dc * 16);
+          mma_bf16(acc[2 * dc], hi, bb[0], bb[1]);
+          mma_bf16(acc[2 * dc], lo, bb[0], bb[1]);
+          mma_bf16(acc[2 * dc + 1], hi, bb[2], bb[3]);
+          mma_bf16(acc[2 * dc + 1], lo, bb[2], bb[3]);
+        }
+      }
+    } else {
+      const float* kb = reinterpret_cast<const float*>(kc) + 2 * t * CLD + kp * WO + g;
+#pragma unroll
+      for (int h = 0; h < TK / 32; ++h) {
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 a = *reinterpret_cast<const float2*>(pr + 32 * h + 8 * i);
+          const float2 b = *reinterpret_cast<const float2*>(pr + 8 * LX + 32 * h + 8 * i);
+          const float c[4] = {a.x, a.y, b.x, b.y};
+          split_acc_as_a(c, ah[i], al[i]);
+        }
+        grad_step<NO, 4>(acc, ah, al, kb + 32 * h * CLD, CLD);
+      }
+    }
+  }
+  store_acc<NO>(dq + base, acc, q0 + rg * 16 + g, c0 + kp * WO, t, n, d, scale, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -3553,9 +3590,8 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
 }
 
 // head dims above 1024: grid = bh * ceil(n / rows) * ceil(d / cols) blocks
-// of `threads` (dQ's CUDA-core body: 32-row tiles of 128 columns, NT
-// threads; the forward's and dK/dV's tensor-core bodies: 64-row tiles of
-// 128 WT_G columns)
+// of `threads` (the three tensor-core bodies: 64-row tiles of 128 WT_G
+// columns)
 template <typename K, typename... A>
 cudaError_t run_wide(K kern, size_t smem, int rows, int cols, int threads, int bh, int n, int d,
                      float scale, cudaStream_t stream, A... args) {
@@ -3567,11 +3603,6 @@ cudaError_t run_wide(K kern, size_t smem, int rows, int cols, int threads, int b
   kern<<<grid, threads, smem, stream>>>(args..., n, d, ntiles, parts, scale);
   return cudaGetLastError();
 }
-
-// dQ's chunk tiles [rows][WC + 4], column tile [TILE][WO + 4], score tile [WR][SP]
-constexpr size_t DQ_WIDE_CC_SMEM = 2 * f32_tile_bytes(WR, WC) + 2 * f32_tile_bytes(TILE, WC) +
-                                   f32_tile_bytes(TILE, WO) + f32_tile_bytes(WR, TILE);
-
 
 // the cluster bodies' shared memory: the forward's q slice, two K tiles and
 // one V tile, two score tiles (106,496 bytes bf16, 104,960 f32: two blocks
@@ -3671,9 +3702,9 @@ ATT_EXPORT int attention_dq(const void* q, const void* k, const void* v, const v
        ? run_cluster(dq_wide_kernel<T>, dq_wide_smem<T>(), NT_WKV, bh, n, d, scale,        \
                      (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,          \
                      (const T*)dout, l, delta, (T*)dq)                                     \
-       : run_wide(dq_wide_cc_kernel<T>, DQ_WIDE_CC_SMEM, WR, WO, NT, bh, n, d, scale,      \
-                  (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,             \
-                  (const T*)dout, l, delta, (T*)dq))
+       : run_wide(dq_wide_tc_kernel<T>, dq_wide_tc_smem<T>(), CL_ROWS, WT_G * WO,         \
+                  NT_TC * WT_G, bh, n, d, scale, (cudaStream_t)stream, (const T*)q,        \
+                  (const T*)k, (const T*)v, (const T*)dout, l, delta, (T*)dq))
   ATT_DISPATCH(d, bf, CALL, WIDE)
 #undef WIDE
 #undef CALL

@@ -168,16 +168,15 @@ def test_flash_attention_head_dims_96_and_24_match_jax(d, dtype):
 def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
     """The wrappers' shape check takes every head dim d % 8 == 0, with no
     upper limit (264, 320, 512 and 1024 go to the wide bodies, the forward,
-    dQ and dK/dV as clusters; 1032 and 2056 to the forward's and dK/dV's
-    tensor-core bodies and dQ's CUDA-core body), and a batch*heads count
+    dQ and dK/dV as clusters; 1032 and 2056 to the three tensor-core bodies
+    that loop over all of d), and a batch*heads count
     above 65535; it raises on a head dim that is not a multiple of 8, on a
     grid past 2^31 - 1 blocks (from 136 to 256 the bf16 bodies' two blocks
     per 64-row tile, the f32 forward taking one block per 96-row tile, dQ
     per 80-row tile and dK/dV per 64-row tile; above, the wide bodies'
     column groups: the clusters' 64-row tiles up to head dim 1024; above
-    it the most blocks of the three kernels: the forward's and dK/dV's
-    64-row tiles of 256 columns, dQ's 32-row tiles of 128, so dQ's), and on
-    a non-contiguous panel."""
+    it one block per 64-row tile and 256 columns, the three kernels
+    alike), and on a non-contiguous panel."""
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
     for d in (8, 24, 40, 96, 120, 128, 136, 160, 192, 256, 264, 320, 512, 1024, 1032, 2056):
         for dt in (torch.bfloat16, torch.float32):
@@ -189,23 +188,22 @@ def test_kernel_check_takes_any_head_dim_and_any_batch_heads():
             elif 256 < d <= ta.CLUSTER_MAX_D:
                 assert -(-n // 64) * -(-d // 128) == ta._blocks_per_panel(n, d)
             elif d > ta.CLUSTER_MAX_D:
-                fwd_dkv, dq = -(-n // 64) * -(-d // 256), -(-n // 32) * -(-d // 128)
-                assert max(fwd_dkv, dq) == dq == ta._blocks_per_panel(n, d)
+                assert -(-n // 64) * -(-d // 256) == ta._blocks_per_panel(n, d)
     q = meta(70_000, 16, 16)
     rows = (meta(70_000, 16, 1, dt=torch.float32),) * 2
     assert ta._check(q, (q, q, q), rows) == (70_000, 16, 16, True)
     # 2^31 / (2048 / 64 row tiles x 8 ranks) batch*heads fill the clusters'
-    # grid, 2^31 / (2048 / 32 row tiles x 9 column groups) dQ's above 1024
-    # (the forward's and dK/dV's, 2048 / 64 x 5, hold 160 blocks a panel)
+    # grid, 2^31 / (2048 / 64 row tiles x 5 blocks of 256 columns) the grid
+    # above 1024
     assert ta._blocks_per_panel(2048, 1024) == 256
     ta._check(meta(2**23 - 1, 2048, 1024))
     with pytest.raises(ValueError, match="grid"):
         ta._check(meta(2**23, 2048, 1024))
-    assert ta._blocks_per_panel(2048, 1032) == 576
+    assert ta._blocks_per_panel(2048, 1032) == 160
     assert -(-2048 // ta.WIDE_TC_TILE[0]) * -(-1032 // ta.WIDE_TC_TILE[1]) == 160
-    ta._check(meta(2**31 // 576, 2048, 1032))
+    ta._check(meta(2**31 // 160, 2048, 1032))
     with pytest.raises(ValueError, match="grid"):
-        ta._check(meta(2**31 // 576 + 1, 2048, 1032))
+        ta._check(meta(2**31 // 160 + 1, 2048, 1032))
     with pytest.raises(ValueError, match="head dim"):
         ta._check(meta(2, 64, 20))
     with pytest.raises(ValueError, match="contiguous"):
@@ -746,7 +744,8 @@ def test_cluster_dq_meets_the_card_bounds(d, mode, amp):
 
 WIDE_TC_SLICE = {"split_tf32": 64, "bf16": 128}  # columns of d a staged slice (WT_S)
 WIDE_TC_TK = 64  # keys of a forward K/V tile (WT_TK)
-WIDE_TC_PV = 32  # keys of an f32 p.v sum begun at 0
+WIDE_TC_PV = 32  # keys of an f32 p.v (and ds.k) sum begun at 0
+WIDE_TC_DQ_TK = 64  # keys of a dQ K/V tile (WDQ_TC_TK)
 
 
 def _slice_dot(a, b, mode, passes, per_step):
@@ -816,6 +815,28 @@ def _wide_tc_dkv(q, k, v, do, l, delta, scale, mode, passes=3, control=False):
     return dk * scale, dv
 
 
+def _wide_tc_dq(q, k, v, do, l, delta, scale, mode, passes=3, control=False):
+    """attention_dq as dq_wide_tc_kernel takes it: s and dp over all of d
+    slice by slice (``_slice_dot``), ds = p (dp - delta) with p = exp(s - l),
+    then dq += ds.k over the K/V tiles (bf16: a tile of WIDE_TC_DQ_TK keys,
+    ds split into hi + lo; f32: the sums of each 32 keys begun afresh),
+    times scale at the store."""
+    n = q.shape[1]
+    kt = k.transpose(-1, -2)
+    if mode == "bf16":
+        s = _slice_dot(q, kt, mode, passes, True) * scale
+    else:
+        s = _slice_dot(q * scale, kt, mode, passes, True)
+    dp = _slice_dot(do, v.transpose(-1, -2), mode, passes, False)
+    ds = torch.exp(s - l) * (dp - delta)
+    dq = torch.zeros_like(q)
+    step = WIDE_TC_DQ_TK if mode == "bf16" else WIDE_TC_PV
+    for j in range(0, n, step):
+        cols = slice(j, j + step)
+        dq = dq + _grad_dot(ds[..., cols], k[:, cols], mode, passes, control)
+    return dq * scale
+
+
 @pytest.mark.parametrize("amp", [1.0, 3.0])
 @pytest.mark.parametrize("mode", ["split_tf32", "bf16"])
 @pytest.mark.parametrize("d", [1032, 2056])
@@ -877,6 +898,42 @@ def test_wide_tc_dkv_meets_the_card_bounds(d, mode, amp):
         assert min(ctls) > cs.ATT_TOL_F32, ctls
 
 
+@pytest.mark.parametrize("amp", [1.0, 3.0])
+@pytest.mark.parametrize("mode", ["split_tf32", "bf16"])
+@pytest.mark.parametrize("d", [1032, 2056])
+def test_wide_tc_dq_meets_the_card_bounds(d, mode, amp):
+    """The dQ body above head dim 1024 (``_wide_tc_dq``: s and dp summed
+    slice by slice over all of d, ds from the sums, ds.k over the body's key
+    tiles, whose size is the source's) at (2, 160, d), q and k times
+    ``amp``, from JAX's own o and l, lies within chip_smoke.py's bounds of
+    JAX's ``_dq_kernel`` (interpret mode) and of the exact result
+    (``_wide_check``); the control (one TF32 pass a product; ds rounded to
+    bf16) does not."""
+    from sciml_pde_torch.ops import _build
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    assert f"constexpr int WDQ_TC_TK = {WIDE_TC_DQ_TK};" in src
+    cs = chip_smoke()
+    jdt = jnp.bfloat16 if mode == "bf16" else jnp.float32
+    q, k, v, do = _wide_inputs(d, mode, amp, 4)
+    scale = d**-0.5
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o_j, l_j = ja._attention_fwd_flat(jq, jk, jv, scale)
+    dq_want, _, _ = ja._attention_bwd_flat(jq, jk, jv, o_j, l_j, jdo, scale)
+    tq, tk, tv, tdo = (torch.tensor(a) for a in (q, k, v, do))
+    l = torch.tensor(np.asarray(l_j))
+    delta = torch.sum(tdo * torch.tensor(np.asarray(o_j.astype(jnp.float32))), -1, keepdim=True)
+    dq = _wide_tc_dq(tq, tk, tv, tdo, l, delta, scale, mode)
+    (dq_exact,) = cs.att_f64("attention_dq", tq, tk, tv, tdo, l, delta, scale=scale)
+    mean = _wide_check(dq, dq_want, dq_exact, mode, "dq")
+    ctl_dq = _wide_tc_dq(tq, tk, tv, tdo, l, delta, scale, mode, passes=1, control=True)
+    ctl = _wide_control(ctl_dq, dq_want, mode)
+    if mode == "bf16":
+        assert mean < ctl / 2, (mean, ctl)
+    else:
+        assert ctl > cs.ATT_TOL_F32, ctl
+
+
 def test_wide_ablation_cuts_what_it_names():
     """experiments/wide_attention_ablation.py times copies of attention.cu
     with the three cluster bodies' exchanges, then also their barriers,
@@ -925,22 +982,29 @@ def test_tf32w_control_lowers_the_cluster_floor():
 
 
 def test_wide_tc_control_builds_each_layout():
-    """experiments/wide_tc_attention_control.py times the forward and dK/dV
-    above head dim 1024 with two groups of 128 output columns a block and
-    with one: the shipped source sets WT_G once, the copy sets the other
-    value and renames every kernel, every copy keeps every kernel of the
-    source, and the profiler keys each copy's forward and dK/dV under
-    (and the cluster bodies the cliff reads at 1024) name kernels of it."""
+    """experiments/wide_tc_attention_control.py times the forward, dQ and
+    dK/dV above head dim 1024 with two groups of 128 output columns a block
+    and with one, and dQ with K/V tiles of 64 keys and of 32: the shipped
+    source sets WT_G and WDQ_TC_TK once, each copy changes one of them and
+    renames every kernel, every copy keeps every kernel of the source, and
+    the profiler keys each copy's forward, dQ and dK/dV under (and the
+    cluster bodies the cliff reads at 1024) name kernels of it."""
     from sciml_pde_torch.experiments import wide_tc_attention_control as wc
     from sciml_pde_torch.ops import _build
 
     src = (_build.CSRC / "attention.cu").read_text()
-    assert len(wc.GROUPS.findall(src)) == 1
+    assert len(wc.GROUPS.findall(src)) == 1 and len(wc.DQ_TILE.findall(src)) == 1
     vs = wc.variants(src)
-    assert list(vs) == list(wc.designs(src)) and list(vs.values())[0] == src
-    assert sorted(wc.designs(src).values()) == [1, 2]
+    designs = wc.designs(src)
+    assert list(vs) == list(designs) and list(vs.values())[0] == src
+    assert sorted({g for g, _ in designs.values()}) == [1, 2]
+    assert sorted({tk for _, tk in designs.values()}) == [32, 64]
+    shipped = list(designs.values())[0]
+    assert all(sum(a != b for a, b in zip(dv, shipped)) == 1 for dv in list(designs.values())[1:])
     for i, (name, text) in enumerate(vs.items()):
-        assert wc.GROUPS.findall(text) == [str(wc.designs(src)[name])], name
+        groups, tk = designs[name]
+        assert wc.GROUPS.findall(text) == [str(groups)], name
+        assert wc.DQ_TILE.findall(text) == [str(tk)], name
         assert text.count("__global__") == src.count("__global__"), name
         if i:
             assert "fwd_wide_tc_kernel" not in text and "dkv_wide_kernel" not in text, name
@@ -953,6 +1017,10 @@ def test_wide_tc_control_builds_each_layout():
         6 * 2 * 2 * 256**2 * 1032 / 495e12 * 1e3)
     assert wc.bound_ms("attention_dkv", 2, 256, 1032, torch.bfloat16) == pytest.approx(
         (6 * 2 * 256 * 1032 * 2 + 2 * 2 * 256 * 4) / 3.35e12 * 1e3)
+    assert wc.bound_ms("attention_dq", 2, 256, 1032, torch.float32) == pytest.approx(
+        9 * 2 * 2 * 256**2 * 1032 / 495e12 * 1e3)
+    assert wc.bound_ms("attention_dq", 2, 256, 1032, torch.bfloat16) == pytest.approx(
+        (5 * 2 * 256 * 1032 * 2 + 2 * 2 * 256 * 4) / 3.35e12 * 1e3)
 
 
 def test_checkout_comparison_keys_each_trees_body():
@@ -960,8 +1028,9 @@ def test_checkout_comparison_keys_each_trees_body():
     dim 256 under its own name: the split-TF32 bodies of two warpgroups in
     this tree, the CUDA-core bodies in a tree from before them, renamed as
     the experiment renames the other tree; and above head dim 1024 the
-    tensor-core forward and dK/dV of this tree, the CUDA-core ones before
-    them."""
+    three tensor-core bodies of this tree, dQ's CUDA-core body in a tree
+    that has only the forward's and dK/dV's on the tensor cores, and the
+    three CUDA-core bodies before those."""
     from sciml_pde_torch.experiments import checkout_comparison as cc
     from sciml_pde_torch.ops import _build
 
@@ -974,13 +1043,17 @@ def test_checkout_comparison_keys_each_trees_body():
     older = "fwd_pkernel(...) dq_pkernel(...) dkv_pkernel(...) fwd_tf32_pkernel(...)"
     assert [cc._key_256(older, s, "_pkernel") for s in ("fwd", "dq", "dkv")] == [
         "fwd_pkernel<", "dq_pkernel<", "dkv_pkernel<"]
-    # above head dim 1024: the tensor-core forward and dK/dV and dQ's
-    # CUDA-core body in this tree; the three CUDA-core bodies in a tree from
-    # before them
-    wide = ["fwd_wide_tc_kernel<", "dq_wide_cc_kernel<", "dkv_wide_tc_kernel<"]
+    # above head dim 1024: the three tensor-core bodies in this tree; dQ's
+    # CUDA-core body beside the other two's tensor-core bodies in a tree
+    # from before dQ's; the three CUDA-core bodies before those
+    wide = ["fwd_wide_tc_kernel<", "dq_wide_tc_kernel<", "dkv_wide_tc_kernel<"]
     assert [cc._key_wide(src, s, "_kernel") for s in ("fwd", "dq", "dkv")] == wide
     for key in wide:
         assert key[:-1] + "(" in src.replace("<DP>", ""), key
+    assert "_wide_cc_kernel" not in src
+    older = "fwd_wide_tc_pkernel(...) dq_wide_cc_pkernel(...) dkv_wide_tc_pkernel(...)"
+    assert [cc._key_wide(older, s, "_pkernel") for s in ("fwd", "dq", "dkv")] == [
+        "fwd_wide_tc_pkernel<", "dq_wide_cc_pkernel<", "dkv_wide_tc_pkernel<"]
     older = "fwd_wide_cc_pkernel(...) dq_wide_cc_pkernel(...) dkv_wide_cc_pkernel(...)"
     assert [cc._key_wide(older, s, "_pkernel") for s in ("fwd", "dq", "dkv")] == [
         "fwd_wide_cc_pkernel<", "dq_wide_cc_pkernel<", "dkv_wide_cc_pkernel<"]
@@ -988,22 +1061,21 @@ def test_checkout_comparison_keys_each_trees_body():
 
 def test_f32_dq_above_128_runs_on_the_tensor_cores():
     """chip_smoke.py holds the f32 dQ from head dim 136 to 256 to 1e-5 of the
-    exact result with no escape (``att_cuda_cores`` false), bounds it by its
-    9 TF32 passes and times it under the split-TF32 body's name
-    (``att_kernel_key``: dq_tf32w_kernel, a body of attention.cu); only dQ
-    above CLUSTER_MAX_D keeps the CUDA cores' escape, in bf16 too (its
-    inputs widened to f32): the forward and dK/dV there run on the tensor
-    cores (``att_kernel_key``: fwd_wide_tc_kernel and dkv_wide_tc_kernel,
-    bodies of attention.cu) and are held to 1e-5 with no escape; all three
-    are bounded as the function needs whatever body computes it: bf16
-    products at the bf16 tensor-core rate, f32 ones as 6, 9 and 12 TF32
+    exact result, bounds it by its 9 TF32 passes and times it under the
+    split-TF32 body's name (``att_kernel_key``: dq_tf32w_kernel, a body of
+    attention.cu); no body keeps an escape from that bound (the CUDA cores'
+    ``att_cuda_cores`` is gone): above CLUSTER_MAX_D the forward, dQ and
+    dK/dV run on the tensor cores (``att_kernel_key``: fwd_wide_tc_kernel,
+    dq_wide_tc_kernel and dkv_wide_tc_kernel, bodies of attention.cu); all
+    three are bounded as the function needs whatever body computes it:
+    bf16 products at the bf16 tensor-core rate, f32 ones as 6, 9 and 12 TF32
     passes (or by bytes, where larger)."""
     from sciml_pde_torch.ops import _build
 
     cs = chip_smoke()
+    assert not hasattr(cs, "att_cuda_cores") and not hasattr(cs, "att_work_f32_cores")
     src = (_build.CSRC / "attention.cu").read_text().replace("<DP>", "")
     for d in (136, 160, 192, 256):
-        assert not cs.att_cuda_cores("attention_dq", d, False), d
         key = cs.att_kernel_key("attention_dq", d, False)
         assert key == "dq_tf32w_kernel<" and key[:-1] + "(" in src, (d, key)
         assert cs.att_work("attention_dq", 8, 1280, d, False)[1] == pytest.approx(
@@ -1011,16 +1083,12 @@ def test_f32_dq_above_128_runs_on_the_tensor_cores():
     assert cs.att_work("attention_dq", 8, 1280, 256, False)[1] * 1e3 == pytest.approx(
         0.12202, abs=1e-5)
     for name in ta.KERNEL_NAMES:
-        above = name == "attention_dq"
-        assert cs.att_cuda_cores(name, ta.CLUSTER_MAX_D + 8, False) == above
-        assert cs.att_cuda_cores(name, ta.CLUSTER_MAX_D + 8, True) == above
-        assert cs.att_cuda_cores(name, 2056, False) == above
-        assert not cs.att_cuda_cores(name, ta.CLUSTER_MAX_D, False)
         short = name.replace("attention_", "")
         for bf in (False, True):
-            key = cs.att_kernel_key(name, ta.CLUSTER_MAX_D + 8, bf)
-            assert key == (f"{short}_wide_cc_kernel<" if above else f"{short}_wide_tc_kernel<")
-            assert key[:-1] + "(" in src, key
+            for d in (ta.CLUSTER_MAX_D + 8, 2056):
+                key = cs.att_kernel_key(name, d, bf)
+                assert key == f"{short}_wide_tc_kernel<"
+                assert key[:-1] + "(" in src, key
             assert cs.att_kernel_key(name, ta.CLUSTER_MAX_D, bf) == f"{short}_wide_kernel<"
         prod = 2 * 2 * 256**2 * 1032
         bf16_s = {"attention_fwd": 3, "attention_dq": 4, "attention_dkv": 6}[name] * prod
