@@ -14,7 +14,9 @@ the NS production step, Lie augmentation, remat, NS aux joint training
 VideoMAE transformer baseline at full width (img 256, patch 16, tubelet 2,
 3 channels, 10 frames -> 1280 tokens; encoder 768 x 12 with 12 heads,
 decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16,
-and in f32 under bf16=False),
+and in f32 under bf16=False) and its aux joint training (2 + 6 windows a
+micro-step) with SWA, early-window sampling, remat, masked-SSL pretraining
+and the 3D VideoMAE,
 the production FNO-2D step at the DR flagship width (the plain model
 through the dft2 spectral conv, adaptive clip, torch-style Adam) with the
 fused dft2 layer op and the native-kernel probe, and the ported perf probe
@@ -234,6 +236,34 @@ FNO steps and the five split kernels):
               on the card against the CPU (1e-5), a step's time, 2 epochs of
               the baseline and of FNO3dAux (nA 3), each checkpoint evaluated
               at rollout 1
+ 17. aux-vmae the NS VideoMAE aux joint training (ROADMAP A5; the JAX
+              package's experiments/ns_transformer.py: 3 aux windows a
+              window, weight 0.7): a. the three attention kernels at the
+              trunk's shapes (96, 1280, 64) and (64, 1280, 64) in bf16 and
+              f32 (phase 6's checks, each time beside its bound and the SDPA
+              call; their rows in the kernel table); b. one micro-step of
+              VideoMAEOperatorAux at full width (2 + 6 windows, separate
+              heads and shared_head) through the kernels against the plain
+              versions (phase 7's bounds and control); c. one f32 aux
+              micro-step (encoder 2, decoder 1 blocks at full width, 1 + 3
+              windows) on the card against the CPU (phase 4b's rule); d. 2
+              epochs of train_transformer_aux (bf16, drop-path 0.1, the aux
+              store at 128^2 in bf16, upsampled at the gather): finite and
+              falling losses, the best-primary-val checkpoint, each kernel's
+              launches by shape (counted from 0), and 2 optimizer steps with
+              bf16=False; e. the aux micro-step's time (CUDA events) and
+              device-busy share (torch.profiler); f. a run with swa_frac 0.5
+              and early_window_boost 4: swa_params finite and apart from the
+              params; g. use_checkpoint against none on one bf16 micro-step:
+              the same bits, lower peak memory, the forward launched again
+              in the recompute; h. run_ssl_pretraining at full width
+              (decoder through the kernels, the encoder's 320 tokens not),
+              then pretrained_path into the aux trainer: the loaded count
+              equals the shared leaves; i. the 3D VideoMAE through the FNO
+              trainer's model_family="transformer3d" at (50, 50, 89), 4
+              channels, encoder 2 and decoder 1 blocks: one baseline and
+              one aux (nA 3) step on the card against the CPU, 2 epochs of
+              each, no attention kernel launched at its 500 tokens
 
 The probe's row carries phase 0's profiler device time beside torch.mul's.
 It prints the kernel table as one JSON line, the card line, and last
@@ -557,6 +587,20 @@ NS3D_SP, NS3D_C, NS3D_MODES, NS3D_NA, NS3D_TRAJ, NS3D_T = (50, 50, 89), 4, 8, 3,
 # sample, chunked; remat against no remat (`highest`): the same products
 # recomputed
 TOL_CHUNKS, TOL_REMAT = 1e-5, 1e-6
+# phase 17: NS VideoMAE aux joint training (ROADMAP A5) at the JAX package's
+# experiments/ns_transformer.py recipe: 3 aux windows a primary window, aux
+# weight 0.7, separate per-pixel heads, --aux-grid 128 (the aux store at 128^2
+# in bf16, upsampled at the gather).  The trunk's batch is 2 + 6 = 8, so the
+# attention kernels run at (96, 1280, 64) in the encoder and (64, 1280, 64) in
+# the decoder.  17c runs the card against the CPU at encoder 2 and decoder 1
+# blocks (full width, 1280 tokens); 17i the 3D VideoMAE at the plume shape at
+# the same depth.
+AUXT_NA, AUXT_W, AUXT_XY, AUXT_EPOCHS = 3, 0.7, 128, 2
+AUXT_ATT_SHAPES = {"aux encoder": (NS_BATCH * (1 + AUXT_NA) * 12, 1280, 64),
+                   "aux decoder": (NS_BATCH * (1 + AUXT_NA) * 8, 1280, 64)}
+AUXT_ROWS = tuple(f"{name} ({where})" for where in AUXT_ATT_SHAPES
+                  for name in ("attention_fwd", "attention_dq", "attention_dkv"))
+SHALLOW = dict(encoder_depth=2, decoder_depth=1)
 
 failures: list[str] = []
 
@@ -1816,14 +1860,16 @@ def att_f64(name: str, q, k, v, do=None, l=None, delta=None, scale: float = 1.0)
 
 def att_kernel_key(name: str, d: int, bf: bool) -> str:
     """The profiler key of the CUDA kernel that attention kernel ``name``
-    launches from head dim 160 up: from 160 to 256 the bf16 tensor-core
-    bodies (*_tc_kernel), in f32 the split-TF32 forward, dQ and dK/dV of two
-    warpgroups (*_tf32w_kernel); above 256 the cluster bodies
-    (*_wide_kernel) up to CLUSTER_MAX_D; above it the tensor-core bodies
-    that loop over all of d (*_wide_tc_kernel)."""
+    launches: up to head dim 128 those of ATT_KERNEL_KEYS; from 160 to 256
+    the bf16 tensor-core bodies (*_tc_kernel), in f32 the split-TF32
+    forward, dQ and dK/dV of two warpgroups (*_tf32w_kernel); above 256 the
+    cluster bodies (*_wide_kernel) up to CLUSTER_MAX_D; above it the
+    tensor-core bodies that loop over all of d (*_wide_tc_kernel)."""
     from sciml_pde_torch.ops.attention import CLUSTER_MAX_D
 
     short = name.replace("attention_", "")
+    if d <= 128:
+        return ATT_KERNEL_KEYS["bf16" if bf else "f32"][name]
     if d <= 256:
         return f"{short}_tc_kernel<" if bf else f"{short}_tf32w_kernel<"
     if d <= CLUSTER_MAX_D:
@@ -1881,16 +1927,106 @@ def sdpa_calls(q, k, v, do, scale: float) -> dict:
             "attention_dq": bwd, "attention_dkv": bwd}
 
 
+def att_case(ta, dev, card: str, where: str, shape: tuple, dt, amp: float, g,
+             timed: bool) -> dict:
+    """Phase 6's checks of the three kernels at one shape (bh, n, d) and
+    dtype on seeded inputs (q and k times ``amp``): each against its plain
+    version and a second launch of itself; f32 outputs against the exact
+    result (att_f64) within ATT_TOL_F32, bf16 outputs within one bf16 step
+    of the plain version with the bf16-p control.  ``timed``: each kernel's
+    time in events and profiler device time beside its bound, its plain
+    version and the SDPA call on the same inputs, and dQ + dK/dV beside the
+    SDPA backward.  Returns {name: (args, scale, timings or None)}."""
+    import torch
+
+    bh, n, d = shape
+    bf = dt == torch.bfloat16
+    q, k, v, do = (torch.randn(bh, n, d, generator=g).to(dev, dt) for _ in range(4))
+    q, k = q * amp, k * amp
+    scale = d**-0.5
+    o_p, l_p = ta.attention_fwd_plain(q, k, v, scale)
+    delta = torch.sum(do.float() * o_p.float(), dim=-1, keepdim=True)
+    args = {"attention_fwd": (q, k, v),
+            "attention_dq": (q, k, v, do, l_p, delta),
+            "attention_dkv": (q, k, v, do, l_p, delta)}
+    out, dev_times = {}, {}
+    for name in ta.KERNEL_NAMES:
+        got = as_tuple(getattr(ta, name)(*args[name], scale))
+        again = as_tuple(getattr(ta, name)(*args[name], scale))
+        want = as_tuple(getattr(ta, f"{name}_plain")(*args[name], scale))
+        exact = att_f64(name, *args[name], scale=scale)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(a, b) for a, b in zip(got, again))
+        msgs = [f"same bits twice {ok}"]
+        for i, (a, b, x) in enumerate(zip(got, want, exact)):
+            err, rel = rel_err(a, b)
+            ok &= bool(torch.isfinite(a).all()) and a.dtype == b.dtype
+            if a.dtype == torch.float32:
+                rel_x, plain_x = rel_err(a, x)[1], rel_err(b, x)[1]
+                ok &= rel_x <= ATT_TOL_F32
+                msgs.append(f"out{i} rel-to-max {rel_x:.3e} from the exact result (tol "
+                            f"{ATT_TOL_F32:.0e}; the f32 plain version {plain_x:.3e} "
+                            f"from it; the plain version {rel:.3e} from the kernel)")
+            else:
+                a32, b32 = a.float(), b.float()
+                lim = (BF16_STEP * torch.maximum(a32.abs(), b32.abs())
+                       + ATT_TOL_F32 * b32.abs().max())
+                worst = ((a32 - b32).abs() / lim).max().item()
+                ok &= worst <= 1.0
+                msgs.append(f"out{i} rel-to-max {rel:.3e}, worst error over one bf16 "
+                            f"step {worst:.3f} (tol 1)")
+        if bf:
+            # control: rounding p and ds to bf16 moves the outputs further
+            # (mean abs error) than the kernel lies from its plain version
+            ctl = att_bf16p(name, *args[name], scale=scale)
+            outs = [(a, b, c) for a, b, c in zip(got, want, ctl) if a.dtype == dt]
+            k_mean = max((a.float() - b.float()).abs().mean().item() for a, b, _ in outs)
+            c_mean = min((c.float() - b.float()).abs().mean().item() for _, b, c in outs)
+            ok &= k_mean < c_mean / 2
+            msgs.append(f"mean abs err {k_mean:.3e} vs bf16-p control {c_mean:.3e}")
+        check(ok, f"[attention] {name} {where} {tuple(q.shape)} {str(dt)[6:]}: "
+              + "; ".join(msgs))
+        row = None
+        if timed:
+            kfn, pfn = getattr(ta, name), getattr(ta, f"{name}_plain")
+            key = att_kernel_key(name, d, bf)
+            nbytes, ops_s = att_work(name, *q.shape, bf)
+            bound_ms = max(nbytes / HBM_BPS, ops_s) * 1e3
+            dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key, bound_ms=bound_ms)
+            lib = sdpa_calls(q, k, v, do, scale)[name]
+            lib_dev = profiler_ms(lib)
+            dev_times[name], dev_times["library " + name] = dev_ms, lib_dev
+            row = {"max_abs_err": max(rel_err(a, b)[0] for a, b in zip(got, want)),
+                   "ms": cuda_ms(lambda: kfn(*args[name], scale)),
+                   "plain_ms": cuda_ms(lambda: pfn(*args[name], scale)), "bound_ms": bound_ms,
+                   "bound_by": "operations" if ops_s >= nbytes / HBM_BPS else "bytes",
+                   "library_ms": cuda_ms(lib), "device_ms": dev_ms, "library_device_ms": lib_dev}
+            print(f"[timing] {card}: {name} {where} {tuple(q.shape)} {str(dt)[6:]} "
+                  f"({key[:-1]}): {row['ms']:.4f} ms/launch, profiler device time "
+                  f"{fmt(dev_ms)}, bound {bound_ms:.5f} ms ({row['bound_by']}); plain "
+                  f"{row['plain_ms']:.4f} ms; library {row['library_ms']:.4f} ms, profiler "
+                  f"device time {fmt(lib_dev)} (scaled_dot_product_attention "
+                  f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV'})",
+                  flush=True)
+        out[name] = (args[name], scale, row)
+    if timed:
+        dq_ms, dkv_ms = dev_times["attention_dq"], dev_times["attention_dkv"]
+        lib_ms = dev_times["library attention_dq"]
+        both = None if dq_ms is None or dkv_ms is None else dq_ms + dkv_ms
+        ratio = "not measured" if both is None or lib_ms is None else f"{both / lib_ms:.2f}x"
+        print(f"[timing] {card}: dQ + dK/dV {where} {tuple(q.shape)} {str(dt)[6:]}: "
+              f"profiler device time {fmt(both)} against the SDPA backward's "
+              f"{fmt(lib_ms)} ({ratio})", flush=True)
+    return out
+
+
 def check_attention(ta, dev, card: str) -> dict:
     """Phase 6: each kernel against its plain version (and a second launch
     of itself, which must give the same bits) at the encoder and decoder
     shapes and at the head dims of ATT_EXTRA in f32 and bf16 (from 160 up
     with its profiler device time beside its bound and the SDPA call's, and
     dQ + dK/dV beside the SDPA backward), at batch*heads 70000 in bf16, and
-    with q and k times 3 (scores up to about 54) in f32.  f32 outputs are
-    held against the exact result (att_f64), within ATT_TOL_F32 (the f32
-    plain version's own distance from it printed beside); bf16 outputs
-    against the plain version.
+    with q and k times 3 (scores up to about 54) in f32 (att_case).
     Returns the bf16 encoder-shape inputs of each kernel (the main path's
     most frequent launch) for timing."""
     import torch
@@ -1900,113 +2036,46 @@ def check_attention(ta, dev, card: str) -> dict:
     cases = [(where, shape, ("float32", "bfloat16"), 1.0) for where, shape in ATT_SHAPES.items()]
     cases += [(where, spec[0], spec[1], spec[2] if len(spec) > 2 else 1.0)
               for where, spec in ATT_EXTRA.items()]
-    for where, (bh, n, d), dts, amp in cases:
+    for where, shape, dts, amp in cases:
         for dt in (getattr(torch, name) for name in dts):
-            bf = dt == torch.bfloat16
-            q, k, v, do = (torch.randn(bh, n, d, generator=g).to(dev, dt) for _ in range(4))
-            q, k = q * amp, k * amp
-            scale = d**-0.5
-            o_p, l_p = ta.attention_fwd_plain(q, k, v, scale)
-            delta = torch.sum(do.float() * o_p.float(), dim=-1, keepdim=True)
-            args = {"attention_fwd": (q, k, v),
-                    "attention_dq": (q, k, v, do, l_p, delta),
-                    "attention_dkv": (q, k, v, do, l_p, delta)}
-            timed = d >= 160 and amp == 1.0  # on no configuration's path
-            dev_times = {}
-            for name in ta.KERNEL_NAMES:
-                got = as_tuple(getattr(ta, name)(*args[name], scale))
-                again = as_tuple(getattr(ta, name)(*args[name], scale))
-                want = as_tuple(getattr(ta, f"{name}_plain")(*args[name], scale))
-                exact = att_f64(name, *args[name], scale=scale)
-                torch.cuda.synchronize()
-                ok = all(torch.equal(a, b) for a, b in zip(got, again))
-                msgs = [f"same bits twice {ok}"]
-                for i, (a, b, x) in enumerate(zip(got, want, exact)):
-                    err, rel = rel_err(a, b)
-                    ok &= bool(torch.isfinite(a).all()) and a.dtype == b.dtype
-                    if a.dtype == torch.float32:
-                        rel_x, plain_x = rel_err(a, x)[1], rel_err(b, x)[1]
-                        ok &= rel_x <= ATT_TOL_F32
-                        msgs.append(f"out{i} rel-to-max {rel_x:.3e} from the exact result (tol "
-                                    f"{ATT_TOL_F32:.0e}; the f32 plain version {plain_x:.3e} "
-                                    f"from it; the plain version {rel:.3e} from the kernel)")
-                    else:
-                        a32, b32 = a.float(), b.float()
-                        lim = (BF16_STEP * torch.maximum(a32.abs(), b32.abs())
-                               + ATT_TOL_F32 * b32.abs().max())
-                        worst = ((a32 - b32).abs() / lim).max().item()
-                        ok &= worst <= 1.0
-                        msgs.append(f"out{i} rel-to-max {rel:.3e}, worst error over one bf16 "
-                                    f"step {worst:.3f} (tol 1)")
-                if bf:
-                    # control: rounding p and ds to bf16 moves the outputs
-                    # further (mean abs error) than the kernel lies from its
-                    # plain version
-                    ctl = att_bf16p(name, *args[name], scale=scale)
-                    outs = [(a, b, c) for a, b, c in zip(got, want, ctl) if a.dtype == dt]
-                    k_mean = max((a.float() - b.float()).abs().mean().item() for a, b, _ in outs)
-                    c_mean = min((c.float() - b.float()).abs().mean().item() for _, b, c in outs)
-                    ok &= k_mean < c_mean / 2
-                    msgs.append(f"mean abs err {k_mean:.3e} vs bf16-p control {c_mean:.3e}")
-                    if where == "encoder":
-                        main_inputs[name] = (args[name], scale)
-                check(ok, f"[attention] {name} {where} {tuple(q.shape)} {str(dt)[6:]}: "
-                      + "; ".join(msgs))
-                if timed:
-                    kfn, pfn = getattr(ta, name), getattr(ta, f"{name}_plain")
-                    key = att_kernel_key(name, d, bf)
-                    nbytes, ops_s = att_work(name, *q.shape, bf)
-                    bound_ms = max(nbytes / HBM_BPS, ops_s) * 1e3
-                    dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key,
-                                         bound_ms=bound_ms)
-                    plain_ms = cuda_ms(lambda: pfn(*args[name], scale))
-                    lib = sdpa_calls(q, k, v, do, scale)[name]
-                    lib_dev = profiler_ms(lib)
-                    dev_times[name], dev_times["library " + name] = dev_ms, lib_dev
-                    print(f"[timing] {card}: {name} {where} {tuple(q.shape)} {str(dt)[6:]} "
-                          f"({key[:-1]}): {cuda_ms(lambda: kfn(*args[name], scale)):.4f} "
-                          f"ms/launch, profiler device time {fmt(dev_ms)}, bound "
-                          f"{bound_ms:.5f} ms "
-                          f"({'operations' if ops_s >= nbytes / HBM_BPS else 'bytes'}); "
-                          f"plain {plain_ms:.4f} ms; library {cuda_ms(lib):.4f} ms, profiler "
-                          f"device time {fmt(lib_dev)} (scaled_dot_product_attention "
-                          f"{'forward' if name == 'attention_fwd' else 'backward, dQ and dK/dV'})",
-                          flush=True)
-            if timed:
-                dq_ms, dkv_ms = dev_times["attention_dq"], dev_times["attention_dkv"]
-                lib_ms = dev_times["library attention_dq"]
-                both = None if dq_ms is None or dkv_ms is None else dq_ms + dkv_ms
-                ratio = ("not measured" if both is None or lib_ms is None
-                         else f"{both / lib_ms:.2f}x")
-                print(f"[timing] {card}: dQ + dK/dV {where} {tuple(q.shape)} {str(dt)[6:]}: "
-                      f"profiler device time {fmt(both)} against the SDPA backward's "
-                      f"{fmt(lib_ms)} ({ratio})", flush=True)
-            del q, k, v, do, o_p, l_p, delta, args
+            timed = shape[2] >= 160 and amp == 1.0  # on no configuration's path
+            res = att_case(ta, dev, card, where, shape, dt, amp, g, timed)
+            if dt == torch.bfloat16 and where == "encoder":
+                main_inputs = {name: (args, scale) for name, (args, scale, _) in res.items()}
+            del res
     check_flash_wide(ta, dev)
     return main_inputs
 
 
-def check_model(dev, x, y) -> None:
+def check_model(dev, x, y, tag: str = "[model]", build=None, loss_of=None) -> None:
     """Phase 7: one micro-step of the full-width VideoMAEOperator (loss and
     every gradient) through the kernels against the same weights through
     the plain versions, in f32 and in bf16.  The plain bf16-vs-f32 gap is
-    the control: it must lie far above the f32 bound."""
+    the control: it must lie far above the f32 bound.  ``build(dtype,
+    attn_impl)`` and ``loss_of(model)`` give another model and its loss
+    (phase 17's aux model on both streams)."""
     import torch
     from sciml_pde_torch.models.transformer import VideoMAEOperator
     from sciml_pde_torch.train.transformer_train import transformer_nrmse
 
+    if build is None:
+        def build(dt, impl):
+            return VideoMAEOperator(**NS_MODEL, dtype=dt, attn_impl=impl,
+                                    generator=torch.Generator().manual_seed(2))
+
+        def loss_of(model):
+            return transformer_nrmse(model(x), y)
     sd = None
     outs = {}
     for dt in (torch.float32, torch.bfloat16):
         for impl in ("flash", "plain"):
-            model = VideoMAEOperator(**NS_MODEL, dtype=dt, attn_impl=impl,
-                                     generator=torch.Generator().manual_seed(2))
+            model = build(dt, impl)
             if sd is None:
                 sd = model.state_dict()
             model.load_state_dict(sd)
             model.to(dev)
             names = [n for n, _ in model.named_parameters()]
-            loss = transformer_nrmse(model(x), y)
+            loss = loss_of(model)
             grads = torch.autograd.grad(loss, list(model.parameters()))
             outs[str(dt)[6:], impl] = dict(zip(["loss"] + names, [loss.detach()] + list(grads)))
             del model, loss, grads
@@ -2024,18 +2093,18 @@ def check_model(dev, x, y) -> None:
     gap = errs(("bfloat16", "plain"), ("float32", "plain"))
     gap_k = errs(("bfloat16", "flash"), ("float32", "plain"))
     finite = all(bool(torch.isfinite(t).all()) for o in outs.values() for t in o.values())
-    print(f"[model] loss f32 kernels {outs['float32', 'flash']['loss'].item():.6g}, plain "
+    print(f"{tag} loss f32 kernels {outs['float32', 'flash']['loss'].item():.6g}, plain "
           f"{outs['float32', 'plain']['loss'].item():.6g}; bf16 kernels "
           f"{outs['bfloat16', 'flash']['loss'].item():.6g}, plain "
           f"{outs['bfloat16', 'plain']['loss'].item():.6g}; {len(e32)} outputs", flush=True)
     check(finite and max(e32.values()) <= TOL_MODEL["f32"]
           and max(gap.values()) > 10 * TOL_MODEL["f32"],
-          f"[model] f32 kernels vs plain, worst rel-to-max {worst(e32)} (tol "
+          f"{tag} f32 kernels vs plain, worst rel-to-max {worst(e32)} (tol "
           f"{TOL_MODEL['f32']:.0e}); control: plain bf16-vs-f32 gap {worst(gap)} above 10x the "
           f"tol")
     check(max(e16.values()) <= TOL_MODEL["bf16"]
           and max(gap_k.values()) <= 2 * max(gap.values()),
-          f"[model] bf16 kernels vs plain, worst rel-to-max {worst(e16)} (tol "
+          f"{tag} bf16 kernels vs plain, worst rel-to-max {worst(e16)} (tol "
           f"{TOL_MODEL['bf16']:.0e}); kernels vs f32 {worst(gap_k)}, at most twice the plain "
           f"version's {worst(gap)}")
 
@@ -2050,16 +2119,8 @@ def train_ns(ds, run_dir: Path, dev, bf16: bool, epochs: int, model_name: str):
 
     ta.reset_launch_counts()
     t0 = time.perf_counter()
-    res = train_transformer_baseline(
-        ds, img_size=NS_MODEL["img_size"], patch_size=NS_MODEL["patch_size"],
-        tubelet_size=NS_MODEL["tubelet_size"], in_chans=NS_MODEL["in_chans"],
-        encoder_embed_dim=NS_MODEL["encoder_dim"], encoder_depth=NS_MODEL["encoder_depth"],
-        encoder_num_heads=NS_MODEL["encoder_heads"], decoder_embed_dim=NS_MODEL["decoder_dim"],
-        decoder_depth=NS_MODEL["decoder_depth"], decoder_num_heads=NS_MODEL["decoder_heads"],
-        drop_path_rate=0.1, bf16=bf16, initial_step=NS_MODEL["num_frames"],
-        batch_size=NS_BATCH, grad_accum=NS_ACCUM, epochs=epochs, learning_rate_share=NS_LR,
-        learning_rate_heads=NS_LR, seed=0, run_dir=str(run_dir), model_name=model_name,
-        log_every=0, device=dev)
+    res = train_transformer_baseline(ds, run_dir=str(run_dir), model_name=model_name, device=dev,
+                                     **ns_recipe(bf16, epochs))
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0, dict(ta.LAUNCHES)
 
@@ -2943,25 +3004,28 @@ def timed_steps(step, n: int) -> float:
     return s.elapsed_time(e) / n
 
 
-def card_vs_cpu(what: str, make_step, args_card: tuple, args_cpu: tuple, tol: float) -> None:
+def card_vs_cpu(what: str, make_step, args_card: tuple, args_cpu: tuple, tol: float,
+                to_tree=None) -> None:
     """One step on the card and on the CPU from the same tree (``make_step(dev)
     -> (step, model, opt)``; ``step(*args) -> (losses, g_norm)``): the losses
     and the grad norm relative, Adam's first moment leaf by leaf, and the
     updated parameters against the tree's largest magnitude, each within
     ``tol`` (phase 4b's rule: Adam's first update amplifies f32 noise in
-    gradients near 1e-8, so single leaves are printed, not checked)."""
+    gradients near 1e-8, so single leaves are printed, not checked).
+    ``to_tree``: the model's state_dict -> flax tree (the FNO's by default)."""
     import numpy as np
     import torch
 
     from sciml_pde_torch.utils.weights import state_dict_to_flax
 
+    to_tree = to_tree or state_dict_to_flax
     outs = {}
     for where, args in (("card", args_card), ("cpu", args_cpu)):
         step, model, opt = make_step(args[0].device)
         losses, g_norm = step(*args)
         losses = losses if isinstance(losses, tuple) else (losses,)
-        outs[where] = ([float(v) for v in (*losses, g_norm)], state_dict_to_flax(model.state_dict()),
-                       state_dict_to_flax(opt.m))
+        outs[where] = ([float(v) for v in (*losses, g_norm)], to_tree(model.state_dict()),
+                       to_tree(opt.m))
     (lc, tc, mc), (lw, tw, mw) = outs["card"], outs["cpu"]
     rels = [abs(a - b) / abs(b) for a, b in zip(lc, lw)]
     mrel = rel_to_max(mc, mw)
@@ -2977,6 +3041,391 @@ def card_vs_cpu(what: str, make_step, args_card: tuple, args_cpu: tuple, tol: fl
           f"{prel / tree_max:.3e} of the tree's largest magnitude {tree_max:.4g} (tol "
           f"{tol:.0e}; worst leaf {worst_leaf} {leaf[worst_leaf]:.3e} of its own)")
     torch.cuda.synchronize()
+
+
+def ns_recipe(bf16: bool, epochs: int) -> dict:
+    """The transformer trainers' keywords of the NS recipe (NS_MODEL, batch
+    NS_BATCH x accumulation NS_ACCUM, drop-path 0.1)."""
+    return dict(
+        img_size=NS_MODEL["img_size"], patch_size=NS_MODEL["patch_size"],
+        tubelet_size=NS_MODEL["tubelet_size"], in_chans=NS_MODEL["in_chans"],
+        encoder_embed_dim=NS_MODEL["encoder_dim"], encoder_depth=NS_MODEL["encoder_depth"],
+        encoder_num_heads=NS_MODEL["encoder_heads"], decoder_embed_dim=NS_MODEL["decoder_dim"],
+        decoder_depth=NS_MODEL["decoder_depth"], decoder_num_heads=NS_MODEL["decoder_heads"],
+        drop_path_rate=0.1, bf16=bf16, initial_step=NS_MODEL["num_frames"],
+        batch_size=NS_BATCH, grad_accum=NS_ACCUM, epochs=epochs, learning_rate_share=NS_LR,
+        learning_rate_heads=NS_LR, seed=0, log_every=0)
+
+
+def check_aux_launches(what: str, shapes: dict, micro: int, val_batches: int, dt: str) -> None:
+    """Each attention kernel's launches by shape in an NS aux run: per
+    micro-step 12 at the aux encoder shape and 8 at the aux decoder shape
+    (the trunk's batch 2 + 6), per val batch the forward at the primary
+    batch's shapes (the primary stream alone), nothing else."""
+    want = {}
+    for (where, (bh, n, d)), (_, (bh_v, _, _)) in zip(AUXT_ATT_SHAPES.items(),
+                                                     ATT_SHAPES.items()):
+        layers = NS_MODEL["encoder_depth" if "encoder" in where else "decoder_depth"]
+        for name in ("attention_fwd", "attention_dq", "attention_dkv"):
+            want[name, bh, n, d, dt] = layers * micro
+        if val_batches:
+            want["attention_fwd", bh_v, n, d, dt] = layers * val_batches
+    got = {k: v for k, v in shapes.items() if v}
+    check(got == want, f"{what} launches by (kernel, bh, n, d, type): "
+          + ", ".join(f"{k[0]} {k[1:4]} {v}x" for k, v in sorted(got.items()))
+          + f" ({micro} micro-steps: 12 and 8 a micro-step at the aux encoder and decoder "
+          f"shapes; {val_batches} val batches on the primary stream alone)")
+
+
+def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
+    """Phase 17: the NS VideoMAE aux joint training (ROADMAP A5) at full
+    width, the kernels at its shapes, SWA, early-window sampling, remat,
+    masked-SSL pretraining with partial loading and the 3D VideoMAE.
+    Returns the kernel table's rows at the aux shapes."""
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.data.ns import NSAuxDataset, NSBaselineDataset, ns_aux_row_map
+    from sciml_pde_torch.data.ns3d import NS3DAuxDataset, unit_grid_3d
+    from sciml_pde_torch.data.windows import WindowedTrajectories
+    from sciml_pde_torch.models.transformer import VideoMAEOperatorAux
+    from sciml_pde_torch.models.transformer3d import Transformer3DAux, Transformer3DBaseline
+    from sciml_pde_torch.ops import attention as ta
+    from sciml_pde_torch.train import transformer_train as ttt
+    from sciml_pde_torch.train.fno_train import (
+        build_aux_step,
+        build_baseline_step,
+        train_aux,
+        train_baseline,
+        transformer3d_core_kwargs,
+    )
+    from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer, make_optimizer
+    from sciml_pde_torch.train.ssl_pretrain import run_ssl_pretraining
+    from sciml_pde_torch.utils.checkpoint import partial_load_counts, restore_checkpoint
+    from sciml_pde_torch.utils.weights import transformer_state_dict_to_flax
+
+    t_phase = time.perf_counter()
+    t_in = NS_MODEL["num_frames"]
+    xy = NS_MODEL["img_size"]
+    to_tree = transformer_state_dict_to_flax
+
+    # ---- 17a. the three kernels at the aux shapes, both types ----------------------
+    rows = {}
+    g = torch.Generator().manual_seed(17)
+    for where, shape in AUXT_ATT_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            for name, (_, _, r) in att_case(ta, dev, card, where, shape, dt, 1.0, g,
+                                            timed=True).items():
+                key = f"{name} ({where})"
+                if dt == torch.bfloat16:
+                    rows[key] = {"name": key, "route": "cuda",
+                                 "source": "sciml_pde_torch/ops/csrc/attention.cu",
+                                 "replaces": ATT_SITES[name], "shape": list(shape),
+                                 "launches": 0, **r}
+                else:
+                    rows[key].update({f"f32_{k}": v for k, v in r.items()})
+
+    # ---- 17b. one aux micro-step of the full-width model, kernels vs plain -----------
+    store = make_ns_store(NS_TRAJ + NS_TEST, NS_T, seed=4, dev=dev, xy=xy)
+    aux_full = make_ns_store(NS_TRAJ * AUXT_NA, NS_T, seed=31, dev=dev, xy=xy)
+    nb, na = NS_BATCH, NS_BATCH * AUXT_NA
+    x, y = store[:nb, :t_in], store[:nb, t_in]
+    xa, ya = aux_full[:na, :t_in], aux_full[:na, t_in]
+    for shared in (False, True):
+        def build(dt, impl, shared=shared):
+            return VideoMAEOperatorAux(**NS_MODEL, dtype=dt, attn_impl=impl, shared_head=shared,
+                                       generator=torch.Generator().manual_seed(2))
+
+        def loss_of(model):
+            pp, pa = model(x, xa)
+            return ttt.transformer_nrmse(pp, y) + AUXT_W * ttt.transformer_nrmse(pa, ya)
+        check_model(dev, x, y, f"[aux model, {'shared head' if shared else 'separate heads'}, "
+                    f"{nb} + {na} windows]", build, loss_of)
+
+    # ---- 17c. one f32 aux micro-step on the card against the CPU ---------------------
+    small = dict(NS_MODEL, **SHALLOW)
+    sd_small = VideoMAEOperatorAux(**small, generator=torch.Generator().manual_seed(5)).state_dict()
+
+    def make_aux_step(d):
+        model = VideoMAEOperatorAux(**small)
+        model.load_state_dict(sd_small)
+        model.to(d)
+        opt = ttt.make_transformer_optimizer(dict(model.named_parameters()), NS_LR, NS_LR, 100)
+        step, _ = ttt.build_transformer_aux_step(model, opt, t_in, AUXT_NA, AUXT_W)
+        return step, model, opt
+    prim_c, aux_c = store[:1, :t_in + 2], aux_full[:AUXT_NA, :t_in + 2]
+    idx_c = torch.tensor([[0, 1]])
+    card_vs_cpu(f"[aux step] one f32 aux micro-step (encoder {SHALLOW['encoder_depth']} and "
+                f"decoder {SHALLOW['decoder_depth']} blocks at full width, 1280 tokens, 1 + "
+                f"{AUXT_NA} windows)", make_aux_step, (prim_c, aux_c, idx_c.to(dev)),
+                (prim_c.cpu(), aux_c.cpu(), idx_c), TOL_AUX_STEP, to_tree=to_tree)
+    del aux_full, prim_c, aux_c
+
+    # ---- 17d. the trainer: NS aux, aux store at 128^2 in bf16 -------------------------
+    grid = torch.zeros(xy, xy, 2, device=dev)
+    aux128 = make_ns_store(NS_TRAJ * AUXT_NA, NS_T, seed=32, dev=dev, xy=AUXT_XY)
+
+    def aux_ds(prim, test, per_file):
+        return NSAuxDataset(
+            primary_train=WindowedTrajectories(prim, grid, initial_step=t_in, rollout=1,
+                                               train=True, device=dev),
+            primary_test=WindowedTrajectories(test, grid, initial_step=t_in, rollout=1,
+                                              train=False, device=dev),
+            aux_train=WindowedTrajectories(aux128, grid[:AUXT_XY, :AUXT_XY], initial_step=t_in,
+                                           rollout=1, train=True, device=dev,
+                                           dtype=torch.bfloat16),
+            aux_row_map=ns_aux_row_map(per_file, AUXT_NA, NS_TRAJ))
+    ds = aux_ds(store[:NS_TRAJ], store[NS_TRAJ:, :t_in + 1], [list(range(NS_TRAJ))])
+    micro = len(ds.primary_train.window_index()) // NS_BATCH * AUXT_EPOCHS
+    val_batches = -(-NS_TEST // NS_BATCH) * AUXT_EPOCHS
+    ta.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ttt.train_transformer_aux(ds, num_aux_samples=AUXT_NA, auxiliary_weight=AUXT_W,
+                                    run_dir=str(run_dir), model_name="NS_smoke_VMAE_aux",
+                                    device=dev, **ns_recipe(True, AUXT_EPOCHS))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches, shapes = dict(ta.LAUNCHES), dict(ta.LAUNCH_SHAPES)
+    hist = res.history
+    print(f"[aux train] {card}: NS VideoMAE aux (separate heads, {AUXT_NA} aux windows a "
+          f"window, weight {AUXT_W}, aux store {AUXT_XY}^2 bf16 upsampled at the gather), "
+          f"{micro} micro-steps = {micro // NS_ACCUM} optimizer steps (batch {NS_BATCH} + "
+          f"{NS_BATCH * AUXT_NA} aux x accumulation {NS_ACCUM}, bf16, drop-path 0.1) + "
+          f"{val_batches} val batches in {train_s:.3f} s: first step loss "
+          f"{hist[0]['first_step_loss']:.6g}; per epoch train loss "
+          + ", ".join(f"{h['train_loss']:.6g}" for h in hist) + "; primary val loss "
+          + ", ".join(f"{h['val_loss']:.6g}" for h in hist), flush=True)
+    losses = [hist[0]["first_step_loss"]] + [h[k] for h in hist
+                                             for k in ("train_loss", "val_loss", "last_step_loss")]
+    check(all(math.isfinite(v) for v in losses), "[aux train] losses finite")
+    check(hist[-1]["train_loss"] < hist[0]["train_loss"] < hist[0]["first_step_loss"],
+          "[aux train] loss falls (first epoch mean below the first step, last epoch mean "
+          "below the first)")
+    ck_path = run_dir / "NS_smoke_VMAE_aux_ckpt.pt"
+    check(ck_path.exists() and restore_checkpoint(ck_path)["meta"]["loss"] == res.best_val
+          == min(h["val_loss"] for h in hist),
+          f"[aux train] the best-primary-val checkpoint written (val {res.best_val:.6g})")
+    print(f"[aux train] launches: {json.dumps(launches)}", flush=True)
+    check_ns_launches("[aux train] main path", launches, micro, val_batches)
+    check_aux_launches("[aux train] main path", shapes, micro, val_batches, "bf16")
+    for key, row in rows.items():
+        name, where = key.split(" (")
+        row["launches"] = shapes.get((name, *AUXT_ATT_SHAPES[where[:-1]], "bf16"), 0)
+    # the f32 path: 2 optimizer steps with bf16=False
+    f32_ds = aux_ds(store[:1, :t_in + 2 * NS_ACCUM * NS_BATCH], store[NS_TRAJ:, :t_in + 1],
+                    [[0]])
+    micro32 = len(f32_ds.primary_train.window_index()) // NS_BATCH
+    ta.reset_launch_counts()
+    res32 = ttt.train_transformer_aux(f32_ds, num_aux_samples=AUXT_NA, auxiliary_weight=AUXT_W,
+                                      run_dir=str(run_dir), model_name="NS_smoke_VMAE_aux_f32",
+                                      device=dev, **ns_recipe(False, 1))
+    shapes32 = dict(ta.LAUNCH_SHAPES)
+    h32 = res32.history[0]
+    print(f"[aux train f32] {card}: bf16=False, {micro32} micro-steps = {micro32 // NS_ACCUM} "
+          f"optimizer steps: first step loss {h32['first_step_loss']:.6g}, train loss "
+          f"{h32['train_loss']:.6g}, val loss {h32['val_loss']:.6g}", flush=True)
+    check(all(math.isfinite(h32[k]) for k in ("first_step_loss", "train_loss", "val_loss")),
+          "[aux train f32] losses finite")
+    check_aux_launches("[aux train f32] the f32 path", shapes32, micro32, 1, "f32")
+    for key, row in rows.items():
+        name, where = key.split(" (")
+        row["f32_launches"] = shapes32.get((name, *AUXT_ATT_SHAPES[where[:-1]], "f32"), 0)
+
+    # ---- 17e. timing of the aux micro-step ------------------------------------------------
+    model = VideoMAEOperatorAux(**NS_MODEL, drop_path_rate=0.1, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = ttt.make_transformer_optimizer(dict(model.named_parameters()), NS_LR, NS_LR, 1000,
+                                         grad_accum=NS_ACCUM)
+    step, _ = ttt.build_transformer_aux_step(model, opt, t_in, AUXT_NA, AUXT_W, ds.aux_row_map,
+                                             aux_resize_to=(xy, xy))
+    idx_all = torch.as_tensor(ds.primary_train.window_index(), dtype=torch.long, device=dev)
+    batches = [idx_all[i * NS_BATCH:(i + 1) * NS_BATCH] for i in range(2 * NS_ACCUM)]
+    data_p, data_a = ds.primary_train.data, ds.aux_train.data
+    for b in batches[:NS_ACCUM]:
+        step(data_p, data_a, b)
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for b in batches:
+        (loss, _, _), _ = step(data_p, data_a, b)
+    e.record()
+    e.synchronize()
+    micro_ms = s.elapsed_time(e) / len(batches)
+    check(bool(torch.isfinite(loss)), "[aux timing] loss finite")
+    print(f"[aux timing] {card}: NS VideoMAE aux micro-step {micro_ms:.4f} ms, optimizer step "
+          f"{micro_ms * NS_ACCUM:.4f} ms ({NS_ACCUM} micro-steps, batch {NS_BATCH} + "
+          f"{NS_BATCH * AUXT_NA} aux, 1280 tokens, bf16; CUDA events over {len(batches)} "
+          f"micro-steps after {NS_ACCUM} warm ones)", flush=True)
+    device_profile(card, lambda: [step(data_p, data_a, b) for b in batches[:NS_ACCUM]],
+                   NS_ACCUM, "micro-step", micro_ms, tuple(ATT_KERNEL_KEYS["bf16"].values()))
+    del model, opt, step
+
+    # ---- 17f. SWA and early-window sampling ------------------------------------------------
+    swa_ds = aux_ds(store[:1, :t_in + 4], store[NS_TRAJ:NS_TRAJ + 1, :t_in + 1], [[0]])
+    res_swa = ttt.train_transformer_aux(
+        swa_ds, num_aux_samples=AUXT_NA, auxiliary_weight=AUXT_W, run_dir=str(run_dir),
+        model_name="NS_smoke_VMAE_swa", device=dev,
+        **dict(ns_recipe(True, 4), grad_accum=1, swa_frac=0.5, early_window_boost=4.0,
+               early_window_t0=1))
+    fp, fs_ = flat_leaves(res_swa.params), flat_leaves(res_swa.swa_params)
+    gap = max(float(np.abs(fs_[k] - v).max()) for k, v in fp.items())
+    finite = all(np.isfinite(v).all() for v in fs_.values())
+    print(f"[swa] {card}: 4 epochs x 2 micro-steps (grad_accum 1), swa_frac 0.5 (the mean of "
+          f"epochs 2 and 3 at lr x 0.1), early_window_boost 4 (t0 <= 1 weighted 5): train loss "
+          + ", ".join(f"{h['train_loss']:.6g}" for h in res_swa.history)
+          + f"; swa_params vs params, largest difference {gap:.3e}", flush=True)
+    check(finite and sorted(fs_) == sorted(fp) and gap > 0,
+          "[swa] swa_params finite, of the params' leaves, and apart from the last epoch's")
+
+    # ---- 17g. remat: use_checkpoint against none, one bf16 micro-step ----------------------
+    sd = None
+    outs, peaks, fwd = {}, {}, {}
+    for remat in (False, True):
+        model = VideoMAEOperatorAux(**NS_MODEL, dtype=torch.bfloat16, use_checkpoint=remat,
+                                    generator=torch.Generator().manual_seed(2))
+        sd = sd or model.state_dict()
+        model.load_state_dict(sd)
+        model.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ta.reset_launch_counts()
+        pp, pa = model(x, xa)
+        loss = ttt.transformer_nrmse(pp, y) + AUXT_W * ttt.transformer_nrmse(pa, ya)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        fwd[remat] = ta.LAUNCHES["attention_fwd"]
+        outs[remat] = [loss.detach()] + list(grads)
+        del model, pp, pa, loss, grads
+    same = all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
+    print(f"[remat] {card}: one bf16 aux micro-step ({nb} + {na} windows), peak memory above "
+          f"the weights {peaks[False]:.3f} GiB without use_checkpoint, {peaks[True]:.3f} GiB "
+          f"with it; attention_fwd launches {fwd[False]} and {fwd[True]} (the recompute)",
+          flush=True)
+    check(same and peaks[True] < peaks[False] and fwd[True] == 2 * fwd[False] == 2 * NS_LAYERS,
+          "[remat] use_checkpoint: the loss and every gradient the same bits, lower peak "
+          "memory, the forward kernel launched again in the recompute")
+    del outs
+
+    # ---- 17h. masked-SSL pretraining, then partial loading -----------------------------------
+    ssl_w = WindowedTrajectories(store[:1, :t_in + 6], grid, initial_step=t_in, rollout=0,
+                                 train=True, device=dev)
+    ssl_steps = len(ssl_w.window_index()) // NS_BATCH * 3
+    ta.reset_launch_counts()
+    t0 = time.perf_counter()
+    ssl_tree, ssl_hist = run_ssl_pretraining(
+        ssl_w, model_kwargs=dict(NS_MODEL, dtype=torch.bfloat16), mask_ratio=0.75,
+        initial_step=t_in, batch_size=NS_BATCH, epochs=3, learning_rate=1e-3,
+        run_dir=str(run_dir), model_name="NS_smoke_VMAE_ssl", seed=0, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    ssl_s = time.perf_counter() - t0
+    ssl_shapes = dict(ta.LAUNCH_SHAPES)
+    step_losses = [json.loads(line)["ssl_loss"] for line in
+                   (run_dir / "NS_smoke_VMAE_ssl.jsonl").read_text().splitlines()[-ssl_steps:]]
+    dec_shape = (NS_BATCH * NS_MODEL["decoder_heads"], 1280, 64)
+    dec = {name: ssl_shapes.get((name, *dec_shape, "bf16"), 0) for name in ta.KERNEL_NAMES}
+    enc = sum(v for k, v in ssl_shapes.items() if k[2] != 1280)
+    print(f"[ssl] {card}: masked-SSL pretraining at full width, mask ratio 0.75 (the encoder "
+          f"sees 320 tokens, the decoder 1280), {ssl_steps} steps of batch {NS_BATCH} (bf16, "
+          f"adamw lr 1e-3 cosine) in {ssl_s:.3f} s: step losses "
+          + ", ".join(f"{v:.6g}" for v in step_losses)
+          + f"; decoder kernel launches {json.dumps(dec)} ({NS_MODEL['decoder_depth']} a step), "
+          f"encoder launches {enc} (320 tokens: JAX's shape rule takes jnp_attention)",
+          flush=True)
+    check(len(step_losses) == ssl_steps and all(math.isfinite(v) for v in step_losses)
+          and np.mean(step_losses[-3:]) < np.mean(step_losses[:3]),
+          "[ssl] losses finite, the last three steps' mean below the first three's")
+    check(set(dec.values()) == {NS_MODEL["decoder_depth"] * ssl_steps} and enc == 0
+          and sum(ssl_shapes.values()) == 3 * NS_MODEL["decoder_depth"] * ssl_steps,
+          "[ssl] the decoder's attention through the kernels, the encoder's 320 tokens not")
+    ssl_ck = run_dir / "NS_smoke_VMAE_ssl_ckpt.pt"
+    fresh = to_tree(VideoMAEOperatorAux(**NS_MODEL,
+                                        generator=torch.Generator().manual_seed(0)).state_dict())
+    loaded, kept = partial_load_counts(fresh, restore_checkpoint(ssl_ck)["params"])
+    res_pre = ttt.train_transformer_aux(ds, num_aux_samples=AUXT_NA, auxiliary_weight=AUXT_W,
+                                        run_dir=str(run_dir), model_name="NS_smoke_VMAE_pre",
+                                        pretrained_path=str(ssl_ck), device=dev,
+                                        **ns_recipe(True, 0))
+    fr, fssl = flat_leaves(res_pre.params), flat_leaves(ssl_tree)
+    shared_leaves = [k for k in fr if k in fssl and fssl[k].shape == fr[k].shape]
+    same = all(np.array_equal(fr[k], fssl[k]) for k in shared_leaves)
+    print(f"[ssl] pretrained_path into the aux trainer: {loaded} leaves loaded, {kept} kept "
+          f"fresh (of {len(fr)}; fresh: "
+          + ", ".join(k for k in fr if k not in shared_leaves) + ")", flush=True)
+    check(loaded == len(shared_leaves) == len(fr) - 6 and kept == 6 and same,
+          "[ssl] the loaded count equals the leaves the aux model shares with the SSL tree, "
+          "each equal to the checkpoint's")
+    del ssl_w, store, aux128, ds, f32_ds, swa_ds, x, y, xa, ya
+    torch.cuda.empty_cache()
+
+    # ---- 17i. the 3D VideoMAE at the plume shape ------------------------------------------
+    grid3_np = unit_grid_3d(*NS3D_SP)
+    grid3 = torch.from_numpy(grid3_np).to(dev)
+    prim3 = make_plume_store(2, T0 + 3, seed=41, dev=dev)
+    test3 = make_plume_store(1, T0 + 1, seed=42, dev=dev)
+    aux3 = make_plume_store(2 * NS3D_NA, T0 + 3, seed=43, dev=dev)
+    core = transformer3d_core_kwargs(SHALLOW, NS3D_SP, NS3D_C, T0)
+    sp3 = (f"{NS3D_SP}, {NS3D_C} channels, patch {core['patch_size']}, tubelet "
+           f"{core['tubelet_size']}, encoder {SHALLOW['encoder_depth']} and decoder "
+           f"{SHALLOW['decoder_depth']} blocks at full width, f32")
+    ta.reset_launch_counts()
+    for what, cls in (("baseline", Transformer3DBaseline), ("aux (nA 3)", Transformer3DAux)):
+        sd3 = cls(**core, generator=torch.Generator().manual_seed(6)).state_dict()
+
+        def make_step3(d, cls=cls, sd3=sd3):
+            model = cls(**core)
+            model.load_state_dict(sd3)
+            model.to(d)
+            params = dict(model.named_parameters())
+            if cls is Transformer3DBaseline:
+                opt = make_optimizer(params, 1e-3, 100)
+                return build_baseline_step(model, opt, T0, 1)[0], model, opt
+            opt = make_grouped_optimizer(params, aux_group_of, {"shared": 1e-3,
+                                                                "primary_head": 1e-3,
+                                                                "aux_head": 1e-3}, 100)
+            return build_aux_step(model, opt, T0, 1, NS3D_NA, AUXT_W)[0], model, opt
+        i3 = torch.tensor([[1, 2]])
+        args = ((prim3, grid3, i3.to(dev)) if cls is Transformer3DBaseline
+                else (prim3, aux3, grid3, i3.to(dev)))
+        card_vs_cpu(f"[3d vmae] one {what} step ({sp3})", make_step3, args,
+                    tuple(a.cpu() for a in args), TOL_AUX_STEP, to_tree=to_tree)
+    train3 = WindowedTrajectories(prim3, grid3_np, initial_step=T0, train=True, device=dev)
+    test3_w = WindowedTrajectories(test3, grid3_np, initial_step=T0, train=False, device=dev)
+    kw3 = dict(initial_step=T0, num_channels=NS3D_C, batch_size=1, epochs=2, seed=0,
+               run_dir=str(run_dir), log_every=0, model_family="transformer3d",
+               transformer_kwargs=SHALLOW, device=dev)
+    for what, name in (("baseline", "NS3D_smoke_VMAE"), ("aux (nA 3)", "NS3D_smoke_aux_VMAE")):
+        t0 = time.perf_counter()
+        if name == "NS3D_smoke_VMAE":
+            res3 = train_baseline(NSBaselineDataset(train=train3, test=test3_w),
+                                  model_name=name, **kw3)
+        else:
+            res3 = train_aux(NS3DAuxDataset(
+                primary_train=train3, primary_test=test3_w,
+                aux_train=WindowedTrajectories(aux3, grid3_np, initial_step=T0, train=True,
+                                               device=dev)),
+                num_aux_samples=NS3D_NA, auxiliary_weight=AUXT_W, model_name=name, **kw3)
+        torch.cuda.synchronize()
+        hs = res3.history
+        print(f"[3d vmae train] {card}: {what} through run_training's model_family="
+              f"'transformer3d' ({sp3}), 2 epochs x {len(train3.window_index())} steps + val in "
+              f"{time.perf_counter() - t0:.3f} s: "
+              + "; ".join(f"epoch {h['epoch']} train loss {h['train_loss']:.6g}, val loss "
+                          f"{h['val_loss']:.6g}" for h in hs), flush=True)
+        check(len(hs) == 2 and all(math.isfinite(h[k]) for h in hs
+                                   for k in ("train_loss", "val_loss"))
+              and (run_dir / f"{name}_ckpt.pt").exists(),
+              f"[3d vmae train] {what}: finite losses and a checkpoint")
+    launches3 = dict(ta.LAUNCHES)
+    print(f"[3d vmae] attention kernel launches {json.dumps(launches3)}: 500 tokens, which "
+          "JAX's shape rule sends to jnp_attention", flush=True)
+    check(sum(launches3.values()) == 0, "[3d vmae] no attention kernel launched at 500 tokens")
+    del prim3, test3, aux3
+    torch.cuda.empty_cache()
+    print(f"[aux] {card}: phase 17 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
@@ -3731,6 +4180,8 @@ def main() -> int:
     ns_launches = ns_fno_path(dev, card, run_dir)
     for key in fk.KERNEL_NAMES:
         kernel_rows[key]["ns_launches"] = ns_launches[key]
+    # ---- 17. the transformer's aux joint training and the rest of ROADMAP A5 ---------
+    kernel_rows.update(aux_transformer_path(dev, card, run_dir))
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,
@@ -3752,7 +4203,8 @@ def main() -> int:
         print(f"FAILED {len(failures)} check(s): " + "; ".join(failures), file=sys.stderr)
         return 1
     print(json.dumps({"kernels": [kernel_rows[k] for k in (*fk.KERNEL_NAMES, *ta.KERNEL_NAMES,
-                                                            *sf.KERNEL_NAMES, *pb.KERNEL_NAMES,
+                                                            *AUXT_ROWS, *sf.KERNEL_NAMES,
+                                                            *pb.KERNEL_NAMES,
                                                             *ff.SPLIT_NAMES)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -82,3 +82,53 @@ def epoch_batches(index: np.ndarray, batch_size: int, rng=None):
         return
     for b in range(nb):
         yield index[order[b * batch_size:(b + 1) * batch_size]]
+
+
+def weighted_epoch_batches(index: np.ndarray, batch_size: int, rng, weights: np.ndarray):
+    """``epoch_batches`` with importance sampling, with replacement: the same
+    batch shape and count, rows drawn by ``rng.choice`` with probability
+    proportional to ``weights`` (the JAX package's draws, in its order)."""
+    index = np.asarray(index)
+    n = len(index)
+    p = np.asarray(weights, np.float64)
+    p = p / p.sum()
+    nb = max(n // batch_size, 1)
+    draws = rng.choice(n, size=nb * batch_size, replace=True, p=p)
+    for b in range(nb):
+        yield index[draws[b * batch_size:(b + 1) * batch_size]]
+
+
+def make_aux_indices(num_aux_samples: int, row_map=None):
+    """The aux steps' pairing: ``aux_indices(idx)`` maps primary window rows
+    (B, 2) of (p, t0) to aux rows (B * num_aux_samples, 2), p-major, at the
+    same t0: trajectory ``p * num_aux_samples + j``, or ``row_map[p, j]``
+    ((Np, nA), NS's per-file pairing; copied to each device once)."""
+    rm = None if row_map is None else torch.as_tensor(np.asarray(row_map), dtype=torch.long)
+    on_device: dict = {}
+
+    def aux_indices(idx: torch.Tensor) -> torch.Tensor:
+        if rm is None:
+            offs = torch.arange(num_aux_samples, device=idx.device, dtype=idx.dtype)
+            ap = (idx[:, 0, None] * num_aux_samples + offs[None, :]).reshape(-1)
+        else:
+            m = on_device.setdefault(idx.device, rm.to(idx.device))
+            ap = m[idx[:, 0]].reshape(-1).to(idx.dtype)
+        return torch.stack([ap, idx[:, 1].repeat_interleave(num_aux_samples)], dim=1)
+
+    return aux_indices
+
+
+def check_aux_pairing(primary: WindowedTrajectories, aux: WindowedTrajectories,
+                      num_aux_samples: int, row_map=None) -> None:
+    """Raise ValueError unless every primary trajectory has its
+    ``num_aux_samples`` aux rows in the aux store (``make_aux_indices``)."""
+    if row_map is None:
+        if aux.num_trajectories < primary.num_trajectories * num_aux_samples:
+            raise ValueError(f"aux store has {aux.num_trajectories} trajectories < "
+                             f"{primary.num_trajectories} primary x {num_aux_samples} aux "
+                             "samples")
+    elif np.asarray(row_map).shape != (primary.num_trajectories, num_aux_samples) \
+            or int(np.max(row_map)) >= aux.num_trajectories:
+        raise ValueError(f"aux_row_map {np.asarray(row_map).shape} does not map "
+                         f"{primary.num_trajectories} primary rows x {num_aux_samples} aux "
+                         f"samples into the aux store's {aux.num_trajectories} rows")

@@ -1,5 +1,5 @@
-"""VideoMAE-style spatio-temporal transformer operator, baseline (port of
-``sciml_pde_tpu/models/transformer.py``).
+"""VideoMAE-style spatio-temporal transformer operators, baseline and aux
+(port of ``sciml_pde_tpu/models/transformer.py``).
 
 Parameters keep the flax layout and names, so a flax tree maps onto the
 ``state_dict`` by joining its keys with dots
@@ -14,8 +14,12 @@ bf16 result; ``LayerNorm`` computes in f32; ``patch_proj``,
 ``encoder_to_decoder`` and ``head`` compute in f32; the residual sums
 promote to f32.  Attention runs through ``ops.attention.flash_attention``.
 
-Not ported yet: the masked-SSL branch (``mask``), ``use_checkpoint`` and
-``VideoMAEOperatorAux``; they raise ``NotImplementedError``.
+``VideoMAEOperatorAux`` runs the shared trunk on a primary and an aux
+stream, each instance-normalised on its own: as one concatenated batch when
+the two have the same shape, else twice; then per-pixel ``head_primary`` /
+``head_auxiliary`` (``shared_head=False``) or the trunk's frame for both.
+``ssl=True`` adds ``head_ssl`` and ``mask_token`` and the masked-SSL branch
+(``mask``); ``use_checkpoint`` recomputes each block in the backward pass.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sciml_pde_torch.models.common import instance_norm_stats
 from sciml_pde_torch.ops.attention import flash_attention, jnp_attention
@@ -169,16 +174,21 @@ class Block(nn.Module):
 
 
 class TokenStack(nn.Module):
-    """``depth`` blocks ``block0 ..`` with drop-path rates rising linearly."""
+    """``depth`` blocks ``block0 ..`` with drop-path rates rising linearly.
+
+    ``use_checkpoint`` (flax ``nn.remat(Block)``) runs each block under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward pass recomputes
+    the block's forward, attention kernels included, from its input.  As
+    JAX's remat replays the block's dropout key, the recompute replays the
+    drop-path draws: the generator's state before the block is restored for
+    it, and the state the forward left is put back after it."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path_rate: float = 0.0, init_values: float = 0.0,
                  use_checkpoint: bool = False, dtype: torch.dtype = torch.float32,
                  attn_impl: str = "flash", generator=None):
         super().__init__()
-        if use_checkpoint:
-            raise NotImplementedError("use_checkpoint is not ported yet")
-        self.depth = depth
+        self.depth, self.use_checkpoint = depth, use_checkpoint
         dpr = np.linspace(0, drop_path_rate, depth)
         for i in range(depth):
             self.add_module(f"block{i}", Block(dim, num_heads, mlp_ratio, qkv_bias, float(dpr[i]),
@@ -186,8 +196,34 @@ class TokenStack(nn.Module):
 
     def forward(self, x, deterministic: bool = True, generator=None):
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, deterministic, generator)
+            block = getattr(self, f"block{i}")
+            if self.use_checkpoint and torch.is_grad_enabled():
+                x = _checkpointed(block, x, deterministic, generator)
+            else:
+                x = block(x, deterministic, generator)
         return x
+
+
+def _checkpointed(block, x, deterministic: bool, generator):
+    """``block(x, deterministic, generator)`` under a non-reentrant
+    checkpoint that replays the generator's draws in the recompute."""
+    if deterministic or block.drop_path_rate == 0.0 or generator is None:
+        return checkpoint(block, x, deterministic, None, use_reentrant=False)
+    before = generator.get_state()
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1:  # the forward: the generator advances as without remat
+            return block(x, deterministic, generator)
+        after = generator.get_state()
+        generator.set_state(before)
+        try:
+            return block(x, deterministic, generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def patchify(x, tubelet: int, patch: int):
@@ -206,13 +242,24 @@ def unpatchify(tokens, tubelet: int, patch: int, t: int, h: int, w: int, c: int)
     return x.reshape(b, t, h, w, c)
 
 
+# flax ``truncated_normal``: a standard normal truncated to [-2, 2] has this
+# std, so its draws are scaled by stddev / it
+_TRUNC_STD = 0.87962566103423978
+
+
 class VideoMAEOperator(nn.Module):
     """Baseline next-frame operator: x (B, T, H, W, C) -> (B, H, W, C).
 
     ``dtype`` is the compute type of the blocks' dense layers and attention
     (bf16 for mixed precision); parameters are f32.  ``generator`` draws the
     initial weights (flax's initialisers: xavier-uniform kernels, zero
-    biases, unit norms)."""
+    biases, unit norms, the mask token truncated-normal with std 0.02).
+
+    With ``ssl=True`` and a ``mask`` (B, N) bool (True = masked, the same
+    count ``n_masked`` in every row), ``forward`` is the masked-SSL branch:
+    the visible tokens go through the encoder, the decoder sees them with a
+    mask token at every masked position, and ``head_ssl`` returns the
+    masked tokens' pixels (B, n_masked, tu*p*p*C) in normalised space."""
 
     def __init__(self, img_size: int = 256, patch_size: int = 16, tubelet_size: int = 2,
                  in_chans: int = 3, num_frames: int = 10, encoder_dim: int = 768,
@@ -223,11 +270,9 @@ class VideoMAEOperator(nn.Module):
                  dtype: torch.dtype = torch.float32, attn_impl: str = "flash",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if ssl:
-            raise NotImplementedError("the masked-SSL head is not ported yet")
         self.img_size, self.num_frames = img_size, num_frames
         self.patch_size, self.tubelet_size, self.in_chans = patch_size, tubelet_size, in_chans
-        self.encoder_dim = encoder_dim
+        self.encoder_dim, self.decoder_dim, self.ssl = encoder_dim, decoder_dim, ssl
         common = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, drop_path_rate=drop_path_rate,
                       init_values=init_values, use_checkpoint=use_checkpoint, dtype=dtype,
                       attn_impl=attn_impl, generator=generator)
@@ -240,28 +285,108 @@ class VideoMAEOperator(nn.Module):
         self.encoder_to_decoder = Dense(encoder_dim, decoder_dim, use_bias=False,
                                         generator=generator)
         self.head = Dense(decoder_dim, patch_dim, generator=generator)
+        if ssl:
+            self.head_ssl = Dense(decoder_dim, patch_dim, generator=generator)
+            token = torch.empty(1, 1, decoder_dim)
+            nn.init.trunc_normal_(token, generator=generator)
+            self.mask_token = nn.Parameter(token * (0.02 / _TRUNC_STD))
         self._pos: dict[tuple, torch.Tensor] = {}
 
-    def _pos_table(self, n: int, device) -> torch.Tensor:
+    def _pos_table(self, n: int, dim: int, device) -> torch.Tensor:
         """The position table on ``device``, copied there once: a copy from
         host memory on every forward would wait for the card's queue to
         drain."""
-        key = (n, str(device))
+        key = (n, dim, str(device))
         if key not in self._pos:
-            self._pos[key] = torch.as_tensor(sinusoid_table(n, self.encoder_dim), device=device)
+            self._pos[key] = torch.as_tensor(sinusoid_table(n, dim), device=device)
         return self._pos[key]
 
-    def forward(self, x, mask=None, deterministic: bool = True, generator=None):
-        if mask is not None:
-            raise NotImplementedError("the masked-SSL path is not ported yet")
-        b, t, h, w, c = x.shape
-        std, mean = instance_norm_stats(x, (1, 2, 3))  # per (b, c) over T, H, W
-        xn = (x - mean) / std
+    def _tokens(self, xn):
+        """normalised (B, T, H, W, C) -> encoder tokens with positions."""
         tokens = self.patch_proj(patchify(xn, self.tubelet_size, self.patch_size))
-        pos = self._pos_table(tokens.shape[1], tokens.device)
-        tokens = self.encoder(tokens + pos[None], deterministic, generator)
+        return tokens + self._pos_table(tokens.shape[1], self.encoder_dim, tokens.device)[None]
+
+    def _trunk_last_frame(self, xn, deterministic: bool, generator):
+        """normalised (B, T, H, W, C) -> the trunk's last frame, normalised."""
+        b, t, h, w, c = xn.shape
+        tokens = self.encoder(self._tokens(xn), deterministic, generator)
         tokens = self.encoder_to_decoder(self.encoder_norm(tokens))
         tokens = self.decoder(tokens, deterministic, generator)
         pix = self.head(self.decoder_norm(tokens)).float()
-        vol = unpatchify(pix, self.tubelet_size, self.patch_size, t, h, w, c)
-        return (vol * std + mean)[:, -1]
+        return unpatchify(pix, self.tubelet_size, self.patch_size, t, h, w, c)[:, -1]
+
+    def forward(self, x, mask=None, deterministic: bool = True, generator=None,
+                n_masked: int | None = None):
+        std, mean = instance_norm_stats(x, (1, 2, 3))  # per (b, c) over T, H, W
+        xn = (x - mean) / std
+        if mask is not None:
+            return self._masked(xn, mask, deterministic, generator, n_masked)
+        return self._trunk_last_frame(xn, deterministic, generator) * std[:, 0] + mean[:, 0]
+
+    def _masked(self, xn, mask, deterministic: bool, generator, n_masked: int | None):
+        if not self.ssl:
+            raise ValueError("the masked-SSL branch needs a model built with ssl=True")
+        tokens = self._tokens(xn)
+        b, n, _ = tokens.shape
+        if n_masked is None:
+            n_masked = int(mask.sum()) // b
+        n_vis = n - n_masked
+        # jnp.argsort(mask, stable=True): the visible tokens, then the masked
+        # ones, each in token order
+        order = torch.argsort(mask.to(torch.int8), dim=1, stable=True)
+        vis_idx, mask_idx = order[:, :n_vis, None], order[:, n_vis:, None]
+        vis = torch.gather(tokens, 1, vis_idx.expand(-1, -1, tokens.shape[2]))
+        vis = self.encoder_to_decoder(self.encoder_norm(self.encoder(vis, deterministic,
+                                                                     generator)))
+        pos = self._pos_table(n, self.decoder_dim, tokens.device)[None].expand(b, -1, -1)
+        pos_vis = torch.gather(pos, 1, vis_idx.expand(-1, -1, self.decoder_dim))
+        pos_msk = torch.gather(pos, 1, mask_idx.expand(-1, -1, self.decoder_dim))
+        full = torch.cat([vis + pos_vis, self.mask_token + pos_msk], dim=1)
+        dec = self.decoder(full, deterministic, generator)
+        return self.head_ssl(self.decoder_norm(dec[:, n_vis:])).float()
+
+
+class VideoMAEOperatorAux(VideoMAEOperator):
+    """Aux variant: ``forward(x, x_aux) -> (out_primary (B, H, W, C),
+    out_aux (B2, H, W, C))``.
+
+    ``shared_head=False`` (NS): per-pixel ``Dense(in_chans)``
+    ``head_primary`` / ``head_auxiliary`` in f32 on the trunk's normalised
+    last frame.  ``shared_head=True`` (DR): no heads, the trunk's frame
+    serves both streams.  Each stream is de-normalised by its own
+    statistics after its head."""
+
+    def __init__(self, *args, shared_head: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.shared_head = shared_head
+        if not shared_head:
+            gen = kwargs.get("generator")
+            self.head_primary = Dense(self.in_chans, self.in_chans, generator=gen)
+            self.head_auxiliary = Dense(self.in_chans, self.in_chans, generator=gen)
+
+    def _head(self, name: str, last):
+        return last if self.shared_head else getattr(self, name)(last)
+
+    def forward(self, x, x_aux, deterministic: bool = True, generator=None):
+        std_p, mean_p = instance_norm_stats(x, (1, 2, 3))
+        std_a, mean_a = instance_norm_stats(x_aux, (1, 2, 3))
+        xn, xan = (x - mean_p) / std_p, (x_aux - mean_a) / std_a
+        if xn.shape[1:] == xan.shape[1:]:
+            # one trunk pass over the concatenated batch
+            b = xn.shape[0]
+            last = self._trunk_last_frame(torch.cat([xn, xan]), deterministic, generator)
+            last_p, last_a = last[:b], last[b:]
+        else:
+            last_p = self._trunk_last_frame(xn, deterministic, generator)
+            last_a = self._trunk_last_frame(xan, deterministic, generator)
+        out_p = self._head("head_primary", last_p) * std_p[:, 0] + mean_p[:, 0]
+        out_a = self._head("head_auxiliary", last_a) * std_a[:, 0] + mean_a[:, 0]
+        return out_p, out_a
+
+    def primary(self, x, deterministic: bool = True, generator=None):
+        """``forward(x, x)[0]`` with the primary stream alone through the
+        trunk: out_primary does not depend on the aux stream (instance norm
+        and the trunk act per sample)."""
+        std, mean = instance_norm_stats(x, (1, 2, 3))
+        last = self._trunk_last_frame((x - mean) / std, deterministic, generator)
+        return self._head("head_primary", last) * std[:, 0] + mean[:, 0]

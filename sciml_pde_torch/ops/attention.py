@@ -3,7 +3,8 @@
 Three wrappers, each beside its plain PyTorch version, launch the CUDA
 kernels of ``csrc/attention.cu`` for tensors on a CUDA device and run the
 plain version for tensors on the CPU; any other device raises, and so does
-a failed build or launch.  Every launch adds one to ``LAUNCHES[name]``.
+a failed build or launch.  Every launch adds one to ``LAUNCHES[name]`` and
+to ``LAUNCH_SHAPES[name, bh, n, d, dtype]``.
 
   attention_fwd   (q, k, v) -> o, l                      B3 ``_fwd_kernel``
   attention_dq    (q, k, v, do, l, delta) -> dq          B4 ``_dq_kernel``
@@ -36,6 +37,7 @@ type) for every other shape, by the JAX package's own rule.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -62,11 +64,14 @@ WIDE_KINDS = {"fwd": 0, "dkv": 1, "dq": 2}
 
 KERNEL_NAMES = ("attention_fwd", "attention_dq", "attention_dkv")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
+# launches by (kernel, bh, n, d, "bf16" or "f32")
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +99,7 @@ def _launch(name: str, tensors, bh: int, n: int, d: int, bf: bool, scale: float)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[name, bh, n, d, "bf16" if bf else "f32"] += 1
 
 
 def _blocks_per_panel(n: int, d: int) -> int:

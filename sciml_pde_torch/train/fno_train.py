@@ -35,6 +35,11 @@ Three steps train an FNO, chosen as the JAX package chooses:
                             grid inside the step, or with
                             ``aux_native_compute`` runs at its own grid.
 
+``model_family="transformer3d"`` puts the 3D VideoMAE operator
+(``models/transformer3d.py``: ``Transformer3DBaseline``, or with ``if_aux``
+``Transformer3DAux``, sized by ``transformer_kwargs``) on a 3D store in the
+FNO's place, through the same production and aux steps and optimizers.
+
 ``fno_remat`` recomputes each spectral block in the backward pass.
 ``run_training`` loads the stores of ``dataset_family`` (``dr``, ``ns``,
 ``ns3d``) from their HDF5 files and calls ``train_baseline`` or
@@ -54,7 +59,7 @@ test split, and writes the six metrics to ``{model_name}.pickle`` and the
 RMSE of each step to ``{model_name}_mse_time.npz``, as JAX writes them.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: the 3D transformer and ``transformer_kwargs`` (A5); ``plot`` (A6);
+item: ``plot`` (A6);
 ``shard_store``, ``host_stream``, ``resident_rotate`` and
 ``resident_rotate_schedule`` (A8).  The production step carries JAX's
 ``scan`` (K steps over an index chunk, no host sync in the loop) and ``xy``
@@ -86,17 +91,30 @@ from sciml_pde_torch.data.dr import (
 )
 from sciml_pde_torch.data.ns import NSBaselineDataset, load_ns_aux, load_ns_baseline, load_ns_test
 from sciml_pde_torch.data.ns3d import load_ns3d_aux, load_ns3d_test
-from sciml_pde_torch.data.windows import WindowedTrajectories, epoch_batches, gather_windows
+from sciml_pde_torch.data.windows import (
+    WindowedTrajectories,
+    check_aux_pairing,
+    epoch_batches,
+    gather_windows,
+    make_aux_indices,
+)
 from sciml_pde_torch.eval.rollout import METRIC_NAMES, evaluate_rollout
 from sciml_pde_torch.metrics import nrmse_loss
 from sciml_pde_torch.models.fno import FNO2d, FNO2dAux, FNO3d, FNO3dAux
+from sciml_pde_torch.models.transformer3d import Transformer3DAux, Transformer3DBaseline
 from sciml_pde_torch.sim import lie
 from sciml_pde_torch.ops.fno_fused_step import fno2d_fused_apply
 from sciml_pde_torch.train import fast_step as fs
 from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer, make_optimizer
 from sciml_pde_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from sciml_pde_torch.utils.logging import MetricLogger
-from sciml_pde_torch.utils.weights import flax_to_state_dict, state_dict_to_flax, tree_map
+from sciml_pde_torch.utils.weights import (
+    flax_to_state_dict,
+    state_dict_to_flax,
+    transformer_flax_to_state_dict,
+    transformer_state_dict_to_flax,
+    tree_map,
+)
 
 _CKPT_MIN_INTERVAL_S = 60.0
 
@@ -149,6 +167,64 @@ def default_init_tree(num_channels: int, modes: int, width: int, initial_step: i
     model = make_fno(num_channels, modes, width, initial_step, aux=aux, ndim=ndim,
                      generator=torch.Generator().manual_seed(seed))
     return state_dict_to_flax(model.state_dict())
+
+
+_FAMILIES_MODEL = ("fno", "transformer3d")
+
+
+def transformer3d_core_kwargs(transformer_kwargs: dict | None, spatial: tuple[int, ...],
+                              num_channels: int, initial_step: int) -> dict:
+    """The 3D VideoMAE core's keywords as the JAX trainer builds them: the
+    store's spatial shape, ``patch_size`` (10, 10, 9) and ``tubelet_size`` 5
+    unless ``transformer_kwargs`` says otherwise, and the widths, depths,
+    heads, ``drop_path_rate`` and ``use_checkpoint`` it gives."""
+    tk = transformer_kwargs or {}
+    core = dict(img_size=tuple(spatial), patch_size=tuple(tk.get("patch_size", (10, 10, 9))),
+                tubelet_size=tk.get("tubelet_size", 5), in_chans=num_channels,
+                num_frames=initial_step)
+    for k in ("encoder_dim", "encoder_depth", "encoder_heads", "decoder_dim", "decoder_depth",
+              "decoder_heads", "drop_path_rate", "use_checkpoint"):
+        if k in tk:
+            core[k] = tk[k]
+    return core
+
+
+class _Family:
+    """The model family of a run: its module (seeded), its default tree and
+    its weight conversions."""
+
+    def __init__(self, model_family: str, transformer_kwargs: dict | None, store,
+                 num_channels: int, modes: int, width: int, initial_step: int, *, aux: bool,
+                 remat: bool = False):
+        if model_family not in _FAMILIES_MODEL:
+            raise ValueError(f"unknown model_family {model_family!r}; one of {_FAMILIES_MODEL}")
+        self.ndim = _spatial_ndim(store)
+        self.transformer = model_family == "transformer3d"
+        if self.transformer and self.ndim != 3:
+            raise ValueError("model_family='transformer3d' trains on a 3D store (N, T, X, Y, Z, "
+                             f"C), got {tuple(store.data.shape)}")
+        if transformer_kwargs is not None and not self.transformer:
+            raise ValueError("transformer_kwargs goes with model_family='transformer3d'")
+        self.aux, self.remat = aux, remat
+        self.fno_args = (num_channels, modes, width, initial_step)
+        if self.transformer:
+            self.core = transformer3d_core_kwargs(transformer_kwargs, store.data.shape[2:5],
+                                                  num_channels, initial_step)
+            self.to_sd, self.to_tree = transformer_flax_to_state_dict, transformer_state_dict_to_flax
+        else:
+            self.to_sd, self.to_tree = flax_to_state_dict, state_dict_to_flax
+
+    def model(self, generator: torch.Generator | None = None):
+        if self.transformer:
+            cls = Transformer3DAux if self.aux else Transformer3DBaseline
+            return cls(**self.core, generator=generator)
+        return make_fno(*self.fno_args, aux=self.aux, ndim=self.ndim, remat=self.remat,
+                        generator=generator)
+
+    def default_tree(self, seed: int) -> dict:
+        if self.transformer:
+            return self.to_tree(self.model(torch.Generator().manual_seed(seed)).state_dict())
+        return default_init_tree(*self.fno_args, seed, aux=self.aux, ndim=self.ndim)
 
 
 def build_baseline_step(model, opt, initial_step: int, rollout: int,
@@ -265,19 +341,8 @@ def build_aux_step(model, opt, initial_step: int, rollout: int, num_aux_samples:
     if aux_resize_to is not None and aux_native_grid is not None:
         raise ValueError("aux_resize_to and aux_native_grid are exclusive")
     params = dict(model.named_parameters())
-    row_map = None if aux_row_map is None else torch.as_tensor(np.asarray(aux_row_map),
-                                                               dtype=torch.long)
-    row_maps: dict = {}  # the row map on each device, copied there once
+    aux_indices = make_aux_indices(num_aux_samples, aux_row_map)
     chunked = aux_chunks > 1 or aux_resize_to is not None or aux_native_grid is not None
-
-    def aux_indices(idx):
-        if row_map is None:
-            offs = torch.arange(num_aux_samples, device=idx.device, dtype=idx.dtype)
-            ap = (idx[:, 0, None] * num_aux_samples + offs[None, :]).reshape(-1)
-        else:
-            rm = row_maps.setdefault(idx.device, row_map.to(idx.device))
-            ap = rm[idx[:, 0]].reshape(-1).to(idx.dtype)
-        return torch.stack([ap, idx[:, 1].repeat_interleave(num_aux_samples)], dim=1)
 
     def to_model_res(a):
         """f32 cast and linear upsample of (B, *spatial, T, C) aux windows."""
@@ -330,8 +395,10 @@ class _ProductionRun:
     builds the optimizer and ``make_step(model, opt)`` returns ``step(data,
     grid, idx) -> (loss, g_norm)`` and ``val(data, grid, idx) -> loss``."""
 
-    def __init__(self, model, tree, dev, make_opt, make_step):
-        model.load_state_dict(flax_to_state_dict(tree))
+    def __init__(self, model, tree, dev, make_opt, make_step, weights=(flax_to_state_dict,
+                                                                       state_dict_to_flax)):
+        self.to_sd, self.to_tree = weights
+        model.load_state_dict(self.to_sd(tree))
         self.model = model.to(dev)
         self.params = dict(self.model.named_parameters())
         self.opt = make_opt(self.params)
@@ -344,10 +411,10 @@ class _ProductionRun:
                  "count": self.opt.count})
 
     def tree(self, params=None) -> dict:
-        return state_dict_to_flax(self.params if params is None else params)
+        return self.to_tree(self.params if params is None else params)
 
     def restore(self, ck) -> None:
-        self.model.load_state_dict(flax_to_state_dict(ck["params"]))
+        self.model.load_state_dict(self.to_sd(ck["params"]))
         self.opt.load_state_dict(ck["opt_state"])
 
 
@@ -491,11 +558,14 @@ def train_baseline(
     log_every: int = 50,
     init_params: dict | None = None,
     fast_step: bool | None = None,
+    model_family: str = "fno",
+    transformer_kwargs: dict | None = None,
     device=None,
 ) -> FNOTrainResult:
     """Train the baseline FNO on an in-memory store: ``FNO2d`` on a store
     (N, T, X, Y, C), ``FNO3d`` on (N, T, X, Y, Z, C) (``dataset.train`` /
-    ``dataset.test``, any family).
+    ``dataset.test``, any family); with ``model_family="transformer3d"``
+    the ``Transformer3DBaseline`` of ``transformer_kwargs`` on a 3D store.
 
     The windows' rollout (``dataset.train.rollout``) is ``rollout_test``.
     ``init_params`` (flax-layout tree) replaces the seeded initialisation,
@@ -506,29 +576,29 @@ def train_baseline(
     ``fast_step=True`` on a 3D store raises, as in JAX."""
     dev = resolve_device(device)
     train_w = dataset.train
-    ndim = _spatial_ndim(train_w)
-    use_fast = select_fast_step(fast_step, training_type=training_type,
-                                rollout_test=train_w.rollout, lie_augment=lie_augment,
-                                scheduler=scheduler)
-    if use_fast and ndim == 3:
+    family = _Family(model_family, transformer_kwargs, train_w, num_channels, modes, width,
+                     initial_step, aux=False, remat=fno_remat)
+    use_fast = select_fast_step(fast_step, model_family=model_family,
+                                training_type=training_type, rollout_test=train_w.rollout,
+                                lie_augment=lie_augment, scheduler=scheduler)
+    if use_fast and family.ndim == 3:
         if fast_step:
             raise ValueError("fast_step=True supports only the 2D FNO (3D store)")
         use_fast = False
     total_steps = _total_steps(train_w, batch_size, epochs)
-    tree = init_params if init_params is not None else default_init_tree(
-        num_channels, modes, width, initial_step, seed, ndim=ndim)
+    tree = init_params if init_params is not None else family.default_tree(seed)
     if use_fast:
         run = _FusedRun(tree, dev, modes=modes, initial_step=initial_step,
                         learning_rate=learning_rate, total_steps=total_steps)
     else:
         gen = torch.Generator(device=dev).manual_seed(seed) if lie_augment else None
         run = _ProductionRun(
-            make_fno(num_channels, modes, width, initial_step, ndim=ndim, remat=fno_remat),
-            tree, dev,
+            family.model(), tree, dev,
             lambda ps: make_optimizer(ps, learning_rate, total_steps, scheduler, 1e-4,
                                       scheduler_step, scheduler_gamma),
             lambda m, o: build_baseline_step(m, o, initial_step, train_w.rollout,
-                                             training_type, t_train, lie_augment, gen))
+                                             training_type, t_train, lie_augment, gen),
+            (family.to_sd, family.to_tree))
     return _fit(run, train_w, dataset.test, batch_size=batch_size, epochs=epochs,
                 model_update=model_update, seed=seed, run_dir=run_dir, model_name=model_name,
                 continue_training=continue_training, log_every=log_every)
@@ -560,10 +630,14 @@ def train_aux(
     continue_training: bool = False,
     log_every: int = 50,
     init_params: dict | None = None,
+    model_family: str = "fno",
+    transformer_kwargs: dict | None = None,
     device=None,
 ) -> FNOTrainResult:
     """Aux joint training of ``FNO2dAux`` / ``FNO3dAux`` on in-memory stores
-    (``DRAuxDataset``, ``NSAuxDataset``, ``NS3DAuxDataset``).
+    (``DRAuxDataset``, ``NSAuxDataset``, ``NS3DAuxDataset``); with
+    ``model_family="transformer3d"`` of the ``Transformer3DAux`` of
+    ``transformer_kwargs`` on 3D stores.
 
     The primary windows (``dataset.primary_train``) set the epoch; each step
     adds the paired aux windows: ``dataset.aux_row_map`` where the dataset
@@ -576,19 +650,10 @@ def train_aux(
     ``init_params`` (a flax aux tree) replaces the seeded initialisation."""
     dev = resolve_device(device)
     train_w, aux_w = dataset.primary_train, dataset.aux_train
-    ndim = _spatial_ndim(train_w)
+    family = _Family(model_family, transformer_kwargs, train_w, num_channels, modes, width,
+                     initial_step, aux=True, remat=fno_remat)
     row_map = getattr(dataset, "aux_row_map", None)
-    if row_map is None:
-        need = train_w.num_trajectories * num_aux_samples
-        if aux_w.num_trajectories < need:
-            raise ValueError(f"aux store has {aux_w.num_trajectories} trajectories < "
-                             f"{train_w.num_trajectories} primary x {num_aux_samples} aux "
-                             "samples")
-    elif np.asarray(row_map).shape != (train_w.num_trajectories, num_aux_samples) \
-            or int(np.max(row_map)) >= aux_w.num_trajectories:
-        raise ValueError(f"aux_row_map {np.asarray(row_map).shape} does not map "
-                         f"{train_w.num_trajectories} primary rows x {num_aux_samples} aux "
-                         f"samples into the aux store's {aux_w.num_trajectories} rows")
+    check_aux_pairing(train_w, aux_w, num_aux_samples, row_map)
     prim_sp, aux_sp = tuple(train_w.data.shape[2:-1]), tuple(aux_w.data.shape[2:-1])
     aux_resize_to = aux_native_grid = None
     if aux_sp != prim_sp:
@@ -597,8 +662,7 @@ def train_aux(
         else:
             aux_resize_to = prim_sp
     total_steps = _total_steps(train_w, batch_size, epochs)
-    tree = init_params if init_params is not None else default_init_tree(
-        num_channels, modes, width, initial_step, seed, aux=True, ndim=ndim)
+    tree = init_params if init_params is not None else family.default_tree(seed)
 
     def make_step(model, opt):
         step, val = build_aux_step(model, opt, initial_step, train_w.rollout, num_aux_samples,
@@ -614,11 +678,10 @@ def train_aux(
     lrs = {"shared": learning_rate_share, "primary_head": learning_rate_fc2,
            "aux_head": learning_rate_fc2}
     run = _ProductionRun(
-        make_fno(num_channels, modes, width, initial_step, aux=True, ndim=ndim,
-                 remat=fno_remat), tree, dev,
+        family.model(), tree, dev,
         lambda ps: make_grouped_optimizer(ps, aux_group_of, lrs, total_steps, scheduler, 1e-4,
                                           scheduler_step, scheduler_gamma),
-        make_step)
+        make_step, (family.to_sd, family.to_tree))
     return _fit(run, train_w, dataset.primary_test, batch_size=batch_size, epochs=epochs,
                 model_update=model_update, seed=seed, run_dir=run_dir, model_name=model_name,
                 continue_training=continue_training, log_every=log_every)
@@ -636,6 +699,8 @@ def evaluate_checkpoint(
     iHigh: int = 12,
     run_dir: str = "runs/fno",
     model_name: str = "fno2d_dr",
+    model_family: str = "fno",
+    transformer_kwargs: dict | None = None,
     device=None,
 ) -> FNOTrainResult:
     """The evaluation branch on an in-memory test split: restore
@@ -648,7 +713,8 @@ def evaluate_checkpoint(
       ``{model_name}_mse_time.npz``  ``t`` = the unrolled frames' indices,
                                      ``mse`` = each step's RMSE
 
-    The model is 2D or 3D as the test store is.  With ``if_aux`` the
+    The model is 2D or 3D as the test store is (or the 3D transformer of
+    ``model_family``, sized by ``transformer_kwargs``).  With ``if_aux`` the
     checkpoint is a two-head model and the primary head is scored (the
     primary stream goes to both inputs, as in JAX).  Returns ``best_val`` =
     nRMSE and ``history`` = [the metrics dict]."""
@@ -658,9 +724,10 @@ def evaluate_checkpoint(
                                 initial_step=test.initial_step, rollout=rollout_test,
                                 train=False)
     ck = restore_checkpoint(Path(run_dir) / f"{model_name}_ckpt.pt")
-    model = make_fno(test.data.shape[-1], modes, width, test.initial_step, aux=if_aux,
-                     ndim=_spatial_ndim(test))
-    model.load_state_dict(flax_to_state_dict(ck["params"]))
+    family = _Family(model_family, transformer_kwargs, test, test.data.shape[-1], modes, width,
+                     test.initial_step, aux=if_aux)
+    model = family.model()
+    model.load_state_dict(family.to_sd(ck["params"]))
     model = model.to(dev)
 
     def apply_fn(x, g):
@@ -672,7 +739,7 @@ def evaluate_checkpoint(
     np.savez(Path(run_dir) / f"{model_name}_mse_time.npz",
              t=np.arange(test.initial_step, test.initial_step + rollout_test),
              mse=np.asarray(errs["mse_time"]))
-    return FNOTrainResult(params=state_dict_to_flax(model.state_dict()),
+    return FNOTrainResult(params=family.to_tree(model.state_dict()),
                           best_val=errs["nRMSE"], history=[errs])
 
 
@@ -754,7 +821,10 @@ def run_training(
                 another resolution at its own (the step upsamples), and
                 ``aux_native_compute`` then runs the aux stream there.
       ``ns3d``  the plume seeds (``data/ns3d.py``; test seeds
-                ``range(*test_range)``): the 3D FNO.
+                ``range(*test_range)``): the 3D FNO, or with
+                ``model_family="transformer3d"`` the 3D VideoMAE operator
+                (``transformer_kwargs``: patch, tubelet, widths, depths,
+                heads, drop-path rate, ``use_checkpoint``).
 
     ``train_subsample`` = (baseline, aux primary, aux) counts.  The
     evaluation reads the test split alone.  A configuration that cannot run
@@ -765,8 +835,6 @@ def run_training(
                      resident_rotate=resident_rotate, scheduler=scheduler)
     select_fast_step(fast_step, if_aux=if_aux, **fast_args)  # an explicit True raises here
     unported = {  # option -> (asked for, ROADMAP item)
-        f"model_family={model_family!r}": (model_family != "fno", "A5"),
-        "transformer_kwargs": (transformer_kwargs is not None, "A5"),
         "plot": (plot, "A6"), "shard_store": (shard_store, "A8"),
         "host_stream": (host_stream, "A8"),
         "resident_rotate": (int(resident_rotate or 0) > 1, "A8"),
@@ -778,6 +846,13 @@ def run_training(
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
     if dataset_family not in _FAMILIES:
         raise ValueError(f"unknown dataset_family {dataset_family!r}; one of {_FAMILIES}")
+    if model_family not in _FAMILIES_MODEL:
+        raise ValueError(f"unknown model_family {model_family!r}; one of {_FAMILIES_MODEL}")
+    if model_family == "transformer3d" and dataset_family != "ns3d":
+        raise ValueError("model_family='transformer3d' trains on the 3D plume (dataset_family "
+                         "'ns3d')")
+    if transformer_kwargs is not None and model_family != "transformer3d":
+        raise ValueError("transformer_kwargs goes with model_family='transformer3d'")
     if dataset_family == "dr":
         # the DR loaders take none of these (JAX ignores them there)
         ns_only = {"aux_store_dtype": aux_store_dtype is not None,
@@ -789,7 +864,8 @@ def run_training(
                              "stay f32 at the primary resolution")
     dev = resolve_device(device)
     common = dict(modes=modes, width=width, batch_size=batch_size, run_dir=run_dir,
-                  model_name=model_name, device=dev)
+                  model_name=model_name, model_family=model_family,
+                  transformer_kwargs=transformer_kwargs, device=dev)
     windows = dict(initial_step=initial_step, rollout_test=rollout_test, device=dev)
     if not if_training:
         if dataset_family == "ns":

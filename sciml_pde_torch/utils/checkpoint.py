@@ -7,6 +7,9 @@ and step count, as one flat vector each for the fused FNO step and per
 named parameter for the production optimizers of ``train/optim.py`` --
 and ``meta`` the epoch and the best validation loss.  Only the optimizer
 state depends on the step that wrote it.
+
+``load_partial_params`` overlays a pretrained tree (say, a masked-SSL
+checkpoint's) on a fresh one where path and shape match.
 """
 
 from __future__ import annotations
@@ -42,3 +45,37 @@ def save_checkpoint(path: str | Path, params: Any, opt_state: dict, epoch: int,
 
 def restore_checkpoint(path: str | Path) -> dict[str, Any]:
     return torch.load(Path(path), map_location="cpu", weights_only=True)
+
+
+def _flatten(tree, prefix=()) -> dict[tuple, Any]:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flatten(sub, prefix + (key,)).items()}
+    return {prefix: tree}
+
+
+def partial_load_counts(params: dict, pretrained: dict) -> tuple[int, int]:
+    """(leaves of ``params`` that ``load_partial_params`` takes from
+    ``pretrained``, leaves it keeps fresh)."""
+    flat_q = _flatten(pretrained)
+    loaded = sum(1 for path, leaf in _flatten(params).items()
+                 if path in flat_q and tuple(flat_q[path].shape) == tuple(leaf.shape))
+    return loaded, len(_flatten(params)) - loaded
+
+
+def load_partial_params(params: dict, pretrained: dict, verbose: bool = True) -> dict:
+    """``params`` (a nested-dict tree) with each leaf replaced by the leaf of
+    ``pretrained`` at the same path where that exists with the same shape;
+    every other leaf kept (the reference's key-filtered partial loading of
+    pretrained VideoMAE weights)."""
+    flat_q = _flatten(pretrained)
+
+    def overlay(node, prefix):
+        if isinstance(node, dict):
+            return {k: overlay(v, prefix + (k,)) for k, v in node.items()}
+        cand = flat_q.get(prefix)
+        return cand if cand is not None and tuple(cand.shape) == tuple(node.shape) else node
+
+    if verbose:
+        loaded, fresh = partial_load_counts(params, pretrained)
+        print(f"load_partial_params: {loaded} loaded, {fresh} kept fresh")
+    return overlay(params, ())

@@ -163,12 +163,9 @@ def test_resume_needs_the_same_step(folder, tmp_path):
 @pytest.mark.parametrize("option", [
     (dict(if_aux=True, host_stream=True), "A8"), (dict(if_training=False, plot=True), "A6"),
     (dict(dataset_family="ns", shard_store=True), "A8"),
-    (dict(model_family="transformer3d"), "A5"),
-    (dict(dataset_family="ns3d", model_family="transformer3d"), "A5"),
     (dict(if_training=False, if_aux=True, plot=True), "A6"),
     (dict(shard_store=True), "A8"), (dict(host_stream=True), "A8"),
     (dict(resident_rotate=2), "A8"), (dict(if_aux=True, resident_rotate=2), "A8"),
-    (dict(transformer_kwargs={"encoder_depth": 2}), "A5"),
     (dict(resident_rotate_schedule="cyclic", resident_rotate=2), "A8"),
 ])
 def test_out_of_scope_options_raise(tmp_path, option):

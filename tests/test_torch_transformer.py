@@ -134,9 +134,19 @@ def test_drop_path():
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError):
-        tt.VideoMAEOperator(**CFG, use_checkpoint=True)
-    with pytest.raises(NotImplementedError):
-        tt.VideoMAEOperator(**CFG, ssl=True)
-    with pytest.raises(NotImplementedError):
-        tt.VideoMAEOperator(**CFG)(torch.tensor(_x()), mask=torch.zeros(2, 32, dtype=torch.bool))
+    """The branches that raised before they were ported (``use_checkpoint``,
+    ``ssl`` and its ``mask`` path) now run: remat gives the plain model's
+    output, the masked path returns the masked tokens' pixels, and a mask on
+    a model without ``ssl`` raises ValueError."""
+    x = torch.tensor(_x())
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    plain = tt.VideoMAEOperator(**CFG, generator=gen())
+    remat = tt.VideoMAEOperator(**CFG, use_checkpoint=True, generator=gen())
+    torch.testing.assert_close(remat(x), plain(x), rtol=0, atol=0)
+    ssl = tt.VideoMAEOperator(**CFG, ssl=True, generator=gen())
+    mask = torch.zeros(2, 32, dtype=torch.bool)
+    mask[:, ::4] = True
+    out = ssl(x, mask=mask)
+    assert tuple(out.shape) == (2, 8, 2 * 8 * 8 * 3) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="ssl=True"):
+        plain(x, mask=mask)
