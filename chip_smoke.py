@@ -264,6 +264,37 @@ FNO steps and the five split kernels):
               channels, encoder 2 and decoder 1 blocks: one baseline and
               one aux (nA 3) step on the card against the CPU, 2 epochs of
               each, no attention kernel launched at its 500 tokens
+ 18. data    the data and parity pipeline (ROADMAP A6 and the DR and NS-2D
+              half of A7), on files the port writes (through h5py, or its
+              own HDF5 subset where h5py is not installed): a. gen_diff_react
+              at the generation config (128^2, 101 frames, t 5.0) for the
+              primary (DR_SEEDS) and the diff form (DR_DIFF_SEEDS), the diff
+              file downsampled to (50, 96) and loaded as an aux pool; one
+              seed of each sim_type on the card against the CPU over the
+              first DR_CHECK_FRAMES frames (1e-5), the written files too;
+              the generator's time per RK4 substep and device-busy share; b.
+              experiments/dr_parity.py for one epoch of basic_ds2, baseline
+              on the fused step (--fast-step) and aux: finite losses, five
+              horizons each in summary.json, every FNO kernel launched; c.
+              rollout_study_fused on the baseline checkpoint through the
+              module's forward and through fno2d_fused_apply on the packed
+              tree, under `highest`, against each other (phase 4b's
+              bounds); d. export_rollout_trajectories, the trainer's
+              evaluation with plot=True, rollout_figure, field_panels,
+              field_animation and preview_dataset write their files; e.
+              simulate_ns_batch at the production grid (256^2, nu 0.05, dt
+              5e-5; NS_GEN's steps) under both pressure solvers through
+              gen_ns_incomp: the MAC divergence after project below
+              max(1e-4 x before, 1e-4) at the JAX test's grid (24^2) and at
+              256^2 below NS_DIV_256 x before and within NS_DIV_CPU x the
+              CPU's (the f32 solve's level),
+              with PyTorch's matmul precision at TF32 and at full f32 (the
+              DCT solve the same bits under both), every stored frame finite
+              with |velocity| < 100, 10 momentum steps on the card against
+              the CPU (1e-4), the files read back through data/ns.py and a
+              velocity file converted by velocity2vorticity; ms per
+              momentum step and device-busy share (CG's over the
+              generator's own steps)
 
 The probe's row carries phase 0's profiler device time beside torch.mul's.
 It prints the kernel table as one JSON line, the card line, and last
@@ -601,6 +632,28 @@ AUXT_ATT_SHAPES = {"aux encoder": (NS_BATCH * (1 + AUXT_NA) * 12, 1280, 64),
 AUXT_ROWS = tuple(f"{name} ({where})" for where in AUXT_ATT_SHAPES
                   for name in ("attention_fwd", "attention_dq", "attention_dkv"))
 SHALLOW = dict(encoder_depth=2, decoder_depth=1)
+# phase 18: the DR files at the generation config (sim/diff_react.py
+# DiffReactConfig: 128^2, 101 frames, t 5.0): 10 primary seeds, the 90/10
+# split's 9 train and 1 test, and 4 of the diff form (basic_ds2's aux pool
+# takes 3); each sim_type held to the CPU over its first 6 frames (the same
+# frame step and substeps as the 101-frame run: a depth cut)
+DR_SEEDS, DR_DIFF_SEEDS, DR_CHECK_FRAMES, TOL_SIM = 10, 4, 6, 1e-5
+# NS-2D at the production grid and step (sim/ns_incomp_2d.py NSIncompConfig:
+# 256^2, nu 0.05, dt 5e-5; the files hold 100,000 steps), 2 trajectories: the
+# DCT file cut to 201 steps (a frame each 50), the CG file to 11 (each 5; a
+# CG step takes hundreds of iterations, and its time is read over the
+# generator's own 10 steps): depth cuts.  The card against the CPU over 10
+# momentum steps 1e-4.  The projection's bound, max(1e-4 x the divergence
+# before, 1e-4), is tests/test_ns_incomp.py::test_projection_removes_divergence's
+# at its grid (24^2, tol 1e-5, 2000 iterations); at 256^2 the f32 solve
+# itself leaves more (JAX's DCT projection of its PRNGKey(1) state on the
+# CPU: 90.0 -> 2.68e-2, 3.0e-4 of before;
+# tests/test_torch_sim_ns.py::test_projection_at_the_production_grid), so
+# there the card is held to NS_DIV_256 x the divergence before, and to
+# NS_DIV_CPU x the CPU's divergence after the same projection
+NS_GEN = {"dct": (201, 50), "cg": (11, 5)}  # solver: (n_steps, frame_int)
+NS_GEN_BATCH, TOL_NS_STEPS, NS_DIV_256, NS_DIV_CPU = 2, 1e-4, 1e-3, 2.0
+NS_TEST_CFG = dict(grid_size=(24, 24), dt=1e-3, n_steps=6, frame_int=2, n_batch=2, nu=0.01)
 
 failures: list[str] = []
 
@@ -1992,7 +2045,15 @@ def att_case(ta, dev, card: str, where: str, shape: tuple, dt, amp: float, g,
             key = att_kernel_key(name, d, bf)
             nbytes, ops_s = att_work(name, *q.shape, bf)
             bound_ms = max(nbytes / HBM_BPS, ops_s) * 1e3
-            dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key, bound_ms=bound_ms)
+            why = []
+            dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key, bound_ms=bound_ms,
+                                 reasons=why)
+            if dev_ms is None:  # one more reading, and why the sessions came back empty
+                dev_ms = profiler_ms(lambda: kfn(*args[name], scale), key, bound_ms=bound_ms,
+                                     sessions=1, reasons=why)
+                print(f"[timing] {card}: {name} {where} {tuple(q.shape)} {str(dt)[6:]}: the "
+                      f"profiler's sessions not kept: {'; '.join(why)}; the retry read "
+                      f"{fmt(dev_ms)}", flush=True)
             lib = sdpa_calls(q, k, v, do, scale)[name]
             lib_dev = profiler_ms(lib)
             dev_times[name], dev_times["library " + name] = dev_ms, lib_dev
@@ -3850,6 +3911,342 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
     return launches
 
 
+def data_parity_path(dev, card: str, run_dir: Path) -> dict:
+    """Phase 18: the port's DR parity pipeline from simulation to rollout
+    table, its outputs, and the NS-2D generator, on files the port writes.
+    Returns each FNO kernel's launches in dr_parity's training."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.data.dr import AUX_FILE, PRIMARY_FILE, load_dr_aux, load_dr_baseline
+    from sciml_pde_torch.data.ns import load_ns_baseline
+    from sciml_pde_torch.eval.prediction import export_rollout_trajectories
+    from sciml_pde_torch.eval.rollout import METRIC_NAMES
+    from sciml_pde_torch.eval.rollout_experiment import fused_fno_apply, rollout_study_fused
+    from sciml_pde_torch.experiments import dr_parity
+    from sciml_pde_torch.io import h5 as h5io
+    from sciml_pde_torch.models.fno import FNO2d
+    from sciml_pde_torch.ops import fno_kernels as fk
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.plots.figures import field_animation, field_panels, rollout_figure
+    from sciml_pde_torch.sim import diff_react as dr
+    from sciml_pde_torch.sim import ns_incomp_2d as ns
+    from sciml_pde_torch.sim.downsample_dr import downsample_file
+    from sciml_pde_torch.sim.gen_diff_react import generate_dataset
+    from sciml_pde_torch.sim.gen_ns_incomp import generate_ns_file
+    from sciml_pde_torch.sim.preview import preview_dataset
+    from sciml_pde_torch.sim.velocity2vorticity import convert_velocity
+    from sciml_pde_torch.sim.vorticity import compute_spectral_vorticity_np
+    from sciml_pde_torch.train.fno_train import run_training
+    from sciml_pde_torch.utils.checkpoint import restore_checkpoint
+    from sciml_pde_torch.utils.weights import flax_to_packed, flax_to_state_dict
+
+    t_phase = t_sub = time.perf_counter()
+    h5py = h5io.h5py_module()
+    print(f"[data] HDF5 through {h5py.__name__}", flush=True)
+    data_dir, out = run_dir / "dr_data", run_dir / "dr_parity"
+    for d in (data_dir, out):
+        shutil.rmtree(d, ignore_errors=True)
+    data_dir.mkdir(parents=True)
+
+    # ---- 18a. DR generation at the generation config ---------------------------
+    cfg_all, cfg_diff = dr.DiffReactConfig(), dr.DiffReactConfig(sim_type="diff")
+    gen_s = {}
+    for name, cfg, n in ((PRIMARY_FILE, cfg_all, DR_SEEDS), (AUX_FILE, cfg_diff, DR_DIFF_SEEDS)):
+        t0 = time.perf_counter()
+        generate_dataset(data_dir / name, n, cfg, device_batch=n, verbose=False, device=dev)
+        gen_s[name] = time.perf_counter() - t0
+        with h5py.File(data_dir / name, "r") as f:
+            keys = sorted(f.keys())
+            shapes = {f[k]["data"].shape for k in keys}
+            finite = all(bool(np.isfinite(np.asarray(f[k]["data"])).all()) for k in keys)
+        check(keys == [f"{i:04d}" for i in range(n)] and shapes == {(101, 128, 128, 2)} and finite,
+              f"[data] gen_diff_react {cfg.sim_type}: {n} seed groups of (101, 128, 128, 2), "
+              f"finite, in {gen_s[name]:.2f} s ({dr.stability_substeps(cfg)} RK4 substeps a "
+              "frame, the seeds integrated together)")
+    down = "2D_diff-react_decomp_downsample.h5"
+    n_down = downsample_file(data_dir / AUX_FILE, data_dir / down, 50, 96, verbose=False)
+    with h5py.File(data_dir / down, "r") as f:
+        dshape = f["0000"]["data"].shape
+    aux_ds = load_dr_aux(str(data_dir), str(data_dir), train_subsample=(2, 1, 3),
+                         if_downsample=True, aux_file=down, device=dev)
+    check(n_down == DR_DIFF_SEEDS and dshape == (50, 96, 96, 2)
+          and tuple(aux_ds.aux_train.data.shape) == (3, 101, 128, 128, 2)
+          and bool(torch.isfinite(aux_ds.aux_train.data).all()),
+          f"[data] downsample_dr: {n_down} seeds at {dshape}, loaded as the aux pool and "
+          f"upsampled on the card to {tuple(aux_ds.aux_train.data.shape)}")
+    del aux_ds
+    for st in ("all", "react", "diff"):
+        cfg = dr.DiffReactConfig(sim_type=st, t=cfg_all.t * (DR_CHECK_FRAMES - 1) / 100,
+                                 tdim=DR_CHECK_FRAMES)
+        ic = dr.initial_condition(1, cfg)
+        card_traj = dr.simulate_diff_react(ic, cfg, device=dev).cpu()
+        cpu_traj = dr.simulate_diff_react(ic, cfg, device="cpu")
+        err, rel = rel_err(card_traj, cpu_traj)
+        msg = (f"[data] DR {st} seed 1, {DR_CHECK_FRAMES} frames ({dr.stability_substeps(cfg)} "
+               f"substeps a frame, as at 101 frames): the card against the CPU max abs err "
+               f"{err:.3e}, rel-to-max {rel:.3e}")
+        ok = rel <= TOL_SIM and dr.stability_substeps(cfg) == dr.stability_substeps(
+            dr.DiffReactConfig(sim_type=st))
+        if st != "react":
+            with h5py.File(data_dir / (PRIMARY_FILE if st == "all" else AUX_FILE), "r") as f:
+                written = torch.from_numpy(np.asarray(f["0001"]["data"])[:DR_CHECK_FRAMES])
+            rel_f = rel_err(written, cpu_traj)[1]
+            ok &= rel_f <= TOL_SIM
+            msg += f"; the written file's seed 1 {rel_f:.3e}"
+        check(ok, msg + f" (tol {TOL_SIM:.0e})")
+    # the generator's loop: 10 seeds, 2 frames
+    cfg_t = dr.DiffReactConfig(t=cfg_all.t * 2 / 100, tdim=3)
+    n_sub = 2 * dr.stability_substeps(cfg_t)
+    ics = np.stack([dr.initial_condition(i, cfg_t) for i in range(DR_SEEDS)])
+    run_gen = lambda: dr.simulate_diff_react(ics, cfg_t, device=dev)  # noqa: E731
+    gen_ms = cuda_ms(run_gen, reps=3) / n_sub
+    print(f"[timing] {card}: DR generator (all, {DR_SEEDS} seeds at 128^2): {gen_ms:.4f} ms per "
+          f"RK4 substep (CUDA events over {n_sub} substeps); the primary file "
+          f"{gen_s[PRIMARY_FILE]:.2f} s, the diff file {gen_s[AUX_FILE]:.2f} s with the writes",
+          flush=True)
+    device_profile(card, run_gen, n_sub, "RK4 substep", gen_ms, ())
+
+    print(f"[data] 18a in {time.perf_counter() - t_sub:.1f} s", flush=True)
+    t_sub = time.perf_counter()
+    # ---- 18b. experiments/dr_parity.py for one epoch -----------------------------
+    spectral.set_dft_precision("default")
+    trained = {}  # the trainer's results, for their loss histories
+
+    @functools.wraps(dr_parity.run_training)
+    def recording(**kw):
+        trained[kw["model_name"]] = res = run_training(**kw)
+        return res
+
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    dr_parity.run_training = recording
+    try:
+        summary = dr_parity.main(["--data", str(data_dir) + "/", "--dataset", "basic_ds2",
+                                  "--epochs", "1", "--out", str(out), "--fast-step",
+                                  "--device", dev.type])
+    finally:
+        dr_parity.run_training = run_training
+    torch.cuda.synchronize()
+    launches = dict(fk.LAUNCHES)
+    saved = json.loads((out / "summary.json").read_text())
+    print(f"[data] dr_parity basic_ds2, 1 epoch, both variants in "
+          f"{time.perf_counter() - t0:.2f} s; launches: {json.dumps(launches)}", flush=True)
+    for variant in ("baseline", "aux"):
+        hist = trained[f"dr_basic_ds2_{variant}"].history
+        losses = [h[k] for h in hist for k in ("first_step_loss", "last_step_loss", "train_loss",
+                                               "val_loss")]
+        nrmse = saved.get(variant, {}).get("rollout_nrmse", [])
+        check(saved == summary and len(nrmse) == 5 and len(hist) == 1
+              and all(math.isfinite(v) for v in losses + nrmse),
+              f"[data] dr_parity {variant}: losses {', '.join(f'{v:.5g}' for v in losses)} "
+              f"finite; summary.json rollout nRMSE at horizons 1-5 "
+              f"{', '.join(f'{v:.5f}' for v in nrmse)}")
+    for key in fk.KERNEL_NAMES:
+        check(launches[key] > 0, f"[data] dr_parity's fused baseline launched {key} "
+              f"({launches[key]}x)")
+
+    print(f"[data] 18b in {time.perf_counter() - t_sub:.1f} s", flush=True)
+    t_sub = time.perf_counter()
+    # ---- 18c. the rollout study through the module and through B1's kernels ------
+    tree = restore_checkpoint(out / "dr_basic_ds2_baseline_ckpt.pt")["params"]
+    model = FNO2d(2, MODES, MODES, width=WIDTH, initial_step=T0)
+    model.load_state_dict(flax_to_state_dict(tree))
+    model = model.to(dev).eval()
+    test = load_dr_baseline(str(data_dir), train_subsample=1, initial_step=T0, rollout_test=5,
+                            device=dev).test
+    packed = flax_to_packed(tree, MODES, device=dev)
+    fused = functools.partial(fused_fno_apply, modes=MODES)
+    spectral.set_dft_precision("highest")
+    horizons = (1, 2, 3, 4, 5)
+    plain = rollout_study_fused(lambda x, g: model(x, g), None, test, horizons=horizons,
+                                batch_size=5, device=dev)
+    fk.reset_launch_counts()
+    via = rollout_study_fused(fused, packed, test, horizons=horizons, batch_size=5,
+                              out_path=out / "rollout_fused.json", device=dev)
+    study_launches = sum(fk.LAUNCHES.values())
+    spectral.set_dft_precision("default")
+    for k in horizons:
+        tol = EVAL_ROLLOUTS[1] if k == 1 else EVAL_ROLLOUTS[5]
+        rels = {m: abs(via[k][m] - plain[k][m]) / max(abs(plain[k][m]), 1e-30)
+                for m in METRIC_NAMES}
+        rels["mse_time"] = max(abs(a - b) / max(abs(b), 1e-30)
+                               for a, b in zip(via[k]["mse_time"], plain[k]["mse_time"]))
+        check(all(math.isfinite(via[k][m]) for m in METRIC_NAMES) and max(rels.values()) <= tol,
+              f"[data] rollout_study_fused horizon {k} (`highest`): fno2d_fused_apply's kernels "
+              f"({study_launches} launches) against the module, nRMSE {via[k]['nRMSE']:.6f} "
+              f"against {plain[k]['nRMSE']:.6f}, worst relative error "
+              f"{max(rels.values()):.3e} ({max(rels, key=rels.get)}; tol {tol:.0e})")
+    check(study_launches > 0, f"[data] the fused rollout study launched B1's kernels "
+          f"({study_launches}x)")
+
+    print(f"[data] 18c in {time.perf_counter() - t_sub:.1f} s", flush=True)
+    t_sub = time.perf_counter()
+    # ---- 18d. outputs ----------------------------------------------------------------
+    paths = export_rollout_trajectories(fused, packed, test, steps=5, out_dir=out / "pred",
+                                        prefix="2D_DR_pred_trj", batch_size=5, device=dev)
+    shapes = []
+    for path in paths:
+        with h5py.File(path, "r") as f:
+            arr = np.asarray(f["data"])
+            shapes.append(arr.shape if np.isfinite(arr).all() else None)
+    check(len(paths) == test.num_trajectories and set(shapes) == {(5, 128, 128, 2)},
+          f"[data] export_rollout_trajectories: {len(paths)} file(s) "
+          f"{', '.join(p.name for p in paths)}, data {shapes}")
+    run_training(base_path=str(data_dir) + "/", if_training=False, plot=True,
+                 run_dir=str(out), model_name="dr_basic_ds2_baseline", rollout_test=2,
+                 device=dev)
+    x, y = test.data[0, :T0].permute(1, 2, 0, 3)[None], test.data[0, T0].cpu().numpy()
+    with torch.no_grad():
+        pred = model(x, test.grid[None])[0, ..., 0, :].cpu().numpy()
+    figs = [out / "dr_basic_ds2_baseline_pred.png",
+            rollout_figure(out / "rollout_dr_fno.png", "2D_DR", "FNO",
+                           ours=summary["baseline"]["rollout_nrmse"]),
+            field_panels(out / "field_panels.png", pred, y, channel=0, title="DR step 1"),
+            field_animation(out / "trajectory.gif", test.data[0].cpu().numpy(), fps=10),
+            *preview_dataset(data_dir / PRIMARY_FILE, gif=True)]
+    sizes = {f.name: f.stat().st_size if f.exists() else 0 for f in figs}
+    check(all(v > 0 for v in sizes.values()),
+          f"[data] figures written: {json.dumps(sizes)}")
+
+    print(f"[data] 18d in {time.perf_counter() - t_sub:.1f} s", flush=True)
+    t_sub = time.perf_counter()
+    # ---- 18e. NS-2D at the production grid under both pressure solvers -----------------
+    # the CPU references' CG loops (thousands of small ops a step) run several
+    # times slower with a thread on every core than on half of them
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    print(f"[data] 18e: the CPU references on {torch.get_num_threads()} of {threads} threads",
+          flush=True)
+    g = torch.Generator().manual_seed(18)
+    prev = torch.get_float32_matmul_precision()
+
+    def projected_div(u, v, cfg, solver, setting):
+        """The divergence after project with the caller's matmul precision
+        at ``setting``, and the setting found afterwards."""
+        torch.set_float32_matmul_precision(setting)
+        try:
+            u1, v1 = ns.project(u, v, cfg.dx, cfg.dy, 1e-5, 2000, method=solver)
+            kept = torch.get_float32_matmul_precision()
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        return ns.divergence(u1, v1, cfg.dx, cfg.dy), kept
+
+    for solver, idx in (("dct", 0), ("cg", 250)):
+        # the JAX test's bound at its grid, with the caller's precision at
+        # full f32 and at TF32
+        cfg_t = ns.NSIncompConfig(**NS_TEST_CFG, pressure_solver=solver)
+        ut, vt, *_ = ns.init_state(g, cfg_t, device=dev)
+        div0 = ns.divergence(ut, vt, cfg_t.dx, cfg_t.dy).abs().max().item()
+        for setting in ("highest", "high"):
+            div1, kept = projected_div(ut, vt, cfg_t, solver, setting)
+            div1 = div1.abs().max().item()
+            check(div1 < max(1e-4 * div0, 1e-4) and kept == setting,
+                  f"[data] NS {solver} project at 24^2 (the JAX test's grid) with matmul "
+                  f"precision {setting!r}: MAC divergence {div0:.3e} -> {div1:.3e} (bound "
+                  f"{max(1e-4 * div0, 1e-4):.3e}); the caller's setting {kept!r} after it")
+        steps_n, frame_int = NS_GEN[solver]
+        cfg = ns.NSIncompConfig(n_steps=steps_n, frame_int=frame_int, n_batch=NS_GEN_BATCH,
+                                pressure_solver=solver)
+        u, v, c, fu, fv = ns.init_state(g, cfg, device=dev)
+        div0 = ns.divergence(u, v, cfg.dx, cfg.dy).abs().max().item()
+        div_f32, _ = projected_div(u, v, cfg, solver, "highest")
+        div_tf32, kept = projected_div(u, v, cfg, solver, "high")
+        cpu_div = ns.divergence(*ns.project(u.cpu(), v.cpu(), cfg.dx, cfg.dy, 1e-5, 2000,
+                                            method=solver), cfg.dx, cfg.dy).abs().max().item()
+        card_div = div_f32.abs().max().item()
+        same = bool(torch.equal(div_f32, div_tf32)) if solver == "dct" else True
+        check(card_div <= NS_DIV_256 * div0 and card_div <= NS_DIV_CPU * cpu_div and same
+              and kept == "high",
+              f"[data] NS {solver} project at 256^2: MAC divergence {div0:.3e} -> {card_div:.3e} "
+              f"on the card ({card_div / div0:.2e} of before; bound {NS_DIV_256:g}), "
+              f"{cpu_div:.3e} on the CPU (bound {NS_DIV_CPU:g} x the CPU's)"
+              + ("; the same bits with the caller's matmul precision "
+                 f"at TF32: {same}" if solver == "dct" else ""))
+        # 10 momentum steps on the card against the CPU from the same state
+        state_c = (u, v, c)
+        state_h = tuple(t.cpu() for t in (u, v, c))
+        for _ in range(10):
+            state_c = ns.momentum_step(*state_c, fu, fv, cfg)
+            state_h = ns.momentum_step(*state_h, fu.cpu(), fv.cpu(), cfg)
+        errs = [rel_err(a.cpu(), b) for a, b in zip(state_c, state_h)]
+        check(max(r for _, r in errs) <= TOL_NS_STEPS,
+              f"[data] NS {solver}: 10 momentum steps on the card against the CPU, rel-to-max "
+              f"u {errs[0][1]:.3e}, v {errs[1][1]:.3e}, particles {errs[2][1]:.3e} "
+              f"(tol {TOL_NS_STEPS:.0e})")
+        # the file through gen_ns_incomp (the streaming path for cg), read back
+        path = data_dir / f"ns_incom_inhom_2d_256-{idx}.h5"
+        chunk = 0 if solver == "dct" else 1
+        t0 = time.perf_counter()
+        generate_ns_file(path, idx, cfg, frames_per_chunk=chunk, device=dev)
+        gen_t = time.perf_counter() - t0
+        # ms per momentum step: DCT over a loop of steps, CG (hundreds of
+        # iterations a step) over the generator's own run, its set-up and
+        # writes included; the device's busy share over one CG step (the
+        # profiler's table of ~18,000 ops a step takes seconds a step to build)
+        n_t = 20 if solver == "dct" else (cfg.n_frames - 1) * frame_int
+
+        def steps(n=n_t, st=(u, v, c)):
+            for _ in range(n):
+                st = ns.momentum_step(*st, fu, fv, cfg)
+            return st
+        if solver == "dct":
+            step_ms, how = cuda_ms(steps, reps=1) / n_t, f"CUDA events over {n_t} steps"
+        else:
+            step_ms, how = 1e3 * gen_t / n_t, f"gen_ns_incomp's {n_t} steps, its writes included"
+        print(f"[timing] {card}: NS-2D momentum step ({solver}, {NS_GEN_BATCH} trajectories at "
+              f"256^2): {step_ms:.4f} ms ({how})", flush=True)
+        n_prof = n_t if solver == "dct" else 1
+        device_profile(card, functools.partial(steps, n_prof), n_prof, "momentum step", step_ms,
+                       ())
+        with h5py.File(path, "r") as f:
+            vel = np.asarray(f["velocity"])
+            par = np.asarray(f["particles"])
+            latest = int(f.attrs["latestIndex"])
+        check(vel.shape == (NS_GEN_BATCH, cfg.n_frames, 256, 256, 2)
+              and par.shape[:-1] == vel.shape[:-1] and np.isfinite(vel).all()
+              and np.isfinite(par).all() and float(np.abs(vel).max()) < 100
+              and latest == cfg.n_frames - 1,
+              f"[data] gen_ns_incomp {solver} ({steps_n} steps, a frame each {frame_int}, "
+              f"frames_per_chunk {chunk}) in {gen_t:.2f} s: velocity {vel.shape}, every frame "
+              f"finite, max |velocity| {float(np.abs(vel).max()):.4f} (< 100)")
+    ds = load_ns_baseline(str(data_dir) + "/", train_subsample=1, initial_step=2,
+                          rollout_test=1, test_range=(250, 251), device=dev)
+    with h5py.File(data_dir / "ns_incom_inhom_2d_256-0.h5", "r") as f:
+        want = np.concatenate([np.asarray(f["velocity"]), np.asarray(f["particles"])], -1)
+    check(tuple(ds.train.data.shape) == want.shape
+          and np.array_equal(ds.train.data.cpu().numpy(), want)
+          and tuple(ds.test.data.shape) == (NS_GEN_BATCH, 3, *want.shape[2:]),
+          f"[data] data/ns.py reads the written files: train {tuple(ds.train.data.shape)}, "
+          f"test {tuple(ds.test.data.shape)}")
+    # a velocity file (Vx, Vy, Vz of one z layer) through velocity2vorticity
+    cfd = data_dir / "ns_velocity.h5"
+    with h5py.File(cfd, "w") as f:
+        for k, comp in (("Vx", want[..., 0]), ("Vy", want[..., 1]),
+                        ("Vz", np.zeros_like(want[..., 0]))):
+            f.create_dataset(k, data=comp[..., None].astype(np.float32))
+        xy = want.shape[2]
+        for k, n in (("x-coordinate", xy), ("y-coordinate", xy), ("z-coordinate", 2)):
+            f.create_dataset(k, data=(np.arange(n) / xy).astype(np.float32))
+    vort = convert_velocity(cfd, batch=1, device=dev)
+    with h5py.File(vort, "r") as f:
+        om = np.stack([np.asarray(f[k]) for k in ("omega_x", "omega_y", "omega_z")], -1)
+    vel3 = np.stack([want[..., 0], want[..., 1], np.zeros_like(want[..., 0])], -1)[..., None, :]
+    ref = compute_spectral_vorticity_np(vel3.reshape(-1, xy, xy, 1, 3), 1.0, 1.0,
+                                        1 / xy).reshape(om.shape)
+    err, rel = rel_err(torch.from_numpy(om), torch.from_numpy(ref))
+    check(om.shape == want.shape[:-1] + (1, 3) and rel <= TOL_SIM,
+          f"[data] velocity2vorticity on the card: omega {om.shape} against the CPU, max abs "
+          f"err {err:.3e}, rel-to-max {rel:.3e} (tol {TOL_SIM:.0e})")
+    torch.set_num_threads(threads)
+    print(f"[data] 18e (NS-2D) in {time.perf_counter() - t_sub:.1f} s; phase 18 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "sciml_pde_torch" / "ops" / "csrc").is_dir():
@@ -4182,6 +4579,10 @@ def main() -> int:
         kernel_rows[key]["ns_launches"] = ns_launches[key]
     # ---- 17. the transformer's aux joint training and the rest of ROADMAP A5 ---------
     kernel_rows.update(aux_transformer_path(dev, card, run_dir))
+    # ---- 18. the data and parity pipeline (ROADMAP A6, the DR and NS-2D half of A7) --
+    parity_launches = data_parity_path(dev, card, run_dir)
+    for key in fk.KERNEL_NAMES:
+        kernel_rows[key]["parity_launches"] = parity_launches[key]
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,

@@ -16,8 +16,8 @@ primary's grid on load (JAX's linear resize, ``dr.resize_linear``), or with
 ``aux_upsample_at_gather`` kept at its own resolution for the step to
 resize.  ``store_dtype`` / ``aux_store_dtype`` ``"bf16"`` keep the train
 stores in bf16 (rounded to nearest even, as ``ml_dtypes`` rounds); the
-test split stays f32.  ``h5py`` is imported inside the readers, so the
-package imports on a host without it.
+test split stays f32.  Files open through ``io/h5.py::h5py_module`` (h5py,
+or the port's own HDF5 subset where h5py is not installed).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 
 from sciml_pde_torch.data.dr import resize_linear
 from sciml_pde_torch.data.windows import WindowedTrajectories
+from sciml_pde_torch.io import h5 as h5io
 
 STORE_DTYPES = {None: torch.float32, "f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -50,9 +51,7 @@ class NSAuxDataset:
 
 def _read_ns_file(path: Path) -> np.ndarray:
     """One NS file -> (B, T, X, Y, 3) = velocity ++ particles."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with h5io.h5py_module().File(path, "r") as f:
         vel = np.asarray(f["velocity"], np.float32)
         par = np.asarray(f["particles"], np.float32)
     return np.concatenate([vel, par], axis=-1)

@@ -34,15 +34,15 @@ import sys
 from sciml_pde_torch.utils.config import load_config
 
 
-def _call_with_supported(fn, args: dict, override_keys=()):
+def _call_with_supported(fn, args: dict, override_keys=(), **extra):
     sig = inspect.signature(fn)
     # config keys the trainer does not take are dropped (the presets carry
     # keys of other trainers), but an explicit override that lands nowhere
-    # is a user error
+    # is a user error; ``extra`` keys take precedence over ``args``
     unknown = [k for k in override_keys if k not in sig.parameters]
     if unknown:
         raise SystemExit(f"unknown override(s) for {fn.__name__}: {', '.join(unknown)}")
-    return fn(**{k: v for k, v in args.items() if k in sig.parameters})
+    return fn(**{k: v for k, v in {**args, **extra}.items() if k in sig.parameters})
 
 
 def _parse(argv):

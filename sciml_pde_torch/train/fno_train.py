@@ -56,11 +56,11 @@ flushed at the end.  ``utils/logging.py::MetricLogger`` writes
 takes the test split in memory): it restores
 ``{run_dir}/{model_name}_ckpt.pt``, unrolls ``rollout_test`` steps over the
 test split, and writes the six metrics to ``{model_name}.pickle`` and the
-RMSE of each step to ``{model_name}_mse_time.npz``, as JAX writes them.
+RMSE of each step to ``{model_name}_mse_time.npz``, as JAX writes them,
+and with ``plot`` the field render ``{model_name}_pred.png``.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``plot`` (A6);
-``shard_store``, ``host_stream``, ``resident_rotate`` and
+item: ``shard_store``, ``host_stream``, ``resident_rotate`` and
 ``resident_rotate_schedule`` (A8).  The production step carries JAX's
 ``scan`` (K steps over an index chunk, no host sync in the loop) and ``xy``
 (pre-gathered windows) variants; the aux step has neither (A8).
@@ -98,7 +98,7 @@ from sciml_pde_torch.data.windows import (
     gather_windows,
     make_aux_indices,
 )
-from sciml_pde_torch.eval.rollout import METRIC_NAMES, evaluate_rollout
+from sciml_pde_torch.eval.rollout import METRIC_NAMES, evaluate_rollout, rollout_predict
 from sciml_pde_torch.metrics import nrmse_loss
 from sciml_pde_torch.models.fno import FNO2d, FNO2dAux, FNO3d, FNO3dAux
 from sciml_pde_torch.models.transformer3d import Transformer3DAux, Transformer3DBaseline
@@ -701,6 +701,8 @@ def evaluate_checkpoint(
     model_name: str = "fno2d_dr",
     model_family: str = "fno",
     transformer_kwargs: dict | None = None,
+    plot: bool = False,
+    channel_plot: int = 0,
     device=None,
 ) -> FNOTrainResult:
     """The evaluation branch on an in-memory test split: restore
@@ -716,8 +718,11 @@ def evaluate_checkpoint(
     The model is 2D or 3D as the test store is (or the 3D transformer of
     ``model_family``, sized by ``transformer_kwargs``).  With ``if_aux`` the
     checkpoint is a two-head model and the primary head is scored (the
-    primary stream goes to both inputs, as in JAX).  Returns ``best_val`` =
-    nRMSE and ``history`` = [the metrics dict]."""
+    primary stream goes to both inputs, as in JAX).  With ``plot``,
+    ``{model_name}_pred.png`` renders channel ``channel_plot`` of the first
+    test window's last rollout step beside its target
+    (``plots/figures.py::field_panels``).  Returns ``best_val`` = nRMSE and
+    ``history`` = [the metrics dict]."""
     dev = resolve_device(device)
     # on the device, and checked to hold initial_step + rollout_test frames
     test = WindowedTrajectories(test.data.to(dev), test.grid.to(dev),
@@ -739,6 +744,16 @@ def evaluate_checkpoint(
     np.savez(Path(run_dir) / f"{model_name}_mse_time.npz",
              t=np.arange(test.initial_step, test.initial_step + rollout_test),
              mse=np.asarray(errs["mse_time"]))
+    if plot:
+        from sciml_pde_torch.plots.figures import field_panels
+
+        idx0 = torch.as_tensor(test.window_index()[:1], dtype=torch.long, device=dev)
+        x0, y0 = gather_windows(test.data, idx0, test.initial_step, rollout_test)
+        with torch.no_grad():
+            preds = rollout_predict(apply_fn, x0.float(), test.grid[None], rollout_test)
+        field_panels(Path(run_dir) / f"{model_name}_pred.png",
+                     preds[0, ..., -1, :].cpu().numpy(), y0[0, ..., -1, :].float().cpu().numpy(),
+                     channel=channel_plot, title=model_name)
     return FNOTrainResult(params=family.to_tree(model.state_dict()),
                           best_val=errs["nRMSE"], history=[errs])
 
@@ -835,7 +850,7 @@ def run_training(
                      resident_rotate=resident_rotate, scheduler=scheduler)
     select_fast_step(fast_step, if_aux=if_aux, **fast_args)  # an explicit True raises here
     unported = {  # option -> (asked for, ROADMAP item)
-        "plot": (plot, "A6"), "shard_store": (shard_store, "A8"),
+        "shard_store": (shard_store, "A8"),
         "host_stream": (host_stream, "A8"),
         "resident_rotate": (int(resident_rotate or 0) > 1, "A8"),
         f"resident_rotate_schedule={resident_rotate_schedule!r}":
@@ -875,7 +890,7 @@ def run_training(
         else:
             test = load_dr_test(base_path, **windows)
         return evaluate_checkpoint(test, if_aux=if_aux, rollout_test=rollout_test, iLow=iLow,
-                                   iHigh=iHigh, **common)
+                                   iHigh=iHigh, plot=plot, channel_plot=channel_plot, **common)
     fit = dict(initial_step=initial_step, num_channels=num_channels, epochs=epochs,
                scheduler=scheduler, scheduler_step=scheduler_step,
                scheduler_gamma=scheduler_gamma, fno_remat=fno_remat,

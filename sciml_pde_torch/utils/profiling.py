@@ -49,7 +49,7 @@ def profiled_kernels(run) -> list:
 
 
 def profiler_ms(fn, kernel_key: str = "", reps: int = 20, bound_ms: float = 0.0,
-                sessions: int = 1):
+                sessions: int = 1, reasons: list | None = None):
     """Device time per call of ``fn`` in kernels whose name holds
     ``kernel_key`` (all of its device time by default), from torch.profiler
     over ``reps`` back-to-back calls (no host issue gaps; ``profiled_kernels``):
@@ -61,7 +61,8 @@ def profiler_ms(fn, kernel_key: str = "", reps: int = 20, bound_ms: float = 0.0,
     once) or with events lost, below the bound (0.0019 ms for a 0.00353 ms
     bound once).  ``fn`` may launch other kernels beside the timed ones, so
     that two kernels interleaved in one ``fn`` are read under the same
-    conditions, each by its own key."""
+    conditions, each by its own key.  ``reasons``, where given, gets one
+    line for each session that was not kept, saying why."""
     fn()
     torch.cuda.synchronize()
 
@@ -77,4 +78,8 @@ def profiler_ms(fn, kernel_key: str = "", reps: int = 20, bound_ms: float = 0.0,
             got.append(us / reps / 1e3)
             if len(got) == sessions:
                 return statistics.median(got)
+        elif reasons is not None:
+            reasons.append("no device time recorded" if us == 0 else
+                           f"{count} kernels for {reps} calls" if count % reps else
+                           f"{us / reps / 1e3:.5f} ms a call, below the bound {bound_ms:.5f}")
     return None

@@ -178,12 +178,16 @@ def test_eval_branch_writes_what_jax_writes(trained, rollout):
 
 
 def test_eval_branch_needs_the_checkpoint_and_refuses_plot(trained, tmp_path):
+    """Without the checkpoint the evaluation raises, with or without
+    ``plot`` (no longer refused: the figure comes after the metrics, as in
+    JAX) and writes no figure."""
     d, kw, _ = trained
     ev = dict(kw, if_training=False, run_dir=str(tmp_path))
     with pytest.raises(FileNotFoundError):
         run_training(**ev, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(FileNotFoundError):
         run_training(**dict(ev, plot=True), device="cpu")
+    assert not list(tmp_path.glob("*.png"))
 
 
 def test_analyse_main_writes_results_csv(trained, tmp_path):

@@ -34,7 +34,11 @@ def test_port_imports_no_jax():
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
         "assert {'sciml_pde_torch.experiments.wide_attention_ablation', "
-        "'sciml_pde_torch.metrics.metrics', 'sciml_pde_torch.ops.attention'} <= set(mods)\n"
+        "'sciml_pde_torch.metrics.metrics', 'sciml_pde_torch.ops.attention', "
+        "'sciml_pde_torch.sim.ns_incomp_2d', 'sciml_pde_torch.sim.gen_diff_react', "
+        "'sciml_pde_torch.experiments.dr_parity', 'sciml_pde_torch.sweep', "
+        "'sciml_pde_torch.eval.rollout_experiment', 'sciml_pde_torch.plots.figures', "
+        "'sciml_pde_torch.io.hdf5_lite'} <= set(mods)\n"
     )
     r = _run(code)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -71,6 +75,49 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(OSError):
         run_transformer_training(base_path=str(tmp_path), if_aux=False, device="cpu")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_data_and_eval_entry_points_raise_without_cuda(tmp_path):
+    """The simulators, generators, rollout study, export, sweep and the DR
+    parity driver run on the card unless the CPU is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import numpy as np
+
+    from sciml_pde_torch import sweep
+    from sciml_pde_torch.data.windows import WindowedTrajectories
+    from sciml_pde_torch.eval.prediction import export_rollout_trajectories
+    from sciml_pde_torch.eval.rollout_experiment import rollout_study
+    from sciml_pde_torch.experiments import dr_parity
+    from sciml_pde_torch.sim import diff_react, gen_diff_react, gen_ns_incomp, grf, ns_incomp_2d
+    from sciml_pde_torch.sim.velocity2vorticity import convert_velocity
+
+    dr = diff_react.DiffReactConfig(xdim=8, ydim=8, tdim=3, t=0.1)
+    ns = ns_incomp_2d.NSIncompConfig(grid_size=(8, 8), n_steps=3, frame_int=1, n_batch=1)
+    w = WindowedTrajectories(np.zeros((1, 8, 8, 8, 2), np.float32),
+                             np.zeros((8, 8, 2), np.float32), initial_step=4, train=False,
+                             device="cpu")
+    calls = [
+        lambda: diff_react.simulate_diff_react(np.zeros((8, 8, 2), np.float32), dr),
+        lambda: diff_react.generate_trajectories([0], dr),
+        lambda: gen_diff_react.generate_dataset(tmp_path / "dr.h5", 1, dr),
+        lambda: grf.spectral_noise(torch.Generator(), (8, 8)),
+        lambda: ns_incomp_2d.init_state(torch.Generator(), ns),
+        lambda: ns_incomp_2d.simulate_ns_batch(0, ns),
+        lambda: gen_ns_incomp.generate_ns_file(tmp_path / "ns.h5", 0, ns),
+        lambda: convert_velocity(tmp_path / "cfd.h5"),
+        lambda: rollout_study(lambda x, g: x[..., -1:, :], None, w, horizons=(1,)),
+        lambda: export_rollout_trajectories(lambda p, x, g: x[..., -1:, :], None, w, 1,
+                                            tmp_path / "out"),
+        lambda: sweep.run_sweep("config_dr", ["basic_ds2"], seeds=[16], variant="baseline",
+                                overrides=[f"base_path={tmp_path}/"],
+                                out_path=str(tmp_path / "s.json")),
+        lambda: dr_parity.main(["--data", str(tmp_path), "--out", str(tmp_path / "p")]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not (tmp_path / "dr.h5").exists() and not (tmp_path / "ns.h5").exists()
 
 
 def test_production_entry_points_raise_without_cuda():

@@ -11,8 +11,8 @@ import torch
 from sciml_pde_tpu.io.h5 import write_seed_group
 from sciml_pde_tpu.models import FNO2d as FlaxFNO2d
 from sciml_pde_tpu.train.fno_train import run_training as jax_run_training
-from sciml_pde_torch.train.fno_train import run_training, select_fast_step
-from sciml_pde_torch.utils.checkpoint import restore_checkpoint
+from sciml_pde_torch.train.fno_train import default_init_tree, run_training, select_fast_step
+from sciml_pde_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 from _torch_parity import assert_trees_close, precision, to_numpy_tree
 
@@ -160,10 +160,23 @@ def test_resume_needs_the_same_step(folder, tmp_path):
                      fast_step=True, continue_training=True, **dict(kw, epochs=2))
 
 
+@pytest.mark.parametrize("if_aux", [False, True], ids=["baseline", "aux"])
+def test_evaluation_plot_writes_the_field_render(folder, tmp_path, if_aux):
+    """``if_training=False, plot=True`` writes ``{model_name}_pred.png``
+    beside the pickle, for a baseline and a two-head checkpoint."""
+    tree = default_init_tree(C, 4, 8, 5, seed=0, aux=if_aux)
+    save_checkpoint(tmp_path / "p_ckpt.pt", tree, {}, 0, 0.0)
+    res = run_training(base_path=folder, run_dir=str(tmp_path), model_name="p", device="cpu",
+                       if_training=False, if_aux=if_aux, plot=True, channel_plot=1,
+                       modes=4, width=8, initial_step=5, rollout_test=2)
+    png = tmp_path / "p_pred.png"
+    assert png.exists() and png.stat().st_size > 0 and (tmp_path / "p.pickle").exists()
+    assert np.isfinite(res.best_val)
+
+
 @pytest.mark.parametrize("option", [
-    (dict(if_aux=True, host_stream=True), "A8"), (dict(if_training=False, plot=True), "A6"),
+    (dict(if_aux=True, host_stream=True), "A8"),
     (dict(dataset_family="ns", shard_store=True), "A8"),
-    (dict(if_training=False, if_aux=True, plot=True), "A6"),
     (dict(shard_store=True), "A8"), (dict(host_stream=True), "A8"),
     (dict(resident_rotate=2), "A8"), (dict(if_aux=True, resident_rotate=2), "A8"),
     (dict(resident_rotate_schedule="cyclic", resident_rotate=2), "A8"),
