@@ -10,7 +10,8 @@ their entry points: the fused FNO-2D diffusion-reaction baseline step (batch
 rollout evaluation of its checkpoint and two-head aux joint training at the
 same width, the same fused step on NS-2D at batch 16, 256^2, 3 channels with
 the NS production step, Lie augmentation, remat, NS aux joint training
-(8 + 192 windows a step) and the 3D FNO on the plume shape, the NS-2D
+(8 + 192 windows a step) and the 3D FNO on the plume shape (and, phase 19,
+on plume files the port's own generator writes), the NS-2D
 VideoMAE transformer baseline at full width (img 256, patch 16, tubelet 2,
 3 channels, 10 frames -> 1280 tokens; encoder 768 x 12 with 12 heads,
 decoder 512 x 8 with 8 heads, head dim 64; batch 2 x accumulation 4, bf16,
@@ -295,6 +296,28 @@ FNO steps and the five split kernels):
               velocity file converted by velocity2vorticity; ms per
               momentum step and device-busy share (CG's over the
               generator's own steps)
+ 19. sim     the rest of the simulators (ROADMAP A7) on files the port
+              writes: a. the 3D plume at the production config ((50, 50,
+              89), 150 frames x 10 substeps, DCT): the card against the CPU
+              over the first PLUME_CPU_FRAMES frames, the divergence after
+              project3 (both solvers), PLUME_CG_STEPS substeps of CG against
+              the DCT, PLUME_GRAPH_FRAMES frames replayed as a CUDA graph
+              against op by op, the whole trajectory written as a test seed
+              (finite, the smoke rising); ms a substep op by op and
+              replayed, device-busy shares; b. the port's
+              experiments/plume3d_parity.py at full width (FNO width 20,
+              modes 12, initial_step 10) at a cut depth (PARITY_ARGS): the
+              files generated, baseline and aux trained through
+              run_training, the rollout 1..5 table finite, load_ns3d_aux
+              reading every file back; c. Burgers at its defaults (32 x 201
+              x 1024): the mean conserved, 2 frames on the card against the
+              CPU; d. Darcy, one batch of 64 at 128^2: each sample's
+              residual, the batch-coupled CG's iterations, a batch of 2 on
+              the card against the CPU; e. BVP_CASES electro and magneto
+              cases at grid 128 against the CPU; f. one airfoil sample at
+              384^2 (AIRFOIL_FRAMES frames): AIRFOIL_STEPS steps on the card
+              against the CPU and replayed as a graph against op by op, the
+              npz and statistics written
 
 The probe's row carries phase 0's profiler device time beside torch.mul's.
 It prints the kernel table as one JSON line, the card line, and last
@@ -654,6 +677,46 @@ DR_SEEDS, DR_DIFF_SEEDS, DR_CHECK_FRAMES, TOL_SIM = 10, 4, 6, 1e-5
 NS_GEN = {"dct": (201, 50), "cg": (11, 5)}  # solver: (n_steps, frame_int)
 NS_GEN_BATCH, TOL_NS_STEPS, NS_DIV_256, NS_DIV_CPU = 2, 1e-4, 1e-3, 2.0
 NS_TEST_CFG = dict(grid_size=(24, 24), dt=1e-3, n_steps=6, frame_int=2, n_batch=2, nu=0.01)
+# phase 19: the rest of the simulators (ROADMAP A7).  19a: one plume
+# trajectory at the production config (sim/ns_plume_3d.py Plume3DConfig:
+# (50, 50, 89), 150 frames x 10 substeps, DCT), held to the CPU over its
+# first PLUME_CPU_FRAMES frames (TOL_PLUME: f32 sums in another order
+# through the DCT's contractions, compounding over 20 substeps); the
+# projection's divergence below PLUME_DIV x the divergence before (DCT;
+# 4.4e-6 on the CPU) and PLUME_DIV_CG x before (CG at its rel tol 1e-3;
+# 4.4e-4 on the CPU); PLUME_CG_STEPS substeps of the CG solver against the
+# DCT from the same state within PLUME_CG_TOL of each field's largest
+# magnitude (CG's rel tol 1e-3; 3.5e-5 on the CPU); PLUME_GRAPH_FRAMES frames
+# replayed as CUDA graphs against the same frames op by op (1e-6: the same
+# kernels in the same order).  19b: the port's
+# experiments/plume3d_parity.py at full width (grid (50, 50, 89), FNO width
+# 20, modes 12, initial_step 10) at a cut depth: PARITY_ARGS.  19c: Burgers
+# at its defaults (32 x 201 x 1024), the card against the CPU over 2 frames
+# (TOL_SIM) and the mean conserved within 1e-5 (the JAX test's bound).  19d:
+# Darcy, one batch of 64 at 128^2 (tol 1e-8): each sample's residual
+# |A u - beta| / |beta| below DARCY_RES (f32 CG stalls there: JAX's own solve
+# of a batch of 2 reads 2.2e-3 and 1.7e-3 on the CPU), and a batch of 2 on
+# the card against the CPU within TOL_DARCY_CARD.  19e: BVP, BVP_CASES
+# electro and magneto cases at grid 128, the card against the CPU (data_x
+# equal, data_y within TOL_SIM of each column's largest magnitude).  19f: one
+# airfoil sample at the default 384^2 with AIRFOIL_FRAMES frames (a depth
+# cut), AIRFOIL_STEPS steps on the card against the CPU within TOL_AIRFOIL of
+# each field's largest magnitude (f32 rounding through steps whose minmod
+# branches can flip on one ulp; 8.5e-6 against JAX over 34 steps on the CPU)
+PLUME_CPU_FRAMES, TOL_PLUME, PLUME_DIV, PLUME_DIV_CG = 2, 1e-4, 1e-4, 1e-2
+PLUME_CG_STEPS, PLUME_CG_TOL, PLUME_GRAPH_FRAMES = 5, 1e-3, 10
+PARITY_FRAMES = 30
+PARITY_ARGS = ["--n-primary", "2", "--aux-primary", "1", "--n-aux-per", "3", "--n-test", "1",
+               "--frames", str(PARITY_FRAMES), "--epochs", "1"]
+DARCY_RES, TOL_DARCY_CARD, BVP_CASES = 1e-2, 1e-4, 20
+AIRFOIL_FRAMES, AIRFOIL_STEPS, TOL_AIRFOIL = 6, 20, 1e-4
+# the generators' configurations phase 19 runs (their defaults but the
+# airfoil's frames); each a dict of keyword arguments
+SIM_PLUME = {}  # Plume3DConfig
+SIM_BURGERS = dict(n_samples=32, nx=1024, n_frames=201, t_final=2.0, batch=32)
+SIM_DARCY = dict(n_samples=64, nx=128, batch=64)
+SIM_BVP = dict(grid=128)  # BVPConfig
+SIM_AIRFOIL = dict(n_frames=AIRFOIL_FRAMES)  # AirfoilConfig
 
 failures: list[str] = []
 
@@ -4247,6 +4310,314 @@ def data_parity_path(dev, card: str, run_dir: Path) -> dict:
     return launches
 
 
+def simulators_path(dev, card: str, run_dir: Path) -> None:
+    """Phase 19: the rest of ROADMAP A7 on the card, on files the port
+    writes: the 3D plume at the production config (19a), the port's
+    plume3d_parity.py training the 3D FNO on its own plume files (19b),
+    Burgers (19c), Darcy (19d), the BVP cases (19e) and the airfoil (19f)."""
+    import dataclasses
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.data.ns3d import load_ns3d_aux
+    from sciml_pde_torch.experiments import plume3d_parity
+    from sciml_pde_torch.io import h5 as h5io
+    from sciml_pde_torch.sim import airfoil_2d as af
+    from sciml_pde_torch.sim import burgers_1d as bg
+    from sciml_pde_torch.sim import bvp_2d as bvp
+    from sciml_pde_torch.sim import darcy_2d as dc
+    from sciml_pde_torch.sim import ns_plume_3d as pl
+
+    from sciml_pde_torch.utils.cuda_graph import graphed
+
+    t_phase = t_sub = time.perf_counter()
+    h5py = h5io.h5py_module()
+    # the CPU references (gathers and stencils on ~2M-element arrays) run
+    # faster on half the cores than with a thread on each (phase 18e)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    print(f"[sim] HDF5 through {h5py.__name__}; the CPU references on "
+          f"{torch.get_num_threads()} of {threads} threads", flush=True)
+    base = run_dir / "sim"
+    shutil.rmtree(base, ignore_errors=True)
+    plume_dir = base / "plume"
+    plume_dir.mkdir(parents=True)
+
+    def per_field(got, want) -> list:
+        return [rel_err(a.cpu(), b)[1] for a, b in zip(got, want)]
+
+    # ---- 19a. the plume at the production config -----------------------------------
+    cfg = pl.Plume3DConfig(**SIM_PLUME)
+    d = tuple(1.0 / n for n in cfg.res)
+    jitter = pl.buoyancy_jitter(torch.Generator().manual_seed(19), cfg)
+    short = dataclasses.replace(cfg, n_frames=PLUME_CPU_FRAMES)
+    card_fr = pl.simulate_plume_jitter(jitter, short, device=dev)
+    cpu_fr = pl.simulate_plume_jitter(jitter, short, device="cpu")
+    errs = per_field(card_fr, cpu_fr)
+    check(max(errs) <= TOL_PLUME,
+          f"[sim] plume {cfg.res}, jitter ({jitter[0]:.3e}, {jitter[1]:.3e}): the first "
+          f"{PLUME_CPU_FRAMES} frames ({PLUME_CPU_FRAMES * cfg.substeps} substeps) on the card "
+          f"against the CPU, rel-to-max velocity {errs[0]:.3e}, smoke {errs[1]:.3e} "
+          f"(tol {TOL_PLUME:.0e})")
+    # the projection after 2 frames' substeps, and CG against the DCT from there
+    inflow = torch.as_tensor(pl.inflow_field(cfg), device=dev)
+    f_vec = (*jitter, cfg.buoyancy_z)
+    state = pl.rest_state(cfg, dev)
+    for _ in range(PLUME_CPU_FRAMES * cfg.substeps):
+        state = pl.substep(state, f_vec, inflow, cfg)
+    free = pl.substep(state, f_vec, inflow, dataclasses.replace(cfg, enable_projection=False))
+    div0 = pl.divergence3(*free[:3], d).abs().max().item()
+    for method, bound in (("dct", PLUME_DIV), ("cg", PLUME_DIV_CG)):
+        out = pl.project3(*free[:3], d, cfg.cg_tol, cfg.cg_max_iter, state[4], method)
+        div1 = pl.divergence3(*out[:3], d).abs().max().item()
+        check(div1 <= bound * div0,
+              f"[sim] plume project3 {method} at {cfg.res}: MAC divergence {div0:.3e} -> "
+              f"{div1:.3e} ({div1 / div0:.2e} of before; bound {bound:g})")
+    cg_cfg = dataclasses.replace(cfg, pressure_solver="cg")
+    st_dct, st_cg = state, state
+    t0 = time.perf_counter()
+    for _ in range(PLUME_CG_STEPS):
+        st_cg = pl.substep(st_cg, f_vec, inflow, cg_cfg)
+    torch.cuda.synchronize()
+    cg_ms = 1e3 * (time.perf_counter() - t0) / PLUME_CG_STEPS
+    for _ in range(PLUME_CG_STEPS):
+        st_dct = pl.substep(st_dct, f_vec, inflow, cfg)
+    errs = per_field(st_cg[:4], [t.cpu() for t in st_dct[:4]])
+    check(max(errs) <= PLUME_CG_TOL,
+          f"[sim] plume: {PLUME_CG_STEPS} substeps under CG (rel tol {cfg.cg_tol:g}) against "
+          f"the DCT from the same state, rel-to-max u {errs[0]:.3e}, v {errs[1]:.3e}, w "
+          f"{errs[2]:.3e}, smoke {errs[3]:.3e} (tol {PLUME_CG_TOL:.0e})")
+
+    def substeps(n=10, st=state):
+        for _ in range(n):
+            st = pl.substep(st, f_vec, inflow, cfg)
+        return st
+    sub_ms = cuda_ms(substeps, reps=1) / 10
+    # the CUDA graph's replays against the same frames op by op, with the
+    # frames' clones in between (as simulate_plume allocates them)
+    n_gr = PLUME_GRAPH_FRAMES
+    graph_fr = pl.simulate_plume_jitter(jitter, dataclasses.replace(cfg, n_frames=n_gr),
+                                        device=dev)
+    frame, st, eager_fr = pl.frame_fn(jitter, cfg, dev), pl.rest_state(cfg, dev), []
+    for _ in range(n_gr):
+        *st, vel_f = frame(*st)
+        eager_fr.append((vel_f, st[3]))
+    eager_fr = [torch.stack(t) for t in zip(*eager_fr)]
+    same = all(torch.equal(a, b) for a, b in zip(graph_fr, eager_fr))
+    errs = per_field(graph_fr, [t.cpu() for t in eager_fr])
+    injected = n_gr * cfg.substeps * inflow.sum().item()
+    check(max(errs) <= 1e-6,
+          f"[sim] plume: {n_gr} frames through a frame's CUDA graph against op by op on the "
+          f"card, rel-to-max velocity {errs[0]:.3e}, smoke {errs[1]:.3e} (tol 1e-06; the same "
+          f"bits: {same}); smoke {graph_fr[1][-1].sum().item():.6g} after {injected:.6g} "
+          "injected")
+    del graph_fr, eager_fr
+    frame = graphed(pl.frame_fn(jitter, cfg, dev), *state)
+    graph_ms = cuda_ms(lambda: frame(*state), reps=5) / cfg.substeps
+    print(f"[timing] {card}: plume substep ({cfg.res}, DCT): op by op {sub_ms:.4f} ms (CUDA "
+          f"events over 10 substeps), a frame's CUDA graph replayed {graph_ms:.4f} ms a substep "
+          f"(over 5 frames); CG op by op {cg_ms:.4f} ms (host clock over {PLUME_CG_STEPS})",
+          flush=True)
+    device_profile(card, functools.partial(substeps, 5), 5, "plume substep", sub_ms, ())
+    device_profile(card, lambda: [frame(*state) for _ in range(2)], 2 * cfg.substeps,
+                   "graphed plume substep", graph_ms, ())
+    del frame
+    # the whole trajectory, written as 19b's test seed
+    t0 = time.perf_counter()
+    pl.generate_plume_files(plume_dir, 275, cfg, "_interp", device=dev)
+    plume_s = time.perf_counter() - t0
+    with h5py.File(plume_dir / "v_trj_seed275_interp.h5", "r") as f:
+        vel = np.asarray(f["data"])
+    with h5py.File(plume_dir / "s_trj_seed275_interp.h5", "r") as f:
+        smk = np.asarray(f["data"])
+    zc = np.arange(cfg.out_res[2])
+    com = [float((m.sum((0, 1)) * zc).sum() / m.sum()) for m in (smk[0], smk[-1])]
+    check(vel.shape == (*cfg.out_res, cfg.out_frames, 3) and smk.shape == (cfg.out_frames,
+                                                                            *cfg.out_res)
+          and np.isfinite(vel).all() and np.isfinite(smk).all()
+          and smk[-1].sum() > smk[0].sum() and com[1] > com[0],
+          f"[sim] generate_plume_files seed 275 ({cfg.n_frames} frames x {cfg.substeps} "
+          f"substeps) in {plume_s:.2f} s: v {vel.shape}, s {smk.shape}, finite; smoke "
+          f"{smk[0].sum():.4g} -> {smk[-1].sum():.4g}, its centre of mass rises from z "
+          f"{com[0]:.3f} to {com[1]:.3f} cells")
+    print(f"[sim] 19a in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 19b. experiments/plume3d_parity.py on the port's own files ----------------
+    t_sub = time.perf_counter()
+    out = base / "plume3d_parity"
+    summary = plume3d_parity.main(["--folder", str(plume_dir), "--out", str(out), *PARITY_ARGS,
+                                   "--res", *map(str, cfg.res), "--device", dev.type])
+    saved = json.loads((out / "summary.json").read_text())
+    for variant in ("baseline", "aux"):
+        row = saved.get(variant, {})
+        nrmse = row.get("rollout_nrmse", [])
+        check(saved == summary and len(nrmse) == 5
+              and all(math.isfinite(v) for v in nrmse + [row.get("best_val", math.nan)]),
+              f"[sim] plume3d_parity {variant} ({' '.join(PARITY_ARGS)}; width 20, modes 12, "
+              f"initial_step 10 at {cfg.res}): best_val {row.get('best_val', math.nan):.5g}, "
+              f"rollout nRMSE at horizons 1-5 {', '.join(f'{v:.5f}' for v in nrmse)} in "
+              f"{row.get('train_seconds', math.nan):.1f} s of training")
+    ds = load_ns3d_aux(str(plume_dir), train_subsample=(1, 1, 3), num_aux_samples=3,
+                       initial_step=10, rollout_test=5, test_seeds=[275], device=dev)
+    want = np.concatenate([np.moveaxis(vel, 3, 0), smk[..., None]], -1)[:15]
+    check(tuple(ds.primary_train.data.shape) == (1, PARITY_FRAMES, *cfg.res, 4)
+          and tuple(ds.aux_train.data.shape) == (3, PARITY_FRAMES, *cfg.res, 4)
+          and np.array_equal(ds.primary_test.data[0].cpu().numpy(), want),
+          f"[sim] load_ns3d_aux reads the port's plume files: primary "
+          f"{tuple(ds.primary_train.data.shape)}, aux {tuple(ds.aux_train.data.shape)}, the test "
+          "seed's first 15 frames as 19a wrote them")
+    del ds
+    print(f"[sim] 19b in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 19c. Burgers at its defaults --------------------------------------------------
+    t_sub = time.perf_counter()
+    bk = SIM_BURGERS
+    t0 = time.perf_counter()
+    bg.generate_burgers_file(base / "burgers.h5", **bk, device=dev)
+    burgers_s = time.perf_counter() - t0
+    with h5py.File(base / "burgers.h5", "r") as f:
+        u = np.asarray(f["tensor"])
+    means = u.mean(axis=2)
+    drift = float(np.abs(means - means[:, :1]).max())
+    check(u.shape == (bk["n_samples"], bk["n_frames"], bk["nx"]) and np.isfinite(u).all()
+          and drift <= 1e-5 and float(np.abs(u).max()) <= 1.0 + 1e-4,
+          f"[sim] generate_burgers_file {u.shape} in {burgers_s:.2f} s: finite, the mean drifts "
+          f"{drift:.2e} (bound 1e-5), max |u| {float(np.abs(u).max()):.6f}")
+    sub = bg.burgers_substeps(bk["nx"], bk["n_frames"], bk["t_final"])
+    t2 = 2 * bk["t_final"] / (bk["n_frames"] - 1)
+    u0 = bg.random_sine_ic(torch.Generator().manual_seed(19), bk["batch"], bk["nx"],
+                           device="cpu")
+    err, rel = rel_err(bg.simulate_burgers(u0.to(dev), 0.01, t2, bk["nx"], 3, sub).cpu(),
+                       bg.simulate_burgers(u0, 0.01, t2, bk["nx"], 3, sub))
+    check(rel <= TOL_SIM, f"[sim] Burgers {bk['batch']} x {bk['nx']}: 2 frames ({2 * sub} "
+          f"substeps, as in the file; on the card a frame's CUDA graph) on the card against the "
+          f"CPU, max abs err {err:.3e}, rel-to-max {rel:.3e} (tol {TOL_SIM:.0e})")
+    # one frame alone runs op by op (a graph pays off from two frames on)
+    run_b = functools.partial(bg.simulate_burgers, u0.to(dev), 0.01, t2 / 2, bk["nx"], 2, sub)
+    b_ms = cuda_ms(run_b, reps=3) / sub
+    print(f"[timing] {card}: Burgers substep ({bk['batch']} x {bk['nx']}): op by op {b_ms:.4f} "
+          f"ms (CUDA events over {sub} substeps); the file ({bk['n_frames'] - 1} frames x {sub} "
+          f"substeps, graphs replayed, the writes included) {burgers_s:.2f} s = "
+          f"{1e3 * burgers_s / ((bk['n_frames'] - 1) * sub):.4f} ms a substep", flush=True)
+    device_profile(card, run_b, sub, "Burgers substep", b_ms, ())
+    print(f"[sim] 19c in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 19d. Darcy, one batch of 64 at 128^2 --------------------------------------------
+    t_sub = time.perf_counter()
+    dk = SIM_DARCY
+    t0 = time.perf_counter()
+    dc.generate_darcy_file(base / "darcy.h5", **dk, device=dev)
+    darcy_s = time.perf_counter() - t0
+    with h5py.File(base / "darcy.h5", "r") as f:
+        a = torch.as_tensor(np.asarray(f["nu"]), device=dev)
+        u = torch.as_tensor(np.asarray(f["tensor"])[:, 0], device=dev)
+    mv64, _ = dc.darcy_operator(a.double(), 1.0 / dk["nx"])
+    res = ((mv64(u.double()) - 1.0).flatten(1).norm(dim=1) / dk["nx"]).max().item()
+    check(res <= DARCY_RES and bool(torch.isfinite(u).all()) and u.min().item() >= 0.0,
+          f"[sim] generate_darcy_file ({dk['n_samples']} at {dk['nx']}^2, one batch) in "
+          f"{darcy_s:.2f} s: the worst sample's residual |A u - 1| / |1| {res:.3e} (in f64; "
+          f"bound {DARCY_RES:g}), u >= 0")
+    matvec, diag = dc.darcy_operator(a, 1.0 / dk["nx"])
+    t0 = time.perf_counter()
+    u_again, iters = dc.cg_jacobi(matvec, torch.ones_like(a), diag, 1e-8, 4000)
+    cg_s = time.perf_counter() - t0
+    print(f"[timing] {card}: Darcy CG ({dk['n_samples']} x {dk['nx']}^2, batch-coupled): "
+          f"{iters} iterations in {cg_s:.3f} s = {1e3 * cg_s / iters:.4f} ms an iteration (host "
+          f"clock); the file {darcy_s:.2f} s", flush=True)
+    check(bool(torch.equal(u_again, u)), "[sim] Darcy: the solve again gives the file's bits")
+    a2 = dc.sample_coefficient(torch.Generator().manual_seed(19), 2, dk["nx"], dk["nx"],
+                               device="cpu")
+    err, rel = rel_err(dc.solve_darcy(a2.to(dev)).cpu(), dc.solve_darcy(a2))
+    check(rel <= TOL_DARCY_CARD, f"[sim] Darcy batch of 2 at {dk['nx']}^2 on the card against "
+          f"the CPU, max abs err {err:.3e}, rel-to-max {rel:.3e} (tol {TOL_DARCY_CARD:.0e})")
+    print(f"[sim] 19d in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 19e. BVP cases at grid 128 -----------------------------------------------------
+    t_sub = time.perf_counter()
+    for kind in ("electro", "magneto"):
+        bcfg = bvp.BVPConfig(kind=kind, **SIM_BVP)
+        t0 = time.perf_counter()
+        cases = bvp.generate_dataset(base / f"{kind}.pkl", BVP_CASES, bcfg, device=dev)
+        bvp_s = time.perf_counter() - t0
+        ref = [bvp.generate_case(s, bcfg, device="cpu") for s in range(BVP_CASES)]
+        same_x = all(np.array_equal(c["data_x"], r["data_x"]) for c, r in zip(cases, ref))
+        worst_y = max(rel_err(torch.from_numpy(c["data_y"][:, k]),
+                              torch.from_numpy(r["data_y"][:, k]))[1]
+                      for c, r in zip(cases, ref) for k in range(3))
+        pts = bvp.load_pointset(base / f"{kind}.pkl")
+        check(same_x and worst_y <= TOL_SIM and pts["features"].shape[0] == BVP_CASES,
+              f"[sim] BVP {kind}: {BVP_CASES} cases at grid {bcfg.grid} in {bvp_s:.2f} s on the "
+              f"card, against the CPU: data_x equal {same_x}, data_y worst rel-to-max "
+              f"{worst_y:.3e} (tol {TOL_SIM:.0e}); load_pointset {pts['features'].shape}")
+    print(f"[sim] 19e in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 19f. one airfoil sample at 384^2 -------------------------------------------------
+    t_sub = time.perf_counter()
+    acfg = af.AirfoilConfig(**SIM_AIRFOIL)
+    _, _, chi, sponge = af.setup(acfg)
+    u_inf = af.freestream_state(acfg)
+    f32 = dict(dtype=torch.float32)
+    steps = {}
+    for where in (dev, torch.device("cpu")):
+        step = af.make_step(acfg, torch.as_tensor(chi, **f32, device=where),
+                            torch.as_tensor(sponge, **f32, device=where),
+                            torch.as_tensor(u_inf, **f32, device=where))
+        U = torch.as_tensor(u_inf, **f32, device=where)[:, None, None].expand(
+            4, acfg.nx, acfg.ny).contiguous()
+        for _ in range(AIRFOIL_STEPS):
+            U = step(U)
+        steps[where.type] = (step, U)
+    errs = per_field(steps[dev.type][1], steps["cpu"][1])
+    check(max(errs) <= TOL_AIRFOIL,
+          f"[sim] airfoil {acfg.nx}^2: {AIRFOIL_STEPS} steps from the free stream on the card "
+          f"against the CPU, rel-to-max rho {errs[0]:.3e}, rho u {errs[1]:.3e}, rho v "
+          f"{errs[2]:.3e}, E {errs[3]:.3e} (tol {TOL_AIRFOIL:.0e})")
+
+    step_c, U_c = steps[dev.type]
+
+    def air_steps(U=U_c):
+        for _ in range(AIRFOIL_STEPS):
+            U = step_c(U)
+        return (U,)
+    a_ms = cuda_ms(air_steps, reps=1) / AIRFOIL_STEPS
+    air_graph = graphed(air_steps, U_c)
+    (want,), (got,) = air_steps(), air_graph(U_c)
+    check(rel_err(got, want)[1] <= 1e-6,
+          f"[sim] airfoil: a CUDA graph of {AIRFOIL_STEPS} steps against them op by op on the "
+          f"card, rel-to-max {rel_err(got, want)[1]:.3e} (tol 1e-06; the same bits: "
+          f"{bool(torch.equal(got, want))})")
+    a_graph_ms = cuda_ms(lambda: air_graph(U_c), reps=5) / AIRFOIL_STEPS
+    t0 = time.perf_counter()
+    af.generate_dataset(str(base / "airfoil"), [0], acfg, verbose=False, device=dev)
+    air_s = time.perf_counter() - t0
+    npz = np.load(base / "airfoil" / "airfoil_0000.npz")
+    stats = np.load(base / "airfoil" / "af_train_data_statistics.npz")
+    n = npz["pos"].shape[1]
+    want = {"pos": (acfg.n_frames, n, 2), "node_type": (acfg.n_frames, n, 1),
+            "vel": (acfg.n_frames, n, 2), "prs": (acfg.n_frames, n, 1),
+            "dns": (acfg.n_frames, n, 1), "meta": (5,)}
+    shapes = {k: npz[k].shape for k in npz.files}
+    check(all(shapes.get(k) == v for k, v in want.items()) and npz["cells"].shape[2] == 3
+          and all(np.isfinite(npz[k]).all() for k in ("vel", "prs", "dns"))
+          and 5e4 < float(npz["prs"].mean()) < 2e5 and len(stats.files) == 14,
+          f"[sim] airfoil generate_dataset seed 0 ({acfg.n_frames} frames at {acfg.nx}^2) in "
+          f"{air_s:.2f} s: {json.dumps({k: list(v) for k, v in shapes.items()})}, mean pressure "
+          f"{float(npz['prs'].mean()):.6g}; statistics {len(stats.files)} keys")
+    print(f"[timing] {card}: airfoil step ({acfg.nx}^2): op by op {a_ms:.4f} ms (CUDA events "
+          f"over {AIRFOIL_STEPS} steps), a CUDA graph of {AIRFOIL_STEPS} steps replayed "
+          f"{a_graph_ms:.4f} ms a step; a sample of {acfg.n_frames} frames {air_s:.2f} s",
+          flush=True)
+    device_profile(card, air_steps, AIRFOIL_STEPS, "airfoil step", a_ms, ())
+    device_profile(card, lambda: air_graph(U_c), AIRFOIL_STEPS,
+                   "graphed airfoil step", a_graph_ms, ())
+    torch.set_num_threads(threads)
+    print(f"[sim] 19f in {time.perf_counter() - t_sub:.1f} s; phase 19 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "sciml_pde_torch" / "ops" / "csrc").is_dir():
@@ -4583,6 +4954,8 @@ def main() -> int:
     parity_launches = data_parity_path(dev, card, run_dir)
     for key in fk.KERNEL_NAMES:
         kernel_rows[key]["parity_launches"] = parity_launches[key]
+    # ---- 19. the rest of the simulators (ROADMAP A7) and the 3D plume drivers ------
+    simulators_path(dev, card, run_dir)
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,

@@ -6,8 +6,9 @@ and ``s_trj_seed{i}{suffix}.h5`` (``data`` (T, X, Y, Z)) combine into a
 stream is the ``_interp`` seeds outside ``test_seeds``, the aux stream the
 suffix-less seeds, paired by the default ``p * num_aux_samples + j`` rule
 (no row map); the test split is the ``_interp`` files of ``test_seeds``,
-one window at t0 = 0 each, and only those frames are kept.  ``h5py`` is
-imported inside the readers.
+one window at t0 = 0 each, and only those frames are kept.  The files are
+opened through ``io/h5.py::h5py_module``: h5py, or where it is missing the
+port's own HDF5 subset (``io/hdf5_lite.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 
 from sciml_pde_torch.data.ns import STORE_DTYPES
 from sciml_pde_torch.data.windows import WindowedTrajectories
+from sciml_pde_torch.io import h5 as h5io
 
 
 @dataclasses.dataclass
@@ -33,8 +35,7 @@ class NS3DAuxDataset:
 
 def _read_pair(folder: Path, seed: int, suffix: str) -> np.ndarray:
     """One seed -> (T, X, Y, Z, 4)."""
-    import h5py
-
+    h5py = h5io.h5py_module()
     with h5py.File(folder / f"v_trj_seed{seed}{suffix}.h5", "r") as f:
         v = np.asarray(f["data"], np.float32)  # (X, Y, Z, T, 3) on disk
     with h5py.File(folder / f"s_trj_seed{seed}{suffix}.h5", "r") as f:

@@ -21,9 +21,12 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_port_imports_no_jax():
     """Every module of the port, as pkgutil.walk_packages finds it, imports
-    without pulling in JAX or the JAX package."""
+    without pulling in JAX or the JAX package, and with h5py and matplotlib
+    not importable (the card's machine has neither)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "sys.modules['h5py'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
         "import sciml_pde_torch as pkg\n"
         "mods = ['sciml_pde_torch'] + [m.name for m in "
         "pkgutil.walk_packages(pkg.__path__, 'sciml_pde_torch.')]\n"
@@ -38,7 +41,11 @@ def test_port_imports_no_jax():
         "'sciml_pde_torch.sim.ns_incomp_2d', 'sciml_pde_torch.sim.gen_diff_react', "
         "'sciml_pde_torch.experiments.dr_parity', 'sciml_pde_torch.sweep', "
         "'sciml_pde_torch.eval.rollout_experiment', 'sciml_pde_torch.plots.figures', "
-        "'sciml_pde_torch.io.hdf5_lite'} <= set(mods)\n"
+        "'sciml_pde_torch.io.hdf5_lite', 'sciml_pde_torch.sim.ns_plume_3d', "
+        "'sciml_pde_torch.sim.burgers_1d', 'sciml_pde_torch.sim.darcy_2d', "
+        "'sciml_pde_torch.sim.bvp_2d', 'sciml_pde_torch.sim.airfoil_2d', "
+        "'sciml_pde_torch.experiments.plume3d_parity', "
+        "'sciml_pde_torch.experiments.plume3d_demo'} <= set(mods)\n"
     )
     r = _run(code)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -79,7 +86,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
 
 def test_data_and_eval_entry_points_raise_without_cuda(tmp_path):
     """The simulators, generators, rollout study, export, sweep and the DR
-    parity driver run on the card unless the CPU is asked for."""
+    and plume drivers run on the card unless the CPU is asked for, and
+    write no file before they refuse."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     import numpy as np
@@ -88,12 +96,16 @@ def test_data_and_eval_entry_points_raise_without_cuda(tmp_path):
     from sciml_pde_torch.data.windows import WindowedTrajectories
     from sciml_pde_torch.eval.prediction import export_rollout_trajectories
     from sciml_pde_torch.eval.rollout_experiment import rollout_study
-    from sciml_pde_torch.experiments import dr_parity
-    from sciml_pde_torch.sim import diff_react, gen_diff_react, gen_ns_incomp, grf, ns_incomp_2d
+    from sciml_pde_torch.experiments import dr_parity, plume3d_demo, plume3d_parity
+    from sciml_pde_torch.sim import (airfoil_2d, burgers_1d, bvp_2d, darcy_2d, diff_react,
+                                     gen_diff_react, gen_ns_incomp, grf, ns_incomp_2d,
+                                     ns_plume_3d)
     from sciml_pde_torch.sim.velocity2vorticity import convert_velocity
 
     dr = diff_react.DiffReactConfig(xdim=8, ydim=8, tdim=3, t=0.1)
     ns = ns_incomp_2d.NSIncompConfig(grid_size=(8, 8), n_steps=3, frame_int=1, n_batch=1)
+    plume = ns_plume_3d.Plume3DConfig(res=(4, 4, 4), n_frames=1, substeps=1, out_res=(4, 4, 4),
+                                      out_frames=1)
     w = WindowedTrajectories(np.zeros((1, 8, 8, 8, 2), np.float32),
                              np.zeros((8, 8, 2), np.float32), initial_step=4, train=False,
                              device="cpu")
@@ -113,11 +125,27 @@ def test_data_and_eval_entry_points_raise_without_cuda(tmp_path):
                                 overrides=[f"base_path={tmp_path}/"],
                                 out_path=str(tmp_path / "s.json")),
         lambda: dr_parity.main(["--data", str(tmp_path), "--out", str(tmp_path / "p")]),
+        lambda: ns_plume_3d.generate_plume_files(tmp_path / "plume", 0, plume),
+        lambda: ns_plume_3d.simulate_plume(torch.Generator(), plume),
+        lambda: plume3d_parity.main(["--folder", str(tmp_path / "plume"), "--out",
+                                     str(tmp_path / "p3")]),
+        lambda: plume3d_demo.main(["--folder", str(tmp_path / "plume"), "--out",
+                                   str(tmp_path / "p3")]),
+        lambda: burgers_1d.generate_burgers_file(tmp_path / "b.h5", n_samples=1, nx=8,
+                                                 n_frames=2),
+        lambda: burgers_1d.random_sine_ic(torch.Generator(), 1, 8),
+        lambda: darcy_2d.generate_darcy_file(tmp_path / "d.h5", n_samples=1, nx=8),
+        lambda: darcy_2d.sample_coefficient(torch.Generator(), 1, 8, 8),
+        lambda: bvp_2d.generate_case(0, bvp_2d.BVPConfig(grid=8, min_points=20, max_points=30)),
+        lambda: bvp_2d.generate_dataset(tmp_path / "bvp.pkl", 1, bvp_2d.BVPConfig(grid=8)),
+        lambda: airfoil_2d.simulate(airfoil_2d.AirfoilConfig(nx=16, ny=16, n_frames=1)),
+        lambda: airfoil_2d.generate_dataset(str(tmp_path / "af"), [0],
+                                            airfoil_2d.AirfoilConfig(nx=16, ny=16, n_frames=1)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    assert not (tmp_path / "dr.h5").exists() and not (tmp_path / "ns.h5").exists()
+    assert not [p.name for p in tmp_path.rglob("*") if p.is_file()]
 
 
 def test_production_entry_points_raise_without_cuda():
