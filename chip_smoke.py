@@ -20,9 +20,10 @@ micro-step) with SWA, early-window sampling, remat, masked-SSL pretraining
 and the 3D VideoMAE,
 the production FNO-2D step at the DR flagship width (the plain model
 through the dft2 spectral conv, adaptive clip, torch-style Adam) with the
-fused dft2 layer op and the native-kernel probe, and the ported perf probe
+fused dft2 layer op and the native-kernel probe, the ported perf probe
 (``sciml_pde_torch/experiments/perf_probe.py``: the K-step scans of both
-FNO steps and the five split kernels):
+FNO steps and the five split kernels), and the NS-2D FNO and VideoMAE
+streamed from host RAM, rotated and sharded (ROADMAP A8):
 
   0. probe    build the probe kernel alone and launch it through the
               experiment's probe_native: native, and exactly 2 * x; its
@@ -318,6 +319,30 @@ FNO steps and the five split kernels):
               384^2 (AIRFOIL_FRAMES frames): AIRFOIL_STEPS steps on the card
               against the CPU and replayed as a graph against op by op, the
               npz and statistics written
+ 20. a8      scaling and I/O (ROADMAP A8): a. the NS-2D FNO at config_ns's
+              width (256^2, 3 channels, initial_step 10, width 20, modes
+              12; baseline batch 16, aux 8 + 24) on a seeded store of 4 +
+              12 trajectories x 40 frames, one epoch through host_stream
+              and one through the device store: the histories within
+              1e-6 (the same bits printed), each path's step in the
+              trainer's loop (CUDA events), the streamed step's busy share,
+              the batches' GB/s, one pinned slot's alone, and the host's
+              share (the gather, the loader, the pinned copies); b. the NS
+              VideoMAE aux at full width (2 + 6 windows a micro-step, bf16,
+              accumulation 4) through host_stream against the device
+              store, the attention launches by shape, ms a micro-step and
+              the busy share; c. resident_rotate=2 on two byte-identical
+              slices under block and interleave against the unrotated run
+              (JAX's oracle): the same history, each swap's time and
+              GB/s, max_memory_allocated across each swap at most one
+              chunk above its start; d. device_put_chunked of a 4.25 GiB
+              store: every row's checksum, the chunks, the pinned staging,
+              GB/s beside one pageable copy; e. distributed_init over NCCL
+              at world size 1, run_training(shard_store=True) in the group
+              against the process alone; f. export_apply of the NS
+              production FNO, saved, loaded and run against the module; g.
+              experiments/ns_production.py --host-stream end to end at a
+              cut depth (A8_PROD_ARGS)
 
 The probe's row carries phase 0's profiler device time beside torch.mul's.
 It prints the kernel table as one JSON line, the card line, and last
@@ -4618,7 +4643,390 @@ def simulators_path(dev, card: str, run_dir: Path) -> None:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---- phase 20: scaling and I/O (ROADMAP A8) ---------------------------------------
+A8_NS = dict(num_channels=3, modes=12, width=20, initial_step=10)  # config_ns.yaml
+A8_TRAJ, A8_NA, A8_T, A8_TEST = 4, 3, 40, 2  # 4 + 12 aux trajectories x 40 frames
+A8_BATCH = {"baseline": 16, "aux": 8}  # config_ns.yaml: 16 baseline, 8 (+ 24 aux) aux
+A8_TF_TRAJ, A8_TF_T = 2, 18  # the VideoMAE aux: 16 windows = 8 micro-steps of 2 + 6
+A8_ROT_T, A8_ROT_CHUNK = 20, 16 << 20  # rotation: 2 slices of 2 + 6 trajectories
+A8_PUT_SHAPE = (4352, 256, 1024)  # f32, 4.25 GiB: 4 chunks of 1 GiB and a tail
+TOL_A8_HISTORY = 1e-6  # host-streamed against device-store losses, relative
+TOL_A8_EXPORT = 1e-5  # the exported FNO against the module, rel-to-max
+A8_PROD_ARGS = ["--grid", "256", "--frames", "24", "--frame-int", "1", "--dt", "5e-4",
+                "--n-batch", "1", "--n-primary", "2", "--n-aux-per", "3", "--n-test", "1",
+                "--epochs", "1", "--host-stream"]
+
+
+def a8_histories(what: str, got: list, want: list) -> None:
+    """Two runs' per-epoch losses within TOL_A8_HISTORY relative; prints
+    whether they agree bit for bit."""
+    keys = ("first_step_loss", "last_step_loss", "train_loss", "val_loss")
+    pairs = [(g[k], w[k]) for g, w in zip(got, want) for k in keys]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in pairs)
+    check(len(got) == len(want) > 0 and rel <= TOL_A8_HISTORY,
+          f"{what}: {len(got)} epoch(s), losses " + ", ".join(f"{a:.9g}" for a, _ in pairs)
+          + f"; largest relative difference {rel:.3e} (tol {TOL_A8_HISTORY:.0e}), the same "
+          f"bits: {all(a == b for a, b in pairs)}")
+
+
+def a8_loop_ms(run, n: int) -> float:
+    """ms a step of ``run()`` (``n`` steps, the trainer's loop), CUDA events
+    around the whole loop: the host's stalls between steps count."""
+    import torch
+
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    run()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def a8_path(dev, card: str, run_dir: Path) -> dict:
+    """Phase 20: host streaming, pool rotation, the chunked transfer, the
+    process group, the export and the NS production driver (ROADMAP A8).
+    Returns the attention launches of 20b by (kernel, bh, n, d, type)."""
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.data.ns import NSAuxDataset, NSBaselineDataset, ns_aux_row_map, unit_grid
+    from sciml_pde_torch.data.stream import AuxHostWindowLoader, HostWindowLoader
+    from sciml_pde_torch.data.windows import WindowedTrajectories, epoch_batches
+    from sciml_pde_torch.experiments import ns_production
+    from sciml_pde_torch.ops import attention as ta
+    from sciml_pde_torch.parallel import distributed_init
+    from sciml_pde_torch.sim.gen_ns_incomp import write_ns_h5
+    from sciml_pde_torch.train import fno_train as ft
+    from sciml_pde_torch.train import placement
+    from sciml_pde_torch.train import transformer_train as ttt
+    from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer, make_optimizer
+    from sciml_pde_torch.models.transformer import VideoMAEOperatorAux
+    from sciml_pde_torch.utils import export, transfer
+
+    t_phase = t_sub = time.perf_counter()
+    t_in, xy = A8_NS["initial_step"], NS_MODEL["img_size"]
+    grid = unit_grid(xy, xy)
+    host = make_ns_store(A8_TRAJ + A8_TEST, A8_T, seed=20, dev=dev, xy=xy).cpu().numpy()
+    aux_host = make_ns_store(A8_TRAJ * A8_NA, A8_T, seed=21, dev=dev, xy=xy).cpu().numpy()
+    row_map = ns_aux_row_map([list(range(A8_TRAJ))], A8_NA, A8_TRAJ)
+    test = host[A8_TRAJ:, :t_in + 1]
+
+    def win(data, train=True, to_device=True, dtype=torch.float32):
+        return WindowedTrajectories(data, grid, initial_step=t_in, rollout=1, train=train,
+                                    device=dev, to_device=to_device, dtype=dtype)
+
+    def datasets(kind, to_device):
+        if kind == "baseline":
+            return NSBaselineDataset(train=win(host[:A8_TRAJ], to_device=to_device),
+                                     test=win(test, False))
+        return NSAuxDataset(primary_train=win(host[:A8_TRAJ], to_device=to_device),
+                            primary_test=win(test, False),
+                            aux_train=win(aux_host, to_device=to_device), aux_row_map=row_map)
+
+    fit = dict(seed=0, epochs=1, log_every=0, run_dir=str(run_dir), **A8_NS)
+    train_idx = win(host[:A8_TRAJ], to_device=False).window_index()
+
+    # ---- 20a. the NS-2D FNO through host_stream against the device store -------------
+    for kind in ("baseline", "aux"):
+        bsz = A8_BATCH[kind]
+        train = ft.train_baseline if kind == "baseline" else ft.train_aux
+        extra = {} if kind == "baseline" else dict(num_aux_samples=A8_NA)
+        runs = {}
+        for stream in (False, True):
+            runs[stream] = train(datasets(kind, not stream), batch_size=bsz,
+                                 model_name=f"NS_a8_{kind}_{int(stream)}", host_stream=stream,
+                                 device=dev, **extra, **fit)
+        torch.cuda.synchronize()
+        moved = placement.LAST_RUN["bytes_to_device"]
+        a8_histories(f"[a8 stream] NS-2D FNO {kind} (batch {bsz}"
+                     + ("" if kind == "baseline" else f" + {bsz * A8_NA} aux")
+                     + f", 256^2, width 20, modes 12): host_stream against the device store",
+                     runs[True].history, runs[False].history)
+        check(placement.LAST_RUN["host_batches"] == len(train_idx) // bsz
+              and moved > 0, f"[a8 stream] {kind}: {placement.LAST_RUN['host_batches']} "
+              f"host batches, {moved / 2**20:.1f} MiB to the card through the pinned ring")
+        # the step time of each path: the trainer's loop, rebuilt from its parts
+        model = ft.make_fno(3, 12, 20, t_in, aux=kind == "aux",
+                            generator=torch.Generator().manual_seed(0)).to(dev)
+        params = dict(model.named_parameters())
+        if kind == "baseline":
+            opt = make_optimizer(params, 1e-3, 1000)
+            step, _ = ft.build_baseline_step(model, opt, t_in, 1)
+            loader = HostWindowLoader(host[:A8_TRAJ], train_idx, t_in, 1, bsz, seed=0)
+            data = (transfer.device_put_chunked(host[:A8_TRAJ], device=dev),)
+        else:
+            opt = make_grouped_optimizer(params, aux_group_of, {"shared": 1e-3,
+                                                                 "primary_head": 1e-3,
+                                                                 "aux_head": 1e-3}, 1000)
+            step, _ = ft.build_aux_step(model, opt, t_in, 1, A8_NA, 0.7, aux_row_map=row_map)
+            loader = AuxHostWindowLoader(host[:A8_TRAJ], aux_host, train_idx, t_in, 1, bsz,
+                                         A8_NA, row_map=row_map, seed=0)
+            data = (transfer.device_put_chunked(host[:A8_TRAJ], device=dev),
+                    transfer.device_put_chunked(aux_host, device=dev))
+        g_dev = torch.as_tensor(grid, device=dev)
+        idx = torch.as_tensor(np.stack(list(epoch_batches(train_idx, bsz,
+                                                          np.random.default_rng(0)))),
+                              dtype=torch.long, device=dev)
+        n = len(idx)
+        step(*data, g_dev, idx[0])  # warm
+        ms_dev = a8_loop_ms(lambda: [step(*data, g_dev, i) for i in idx], n)
+        ring, inflight = placement.PinnedRing(dev), placement.InFlight(dev)
+
+        def streamed():
+            for batch in loader:
+                step.xy(*ring(batch), g_dev)
+                inflight.add()
+        streamed()  # warm: the ring's pinned slots
+        moved0 = ring.bytes_moved
+        ms_stream = a8_loop_ms(streamed, n)
+        per_batch = (ring.bytes_moved - moved0) / n
+        slot = ring.slots[0][0]  # x's pinned slot: one copy to the card, timed alone
+        link_ms = cuda_ms(lambda: slot.to(dev, non_blocking=True), reps=10)
+        print(f"[a8 timing] {card}: NS-2D FNO {kind} step, the trainer's loop (CUDA events "
+              f"over the {n} steps of an epoch): device store {ms_dev:.4f} ms, host_stream "
+              f"{ms_stream:.4f} ms ({ms_stream / ms_dev:.2f}x); the batches to the card "
+              f"{per_batch / 2**20:.1f} MiB a step = {per_batch / ms_stream / 1e6:.3f} GB/s over "
+              f"the streamed step; one pinned {tuple(slot.shape)} f32 slot alone "
+              f"{slot.numel() * 4 / link_ms / 1e6:.3f} GB/s", flush=True)
+        device_profile(card, streamed, n, "host_stream step", ms_stream, ())
+        # where the streamed step's host time goes: the gather alone (on the
+        # caller's thread, then behind the prefetch thread) and the copies
+        # into the pinned slots
+        t0 = time.perf_counter()
+        batches = list(HostWindowLoader(host[:A8_TRAJ], train_idx, t_in, 1, bsz, seed=0,
+                                        prefetch=False)._batches()) if kind == "baseline" \
+            else list(AuxHostWindowLoader(host[:A8_TRAJ], aux_host, train_idx, t_in, 1, bsz,
+                                          A8_NA, row_map=row_map, seed=0,
+                                          prefetch=False)._batches())
+        gather_ms = 1e3 * (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for _ in loader:
+            pass
+        loader_ms = 1e3 * (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for b in batches:
+            for slot_t, leaf in zip(ring.slots[0], b):
+                slot_t.copy_(torch.from_numpy(leaf))
+        pin_ms = 1e3 * (time.perf_counter() - t0) / n
+        print(f"[a8 timing] {card}: NS-2D FNO {kind}, the host's share of a streamed step: "
+              f"the numpy gather {gather_ms:.2f} ms a batch on one thread, the loader with its "
+              f"prefetch thread {loader_ms:.2f} ms a batch, the copies into the pinned slots "
+              f"{pin_ms:.2f} ms (host clock)", flush=True)
+        del model, opt, step, data, ring, batches
+    print(f"[a8] 20a in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 20b. the NS VideoMAE aux at full width through host_stream ---------------------
+    t_sub = time.perf_counter()
+    tf_host = host[:A8_TF_TRAJ, :A8_TF_T]
+    tf_aux = aux_host[:A8_TF_TRAJ * A8_NA, :A8_TF_T]
+    tf_map = ns_aux_row_map([list(range(A8_TF_TRAJ))], A8_NA, A8_TF_TRAJ)
+    tf_idx = win(tf_host, to_device=False).window_index()
+    micro = len(tf_idx) // NS_BATCH
+    runs, shapes = {}, {}
+    for stream in (False, True):
+        ds = NSAuxDataset(primary_train=win(tf_host, to_device=not stream),
+                          primary_test=win(test, False),
+                          aux_train=win(tf_aux, to_device=not stream), aux_row_map=tf_map)
+        ta.reset_launch_counts()
+        runs[stream] = ttt.train_transformer_aux(
+            ds, num_aux_samples=A8_NA, auxiliary_weight=AUXT_W, run_dir=str(run_dir),
+            model_name=f"NS_a8_vmae_{int(stream)}", host_stream=stream, device=dev,
+            **ns_recipe(True, 1))
+        torch.cuda.synchronize()
+        shapes[stream] = dict(ta.LAUNCH_SHAPES)
+    a8_histories(f"[a8 stream] NS VideoMAE aux (1280 tokens, bf16, batch {NS_BATCH} + "
+                 f"{NS_BATCH * A8_NA} aux x accumulation {NS_ACCUM}, {micro} micro-steps): "
+                 "host_stream against the device store", runs[True].history,
+                 runs[False].history)
+    check_aux_launches("[a8 stream] the VideoMAE aux through host_stream", shapes[True], micro,
+                       1, "bf16")
+    model = VideoMAEOperatorAux(**NS_MODEL, drop_path_rate=0.1, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = ttt.make_transformer_optimizer(dict(model.named_parameters()), NS_LR, NS_LR, 1000,
+                                         grad_accum=NS_ACCUM)
+    step, _ = ttt.build_transformer_aux_step(model, opt, t_in, A8_NA, AUXT_W, tf_map)
+    loader = AuxHostWindowLoader(tf_host, tf_aux, tf_idx, t_in, 1, NS_BATCH, A8_NA,
+                                 row_map=tf_map, seed=0)
+    ring, inflight = placement.PinnedRing(dev), placement.InFlight(dev)
+
+    def tf_streamed():
+        for batch in loader:
+            step.xy(*ring(batch))
+            inflight.add()
+    tf_streamed()
+    ms_tf = a8_loop_ms(tf_streamed, micro)
+    print(f"[a8 timing] {card}: NS VideoMAE aux micro-step through host_stream {ms_tf:.4f} ms "
+          f"(CUDA events over {micro} micro-steps, batch {NS_BATCH} + {NS_BATCH * A8_NA} aux, "
+          "bf16)", flush=True)
+    device_profile(card, tf_streamed, micro, "host_stream micro-step", ms_tf,
+                   tuple(ATT_KERNEL_KEYS["bf16"].values()))
+    del model, opt, step, ring
+    print(f"[a8] 20b in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 20c. resident_rotate=2 on two byte-identical slices: JAX's oracle ---------------
+    t_sub = time.perf_counter()
+    half_p, half_a = host[:2, :A8_ROT_T], aux_host[:2 * A8_NA, :A8_ROT_T]
+    pool_p, pool_a = np.concatenate([half_p, half_p]), np.concatenate([half_a, half_a])
+    slice_bytes = half_p.nbytes + half_a.nbytes
+    swaps = []
+    real_load = placement.ResidentPool.load
+
+    def measured_load(pool, k):
+        first = pool.current is None
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        real_load(pool, k)
+        if not first:
+            swaps.append((before, torch.cuda.max_memory_allocated(), pool.swap_s[-1]))
+    transfer._DEFAULT_CHUNK_BYTES, chunk0 = A8_ROT_CHUNK, transfer._DEFAULT_CHUNK_BYTES
+    placement.ResidentPool.load = measured_load
+    try:
+        for schedule, epochs in (("block", 2), ("interleave", 4)):
+            rot = ft.train_aux(
+                NSAuxDataset(primary_train=win(pool_p, to_device=False),
+                             primary_test=win(test, False), aux_train=win(pool_a, to_device=False),
+                             aux_row_map=ns_aux_row_map([[0, 1], [2, 3]], A8_NA, 2)),
+                batch_size=A8_BATCH["aux"], num_aux_samples=A8_NA, resident_rotate=2,
+                resident_rotate_schedule=schedule, device=dev,
+                model_name=f"NS_a8_rot_{schedule}", **dict(fit, epochs=epochs))
+            one = ft.train_aux(
+                NSAuxDataset(primary_train=win(half_p), primary_test=win(test, False),
+                             aux_train=win(half_a),
+                             aux_row_map=ns_aux_row_map([[0, 1]], A8_NA, 2)),
+                batch_size=A8_BATCH["aux"], num_aux_samples=A8_NA, device=dev,
+                model_name=f"NS_a8_one_{schedule}", **dict(fit, epochs=epochs))
+            a8_histories(f"[a8 rotate] resident_rotate=2 '{schedule}', {epochs} epochs, on "
+                         "two byte-identical slices against the unrotated run on one slice",
+                         rot.history, one.history)
+    finally:
+        placement.ResidentPool.load = real_load
+        transfer._DEFAULT_CHUNK_BYTES = chunk0
+    rise = max(peak - before for before, peak, _ in swaps)
+    swap_s = [s for _, _, s in swaps]
+    print(f"[a8 rotate] {card}: {len(swaps)} swaps of a {slice_bytes / 2**20:.1f} MiB slice "
+          f"(primary + aux, {A8_ROT_CHUNK >> 20} MiB chunks): "
+          + ", ".join(f"{1e3 * s:.2f} ms = {slice_bytes / s / 1e9:.3f} GB/s" for s in swap_s)
+          + "; max_memory_allocated across each swap "
+          + ", ".join(f"{(peak - before) / 2**20:+.1f} MiB" for before, peak, _ in swaps)
+          + " from before it", flush=True)
+    check(len(swaps) == 1 + 3 and rise <= A8_ROT_CHUNK < slice_bytes,
+          f"[a8 rotate] each swap releases the outgoing slice before it builds the incoming "
+          f"one: the peak across a swap rises {rise / 2**20:.1f} MiB, at most one chunk "
+          f"({A8_ROT_CHUNK >> 20} MiB) above the run's memory with one slice (a slice is "
+          f"{slice_bytes / 2**20:.1f} MiB)")
+    print(f"[a8] 20c in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 20d. device_put_chunked of a 4.25 GiB store --------------------------------------
+    t_sub = time.perf_counter()
+    rows = A8_PUT_SHAPE[0]
+    big = np.random.default_rng(22).integers(-2**31, 2**31, A8_PUT_SHAPE, dtype=np.int32)
+    want_rows = big.reshape(rows, -1).sum(axis=1, dtype=np.int64)
+    big = big.view(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = transfer.device_put_chunked(big, device=dev)
+    put_s = time.perf_counter() - t0
+    stats = dict(transfer.LAST_STATS)
+    got_rows = torch.cat([out[i:i + 256].view(torch.int32).reshape(len(out[i:i + 256]), -1)
+                          .sum(dim=1, dtype=torch.int64) for i in range(0, rows, 256)])
+    same = bool(np.array_equal(got_rows.cpu().numpy(), want_rows))
+    del out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain = torch.from_numpy(big).to(dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del plain
+    try:
+        pinned = torch.cuda.host_memory_stats().get("allocated_bytes.current", "not measured")
+    except (AttributeError, RuntimeError):
+        pinned = "not measured"
+    per_chunk = transfer._DEFAULT_CHUNK_BYTES // (big.nbytes // rows)
+    check(same and stats["chunks"] == -(-rows // per_chunk)
+          and stats["staging_bytes"] <= 2 * transfer._DEFAULT_CHUNK_BYTES,
+          f"[a8 put] device_put_chunked of a {big.nbytes / 2**30:.2f} GiB f32 store "
+          f"{A8_PUT_SHAPE}: every row's int32 checksum on the card equals numpy's; "
+          f"{stats['chunks']} chunks through {stats['staging_bytes'] / 2**30:.2f} GiB of pinned "
+          f"staging (two slots of one 1 GiB chunk)")
+    print(f"[a8 put] {card}: {big.nbytes / put_s / 1e9:.3f} GB/s chunked through pinned "
+          f"staging ({put_s:.3f} s, host copies into the slots included), one pageable copy "
+          f"{big.nbytes / plain_s / 1e9:.3f} GB/s ({plain_s:.3f} s); the caching host "
+          f"allocator's pinned bytes after: {pinned}", flush=True)
+    del big
+    print(f"[a8] 20d in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 20e. the process group over NCCL at world size 1, shard_store -------------------
+    t_sub = time.perf_counter()
+    ns_dir = run_dir / "a8_ns"
+    ns_dir.mkdir(parents=True, exist_ok=True)
+    for name, part in (("ns_incom_inhom_2d_256-0", host[:2, :20]),
+                       ("ns_incom_inhom_2d_256-1", host[2:4, :20]),
+                       ("ns_incom_inhom_2d_256-250", host[A8_TRAJ:A8_TRAJ + 1, :20])):
+        write_ns_h5(ns_dir / f"{name}.h5", part[..., :2], part[..., 2:],
+                    np.zeros((len(part), xy, xy, 2), np.float32),
+                    np.zeros((len(part), part.shape[1]), np.float32), {})
+    kw = dict(fit, base_path=str(ns_dir), dataset_family="ns", test_range=(250, 251),
+              train_subsample=(2, 2, 2), batch_size=A8_BATCH["baseline"], shard_store=True,
+              device=dev, epochs=2)
+    alone = ft.run_training(model_name="NS_a8_shard_alone", **kw)
+    with __import__("socket").socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed_init(f"localhost:{port}", 1, 0)
+    backend = torch.distributed.get_backend()
+    try:
+        grouped = ft.run_training(model_name="NS_a8_shard_nccl", **kw)
+    finally:
+        torch.distributed.destroy_process_group()
+    check(backend == "nccl", f"[a8 dist] distributed_init at world size 1 on "
+          f"tcp://localhost:{port}: backend {backend} (parallel.mean_over_ranks all-reduces "
+          "the gradients and losses in the group)")
+    a8_histories("[a8 dist] run_training(shard_store=True), 2 epochs, in the NCCL group of "
+                 "one rank against the process without a group", grouped.history,
+                 alone.history)
+    print(f"[a8] 20e in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 20f. export of the NS production FNO ---------------------------------------------
+    t_sub = time.perf_counter()
+    model = ft.make_fno(3, 12, 20, t_in, generator=torch.Generator().manual_seed(3)).to(dev)
+    model.eval()
+    x = torch.as_tensor(host[:2, :t_in], device=dev).movedim(1, -2).contiguous()
+    g2 = torch.as_tensor(grid, device=dev).expand(2, xy, xy, 2).contiguous()
+    art = export.export_apply(lambda a, b: model(a, b), (x, g2))
+    served = export.load_exported(export.save_exported(art, run_dir / "ns_fno.pt2"))
+    with torch.no_grad():
+        want, got = model(x, g2), served(x, g2)
+    err, rel = rel_err(got, want)
+    check(got.shape == want.shape and rel <= TOL_A8_EXPORT,
+          f"[a8 export] the NS production FNO (256^2, width 20, modes 12) through torch.export, "
+          f"saved as .pt2, loaded and run on the card: max abs err {err:.3e}, rel-to-max "
+          f"{rel:.3e} (tol {TOL_A8_EXPORT:.0e}); exported, served and checked in "
+          f"{time.perf_counter() - t_sub:.1f} s")
+    del model, art, served
+
+    # ---- 20g. the ported ns_production.py end to end through host_stream -----------------
+    t_sub = time.perf_counter()
+    prod = run_dir / "a8_prod"
+    summary = ns_production.main(["--folder", str(prod / "data"), "--out", str(prod / "out")]
+                                 + A8_PROD_ARGS)
+    rows_ok = all(len(v["rollout_nrmse"]) == 5 and all(math.isfinite(r)
+                                                      for r in v["rollout_nrmse"])
+                  for v in summary.values())
+    check(sorted(summary) == ["aux", "baseline"] and rows_ok,
+          f"[a8 prod] experiments/ns_production.py {' '.join(A8_PROD_ARGS)} (2 primary + 2 x 3 "
+          f"aux + 1 test trajectories, 256^2, 24 frames): rollout 1..5 nRMSE "
+          + "; ".join(f"{k} " + ", ".join(f"{r:.5g}" for r in v["rollout_nrmse"])
+                      for k, v in summary.items())
+          + f" in {time.perf_counter() - t_sub:.1f} s")
+    print(f"[a8] phase 20 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return shapes[True]
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     root = Path(__file__).resolve().parent
     if not (root / "sciml_pde_torch" / "ops" / "csrc").is_dir():
         print("FAIL: run from a checkout of the repository (sciml_pde_torch/ not found)",
@@ -4956,6 +5364,12 @@ def main() -> int:
         kernel_rows[key]["parity_launches"] = parity_launches[key]
     # ---- 19. the rest of the simulators (ROADMAP A7) and the 3D plume drivers ------
     simulators_path(dev, card, run_dir)
+    # ---- 20. scaling and I/O (ROADMAP A8): streaming, rotation, the process group ----
+    a8_shapes = a8_path(dev, card, run_dir)
+    for key in AUXT_ROWS:
+        name, where = key.split(" (")
+        kernel_rows[key]["a8_launches"] = a8_shapes.get((name, *AUXT_ATT_SHAPES[where[:-1]],
+                                                         "bf16"), 0)
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,
@@ -4973,6 +5387,7 @@ def main() -> int:
           f"{r['launches']} "
           "launch in probe_native", flush=True)
 
+    print(f"[time] the whole script {time.perf_counter() - t_script:.1f} s", flush=True)
     if failures:
         print(f"FAILED {len(failures)} check(s): " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -123,14 +123,18 @@ def load_dr_baseline(
     primary_file: str = PRIMARY_FILE,
     leaky_clip: bool = False,
     device=None,
+    to_device: bool = True,
 ) -> DRBaselineDataset:
     """Train = the first ``train_subsample`` trajectories of the pool, test =
-    the 10% tail with one window at t0 = 0 per trajectory."""
+    the 10% tail with one window at t0 = 0 per trajectory.  ``to_device=False``
+    keeps the train store in host RAM (host streaming, pool rotation); the
+    test store goes to ``device``."""
     train, test, grid = _load_train_pool(Path(base_path), primary_file, train_subsample,
                                          extra_train_files, leaky_clip=leaky_clip)
     return DRBaselineDataset(
         train=WindowedTrajectories(train, grid, initial_step=initial_step,
-                                   rollout=rollout_test, train=True, device=device),
+                                   rollout=rollout_test, train=True, device=device,
+                                   to_device=to_device),
         test=WindowedTrajectories(test, grid, initial_step=initial_step,
                                   rollout=rollout_test, train=False, device=device),
     )
@@ -188,12 +192,15 @@ def load_dr_aux(
     primary_file: str = PRIMARY_FILE,
     aux_file: str | None = None,
     device=None,
+    to_device: bool = True,
 ) -> DRAuxDataset:
     """Two-stream DR dataset for aux joint training: ``train_subsample[1]``
     primary and ``train_subsample[2]`` aux trajectories.  The aux pool must
     hold ``n_primary * num_aux_samples`` rows; an aux file of another
     resolution (``if_downsample`` picks the downsampled one) is upsampled to
-    the primary's T x H x W on ``device``."""
+    the primary's T x H x W on ``device`` (with ``to_device=False`` on the
+    CPU, and both train stores stay in host RAM; the test store goes to
+    ``device``)."""
     base = Path(base_path)
     apath = Path(aux_path) if aux_path else base
     primary_train, primary_test, grid = _load_train_pool(base, primary_file,
@@ -207,11 +214,13 @@ def load_dr_aux(
         raise ValueError(f"aux pool has {aux.shape[0]} trajectories < "
                          f"{primary_train.shape[0]} primary x {num_aux_samples} aux samples")
     if if_downsample or aux.shape[1:4] != primary_train.shape[1:4]:
-        aux = _resize_trilinear(aux, primary_train.shape[1:4], device=device)
+        aux = _resize_trilinear(aux, primary_train.shape[1:4],
+                                device=device if to_device else "cpu")
 
     def windows(data, train):
         return WindowedTrajectories(data, grid, initial_step=initial_step,
-                                    rollout=rollout_test, train=train, device=device)
+                                    rollout=rollout_test, train=train, device=device,
+                                    to_device=to_device or not train)
 
     return DRAuxDataset(primary_train=windows(primary_train, True),
                         primary_test=windows(primary_test, False),

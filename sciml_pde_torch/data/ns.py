@@ -108,16 +108,18 @@ def load_ns_baseline(
     test_range=(250, 275),
     store_dtype: str | None = None,
     device=None,
+    to_device: bool = True,
 ) -> NSBaselineDataset:
     """Train = the trajectories ``train_subsample`` selects, in
-    ``store_dtype``; test = the t0 = 0 windows of ``test_range``, f32."""
+    ``store_dtype`` (with ``to_device=False`` kept in host RAM); test = the
+    t0 = 0 windows of ``test_range``, f32, on ``device``."""
     base = Path(base_path)
     train, _ = _load_primary(base, sim_name, train_subsample)
     grid = unit_grid(train.shape[2], train.shape[3])
     return NSBaselineDataset(
         train=WindowedTrajectories(train, grid, initial_step=initial_step,
                                    rollout=rollout_test, train=True, device=device,
-                                   dtype=STORE_DTYPES[store_dtype]),
+                                   dtype=STORE_DTYPES[store_dtype], to_device=to_device),
         test=load_ns_test(base_path, initial_step=initial_step, rollout_test=rollout_test,
                           sim_name=sim_name, test_range=test_range, device=device),
     )
@@ -152,13 +154,16 @@ def load_ns_aux(
     store_dtype: str | None = None,
     aux_upsample_at_gather: bool = False,
     device=None,
+    to_device: bool = True,
 ) -> NSAuxDataset:
     """Aux-paired NS dataset: ``train_subsample[1]`` primary files (or a
     fraction of file 0) with ``num_aux_samples`` aux files each;
     ``train_subsample[2]`` must allow that many aux files.  Only the aux
     files the pairing reads are loaded.  A bf16 aux store is rounded before
     an upsample on load, which then runs on its f32 values and rounds again,
-    as JAX resizes the bf16 array."""
+    as JAX resizes the bf16 array.  ``to_device=False`` keeps both train
+    stores in host RAM (an upsample on load then runs on the CPU); the test
+    store goes to ``device``."""
     base = Path(base_path)
     abase = Path(aux_path) if aux_path else base
     primary, per_file = _load_primary(base, sim_name, train_subsample[1])
@@ -172,7 +177,8 @@ def load_ns_aux(
     aux_blocks = [_read_ns_file(abase / f"{aux_name}-{i}.h5") for i in range(need_files)]
     row_map = ns_aux_row_map(per_file, num_aux_samples, aux_blocks[0].shape[0])
     aux_dt = STORE_DTYPES[aux_store_dtype]
-    aux = torch.as_tensor(np.concatenate(aux_blocks), device=device).to(aux_dt)
+    aux = torch.as_tensor(np.concatenate(aux_blocks),
+                          device=device if to_device else "cpu").to(aux_dt)
     if not aux_upsample_at_gather and (if_downsample or aux.shape[2:4] != primary.shape[2:4]):
         aux = resize_linear(aux, {2: primary.shape[2], 3: primary.shape[3]}).to(aux_dt)
 
@@ -181,7 +187,7 @@ def load_ns_aux(
     def train(data, dtype):
         return WindowedTrajectories(data, grid, initial_step=initial_step,
                                     rollout=rollout_test, train=True, device=device,
-                                    dtype=dtype)
+                                    dtype=dtype, to_device=to_device)
 
     return NSAuxDataset(
         primary_train=train(primary, STORE_DTYPES[store_dtype]),

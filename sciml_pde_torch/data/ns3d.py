@@ -82,11 +82,13 @@ def load_ns3d_aux(
     aux_store_dtype: str | None = None,
     store_dtype: str | None = None,
     device=None,
+    to_device: bool = True,
 ) -> NS3DAuxDataset:
     """``train_subsample[1]`` primary ``_interp`` seeds (those not in
     ``test_seeds``) and ``train_subsample[2]`` aux seeds, which must hold
     ``n_primary * num_aux_samples`` trajectories.  ``with_aux=False``
-    (baseline training) reads no aux seed."""
+    (baseline training) reads no aux seed.  ``to_device=False`` keeps the
+    train stores in host RAM; the test store goes to ``device``."""
     base = Path(base_path)
     abase = Path(aux_path) if aux_path else base
     test_set = set(int(s) for s in test_seeds)
@@ -100,7 +102,7 @@ def load_ns3d_aux(
     def train(data, dtype):
         return WindowedTrajectories(data, grid, initial_step=initial_step,
                                     rollout=rollout_test, train=True, device=device,
-                                    dtype=STORE_DTYPES[dtype])
+                                    dtype=STORE_DTYPES[dtype], to_device=to_device)
 
     aux = None
     if with_aux:

@@ -3,7 +3,11 @@
 
 The whole trajectory tensor ``(N, T, *spatial, C)`` lives on the device and
 windows are gathered there from ``(trajectory, t0)`` index rows, so the host
-only ships small index tensors per step.
+only ships small index tensors per step.  A store can instead stay in host
+RAM (``to_device=False``) for the host-streaming loaders of
+``data/stream.py`` and pool rotation; a store split over the ranks of a
+process group (``shard_store``) samples through ``sharded_epoch_batches``
+and gathers through ``sharded_gather_windows``.
 """
 
 from __future__ import annotations
@@ -20,13 +24,15 @@ def gather_windows(data: torch.Tensor, idx: torch.Tensor, initial_step: int, rol
     Frame indices past the end of a trajectory are clamped to its last
     frame, as the JAX gather clamps them: the autoregressive step gathers
     ``t_train - initial_step`` target frames from windows indexed for a
-    shorter rollout, and relies on it.  The clamp runs on the device."""
+    shorter rollout, and relies on it.  The clamp runs on the device.  Both
+    halves come back contiguous, the layout the host loaders of
+    ``data/stream.py`` ship, so a step computes the same bits from either."""
     span = initial_step + rollout
     offs = torch.arange(span, device=idx.device, dtype=idx.dtype)
     frames = torch.clamp(idx[:, 1, None] + offs[None, :], 0, data.shape[1] - 1)
     win = data[idx[:, 0, None], frames]
     win = torch.movedim(win, 1, -2)
-    return win[..., :initial_step, :], win[..., initial_step:, :]
+    return win[..., :initial_step, :].contiguous(), win[..., initial_step:, :].contiguous()
 
 
 class WindowedTrajectories:
@@ -35,11 +41,25 @@ class WindowedTrajectories:
     ``train=False`` exposes one window per trajectory at t0 = 0.  The store
     is f32, or ``dtype`` (``torch.bfloat16`` halves a large train store;
     the steps cast gathered windows to f32 before any compute); f32 data
-    converts to bf16 rounding to nearest even, as ``ml_dtypes`` does."""
+    converts to bf16 rounding to nearest even, as ``ml_dtypes`` does.
+
+    The store goes to ``device`` through ``utils/transfer.py::
+    device_put_chunked`` (bounded chunks through pinned staging), or with
+    ``to_device=False`` stays in host RAM: a numpy array, or a CPU tensor
+    where ``dtype`` is bf16 (numpy has no bf16).  The grid goes to
+    ``device`` either way."""
 
     def __init__(self, data, grid, *, initial_step: int, rollout: int = 1,
-                 train: bool = True, device=None, dtype=torch.float32):
-        self.data = torch.as_tensor(data, dtype=dtype, device=device)
+                 train: bool = True, device=None, dtype=torch.float32,
+                 to_device: bool = True):
+        if to_device:
+            from sciml_pde_torch.utils.transfer import device_put_chunked
+
+            if device is None:  # a tensor stays where it is, numpy on the CPU
+                device = data.device if isinstance(data, torch.Tensor) else "cpu"
+            self.data = device_put_chunked(data, device=device, dtype=dtype)
+        else:
+            self.data = host_store(data, dtype)
         self.grid = torch.as_tensor(grid, dtype=torch.float32, device=device)
         self.initial_step = int(initial_step)
         self.rollout = int(rollout)
@@ -67,6 +87,55 @@ class WindowedTrajectories:
         traj = np.repeat(np.arange(n, dtype=np.int32), w)
         t0 = np.tile(np.arange(w, dtype=np.int32), n)
         return np.stack([traj, t0], axis=1)
+
+
+def host_store(data, dtype=torch.float32):
+    """``data`` kept in host RAM in ``dtype``: numpy for f32, a CPU tensor for
+    another torch dtype."""
+    if dtype == torch.float32:
+        if isinstance(data, torch.Tensor):
+            return data.detach().cpu().float().numpy()
+        return np.asarray(data, np.float32)
+    return torch.as_tensor(data).cpu().to(dtype)
+
+
+def sharded_gather_windows(data: torch.Tensor, idx: torch.Tensor, initial_step: int,
+                           rollout: int):
+    """``gather_windows`` on one rank's shard of a store split over the ranks
+    (``shard_store``): ``data`` holds this rank's trajectories and ``idx``
+    is this rank's slice of a shard-major batch of ``sharded_epoch_batches``,
+    whose trajectory ids are local to the shard.  Returns the rank's
+    windows, what the JAX package's ``shard_map`` body gathers on one shard."""
+    return gather_windows(data, idx, initial_step, rollout)
+
+
+def sharded_epoch_batches(index: np.ndarray, batch_size: int, n_traj: int, n_shards: int,
+                          rng=None):
+    """Shuffled batches for a trajectory store split over ``n_shards``: each
+    batch holds ``batch_size / n_shards`` windows from every shard's
+    trajectory range, shard-major, with trajectory ids made local to the
+    shard, so slice s of the batch indexes shard s alone.  Needs ``n_traj``
+    and ``batch_size`` divisible by ``n_shards``.  The JAX package's sampler,
+    draw for draw."""
+    index = np.asarray(index)
+    if n_traj % n_shards or batch_size % n_shards:
+        raise ValueError(
+            f"n_traj={n_traj} and batch_size={batch_size} must divide n_shards={n_shards}"
+        )
+    per_shard_traj = n_traj // n_shards
+    per_shard_b = batch_size // n_shards
+    shard_of = index[:, 0] // per_shard_traj
+    pools = []
+    for s in range(n_shards):
+        rows = index[shard_of == s].copy()
+        rows[:, 0] -= s * per_shard_traj
+        pools.append(rows)
+    n_batches = min(len(p) for p in pools) // per_shard_b
+    orders = [(rng.permutation(len(p)) if rng is not None else np.arange(len(p)))
+              for p in pools]
+    for b in range(n_batches):
+        yield np.concatenate([pools[s][orders[s][b * per_shard_b:(b + 1) * per_shard_b]]
+                              for s in range(n_shards)], axis=0)
 
 
 def epoch_batches(index: np.ndarray, batch_size: int, rng=None):

@@ -39,8 +39,8 @@ def main(argv=None):
     p.add_argument("--continue-training", action="store_true",
                    help="resume from the run_dir checkpoint")
     p.add_argument("--host-stream", action="store_true",
-                   help="keep trajectory stores in host RAM (not ported: the trainer "
-                        "raises, naming ROADMAP A8)")
+                   help="keep the train stores in host RAM and stream window batches "
+                        "to the card (the trainer's host_stream)")
     p.add_argument("--seed", type=int, default=None,
                    help="training seed; the reference sweeps {16, 99, 17} "
                         "(run_forward_rd.sh) and its published table may be "

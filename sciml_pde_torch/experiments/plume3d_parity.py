@@ -16,7 +16,8 @@ seeds from 275.
   python -m sciml_pde_torch.experiments.plume3d_parity --folder data/plume3d_parity
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions on the
-CPU.  ``--host-stream`` is not ported (ROADMAP A8) and raises.
+CPU.  ``--host-stream`` keeps the train stores in host RAM and streams
+window batches to the card, as the trainer's ``host_stream`` does.
 """
 
 from __future__ import annotations
@@ -77,8 +78,8 @@ def main(argv=None):
     p.add_argument("--initial-step", type=int, default=10)
     p.add_argument("--skip-gen", action="store_true")
     p.add_argument("--host-stream", action="store_true",
-                   help="keep the trajectory store in host RAM (not ported: raises, naming "
-                        "ROADMAP A8)")
+                   help="keep the trajectory store in host RAM and stream window "
+                        "batches to the card (the trainer's host_stream)")
     p.add_argument("--aux-store-dtype", default="bf16", choices=["bf16", "f32"],
                    help="device dtype of the aux trajectory store")
     p.add_argument("--remat", action="store_true",
@@ -108,9 +109,6 @@ def main(argv=None):
     p.add_argument("--out", default="runs/plume3d_parity")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    if a.host_stream:
-        raise NotImplementedError("not ported yet: host_stream (ROADMAP A8)")
-
     from sciml_pde_torch._device import resolve_device
     from sciml_pde_torch.data.ns3d import load_ns3d_aux
     from sciml_pde_torch.train.fno_train import _Family
@@ -163,6 +161,7 @@ def main(argv=None):
             learning_rate_fc2=a.lr_heads or (1.5e-4 if is_tf else 1e-3),
             auxiliary_weight=a.aux_weight,
             rollout_test=1, batch_size=a.batch_size, epochs=a.epochs,
+            host_stream=a.host_stream,
             aux_store_dtype=(None if a.aux_store_dtype == "f32" else a.aux_store_dtype),
             primary_store_dtype=(None if a.primary_store_dtype == "f32"
                                  else a.primary_store_dtype),

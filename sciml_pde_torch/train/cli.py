@@ -23,12 +23,20 @@ and ``if_training=False`` evaluates the run's checkpoint (the six-metric
 pickle and ``mse_time.npz``; ``python -m sciml_pde_torch.eval.analyse``
 gathers the pickles into ``Results.csv``).  Runs on ``cuda``;
 ``device=cpu`` runs the plain PyTorch versions on the CPU.
+
+Under ``torchrun`` (``WORLD_SIZE`` above 1) each process joins the process
+group first (``parallel.distributed_init``: NCCL, or gloo with
+``device=cpu``) and the run is data parallel over the ranks:
+
+  torchrun --nproc-per-node 4 -m sciml_pde_torch.train.cli train \
+      --config config_ns base_path=data/ns_256/ shard_store=True
 """
 
 from __future__ import annotations
 
 import argparse
 import inspect
+import os
 import sys
 
 from sciml_pde_torch.utils.config import load_config
@@ -93,8 +101,20 @@ def main_transformer(argv=None):
 
 _SUBCOMMANDS = {"train": main, "aux": main_aux, "transformer": main_transformer}
 
+
+def join_torchrun_group(argv) -> None:
+    """Join the process group ``torchrun`` set up (``WORLD_SIZE`` above 1),
+    on the device a ``device=...`` override names."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from sciml_pde_torch.parallel import distributed_init
+
+        dev = next((kv.split("=", 1)[1] for kv in argv if kv.startswith("device=")), None)
+        distributed_init(device=dev)
+
+
 if __name__ == "__main__":
     cmd = sys.argv[1] if len(sys.argv) > 1 else "train"
     if cmd not in _SUBCOMMANDS:
         raise SystemExit(f"unknown subcommand {cmd!r}; the port has: {', '.join(_SUBCOMMANDS)}")
+    join_torchrun_group(sys.argv[2:])
     _SUBCOMMANDS[cmd](sys.argv[2:])

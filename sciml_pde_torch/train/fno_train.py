@@ -59,11 +59,27 @@ test split, and writes the six metrics to ``{model_name}.pickle`` and the
 RMSE of each step to ``{model_name}_mse_time.npz``, as JAX writes them,
 and with ``plot`` the field render ``{model_name}_pred.png``.
 
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``shard_store``, ``host_stream``, ``resident_rotate`` and
-``resident_rotate_schedule`` (A8).  The production step carries JAX's
-``scan`` (K steps over an index chunk, no host sync in the loop) and ``xy``
-(pre-gathered windows) variants; the aux step has neither (A8).
+Where the train stores live (``place_stores``; JAX's guards in
+``check_placement``):
+
+  ``host_stream``        the stores stay in host RAM; ``data/stream.py``'s
+                         loaders gather each batch on the host (a prefetch
+                         thread), a ring of pinned buffers takes it to the
+                         card, and the step's ``xy`` variant trains on it,
+                         at most 8 steps in flight
+  ``resident_rotate=R``  the pool stays in host RAM, a 1/R trajectory slice
+                         on the device, swapped between epochs under the
+                         ``block``, ``interleave`` or ``cyclic`` schedule
+  ``shard_store``        rank r of the process group holds trajectories
+                         [r N/n, (r+1) N/n) and samples shard-major batches
+
+Over the ranks of a process group (``parallel.distributed_init``) every
+production run is data parallel: each rank its rows of each batch, the
+gradients' mean over the ranks before the adaptive clip (so every rank sees
+the global batch's gradient and norm), the test store on every rank, the
+checkpoint and the metric log from rank 0.  The production step carries
+JAX's ``scan`` (K steps over an index chunk, no host sync in the loop) and
+``xy`` (pre-gathered windows) variants; the aux step carries ``xy``.
 """
 
 from __future__ import annotations
@@ -97,15 +113,31 @@ from sciml_pde_torch.data.windows import (
     epoch_batches,
     gather_windows,
     make_aux_indices,
+    sharded_epoch_batches,
 )
 from sciml_pde_torch.eval.rollout import METRIC_NAMES, evaluate_rollout, rollout_predict
 from sciml_pde_torch.metrics import nrmse_loss
 from sciml_pde_torch.models.fno import FNO2d, FNO2dAux, FNO3d, FNO3dAux
 from sciml_pde_torch.models.transformer3d import Transformer3DAux, Transformer3DBaseline
+from sciml_pde_torch.parallel import (
+    data_parallel,
+    make_mesh,
+    mean_over_ranks,
+    replicate,
+    shard_batch,
+)
 from sciml_pde_torch.sim import lie
 from sciml_pde_torch.ops.fno_fused_step import fno2d_fused_apply
 from sciml_pde_torch.train import fast_step as fs
 from sciml_pde_torch.train.optim import aux_group_of, make_grouped_optimizer, make_optimizer
+from sciml_pde_torch.train.placement import (
+    InFlight,
+    PinnedRing,
+    Placement,
+    place_stores,
+    record_run,
+    slice_for,
+)
 from sciml_pde_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from sciml_pde_torch.utils.logging import MetricLogger
 from sciml_pde_torch.utils.weights import (
@@ -129,23 +161,25 @@ class FNOTrainResult:
 def select_fast_step(fast_step: bool | None, *, if_aux=False, model_family="fno",
                      training_type="single", rollout_test=1, lie_augment=False,
                      shard_store=False, host_stream=False, resident_rotate=0,
-                     scheduler="cosine") -> bool:
+                     scheduler="cosine", n_data=1) -> bool:
     """Whether the fused step trains this configuration.  ``None`` reads
     ``SCIML_FAST_STEP``; an explicit ``True`` on a configuration the fused
-    step does not run raises, the environment variable gives way."""
+    step does not run (``n_data``: the ranks of the data axis, one for the
+    fused step) raises with JAX's words, the environment variable gives
+    way."""
     requested = (fast_step if fast_step is not None
                  else os.environ.get("SCIML_FAST_STEP", "").lower() in ("1", "true"))
     compatible = (
         not if_aux and model_family == "fno" and training_type == "single"
         and rollout_test == 1 and not lie_augment and not shard_store and not host_stream
-        and int(resident_rotate or 0) <= 1 and scheduler == "cosine"
+        and int(resident_rotate or 0) <= 1 and scheduler == "cosine" and n_data == 1
     )
     if requested and not compatible:
         if fast_step:
             raise ValueError(
-                "fast_step=True selects the fused_step trainer, which runs only the plain "
-                "2D FNO baseline (no aux/3D/autoregressive/lie/shard/stream/rotation, "
-                "rollout_test=1, cosine schedule)"
+                "fast_step=True requires the plain 2D FNO baseline path "
+                "(no aux/3D/autoregressive/lie/shard/stream/rotation, "
+                "rollout_test=1, cosine schedule) on a single-device mesh"
             )
         return False
     return bool(requested)
@@ -336,6 +370,12 @@ def build_aux_step(model, opt, initial_step: int, rollout: int, num_aux_samples:
       ``aux_native_grid``  the aux stream at the store's resolution on this
                            grid.  Exclusive with ``aux_resize_to``.
 
+    ``step.xy(x, y, xa, ya, grid) -> ((loss, lp, la), g_norm)`` takes the
+    windows gathered already (``data/stream.py::AuxHostWindowLoader``), the
+    aux windows at the primary resolution, or with ``aux_native_grid`` at
+    the store's, where the two streams run through ``model.primary`` and
+    ``model.auxiliary`` apart.
+
     Validation scores the primary head alone: the primary stream goes to
     both inputs and the aux output is dropped, as in JAX."""
     if aux_resize_to is not None and aux_native_grid is not None:
@@ -370,14 +410,29 @@ def build_aux_step(model, opt, initial_step: int, rollout: int, num_aux_samples:
                             use_reentrant=False) for k in range(aux_chunks))
         return lp, la / aux_chunks
 
-    def step(data_p, data_a, grid, idx):
-        x, y = gather_windows(data_p, idx, initial_step, rollout)
-        xa, ya = gather_windows(data_a, aux_indices(idx), initial_step, rollout)
-        lp, la = losses(x.float(), y.float(), xa, ya, grid)
+    def update(lp, la):
         loss = lp + auxiliary_weight * la
         grads = torch.autograd.grad(loss, list(params.values()))
         g_norm = opt.step(params, dict(zip(params, grads)))
         return (loss.detach(), lp.detach(), la.detach()), g_norm
+
+    def step(data_p, data_a, grid, idx):
+        x, y = gather_windows(data_p, idx, initial_step, rollout)
+        xa, ya = gather_windows(data_a, aux_indices(idx), initial_step, rollout)
+        return update(*losses(x.float(), y.float(), xa, ya, grid))
+
+    def step_xy(x, y, xa, ya, grid):
+        x, y, xa, ya = x.float(), y.float(), xa.float(), ya.float()
+        gb = grid.expand(x.shape[0], *grid.shape)
+        if aux_native_grid is None:
+            pred_p, pred_a = model(x, gb, xa, grid.expand(xa.shape[0], *grid.shape))
+        else:
+            # streams of two resolutions: the primary and auxiliary methods
+            # apart (the joint call's outputs, JAX's loss_fn_split)
+            pred_p = model.primary(x, gb)
+            pred_a = model.auxiliary(xa, aux_native_grid.expand(xa.shape[0],
+                                                                *aux_native_grid.shape))
+        return update(nrmse_loss(pred_p, y), nrmse_loss(pred_a, ya))
 
     @torch.no_grad()
     def val_primary_loss(data_p, grid, idx):
@@ -386,6 +441,7 @@ def build_aux_step(model, opt, initial_step: int, rollout: int, num_aux_samples:
         pred_p, _ = model(x.float(), gb, x.float(), gb)
         return nrmse_loss(pred_p, y.float())
 
+    step.xy = step_xy
     return step, val_primary_loss
 
 
@@ -403,6 +459,7 @@ class _ProductionRun:
         self.params = dict(self.model.named_parameters())
         self.opt = make_opt(self.params)
         self.step, self.val = make_step(self.model, self.opt)
+        self.step_xy = self.step.xy
 
     def snapshot(self):
         return ({n: p.detach().clone() for n, p in self.params.items()},
@@ -459,16 +516,24 @@ class _FusedRun:
         self.opt = fs.FlatOptState(o["m"].to(self.dev), o["v"].to(self.dev), int(o["count"]))
 
 
-def _fit(run, train_w: WindowedTrajectories, test_w: WindowedTrajectories, *,
-         batch_size: int, epochs: int, model_update: int, seed: int, run_dir: str,
-         model_name: str, continue_training: bool, log_every: int) -> FNOTrainResult:
+def _fit(run, place: Placement, test_w: WindowedTrajectories, *, batch_size: int,
+         epochs: int, model_update: int, seed: int, run_dir: str, model_name: str,
+         continue_training: bool, log_every: int,
+         resident_rotate_schedule: str = "block") -> FNOTrainResult:
     """The epoch loop of every step: batches from
-    ``numpy.random.default_rng(seed)``, validation every ``model_update``
-    epochs, best-validation checkpoints at ``{run_dir}/{model_name}_ckpt.pt``."""
-    logger = MetricLogger(run_dir, name=model_name, echo_every=1)
+    ``numpy.random.default_rng(seed)`` (or the host loader, seeded the same),
+    validation every ``model_update`` epochs, best-validation checkpoints at
+    ``{run_dir}/{model_name}_ckpt.pt``.  Host batches reach the card through
+    a ``PinnedRing`` with at most ``STREAM_PIPELINE`` steps in flight; a
+    rotating pool loads the slice of each epoch first.  Over several ranks
+    each takes its rows of every batch (``shard_batch``), the losses are
+    means over the ranks, and only rank 0 logs and writes checkpoints."""
+    mesh, train_w = place.mesh, place.train_w
+    lead = mesh.rank == 0
+    logger = MetricLogger(run_dir, name=model_name, echo_every=1) if lead else None
     rng = np.random.default_rng(seed)
-    train_idx, test_idx = train_w.window_index(), test_w.window_index()
-    dev = train_w.data.device
+    train_idx, test_idx = place.train_idx, test_w.window_index()
+    dev = test_w.data.device
     ckpt_path = Path(run_dir) / f"{model_name}_ckpt.pt"
     best_val, start_epoch = math.inf, 0
     if continue_training and ckpt_path.exists():
@@ -477,24 +542,44 @@ def _fit(run, train_w: WindowedTrajectories, test_w: WindowedTrajectories, *,
         start_epoch, best_val = int(ck["meta"]["epoch"]), float(ck["meta"]["loss"])
 
     def save(state, ep, val):
-        save_checkpoint(ckpt_path, run.tree(state[0]), state[1], ep, val)
+        if lead:
+            save_checkpoint(ckpt_path, run.tree(state[0]), state[1], ep, val)
 
+    ring, inflight = PinnedRing(dev), InFlight(dev)
+    n_data = mesh.shape["data"]
     test_idx_dev = torch.as_tensor(test_idx, dtype=torch.long, device=dev)
     history: list[dict] = []
     gstep, best_state, dirty, last_ckpt_t = 0, None, False, 0.0
     for ep in range(start_epoch, epochs):
-        # the epoch's batches go to the device in one copy, as the JAX
-        # trainer stages them: a copy from host memory waits for the queue
-        batches = torch.as_tensor(np.stack(list(epoch_batches(train_idx, batch_size, rng))),
-                                  dtype=torch.long, device=dev)
+        if place.pool is not None:
+            place.pool.load(slice_for(ep, place.pool.R, epochs, resident_rotate_schedule))
         loss_acc, first_loss, nb = None, None, 0
-        for idx in batches:
-            loss, g_norm = run.step(train_w.data, train_w.grid, idx)
+
+        def steps():
+            if place.loader is not None:
+                for batch in place.loader:
+                    yield run.step_xy(*ring(shard_batch(batch, mesh)), train_w.grid)
+                    inflight.add()
+                return
+            # the epoch's batches go to the device in one copy, as the JAX
+            # trainer stages them: a copy from host memory waits for the queue
+            draws = (epoch_batches(train_idx, batch_size, rng) if place.shard_n_traj is None
+                     else sharded_epoch_batches(train_idx, batch_size, place.shard_n_traj,
+                                                n_data, rng))
+            batches = torch.as_tensor(np.stack([shard_batch(b, mesh) for b in draws]),
+                                      dtype=torch.long, device=dev)
+            for idx in batches:
+                yield run.step(train_w.data, train_w.grid, idx)
+
+        for loss, g_norm in steps():
             loss_acc = loss if loss_acc is None else loss_acc + loss
             first_loss = loss if first_loss is None else first_loss
             nb += 1
+        if torch.distributed.is_initialized():
+            loss_acc, first_loss, loss = mean_over_ranks(torch.stack([loss_acc, first_loss,
+                                                                      loss]), mesh)
         gstep += nb
-        if log_every and (gstep // log_every) != ((gstep - nb) // log_every):
+        if lead and log_every and (gstep // log_every) != ((gstep - nb) // log_every):
             logger.log(gstep, train_loss=float(loss), grad_norm=float(g_norm), epoch=ep)
         train_loss = float(loss_acc) / max(nb, 1)
         if ep % model_update == 0:
@@ -507,7 +592,8 @@ def _fit(run, train_w: WindowedTrajectories, test_w: WindowedTrajectories, *,
             history.append({"epoch": ep, "train_loss": train_loss, "val_loss": val,
                             "first_step_loss": float(first_loss),
                             "last_step_loss": float(loss)})
-            logger.log(gstep, epoch=ep, val_loss=val)
+            if lead:
+                logger.log(gstep, epoch=ep, val_loss=val)
             if val < best_val:
                 best_val, best_state = val, (run.snapshot(), ep)
                 if time.time() - last_ckpt_t > _CKPT_MIN_INTERVAL_S:
@@ -517,11 +603,12 @@ def _fit(run, train_w: WindowedTrajectories, test_w: WindowedTrajectories, *,
                     dirty = True
     if dirty and best_state is not None:
         save(best_state[0], best_state[1], best_val)
+    record_run(ring, place.pool)
     return FNOTrainResult(params=run.tree(), best_val=best_val, history=history)
 
 
-def _total_steps(train_w: WindowedTrajectories, batch_size: int, epochs: int) -> int:
-    return epochs * max(len(train_w.window_index()) // batch_size, 1)
+def _total_steps(train_idx: np.ndarray, batch_size: int, epochs: int) -> int:
+    return epochs * max(len(train_idx) // batch_size, 1)
 
 
 def _spatial_ndim(w: WindowedTrajectories) -> int:
@@ -560,6 +647,10 @@ def train_baseline(
     fast_step: bool | None = None,
     model_family: str = "fno",
     transformer_kwargs: dict | None = None,
+    host_stream: bool = False,
+    resident_rotate: int = 0,
+    resident_rotate_schedule: str = "block",
+    shard_store: bool = False,
     device=None,
 ) -> FNOTrainResult:
     """Train the baseline FNO on an in-memory store: ``FNO2d`` on a store
@@ -573,19 +664,33 @@ def train_baseline(
     from ``numpy.random.default_rng(seed)``, as in the JAX trainer; the Lie
     strengths from a ``torch.Generator`` on the device seeded with
     ``seed``.  The fused step runs the 2D model only: an explicit
-    ``fast_step=True`` on a 3D store raises, as in JAX."""
+    ``fast_step=True`` on a 3D store raises, as in JAX.
+
+    ``host_stream``, ``resident_rotate`` (with ``resident_rotate_schedule``)
+    and ``shard_store`` place the train store as ``place_stores`` says (the
+    production step's ``xy`` trains on streamed batches).  Over the ranks of
+    a process group (``parallel.distributed_init``) the run is data
+    parallel: each rank its rows of every batch, the gradients' mean over
+    the ranks before the clip."""
     dev = resolve_device(device)
+    mesh = make_mesh()
     train_w = dataset.train
     family = _Family(model_family, transformer_kwargs, train_w, num_channels, modes, width,
                      initial_step, aux=False, remat=fno_remat)
     use_fast = select_fast_step(fast_step, model_family=model_family,
                                 training_type=training_type, rollout_test=train_w.rollout,
-                                lie_augment=lie_augment, scheduler=scheduler)
+                                lie_augment=lie_augment, scheduler=scheduler,
+                                shard_store=shard_store, host_stream=host_stream,
+                                resident_rotate=resident_rotate, n_data=mesh.shape["data"])
     if use_fast and family.ndim == 3:
         if fast_step:
             raise ValueError("fast_step=True supports only the 2D FNO (3D store)")
         use_fast = False
-    total_steps = _total_steps(train_w, batch_size, epochs)
+    place = place_stores(train_w, None, batch_size=batch_size, seed=seed, dev=dev,
+                         host_stream=host_stream, resident_rotate=resident_rotate,
+                         shard_store=shard_store, mesh=mesh)
+    train_w = place.train_w
+    total_steps = _total_steps(place.train_idx, batch_size, epochs)
     tree = init_params if init_params is not None else family.default_tree(seed)
     if use_fast:
         run = _FusedRun(tree, dev, modes=modes, initial_step=initial_step,
@@ -594,14 +699,17 @@ def train_baseline(
         gen = torch.Generator(device=dev).manual_seed(seed) if lie_augment else None
         run = _ProductionRun(
             family.model(), tree, dev,
-            lambda ps: make_optimizer(ps, learning_rate, total_steps, scheduler, 1e-4,
-                                      scheduler_step, scheduler_gamma),
+            lambda ps: data_parallel(make_optimizer(ps, learning_rate, total_steps, scheduler,
+                                                    1e-4, scheduler_step, scheduler_gamma),
+                                     mesh),
             lambda m, o: build_baseline_step(m, o, initial_step, train_w.rollout,
                                              training_type, t_train, lie_augment, gen),
             (family.to_sd, family.to_tree))
-    return _fit(run, train_w, dataset.test, batch_size=batch_size, epochs=epochs,
+        replicate(list(run.params.values()), mesh)
+    return _fit(run, place, dataset.test, batch_size=batch_size, epochs=epochs,
                 model_update=model_update, seed=seed, run_dir=run_dir, model_name=model_name,
-                continue_training=continue_training, log_every=log_every)
+                continue_training=continue_training, log_every=log_every,
+                resident_rotate_schedule=resident_rotate_schedule)
 
 
 def train_aux(
@@ -632,6 +740,10 @@ def train_aux(
     init_params: dict | None = None,
     model_family: str = "fno",
     transformer_kwargs: dict | None = None,
+    host_stream: bool = False,
+    resident_rotate: int = 0,
+    resident_rotate_schedule: str = "block",
+    shard_store: bool = False,
     device=None,
 ) -> FNOTrainResult:
     """Aux joint training of ``FNO2dAux`` / ``FNO3dAux`` on in-memory stores
@@ -647,8 +759,12 @@ def train_aux(
     its own resolution on the primary grid resized to it (JAX's linear
     resize, which antialiases where it shrinks).  Validation and the
     checkpoint follow the primary head's loss on ``dataset.primary_test``.
-    ``init_params`` (a flax aux tree) replaces the seeded initialisation."""
+    ``init_params`` (a flax aux tree) replaces the seeded initialisation.
+    ``host_stream``, ``resident_rotate``, ``resident_rotate_schedule``,
+    ``shard_store`` and several ranks as in ``train_baseline`` (the aux
+    step's ``xy`` trains on streamed batches)."""
     dev = resolve_device(device)
+    mesh = make_mesh()
     train_w, aux_w = dataset.primary_train, dataset.aux_train
     family = _Family(model_family, transformer_kwargs, train_w, num_channels, modes, width,
                      initial_step, aux=True, remat=fno_remat)
@@ -661,30 +777,42 @@ def train_aux(
             aux_native_grid = resize_linear(train_w.grid, dict(enumerate(aux_sp)))
         else:
             aux_resize_to = prim_sp
-    total_steps = _total_steps(train_w, batch_size, epochs)
+    place = place_stores(train_w, aux_w, batch_size=batch_size, seed=seed, dev=dev,
+                         num_aux=num_aux_samples, row_map=row_map, host_stream=host_stream,
+                         resident_rotate=resident_rotate, shard_store=shard_store, mesh=mesh)
+    train_w, aux_w = place.train_w, place.aux_w
+    total_steps = _total_steps(place.train_idx, batch_size, epochs)
     tree = init_params if init_params is not None else family.default_tree(seed)
 
     def make_step(model, opt):
         step, val = build_aux_step(model, opt, initial_step, train_w.rollout, num_aux_samples,
-                                   auxiliary_weight, aux_row_map=row_map,
+                                   auxiliary_weight, aux_row_map=place.row_map,
                                    aux_chunks=aux_chunks, aux_resize_to=aux_resize_to,
                                    aux_native_grid=aux_native_grid)
 
         def primary_step(data, grid, idx):
             (loss, _, _), g_norm = step(data, aux_w.data, grid, idx)
             return loss, g_norm
+
+        def primary_step_xy(x, y, xa, ya, grid):
+            (loss, _, _), g_norm = step.xy(x, y, xa, ya, grid)
+            return loss, g_norm
+        primary_step.xy = primary_step_xy
         return primary_step, val
 
     lrs = {"shared": learning_rate_share, "primary_head": learning_rate_fc2,
            "aux_head": learning_rate_fc2}
     run = _ProductionRun(
         family.model(), tree, dev,
-        lambda ps: make_grouped_optimizer(ps, aux_group_of, lrs, total_steps, scheduler, 1e-4,
-                                          scheduler_step, scheduler_gamma),
+        lambda ps: data_parallel(make_grouped_optimizer(ps, aux_group_of, lrs, total_steps,
+                                                        scheduler, 1e-4, scheduler_step,
+                                                        scheduler_gamma), mesh),
         make_step, (family.to_sd, family.to_tree))
-    return _fit(run, train_w, dataset.primary_test, batch_size=batch_size, epochs=epochs,
+    replicate(list(run.params.values()), mesh)
+    return _fit(run, place, dataset.primary_test, batch_size=batch_size, epochs=epochs,
                 model_update=model_update, seed=seed, run_dir=run_dir, model_name=model_name,
-                continue_training=continue_training, log_every=log_every)
+                continue_training=continue_training, log_every=log_every,
+                resident_rotate_schedule=resident_rotate_schedule)
 
 
 def evaluate_checkpoint(
@@ -759,6 +887,41 @@ def evaluate_checkpoint(
 
 
 _FAMILIES = ("dr", "ns", "ns3d")
+
+
+def check_placement(*, epochs: int, host_stream: bool = False, shard_store: bool = False,
+                    resident_rotate: int = 0, resident_rotate_schedule: str = "block",
+                    aux_chunks: int = 1, aux_upsample_at_gather: bool = False,
+                    aux_native_compute: bool = False) -> None:
+    """JAX's refusals of the placement options, in its order, with its
+    exception types and words."""
+    if resident_rotate > 1 and (host_stream or shard_store):
+        raise ValueError(
+            "resident_rotate is the device-resident pool-rotation lever; "
+            "it composes with neither host_stream nor shard_store"
+        )
+    if (resident_rotate > 1 and resident_rotate_schedule == "interleave"
+            and epochs < 2 * resident_rotate):
+        raise ValueError(
+            f"resident_rotate_schedule='interleave' needs epochs >= "
+            f"2*resident_rotate so both half-runs visit every slice "
+            f"(got epochs={epochs}, resident_rotate={resident_rotate}); "
+            f"use schedule='block' or raise epochs"
+        )
+    if host_stream and shard_store:
+        raise ValueError("host_stream and shard_store are mutually exclusive")
+    if host_stream and aux_chunks > 1:
+        raise ValueError(
+            "aux_chunks is a device-store lever; the host-stream path "
+            "ships pre-gathered windows (the shipped batch is already the "
+            "memory granularity)"
+        )
+    if host_stream and aux_upsample_at_gather and not aux_native_compute:
+        raise ValueError(
+            "the in-step upsample is a device-store lever; with "
+            "host_stream either ship pre-upsampled windows (default) or "
+            "run the aux stream at native res (aux_native_compute)"
+        )
 
 
 def run_training(
@@ -844,21 +1007,17 @@ def run_training(
     ``train_subsample`` = (baseline, aux primary, aux) counts.  The
     evaluation reads the test split alone.  A configuration that cannot run
     raises before any data is read; ``channel_plot`` goes with ``plot``."""
-    fast_args = dict(model_family=model_family, training_type=training_type,
-                     rollout_test=rollout_test, lie_augment=lie_augment,
-                     shard_store=shard_store, host_stream=host_stream,
-                     resident_rotate=resident_rotate, scheduler=scheduler)
-    select_fast_step(fast_step, if_aux=if_aux, **fast_args)  # an explicit True raises here
-    unported = {  # option -> (asked for, ROADMAP item)
-        "shard_store": (shard_store, "A8"),
-        "host_stream": (host_stream, "A8"),
-        "resident_rotate": (int(resident_rotate or 0) > 1, "A8"),
-        f"resident_rotate_schedule={resident_rotate_schedule!r}":
-            (resident_rotate_schedule != "block", "A8"),
-    }
-    bad = [f"{k} (ROADMAP {item})" for k, (on, item) in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    resident_rotate = int(resident_rotate or 0)
+    check_placement(epochs=epochs, host_stream=host_stream, shard_store=shard_store,
+                    resident_rotate=resident_rotate,
+                    resident_rotate_schedule=resident_rotate_schedule, aux_chunks=aux_chunks,
+                    aux_upsample_at_gather=aux_upsample_at_gather,
+                    aux_native_compute=aux_native_compute)
+    select_fast_step(fast_step, if_aux=if_aux, model_family=model_family,
+                     training_type=training_type, rollout_test=rollout_test,
+                     lie_augment=lie_augment, shard_store=shard_store, host_stream=host_stream,
+                     resident_rotate=resident_rotate, scheduler=scheduler,
+                     n_data=make_mesh().shape["data"])  # an explicit True raises here
     if dataset_family not in _FAMILIES:
         raise ValueError(f"unknown dataset_family {dataset_family!r}; one of {_FAMILIES}")
     if model_family not in _FAMILIES_MODEL:
@@ -895,7 +1054,13 @@ def run_training(
                scheduler=scheduler, scheduler_step=scheduler_step,
                scheduler_gamma=scheduler_gamma, fno_remat=fno_remat,
                model_update=model_update, seed=seed, continue_training=continue_training,
-               log_every=log_every, init_params=init_params, **common)
+               log_every=log_every, init_params=init_params, host_stream=host_stream,
+               resident_rotate=resident_rotate,
+               resident_rotate_schedule=resident_rotate_schedule, shard_store=shard_store,
+               **common)
+    # the train stores stay in host RAM where a slice, a shard or a stream of
+    # batches goes to the device instead; the test store goes there
+    windows["to_device"] = not (host_stream or resident_rotate > 1 or shard_store)
     if if_aux:
         sub = tuple(train_subsample)
         if dataset_family == "ns":

@@ -29,8 +29,10 @@ aux) and a best-validation checkpoint of the flax-layout tree.
 (and echoes it): the training scalars when ``log_every`` crosses, the
 validation loss on every validated epoch.
 
-Not ported yet, and raising with their ROADMAP item: ``host_stream``,
-``resident_rotate`` and ``resident_rotate_schedule`` (A8).
+``host_stream`` streams window batches gathered in host RAM (the steps'
+``xy`` variants), ``resident_rotate`` keeps one slice of the pool on the
+device at a time, and over the ranks of a process group the run is data
+parallel (``train/placement.py``, ``parallel/``), as in ``fno_train.py``.
 """
 
 from __future__ import annotations
@@ -54,12 +56,26 @@ from sciml_pde_torch.data.windows import (
     weighted_epoch_batches,
 )
 from sciml_pde_torch.models.transformer import VideoMAEOperator, VideoMAEOperatorAux
+from sciml_pde_torch.parallel import (
+    data_parallel,
+    make_mesh,
+    mean_over_ranks,
+    replicate,
+    shard_batch,
+)
 from sciml_pde_torch.train.optim import (
     GroupedAdamMultiSteps,
     global_norm,
     make_lr_schedule,
     with_constant_from,
     with_warmup,
+)
+from sciml_pde_torch.train.placement import (
+    InFlight,
+    PinnedRing,
+    place_stores,
+    record_run,
+    slice_for,
 )
 from sciml_pde_torch.utils.checkpoint import (
     load_partial_params,
@@ -185,23 +201,27 @@ def build_transformer_baseline_step(model, opt: GroupedAdamMultiSteps, initial_s
                                     loss_type: str = "nrmse2", fourier_weight: float = 0.0):
     """Returns ``step(data, idx) -> (loss, g_norm)``, one micro-batch that
     updates the model's parameters in place on every ``grad_accum``-th call,
-    and ``val(data, idx) -> loss``."""
+    and ``val(data, idx) -> loss``; ``step.xy(x, y)`` takes the windows
+    gathered already (``data/stream.py::HostWindowLoader``)."""
     loss_fn = _make_loss(loss_type, fourier_weight)
     params = dict(model.named_parameters())
 
-    def step(data, idx):
-        x, y = gather_windows(data, idx, initial_step, 1)
-        loss = loss_fn(model(_to_tf_layout(x)), y[..., 0, :])
+    def step_xy(x, y):
+        loss = loss_fn(model(_to_tf_layout(x.float())), y.float()[..., 0, :])
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         g_norm = global_norm(list(grads.values()))
         opt.step(params, grads)
         return loss.detach(), g_norm
+
+    def step(data, idx):
+        return step_xy(*gather_windows(data, idx, initial_step, 1))
 
     @torch.no_grad()
     def val(data, idx):
         x, y = gather_windows(data, idx, initial_step, 1)
         return loss_fn(model(_to_tf_layout(x)), y[..., 0, :])
 
+    step.xy = step_xy
     return step, val
 
 
@@ -220,7 +240,9 @@ def build_transformer_aux_step(model, opt: GroupedAdamMultiSteps, initial_step: 
     j`` or ``aux_row_map[p, j]``, at the same t0, flattened p-major.  Both
     streams are cast to f32 after the gather (a store may be bf16); with
     ``aux_resize_to`` the aux windows, input and target, are then upsampled
-    to that spatial shape (JAX's linear resize)."""
+    to that spatial shape (JAX's linear resize).  ``step.xy(x, y, xa, ya)``
+    takes the windows gathered already
+    (``data/stream.py::AuxHostWindowLoader``)."""
     loss_fn = _make_loss(loss_type, fourier_weight)
     params = dict(model.named_parameters())
     aux_indices = make_aux_indices(num_aux_samples, aux_row_map)
@@ -231,9 +253,7 @@ def build_transformer_aux_step(model, opt: GroupedAdamMultiSteps, initial_step: 
             a = resize_linear(a, dict(enumerate(aux_resize_to, start=1)))
         return a
 
-    def step(data_p, data_a, idx):
-        x, y = gather_windows(data_p, idx, initial_step, 1)
-        xa, ya = gather_windows(data_a, aux_indices(idx), initial_step, 1)
+    def step_xy(x, y, xa, ya):
         xa, ya = to_model_res(xa), to_model_res(ya)
         pred_p, pred_a = model(_to_tf_layout(x.float()), _to_tf_layout(xa))
         lp = loss_fn(pred_p, y.float()[..., 0, :])
@@ -244,6 +264,10 @@ def build_transformer_aux_step(model, opt: GroupedAdamMultiSteps, initial_step: 
         opt.step(params, grads)
         return (loss.detach(), lp.detach(), la.detach()), g_norm
 
+    def step(data_p, data_a, idx):
+        x, y = gather_windows(data_p, idx, initial_step, 1)
+        return step_xy(x, y, *gather_windows(data_a, aux_indices(idx), initial_step, 1))
+
     @torch.no_grad()
     def val_primary(data_p, idx):
         # JAX scores model(x, x)[0]; the primary output does not depend on
@@ -251,6 +275,7 @@ def build_transformer_aux_step(model, opt: GroupedAdamMultiSteps, initial_step: 
         x, y = gather_windows(data_p, idx, initial_step, 1)
         return loss_fn(model.primary(_to_tf_layout(x.float())), y.float()[..., 0, :])
 
+    step.xy = step_xy
     return step, val_primary
 
 
@@ -327,6 +352,9 @@ def _train(
     early_window_boost: float = 0.0,
     early_window_t0: int = 12,
     init_params: dict | None = None,
+    host_stream: bool = False,
+    resident_rotate: int = 0,
+    resident_rotate_schedule: str = "block",
     device=None,
 ) -> TransformerTrainResult:
     """The epoch loop of both trainers; ``aux`` holds ``num_aux_samples``,
@@ -334,15 +362,39 @@ def _train(
 
     ``init_params`` (flax-layout tree) replaces the seeded initialisation,
     so a run can start from the same weights as a JAX run.  Batches come
-    from ``numpy.random.default_rng(seed)``, as in the JAX trainer."""
+    from ``numpy.random.default_rng(seed)``, as in the JAX trainer (under
+    ``host_stream`` from the host loader seeded the same).
+    ``host_stream`` and ``resident_rotate`` (``block``, ``interleave``,
+    ``cyclic``) place the train stores as ``train/placement.py::
+    place_stores`` says; at most ``STREAM_PIPELINE`` micro-steps are in
+    flight on the card.  Over the ranks of a process group each rank takes
+    its rows of every micro-batch and the accumulation sees the gradients'
+    mean over the ranks; rank 0 logs and writes the checkpoints."""
+    if int(resident_rotate or 0) > 1 and host_stream:
+        raise ValueError("resident_rotate and host_stream are mutually exclusive")
+    if host_stream and early_window_boost > 0:
+        raise NotImplementedError(
+            "early_window_boost with host_stream: the stream loader "
+            "controls sampling; use the device-store path for the DR "
+            "early-window study"
+        )
     dev = resolve_device(device)
-    logger = MetricLogger(run_dir, name=model_name, echo_every=1)
+    mesh = make_mesh()
+    lead = mesh.rank == 0
+    logger = MetricLogger(run_dir, name=model_name, echo_every=1) if lead else None
     rng = np.random.default_rng(seed)
     if aux is None:
-        train_w, test_w = dataset.train, dataset.test
+        train_w, test_w, aux_w, row_map, n_aux = dataset.train, dataset.test, None, None, 0
     else:
         train_w, test_w = dataset.primary_train, dataset.primary_test
-    train_idx, test_idx = train_w.window_index(), test_w.window_index()
+        aux_w, row_map = dataset.aux_train, getattr(dataset, "aux_row_map", None)
+        n_aux = aux["num_aux_samples"]
+        check_aux_pairing(train_w, aux_w, n_aux, row_map)
+    place = place_stores(train_w, aux_w, batch_size=batch_size, seed=seed, dev=dev,
+                         num_aux=n_aux, row_map=row_map, host_stream=host_stream,
+                         resident_rotate=resident_rotate, mesh=mesh)
+    train_w, aux_w = place.train_w, place.aux_w
+    train_idx, test_idx = place.train_idx, test_w.window_index()
     steps_per_epoch = max(len(train_idx) // batch_size, 1)
     total_steps = epochs * steps_per_epoch // max(grad_accum, 1)
     # the SWA window: the last swa_frac of the epochs, from the update its
@@ -370,26 +422,29 @@ def _train(
         model.load_state_dict(transformer_flax_to_state_dict(tree))
     model.to(dev)
     params = dict(model.named_parameters())
-    opt = make_transformer_optimizer(params, learning_rate_share, learning_rate_heads,
-                                     total_steps, scheduler, clip=clip,
-                                     warmup_steps=warmup_steps, grad_accum=grad_accum,
-                                     swa_start=swa_start_step, swa_lr_factor=swa_lr_factor)
+    replicate(list(params.values()), mesh)
+    opt = data_parallel(make_transformer_optimizer(
+        params, learning_rate_share, learning_rate_heads, total_steps, scheduler, clip=clip,
+        warmup_steps=warmup_steps, grad_accum=grad_accum, swa_start=swa_start_step,
+        swa_lr_factor=swa_lr_factor), mesh)
     if aux is None:
         step_b, val_b = build_transformer_baseline_step(model, opt, initial_step, loss_type,
                                                         fourier_weight)
         step = lambda idx: step_b(train_w.data, idx)  # noqa: E731
+        step_xy = step_b.xy
         val = lambda idx: val_b(test_w.data, idx)  # noqa: E731
     else:
-        aux_w, row_map = dataset.aux_train, getattr(dataset, "aux_row_map", None)
-        check_aux_pairing(train_w, aux_w, aux["num_aux_samples"], row_map)
         prim_sp, aux_sp = tuple(train_w.data.shape[2:-1]), tuple(aux_w.data.shape[2:-1])
         step_a, val_a = build_transformer_aux_step(
-            model, opt, initial_step, aux["num_aux_samples"], aux["auxiliary_weight"],
-            row_map, loss_type, fourier_weight,
-            aux_resize_to=prim_sp if aux_sp != prim_sp else None)
+            model, opt, initial_step, n_aux, aux["auxiliary_weight"], place.row_map,
+            loss_type, fourier_weight, aux_resize_to=prim_sp if aux_sp != prim_sp else None)
 
         def step(idx):
             (loss, _, _), g_norm = step_a(train_w.data, aux_w.data, idx)
+            return loss, g_norm
+
+        def step_xy(x, y, xa, ya):
+            (loss, _, _), g_norm = step_a.xy(x, y, xa, ya)
             return loss, g_norm
         val = lambda idx: val_a(test_w.data, idx)  # noqa: E731
 
@@ -407,8 +462,9 @@ def _train(
                  for k, v in opt.state_dict().items()})
 
     def save(state, ep, val_loss):
-        save_checkpoint(ckpt_path, transformer_state_dict_to_flax(state[0]), state[1], ep,
-                        val_loss)
+        if lead:
+            save_checkpoint(ckpt_path, transformer_state_dict_to_flax(state[0]), state[1], ep,
+                            val_loss)
 
     early_w = (1.0 + early_window_boost * (train_idx[:, 1] <= early_window_t0)
                if early_window_boost > 0 else None)
@@ -416,20 +472,37 @@ def _train(
     history: list[dict] = []
     gstep, best_state, dirty, last_ckpt_t = 0, None, False, 0.0
     swa, swa_n = None, 0
+    ring, inflight = PinnedRing(dev), InFlight(dev)
     for ep in range(start_epoch, epochs):
-        # the epoch's batches go to the device in one copy, as in the JAX
-        # trainer: a copy from host memory waits for the card's queue
-        draws = (epoch_batches(train_idx, batch_size, rng) if early_w is None
-                 else weighted_epoch_batches(train_idx, batch_size, rng, early_w))
-        batches = torch.as_tensor(np.stack(list(draws)), dtype=torch.long, device=dev)
+        if place.pool is not None:
+            place.pool.load(slice_for(ep, place.pool.R, epochs, resident_rotate_schedule))
+
+        def steps():
+            if place.loader is not None:
+                for batch in place.loader:
+                    yield step_xy(*ring(shard_batch(batch, mesh)))
+                    inflight.add()
+                return
+            # the epoch's batches go to the device in one copy, as in the
+            # JAX trainer: a copy from host memory waits for the card's queue
+            draws = (epoch_batches(train_idx, batch_size, rng) if early_w is None
+                     else weighted_epoch_batches(train_idx, batch_size, rng, early_w))
+            batches = torch.as_tensor(np.stack([shard_batch(b, mesh) for b in draws]),
+                                      dtype=torch.long, device=dev)
+            for idx in batches:
+                yield step(idx)
+                inflight.add()
+
         loss_acc, first_loss, nb = None, None, 0
-        for idx in batches:
-            loss, g_norm = step(idx)
+        for loss, g_norm in steps():
             loss_acc = loss if loss_acc is None else loss_acc + loss
             first_loss = loss if first_loss is None else first_loss
             nb += 1
+        if torch.distributed.is_initialized():
+            loss_acc, first_loss, loss = mean_over_ranks(torch.stack([loss_acc, first_loss,
+                                                                      loss]), mesh)
         gstep += nb
-        if log_every and (gstep // log_every) != ((gstep - nb) // log_every):
+        if lead and log_every and (gstep // log_every) != ((gstep - nb) // log_every):
             logger.log(gstep, train_loss=float(loss), grad_norm=float(g_norm), epoch=ep)
         train_loss = float(loss_acc) / max(nb, 1)
         if swa_start_ep is not None and ep >= swa_start_ep:
@@ -450,7 +523,8 @@ def _train(
             val_loss = val_sum / max(vb, 1)
             history.append({"epoch": ep, "train_loss": train_loss, "val_loss": val_loss,
                             "first_step_loss": float(first_loss), "last_step_loss": float(loss)})
-            logger.log(gstep, epoch=ep, val_loss=val_loss)
+            if lead:
+                logger.log(gstep, epoch=ep, val_loss=val_loss)
             if val_loss < best_val:
                 best_val, best_state = val_loss, (snapshot(), ep)
                 if time.time() - last_ckpt_t > _CKPT_MIN_INTERVAL_S:
@@ -460,6 +534,7 @@ def _train(
                     dirty = True
     if dirty and best_state is not None:
         save(best_state[0], best_state[1], best_val)
+    record_run(ring, place.pool)
     return TransformerTrainResult(
         params=transformer_state_dict_to_flax(params), best_val=best_val, history=history,
         swa_params=None if swa is None else transformer_state_dict_to_flax(dict(zip(params, swa))))
@@ -532,14 +607,9 @@ def run_transformer_training(
     ``aux_store_dtype`` ``"bf16"`` keep the train stores in bf16 and
     ``aux_upsample_at_gather`` keeps an aux store of another resolution at
     its own (the step upsamples); elsewhere, where JAX ignores them, they
-    raise ValueError.  Options not ported yet raise before any data is
-    read."""
-    unported = {"host_stream": host_stream, "resident_rotate": int(resident_rotate or 0) > 1,
-                f"resident_rotate_schedule={resident_rotate_schedule!r}":
-                    resident_rotate_schedule != "block"}
-    bad = [f"{k} (ROADMAP A8)" for k, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    raise ValueError.  ``host_stream`` and ``resident_rotate`` keep the
+    train stores in host RAM (``_train``)."""
+    resident_rotate = int(resident_rotate or 0)
     if dataset_family not in ("ns", "dr"):
         raise ValueError(f"unknown dataset_family {dataset_family!r}")
     store_opts = {"aux_store_dtype": aux_store_dtype is not None,
@@ -551,7 +621,10 @@ def run_transformer_training(
                          f"{'DR' if dataset_family == 'dr' else 'baseline'} stores stay f32 at "
                          "the primary resolution")
     dev = resolve_device(device)
-    windows = dict(initial_step=initial_step, rollout_test=rollout_test, device=dev)
+    # the train stores stay in host RAM where a stream of batches or a slice
+    # goes to the device instead; the test store goes there
+    windows = dict(initial_step=initial_step, rollout_test=rollout_test, device=dev,
+                   to_device=not (host_stream or resident_rotate > 1))
     sub = train_subsample[0] if isinstance(train_subsample, (list, tuple)) else train_subsample
     if dataset_family == "ns":
         from sciml_pde_torch.data.ns import load_ns_aux, load_ns_baseline
@@ -588,7 +661,9 @@ def run_transformer_training(
         continue_training=continue_training, pretrained_path=pretrained_path,
         log_every=log_every, loss_type=loss_type, fourier_weight=fourier_weight,
         swa_frac=swa_frac, swa_lr_factor=swa_lr_factor, early_window_boost=early_window_boost,
-        early_window_t0=early_window_t0, init_params=init_params, device=dev,
+        early_window_t0=early_window_t0, init_params=init_params, host_stream=host_stream,
+        resident_rotate=resident_rotate, resident_rotate_schedule=resident_rotate_schedule,
+        device=dev,
     )
     if if_aux:
         return train_transformer_aux(ds, num_aux_samples=num_aux_samples,

@@ -1,16 +1,58 @@
-"""Kernel timing on the card: CUDA events and torch.profiler device time.
+"""Profiling: a trace context, a step timer, and kernel timing on the card.
 
-``cuda_ms`` times a call in CUDA events (host issue included);
-``profiler_ms`` reads the device time of the kernels a call launches from
-``torch.profiler``.  ``chip_smoke.py`` and the experiments that compare
-kernels on the card take every time from here.  Needs the card.
+``trace(log_dir)`` records a ``torch.profiler`` trace of its block (the
+CPU, and the card where there is one) into ``log_dir`` as a Chrome trace
+that TensorBoard's profiler plugin reads; ``StepTimer`` gives steps per
+second after a warm-up (port of ``sciml_pde_tpu/utils/profiling.py``).
+
+On the card: ``cuda_ms`` times a call in CUDA events (host issue
+included); ``profiler_ms`` reads the device time of the kernels a call
+launches from ``torch.profiler``.  ``chip_smoke.py`` and the experiments
+that compare kernels on the card take every time from here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
+import time
+from pathlib import Path
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path):
+    """Record a trace of the block into ``log_dir`` (a
+    ``*.pt.trace.json`` Chrome trace, TensorBoard's layout)."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available()
+                                     else [])
+    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield
+
+
+class StepTimer:
+    """Wall-clock steps per second, the first ``warmup`` ticks discarded:
+    the clock starts at the ``warmup``-th tick."""
+
+    def __init__(self, warmup: int = 3):
+        self.warmup = warmup
+        self.count = 0
+        self.t0 = None
+
+    def tick(self):
+        self.count += 1
+        if self.count == self.warmup:
+            self.t0 = time.perf_counter()
+
+    @property
+    def steps_per_sec(self) -> float:
+        if self.t0 is None or self.count <= self.warmup:
+            return float("nan")
+        return (self.count - self.warmup) / (time.perf_counter() - self.t0)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:

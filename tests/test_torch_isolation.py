@@ -45,7 +45,12 @@ def test_port_imports_no_jax():
         "'sciml_pde_torch.sim.burgers_1d', 'sciml_pde_torch.sim.darcy_2d', "
         "'sciml_pde_torch.sim.bvp_2d', 'sciml_pde_torch.sim.airfoil_2d', "
         "'sciml_pde_torch.experiments.plume3d_parity', "
-        "'sciml_pde_torch.experiments.plume3d_demo'} <= set(mods)\n"
+        "'sciml_pde_torch.experiments.plume3d_demo', 'sciml_pde_torch.data.stream', "
+        "'sciml_pde_torch.data.generic', 'sciml_pde_torch.utils.transfer', "
+        "'sciml_pde_torch.utils.export', 'sciml_pde_torch.utils.upload', "
+        "'sciml_pde_torch.parallel.distributed', 'sciml_pde_torch.parallel.mesh', "
+        "'sciml_pde_torch.train.placement', 'sciml_pde_torch.experiments.ns_production', "
+        "'sciml_pde_torch.experiments.ns_transformer'} <= set(mods)\n"
     )
     r = _run(code)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -85,9 +90,10 @@ def test_entry_points_raise_without_cuda(tmp_path):
 
 
 def test_data_and_eval_entry_points_raise_without_cuda(tmp_path):
-    """The simulators, generators, rollout study, export, sweep and the DR
-    and plume drivers run on the card unless the CPU is asked for, and
-    write no file before they refuse."""
+    """The simulators, generators, rollout study, export, sweep, the chunked
+    transfer, the process group and the DR, plume and NS production
+    drivers run on the card unless the CPU is asked for, and write no file
+    before they refuse."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     import numpy as np
@@ -96,7 +102,10 @@ def test_data_and_eval_entry_points_raise_without_cuda(tmp_path):
     from sciml_pde_torch.data.windows import WindowedTrajectories
     from sciml_pde_torch.eval.prediction import export_rollout_trajectories
     from sciml_pde_torch.eval.rollout_experiment import rollout_study
-    from sciml_pde_torch.experiments import dr_parity, plume3d_demo, plume3d_parity
+    from sciml_pde_torch.experiments import (dr_parity, ns_production, ns_transformer,
+                                             plume3d_demo, plume3d_parity)
+    from sciml_pde_torch.parallel import distributed_init
+    from sciml_pde_torch.utils.transfer import device_put_chunked
     from sciml_pde_torch.sim import (airfoil_2d, burgers_1d, bvp_2d, darcy_2d, diff_react,
                                      gen_diff_react, gen_ns_incomp, grf, ns_incomp_2d,
                                      ns_plume_3d)
@@ -141,6 +150,12 @@ def test_data_and_eval_entry_points_raise_without_cuda(tmp_path):
         lambda: airfoil_2d.simulate(airfoil_2d.AirfoilConfig(nx=16, ny=16, n_frames=1)),
         lambda: airfoil_2d.generate_dataset(str(tmp_path / "af"), [0],
                                             airfoil_2d.AirfoilConfig(nx=16, ny=16, n_frames=1)),
+        lambda: ns_production.main(["--folder", str(tmp_path / "ns"), "--out",
+                                    str(tmp_path / "np")]),
+        lambda: ns_transformer.main(["--data", str(tmp_path / "ns"), "--out",
+                                     str(tmp_path / "nt")]),
+        lambda: device_put_chunked(np.zeros((4, 2), np.float32), max_chunk_bytes=8),
+        lambda: distributed_init("localhost:1", 1, 0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -79,9 +79,12 @@ def test_continue_training_resumes_from_checkpoint(folder, tmp_path):
                                  dict(rollout_test=2), dict(scheduler="step")])
 def test_unsupported_configs_raise(tmp_path, bad):
     """An explicit fast_step=True on a configuration the fused step does not
-    run raises before any data is read, as in the JAX trainer."""
-    with pytest.raises(ValueError, match="fused_step"):
+    run raises before any data is read, with the JAX trainer's words."""
+    with pytest.raises(ValueError) as want:
+        jax_run_training(base_path=str(tmp_path), run_dir=str(tmp_path), fast_step=True, **bad)
+    with pytest.raises(ValueError, match="fast_step=True requires the plain 2D FNO") as got:
         run_training(base_path=str(tmp_path), device="cpu", fast_step=True, **bad)
+    assert str(got.value) == str(want.value)
 
 
 PRODUCTION = {
@@ -174,19 +177,48 @@ def test_evaluation_plot_writes_the_field_render(folder, tmp_path, if_aux):
     assert np.isfinite(res.best_val)
 
 
-@pytest.mark.parametrize("option", [
-    (dict(if_aux=True, host_stream=True), "A8"),
-    (dict(dataset_family="ns", shard_store=True), "A8"),
-    (dict(shard_store=True), "A8"), (dict(host_stream=True), "A8"),
-    (dict(resident_rotate=2), "A8"), (dict(if_aux=True, resident_rotate=2), "A8"),
-    (dict(resident_rotate_schedule="cyclic", resident_rotate=2), "A8"),
-])
-def test_out_of_scope_options_raise(tmp_path, option):
-    """Each option still to port raises before any data is read, naming its
-    ROADMAP item."""
-    option, item = option
-    with pytest.raises(NotImplementedError, match=f"not ported yet: .*ROADMAP {item}"):
-        run_training(base_path=str(tmp_path), device="cpu", **option)
+GUARDS = {
+    "rotate_and_stream": dict(resident_rotate=2, host_stream=True),
+    "rotate_and_shard": dict(resident_rotate=2, shard_store=True),
+    "interleave_too_short": dict(resident_rotate=2, resident_rotate_schedule="interleave",
+                                 epochs=3),
+    "stream_and_shard": dict(host_stream=True, shard_store=True),
+    "stream_and_aux_chunks": dict(if_aux=True, host_stream=True, aux_chunks=2),
+    "stream_and_upsample_in_step": dict(if_aux=True, host_stream=True,
+                                        aux_upsample_at_gather=True),
+    "fast_step_and_stream": dict(fast_step=True, host_stream=True),
+    "rotation_not_dividing_the_pool": dict(resident_rotate=3),
+    "shard_not_dividing_the_batch": dict(shard_store=True, batch_size=3),
+    "model_axis": None,
+}
+
+
+@pytest.mark.parametrize("option", GUARDS.values(), ids=GUARDS.keys())
+def test_out_of_scope_options_raise(folder, tmp_path, monkeypatch, option):
+    """Each of JAX's refusals of the placement options raises in the port
+    with JAX's exception type and words, on the same files (the sharded
+    case on a data axis of two in both packages); a mesh with a model axis
+    (tensor parallelism, not ported) raises NotImplementedError naming
+    ROADMAP A8b."""
+    import sciml_pde_tpu.train.fno_train as jft
+    from sciml_pde_tpu.parallel import make_mesh as jax_make_mesh
+    from sciml_pde_torch import parallel
+    from sciml_pde_torch.train import fno_train
+
+    if option is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+            parallel.make_mesh(model=2)
+        return
+    if option.get("shard_store") and "batch_size" in option:
+        monkeypatch.setattr(jft, "make_mesh", lambda: jax_make_mesh(devices=jax.devices()[:2]))
+        monkeypatch.setattr(fno_train, "make_mesh", lambda: parallel.Mesh((0, 1), 2))
+    kw = dict(COMMON, **option)
+    with pytest.raises(Exception) as want:
+        jax_run_training(base_path=folder, run_dir=str(tmp_path / "j"), model_name="g", **kw)
+    with pytest.raises(type(want.value)) as got:
+        run_training(base_path=folder, run_dir=str(tmp_path / "t"), model_name="g",
+                     device="cpu", **kw)
+    assert type(got.value) is type(want.value) and str(got.value) == str(want.value)
 
 
 def _capture_run_training(monkeypatch, module):

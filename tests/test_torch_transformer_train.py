@@ -189,11 +189,22 @@ def test_cli_transformer_resumes_on_cpu(ns_folder, tmp_path):
     assert restore_checkpoint(tmp_path / "NS_cli_VMAE_ckpt.pt")["opt_state"]["count"] > 0
 
 
-@pytest.mark.parametrize("bad", [dict(host_stream=True), dict(resident_rotate=2)])
-def test_unported_options_raise(tmp_path, bad):
-    kw = {"if_aux": False, **bad}
-    with pytest.raises(NotImplementedError, match="not ported yet: .*ROADMAP A8"):
-        ttt.run_transformer_training(base_path=str(tmp_path), device="cpu", **kw)
+@pytest.mark.parametrize("bad", [dict(resident_rotate=2, host_stream=True),
+                                 dict(host_stream=True, early_window_boost=4.0),
+                                 dict(resident_rotate=3)],
+                         ids=["rotate_and_stream", "stream_and_early_windows",
+                              "rotation_not_dividing_the_pool"])
+def test_unported_options_raise(ns_folder, tmp_path, bad):
+    """JAX's refusals of the placement options raise in the port with JAX's
+    exception type and words, on the same files."""
+    kw = dict(TINY, dataset_family="ns", if_aux=False, train_subsample=(1, 1, 1),
+              test_range=(250, 251), **bad)
+    with pytest.raises(Exception) as want:
+        jtt.run_transformer_training(base_path=ns_folder, run_dir=str(tmp_path / "j"), **kw)
+    with pytest.raises(type(want.value)) as got:
+        ttt.run_transformer_training(base_path=ns_folder, run_dir=str(tmp_path / "t"),
+                                     device="cpu", **kw)
+    assert type(got.value) is type(want.value) and str(got.value) == str(want.value)
 
 
 def test_metric_log_matches_jax(ns_folder, tmp_path):
