@@ -343,9 +343,25 @@ streamed from host RAM, rotated and sharded (ROADMAP A8):
               production FNO, saved, loaded and run against the module; g.
               experiments/ns_production.py --host-stream end to end at a
               cut depth (A8_PROD_ARGS)
+ 21. cmp     tensor parallelism and the comparison models (ROADMAP A8b,
+              A9): a. the column-parallel FNO2d at the DR flagship on two
+              processes sharing the card through gloo with CUDA tensors:
+              each rank's forward and shard gradients against the
+              replicated FNO2d (`highest`, TOL_TP), its ms beside the
+              replicated model's; b. run_rollout_protocol for OFormer and
+              the Hyena hybrid at JAX's defaults (64^2, in 10, out 40,
+              in_emb 96, latent 192, remat) on phase 18's DR files; c.
+              run_oformer_burgers on phase 19's Burgers file; d.
+              run_oformer_darcy at 128^2; e. run_pointset_training (both
+              recipes) and run_airfoil_training on phase 19's BVP and
+              airfoil files: each through its entry point on the card and
+              on the CPU from one flax tree, the first C21_STEPS losses
+              within TOL_C21, the depth cut printed, ms a step of the
+              trainer's step (CUDA events)
 
 The probe's row carries phase 0's profiler device time beside torch.mul's.
-It prints the kernel table as one JSON line, the card line, and last
+It prints the kernel table as one JSON line, the card line, a line saying
+that no exchange between two cards was checked, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero and
 prints no result.  Without a CUDA device it exits non-zero at once.
 """
@@ -5025,6 +5041,410 @@ def a8_path(dev, card: str, run_dir: Path) -> dict:
     return shapes[True]
 
 
+# ---- phase 21: tensor parallelism and the comparison models (ROADMAP A8b, A9) -----
+# 21a: the column-parallel FNO2d (parallel/tp.py) at the DR flagship (batch
+# B, 128^2, width WIDTH, modes MODES, head NH: Cout 20 splits over two) on
+# TP_WORLD processes sharing the one card through a gloo group with CUDA
+# tensors (NCCL refuses two ranks on one device); each rank's forward and
+# shard gradients against the replicated FNO2d's on the card (`highest`)
+# within TOL_TP of the largest magnitude.  21b-e: every comparison trainer
+# at JAX's default widths through its entry point, on the card and on the
+# CPU from one flax tree (the port's seeded init): the first C21_STEPS
+# steps' losses within TOL_C21 relative (f32 sums in another order through
+# the model, Adam's first updates; the port's CPU parity bound against JAX,
+# tests/test_torch_comparison_*.py; the L1 losses below), ms a step of the
+# trainer's step in CUDA events.  Depth cuts (printed): 21b the DR protocol (in 10, out 40, 64^2
+# after spatial_down 2, in_emb 96, latent 192, heads 4, depth 2, remat) on
+# phase 18's 9 train trajectories at batch 3 (JAX's default 4) so that one
+# epoch is 3 steps; 21c OFormer1D on phase 19's Burgers file (1024 points),
+# 3 trajectories x 18 frames (24 windows of batch 8); 21d the Darcy OFormer
+# on 4 of phase 19's 128^2 samples (one step of batch 4 an epoch, 3
+# epochs); 21e the point-set BVP (both recipes; bvp_study's widths, batch
+# 16: 20 electro cases, one step an epoch) and the airfoil operator
+# (airfoil_flow's widths; phase 19's one 6-frame sample: one window).
+# The L1 losses (the point-set adamw recipe's p = 1, the airfoil's): their
+# gradient is sign(pred - target), so a residual within f32 noise of zero
+# flips its sign and Adam's first updates (~ lr * sign) carry the flip (1.1e-4
+# at step 3 on an H100 in the first run).  Each of their steps is held to
+# max(TOL_C21, C21_WITNESS_X x the witness): the CPU against itself from the
+# tree nudged by one ulp (on the CPU at a tiny airfoil, 1.7e-3 at step 3).
+TP_WORLD, TOL_TP, TOL_C21, C21_WITNESS_X, C21_STEPS, C21_TIMED = 2, 1e-5, 1e-4, 10, 3, 5
+C21_PROTOCOL = dict(in_seq_len=10, out_seq_len=40, spatial_down=2, channel=0, in_emb_dim=96,
+                    latent_channels=192, heads=4, depth=2, train_subsample=9, batch_size=3,
+                    epochs=1, log_every=1)
+C21_BURGERS = dict(traj=3, frames=18, initial_step=10, batch_size=8, in_emb_dim=64, depth=3,
+                   heads=4)
+C21_DARCY = dict(n=4, batch_size=4, epochs=3, in_emb_dim=64, depth=3, heads=4)
+C21_BVP = {"adamw": dict(latent_channels=64, heads=1, depth=2, batch_size=8, epochs=2,
+                         learning_rate=8e-4),
+           "reference": dict(latent_channels=64, heads=1, depth=2, batch_size=16, epochs=3,
+                             learning_rate=3e-4, reference_recipe=True)}
+C21_AIRFOIL = dict(time_window=4, forward_steps=2, emb_dim=96, latent_channels=96, depth=3,
+                   batch_size=4, epochs=3)
+
+
+def tp_rank(rank: int, world: int, port: int, out: str, device: str = "cuda:0") -> None:
+    """One rank of 21a: the column-parallel FNO2d on ``device`` (card 0)
+    beside the replicated model; writes its errors and timings to
+    ``out.{rank}`` (timings on a card only)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch import parallel
+    from sciml_pde_torch.models.fno import FNO2d
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.parallel.tp import fno2d_tp_apply, shard_params_tp
+    from sciml_pde_torch.utils.weights import state_dict_to_flax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spectral.set_dft_precision("highest")
+    dev = torch.device(device)
+    parallel.distributed_init(f"localhost:{port}", world, rank, device="cpu")  # gloo
+    mesh = parallel.make_mesh(model=world)
+    g = torch.Generator().manual_seed(21)
+    model = FNO2d(CC, MODES, MODES, WIDTH, T0, generator=g).to(dev)
+    x = torch.randn(B, XY, XY, T0, CC, generator=g).to(dev)
+    lin = torch.linspace(0, 1, XY)
+    grid = torch.stack(torch.meshgrid(lin, lin, indexing="ij"), -1).expand(B, XY, XY, 2)
+    grid = grid.contiguous().to(dev)
+    cot = torch.randn(B, XY, XY, 1, CC, generator=g).to(dev)
+    sharded = shard_params_tp(state_dict_to_flax(model.state_dict()), mesh, dev)
+
+    def leaves(node, prefix=()):
+        if isinstance(node, dict):
+            return [lf for k, v in node.items() for lf in leaves(v, prefix + (k,))]
+        return [(prefix, node)]
+    shards = leaves(sharded)
+    for _, leaf in shards:
+        leaf.value.requires_grad_(True)
+    y = fno2d_tp_apply(sharded, x, grid, mesh)
+    (y * cot).sum().backward()
+    want = model(x, grid)
+    (want * cot).sum().backward()
+    ref = state_dict_to_flax({n: p.grad for n, p in model.named_parameters()})
+    errs, n_split = {}, 0
+    for path, leaf in shards:
+        full = ref
+        for k in path:
+            full = full[k]
+        block = full
+        if "model" in leaf.sharding.spec:
+            n_split += 1
+            ax = leaf.sharding.spec.index("model")
+            size = full.shape[ax] // world
+            block = np.take(full, np.arange(rank * size, (rank + 1) * size), axis=ax)
+        got = leaf.value.grad.cpu().numpy()
+        errs["/".join(path)] = (float(np.abs(got - block).max() / np.abs(full).max())
+                                if got.shape == block.shape else float("inf"))
+    out_err = rel_err(y.detach(), want.detach())
+
+    def tp_step():
+        for _, leaf in shards:
+            leaf.value.grad = None
+        (fno2d_tp_apply(sharded, x, grid, mesh) * cot).sum().backward()
+
+    def plain_step():
+        model.zero_grad(set_to_none=True)
+        (model(x, grid) * cot).sum().backward()
+    tp_ms = plain_ms = None
+    if dev.type == "cuda":
+        tp_ms, plain_ms = timed_steps(tp_step, C21_TIMED), timed_steps(plain_step, C21_TIMED)
+    res = dict(model_rank=mesh.model_rank, out_err=out_err, errs=errs, n_split=n_split,
+               n_leaves=len(shards), backend=torch.distributed.get_backend(),
+               tp_ms=tp_ms, plain_ms=plain_ms, device=str(y.device))
+    torch.distributed.destroy_process_group()
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(res, f)
+
+
+def tp_path(card: str, run_dir: Path, device: str = "cuda:0") -> None:
+    """21a: TP_WORLD spawned ranks of the column-parallel FNO2d on card 0."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    t_sub = time.perf_counter()
+    print("[tp] NCCL refuses two ranks on one device: the two ranks share card 0 through a "
+          "gloo group with CUDA tensors (gloo stages each all_gather and all_reduce through "
+          "host memory)", flush=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = run_dir / "tp" / "res"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank, args=(r, TP_WORLD, port, str(out), device))
+             for r in range(TP_WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    check(not alive and codes == [0] * TP_WORLD,
+          f"[tp] {TP_WORLD} ranks ran and exited (exit codes {codes})")
+    if alive or any(codes):
+        return
+    for r in range(TP_WORLD):
+        with open(f"{out}.{r}", "rb") as f:
+            res = pickle.load(f)
+        worst_leaf = max(res["errs"], key=res["errs"].get)
+        check(res["model_rank"] == r and res["backend"] == "gloo" and res["device"] == device
+              and res["out_err"][1] <= TOL_TP and res["errs"][worst_leaf] <= TOL_TP
+              and res["n_split"] == 22,
+              f"[tp] rank {r} (model position {res['model_rank']}, {res['backend']}, "
+              f"{res['device']}): the column-parallel FNO2d (batch {B}, {XY}^2, width {WIDTH}, "
+              f"modes {MODES}, head {NH}; {res['n_split']} of {res['n_leaves']} leaves split) "
+              f"against the replicated FNO2d, forward rel-to-max {res['out_err'][1]:.3e}, its "
+              f"shards' gradients against their blocks of the replicated gradient, worst "
+              f"{worst_leaf} {res['errs'][worst_leaf]:.3e} (tol {TOL_TP:.0e}, `highest`)")
+        if res["tp_ms"] is not None:
+            print(f"[timing] {card}: rank {r}: TP forward+backward {res['tp_ms']:.4f} ms (CUDA "
+                  f"events, {C21_TIMED} steps; two ranks on one card, the exchanges through "
+                  f"host memory), the replicated FNO2d's {res['plain_ms']:.4f} ms on the same "
+                  "card", flush=True)
+    print(f"[tp] {card}: 21a in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+
+def c21_rels(got: list, want: list) -> list:
+    return [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)]
+
+
+def c21_losses(what: str, card_losses: list, cpu_losses: list, cut: str,
+               witness: list | None = None) -> None:
+    """The card's first C21_STEPS losses against the CPU's, relative: within
+    TOL_C21, or for an L1 loss within max(TOL_C21, C21_WITNESS_X x the
+    witness) step by step (``witness``: the CPU's losses from the tree
+    nudged by one ulp)."""
+    rels = c21_rels(card_losses, cpu_losses)[:C21_STEPS]
+    tols = [TOL_C21] * C21_STEPS
+    seen = ""
+    if witness is not None:
+        wit = c21_rels(witness, cpu_losses)[:C21_STEPS]
+        tols = [max(TOL_C21, C21_WITNESS_X * w) for w in wit]
+        seen = ("; an L1 loss, the CPU from the tree nudged by one ulp against the CPU "
+                + ", ".join(f"{w:.2e}" for w in wit))
+    ok = (len(rels) == C21_STEPS and all(r <= t for r, t in zip(rels, tols))
+          and all(math.isfinite(v) for v in card_losses))
+    check(ok, f"{what}: the card against the CPU from one flax tree, the first {C21_STEPS} "
+          "losses " + ", ".join(f"{a:.7g} ({r:.2e}, tol {t:.1e})"
+                                for a, r, t in zip(card_losses, rels, tols))
+          + f" (relative){seen}; depth cut: {cut}")
+
+
+def nudged(tree):
+    """A flax tree with every leaf one ulp up (the L1 witness)."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: nudged(v) for k, v in tree.items()}
+    return np.nextafter(tree, np.inf).astype(tree.dtype)
+
+
+def comparisons_path(dev, card: str, run_dir: Path) -> None:
+    """Phase 21: tensor parallelism (21a) and every comparison trainer at
+    JAX's default widths (21b-e) on files phases 18 and 19 wrote."""
+    import torch
+
+    from sciml_pde_torch.comparisons import oformer_dr2d as cdr
+    from sciml_pde_torch.comparisons import oformer_generic as cgen
+    from sciml_pde_torch.comparisons import pointset_bvp as cpt
+    from sciml_pde_torch.io import h5 as h5io
+    from sciml_pde_torch.sim.airfoil_2d import load_airfoil_dataset
+    from sciml_pde_torch.sim.bvp_2d import load_pointset
+    from sciml_pde_torch.sim.darcy_2d import load_pdebench_darcy
+    from sciml_pde_torch.train.optim import (
+        AdamW,
+        AMSGrad,
+        make_lr_schedule,
+        warmup_cosine_decay_schedule,
+    )
+
+    import shutil
+
+    t_phase = time.perf_counter()
+    tp_path(card, run_dir, str(dev) if dev.type == "cpu" else "cuda:0")
+    out = run_dir / "comparisons"
+    shutil.rmtree(out, ignore_errors=True)
+    cpu = torch.device("cpu")
+
+    def jsonl(d: Path, name: str, key: str) -> list:
+        return [json.loads(line)[key] for line in (d / f"{name}.jsonl").read_text().splitlines()]
+
+    def step_ms(step, args) -> float:
+        return timed_steps(lambda: step(*args), C21_TIMED)
+
+    # ---- 21b. the DR rollout protocol, OFormer and Hyena ------------------------------
+    t_sub = time.perf_counter()
+    arrs = cdr._protocol_arrays(run_dir / "dr_data", train_subsample=9, extra_train_files=None,
+                                in_seq_len=10, out_seq_len=40, spatial_down=2, channel=0)
+    n_tok, cin = arrs["x_train"].shape[1:]
+    for mt in ("oformer", "hyena"):
+        model = cdr.protocol_model(mt, cin, 1, n_tok, generator=torch.Generator().manual_seed(16))
+        tree = cdr.trained_tree(model)
+        runs = {}
+        for where in (dev, cpu):
+            d = out / f"protocol_{mt}_{where.type}"
+            t0 = time.perf_counter()
+            metrics, _ = cdr.run_rollout_protocol(
+                base_path=str(run_dir / "dr_data"), model_type=mt, run_dir=str(d),
+                model_name="rollout", init_params=tree, device=where, **C21_PROTOCOL)
+            runs[where.type] = (jsonl(d, "rollout", "train_rel_l2"), metrics,
+                                time.perf_counter() - t0)
+        (lc, mc, sc), (lw, _, sw) = runs[dev.type], runs["cpu"]
+        c21_losses(f"[cmp] run_rollout_protocol {mt} ({n_tok} tokens, in 10, out 40, in_emb 96, "
+                   "latent 192, heads 4, depth 2, remat)", lc, lw,
+                   "9 train trajectories at batch 3 (JAX's default 4), one epoch")
+        check(all(math.isfinite(v) for v in mc.values()),
+              f"[cmp] {mt} protocol metrics on the card: "
+              + ", ".join(f"{k} {v:.5g}" for k, v in mc.items())
+              + f" ({card}: {sc:.1f} s on the card, {sw:.1f} s on the CPU, the evaluation "
+              "included)")
+        m = cdr.protocol_model(mt, cin, 1, n_tok).to(dev)
+        m.load_state_dict(model.state_dict())
+        params = dict(m.named_parameters())
+        opt = AdamW(params, make_lr_schedule("cosine", 3e-4, 3), clip=1.0)
+        step = cdr.protocol_step(m, opt, torch.as_tensor(arrs["pos"], device=dev), 40, 1)
+        xb = torch.as_tensor(arrs["x_train"][:4], device=dev)
+        yb = torch.as_tensor(arrs["y_train"][:4], device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        ms = step_ms(step, (xb, yb))
+        print(f"[timing] {card}: run_rollout_protocol {mt} step at JAX's batch 4 ({n_tok} "
+              f"tokens, 40 frames under remat): {ms:.3f} ms (CUDA events, {C21_TIMED} steps); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        del m, opt, step
+    print(f"[cmp] {card}: 21b in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 21c. OFormer1D on the Burgers file ---------------------------------------------
+    t_sub = time.perf_counter()
+    sim = run_dir / "sim"
+    kb = dict(C21_BURGERS)
+    nt, nf = kb.pop("traj"), kb.pop("frames")
+    data = cgen.load_pdebench_1d(sim / "burgers.h5")
+    nx = data.shape[-1]
+    model = cgen._make_burgers_model(kb["initial_step"], kb["in_emb_dim"], kb["depth"],
+                                     kb["heads"], torch.Generator().manual_seed(16))
+    tree = cdr.trained_tree(model)
+    hist = {}
+    for where in (dev, cpu):
+        d = out / f"burgers_{where.type}"
+        cgen.run_oformer_burgers(data[:nt, :nf], epochs=1, run_dir=str(d), log_every=1,
+                                 init_params=tree, device=where, **kb)
+        hist[where.type] = jsonl(d, "oformer_burgers", "rel_l2")
+    c21_losses(f"[cmp] run_oformer_burgers ({nx} points, initial_step 10, in_emb 64, depth 3, "
+               "heads 4, batch 8)", hist[dev.type], hist["cpu"],
+               f"{nt} of {data.shape[0]} trajectories x {nf} of {data.shape[1]} frames")
+    m = model.to(dev)
+    opt = AdamW(dict(m.named_parameters()), make_lr_schedule("cosine", 3e-4, 3))
+    dat = torch.as_tensor(data[:nt, :nf], device=dev)
+    rows = torch.as_tensor([[0, 0], [1, 1], [2, 2], [0, 3], [1, 4], [2, 5], [0, 6], [1, 7]],
+                           device=dev)
+    ms = step_ms(cgen.supervised_step(m, opt),
+                 cgen._burgers_batch(dat, cgen._line(nx, dev), rows, kb["initial_step"]))
+    print(f"[timing] {card}: the Burgers OFormer1D step (batch 8, {nx} points): {ms:.3f} ms "
+          f"(CUDA events, {C21_TIMED} steps)", flush=True)
+    print(f"[cmp] {card}: 21c in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 21d. the Darcy OFormer at 128^2 ------------------------------------------------
+    t_sub = time.perf_counter()
+    kd = dict(C21_DARCY)
+    n = kd.pop("n")
+    af, uf = load_pdebench_darcy(sim / "darcy.h5")
+    model = cgen._make_darcy_model(kd["in_emb_dim"], kd["depth"], kd["heads"],
+                                   torch.Generator().manual_seed(16))
+    tree = cdr.trained_tree(model)
+    hist = {}
+    for where in (dev, cpu):
+        res = cgen.run_oformer_darcy(af[:n], uf[:n], run_dir=str(out / f"darcy_{where.type}"),
+                                     init_params=tree, device=where, **kd)
+        hist[where.type] = [h["rel_l2"] for h in res.history]
+    c21_losses(f"[cmp] run_oformer_darcy ({af.shape[1]}^2 = {af.shape[1] * af.shape[2]} "
+               "tokens, in_emb 64, depth 3, heads 4, batch 4)", hist[dev.type], hist["cpu"],
+               f"{n} of {af.shape[0]} samples, one step an epoch, 3 epochs")
+    m = model.to(dev)
+    opt = AdamW(dict(m.named_parameters()), make_lr_schedule("cosine", 3e-4, 3))
+    hw = af.shape[1] * af.shape[2]
+    p = torch.as_tensor(cgen._darcy_grid(af.shape[1], af.shape[2]), device=dev).expand(4, hw, 2)
+    a_in = torch.as_tensor(af[:4].reshape(4, hw, 1), device=dev)
+    ms = step_ms(cgen.supervised_step(m, opt),
+                 (torch.cat([a_in, p], dim=-1), p,
+                  torch.as_tensor(uf[:4].reshape(4, hw, 1), device=dev)))
+    print(f"[timing] {card}: the Darcy OFormer step (batch 4, {hw} tokens): {ms:.3f} ms (CUDA "
+          f"events, {C21_TIMED} steps)", flush=True)
+    print(f"[cmp] {card}: 21d in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 21e. the point-set BVP (both recipes) and the airfoil operator -----------------
+    t_sub = time.perf_counter()
+    train, _ = cpt.standardize_features(load_pointset(sim / "electro.pkl"))
+    for recipe, kw in C21_BVP.items():
+        model = cpt.OFormerIrreg2D(train["features"].shape[-1], kw["latent_channels"],
+                                   kw["heads"], kw["depth"],
+                                   generator=torch.Generator().manual_seed(6))
+        tree = cdr.trained_tree(model)
+        l1 = not kw.get("reference_recipe")  # the adamw recipe's loss_p = 1
+        hist = {}
+        for where, start in ((dev, tree), (cpu, tree)) + (((cpu, nudged(tree)),) if l1 else ()):
+            key = where.type if start is tree else "witness"
+            d = out / f"bvp_{recipe}_{key}"
+            cpt.run_pointset_training(train, run_dir=str(d), log_every=1, init_params=start,
+                                      device=where, **kw)
+            hist[key] = jsonl(d, "pointset_bvp", "loss")
+        pts = train["features"].shape[1]
+        c21_losses(f"[cmp] run_pointset_training {recipe} recipe ({pts} nodes padded, latent "
+                   f"64, depth 2, batch {kw['batch_size']})", hist[dev.type], hist["cpu"],
+                   f"the {train['features'].shape[0]} electro cases phase 19 wrote, "
+                   f"{kw['epochs']} epochs", hist.get("witness"))
+        m = model.to(dev)
+        params = dict(m.named_parameters())
+        opt = (AMSGrad(params, warmup_cosine_decay_schedule(3e-6, 3e-4, 1, 3, 3e-8), 1e-4,
+                       clip=2.0) if kw.get("reference_recipe")
+               else AdamW(params, make_lr_schedule("cosine", 8e-4, 3)))
+        step = cpt.pointset_step(m, opt, 1.0 if kw.get("reference_recipe") else 0.5,
+                                 2 if kw.get("reference_recipe") else 1)
+        batch = {k: torch.as_tensor(v[:kw["batch_size"]], device=dev) for k, v in train.items()}
+        ms = step_ms(step, (batch,))
+        print(f"[timing] {card}: the point-set BVP step, {recipe} recipe (batch "
+              f"{kw['batch_size']}, {pts} nodes): {ms:.3f} ms (CUDA events, {C21_TIMED} "
+              "steps)", flush=True)
+    air = load_airfoil_dataset(str(sim / "airfoil"))
+    ka = dict(C21_AIRFOIL)
+    c = air["fields"].shape[-1]
+    model = cpt._st_model(c, ka["time_window"], ka["emb_dim"], ka["latent_channels"],
+                          ka["depth"], torch.Generator().manual_seed(6))
+    tree = cdr.trained_tree(model)
+    hist = {}
+    for where, start, key in ((dev, tree, dev.type), (cpu, tree, "cpu"),
+                              (cpu, nudged(tree), "witness")):
+        d = out / f"airfoil_{key}"
+        cpt.run_airfoil_training(air, run_dir=str(d), log_every=1, init_params=start,
+                                 device=where, **ka)
+        hist[key] = jsonl(d, "pointset_airfoil", "l1")
+    n_nodes = air["fields"].shape[2]
+    c21_losses(f"[cmp] run_airfoil_training ({n_nodes} nodes, time_window 4, forward_steps 2, "
+               "emb 96, latent 96, depth 3)", hist[dev.type], hist["cpu"],
+               f"phase 19's one sample of {air['fields'].shape[1]} frames: one window, batch 1, "
+               "3 epochs", hist["witness"])
+    m = model.to(dev)
+    opt = AdamW(dict(m.named_parameters()), make_lr_schedule("cosine", 8e-4, 3))
+    rows = torch.zeros(1, 2, dtype=torch.long, device=dev)
+    args = cpt._st_batch(torch.as_tensor(air["fields"], device=dev),
+                         torch.as_tensor(air["coords"], device=dev),
+                         torch.as_tensor(air["node_type"], device=dev).long(), rows, 4, 2)
+    ms = step_ms(cpt.airfoil_step(m, opt, 2), args)
+    print(f"[timing] {card}: the airfoil operator step (batch 1, {n_nodes} nodes, 2 frames "
+          f"ahead): {ms:.3f} ms (CUDA events, {C21_TIMED} steps)", flush=True)
+    print(f"[cmp] {card}: 21e in {time.perf_counter() - t_sub:.1f} s; phase 21 in "
+          f"{time.perf_counter() - t_phase:.1f} s; HDF5 through "
+          f"{h5io.h5py_module().__name__}", flush=True)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     root = Path(__file__).resolve().parent
@@ -5370,6 +5790,8 @@ def main() -> int:
         name, where = key.split(" (")
         kernel_rows[key]["a8_launches"] = a8_shapes.get((name, *AUXT_ATT_SHAPES[where[:-1]],
                                                          "bf16"), 0)
+    # ---- 21. tensor parallelism and the comparison models (ROADMAP A8b, A9) ------------
+    comparisons_path(dev, card, run_dir)
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,
@@ -5396,6 +5818,8 @@ def main() -> int:
                                                             *pb.KERNEL_NAMES,
                                                             *ff.SPLIT_NAMES)]}))
     print(card)
+    print("[tp] no exchange between two cards was checked: phase 21a's two ranks share one "
+          "card through gloo (ROADMAP C G5)", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -112,7 +112,7 @@ def main(argv=None):
     from sciml_pde_torch._device import resolve_device
     from sciml_pde_torch.data.ns3d import load_ns3d_aux
     from sciml_pde_torch.train.fno_train import _Family
-    from sciml_pde_torch.utils.checkpoint import restore_checkpoint
+    from sciml_pde_torch.utils.checkpoint import restore_params
 
     dev = resolve_device(a.device)
     folder = Path(a.folder)
@@ -180,11 +180,11 @@ def main(argv=None):
             num_aux_samples=a.n_aux_per, initial_step=a.initial_step,
             rollout_test=5, test_seeds=range(*test_range), with_aux=False, device=dev,
         )
-        ck = restore_checkpoint(out / f"{name}_ckpt.pt")
+        params, best_val = restore_params(out / f"{name}_ckpt.pt")
         family = _Family("transformer3d" if is_tf else "fno", tf_kwargs if is_tf else None,
                          ds.primary_test, 4, a.modes, a.width, a.initial_step, aux=if_aux)
         model = family.model()
-        model.load_state_dict(family.to_sd(ck["params"]))
+        model.load_state_dict(family.to_sd(params))
         model = model.to(dev).eval()
 
         def apply_fn(x, g):
@@ -197,7 +197,7 @@ def main(argv=None):
             print(f"rollout {k}: nRMSE={m['nRMSE']:.6f}", flush=True)
 
         results[variant + tag] = {
-            "best_val": float(ck["meta"]["loss"]),
+            "best_val": best_val,
             "train_seconds": train_s,
             "rollout_nrmse": [study[k] for k in sorted(study)],
             "aux_weight": a.aux_weight,

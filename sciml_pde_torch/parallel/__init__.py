@@ -1,6 +1,7 @@
-"""Data parallelism over ``torch.distributed`` (port of
+"""Data and tensor parallelism over ``torch.distributed`` (port of
 ``sciml_pde_tpu/parallel``): the process group, the ('data', 'model')
-mesh over its ranks and the sharding helpers the trainers use."""
+mesh over its ranks and the sharding helpers the trainers use; the model
+axis's column-parallel FNO2d is ``parallel/tp.py``."""
 
 from sciml_pde_torch.parallel.distributed import distributed_init, host_local_array
 from sciml_pde_torch.parallel.mesh import (

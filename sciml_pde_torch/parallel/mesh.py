@@ -12,7 +12,12 @@ without a process group it is one rank, 1 x 1, as JAX's is on one chip.
   ``mean_over_ranks`` a tensor's mean over the ranks, in place (gradients
                       and losses of data parallelism)
 
-A mesh of ``model > 1`` (channel-dim tensor parallelism) is not ported.
+A mesh of ``model > 1`` lays the ranks out data-major, as JAX's
+``reshape(data, model)``: rank index ``i`` of ``ranks`` sits at data
+position ``i // model`` and model position ``i % model``.  In a process
+group the mesh holds the group of its model row (``model_group``, the
+collectives of tensor parallelism, ``parallel/tp.py``) and of its data
+column (``data_group``, the gradient mean of data parallelism).
 """
 
 from __future__ import annotations
@@ -35,19 +40,32 @@ AXES = MeshAxes()
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The ranks of a (data, model) mesh, data-major."""
+    """The ranks of a (data, model) mesh, data-major.  ``model_group`` and
+    ``data_group`` are the process groups of this rank's model row and data
+    column where ``model > 1`` in a process group, else None (the whole
+    group)."""
     ranks: tuple[int, ...]
     data: int
     model: int = 1
+    model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
         return {AXES.data: self.data, AXES.model: self.model}
 
+    def _index(self) -> int:
+        return self.ranks.index(dist.get_rank()) if dist.is_initialized() else 0
+
     @property
     def rank(self) -> int:
         """This process's position along the data axis (0 without a group)."""
-        return self.ranks.index(dist.get_rank()) if dist.is_initialized() else 0
+        return self._index() // self.model
+
+    @property
+    def model_rank(self) -> int:
+        """This process's position along the model axis (0 without a group)."""
+        return self._index() % self.model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,11 +79,9 @@ class Sharding:
 def make_mesh(data: int = -1, model: int = 1, devices: Sequence[int] | None = None) -> Mesh:
     """A ('data', 'model') mesh over ``devices`` (ranks; default: every rank
     of the process group, or the one process without a group).  ``data=-1``
-    takes all ranks ``model`` leaves."""
-    if model > 1:
-        raise NotImplementedError(
-            f"a mesh of model={model}: channel-dim tensor parallelism "
-            "(parallel/tp.py) is not ported yet (ROADMAP A8b)")
+    takes all ranks ``model`` leaves.  With ``model > 1`` in a process group
+    every rank must make the same mesh: the row and column groups are made
+    collectively."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     ranks = tuple(devices if devices is not None else range(world))
     n = len(ranks)
@@ -75,7 +91,17 @@ def make_mesh(data: int = -1, model: int = 1, devices: Sequence[int] | None = No
         data = n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} devices")
-    return Mesh(ranks=ranks, data=data, model=model)
+    model_group = data_group = None
+    if model > 1 and dist.is_initialized():
+        me = dist.get_rank()
+        for d in range(data):  # new_group is collective: every rank makes every group
+            row = dist.new_group(list(ranks[d * model:(d + 1) * model]))
+            model_group = row if me in ranks[d * model:(d + 1) * model] else model_group
+        for m in range(model):
+            col = dist.new_group(list(ranks[m::model]))
+            data_group = col if me in ranks[m::model] else data_group
+    return Mesh(ranks=ranks, data=data, model=model, model_group=model_group,
+                data_group=data_group)
 
 
 def batch_sharding(mesh: Mesh, ndim: int = 1) -> Sharding:
@@ -144,7 +170,7 @@ def mean_over_ranks(tensors, mesh: Mesh):
         return tensors
     ts = [tensors] if isinstance(tensors, torch.Tensor) else list(tensors)
     flat = torch.cat([t.detach().reshape(-1).float() for t in ts])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=mesh.data_group)
     flat /= mesh.shape[AXES.data]
     off = 0
     for t in ts:

@@ -21,8 +21,15 @@ The transformer chain (``GroupedAdamMultiSteps``), as optax runs it:
                            1e-8) -> times -lr(count), count = applied updates
                            so far (the schedule ticks once per update)
 
-``AdamW`` is optax ``adamw`` (the masked-SSL pretraining): Adam(0.9, 0.999,
-1e-8) -> + wd * p (decoupled, after the moments) -> times -lr(count).
+``AdamW`` is optax ``adamw`` (the masked-SSL pretraining and the comparison
+trainers): Adam(0.9, 0.999, 1e-8) -> + wd * p (decoupled, after the
+moments) -> times -lr(count), with ``clip`` first optax
+``clip_by_global_norm(clip)``.  ``AMSGrad`` is the point-set BVP's
+reference recipe, optax ``chain(clip_by_global_norm(clip),
+add_decayed_weights(wd), scale_by_amsgrad(), scale_by_learning_rate(lr))``:
+L2 before the moments, and the running maximum taken of the
+bias-corrected second moment (optax's rule; ``torch.optim.Adam(amsgrad=
+True)`` maxes the raw one).  ``warmup_cosine_decay_schedule`` is optax's.
 
 ``TorchAdam`` and ``GroupedAdamMultiSteps`` share ``adam_update_``.  Schedules
 are plain functions of the update count.  The optimizers are plain tensor code (``torch._foreach_*`` over the
@@ -60,6 +67,28 @@ def make_lr_schedule(kind: str, learning_rate: float, total_steps: int,
     raise ValueError(f"unknown scheduler {kind!r}")
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Schedule:
+    """optax ``warmup_cosine_decay_schedule``: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then a cosine from the peak to
+    ``end_value`` over the remaining ``decay_steps - warmup_steps``."""
+    alpha = 0.0 if peak_value == 0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+    if not cos_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive decay_steps, got"
+                         f" decay_steps={cos_steps}.")
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - min(max(count, 0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, cos_steps)
+        decayed = (1 - alpha) * (0.5 * (1 + math.cos(math.pi * c / cos_steps))) ** exponent
+        return peak_value * (decayed + alpha)
+    return schedule
+
+
 def with_warmup(schedule: Schedule, learning_rate: float, warmup_steps: int) -> Schedule:
     """optax ``join_schedules([linear_schedule(0, lr, warmup), schedule],
     [warmup])``: linear from 0 over ``warmup_steps``, then ``schedule``
@@ -95,6 +124,20 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     if tensors and tensors[0].device.type == "cpu":
         return torch.sqrt(torch.stack([torch.sum(t * t) for t in tensors]).sum())
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float
+                        ) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """optax ``clip_by_global_norm``: the gradients unchanged below
+    ``max_norm``, else g / ||g|| * max_norm (no epsilon; not
+    ``clip_grad_norm_``), new tensors, and the pre-clip global norm, with no
+    wait for the device."""
+    g_norm = global_norm(grads)
+    inside = g_norm < max_norm
+    one = torch.ones_like(g_norm)
+    upd = torch._foreach_div(grads, torch.where(inside, one, g_norm))
+    torch._foreach_mul_(upd, torch.where(inside, one, torch.full_like(g_norm, max_norm)))
+    return upd, g_norm
 
 
 def adaptive_clip(grads: list[torch.Tensor], floor: float = 5.0,
@@ -246,13 +289,7 @@ class GroupedAdamMultiSteps:
             self.mini_step += 1
             return False
         self.mini_step = 0
-        g_norm = global_norm(acc)
-        # clip_by_global_norm: select(g_norm < c, g, g / g_norm * c), no sync
-        inside = g_norm < self.clip
-        div = torch.where(inside, torch.ones_like(g_norm), g_norm)
-        mul = torch.where(inside, torch.ones_like(g_norm), torch.full_like(g_norm, self.clip))
-        upd = torch._foreach_div(acc, div)
-        torch._foreach_mul_(upd, mul)
+        upd, _ = clip_by_global_norm(acc, self.clip)
         by_name = dict(zip(self.names, upd))
         for group, names in self.groups.items():
             if not names:
@@ -280,12 +317,13 @@ class AdamW:
     """optax ``adamw(schedule, weight_decay=wd)`` on named parameters, in
     place: the Adam moments of the raw gradients, bias correction at
     ``count + 1``, then p -= lr(count) * (mhat / (sqrt(vhat) + eps) + wd * p)
-    on every parameter."""
+    on every parameter.  ``clip``: optax ``clip_by_global_norm(clip)``
+    before it (the comparison trainers' chain)."""
 
     def __init__(self, params: dict[str, torch.Tensor], schedule: Schedule,
-                 weight_decay: float = 1e-4):
+                 weight_decay: float = 1e-4, clip: float | None = None):
         self.names, self.schedule = list(params), schedule
-        self.weight_decay = float(weight_decay)
+        self.weight_decay, self.clip = float(weight_decay), clip
         self.m = {n: torch.zeros_like(p) for n, p in params.items()}
         self.v = {n: torch.zeros_like(p) for n, p in params.items()}
         self.count = 0
@@ -294,6 +332,8 @@ class AdamW:
     def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]) -> None:
         p = [params[n] for n in self.names]
         g = [grads[n] for n in self.names]
+        if self.clip is not None:
+            g, _ = clip_by_global_norm(g, self.clip)
         m, v = [self.m[n] for n in self.names], [self.v[n] for n in self.names]
         bc1, bc2 = 1.0 - ADAM_B1 ** (self.count + 1), 1.0 - ADAM_B2 ** (self.count + 1)
         torch._foreach_mul_(m, ADAM_B1)
@@ -311,3 +351,42 @@ class AdamW:
 
     def state_dict(self) -> dict:
         return {"m": dict(self.m), "v": dict(self.v), "count": self.count}
+
+
+class AMSGrad:
+    """optax ``chain(clip_by_global_norm(clip), add_decayed_weights(wd),
+    scale_by_amsgrad(), scale_by_learning_rate(schedule))`` on named
+    parameters, in place (no clip where ``clip`` is None): u = g + wd * p,
+    the moments of u, bias correction at ``count + 1``, vmax = max(vmax,
+    vhat) of the bias-corrected second moment, p -= lr(count) * mhat /
+    (sqrt(vmax) + eps)."""
+
+    def __init__(self, params: dict[str, torch.Tensor], schedule: Schedule,
+                 weight_decay: float = 1e-4, clip: float | None = None):
+        self.names, self.schedule = list(params), schedule
+        self.weight_decay, self.clip = float(weight_decay), clip
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
+        self.m, self.v, self.v_max = zeros(), zeros(), zeros()
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]) -> None:
+        p = [params[n] for n in self.names]
+        g = [grads[n] for n in self.names]
+        if self.clip is not None:
+            g, _ = clip_by_global_norm(g, self.clip)
+        u = torch._foreach_add(g, p, alpha=self.weight_decay)
+        m, v = [self.m[n] for n in self.names], [self.v[n] for n in self.names]
+        v_max = [self.v_max[n] for n in self.names]
+        bc1, bc2 = 1.0 - ADAM_B1 ** (self.count + 1), 1.0 - ADAM_B2 ** (self.count + 1)
+        torch._foreach_mul_(m, ADAM_B1)
+        torch._foreach_add_(m, u, alpha=1.0 - ADAM_B1)
+        torch._foreach_mul_(v, ADAM_B2)
+        torch._foreach_addcmul_(v, u, u, value=1.0 - ADAM_B2)
+        torch._foreach_maximum_(v_max, torch._foreach_div(v, bc2))
+        upd = torch._foreach_div(m, bc1)
+        den = torch._foreach_sqrt(v_max)
+        torch._foreach_add_(den, ADAM_EPS)
+        torch._foreach_div_(upd, den)
+        torch._foreach_add_(p, upd, alpha=-self.schedule(self.count))
+        self.count += 1

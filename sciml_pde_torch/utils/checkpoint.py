@@ -8,6 +8,7 @@ named parameter for the production optimizers of ``train/optim.py`` --
 and ``meta`` the epoch and the best validation loss.  Only the optimizer
 state depends on the step that wrote it.
 
+``restore_params`` returns the tree and the loss alone.
 ``load_partial_params`` overlays a pretrained tree (say, a masked-SSL
 checkpoint's) on a fresh one where path and shape match.
 """
@@ -45,6 +46,14 @@ def save_checkpoint(path: str | Path, params: Any, opt_state: dict, epoch: int,
 
 def restore_checkpoint(path: str | Path) -> dict[str, Any]:
     return torch.load(Path(path), map_location="cpu", weights_only=True)
+
+
+def restore_params(path: str | Path) -> tuple[Any, float]:
+    """Just (params, best-val loss) of a checkpoint, for evaluation paths
+    where the optimizer state is irrelevant: the flax-layout tree of CPU
+    tensors and ``float(meta["loss"])``."""
+    tree = restore_checkpoint(path)
+    return tree["params"], float(tree["meta"]["loss"])
 
 
 def _flatten(tree, prefix=()) -> dict[tuple, Any]:

@@ -10,6 +10,10 @@ real/imag stacks (the same stack in both packages): in 2D ``w1`` for the
 low corner rows and ``w2`` for the high ones, in 3D ``w1`` … ``w4`` for the
 corners (+x, +y), (-x, +y), (+x, -y), (-x, -y).  The tree is nested dicts of
 numpy arrays, as ``flax`` hands it out after ``jax.device_get``.
+
+The VideoMAE transformers and the comparison models (OFormer, Hyena) keep
+flax's names and layouts in the port, so their trees and ``state_dict`` map
+by joining and splitting the keys at dots.
 """
 
 from __future__ import annotations
@@ -124,3 +128,10 @@ def transformer_state_dict_to_flax(sd) -> dict:
             node = node.setdefault(k, {})
         node[leaf] = _np(t).astype(np.float32, copy=True)
     return tree
+
+
+# the comparison models (OFormer2D, OFormer1D, OFormerIrreg2D, OFormerIrregST2D,
+# HyenaOFormer2D) keep flax's names and layouts too: the same converters
+# (``decoder.prop_mlp_0_0.kernel``, ``hyena.h1.filter_fn.implicit_1.freq``)
+oformer_flax_to_state_dict = transformer_flax_to_state_dict
+oformer_state_dict_to_flax = transformer_state_dict_to_flax

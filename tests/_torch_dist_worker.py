@@ -54,6 +54,43 @@ def train(rank: int, world: int, port: int, runs: dict, out: str) -> None:
         pickle.dump(res, f)
 
 
+def tp_forward(rank: int, world: int, port: int, tree: dict, x, grid, cot, out: str) -> None:
+    """The column-parallel FNO2d over a mesh of ``model=world`` (``highest``
+    products): each rank's output, its shards' gradients of ``sum(out *
+    cot)`` and the placements ``shard_params_tp`` gave."""
+    import torch
+
+    from sciml_pde_torch import parallel
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.parallel.tp import fno2d_tp_apply, shard_params_tp
+
+    torch.set_num_threads(1)
+    spectral.set_dft_precision("highest")
+    parallel.distributed_init(f"localhost:{port}", world, rank, device="cpu")
+    mesh = parallel.make_mesh(model=world)
+    sharded = shard_params_tp(tree, mesh)
+    leaves = []
+
+    def track(node):
+        if isinstance(node, dict):
+            return {k: track(v) for k, v in node.items()}
+        leaves.append(node.value.requires_grad_(True))
+        return node
+    track(sharded)
+    y = fno2d_tp_apply(sharded, torch.as_tensor(x), torch.as_tensor(grid), mesh)
+    (y * torch.as_tensor(cot)).sum().backward()
+
+    def grads(node):
+        if isinstance(node, dict):
+            return {k: grads(v) for k, v in node.items()}
+        return (node.value.grad.numpy(), node.sharding.spec)
+    res = dict(shape=mesh.shape, rank=mesh.rank, model_rank=mesh.model_rank,
+               out=y.detach().numpy(), grads=grads(sharded))
+    torch.distributed.destroy_process_group()
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(res, f)
+
+
 def spawn(fn, world: int, *args, timeout: float = 240.0) -> list:
     """Run ``fn(rank, world, port, *args, out)`` in ``world`` spawned
     processes; returns each rank's pickle.  A process still alive after

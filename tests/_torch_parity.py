@@ -7,6 +7,7 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 
@@ -59,3 +60,30 @@ def chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def logged(run_dir, name: str, key: str) -> list:
+    """The ``key`` values of ``{run_dir}/{name}.jsonl``, as both packages'
+    ``MetricLogger`` write it, in step order."""
+    import json
+    from pathlib import Path
+
+    lines = (Path(run_dir) / f"{name}.jsonl").read_text().splitlines()
+    return [json.loads(line)[key] for line in lines]
+
+
+def assert_losses_close(got, want, n: int = 3, rtol: float = 1e-4):
+    """The first ``n`` losses of two runs within ``rtol`` of each other."""
+    assert len(got) >= n and len(want) >= n, (got, want)
+    np.testing.assert_allclose(got[:n], want[:n], rtol=rtol)
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    """Torch on two threads for each test of a module that imports this
+    fixture: the tier runs six workers on the host's cores, and small-op
+    CPU runs lose to oversubscription."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)

@@ -198,16 +198,18 @@ def test_out_of_scope_options_raise(folder, tmp_path, monkeypatch, option):
     """Each of JAX's refusals of the placement options raises in the port
     with JAX's exception type and words, on the same files (the sharded
     case on a data axis of two in both packages); a mesh with a model axis
-    (tensor parallelism, not ported) raises NotImplementedError naming
-    ROADMAP A8b."""
+    of two on one rank raises what JAX's raises on one device."""
     import sciml_pde_tpu.train.fno_train as jft
     from sciml_pde_tpu.parallel import make_mesh as jax_make_mesh
     from sciml_pde_torch import parallel
     from sciml_pde_torch.train import fno_train
 
     if option is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+        with pytest.raises(ValueError) as want:
+            jax_make_mesh(model=2, devices=jax.devices()[:1])
+        with pytest.raises(ValueError) as got:
             parallel.make_mesh(model=2)
+        assert str(got.value) == str(want.value) == "1 devices not divisible by model=2"
         return
     if option.get("shard_store") and "batch_size" in option:
         monkeypatch.setattr(jft, "make_mesh", lambda: jax_make_mesh(devices=jax.devices()[:2]))
