@@ -211,7 +211,7 @@ streamed from host RAM, rotated and sharded (ROADMAP A8):
               `default` against the control (the four kernels of faults C7
               and C8 in their plain versions)
  15. probe    the ported perf probe, all eleven configs in this process
-              (PROBE_SCAN_K 50) and one more through its subprocess runner:
+              (PROBE_SCAN_K 25) and one more through its subprocess runner:
               no error, finite results, the steps/s table, and launches of
               every split function and stage kernel
  16. ns-fno   the FNO on NS-2D at full width (batch 16, 256^2, 3 channels,
@@ -292,8 +292,8 @@ streamed from host RAM, rotated and sharded (ROADMAP A8):
               CPU's (the f32 solve's level),
               with PyTorch's matmul precision at TF32 and at full f32 (the
               DCT solve the same bits under both), every stored frame finite
-              with |velocity| < 100, 10 momentum steps on the card against
-              the CPU (1e-4), the files read back through data/ns.py and a
+              with |velocity| < 100, NS_CPU_STEPS momentum steps on the card
+              against the CPU (1e-4), the files read back through data/ns.py and a
               velocity file converted by velocity2vorticity; ms per
               momentum step and device-busy share (CG's over the
               generator's own steps)
@@ -322,7 +322,7 @@ streamed from host RAM, rotated and sharded (ROADMAP A8):
  20. a8      scaling and I/O (ROADMAP A8): a. the NS-2D FNO at config_ns's
               width (256^2, 3 channels, initial_step 10, width 20, modes
               12; baseline batch 16, aux 8 + 24) on a seeded store of 4 +
-              12 trajectories x 40 frames, one epoch through host_stream
+              12 trajectories x 20 frames, one epoch through host_stream
               and one through the device store: the histories within
               1e-6 (the same bits printed), each path's step in the
               trainer's loop (CUDA events), the streamed step's busy share,
@@ -358,8 +358,25 @@ streamed from host RAM, rotated and sharded (ROADMAP A8):
               on the CPU from one flax tree, the first C21_STEPS losses
               within TOL_C21, the depth cut printed, ms a step of the
               trainer's step (CUDA events)
+ 22. study   the study drivers (ROADMAP A10) through their entry points:
+              a. experiments/dr_transformer.py at the reference's width
+              (STUDY_WIDTHS), bf16, basic_ds2, one epoch, both variants, on
+              phase 18's DR files: JAX's summary keys, finite losses and
+              rollout tables, no attention kernel at its 640 tokens, ms a
+              step (CUDA events around the trainer's steps) and peak
+              memory, its best checkpoint in f32 on the card against the
+              CPU (TOL_STUDY); b. dr_convention_eval, dr_vchannel_diag and
+              dr_early_window_finetune on that checkpoint, the f32
+              convention rows on the card against the CPU; c.
+              dft_precision_gate on the production step and on the fused
+              step (every FNO kernel launched); d. ns_demo at 128^2 and
+              ns_lie_toy from a 256^2 source the phase writes; e.
+              dr_data_audit at 64^2, its RK4 RMS on the card against the
+              CPU (TOL_SIM);
+              f. dr_seed_figure and make_round_figures, each PNG opened
 
-The probe's row carries phase 0's profiler device time beside torch.mul's.
+Every phase and sub-phase prints its duration on a ``[time]`` line with
+the card's name and power limit.  The probe's row carries phase 0's profiler device time beside torch.mul's.
 It prints the kernel table as one JSON line, the card line, a line saying
 that no exchange between two cards was checked, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero and
@@ -659,7 +676,9 @@ SPLIT_STAGES = {  # stage-kernel launches of one call of each
                         "fno_mix_wgrad": 4, "fno_outer_partial": 4, "fno_reduce_rows": 4},
 }
 TOL_SPLIT_CHAIN = 1e-4  # the five chained vs the plain fused VJP, `highest`
-PROBE_SCAN_K = 50  # steps per scan in the probe phase (the probe's own default is 200)
+# steps per scan in the probe phase (the probe's own default is 200; 50 before a
+# depth cut: its prod and fused configs time four scans each)
+PROBE_SCAN_K = 25
 # phase 4b: the rollout evaluation of phase 4's checkpoint, on the card against
 # the CPU (relative, per metric): f32 sums in another order through the model,
 # compounding over the unrolled steps
@@ -706,8 +725,9 @@ DR_SEEDS, DR_DIFF_SEEDS, DR_CHECK_FRAMES, TOL_SIM = 10, 4, 6, 1e-5
 # 256^2, nu 0.05, dt 5e-5; the files hold 100,000 steps), 2 trajectories: the
 # DCT file cut to 201 steps (a frame each 50), the CG file to 11 (each 5; a
 # CG step takes hundreds of iterations, and its time is read over the
-# generator's own 10 steps): depth cuts.  The card against the CPU over 10
-# momentum steps 1e-4.  The projection's bound, max(1e-4 x the divergence
+# generator's own 10 steps): depth cuts.  The card against the CPU over
+# NS_CPU_STEPS momentum steps (a depth cut from 10; about 0.5 s a step on the
+# CPU under each solver) within 1e-4.  The projection's bound, max(1e-4 x the divergence
 # before, 1e-4), is tests/test_ns_incomp.py::test_projection_removes_divergence's
 # at its grid (24^2, tol 1e-5, 2000 iterations); at 256^2 the f32 solve
 # itself leaves more (JAX's DCT projection of its PRNGKey(1) state on the
@@ -716,7 +736,7 @@ DR_SEEDS, DR_DIFF_SEEDS, DR_CHECK_FRAMES, TOL_SIM = 10, 4, 6, 1e-5
 # there the card is held to NS_DIV_256 x the divergence before, and to
 # NS_DIV_CPU x the CPU's divergence after the same projection
 NS_GEN = {"dct": (201, 50), "cg": (11, 5)}  # solver: (n_steps, frame_int)
-NS_GEN_BATCH, TOL_NS_STEPS, NS_DIV_256, NS_DIV_CPU = 2, 1e-4, 1e-3, 2.0
+NS_GEN_BATCH, TOL_NS_STEPS, NS_DIV_256, NS_DIV_CPU, NS_CPU_STEPS = 2, 1e-4, 1e-3, 2.0, 5
 NS_TEST_CFG = dict(grid_size=(24, 24), dt=1e-3, n_steps=6, frame_int=2, n_batch=2, nu=0.01)
 # phase 19: the rest of the simulators (ROADMAP A7).  19a: one plume
 # trajectory at the production config (sim/ns_plume_3d.py Plume3DConfig:
@@ -746,11 +766,11 @@ NS_TEST_CFG = dict(grid_size=(24, 24), dt=1e-3, n_steps=6, frame_int=2, n_batch=
 # branches can flip on one ulp; 8.5e-6 against JAX over 34 steps on the CPU)
 PLUME_CPU_FRAMES, TOL_PLUME, PLUME_DIV, PLUME_DIV_CG = 2, 1e-4, 1e-4, 1e-2
 PLUME_CG_STEPS, PLUME_CG_TOL, PLUME_GRAPH_FRAMES = 5, 1e-3, 10
-PARITY_FRAMES = 30
+PARITY_FRAMES = 20  # 30 before a depth cut: 10 windows a trajectory
 PARITY_ARGS = ["--n-primary", "2", "--aux-primary", "1", "--n-aux-per", "3", "--n-test", "1",
                "--frames", str(PARITY_FRAMES), "--epochs", "1"]
 DARCY_RES, TOL_DARCY_CARD, BVP_CASES = 1e-2, 1e-4, 20
-AIRFOIL_FRAMES, AIRFOIL_STEPS, TOL_AIRFOIL = 6, 20, 1e-4
+AIRFOIL_FRAMES, AIRFOIL_STEPS, TOL_AIRFOIL = 6, 10, 1e-4  # steps 20 before a depth cut
 # the generators' configurations phase 19 runs (their defaults but the
 # airfoil's frames); each a dict of keyword arguments
 SIM_PLUME = {}  # Plume3DConfig
@@ -774,6 +794,14 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def phase_done(card: str, what: str, t0: float) -> float:
+    """Print how long ``what`` took since ``t0`` on a ``[time]`` line with
+    the card's name and power limit; returns the time now."""
+    now = time.perf_counter()
+    print(f"[time] {card}: {what} in {now - t0:.1f} s", flush=True)
+    return now
 
 
 def as_tuple(x) -> tuple:
@@ -2348,15 +2376,18 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     from sciml_pde_torch.ops import attention as ta
 
     rows = {}
+    t = time.perf_counter()
     # ---- 6. attention kernels vs plain versions -------------------------------
     att_inputs = check_attention(ta, dev, card)
 
+    t = phase_done(card, "phase 6", t)
     # ---- 7. the full-width model through the kernels --------------------------
     store = make_ns_store(NS_TRAJ + NS_TEST, NS_T, seed=4, dev=dev)
     t_in = NS_MODEL["num_frames"]
     x = store[:NS_BATCH, :t_in]
     check_model(dev, x, store[:NS_BATCH, t_in])
 
+    t = phase_done(card, "phase 7", t)
     # ---- 8. train: the NS transformer baseline, through the trainer -----------
     ns_grid = torch.zeros(NS_MODEL["img_size"], NS_MODEL["img_size"], 2, device=dev)
     ns_ds = NSBaselineDataset(
@@ -2385,6 +2416,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     print(f"[train] launches: {json.dumps(att_launches)}", flush=True)
     check_ns_launches("[train] main path", att_launches, micro, val_batches)
 
+    t = phase_done(card, "phase 8", t)
     # ---- 9. timing of the transformer path ------------------------------------
     idx_all = torch.as_tensor(ns_ds.train.window_index(), dtype=torch.long, device=dev)
     batches = [idx_all[i * NS_BATCH:(i + 1) * NS_BATCH] for i in range(2 * NS_ACCUM)]
@@ -2480,6 +2512,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
               f", f32; profiler device time {fmt(r['f32_library_device_ms'])})", flush=True)
     del q4f, k4f, v4f, o4f, f32_args
 
+    t = phase_done(card, "phase 9", t)
     # ---- 9b. the f32 path: the trainer with bf16=False, then its micro-step -
     f32_ds = NSBaselineDataset(
         train=WindowedTrajectories(store[:1, :t_in + 2 * NS_ACCUM * NS_BATCH], ns_grid,
@@ -2506,6 +2539,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     time_ns_micro_step(dev, card, ns_ds, batches, torch.float32,
                        tuple(ATT_KERNEL_KEYS["f32"].values()))
 
+    phase_done(card, "phase 9b", t)
     return rows
 
 
@@ -2623,9 +2657,11 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
     from sciml_pde_torch.train.optim import make_optimizer
     from sciml_pde_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
 
+    t = time.perf_counter()
     # ---- 10. the fused dft2 layer ---------------------------------------------
     layer_in, layer_out, layer_err, layer_launches = check_layer(dev)
 
+    t = phase_done(card, "phase 10", t)
     # ---- 11. the production step against the fused step ----------------------
     spectral.set_dft_precision("highest")
     model = FNO2d(CC, MODES, MODES, WIDTH, T0)
@@ -2667,6 +2703,7 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
           f"params |a-b| - {PARAM_RTOL:.0e}|b| at most {excess:.3e} (atol {PARAM_ATOL:.0e})")
     del model, params, step, theta, fopt, fstep
 
+    t = phase_done(card, "phase 11", t)
     # ---- 12. train on the production step -------------------------------------
     spectral.set_dft_precision("default")
     t0 = time.perf_counter()
@@ -2728,6 +2765,7 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
     check(all(math.isfinite(h[k]) for k in ("first_step_loss", "train_loss", "val_loss")),
           "[train] autoregressive run finite, no device assert")
 
+    t = phase_done(card, "phase 12", t)
     # ---- 13. timing -------------------------------------------------------------
     model = FNO2d(CC, MODES, MODES, WIDTH, T0)
     model.load_state_dict(flax_to_state_dict(tree))
@@ -2784,6 +2822,7 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
           + f"), plain {row['plain_ms']:.4f} ms, bound "
           f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {nbytes} bytes, {flops} FLOP), "
           f"{row['launches']} launch in the layer run", flush=True)
+    phase_done(card, "phase 13", t)
     return {"spectral_fused": row}
 
 
@@ -3274,6 +3313,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
     xy = NS_MODEL["img_size"]
     to_tree = transformer_state_dict_to_flax
 
+    t_sub = time.perf_counter()
     # ---- 17a. the three kernels at the aux shapes, both types ----------------------
     rows = {}
     g = torch.Generator().manual_seed(17)
@@ -3290,6 +3330,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
                 else:
                     rows[key].update({f"f32_{k}": v for k, v in r.items()})
 
+    t_sub = phase_done(card, "17a", t_sub)
     # ---- 17b. one aux micro-step of the full-width model, kernels vs plain -----------
     store = make_ns_store(NS_TRAJ + NS_TEST, NS_T, seed=4, dev=dev, xy=xy)
     aux_full = make_ns_store(NS_TRAJ * AUXT_NA, NS_T, seed=31, dev=dev, xy=xy)
@@ -3307,6 +3348,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
         check_model(dev, x, y, f"[aux model, {'shared head' if shared else 'separate heads'}, "
                     f"{nb} + {na} windows]", build, loss_of)
 
+    t_sub = phase_done(card, "17b", t_sub)
     # ---- 17c. one f32 aux micro-step on the card against the CPU ---------------------
     small = dict(NS_MODEL, **SHALLOW)
     sd_small = VideoMAEOperatorAux(**small, generator=torch.Generator().manual_seed(5)).state_dict()
@@ -3326,6 +3368,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
                 (prim_c.cpu(), aux_c.cpu(), idx_c), TOL_AUX_STEP, to_tree=to_tree)
     del aux_full, prim_c, aux_c
 
+    t_sub = phase_done(card, "17c", t_sub)
     # ---- 17d. the trainer: NS aux, aux store at 128^2 in bf16 -------------------------
     grid = torch.zeros(xy, xy, 2, device=dev)
     aux128 = make_ns_store(NS_TRAJ * AUXT_NA, NS_T, seed=32, dev=dev, xy=AUXT_XY)
@@ -3396,6 +3439,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
         name, where = key.split(" (")
         row["f32_launches"] = shapes32.get((name, *AUXT_ATT_SHAPES[where[:-1]], "f32"), 0)
 
+    t_sub = phase_done(card, "17d", t_sub)
     # ---- 17e. timing of the aux micro-step ------------------------------------------------
     model = VideoMAEOperatorAux(**NS_MODEL, drop_path_rate=0.1, dtype=torch.bfloat16,
                                 generator=torch.Generator().manual_seed(0)).to(dev)
@@ -3425,6 +3469,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
                    NS_ACCUM, "micro-step", micro_ms, tuple(ATT_KERNEL_KEYS["bf16"].values()))
     del model, opt, step
 
+    t_sub = phase_done(card, "17e", t_sub)
     # ---- 17f. SWA and early-window sampling ------------------------------------------------
     swa_ds = aux_ds(store[:1, :t_in + 4], store[NS_TRAJ:NS_TRAJ + 1, :t_in + 1], [[0]])
     res_swa = ttt.train_transformer_aux(
@@ -3442,6 +3487,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
     check(finite and sorted(fs_) == sorted(fp) and gap > 0,
           "[swa] swa_params finite, of the params' leaves, and apart from the last epoch's")
 
+    t_sub = phase_done(card, "17f", t_sub)
     # ---- 17g. remat: use_checkpoint against none, one bf16 micro-step ----------------------
     sd = None
     outs, peaks, fwd = {}, {}, {}
@@ -3474,6 +3520,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
           "memory, the forward kernel launched again in the recompute")
     del outs
 
+    t_sub = phase_done(card, "17g", t_sub)
     # ---- 17h. masked-SSL pretraining, then partial loading -----------------------------------
     ssl_w = WindowedTrajectories(store[:1, :t_in + 6], grid, initial_step=t_in, rollout=0,
                                  train=True, device=dev)
@@ -3525,6 +3572,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
     del ssl_w, store, aux128, ds, f32_ds, swa_ds, x, y, xa, ya
     torch.cuda.empty_cache()
 
+    t_sub = phase_done(card, "17h", t_sub)
     # ---- 17i. the 3D VideoMAE at the plume shape ------------------------------------------
     grid3_np = unit_grid_3d(*NS3D_SP)
     grid3 = torch.from_numpy(grid3_np).to(dev)
@@ -3589,6 +3637,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
     check(sum(launches3.values()) == 0, "[3d vmae] no attention kernel launched at 500 tokens")
     del prim3, test3, aux3
     torch.cuda.empty_cache()
+    phase_done(card, "17i", t_sub)
     print(f"[aux] {card}: phase 17 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
@@ -3630,6 +3679,7 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
     xy, cc, b = NSF_XY, NSF_C, NSF_B
     shape = f"batch {b}, {xy}^2, {cc} channels, width {WIDTH}, modes {MODES}"
 
+    t_sub = time.perf_counter()
     # ---- 16a. the fused NS-2D baseline through the kernels ----------------------
     tree = default_init_tree(cc, MODES, WIDTH, T0, seed=1)
     p = ff.pack_params(tree, MODES, MODES, dev)
@@ -3731,6 +3781,7 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
     device_profile(card, fused_steps, 10, "step", fused_ms, tuple(set(FNO_KERNEL_KEYS.values())))
     del theta, fopt, fstep
 
+    t_sub = phase_done(card, "16a", t_sub)
     # ---- 16b. the production step at the NS shape ---------------------------------
     spectral.set_dft_precision("highest")
     model = FNO2d(cc, MODES, MODES, WIDTH, T0)
@@ -3830,6 +3881,7 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
           f"inputs {res_r[True][2]:.1f} MiB (remat) vs {res_r[False][2]:.1f} MiB")
     del res_r, x, y, gb
 
+    t_sub = phase_done(card, "16b", t_sub)
     # ---- 16c. NS aux at full width ---------------------------------------------
     na = NSF_AUX_NA
     prim = store[:2, :NSF_AUX_T]
@@ -3940,6 +3992,7 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
     del aux_ds, aux, prim, store, train_w
     torch.cuda.empty_cache()
 
+    t_sub = phase_done(card, "16c", t_sub)
     # ---- 16d. the 3D FNO at the plume shape ---------------------------------------
     sp3 = f"{NS3D_SP}, {NS3D_C} channels, width {WIDTH}, modes {NS3D_MODES}, batch 1"
     grid3_np = unit_grid_3d(*NS3D_SP)
@@ -4011,6 +4064,7 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
               "first's, a checkpoint, six finite metrics from it")
     del prim3, aux3, test3
     torch.cuda.empty_cache()
+    phase_done(card, "16d", t_sub)
     print(f"[ns] {card}: phase 16 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
@@ -4102,9 +4156,9 @@ def data_parity_path(dev, card: str, run_dir: Path) -> dict:
             ok &= rel_f <= TOL_SIM
             msg += f"; the written file's seed 1 {rel_f:.3e}"
         check(ok, msg + f" (tol {TOL_SIM:.0e})")
-    # the generator's loop: 10 seeds, 2 frames
-    cfg_t = dr.DiffReactConfig(t=cfg_all.t * 2 / 100, tdim=3)
-    n_sub = 2 * dr.stability_substeps(cfg_t)
+    # the generator's loop: 10 seeds, 1 frame (2 before a depth cut)
+    cfg_t = dr.DiffReactConfig(t=cfg_all.t / 100, tdim=2)
+    n_sub = dr.stability_substeps(cfg_t)
     ics = np.stack([dr.initial_condition(i, cfg_t) for i in range(DR_SEEDS)])
     run_gen = lambda: dr.simulate_diff_react(ics, cfg_t, device=dev)  # noqa: E731
     gen_ms = cuda_ms(run_gen, reps=3) / n_sub
@@ -4270,15 +4324,16 @@ def data_parity_path(dev, card: str, run_dir: Path) -> dict:
               f"{cpu_div:.3e} on the CPU (bound {NS_DIV_CPU:g} x the CPU's)"
               + ("; the same bits with the caller's matmul precision "
                  f"at TF32: {same}" if solver == "dct" else ""))
-        # 10 momentum steps on the card against the CPU from the same state
+        # momentum steps on the card against the CPU from the same state
         state_c = (u, v, c)
         state_h = tuple(t.cpu() for t in (u, v, c))
-        for _ in range(10):
+        for _ in range(NS_CPU_STEPS):
             state_c = ns.momentum_step(*state_c, fu, fv, cfg)
             state_h = ns.momentum_step(*state_h, fu.cpu(), fv.cpu(), cfg)
         errs = [rel_err(a.cpu(), b) for a, b in zip(state_c, state_h)]
         check(max(r for _, r in errs) <= TOL_NS_STEPS,
-              f"[data] NS {solver}: 10 momentum steps on the card against the CPU, rel-to-max "
+              f"[data] NS {solver}: {NS_CPU_STEPS} momentum steps on the card against the CPU, "
+              "rel-to-max "
               f"u {errs[0][1]:.3e}, v {errs[1][1]:.3e}, particles {errs[2][1]:.3e} "
               f"(tol {TOL_NS_STEPS:.0e})")
         # the file through gen_ns_incomp (the streaming path for cg), read back
@@ -4661,9 +4716,13 @@ def simulators_path(dev, card: str, run_dir: Path) -> None:
 
 # ---- phase 20: scaling and I/O (ROADMAP A8) ---------------------------------------
 A8_NS = dict(num_channels=3, modes=12, width=20, initial_step=10)  # config_ns.yaml
-A8_TRAJ, A8_NA, A8_T, A8_TEST = 4, 3, 40, 2  # 4 + 12 aux trajectories x 40 frames
+# 4 + 12 aux trajectories x 20 frames (a depth cut from 40: 2 baseline steps of 16
+# and 5 aux steps of 8 an epoch; 20f's files take the first 20 frames)
+A8_TRAJ, A8_NA, A8_T, A8_TEST = 4, 3, 20, 2
 A8_BATCH = {"baseline": 16, "aux": 8}  # config_ns.yaml: 16 baseline, 8 (+ 24 aux) aux
-A8_TF_TRAJ, A8_TF_T = 2, 18  # the VideoMAE aux: 16 windows = 8 micro-steps of 2 + 6
+# the VideoMAE aux: 8 windows = 4 micro-steps of 2 + 6, one optimizer step (18
+# frames, 8 micro-steps, before a depth cut)
+A8_TF_TRAJ, A8_TF_T = 2, 14
 A8_ROT_T, A8_ROT_CHUNK = 20, 16 << 20  # rotation: 2 slices of 2 + 6 trajectories
 A8_PUT_SHAPE = (4352, 256, 1024)  # f32, 4.25 GiB: 4 chunks of 1 GiB and a tail
 TOL_A8_HISTORY = 1e-6  # host-streamed against device-store losses, relative
@@ -5055,8 +5114,9 @@ def a8_path(dev, card: str, run_dir: Path) -> dict:
 # tests/test_torch_comparison_*.py; the L1 losses below), ms a step of the
 # trainer's step in CUDA events.  Depth cuts (printed): 21b the DR protocol (in 10, out 40, 64^2
 # after spatial_down 2, in_emb 96, latent 192, heads 4, depth 2, remat) on
-# phase 18's 9 train trajectories at batch 3 (JAX's default 4) so that one
-# epoch is 3 steps; 21c OFormer1D on phase 19's Burgers file (1024 points),
+# 3 of phase 18's train trajectories at batch 1 (JAX's default 4; 9 at batch
+# 3 before a further depth cut: the CPU's run took 16-34 s) so that one epoch
+# is 3 steps; 21c OFormer1D on phase 19's Burgers file (1024 points),
 # 3 trajectories x 18 frames (24 windows of batch 8); 21d the Darcy OFormer
 # on 4 of phase 19's 128^2 samples (one step of batch 4 an epoch, 3
 # epochs); 21e the point-set BVP (both recipes; bvp_study's widths, batch
@@ -5070,7 +5130,7 @@ def a8_path(dev, card: str, run_dir: Path) -> dict:
 # tree nudged by one ulp (on the CPU at a tiny airfoil, 1.7e-3 at step 3).
 TP_WORLD, TOL_TP, TOL_C21, C21_WITNESS_X, C21_STEPS, C21_TIMED = 2, 1e-5, 1e-4, 10, 3, 5
 C21_PROTOCOL = dict(in_seq_len=10, out_seq_len=40, spatial_down=2, channel=0, in_emb_dim=96,
-                    latent_channels=192, heads=4, depth=2, train_subsample=9, batch_size=3,
+                    latent_channels=192, heads=4, depth=2, train_subsample=3, batch_size=1,
                     epochs=1, log_every=1)
 C21_BURGERS = dict(traj=3, frames=18, initial_step=10, batch_size=8, in_emb_dim=64, depth=3,
                    heads=4)
@@ -5301,7 +5361,8 @@ def comparisons_path(dev, card: str, run_dir: Path) -> None:
         (lc, mc, sc), (lw, _, sw) = runs[dev.type], runs["cpu"]
         c21_losses(f"[cmp] run_rollout_protocol {mt} ({n_tok} tokens, in 10, out 40, in_emb 96, "
                    "latent 192, heads 4, depth 2, remat)", lc, lw,
-                   "9 train trajectories at batch 3 (JAX's default 4), one epoch")
+                   f"{C21_PROTOCOL['train_subsample']} train trajectories at batch "
+                   f"{C21_PROTOCOL['batch_size']} (JAX's default 4), one epoch")
         check(all(math.isfinite(v) for v in mc.values()),
               f"[cmp] {mt} protocol metrics on the card: "
               + ", ".join(f"{k} {v:.5g}" for k, v in mc.items())
@@ -5445,6 +5506,292 @@ def comparisons_path(dev, card: str, run_dir: Path) -> None:
           f"{h5io.h5py_module().__name__}", flush=True)
 
 
+# ---- phase 22: the study drivers (ROADMAP A10) ------------------------------------------
+# 22a: experiments/dr_transformer.py at the reference's width (STUDY_WIDTHS: encoder
+# 1024 x 16 blocks x 16 heads, decoder 512 x 8 x 8, dr_convention_eval.py's defaults),
+# bf16, batch 4, basic_ds2, one epoch, both variants, on phase 18's DR files (128^2,
+# patch 16, tubelet 1, 10 frames: 640 tokens, which the attention's shape rule sends to
+# the plain path, as JAX's does); its best baseline checkpoint in f32 on the test
+# window at horizon 1, on the card against the CPU within TOL_STUDY of the largest
+# magnitude (the VideoMAE f32 bound: f32 sums in another order through 24 blocks).
+# 22b: the three diagnostics on that checkpoint; the f32 convention rows (rollout
+# STUDY_CPU_ROLLOUT, the test window) on the card against the CPU within TOL_STUDY
+# relative.  22c: experiments/dft_precision_gate.py on the production step, then under
+# SCIML_FAST_STEP=1 (the fused step: every FNO kernel).  22d: experiments/ns_demo.py
+# at 128^2 x 16 frames (STUDY_NS_DEMO), then experiments/ns_lie_toy.py from a 256^2
+# source of 4 trajectories x 20 frames the phase writes (ns_production's config: dt
+# 5e-4, the exact diffusion).  22e: experiments/dr_data_audit.py at 64^2, its RK4
+# RMS on the card against the same trajectory's on the CPU within TOL_SIM relative.  22f: the seed figure and the round
+# figures from the summaries of phases 18 and 22 and the tracked snapshots.
+STUDY_WIDTHS = ["--encoder-dim", "1024", "--encoder-depth", "16", "--encoder-heads", "16",
+                "--decoder-dim", "512", "--decoder-depth", "8", "--decoder-heads", "8"]
+TOL_STUDY, STUDY_CPU_ROLLOUT, STUDY_WARM_STEPS = 1e-4, 2, 3
+STUDY_NS_DEMO = ["--grid", "128", "--frames", "16", "--frame-int", "5", "--n-primary", "1",
+                 "--n-aux-per", "1", "--n-test", "1", "--epochs", "1"]
+STUDY_LIE_SRC = dict(grid=256, frames=20, frame_int=5, n_batch=4)
+
+
+def timed_steps_of(build, events: list):
+    """``build`` (a trainer's step builder) whose step records a pair of CUDA
+    events around each call into ``events``."""
+    import torch
+
+    def wrapped(*args, **kwargs):
+        step, val = build(*args, **kwargs)
+
+        def timed(*a):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = step(*a)
+            e.record()
+            events.append((s, e))
+            return out
+        timed.xy = step.xy
+        return timed, val
+    return wrapped
+
+
+def finite_tree(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(finite_tree(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(finite_tree(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def png_colours(path) -> int:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return len(im.convert("RGB").getcolors(1 << 24) or ())
+
+
+def study_path(dev, card: str, run_dir: Path, root: Path) -> dict:
+    """Phase 22: the study drivers (ROADMAP A10) through their entry points
+    on the card.  Returns each FNO kernel's launches in the fused gate run."""
+    import argparse
+    import contextlib
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.experiments import (_dr_vmae, dft_precision_gate, dr_convention_eval,
+                                             dr_data_audit, dr_early_window_finetune,
+                                             dr_seed_figure, dr_transformer, dr_vchannel_diag,
+                                             make_round_figures, ns_demo, ns_lie_toy)
+    from sciml_pde_torch.experiments.ns_production import make_cfg
+    from sciml_pde_torch.ops import attention as ta
+    from sciml_pde_torch.ops import fno_kernels as fk
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.sim.diff_react import DiffReactConfig, generate_trajectories
+    from sciml_pde_torch.sim.gen_ns_incomp import generate_ns_file
+    from sciml_pde_torch.train import transformer_train as ttt
+    from sciml_pde_torch.utils.checkpoint import restore_params
+
+    t_phase = t_sub = time.perf_counter()
+    data, out = str(run_dir / "dr_data") + "/", (run_dir / "study").resolve()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    on_card = ["--device", dev.type]
+
+    # ---- 22a. dr_transformer at the reference's width ------------------------------------
+    events: dict[str, list] = {}
+    peaks = {}
+    real = {k: getattr(ttt, k) for k in ("build_transformer_baseline_step",
+                                         "build_transformer_aux_step")}
+    summary = {}
+    ta.reset_launch_counts()
+    try:
+        for variant, builder in (("baseline", "build_transformer_baseline_step"),
+                                 ("aux", "build_transformer_aux_step")):
+            events[variant] = []
+            setattr(ttt, builder, timed_steps_of(real[builder], events[variant]))
+            torch.cuda.reset_peak_memory_stats()
+            summary = dr_transformer.main(["--data", data, "--dataset", "basic_ds2", "--epochs",
+                                           "1", "--batch-size", "4", "--precision", "bf16",
+                                           "--variants", variant, "--out", str(out / "dt"),
+                                           *STUDY_WIDTHS, *on_card])
+            torch.cuda.synchronize()
+            peaks[variant] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        for k, fn in real.items():
+            setattr(ttt, k, fn)
+    att = {k: v for k, v in ta.LAUNCHES.items() if v}
+    check(not att, "[study] dr_transformer's 640 tokens take the plain attention (JAX's shape "
+          f"rule): no attention kernel launched ({json.dumps(att)})")
+    keys = {"best_val", "train_seconds", "val_history", "rollout_nrmse",
+            "rollout_nrmse_allsteps", "swa_rollout_nrmse"}
+    for variant in ("baseline", "aux"):
+        row = summary.get(f"basic_ds2_{variant}", {})
+        ms = [s.elapsed_time(e) for s, e in events[variant][STUDY_WARM_STEPS:]]
+        print(f"[timing] {card}: dr_transformer {variant} (encoder 1024 x 16 x 16 heads, decoder "
+              f"512 x 8 x 8, bf16, batch 4{' + 12 aux windows' if variant == 'aux' else ''}, "
+              f"640 tokens): {float(np.median(ms)) if ms else float('nan'):.3f} ms a step "
+              f"(median of CUDA events around the trainer's {len(ms)} steps after "
+              f"{STUDY_WARM_STEPS}); peak memory {peaks[variant]:.2f} GiB", flush=True)
+        check(set(row) == keys and len(row["rollout_nrmse"]) == 5 and finite_tree(row)
+              and all(math.isfinite(v) for v in row["val_history"]),
+              f"[study] dr_transformer {variant}: JAX's summary keys, best val "
+              f"{row.get('best_val', float('nan')):.5g}, rollout nRMSE "
+              + ", ".join(f"{v:.5f}" for v in row.get("rollout_nrmse", []))
+              + (f", SWA {', '.join(f'{v:.5f}' for v in row['swa_rollout_nrmse'])}"
+                 if row.get("swa_rollout_nrmse") else "") + " finite")
+    ckpt = out / "dt" / "vmae_dr_basic_ds2_baseline_ckpt.pt"
+    params, _ = restore_params(ckpt)
+    width_flags = argparse.ArgumentParser()
+    _dr_vmae.add_width_args(width_flags)
+    widths = width_flags.parse_args(STUDY_WIDTHS)
+    test = _dr_vmae.load_test(data)
+    models = {where: _dr_vmae.build(widths, torch.float32, params, where)
+              for where in (dev, torch.device("cpu"))}
+    with torch.no_grad():
+        x0 = torch.as_tensor(test[:1, :10])
+        pc = models[dev](x0.to(dev)).cpu()
+        pw = models[torch.device("cpu")](x0)
+    err, rel = rel_err(pc, pw)
+    check(bool(torch.isfinite(pc).all()) and rel <= TOL_STUDY,
+          f"[study] the best baseline checkpoint in f32 at horizon 1 on the test window: the "
+          f"card against the CPU max abs err {err:.3e}, rel-to-max {rel:.3e} (tol "
+          f"{TOL_STUDY:.0e})")
+    print(f"[time] {card}: 22a in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 22b. the three diagnostics on 22a's baseline checkpoint -------------------------------
+    t_sub = time.perf_counter()
+    rows = {where.type: dr_convention_eval.convention_rows(m, test, 0, STUDY_CPU_ROLLOUT, where)
+            for where, m in models.items()}
+    worst_rel = max(abs(a - b) / abs(b) for k in rows["cpu"]
+                    for a, b in zip(rows[dev.type][k], rows["cpu"][k]))
+    check(worst_rel <= TOL_STUDY,
+          f"[study] convention rows in f32 at horizons 1-{STUDY_CPU_ROLLOUT}, the card against "
+          f"the CPU: largest relative difference {worst_rel:.3e} (tol {TOL_STUDY:.0e}); "
+          + "; ".join(f"{k} {', '.join(f'{v:.5f}' for v in r)}" for k, r in rows["cpu"].items()))
+    del models
+    ce = dr_convention_eval.main(["--data", data, "--ckpts", f"baseline={ckpt}", "--rollout",
+                                  "5", "--out", str(out / "convention_eval.json"), *STUDY_WIDTHS,
+                                  *on_card])
+    row = ce.get("baseline", {})
+    check(set(row) == {*dr_convention_eval.ROWS, "best_val", "published"}
+          and all(len(row[k]) == 5 for k in dr_convention_eval.ROWS) and finite_tree(row),
+          "[study] dr_convention_eval (bf16, horizons 1-5): JAX's rows, finite: "
+          + "; ".join(f"{k} {', '.join(f'{v:.5f}' for v in row.get(k, []))}"
+                      for k in dr_convention_eval.ROWS))
+    vc = dr_vchannel_diag.main(["--data", data, "--ckpt", str(ckpt), "--precisions", "bf16",
+                                "fp32", "--t0", "0", "20", "--out", str(out / "vchannel.json"),
+                                *STUDY_WIDTHS, *on_card])
+    want = {f"{p}_t0={t}" for p in ("bf16", "fp32") for t in (0, 20)}
+    rkeys = {f"r{k}{s}" for k in (1, 2, 3) for s in ("", "_tgt_rms")}
+    check(set(vc) == want and all(set(r) == rkeys for r in vc.values()) and finite_tree(vc),
+          "[study] dr_vchannel_diag (bf16, fp32; t0 0, 20; horizons 1-3): JAX's keys, finite; "
+          "per-channel nRMSE at r1 " + "; ".join(f"{k} {', '.join(f'{v:.4f}' for v in r['r1'])}"
+                                                for k, r in vc.items()))
+    ew = dr_early_window_finetune.main(["--data", data, "--ckpt", str(ckpt), "--n-train", "2",
+                                        "--epochs", "1", "--out", str(out / "early.json"),
+                                        *STUDY_WIDTHS, *on_card])
+    check(set(ew) == {"before", "after", "config"}
+          and all(set(ew[p]) == {"t0=0", "t0=20"} for p in ("before", "after"))
+          and finite_tree({p: ew[p] for p in ("before", "after")}) and ew["before"] != ew["after"],
+          "[study] dr_early_window_finetune (2 trajectories x t0 0-12, batch 4, 1 epoch): JAX's "
+          f"keys, finite, the weights moved; t0=0 r1 before {ew['before']['t0=0']['r1']}, after "
+          f"{ew['after']['t0=0']['r1']}")
+    print(f"[time] {card}: 22b in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 22c. the DFT precision gate on the production and the fused step ----------------------
+    t_sub = time.perf_counter()
+    gate_launches = {}
+    prev_fast, prev_prec = os.environ.get("SCIML_FAST_STEP"), spectral.get_dft_precision()
+    try:
+        for step_kind in ("production", "fused"):
+            os.environ["SCIML_FAST_STEP"] = "1" if step_kind == "fused" else "0"
+            fk.reset_launch_counts()
+            gs = dft_precision_gate.main(["--data", data, "--dataset", "basic_ds2", "--epochs",
+                                          "1", "--out", str(out / f"gate_{step_kind}"),
+                                          *on_card])
+            torch.cuda.synchronize()
+            gate_launches[step_kind] = dict(fk.LAUNCHES)
+            check(gs["verdict"] in ("PASS", "FAIL") and finite_tree(gs),
+                  f"[study] dft_precision_gate on the {step_kind} step ({card}): verdict "
+                  f"{gs['verdict']}, degradation by horizon "
+                  + ", ".join(f"{v:+.4%}" for v in gs["relative_degradation_r1_5"])
+                  + f" (tol {gs['tol']}), train_speedup {gs['train_speedup']:.3f}; rollout "
+                  f"nRMSE highest {', '.join(f'{v:.5f}' for v in gs['highest']['rollout_nrmse'])}")
+    finally:
+        if prev_fast is None:
+            os.environ.pop("SCIML_FAST_STEP", None)
+        else:
+            os.environ["SCIML_FAST_STEP"] = prev_fast
+        spectral.set_dft_precision(prev_prec)
+    fused = gate_launches["fused"]
+    print(f"[study] gate launches: production {json.dumps(gate_launches['production'])}; fused "
+          f"{json.dumps(fused)}", flush=True)
+    for key in fk.KERNEL_NAMES:
+        check(fused[key] > 0, f"[study] the gate's fused run launched {key} ({fused[key]}x)")
+    print(f"[time] {card}: 22c in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 22d. NS: the demo, then the Lie toy from a 256^2 source ------------------------------
+    t_sub = time.perf_counter()
+    nd = ns_demo.main(["--folder", str(out / "ns_demo_data"), "--out", str(out / "ns_demo"),
+                       *STUDY_NS_DEMO, *on_card])
+    check(set(nd) == {"baseline", "aux"} and all(set(r) == {"best_val", "rollout_nrmse"}
+                                                 for r in nd.values()) and finite_tree(nd),
+          "[study] ns_demo (128^2, 16 frames, 1 epoch): JAX's keys, finite; rollout nRMSE "
+          + "; ".join(f"{k} {', '.join(f'{v:.4f}' for v in r['rollout_nrmse'])}"
+                      for k, r in nd.items()))
+    src = out / "ns_lie_src.h5"
+    ls = STUDY_LIE_SRC
+    generate_ns_file(src, 0, make_cfg(ls["grid"], ls["frames"], ls["frame_int"], ls["n_batch"],
+                                      "full", 5e-4, 0.05, "exact"), device=dev)
+    lt = ns_lie_toy.main(["--src", str(src), "--folder", str(out / "ns_lie_toy_data"), "--out",
+                          str(out / "ns_lie_toy"), "--stride", "4", "--epochs", "1", *on_card])
+    check(set(lt) == {"baseline_toy64", "lie_toy64"} and finite_tree(lt)
+          and all(len(r["rollout_nrmse"]) == 5 for r in lt.values()),
+          "[study] ns_lie_toy (256^2 -> 64^2, 3 + 1 trajectories, 1 epoch): JAX's keys, finite; "
+          "rollout nRMSE " + "; ".join(f"{k} {', '.join(f'{v:.4f}' for v in r['rollout_nrmse'])}"
+                                       for k, r in lt.items()))
+    print(f"[time] {card}: 22d in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 22e. the DR data audit, the card against the CPU -------------------------------------
+    t_sub = time.perf_counter()
+    audit = dr_data_audit.main(["--grid", "64", "--skip-tight", "--out",
+                                str(out / "audit.json"), *on_card])
+    # the report's device part, its RK4 trajectory, on the CPU (the scipy
+    # references are the same host solve either way)
+    cpu_rk4 = dr_data_audit.channel_rms(
+        generate_trajectories([audit["seed"]], DiffReactConfig(xdim=64, ydim=64),
+                              device="cpu")[0], audit["frames"])
+    rel = max(abs(x - y) / abs(y) for ch in ("u_rms", "v_rms")
+              for x, y in zip(audit["rk4_ours"][ch], cpu_rk4[ch]))
+    check(rel <= TOL_SIM and finite_tree(audit),
+          f"[study] dr_data_audit at 64^2: its RK4 RMS on the card against the CPU's within "
+          f"{rel:.3e} relative (tol {TOL_SIM:.0e}); frame10_rel_l2_ours_vs_reftol "
+          f"{audit['frame10_rel_l2_ours_vs_reftol']:.4e}; v RMS at frames {audit['frames']}: "
+          + ", ".join(f"{v:.4f}" for v in audit["rk4_ours"]["v_rms"]))
+    print("[study] dr_test_family_audit (70 seeds at 128^2 x 101 frames) runs in the CPU "
+          "tests only, at a reduced config", flush=True)
+    print(f"[time] {card}: 22e in {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # ---- 22f. figures ---------------------------------------------------------------------------
+    t_sub = time.perf_counter()
+    runs = out / "runs"
+    (runs / "dr_parity_ds2").mkdir(parents=True)
+    shutil.copy(run_dir / "dr_parity" / "summary.json", runs / "dr_parity_ds2")
+    agg = dr_seed_figure.main(["--run-root", str(runs), "--presets", "2", "--out",
+                               str(out / "figures")])
+    with contextlib.chdir(root):
+        made = make_round_figures.main(str(out / "figures"))
+    pngs = [out / "figures" / "dr_seed_data_efficiency.png", *map(Path, made)]
+    colours = {p.name: png_colours(p) if p.exists() else 0 for p in pngs}
+    check(agg is not None and set(agg) == {"baseline", "aux"} and len(made) >= 3
+          and all(c > 1 for c in colours.values()),
+          "[study] dr_seed_figure and make_round_figures: PNGs written, each opens with PIL "
+          "and has more than one colour: " + ", ".join(f"{k} {v} colours"
+                                                      for k, v in colours.items()))
+    print(f"[time] {card}: 22f in {time.perf_counter() - t_sub:.1f} s; phase 22 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return fused
+
+
 def main() -> int:
     t_script = time.perf_counter()
     root = Path(__file__).resolve().parent
@@ -5474,6 +5821,7 @@ def main() -> int:
     from sciml_pde_torch.train import fast_step as fs
     from sciml_pde_torch.train.fno_train import default_init_tree, train_baseline
 
+    card = card_line()
     # ---- 0. probe: the build and launch path, before anything is built on it --
     secs = _build.build_all(("probe",))
     pb.reset_launch_counts()
@@ -5502,16 +5850,17 @@ def main() -> int:
     probe_dev = {what: profiler_ms(lambda: (pb.probe(xp), torch.mul(xp, 2)), key,
                                    reps=PROBE_REPS, bound_ms=probe_bound, sessions=3)
                  for what, key in (("probe", "probe_kernel"), ("mul", MUL_KEY))}
-    print(f"[timing] {card_line()}: probe at (8, 128) f32, profiler device time (median of "
+    print(f"[timing] {card}: probe at (8, 128) f32, profiler device time (median of "
           f"three sessions of {PROBE_REPS} launches, each interleaved with torch.mul): "
           f"{probe_dev['probe'] or 'not measured'} ms; torch.mul "
           f"{probe_dev['mul'] or 'not measured'} ms", flush=True)
 
+    t = phase_done(card, "phase 0", t_script)
     # ---- 1. card -------------------------------------------------------------
-    card = card_line()
     dev = torch.device("cuda", 0)
     print(f"[card] {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+    t = phase_done(card, "phase 1", t)
 
     # ---- 2. build ------------------------------------------------------------
     secs = _build.build_all()
@@ -5609,6 +5958,7 @@ def main() -> int:
           "outer_partial_kernel spills nothing and keeps no stack frame: "
           + ", ".join(u[0] for u in c78))
     print_mix_wgrad_sass()
+    t = phase_done(card, "phase 2", t)
 
     # ---- 3. kernels vs plain versions ----------------------------------------
     g = torch.Generator().manual_seed(1)
@@ -5679,6 +6029,7 @@ def main() -> int:
     wide_fused_witness(dev, grid2)
     check_c78_fields(dev)
     c78_witness(dev)
+    t = phase_done(card, "phase 3", t)
 
     # ---- 4. train: the main path, through the trainer -------------------------
     spectral.set_dft_precision("default")
@@ -5716,6 +6067,7 @@ def main() -> int:
         kernel_rows[key]["launches"] = launches[key]
         check(launches[key] > 0, f"[train] main path launched {key} ({launches[key]}x)")
 
+    t = phase_done(card, "phase 4", t)
     # ---- 5. timing -----------------------------------------------------------
     theta, spec = fs.fast_state_from_tree(tree, MODES, dev)
     opt = fs.init_opt(theta)
@@ -5758,16 +6110,21 @@ def main() -> int:
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib}, "
               f"{r['launches']} launches in the epoch", flush=True)
 
+    t = phase_done(card, "phase 5", t)
     # ---- 4b. evaluation of phase 4's checkpoint; aux joint training ------------
     eval_aux_path(dev, card, run_dir, store, grid, ds)
+    phase_done(card, "phase 4b", t)
 
     kernel_rows.update(transformer_path(dev, card, run_dir))
     kernel_rows.update(production_path(dev, card, run_dir, store, grid, tree, ds))
 
     # ---- 14. the split functions; 15. the probe, this slice's path -------------
+    t = time.perf_counter()
     split_rows = split_path(dev, card, win, grid2, p, cot)
     split_c78(dev)
+    t = phase_done(card, "phase 14", t)
     path_launches = probe_path(dev, card, run_dir)
+    phase_done(card, "phase 15", t)
     for name, row in split_rows.items():
         row["launches"] = path_launches[name]
     kernel_rows.update(split_rows)
@@ -5792,6 +6149,10 @@ def main() -> int:
                                                          "bf16"), 0)
     # ---- 21. tensor parallelism and the comparison models (ROADMAP A8b, A9) ------------
     comparisons_path(dev, card, run_dir)
+    # ---- 22. the study drivers (ROADMAP A10) --------------------------------------------
+    study_launches = study_path(dev, card, run_dir, root)
+    for key in fk.KERNEL_NAMES:
+        kernel_rows[key]["study_launches"] = study_launches[key]
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,

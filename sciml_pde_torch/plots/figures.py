@@ -79,10 +79,11 @@ def image_row(out_path: str | Path, panels, names=(), title: str = ""):
     return Path(out_path)
 
 
-def _plot_area(x0, x1, y0, y1, title: str, names):
+def _plot_area(x0, x1, y0, y1, title: str, names, slots=None):
     """A white canvas with the plot area's frame, ``title`` above it and a
-    legend of ``names`` in the line colours; returns the image, its
-    drawing context and a map from data to pixel coordinates."""
+    legend of ``names`` in the line colours (of ``slots``, default their
+    positions); returns the image, its drawing context and a map from data
+    to pixel coordinates."""
     from PIL import Image, ImageDraw
 
     w, h = _SIZE
@@ -91,34 +92,42 @@ def _plot_area(x0, x1, y0, y1, title: str, names):
     draw.rectangle([_MARGIN, _MARGIN, w - _MARGIN, h - _MARGIN], outline="black")
     draw.text((_MARGIN, 12), title, fill="black")
     for n, name in enumerate(names):
+        slot = n if slots is None else slots[n]
         draw.text((_MARGIN + 8, _MARGIN + 6 + 14 * n), name,
-                  fill=_LINE_COLOURS[n % len(_LINE_COLOURS)])
+                  fill=_LINE_COLOURS[slot % len(_LINE_COLOURS)])
     sx = (w - 2 * _MARGIN) / (x1 - x0 if x1 > x0 else 1.0)
     sy = (h - 2 * _MARGIN) / (y1 - y0 if y1 > y0 else 1.0)
     return img, draw, lambda x, y: (_MARGIN + (x - x0) * sx, h - _MARGIN - (y - y0) * sy)
 
 
-def _line_figure(out_path: str | Path, curves: dict, title: str = "",
-                 spread: dict | None = None):
+def line_figure(out_path: str | Path, curves: dict, title: str = "",
+                spread: dict | None = None, colour_of: dict | None = None,
+                thin: tuple = ()):
     """Curves {name: (x, y)} with a marker at each point, and error bars
-    of +-``spread[name]`` where given, in one frame."""
-    spread = spread or {}
+    of +-``spread[name]`` where given, in one frame; a point whose value is
+    not finite is left out (a gap).  ``colour_of`` maps a curve's name to
+    its slot in the line colours (default: its position); the curves named
+    in ``thin`` are drawn thin with hollow markers."""
+    spread, colour_of = spread or {}, colour_of or {}
     xs = np.concatenate([np.asarray(x, float) for x, _ in curves.values()])
     ys = np.concatenate([np.asarray(y, float) + spread.get(k, 0.0)
                          for k, (_, y) in curves.items()])
-    img, draw, to_px = _plot_area(xs.min(), xs.max(), min(ys.min(), 0.0), ys.max() * 1.05,
-                                  title, list(curves))
+    img, draw, to_px = _plot_area(xs.min(), xs.max(), min(np.nanmin(ys), 0.0),
+                                  np.nanmax(ys) * 1.05, title, list(curves),
+                                  [colour_of.get(k, n) for n, k in enumerate(curves)])
     for n, (name, (x, y)) in enumerate(curves.items()):
         x, y = np.asarray(x, float), np.asarray(y, float)
-        pts = [to_px(a, b) for a, b in zip(x, y)]
-        col = _LINE_COLOURS[n % len(_LINE_COLOURS)]
+        pts = [to_px(a, b) for a, b in zip(x, y) if np.isfinite(b)]
+        col = _LINE_COLOURS[colour_of.get(name, n) % len(_LINE_COLOURS)]
         if len(pts) > 1:
-            draw.line(pts, fill=col, width=2)
+            draw.line(pts, fill=col, width=1 if name in thin else 2)
         for px, py in pts:
-            draw.ellipse([px - 3, py - 3, px + 3, py + 3], fill=col)
+            draw.ellipse([px - 3, py - 3, px + 3, py + 3], outline=col,
+                         fill="white" if name in thin else col)
         if name in spread:
             for a, b, s in zip(x, y, spread[name]):
-                draw.line([to_px(a, b - s), to_px(a, b + s)], fill=col, width=1)
+                if np.isfinite(b):
+                    draw.line([to_px(a, b - s), to_px(a, b + s)], fill=col, width=1)
     img.save(out_path)
     return Path(out_path)
 
@@ -132,7 +141,7 @@ def rollout_figure(out_path: str | Path, task: str = "2D_NS", model: str = "FNO"
               f"{model} + aux (paper)": (steps, tab["aux"])}
     if ours is not None:
         curves["ours (this run)"] = (steps[: len(ours)], ours)
-    return _line_figure(out_path, curves, f"{task} {model} rollout: nRMSE vs rollout step")
+    return line_figure(out_path, curves, f"{task} {model} rollout: nRMSE vs rollout step")
 
 
 def motivation_figure(out_path: str | Path):
@@ -183,7 +192,7 @@ def data_efficiency_figure(out_path: str | Path, results: dict[str, list[float]]
             spread[name] = [np.std(np.asarray(v, float)) for v in vals]
             vals = [np.mean(np.asarray(v, float)) for v in vals]
         curves[name] = (np.log10(np.asarray(cost[: len(vals)], float)), np.asarray(vals, float))
-    return _line_figure(out_path, curves, f"nRMSE vs log10 {xlabel}", spread)
+    return line_figure(out_path, curves, f"nRMSE vs log10 {xlabel}", spread)
 
 
 def field_animation(out_path: str | Path, frames: np.ndarray, channel: int = 0,

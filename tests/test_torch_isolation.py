@@ -51,6 +51,10 @@ def test_port_imports_no_jax():
         "'sciml_pde_torch.parallel.distributed', 'sciml_pde_torch.parallel.mesh', "
         "'sciml_pde_torch.train.placement', 'sciml_pde_torch.experiments.ns_production', "
         "'sciml_pde_torch.experiments.ns_transformer'} <= set(mods)\n"
+        "assert {'sciml_pde_torch.experiments.' + m for m in ('dr_transformer', "
+        "'dr_convention_eval', 'dr_vchannel_diag', 'dr_early_window_finetune', "
+        "'dft_precision_gate', 'ns_demo', 'ns_lie_toy', 'dr_data_audit', "
+        "'dr_test_family_audit', 'dr_seed_figure', 'make_round_figures')} <= set(mods)\n"
     )
     r = _run(code)
     assert r.returncode == 0, r.stdout + r.stderr
