@@ -374,6 +374,18 @@ streamed from host RAM, rotated and sharded (ROADMAP A8):
               dr_data_audit at 64^2, its RK4 RMS on the card against the
               CPU (TOL_SIM);
               f. dr_seed_figure and make_round_figures, each PNG opened
+ 23. lzf     the compressed HDF5 stores without h5py (io/hdf5_lite.py): a.
+              the host C LZF codec (io/csrc/lzf.c) built again and held
+              to its plain Python version on LZF_CHECK_BYTES of phase
+              18's DR store, as stored and shuffled, both ways, exactly;
+              its MB/s each way over phase 18's DR store and phase 20's NS
+              store in their own chunks; b. the h5py-written NS store of
+              tests/_torch_h5_fixture.py read bit for bit; c. both stores
+              read, written again through the port's writers (LZF) and as
+              an uncompressed copy, each read back: seconds and file
+              sizes; d. LZF_STEPS DR flagship fused steps (every FNO
+              kernel) from the LZF store and from the uncompressed copy:
+              the same losses bit for bit
 
 Every phase and sub-phase prints its duration on a ``[time]`` line with
 the card's name and power limit.  The probe's row carries phase 0's profiler device time beside torch.mul's.
@@ -5531,6 +5543,240 @@ STUDY_NS_DEMO = ["--grid", "128", "--frames", "16", "--frame-int", "5", "--n-pri
 STUDY_LIE_SRC = dict(grid=256, frames=20, frame_int=5, n_batch=4)
 
 
+# ---- phase 23: the compressed HDF5 stores without h5py ------------------------------------
+# 23a: the codec on LZF_CHECK_BYTES of phase 18's DR store (seed 0's data as stored,
+# unshuffled f32, and shuffled as the NS store holds it), C against plain, exactly;
+# MB/s of the C codec over every chunk of both stores.  23d: LZF_STEPS fused steps of
+# the DR flagship (batch B, 128^2, width WIDTH, modes MODES) from each copy.
+LZF_CHECK_BYTES, LZF_STEPS = 256 << 10, 3
+LZF_NS_STORE = "ns_incom_inhom_2d_256-0.h5"  # phase 20e's NS file (2 x 20 frames, 256^2)
+
+
+def store_chunks(arr, chunks) -> list:
+    """The chunks of ``arr`` as a chunked dataset of chunk shape ``chunks``
+    holds them, each contiguous and padded with zeros at the edges."""
+    import itertools
+
+    import numpy as np
+
+    out = []
+    for pos in itertools.product(*[range(-(-n // c)) for n, c in zip(arr.shape, chunks)]):
+        block = np.zeros(chunks, arr.dtype)
+        part = arr[tuple(slice(p * c, (p + 1) * c) for p, c in zip(pos, chunks))]
+        block[tuple(slice(0, n) for n in part.shape)] = part
+        out.append(block)
+    return out
+
+
+def lzf_store_path(dev, card: str, run_dir: Path, root: Path) -> None:
+    """Phase 23: the LZF codec, the h5py-written fixture, phase 18's DR and
+    phase 20's NS stores read and written through the port's HDF5 path,
+    and fused steps from an LZF store against an uncompressed copy."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.data.dr import PRIMARY_FILE, load_dr_baseline
+    from sciml_pde_torch.io import filters, lzf
+    from sciml_pde_torch.io import h5 as h5io
+    from sciml_pde_torch.ops import _build
+    from sciml_pde_torch.ops import fno_kernels as fk
+    from sciml_pde_torch.ops import spectral
+    from sciml_pde_torch.sim.gen_ns_incomp import write_ns_h5
+    from sciml_pde_torch.train import fast_step as fs
+    from sciml_pde_torch.train.fno_train import default_init_tree
+
+    t_phase = t_sub = time.perf_counter()
+    h5py = h5io.h5py_module()
+    out = run_dir / "lzf"
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "dr_lzf").mkdir(parents=True)
+    (out / "dr_raw").mkdir()
+    print(f"[lzf] HDF5 through {h5py.__name__}; the codec library in use: "
+          f"{_build.host_library_path(lzf.SOURCE).name}", flush=True)
+
+    # ---- 23a. the codec: built, against its plain version, MB/s --------------------------
+    t0 = time.perf_counter()
+    built = subprocess.run([_build.host_cc(), *_build.HOST_CFLAGS, "-o", str(out / "liblzf.so"),
+                            str(lzf.SOURCE)], capture_output=True, text=True)
+    build_s = time.perf_counter() - t0
+    check(built.returncode == 0, f"[lzf] {Path(_build.host_cc()).name} "
+          f"{' '.join(_build.HOST_CFLAGS)} io/csrc/lzf.c in {build_s:.3f} s "
+          + (built.stdout + built.stderr)[-2000:])
+    dr_path = run_dir / "dr_data" / PRIMARY_FILE
+    t0 = time.perf_counter()
+    dr = {}
+    with h5py.File(dr_path, "r") as f:
+        for k in sorted(f.keys()):
+            dr[k] = (np.asarray(f[k]["data"]), {g: np.asarray(f[k]["grid"][g]) for g in "xyt"},
+                     f[k].attrs.get("config", ""))
+        dr_layout = (f["0000"]["data"].chunks, f["0000"]["data"].compression)
+    dr_read_s = time.perf_counter() - t0
+    ns_path = run_dir / "a8_ns" / LZF_NS_STORE
+    t0 = time.perf_counter()
+    with h5py.File(ns_path, "r") as f:
+        ns = {k: np.asarray(f[k]) for k in ("velocity", "particles", "force", "t")}
+        ns_attrs = dict(f.attrs)
+        ns_layout = (f["velocity"].chunks, f["velocity"].compression, f["velocity"].shuffle)
+    ns_read_s = time.perf_counter() - t0
+    check(dr_layout[1] == "lzf" and dr_layout[0] is not None and ns_layout[1:] == ("lzf", True),
+          f"[lzf] phase 18's DR store is chunked LZF (chunks {dr_layout[0]}), phase 20's NS "
+          f"store chunked, shuffled LZF (chunks {ns_layout[0]}): written so through "
+          f"{h5py.__name__}")
+    sample = np.ascontiguousarray(dr["0000"][0]).reshape(-1).view(np.uint8)[:LZF_CHECK_BYTES]
+    for form, data in (("as stored", sample), ("shuffled", filters.shuffle(sample, 4))):
+        room = data.size + data.size // 16 + 64  # a stream always fits
+        t0 = time.perf_counter()
+        c = lzf.compress(data, room)
+        c_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p = lzf.lzf_compress_plain(data, room)
+        p_s = time.perf_counter() - t0
+        ok = c is not None and c == p
+        ok = ok and bytes(lzf.decompress(p, data.size)) == data.tobytes() \
+            == bytes(lzf.lzf_decompress_plain(c, data.size))
+        check(ok, f"[lzf] the C codec against its plain version on {data.size} bytes of the DR "
+              f"store {form}: the same {len(c or b'')}-byte stream (C {1e3 * c_s:.3f} ms, plain "
+              f"{1e3 * p_s:.1f} ms), each decoding the other's to the input exactly")
+    rates = {}
+    for name, arrays, chunks, shuffle in (
+            ("DR", [a for a, _, _ in dr.values()], dr_layout[0], False),
+            ("NS", list(ns.values()), None, True)):
+        blocks = []
+        for a in arrays:
+            ch = chunks or ((1, 1, *a.shape[2:]) if a.ndim > 2 else a.shape)
+            blocks += [filters.shuffle(b, 4) if shuffle else b.reshape(-1).view(np.uint8)
+                       for b in store_chunks(a, ch)]
+        t0 = time.perf_counter()
+        streams = [lzf.compress(b) for b in blocks]
+        enc_s = time.perf_counter() - t0
+        packed = [(s, b.size) for s, b in zip(streams, blocks) if s is not None]
+        t0 = time.perf_counter()
+        for s, n in packed:
+            lzf.decompress(s, n)
+        dec_s = time.perf_counter() - t0
+        n_in = sum(b.size for b in blocks)
+        n_out = sum(n for _, n in packed)
+        rates[name] = (n_in / enc_s / 1e6, n_out / max(dec_s, 1e-9) / 1e6)
+        print(f"[timing] {card}: LZF codec (C, host) on the {name} store's {len(blocks)} chunks "
+              f"({n_in} bytes{', shuffled' if shuffle else ''}): compress "
+              f"{rates[name][0]:.1f} MB/s; {len(packed)} chunks compressed to "
+              f"{sum(len(s) for s, _ in packed)} bytes, {len(blocks) - len(packed)} stored raw; "
+              f"decompress {rates[name][1]:.1f} MB/s of output", flush=True)
+    phase_done(card, "23a", t_sub)
+
+    # ---- 23b. the h5py-written fixture --------------------------------------------------
+    t_sub = time.perf_counter()
+    spec = importlib.util.spec_from_file_location("_torch_h5_fixture",
+                                                  root / "tests" / "_torch_h5_fixture.py")
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    want = fx.fixture_arrays()
+    with h5py.File(fx.write_fixture(out / "fixture.h5"), "r") as f:
+        ok = sorted(f.keys()) == sorted(want)
+        for k, a in want.items():
+            ok &= np.asarray(f[k]).tobytes() == a.tobytes() \
+                and (f[k].chunks, f[k].compression, f[k].shuffle) == fx.LAYOUT[k]
+    check(ok, f"[lzf] the h5py-written NS store of tests/_torch_h5_fixture.py (chunks of one "
+          f"frame, shuffle, LZF; the noise stored raw) read through {h5py.__name__}: every "
+          "array bit for bit, h5py's chunks and filters")
+    phase_done(card, "23b", t_sub)
+
+    # ---- 23c. the stores read, written again (LZF) and uncompressed ----------------------
+    t_sub = time.perf_counter()
+    x, y, t = (dr["0000"][1][g] for g in "xyt")
+    t0 = time.perf_counter()
+    h5io.write_seed_groups(out / "dr_lzf" / PRIMARY_FILE, {int(k): a for k, (a, _, _) in
+                                                           dr.items()}, x, y, t, dr["0000"][2])
+    dr_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with h5py.File(out / "dr_raw" / PRIMARY_FILE, "w") as f:
+        for k, (a, grid, cfg) in dr.items():
+            f.create_dataset(f"{k}/data", data=a)
+            for g, v in grid.items():
+                f.create_dataset(f"{k}/grid/{g}", data=v)
+            if cfg:
+                f[k].attrs["config"] = cfg
+    dr_raw_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_ns_h5(out / "ns_lzf.h5", ns["velocity"], ns["particles"], ns["force"], ns["t"],
+                json.loads(ns_attrs["config"]))
+    ns_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with h5py.File(out / "ns_raw.h5", "w") as f:
+        for k, a in ns.items():
+            f.create_dataset(k, data=a)
+    ns_raw_write_s = time.perf_counter() - t0
+    reads = {}
+    for name, path, keys in (("DR LZF", out / "dr_lzf" / PRIMARY_FILE, None),
+                             ("DR uncompressed", out / "dr_raw" / PRIMARY_FILE, None),
+                             ("NS LZF", out / "ns_lzf.h5", ns), ("NS uncompressed",
+                                                                 out / "ns_raw.h5", ns)):
+        t0 = time.perf_counter()
+        with h5py.File(path, "r") as f:
+            got = ({k: np.asarray(f[k]) for k in keys} if keys else
+                   {k: np.asarray(f[k]["data"]) for k in sorted(f.keys())})
+        reads[name] = time.perf_counter() - t0
+        ref = ns if keys else {k: a for k, (a, _, _) in dr.items()}
+        check(sorted(got) == sorted(ref) and all(got[k].tobytes() == ref[k].tobytes()
+                                                 for k in ref),
+              f"[lzf] {name} copy read back bit for bit ({path.stat().st_size} bytes)")
+    size = {n: p.stat().st_size for n, p in (
+        ("dr", dr_path), ("dr_lzf", out / "dr_lzf" / PRIMARY_FILE),
+        ("dr_raw", out / "dr_raw" / PRIMARY_FILE), ("ns", ns_path),
+        ("ns_lzf", out / "ns_lzf.h5"), ("ns_raw", out / "ns_raw.h5"))}
+    for name, n_seeds, parts in (
+            ("DR", len(dr), (dr_read_s, dr_write_s, reads["DR LZF"], dr_raw_write_s,
+                             reads["DR uncompressed"], size["dr"], size["dr_lzf"],
+                             size["dr_raw"])),
+            ("NS", ns["velocity"].shape[0], (ns_read_s, ns_write_s, reads["NS LZF"],
+                                             ns_raw_write_s, reads["NS uncompressed"],
+                                             size["ns"], size["ns_lzf"], size["ns_raw"]))):
+        what = "seeds" if name == "DR" else "trajectories"
+        print(f"[timing] {card}: {name} store ({n_seeds} {what}) through {h5py.__name__}: phase {18 if name == 'DR' else 20}'s LZF file read "
+              f"{parts[0]:.3f} s; written again LZF {parts[1]:.3f} s, read {parts[2]:.3f} s; "
+              f"uncompressed written {parts[3]:.3f} s, read {parts[4]:.3f} s; sizes: phase's "
+              f"{parts[5]} bytes, LZF again {parts[6]} bytes, uncompressed {parts[7]} bytes "
+              f"({parts[6] / parts[7]:.3f} of it)", flush=True)
+    phase_done(card, "23c", t_sub)
+
+    # ---- 23d. fused steps from the LZF store and from the uncompressed copy --------------
+    t_sub = time.perf_counter()
+    spectral.set_dft_precision("default")
+    tree = default_init_tree(CC, MODES, WIDTH, T0, seed=23)
+    losses, data, launches = {}, {}, {}
+    for name, d in (("LZF", run_dir / "dr_data"), ("uncompressed", out / "dr_raw")):
+        ds = load_dr_baseline(str(d) + "/", train_subsample=9, initial_step=T0, rollout_test=1,
+                              device=dev)
+        theta, spec = fs.fast_state_from_tree(tree, MODES, dev)
+        opt = fs.init_opt(theta)
+        step, _ = fs.build_fast_baseline_step(MODES, T0, spec, 1e-3, 10_000)
+        data[name] = ds.train.data
+        grid2t = ds.train.grid.permute(2, 0, 1).contiguous()
+        idx = torch.as_tensor(ds.train.window_index()[:B], dtype=torch.long, device=dev)
+        fk.reset_launch_counts()
+        got = []
+        for _ in range(LZF_STEPS):
+            theta, opt, loss, _ = step(theta, opt, data[name], grid2t, idx)
+            got.append(loss)
+        torch.cuda.synchronize()
+        launches[name] = dict(fk.LAUNCHES)
+        losses[name] = [v.item() for v in got]
+    same = bool(torch.equal(data["LZF"], data["uncompressed"]))
+    check(same and losses["LZF"] == losses["uncompressed"]
+          and all(math.isfinite(v) for v in losses["LZF"]),
+          f"[lzf] {LZF_STEPS} fused DR flagship steps from the LZF store and from its "
+          f"uncompressed copy: the same store on the card ({same}), the same losses bit for bit "
+          f"({', '.join(f'{v!r}' for v in losses['LZF'])})")
+    check(all(launches[n][k] > 0 for n in launches for k in fk.KERNEL_NAMES),
+          "[lzf] the steps from each store launched every FNO kernel: "
+          + json.dumps(launches["LZF"]))
+    phase_done(card, "23d", t_sub)
+    phase_done(card, "phase 23", t_phase)
+
+
 def timed_steps_of(build, events: list):
     """``build`` (a trainer's step builder) whose step records a pair of CUDA
     events around each call into ``events``."""
@@ -6153,6 +6399,8 @@ def main() -> int:
     study_launches = study_path(dev, card, run_dir, root)
     for key in fk.KERNEL_NAMES:
         kernel_rows[key]["study_launches"] = study_launches[key]
+    # ---- 23. the compressed HDF5 stores without h5py -------------------------------------
+    lzf_store_path(dev, card, run_dir, root)
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,

@@ -6,7 +6,8 @@ every ``.h5`` file of a folder and returns an item dict per trajectory;
 ``HDF5DataModule`` splits it into contiguous train / val / test ranges and
 yields batches of stacked dicts.  Host-side numpy, for exploratory tools.
 Files open through ``io/h5.py::h5py_module``: h5py, or where it is missing
-the port's own HDF5 subset (``io/hdf5_lite.py``, uncompressed files).
+the port's own HDF5 subset (``io/hdf5_lite.py``, which reads h5py's chunked,
+shuffled LZF and deflate files too).
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ primary file (a strided spatial and temporal subsample; trajectories 0..2
 variants at one budget through the port's production driver
 (``experiments/ns_production.py``), so the only difference is
 ``lie_augment``.  The files go through ``io/h5.py``: h5py where it is
-installed (LZF), else the port's uncompressed subset.
+installed, else the port's subset; LZF either way.
 
   python -m sciml_pde_torch.experiments.ns_lie_toy [--epochs 20] [--stride 4] \\
       [--src data/ns_production/ns_incom_inhom_2d_256-0.h5]

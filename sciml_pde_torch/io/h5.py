@@ -9,9 +9,11 @@ Every HDF5 file of the port is opened through ``h5py_module()``: h5py
 where it is installed, else the port's own subset of the format
 (``io/hdf5_lite.py``), so the simulators, loaders and exports run on a
 host without h5py.  Either is imported inside the functions that use it.
-The subset stores every dataset contiguous and uncompressed: a file
-written where h5py is missing (the card's machine has none) holds the
-schema's groups, datasets and attributes, but no LZF.
+The subset writes the chunked LZF datasets h5py writes for the same calls
+(h5py's chunk shape, shuffle where asked, an incompressible chunk stored
+raw), so a file written where h5py is missing (the card's machine has
+none) is the file h5py would have written, and every file the JAX package
+writes reads there bit for bit.
 """
 
 from __future__ import annotations

@@ -14,6 +14,13 @@ stack frame of each kernel, read by ``ptxas_report``).  ``sass`` reads a
 built library's machine code back (``cuobjdump -sass``) and
 ``memory_order`` the order of each kernel's global loads, stores and f32
 arithmetic in it.
+
+``load_host`` is the route for host C code (the LZF codec of
+``io/csrc/lzf.c``): the system's C compiler (``$CC``, else ``cc``, the
+compiler ``nvcc`` itself calls on the card's machine) with
+``HOST_CFLAGS``, into the same directory under a hashed name, written
+under a temporary name and renamed into place, so processes that build it
+at once each load a whole library.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -34,6 +42,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+HOST_CFLAGS = ("-O2", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -93,6 +103,39 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
+    return lib
+
+
+def host_cc() -> str:
+    for cand in (os.environ.get("CC", ""), "cc", "gcc"):
+        if cand and (path := shutil.which(cand)):
+            return path
+    raise RuntimeError("no C compiler found (cc, gcc; set CC): the host C code cannot be built")
+
+
+def host_library_path(src: Path) -> Path:
+    h = hashlib.sha256(" ".join(HOST_CFLAGS).encode())
+    h.update(Path(src).read_bytes())
+    return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
+
+
+def load_host(src: Path) -> ctypes.CDLL:
+    """The library of the host C source ``src``, compiled first if it is not
+    built.  A failed build raises with the compiler's output."""
+    out = host_library_path(src)
+    lib = _loaded.get(str(out))
+    if lib is None:
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            proc = subprocess.run([host_cc(), *HOST_CFLAGS, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"host C build of {Path(src).name} failed (exit "
+                                   f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        lib = _loaded[str(out)] = ctypes.CDLL(str(out))
     return lib
 
 

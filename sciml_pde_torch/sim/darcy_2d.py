@@ -191,9 +191,8 @@ def generate_darcy_file(
 
 
 def load_pdebench_darcy(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
-    """PDEBench Darcy file -> (a (N,X,Y), u (N,X,Y)) float32.  Through the
-    port's HDF5 subset (no h5py) only an uncompressed file reads: PDEBench's
-    own files are chunked and compressed, and need h5py."""
+    """PDEBench Darcy file -> (a (N,X,Y), u (N,X,Y)) float32, through h5py
+    or the port's HDF5 subset (chunked LZF or deflate files too)."""
     with h5io.h5py_module().File(path, "r") as f:
         a = np.asarray(f["nu"], dtype=np.float32)
         u = np.asarray(f["tensor"], dtype=np.float32)

@@ -483,8 +483,8 @@ def resample_outputs(vel, smk, cfg: Plume3DConfig):
 
 def generate_plume_files(path, seed: int, cfg: Plume3DConfig, suffix: str = "", device=None):
     """Write v_trj_seed{seed}{suffix}.h5 / s_trj_seed{seed}{suffix}.h5, each
-    with one ``data`` dataset (LZF through h5py; uncompressed through the
-    port's HDF5 subset where h5py is missing), from the trajectory of
+    with one ``data`` dataset (LZF with shuffle, through h5py or, where it
+    is missing, the port's HDF5 subset), from the trajectory of
     ``torch.Generator().manual_seed(seed)``."""
     dev = resolve_device(device)
     vel, smk = simulate_plume(torch.Generator().manual_seed(int(seed)), cfg, device=dev)

@@ -122,7 +122,7 @@ def test_export_rollout_trajectories_matches_jax(setup, tmp_path, monkeypatch, l
         with h5py.File(g) as fg, h5py.File(w) as fw:
             assert list(fg.keys()) == list(fw.keys()) == ["data"]
             assert fg["data"].shape == fw["data"].shape == (3, X, X, C)
-            assert fw["data"].compression == "lzf"  # the subset's: uncompressed (io/h5.py)
-            assert fg["data"].compression == (None if lite else "lzf")
+            assert fw["data"].compression == fg["data"].compression == "lzf"
+            assert fg["data"].chunks == fw["data"].chunks
             np.testing.assert_allclose(fg["data"][:], fw["data"][:], rtol=TOL,
                                        atol=TOL * np.abs(fw["data"][:]).max())

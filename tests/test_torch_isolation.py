@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
         "'sciml_pde_torch.sim.ns_incomp_2d', 'sciml_pde_torch.sim.gen_diff_react', "
         "'sciml_pde_torch.experiments.dr_parity', 'sciml_pde_torch.sweep', "
         "'sciml_pde_torch.eval.rollout_experiment', 'sciml_pde_torch.plots.figures', "
-        "'sciml_pde_torch.io.hdf5_lite', 'sciml_pde_torch.sim.ns_plume_3d', "
+        "'sciml_pde_torch.io.hdf5_lite', 'sciml_pde_torch.io.lzf', "
+        "'sciml_pde_torch.io.filters', 'sciml_pde_torch.sim.ns_plume_3d', "
         "'sciml_pde_torch.sim.burgers_1d', 'sciml_pde_torch.sim.darcy_2d', "
         "'sciml_pde_torch.sim.bvp_2d', 'sciml_pde_torch.sim.airfoil_2d', "
         "'sciml_pde_torch.experiments.plume3d_parity', "

@@ -85,8 +85,7 @@ def test_burgers_file_schema(tmp_path, monkeypatch, lite):
         assert sorted(f.keys()) == sorted(g.keys()) and dict(f.attrs) == dict(g.attrs)
         for k in g:
             assert (f[k].shape, f[k].dtype) == (g[k].shape, g[k].dtype), k
-            want = (None, None) if lite else (g[k].chunks, g[k].compression)
-            assert (f[k].chunks, f[k].compression) == want, k
+            assert (f[k].chunks, f[k].compression) == (g[k].chunks, g[k].compression), k
         np.testing.assert_array_equal(f["x-coordinate"][:], g["x-coordinate"][:])
         np.testing.assert_array_equal(f["t-coordinate"][:], g["t-coordinate"][:])
         u = f["tensor"][:]
@@ -172,8 +171,7 @@ def test_darcy_file_schema(tmp_path, monkeypatch, lite):
         assert sorted(f.keys()) == sorted(g.keys()) and dict(f.attrs) == dict(g.attrs)
         for k in g:
             assert (f[k].shape, f[k].dtype) == (g[k].shape, g[k].dtype), k
-            want = (None, None) if lite else (g[k].chunks, g[k].compression)
-            assert (f[k].chunks, f[k].compression) == want, k
+            assert (f[k].chunks, f[k].compression) == (g[k].chunks, g[k].compression), k
         np.testing.assert_array_equal(f["x-coordinate"][:], g["x-coordinate"][:])
     a, u = TD.load_pdebench_darcy(tmp_path / "t.h5")
     aj, uj = JD.load_pdebench_darcy(tmp_path / "t.h5")
@@ -184,6 +182,7 @@ def test_darcy_file_schema(tmp_path, monkeypatch, lite):
     for i in range(3):
         matvec, _ = TD.darcy_operator(_t(a[i:i + 1]), 1.0 / 16)
         assert float((matvec(_t(u[i:i + 1])) - 1.0).abs().max()) < 1e-2
-    if lite:  # h5py's compressed file does not read through the subset
-        with pytest.raises(NotImplementedError):
-            TD.load_pdebench_darcy(tmp_path / "j.h5")
+    if lite:  # h5py's compressed file reads through the subset too
+        for got, want in zip(TD.load_pdebench_darcy(tmp_path / "j.h5"),
+                             JD.load_pdebench_darcy(tmp_path / "j.h5")):
+            np.testing.assert_array_equal(got, want)

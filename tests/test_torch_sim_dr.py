@@ -109,9 +109,8 @@ def test_generate_dataset_matches_jax(tmp_path, sim_type, writer):
         for g in ("x", "y", "t"):
             np.testing.assert_array_equal(got[k][g], want[k][g])
         assert got[k]["attrs"] == want[k]["attrs"]
-        # the subset stores its datasets uncompressed (io/h5.py)
-        assert want[k]["compression"] == "lzf"
-        assert got[k]["compression"] == ("lzf" if writer == "h5py" else None)
+        # LZF through either writer (the subset writes h5py's chunked LZF)
+        assert want[k]["compression"] == got[k]["compression"] == "lzf"
 
 
 @pytest.mark.parametrize("writer", ["h5py", "lite"], indirect=True)
@@ -160,19 +159,16 @@ def test_port_written_store_loads_identically(tmp_path, writer):
     want = jdr.load_dr_baseline(str(tmp_path), train_subsample=9, initial_step=5,
                                 rollout_test=2)
     # and the other way: a JAX-written (h5py, LZF) store through the port's
-    # loader; the subset reads no compressed dataset and says so
+    # loader, which reads it through either reader
     jgen.generate_dataset(tmp_path / "j" / tdr.PRIMARY_FILE, 10, jsim.DiffReactConfig(**SMALL),
                           verbose=False)
     want_j = jdr.load_dr_baseline(str(tmp_path / "j"), train_subsample=9, initial_step=5,
                                   rollout_test=2)
-    if writer == "lite":
-        with pytest.raises(NotImplementedError, match="contiguous ones only"):
-            tdr.load_dr_baseline(str(tmp_path / "j"), train_subsample=9, initial_step=5,
+    got_j = tdr.load_dr_baseline(str(tmp_path / "j"), train_subsample=9, initial_step=5,
                                  rollout_test=2, device="cpu")
-    else:
-        got_j = tdr.load_dr_baseline(str(tmp_path / "j"), train_subsample=9, initial_step=5,
-                                     rollout_test=2, device="cpu")
-        np.testing.assert_array_equal(got_j.train.data.numpy(), np.asarray(want_j.train.data))
+    for split in ("train", "test"):
+        np.testing.assert_array_equal(getattr(got_j, split).data.numpy(),
+                                      np.asarray(getattr(want_j, split).data))
     for split in ("train", "test"):
         g, w = getattr(got, split), getattr(want, split)
         np.testing.assert_array_equal(g.data.numpy(), np.asarray(w.data))

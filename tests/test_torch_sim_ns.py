@@ -282,17 +282,15 @@ def test_ns_file_loads_identically(tmp_path, monkeypatch, lite, chunk):
                 want[0] = (1, 24, 24, 2)
             if chunk and k == "t":
                 want[2] = False
-            if lite:  # the subset stores every dataset contiguous, unfiltered
-                want[:3] = [None, None, False]
             assert [f[k].chunks, f[k].compression, f[k].shuffle, f[k].dtype] == want, k
-    if lite:  # the subset reads its own file as h5py does, and no compressed one
-        path = tmp_path / "ns_incom_inhom_2d_256-0.h5"
-        with hdf5_lite.File(path) as f, h5py.File(path) as g:
-            assert sorted(f.keys()) == sorted(g.keys()) and dict(f.attrs) == dict(g.attrs)
-            for k in g:
-                np.testing.assert_array_equal(np.asarray(f[k]), g[k][:])
-        with hdf5_lite.File(tmp_path / "j.h5") as f, pytest.raises(NotImplementedError):
-            np.asarray(f["velocity"])
+    if lite:  # the subset reads its own file and JAX's as h5py does
+        for path in (tmp_path / "ns_incom_inhom_2d_256-0.h5", tmp_path / "j.h5"):
+            with hdf5_lite.File(path) as f, h5py.File(path) as g:
+                assert sorted(f.keys()) == sorted(g.keys()) and dict(f.attrs) == dict(g.attrs)
+                for k in g:
+                    np.testing.assert_array_equal(np.asarray(f[k]), g[k][:])
+                    assert [f[k].chunks, f[k].compression, f[k].shuffle] == \
+                        [g[k].chunks, g[k].compression, g[k].shuffle], k
     got = tns.load_ns_baseline(str(tmp_path), train_subsample=2, initial_step=2,
                                rollout_test=1, test_range=(250, 251), device="cpu")
     want = jns.load_ns_baseline(str(tmp_path), train_subsample=2, initial_step=2,

@@ -242,8 +242,8 @@ def _write_files(folder, cfg):
 @pytest.mark.parametrize("lite", [False, True])
 def test_plume_files_load_identically(tmp_path, monkeypatch, lite):
     """generate_plume_files's schema as JAX's (``data``: (X, Y, Z, T, 3) and
-    (T, X, Y, Z), LZF with shuffle through h5py; contiguous through the
-    subset); both packages' loaders read the files to the same arrays."""
+    (T, X, Y, Z), LZF with shuffle through h5py and through the subset);
+    both packages' loaders read the files to the same arrays."""
     if lite:
         monkeypatch.setattr(h5io, "h5py_module", lambda: hdf5_lite)
     cfg = T.Plume3DConfig(**FILES)
@@ -254,8 +254,8 @@ def test_plume_files_load_identically(tmp_path, monkeypatch, lite):
     with h5py.File(tmp_path / "v_trj_seed0_interp.h5") as f, \
             h5py.File(tmp_path / "s_trj_seed0_interp.h5") as g:
         assert f["data"].shape == (8, 8, 12, 4, 3) and g["data"].shape == (4, 8, 8, 12)
-        want = [None, None, False] if lite else ["lzf", "lzf", True]
-        assert [f["data"].compression, g["data"].compression, f["data"].shuffle] == want
+        assert [f["data"].compression, g["data"].compression, f["data"].shuffle] == \
+            ["lzf", "lzf", True]
     with h5py.File(tmp_path / "cli" / "v_trj_seed0.h5") as f:
         assert f["data"].shape == (8, 8, 12, 2, 3) and np.isfinite(f["data"][:]).all()
     kw = dict(train_subsample=(1, 1, 3), num_aux_samples=3, initial_step=2, test_seeds=[275])
