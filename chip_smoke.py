@@ -386,6 +386,22 @@ streamed from host RAM, rotated and sharded (ROADMAP A8):
               sizes; d. LZF_STEPS DR flagship fused steps (every FNO
               kernel) from the LZF store and from the uncompressed copy:
               the same losses bit for bit
+ 24. ckpt    the JAX package's checkpoints without orbax (orbax's
+              directory, OCDBT, zarr v2, zstd; utils/orbax_tree.py): a. the
+              host C zstd decoder (io/csrc/zstd.c) on zstandard's frames of
+              tests/_torch_orbax_fixture.py (levels 1, 3, 19, with and
+              without a checksum, one over 128 KiB): the same bytes, its
+              MB/s; b. that file's JAX-written checkpoint (a narrow DR FNO,
+              the production optimizer's state, meta): every leaf against
+              its hash, the forward on the card against JAX's output under
+              `highest` (TOL_CKPT_FORWARD); c. the DR flagship on phase 18's
+              files through run_training, production and fused step: one
+              epoch, the checkpoint read back against the state the trainer
+              wrote (params, optax's moments and counts, meta) bit for bit,
+              two resumes from copies (continue_training) with the same
+              losses bit for bit; d. bytes, write and read seconds of those
+              and of phase 22's DR VideoMAE checkpoint (the reference's
+              width), read, written again and read back bit for bit
 
 Every phase and sub-phase prints its duration on a ``[time]`` line with
 the card's name and power limit.  The probe's row carries phase 0's profiler device time beside torch.mul's.
@@ -2424,7 +2440,7 @@ def transformer_path(dev, card: str, run_dir: Path) -> dict:
     check(hist[-1]["train_loss"] < hist[0]["train_loss"] < hist[0]["first_step_loss"],
           "[train] NS loss falls (first epoch mean below the first step, last epoch mean "
           "below the first)")
-    check((run_dir / "NS_smoke_VMAE_ckpt.pt").exists(), "[train] NS best-val checkpoint written")
+    check((run_dir / "NS_smoke_VMAE_ckpt").exists(), "[train] NS best-val checkpoint written")
     print(f"[train] launches: {json.dumps(att_launches)}", flush=True)
     check_ns_launches("[train] main path", att_launches, micro, val_batches)
 
@@ -2735,7 +2751,7 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
                                             "val_loss")), "[train] production losses finite")
     check(h["last_step_loss"] < h["first_step_loss"] and h["train_loss"] < h["first_step_loss"],
           "[train] production loss falls (last step and epoch mean below the first step)")
-    check((run_dir / "DR_smoke_prod_FNO_ckpt.pt").exists(),
+    check((run_dir / "DR_smoke_prod_FNO_ckpt").exists(),
           "[train] production best-val checkpoint written")
 
     def small(n_t, rollout=1):
@@ -2753,7 +2769,7 @@ def production_path(dev, card: str, run_dir: Path, store, grid, tree, ds) -> dic
     print(f"[train] StepLR (step 3, gamma 0.5), 2 epochs x 5 steps: train/val losses "
           + ", ".join(f"{v:.6g}" for v in losses), flush=True)
     check(len(res.history) == 2 and all(map(math.isfinite, losses))
-          and (run_dir / "DR_smoke_steplr_FNO_ckpt.pt").exists(),
+          and (run_dir / "DR_smoke_steplr_FNO_ckpt").exists(),
           "[train] StepLR run: finite losses and a checkpoint")
     n_t, t_train = 40, T0 + 5
     ar = small(n_t)
@@ -2875,7 +2891,7 @@ def eval_aux_path(dev, card: str, run_dir: Path, store, grid, ds) -> None:
     # ---- the main path's evaluation: the card against the CPU --------------------
     name, cpu_dir = "DR_smoke_FNO", run_dir / "cpu"
     cpu_dir.mkdir(parents=True, exist_ok=True)
-    shutil.copy(run_dir / f"{name}_ckpt.pt", cpu_dir / f"{name}_ckpt.pt")
+    shutil.copytree(run_dir / f"{name}_ckpt", cpu_dir / f"{name}_ckpt", dirs_exist_ok=True)
     test_cpu = WindowedTrajectories(ds.test.data.cpu(), grid, initial_step=T0, train=False)
     kw = dict(modes=MODES, width=WIDTH, batch_size=B, model_name=name)
     # Under `default`, the main path's precision, the card and the CPU round
@@ -2988,7 +3004,7 @@ def eval_aux_path(dev, card: str, run_dir: Path, store, grid, ds) -> None:
     print(f"[aux] train_aux, 2 epochs x {steps} steps + val in {train_s:.3f} s: "
           + "; ".join(f"epoch {h['epoch']} train loss {h['train_loss']:.6g}, val loss "
                       f"{h['val_loss']:.6g}" for h in res.history), flush=True)
-    ckpt = run_dir / "DR_smoke_aux_FNO_ckpt.pt"
+    ckpt = run_dir / "DR_smoke_aux_FNO_ckpt"
     vals = [v for h in res.history for v in (h["train_loss"], h["val_loss"])]
     best = min(res.history, key=lambda h: h["val_loss"])
     ck = restore_checkpoint(ckpt) if ckpt.exists() else {"meta": {}, "params": {}}
@@ -3421,7 +3437,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
     check(hist[-1]["train_loss"] < hist[0]["train_loss"] < hist[0]["first_step_loss"],
           "[aux train] loss falls (first epoch mean below the first step, last epoch mean "
           "below the first)")
-    ck_path = run_dir / "NS_smoke_VMAE_aux_ckpt.pt"
+    ck_path = run_dir / "NS_smoke_VMAE_aux_ckpt"
     check(ck_path.exists() and restore_checkpoint(ck_path)["meta"]["loss"] == res.best_val
           == min(h["val_loss"] for h in hist),
           f"[aux train] the best-primary-val checkpoint written (val {res.best_val:.6g})")
@@ -3564,7 +3580,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
     check(set(dec.values()) == {NS_MODEL["decoder_depth"] * ssl_steps} and enc == 0
           and sum(ssl_shapes.values()) == 3 * NS_MODEL["decoder_depth"] * ssl_steps,
           "[ssl] the decoder's attention through the kernels, the encoder's 320 tokens not")
-    ssl_ck = run_dir / "NS_smoke_VMAE_ssl_ckpt.pt"
+    ssl_ck = run_dir / "NS_smoke_VMAE_ssl_ckpt"
     fresh = to_tree(VideoMAEOperatorAux(**NS_MODEL,
                                         generator=torch.Generator().manual_seed(0)).state_dict())
     loaded, kept = partial_load_counts(fresh, restore_checkpoint(ssl_ck)["params"])
@@ -3641,7 +3657,7 @@ def aux_transformer_path(dev, card: str, run_dir: Path) -> dict:
                           f"{h['val_loss']:.6g}" for h in hs), flush=True)
         check(len(hs) == 2 and all(math.isfinite(h[k]) for h in hs
                                    for k in ("train_loss", "val_loss"))
-              and (run_dir / f"{name}_ckpt.pt").exists(),
+              and (run_dir / f"{name}_ckpt").exists(),
               f"[3d vmae train] {what}: finite losses and a checkpoint")
     launches3 = dict(ta.LAUNCHES)
     print(f"[3d vmae] attention kernel launches {json.dumps(launches3)}: 500 tokens, which "
@@ -3770,7 +3786,7 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
     check(all(math.isfinite(h[k]) for k in ("first_step_loss", "last_step_loss", "train_loss",
                                             "val_loss"))
           and h["last_step_loss"] < h["first_step_loss"]
-          and (run_dir / "NS_smoke_fused_FNO_ckpt.pt").exists(),
+          and (run_dir / "NS_smoke_fused_FNO_ckpt").exists(),
           "[ns train] fused NS epoch: losses finite, the last step below the first, a "
           "best-val checkpoint")
     for key in fk.KERNEL_NAMES:
@@ -3981,7 +3997,7 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     steps = len(awidx) // NSF_AUX_B
-    ck_path = run_dir / "NS_smoke_aux_FNO_ckpt.pt"
+    ck_path = run_dir / "NS_smoke_aux_FNO_ckpt"
     ck = restore_checkpoint(ck_path) if ck_path.exists() else {"meta": {}, "params": {}}
     best = min(res.history, key=lambda hh: hh["val_loss"])
     vals = [v for hh in res.history for v in (hh["train_loss"], hh["val_loss"])]
@@ -4070,7 +4086,7 @@ def ns_fno_path(dev, card: str, run_dir: Path) -> dict:
         check(len(hs) == 2 and all(math.isfinite(v) for hh in hs
                                    for v in (hh["train_loss"], hh["val_loss"]))
               and hs[1]["train_loss"] < hs[0]["train_loss"]
-              and (run_dir / f"{name}_ckpt.pt").exists()
+              and (run_dir / f"{name}_ckpt").exists()
               and all(math.isfinite(ev[k]) for k in METRIC_NAMES),
               f"[ns3d train] {what}: finite losses, the second epoch's train loss below the "
               "first's, a checkpoint, six finite metrics from it")
@@ -4222,7 +4238,7 @@ def data_parity_path(dev, card: str, run_dir: Path) -> dict:
     print(f"[data] 18b in {time.perf_counter() - t_sub:.1f} s", flush=True)
     t_sub = time.perf_counter()
     # ---- 18c. the rollout study through the module and through B1's kernels ------
-    tree = restore_checkpoint(out / "dr_basic_ds2_baseline_ckpt.pt")["params"]
+    tree = restore_checkpoint(out / "dr_basic_ds2_baseline_ckpt")["params"]
     model = FNO2d(2, MODES, MODES, width=WIDTH, initial_step=T0)
     model.load_state_dict(flax_to_state_dict(tree))
     model = model.to(dev).eval()
@@ -5777,6 +5793,192 @@ def lzf_store_path(dev, card: str, run_dir: Path, root: Path) -> None:
     phase_done(card, "phase 23", t_phase)
 
 
+# ---- phase 24: the JAX package's checkpoints without orbax --------------------------------
+# 24a: the C zstd decoder on the frames of tests/_torch_orbax_fixture.py (zstandard's, levels
+# 1, 3, 19, with and without a checksum, one content over 128 KiB), CKPT_ZSTD_REPS passes
+# for its MB/s.  24c: the DR flagship (batch B, 128^2, width WIDTH, modes MODES) on
+# CKPT_TRAJ trajectories of phase 18's DR store, one epoch and two resumes of each step.
+CKPT_ZSTD_REPS, CKPT_TRAJ = 20, 2
+TOL_CKPT_FORWARD = 1e-4  # the fixture's forward on the card against JAX's, `highest`
+
+
+def tree_digests(tree) -> dict:
+    """{dotted path: (dtype, shape, SHA-256 of the bytes)} of every array leaf of
+    a checkpoint tree, as ``save_checkpoint`` stores it (empty leaves left out)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.utils.orbax_tree import flatten
+
+    out = {}
+    for path, leaf in flatten(tree).items():
+        if leaf is None or isinstance(leaf, (tuple, list, dict)):
+            continue
+        a = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+        out[".".join(path)] = (a.dtype.str, a.shape, hashlib.sha256(a.tobytes()).hexdigest())
+    return out
+
+
+def _leaves_by_name(tree) -> dict:
+    """{dotted path: CPU tensor} of a restored checkpoint's array leaves."""
+    from sciml_pde_torch.utils.orbax_tree import flatten
+
+    return {".".join(p): v for p, v in flatten(tree).items()
+            if v is not None and not isinstance(v, (tuple, list, dict))}
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def checkpoint_path(dev, card: str, run_dir: Path, root: Path) -> None:
+    """Phase 24: zstd frames, the JAX package's embedded checkpoint, the flagship's
+    checkpoints through both steps' trainers (bit for bit, resumed twice), and the
+    checkpoint's bytes and seconds at the flagship and at the DR VideoMAE's width."""
+    import hashlib
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sciml_pde_torch.io import zstd
+    from sciml_pde_torch.models.fno import FNO2d
+    from sciml_pde_torch.ops import _build, spectral
+    from sciml_pde_torch.train import fno_train
+    from sciml_pde_torch.utils.checkpoint import restore_checkpoint
+    from sciml_pde_torch.utils.orbax_tree import read_tree, write_tree
+    from sciml_pde_torch.utils.weights import flax_to_state_dict
+
+    t_phase = t_sub = time.perf_counter()
+    out = run_dir / "ckpt"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    spec = importlib.util.spec_from_file_location("_torch_orbax_fixture",
+                                                  root / "tests" / "_torch_orbax_fixture.py")
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+
+    # ---- 24a. the C zstd decoder against zstandard's frames ---------------------------
+    lib = _build.host_library_path(zstd.SOURCE)
+    zstd.library()
+    contents = fx.zstd_contents()
+    ok = True
+    for name, level, checksum, digest, frame in fx.ZSTD_FRAMES:
+        got = zstd.decompress(frame)
+        ok &= got == contents[name] and hashlib.sha256(got).hexdigest() == digest
+    n_out = sum(len(contents[n]) for n, *_ in fx.ZSTD_FRAMES)
+    t0 = time.perf_counter()
+    for _ in range(CKPT_ZSTD_REPS):
+        for *_, frame in fx.ZSTD_FRAMES:
+            zstd.decompress_array(frame)
+    rate = CKPT_ZSTD_REPS * n_out / (time.perf_counter() - t0) / 1e6
+    check(ok and any(len(c) > 128 << 10 for c in contents.values()),
+          f"[ckpt] the C zstd decoder ({lib.name}, built from io/csrc/zstd.c) on "
+          f"{len(fx.ZSTD_FRAMES)} zstandard frames (levels 1, 3, 19, with and without a "
+          "checksum, one content over 128 KiB): the same bytes")
+    print(f"[timing] {card}: zstd decoder (C, host) {rate:.1f} MB/s of output over the "
+          f"{len(fx.ZSTD_FRAMES)} frames ({n_out} bytes, {CKPT_ZSTD_REPS} passes)", flush=True)
+    t_sub = phase_done(card, "24a", t_sub)
+
+    # ---- 24b. the JAX package's embedded checkpoint ------------------------------------
+    tree = restore_checkpoint(fx.write_checkpoint(out / "fixture_ckpt"))
+    got = {k: fx.leaf_digest(k, v.numpy()) for k, v in _leaves_by_name(tree).items()}
+    model = FNO2d(**fx.MODEL)
+    model.load_state_dict(flax_to_state_dict(tree["params"]))
+    x, grid = fx.fixture_input()
+    prev = spectral.get_dft_precision()
+    spectral.set_dft_precision("highest")
+    try:
+        with torch.no_grad():
+            y = model.to(dev)(torch.as_tensor(x, device=dev), torch.as_tensor(grid, device=dev))
+    finally:
+        spectral.set_dft_precision(prev)
+    err, rel = rel_err(y.cpu(), torch.as_tensor(fx.output()))
+    check(got == fx.LEAVES, f"[ckpt] the JAX package's orbax checkpoint of "
+          f"tests/_torch_orbax_fixture.py (a width-8 DR FNO, the production optimizer's "
+          f"state, meta): {len(got)} leaves bit for bit against their recorded hashes")
+    check(bool(torch.isfinite(y).all()) and rel <= TOL_CKPT_FORWARD,
+          f"[ckpt] its parameters' forward on the card against JAX's stored output under "
+          f"`highest`: {rel:.2e} of the largest magnitude (bound {TOL_CKPT_FORWARD})")
+    t_sub = phase_done(card, "24b", t_sub)
+
+    # ---- 24c. the flagship's checkpoint through both steps' trainers --------------------
+    saved = []
+    writer = fno_train.save_checkpoint
+
+    def recording_save(path, params, opt_state, epoch, loss):
+        t0 = time.perf_counter()
+        writer(path, params, opt_state, epoch, loss)
+        saved.append((Path(path), time.perf_counter() - t0, tree_digests(
+            {"params": params, "opt_state": opt_state,
+             "meta": {"epoch": np.asarray(int(epoch)), "loss": np.asarray(float(loss))}})))
+
+    kw = dict(base_path=str(run_dir / "dr_data") + "/", train_subsample=CKPT_TRAJ,
+              initial_step=T0, modes=MODES, width=WIDTH, batch_size=B, log_every=0,
+              seed=0, if_aux=False, device=dev)
+    sizes = {}
+    fno_train.save_checkpoint = recording_save
+    try:
+        for step in ("production", "fused"):
+            saved.clear()
+            d = out / step
+            res = fno_train.run_training(run_dir=str(d), model_name="ck", epochs=1,
+                                         fast_step=step == "fused", **kw)
+            path, write_s, want = saved[-1]
+            t0 = time.perf_counter()
+            back = restore_checkpoint(path)
+            read_s = time.perf_counter() - t0
+            got = tree_digests(back)
+            final = tree_digests({"params": res.params})
+            check(got == want and all(got[k] == v for k, v in final.items()),
+                  f"[ckpt] {step} step, one epoch through run_training: the checkpoint "
+                  f"read back against the trainer's best state as it wrote it, {len(got)} "
+                  "leaves (params, optax's moments and counts, meta) bit for bit, and its "
+                  "params against the trained tree")
+            hist = []
+            for r in (1, 2):
+                shutil.copytree(d, out / f"{step}_resume{r}")
+                hist.append(fno_train.run_training(
+                    run_dir=str(out / f"{step}_resume{r}"), model_name="ck", epochs=2,
+                    continue_training=True, fast_step=step == "fused", **kw).history)
+            check(hist[0] == hist[1] and [h["epoch"] for h in hist[0]] == [0, 1]
+                  and all(math.isfinite(h["val_loss"]) for h in hist[0]),
+                  f"[ckpt] {step} step resumed twice from copies of that directory "
+                  "(continue_training): the same losses bit for bit, "
+                  + ", ".join(f"{h['train_loss']:.6g}/{h['val_loss']:.6g}" for h in hist[0]))
+            sizes[f"DR flagship, {step} step"] = (dir_bytes(path), write_s, read_s, len(got))
+    finally:
+        fno_train.save_checkpoint = writer
+    t_sub = phase_done(card, "24c", t_sub)
+
+    # ---- 24d. bytes and seconds: the flagship, the DR VideoMAE at the reference width ---
+    vmae = (run_dir / "study").resolve() / "dt" / "vmae_dr_basic_ds2_baseline_ckpt"
+    t0 = time.perf_counter()
+    big = read_tree(vmae)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_tree(out / "vmae_copy_ckpt", big)
+    write_s = time.perf_counter() - t0
+    copy = _leaves_by_name(read_tree(out / "vmae_copy_ckpt"))
+    leaves = _leaves_by_name(big)
+    same = copy.keys() == leaves.keys() and all(
+        copy[k].dtype == v.dtype and torch.equal(copy[k], v) for k, v in leaves.items())
+    check(same, f"[ckpt] phase 22's DR VideoMAE checkpoint (the reference's width) read, "
+          "written again and read back: every leaf bit for bit")
+    sizes["DR VideoMAE, reference width (phase 22)"] = (dir_bytes(vmae), write_s, read_s,
+                                                        len(leaves))
+    del big, copy, leaves
+    for what, (n, w, r, leaves) in sizes.items():
+        print(f"[timing] {card}: checkpoint of the {what}: {n} bytes, {leaves} leaves; "
+              f"write {w:.3f} s ({n / w / 1e6:.1f} MB/s), read {r:.3f} s "
+              f"({n / r / 1e6:.1f} MB/s), warm page cache", flush=True)
+    phase_done(card, "24d", t_sub)
+    phase_done(card, "phase 24 (checkpoints)", t_phase)
+
+
 def timed_steps_of(build, events: list):
     """``build`` (a trainer's step builder) whose step records a pair of CUDA
     events around each call into ``events``."""
@@ -5884,7 +6086,7 @@ def study_path(dev, card: str, run_dir: Path, root: Path) -> dict:
               + ", ".join(f"{v:.5f}" for v in row.get("rollout_nrmse", []))
               + (f", SWA {', '.join(f'{v:.5f}' for v in row['swa_rollout_nrmse'])}"
                  if row.get("swa_rollout_nrmse") else "") + " finite")
-    ckpt = out / "dt" / "vmae_dr_basic_ds2_baseline_ckpt.pt"
+    ckpt = out / "dt" / "vmae_dr_basic_ds2_baseline_ckpt"
     params, _ = restore_params(ckpt)
     width_flags = argparse.ArgumentParser()
     _dr_vmae.add_width_args(width_flags)
@@ -6307,7 +6509,7 @@ def main() -> int:
     check(finite, "[train] losses finite")
     check(h["last_step_loss"] < h["first_step_loss"] and h["train_loss"] < h["first_step_loss"],
           "[train] loss falls (last step and epoch mean below the first step)")
-    check((run_dir / "DR_smoke_FNO_ckpt.pt").exists(), "[train] best-val checkpoint written")
+    check((run_dir / "DR_smoke_FNO_ckpt").exists(), "[train] best-val checkpoint written")
     print(f"[train] launches: {json.dumps(launches)}", flush=True)
     for key in fk.KERNEL_NAMES:
         kernel_rows[key]["launches"] = launches[key]
@@ -6401,6 +6603,8 @@ def main() -> int:
         kernel_rows[key]["study_launches"] = study_launches[key]
     # ---- 23. the compressed HDF5 stores without h5py -------------------------------------
     lzf_store_path(dev, card, run_dir, root)
+    # ---- 24. the JAX package's checkpoints without orbax ---------------------------------
+    checkpoint_path(dev, card, run_dir, root)
     kernel_rows["probe"] = {
         "name": "probe", "route": "cuda", "source": "sciml_pde_torch/ops/csrc/probe.cu",
         "replaces": PROBE_SITE, "launches": probe_launches,

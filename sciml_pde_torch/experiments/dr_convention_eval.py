@@ -11,7 +11,7 @@ val metric (``train_transformer_rd.py:64-70``) is nRMSE normalised jointly
 over (C, H, W).
 
 This diagnostic rolls trained checkpoints (``dr_transformer``'s
-``vmae_dr_{key}_ckpt.pt``) out from the t0 test window in bf16 and reports
+``vmae_dr_{key}_ckpt``) out from the t0 test window in bf16 and reports
 the rollout-k tables under all four conventions:
 
   joint  x {final step, all unrolled steps}   (trainer val metric)
@@ -77,8 +77,8 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data", default="data/")
     p.add_argument("--ckpts", nargs="+", default=[
-        "baseline=runs/dr_transformer_r2/vmae_dr_basic_ds8_baseline_ckpt.pt",
-        "aux=runs/dr_transformer_r2/vmae_dr_basic_ds8_aux_v2_ckpt.pt",
+        "baseline=runs/dr_transformer_r2/vmae_dr_basic_ds8_baseline_ckpt",
+        "aux=runs/dr_transformer_r2/vmae_dr_basic_ds8_aux_v2_ckpt",
     ], help="name=path pairs; name picks the published row to compare")
     _dr_vmae.add_width_args(p)
     p.add_argument("--rollout", type=int, default=5)

@@ -7,7 +7,7 @@ per-(sample, channel) input normalisation is ill-conditioned, are only
 ~1/91st of the training distribution, so the regime is under-trained.
 
 This script restores the trained baseline checkpoint (``dr_transformer``'s
-``vmae_dr_{key}_ckpt.pt``), fine-tunes for a few epochs on windows with
+``vmae_dr_{key}_ckpt``), fine-tunes for a few epochs on windows with
 t0 <= --t0-max only (the reference objective: sqrt joint-channel nRMSE +
 0.1 relative FFT; optax's ``chain(clip_by_global_norm(1.0),
 adamw(cosine_decay_schedule(lr, steps), weight_decay=0.05))``), and
@@ -71,7 +71,7 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data", default="data/")
     p.add_argument("--ckpt",
-                   default="runs/dr_transformer_r2/vmae_dr_basic_ds8_baseline_ckpt.pt")
+                   default="runs/dr_transformer_r2/vmae_dr_basic_ds8_baseline_ckpt")
     _dr_vmae.add_width_args(p)
     p.add_argument("--n-train", type=int, default=8)
     p.add_argument("--t0-max", type=int, default=12)

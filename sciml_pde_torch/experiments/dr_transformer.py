@@ -10,7 +10,7 @@ mid-size configuration; the full-size study is driven through the flags:
       --epochs 60 --encoder-dim 1024 --encoder-depth 16 --encoder-heads 16 \\
       --decoder-dim 512 --decoder-depth 8 --batch-size 2 --grad-accum 2
 
-Each variant's best-val checkpoint (``{out}/vmae_dr_{key}_ckpt.pt``) is
+Each variant's best-val checkpoint (``{out}/vmae_dr_{key}_ckpt``) is
 scored at rollout horizons 1..5 (and the SWA weights where the aux recipe
 keeps them) into ``summary.json``, with JAX's keys.  Runs on the card;
 ``--device cpu`` runs the plain PyTorch versions on the CPU.
@@ -106,7 +106,7 @@ def main(argv=None):
     dtype = _dr_vmae.dtype_of(a.precision)
     for variant in a.variants:
         key = f"{a.dataset}_{variant}{('_' + a.tag) if a.tag else ''}"
-        ckpt = out / f"vmae_dr_{key}_ckpt.pt"
+        ckpt = out / f"vmae_dr_{key}_ckpt"
         t0 = time.time()
         res = None
         if a.eval_only:

@@ -2,7 +2,7 @@
 (port of the JAX package's ``experiments/dr_vchannel_diag.py``).
 
 Evaluates a trained checkpoint (``dr_transformer``'s
-``vmae_dr_{key}_ckpt.pt``) under both inference dtypes (bf16 / fp32) and
+``vmae_dr_{key}_ckpt``) under both inference dtypes (bf16 / fp32) and
 reports the per-channel nRMSE and the target's per-channel RMS at each
 rollout horizon, from the reference's t0 = 0 test window (utils.py:
 if_test -> (seed, 0)) and, for contrast, from a late window (t0 = 20) where
@@ -45,7 +45,7 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data", default="data/")
     p.add_argument("--ckpt",
-                   default="runs/dr_transformer_r2/vmae_dr_basic_ds8_baseline_ckpt.pt")
+                   default="runs/dr_transformer_r2/vmae_dr_basic_ds8_baseline_ckpt")
     _dr_vmae.add_width_args(p)
     p.add_argument("--rollout", type=int, default=3)
     p.add_argument("--t0", type=int, nargs="+", default=[0, 20])

@@ -105,7 +105,7 @@ def main(argv=None):
     p.add_argument("--skip-gen", action="store_true")
     p.add_argument("--eval-only", action="store_true",
                    help="skip training: restore the best-val checkpoint "
-                        "(<out>/ns_prod_<variant><tag>_ckpt.pt) and write the "
+                        "(<out>/ns_prod_<variant><tag>_ckpt) and write the "
                         "rollout table")
     p.add_argument("--continue-training", action="store_true")
     p.add_argument("--variants", nargs="+", default=["baseline", "aux"],
@@ -167,7 +167,7 @@ def main(argv=None):
         t0 = time.time()
         name = f"ns_prod_{variant}{tag}"
         if a.eval_only:
-            ck = restore_checkpoint(out / f"{name}_ckpt.pt")
+            ck = restore_checkpoint(out / f"{name}_ckpt")
             params, best_val = ck["params"], float(ck["meta"]["loss"])
             print(f"{variant}: restored ckpt best_val={best_val:.6f}", flush=True)
             train_s = 0.0

@@ -114,7 +114,7 @@ def main(argv=None):
     results = json.loads(summary_path.read_text()) if summary_path.exists() else {}
     for variant in a.variants:
         key = f"ns_{variant}{('_' + a.tag) if a.tag else ''}"
-        ckpt = out / f"vmae_{key}_ckpt.pt"
+        ckpt = out / f"vmae_{key}_ckpt"
         t0 = time.time()
         res = None
         if a.eval_only:

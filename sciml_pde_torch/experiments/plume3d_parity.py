@@ -180,7 +180,7 @@ def main(argv=None):
             num_aux_samples=a.n_aux_per, initial_step=a.initial_step,
             rollout_test=5, test_seeds=range(*test_range), with_aux=False, device=dev,
         )
-        params, best_val = restore_params(out / f"{name}_ckpt.pt")
+        params, best_val = restore_params(out / f"{name}_ckpt")
         family = _Family("transformer3d" if is_tf else "fno", tf_kwargs if is_tf else None,
                          ds.primary_test, 4, a.modes, a.width, a.initial_step, aux=if_aux)
         model = family.model()

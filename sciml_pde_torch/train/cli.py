@@ -40,6 +40,7 @@ import os
 import sys
 
 from sciml_pde_torch.utils.config import load_config
+from sciml_pde_torch.utils.logging import print_line
 
 
 def _call_with_supported(fn, args: dict, override_keys=(), **extra):
@@ -69,7 +70,7 @@ def _fno(argv, if_aux: bool):
     cfg, keys = _parse(argv)
     # the subcommand picks the branch whatever the config says, as in the JAX CLI
     res = _call_with_supported(run_training, {**cfg, "if_aux": if_aux}, keys)
-    print(f"best_val={res.best_val:.6g}", flush=True)
+    print_line(f"best_val={res.best_val:.6g}")
     return res
 
 
@@ -95,7 +96,7 @@ def main_transformer(argv=None):
             cfg[dst] = cfg.pop(src)
     keys = [_TRANSFORMER_ALIASES.get(k, k) for k in keys]
     res = _call_with_supported(run_transformer_training, cfg, keys)
-    print(f"best_val={res.best_val:.6g}", flush=True)
+    print_line(f"best_val={res.best_val:.6g}")
     return res
 
 

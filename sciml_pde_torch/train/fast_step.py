@@ -74,6 +74,67 @@ def init_opt(theta: torch.Tensor) -> FlatOptState:
     return FlatOptState(torch.zeros_like(theta), torch.zeros_like(theta), 0)
 
 
+def _pad8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _jax_shapes(spec: FlatSpec) -> list[tuple]:
+    """The JAX package's FastFNOParams shapes for the port's ``spec``: its
+    mode-mix blocks (wmr, wmi) are zero-padded to (L, C, O, ceil8(m2),
+    ceil8(2 m1)) for its kernels' tiles; the other fields are the same."""
+    out = [tuple(s) for s in spec.shapes]
+    for i in (0, 1):
+        *lead, k, r = out[i]
+        out[i] = (*lead, _pad8(k), _pad8(r))
+    return out
+
+
+def to_jax_packing(flat: torch.Tensor, spec: FlatSpec) -> torch.Tensor:
+    """A flat vector in the port's packing (theta, or a moment of it) in the
+    JAX package's: the mode-mix blocks padded with zeros (the pad slots of
+    JAX's theta and moments hold exact zeros)."""
+    parts = []
+    for a, shape in zip(unflatten_params(flat.detach(), spec), _jax_shapes(spec)):
+        if tuple(a.shape) != shape:
+            a = torch.nn.functional.pad(a, (0, shape[-1] - a.shape[-1], 0,
+                                            shape[-2] - a.shape[-2]))
+        parts.append(a.reshape(-1))
+    return torch.cat(parts)
+
+
+def from_jax_packing(flat, spec: FlatSpec) -> torch.Tensor:
+    """``to_jax_packing`` undone: the pad slots dropped."""
+    flat = flat if isinstance(flat, torch.Tensor) else torch.from_numpy(np.array(flat))
+    shapes = _jax_shapes(spec)
+    sizes = [int(np.prod(s)) for s in shapes]
+    if flat.numel() != sum(sizes):
+        raise ValueError(f"a flat state of {flat.numel()} values is not the packing of these "
+                         f"parameters ({sum(sizes)})")
+    parts, off = [], 0
+    for shape, size, want in zip(shapes, sizes, spec.shapes):
+        a = flat[off:off + size].view(shape)
+        parts.append(a[..., :want[-2], :want[-1]].reshape(-1) if len(shape) == 5
+                     else a.reshape(-1))
+        off += size
+    return torch.cat(parts)
+
+
+def opt_tree(opt: FlatOptState, spec: FlatSpec) -> dict:
+    """The state as the JAX package's checkpoints hold its ``FlatOptState``:
+    the flat moments in JAX's packing of theta, the count an int32."""
+    return {"m": to_jax_packing(opt.m, spec).cpu(), "v": to_jax_packing(opt.v, spec).cpu(),
+            "count": np.asarray(int(opt.count), np.int32)}
+
+
+def opt_from_tree(tree, spec: FlatSpec, device=None) -> FlatOptState:
+    """``opt_tree`` read back (a ValueError for another optimizer's state)."""
+    if not (isinstance(tree, dict) and set(tree) == {"m", "v", "count"}):
+        raise ValueError("the checkpoint's optimizer state is the production step's (a run "
+                         "resumes with the fast_step setting it started with)")
+    return FlatOptState(from_jax_packing(tree["m"], spec).to(device),
+                        from_jax_packing(tree["v"], spec).to(device), int(tree["count"]))
+
+
 def cosine_lr(base_lr: float, total_steps: int):
     def sched(count: int) -> float:
         frac = min(max(count / max(total_steps, 1), 0.0), 1.0)

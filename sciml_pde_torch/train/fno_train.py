@@ -54,7 +54,7 @@ flushed at the end.  ``utils/logging.py::MetricLogger`` writes
 
 ``if_training=False`` evaluates instead (``evaluate_checkpoint``, which
 takes the test split in memory): it restores
-``{run_dir}/{model_name}_ckpt.pt``, unrolls ``rollout_test`` steps over the
+``{run_dir}/{model_name}_ckpt``, unrolls ``rollout_test`` steps over the
 test split, and writes the six metrics to ``{model_name}.pickle`` and the
 RMSE of each step to ``{model_name}_mse_time.npz``, as JAX writes them,
 and with ``plot`` the field render ``{model_name}_pred.png``.
@@ -470,9 +470,13 @@ class _ProductionRun:
     def tree(self, params=None) -> dict:
         return self.to_tree(self.params if params is None else params)
 
+    def opt_tree(self, state: dict):
+        """A ``snapshot``'s optimizer state as optax's tree."""
+        return self.opt.optax_tree(state, self.to_tree)
+
     def restore(self, ck) -> None:
         self.model.load_state_dict(self.to_sd(ck["params"]))
-        self.opt.load_state_dict(ck["opt_state"])
+        self.opt.load_state_dict(self.opt.state_from_optax(ck["opt_state"], self.to_sd))
 
 
 class _FusedRun:
@@ -507,13 +511,12 @@ class _FusedRun:
         return tree_map(lambda t: t.cpu().numpy(),
                         fs.tree_from_fast_state(theta, self.spec, self.modes))
 
+    def opt_tree(self, state: dict) -> dict:
+        return fs.opt_tree(fs.FlatOptState(state["m"], state["v"], state["count"]), self.spec)
+
     def restore(self, ck) -> None:
-        o = ck["opt_state"]
-        if not isinstance(o["m"], torch.Tensor):
-            raise ValueError("the checkpoint's optimizer state is the production step's (a run "
-                             "resumes with the fast_step setting it started with)")
+        self.opt = fs.opt_from_tree(ck["opt_state"], self.spec, self.dev)
         self.theta, _ = fs.fast_state_from_tree(ck["params"], self.modes, self.dev)
-        self.opt = fs.FlatOptState(o["m"].to(self.dev), o["v"].to(self.dev), int(o["count"]))
 
 
 def _fit(run, place: Placement, test_w: WindowedTrajectories, *, batch_size: int,
@@ -523,7 +526,7 @@ def _fit(run, place: Placement, test_w: WindowedTrajectories, *, batch_size: int
     """The epoch loop of every step: batches from
     ``numpy.random.default_rng(seed)`` (or the host loader, seeded the same),
     validation every ``model_update`` epochs, best-validation checkpoints at
-    ``{run_dir}/{model_name}_ckpt.pt``.  Host batches reach the card through
+    ``{run_dir}/{model_name}_ckpt``.  Host batches reach the card through
     a ``PinnedRing`` with at most ``STREAM_PIPELINE`` steps in flight; a
     rotating pool loads the slice of each epoch first.  Over several ranks
     each takes its rows of every batch (``shard_batch``), the losses are
@@ -534,7 +537,7 @@ def _fit(run, place: Placement, test_w: WindowedTrajectories, *, batch_size: int
     rng = np.random.default_rng(seed)
     train_idx, test_idx = place.train_idx, test_w.window_index()
     dev = test_w.data.device
-    ckpt_path = Path(run_dir) / f"{model_name}_ckpt.pt"
+    ckpt_path = Path(run_dir) / f"{model_name}_ckpt"
     best_val, start_epoch = math.inf, 0
     if continue_training and ckpt_path.exists():
         ck = restore_checkpoint(ckpt_path)
@@ -543,7 +546,7 @@ def _fit(run, place: Placement, test_w: WindowedTrajectories, *, batch_size: int
 
     def save(state, ep, val):
         if lead:
-            save_checkpoint(ckpt_path, run.tree(state[0]), state[1], ep, val)
+            save_checkpoint(ckpt_path, run.tree(state[0]), run.opt_tree(state[1]), ep, val)
 
     ring, inflight = PinnedRing(dev), InFlight(dev)
     n_data = mesh.shape["data"]
@@ -834,7 +837,7 @@ def evaluate_checkpoint(
     device=None,
 ) -> FNOTrainResult:
     """The evaluation branch on an in-memory test split: restore
-    ``{run_dir}/{model_name}_ckpt.pt`` (written by any of the three steps),
+    ``{run_dir}/{model_name}_ckpt`` (written by any of the three steps),
     unroll ``rollout_test`` steps over ``test`` in batches of
     ``batch_size``, and write
 
@@ -856,7 +859,7 @@ def evaluate_checkpoint(
     test = WindowedTrajectories(test.data.to(dev), test.grid.to(dev),
                                 initial_step=test.initial_step, rollout=rollout_test,
                                 train=False)
-    ck = restore_checkpoint(Path(run_dir) / f"{model_name}_ckpt.pt")
+    ck = restore_checkpoint(Path(run_dir) / f"{model_name}_ckpt")
     family = _Family(model_family, transformer_kwargs, test, test.data.shape[-1], modes, width,
                      test.initial_step, aux=if_aux)
     model = family.model()

@@ -31,8 +31,15 @@ L2 before the moments, and the running maximum taken of the
 bias-corrected second moment (optax's rule; ``torch.optim.Adam(amsgrad=
 True)`` maxes the raw one).  ``warmup_cosine_decay_schedule`` is optax's.
 
-``TorchAdam`` and ``GroupedAdamMultiSteps`` share ``adam_update_``.  Schedules
-are plain functions of the update count.  The optimizers are plain tensor code (``torch._foreach_*`` over the
+``TorchAdam`` and ``GroupedAdamMultiSteps`` share ``adam_update_``.  Each
+optimizer's ``optax_tree(state, to_tree)`` is its ``state_dict()`` as the
+JAX package's checkpoints hold it -- optax's state tree of the same
+chain, nested dicts (named fields) and lists (chain elements) with None
+for optax's empty states and masked leaves -- and ``state_from_optax(tree,
+to_sd)`` reads one back; ``to_tree`` and ``to_sd`` are the parameters'
+layout maps (``utils/weights.py``), which carry each moment as they carry
+its parameter (Adam is elementwise).  Schedules are plain functions of
+the update count.  The optimizers are plain tensor code (``torch._foreach_*`` over the
 parameter lists) that never waits for the device, as in the JAX package,
 where they are XLA and not kernels.
 """
@@ -42,10 +49,61 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def _count(n) -> np.ndarray:
+    return np.asarray(int(n), np.int32)  # optax's step counts
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _masked(sd: dict, groups: dict[str, list[str]], to_tree) -> dict:
+    """{group: the flax tree of ``sd`` with None at every other group's
+    parameters} (optax ``masked``'s ``MaskedNode``), the groups found by
+    carrying each parameter's group index through ``to_tree``."""
+    full = to_tree(sd)
+    label = to_tree({n: torch.full(tuple(sd[n].shape), float(i)) for i, names in
+                     enumerate(groups.values()) for n in names})
+    first = lambda a: float(np.asarray(a).reshape(-1)[0])  # noqa: E731
+    return {g: _tree_map(lambda a, lab, i=i: a if first(lab) == i else None, full, label)
+            for i, g in enumerate(groups)}
+
+
+def _merged(trees: list) -> dict:
+    return _tree_map(lambda *leaves: next(x for x in leaves if x is not None), *trees)
+
+
+def _adam(m, v, count) -> dict:
+    return {"count": _count(count), "mu": m, "nu": v}
+
+
+def _partition(state: dict, groups: dict[str, list[str]], to_tree) -> list:
+    """optax ``chain(clip, multi_transform({group: chain(L2, adam, lr)}))``'s
+    state: an empty clip state, then per group the masked chain's."""
+    mu, nu = _masked(state["m"], groups, to_tree), _masked(state["v"], groups, to_tree)
+    return [None, {"inner_states": {
+        g: {"inner_state": [None, _adam(mu[g], nu[g], state["count"]),
+                            {"count": _count(state["count"])}]} for g in groups}}]
+
+
+def _from_partition(tree, groups, to_sd) -> dict:
+    adams = [tree[1]["inner_states"][g]["inner_state"][1] for g in groups]
+    return {"m": to_sd(_merged([a["mu"] for a in adams])),
+            "v": to_sd(_merged([a["nu"] for a in adams])), "count": int(adams[0]["count"])}
+
+
+def _wrong_state(kind: str) -> ValueError:
+    return ValueError(f"the optimizer state is not the {kind} optimizer's (a run resumes "
+                      f"with the optimizer and fast_step setting it started with)")
 
 
 def make_lr_schedule(kind: str, learning_rate: float, total_steps: int,
@@ -209,12 +267,31 @@ class TorchAdam:
 
     def load_state_dict(self, state: dict) -> None:
         if not isinstance(state.get("m"), dict):
-            raise ValueError("the optimizer state is not the production optimizer's (a run "
-                             "resumes with the fast_step setting it started with)")
+            raise _wrong_state("production")
         for key in ("m", "v"):
             for n, t in state[key].items():
                 getattr(self, key)[n].copy_(t)
         self.count = int(state["count"])
+
+    def optax_tree(self, state: dict, to_tree) -> list:
+        """optax's state of ``_torch_adam`` (one group) -- (clip, L2,
+        ScaleByAdamState, ScaleByScheduleState) -- or of
+        ``make_grouped_optimizer``'s chain."""
+        if list(self.groups) == ["all"]:
+            return [None, None, _adam(to_tree(state["m"]), to_tree(state["v"]), state["count"]),
+                    {"count": _count(state["count"])}]
+        return _partition(state, self.groups, to_tree)
+
+    def state_from_optax(self, tree, to_sd) -> dict:
+        try:
+            if list(self.groups) == ["all"]:
+                if len(tree) != 4:
+                    raise _wrong_state("production")
+                a = tree[2]
+                return {"m": to_sd(a["mu"]), "v": to_sd(a["nu"]), "count": int(a["count"])}
+            return _from_partition(tree, self.groups, to_sd)
+        except (KeyError, IndexError, TypeError):
+            raise _wrong_state("production") from None
 
 
 def make_optimizer(params: dict[str, torch.Tensor], learning_rate: float, total_steps: int,
@@ -312,6 +389,28 @@ class GroupedAdamMultiSteps:
                 getattr(self, key)[n].copy_(t)
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
 
+    def optax_tree(self, state: dict, to_tree):
+        """optax's state of ``make_transformer_optimizer``'s chain, inside
+        ``MultiStepsState`` where ``grad_accum`` > 1."""
+        inner = _partition(state, self.groups, to_tree)
+        if self.k == 1:
+            return inner
+        return {"mini_step": _count(state["mini_step"]), "gradient_step": _count(state["count"]),
+                "inner_opt_state": inner, "acc_grads": to_tree(state["acc"]), "skip_state": ()}
+
+    def state_from_optax(self, tree, to_sd) -> dict:
+        try:
+            if self.k == 1:
+                if not isinstance(tree, list):
+                    raise _wrong_state("transformer")
+                st = _from_partition(tree, self.groups, to_sd)
+                return dict(st, acc={n: torch.zeros_like(t) for n, t in st["m"].items()},
+                            mini_step=0)
+            st = _from_partition(tree["inner_opt_state"], self.groups, to_sd)
+            return dict(st, acc=to_sd(tree["acc_grads"]), mini_step=int(tree["mini_step"]))
+        except (KeyError, IndexError, TypeError):
+            raise _wrong_state("transformer") from None
+
 
 class AdamW:
     """optax ``adamw(schedule, weight_decay=wd)`` on named parameters, in
@@ -351,6 +450,27 @@ class AdamW:
 
     def state_dict(self) -> dict:
         return {"m": dict(self.m), "v": dict(self.v), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        for key in ("m", "v"):
+            for n, t in state[key].items():
+                getattr(self, key)[n].copy_(t)
+        self.count = int(state["count"])
+
+    def optax_tree(self, state: dict, to_tree) -> list:
+        """optax ``adamw``'s state: (ScaleByAdamState, the decay's empty
+        state, ScaleByScheduleState); under ``clip`` the clip's empty state
+        comes first, as in ``chain(clip_by_global_norm, adamw)``."""
+        tree = [_adam(to_tree(state["m"]), to_tree(state["v"]), state["count"]), None,
+                {"count": _count(state["count"])}]
+        return tree if self.clip is None else [None, tree]
+
+    def state_from_optax(self, tree, to_sd) -> dict:
+        try:
+            a = (tree if self.clip is None else tree[1])[0]
+            return {"m": to_sd(a["mu"]), "v": to_sd(a["nu"]), "count": int(a["count"])}
+        except (KeyError, IndexError, TypeError):
+            raise _wrong_state("AdamW") from None
 
 
 class AMSGrad:

@@ -6,7 +6,7 @@ the visible ones, decodes them with a mask token at every masked position
 and takes the MSE of ``head_ssl``'s pixels against the masked tokens of the
 normalised window.  The optimizer is optax ``adamw`` on a cosine decay over
 all steps (``train/optim.py::AdamW``).  The checkpoint
-``{run_dir}/{model_name}_ckpt.pt`` holds the parameters the masked branch
+``{run_dir}/{model_name}_ckpt`` holds the parameters the masked branch
 uses (the flax tree of an SSL init: no ``head``), which the operator
 trainers overlay through ``pretrained_path``.
 
@@ -125,6 +125,7 @@ def run_ssl_pretraining(
                 logger.log(gstep, ssl_loss=float(loss), epoch=ep)
         history.append({"epoch": ep, "ssl_loss": float(loss)})
     tree = transformer_state_dict_to_flax(params)
-    save_checkpoint(Path(run_dir) / f"{model_name}_ckpt.pt", tree, opt.state_dict(), epochs,
+    save_checkpoint(Path(run_dir) / f"{model_name}_ckpt", tree,
+                    opt.optax_tree(opt.state_dict(), transformer_state_dict_to_flax), epochs,
                     float(loss))
     return tree, history

@@ -448,12 +448,12 @@ def _train(
             return loss, g_norm
         val = lambda idx: val_a(test_w.data, idx)  # noqa: E731
 
-    ckpt_path = Path(run_dir) / f"{model_name}_ckpt.pt"
+    ckpt_path = Path(run_dir) / f"{model_name}_ckpt"
     best_val, start_epoch = math.inf, 0
     if continue_training and ckpt_path.exists():
         ck = restore_checkpoint(ckpt_path)
         model.load_state_dict(transformer_flax_to_state_dict(ck["params"]))
-        opt.load_state_dict(ck["opt_state"])
+        opt.load_state_dict(opt.state_from_optax(ck["opt_state"], transformer_flax_to_state_dict))
         start_epoch, best_val = int(ck["meta"]["epoch"]), float(ck["meta"]["loss"])
 
     def snapshot():
@@ -463,8 +463,8 @@ def _train(
 
     def save(state, ep, val_loss):
         if lead:
-            save_checkpoint(ckpt_path, transformer_state_dict_to_flax(state[0]), state[1], ep,
-                            val_loss)
+            save_checkpoint(ckpt_path, transformer_state_dict_to_flax(state[0]),
+                            opt.optax_tree(state[1], transformer_state_dict_to_flax), ep, val_loss)
 
     early_w = (1.0 + early_window_boost * (train_idx[:, 1] <= early_window_t0)
                if early_window_boost > 0 else None)

@@ -1,51 +1,43 @@
-"""Checkpoints with the best-validation semantics of the reference.
+"""Checkpoints with the best-validation semantics of the reference, in the
+JAX package's format: ``{run_dir}/{model_name}_ckpt`` is orbax's
+``StandardCheckpointer`` directory (OCDBT, zarr v2, zstd) of ``{params,
+opt_state, meta}``, written and read without orbax (``utils/orbax_tree.py``),
+so a run moves between the packages in either direction.
 
-``torch.save`` of ``{params, opt_state, meta}``: ``params`` is the flax-layout
-model tree (nested dicts of CPU tensors, the layout the JAX package's
-checkpoints hold), ``opt_state`` the optimizer's state -- the Adam moments
-and step count, as one flat vector each for the fused FNO step and per
-named parameter for the production optimizers of ``train/optim.py`` --
-and ``meta`` the epoch and the best validation loss.  Only the optimizer
-state depends on the step that wrote it.
-
-``restore_params`` returns the tree and the loss alone.
-``load_partial_params`` overlays a pretrained tree (say, a masked-SSL
-checkpoint's) on a fresh one where path and shape match.
+``params`` is the flax-layout model tree, ``opt_state`` optax's state tree
+of the optimizer that wrote it (each optimizer's ``optax_tree``;
+``train/optim.py``, ``train/fast_step.py::opt_tree``) and ``meta``
+``{epoch: int64, loss: float64}``, the types JAX's ``save_checkpoint``
+gives them.  ``restore_checkpoint`` returns the tree with every array a
+CPU tensor and optax's empty states as None; ``restore_params`` just the
+parameters and the loss.  ``load_partial_params`` overlays a pretrained
+tree (say, a masked-SSL checkpoint's) on a fresh one where path and shape
+match.
 """
 
 from __future__ import annotations
 
-import os
 from pathlib import Path
 from typing import Any
 
-import torch
+import numpy as np
+
+from sciml_pde_torch.utils.orbax_tree import read_tree, write_tree
 
 
-def _cpu(tree):
-    if isinstance(tree, dict):
-        return {k: _cpu(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().clone()
-    return torch.as_tensor(tree)
-
-
-def save_checkpoint(path: str | Path, params: Any, opt_state: dict, epoch: int,
+def save_checkpoint(path: str | Path, params: Any, opt_state: Any, epoch: int,
                     loss: float) -> None:
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tree = {
-        "params": _cpu(params),
-        "opt_state": _cpu(opt_state),
-        "meta": {"epoch": int(epoch), "loss": float(loss)},
-    }
-    tmp = path.with_suffix(path.suffix + ".tmp")
-    torch.save(tree, tmp)
-    os.replace(tmp, path)
+    """Write ``{params, opt_state, meta}`` at ``path`` (replacing it), as the
+    JAX package's ``save_checkpoint`` does."""
+    write_tree(path, {"params": params, "opt_state": opt_state,
+                      "meta": {"epoch": np.asarray(int(epoch)),
+                               "loss": np.asarray(float(loss))}})
 
 
 def restore_checkpoint(path: str | Path) -> dict[str, Any]:
-    return torch.load(Path(path), map_location="cpu", weights_only=True)
+    """The whole tree of the checkpoint at ``path``, written by either
+    package."""
+    return read_tree(path)
 
 
 def restore_params(path: str | Path) -> tuple[Any, float]:

@@ -10,8 +10,18 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from pathlib import Path
+
+
+def print_line(text: str) -> None:
+    """``text`` and its newline to stdout in one write, flushed.  Under
+    ``torchrun`` every rank writes to the launcher's one stdout; ``print``
+    writes a line's text and its newline apart, so another rank's line can
+    land between them and tear both (a write of one line is whole)."""
+    sys.stdout.write(text + "\n")
+    sys.stdout.flush()
 
 
 class MetricLogger:
@@ -76,8 +86,8 @@ class MetricLogger:
                     self._tb.add_scalar(k, v, global_step=step)
         self._n += 1
         if self._n % self.echo_every == 0:
-            print(" ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-                           for k, v in rec.items()), flush=True)
+            print_line(" ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                for k, v in rec.items()))
 
     def close(self) -> None:
         if self._wandb is not None:

@@ -87,3 +87,41 @@ def few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+# ---- checkpoint trees (tests/test_torch_orbax_*.py) --------------------------------------
+
+
+def leaf_name(path) -> str:
+    """A JAX key path as orbax names the leaf: its keys joined with dots."""
+    return ".".join(str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", k))))
+                    for k in path)
+
+
+def jax_leaves(tree) -> dict:
+    """{dotted path: numpy array} of a JAX pytree's leaves."""
+    return {leaf_name(p): np.asarray(v) for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def port_leaves(tree) -> dict:
+    """{dotted path: numpy array} of a port checkpoint tree's array leaves
+    (optax's empty states and masked nodes, None or empty, left out)."""
+    from sciml_pde_torch.utils.orbax_tree import flatten
+
+    out = {}
+    for path, leaf in flatten(tree).items():
+        if leaf is None or isinstance(leaf, (tuple, list, dict)):
+            continue
+        out[".".join(path)] = leaf.numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+    return out
+
+
+def assert_bitwise(port_tree, jax_tree, what=""):
+    """The same leaves, dtypes, shapes and bytes in a port tree and a JAX one."""
+    got, want = port_leaves(port_tree), jax_leaves(jax_tree)
+    assert sorted(got) == sorted(want), (what, sorted(set(got) ^ set(want)))
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, k, g.dtype, w.dtype)
+        assert g.tobytes() == w.tobytes(), (what, k)
+

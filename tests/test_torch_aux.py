@@ -270,12 +270,13 @@ def test_run_training_aux_matches_jax_over_two_epochs(trained):
         np.testing.assert_allclose(hg["val_loss"], hw["val_loss"], rtol=1e-4)
     _assert_trees_rel(got.params, to_numpy_tree(want.params), 1e-4, "trained aux tree")
     # the checkpoint follows the best primary validation loss
-    ck = restore_checkpoint(out / "t" / "DR_ds4_FNO_ckpt.pt")
+    ck = restore_checkpoint(out / "t" / "DR_ds4_FNO_ckpt")
     best = min(range(2), key=lambda i: got.history[i]["val_loss"])
     assert ck["meta"]["epoch"] == best
     np.testing.assert_allclose(ck["meta"]["loss"], got.history[best]["val_loss"], rtol=1e-6)
     assert sorted(ck["params"]) == ["backbone", "fc2_auxiliary", "fc2_primary"]
-    assert isinstance(ck["opt_state"]["m"], dict) and ck["opt_state"]["count"] > 0
+    adam = ck["opt_state"][1]["inner_states"]["shared"]["inner_state"][1]  # optax's partition
+    assert isinstance(adam["mu"], dict) and adam["count"] > 0
     assert (out / "t" / "DR_ds4_FNO.jsonl").exists()
 
 
@@ -286,7 +287,7 @@ def test_aux_eval_scores_the_primary_head_like_jax(trained):
 
     out, kw, _, _ = trained
     tree, best = restore_params(out / "j" / "DR_ds4_FNO_ckpt")
-    save_checkpoint(out / "tj" / "DR_ds4_FNO_ckpt.pt", to_numpy_tree(tree), {}, 0, best)
+    save_checkpoint(out / "tj" / "DR_ds4_FNO_ckpt", to_numpy_tree(tree), {}, 0, best)
     ev = dict(kw, if_training=False, rollout_test=2, iLow=2, iHigh=6)
     with precision("highest"):
         jax_run_training(if_aux=True, run_dir=str(out / "j"), **ev)
@@ -310,7 +311,7 @@ def test_cli_aux_then_eval_then_collect(folder, tmp_path):
             "epochs=1", "width=8", "modes=4", "initial_step=4", "log_every=0", "device=cpu"]
     res = cli.main_aux(args)
     assert np.isfinite(res.best_val)
-    assert sorted(restore_checkpoint(tmp_path / "DR_ds4_FNO_ckpt.pt")["params"]) == [
+    assert sorted(restore_checkpoint(tmp_path / "DR_ds4_FNO_ckpt")["params"]) == [
         "backbone", "fc2_auxiliary", "fc2_primary"]
     ev = cli.main_aux(args + ["if_training=False", "rollout_test=2", "iLow=2", "iHigh=6"])
     assert np.isfinite(ev.best_val)

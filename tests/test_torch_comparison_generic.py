@@ -129,8 +129,8 @@ def test_restore_params_matches_jax(tmp_path):
             "fc2": {"Dense_0": {"kernel": rng.normal(size=(3, 2)).astype(np.float32),
                                 "bias": rng.normal(size=2).astype(np.float32)}}}
     jsave(tmp_path / "jax_ckpt", tree, {"count": np.int32(3)}, epoch=4, loss=0.125)
-    save_checkpoint(tmp_path / "torch_ckpt.pt", tree, {"count": 3}, epoch=4, loss=0.125)
-    (jp, jl), (tp, tl) = jrestore(tmp_path / "jax_ckpt"), restore_params(tmp_path / "torch_ckpt.pt")
+    save_checkpoint(tmp_path / "torch_ckpt", tree, {"count": 3}, epoch=4, loss=0.125)
+    (jp, jl), (tp, tl) = jrestore(tmp_path / "jax_ckpt"), restore_params(tmp_path / "torch_ckpt")
     assert tl == jl == 0.125 and isinstance(tl, float)
     flat_j = dict(jax.tree_util.tree_leaves_with_path(jp))
     flat_t = {k: v.numpy() for k, v in jax.tree_util.tree_leaves_with_path(tp)}

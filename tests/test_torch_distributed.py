@@ -89,4 +89,4 @@ def test_torchrun_starts_a_data_parallel_cli_run(tmp_path):
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     vals = [line for line in r.stdout.splitlines() if line.startswith("best_val=")]
     assert len(vals) == 2 and vals[0] == vals[1], r.stdout[-2000:]
-    assert (tmp_path / "run" / "DR_tr_FNO_ckpt.pt").exists()
+    assert (tmp_path / "run" / "DR_tr_FNO_ckpt").exists()

@@ -139,7 +139,7 @@ def trained(tmp_path_factory):
     with precision("highest"):
         res = jax_run_training(fast_step=False, **kw)
     tree = to_numpy_tree(res.params)
-    save_checkpoint(d / "t" / "DR_ds4_FNO_ckpt.pt", tree, {}, 0, res.best_val)
+    save_checkpoint(d / "t" / "DR_ds4_FNO_ckpt", tree, {}, 0, res.best_val)
     return d, kw, tree
 
 

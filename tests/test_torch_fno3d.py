@@ -334,7 +334,7 @@ def test_run_training_ns3d_matches_jax(trained3d, aux):
         np.testing.assert_allclose(hg["train_loss"], hw["train_loss"], rtol=1e-4)
         np.testing.assert_allclose(hg["val_loss"], hw["val_loss"], rtol=1e-4)
     _assert_trees_rel(got.params, to_numpy_tree(want.params), 1e-4, "trained 3D tree")
-    ck = restore_checkpoint(out / "t" / f"{kw['model_name']}_ckpt.pt")
+    ck = restore_checkpoint(out / "t" / f"{kw['model_name']}_ckpt")
     assert ck["params"]["backbone"]["conv0"]["w4"].shape == (2, WIDTH, WIDTH, *(MODES,) * 3)
 
 
@@ -348,7 +348,7 @@ def test_ns3d_eval_matches_jax(trained3d, aux):
     kw = runs[aux][0]
     name = kw["model_name"]
     tree, best = restore_params(out / "j" / f"{name}_ckpt")
-    save_checkpoint(out / "tj" / f"{name}_ckpt.pt", to_numpy_tree(tree), {}, 0, best)
+    save_checkpoint(out / "tj" / f"{name}_ckpt", to_numpy_tree(tree), {}, 0, best)
     ev = dict(kw, if_training=False, rollout_test=2, iLow=1, iHigh=3)
     with precision("highest"):
         jax_run_training(run_dir=str(out / "j"), **ev)

@@ -21,19 +21,22 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_port_imports_no_jax():
     """Every module of the port, as pkgutil.walk_packages finds it, imports
-    without pulling in JAX or the JAX package, and with h5py and matplotlib
-    not importable (the card's machine has neither)."""
+    without pulling in JAX, the JAX package, orbax, tensorstore or
+    zstandard, and with h5py, matplotlib, orbax, tensorstore and zstandard
+    not importable (the card's machine has none of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "sys.modules['h5py'] = None\n"
-        "sys.modules['matplotlib'] = None\n"
+        "for m in ('h5py', 'matplotlib', 'orbax', 'tensorstore', 'zstandard'):\n"
+        "    sys.modules[m] = None\n"
         "import sciml_pde_torch as pkg\n"
         "mods = ['sciml_pde_torch'] + [m.name for m in "
         "pkgutil.walk_packages(pkg.__path__, 'sciml_pde_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "print('MODULES', len(mods), mods)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sciml_pde_tpu'))\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None and "
+        "m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore', 'zstandard', "
+        "'sciml_pde_tpu'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
         "assert {'sciml_pde_torch.experiments.wide_attention_ablation', "
@@ -43,6 +46,8 @@ def test_port_imports_no_jax():
         "'sciml_pde_torch.eval.rollout_experiment', 'sciml_pde_torch.plots.figures', "
         "'sciml_pde_torch.io.hdf5_lite', 'sciml_pde_torch.io.lzf', "
         "'sciml_pde_torch.io.filters', 'sciml_pde_torch.sim.ns_plume_3d', "
+        "'sciml_pde_torch.io.zstd', 'sciml_pde_torch.io.ocdbt', 'sciml_pde_torch.io.zarr2', "
+        "'sciml_pde_torch.utils.orbax_tree', "
         "'sciml_pde_torch.sim.burgers_1d', 'sciml_pde_torch.sim.darcy_2d', "
         "'sciml_pde_torch.sim.bvp_2d', 'sciml_pde_torch.sim.airfoil_2d', "
         "'sciml_pde_torch.experiments.plume3d_parity', "
@@ -70,7 +75,8 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom):
             names.add((node.module or "").split(".")[0])
     assert "torch" in names
-    assert not names & {"jax", "jaxlib", "flax", "optax", "orbax", "sciml_pde_tpu"}, names
+    assert not names & {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+                        "sciml_pde_tpu"}, names
 
 
 def test_entry_points_raise_without_cuda(tmp_path):

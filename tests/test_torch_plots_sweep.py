@@ -109,4 +109,4 @@ def test_run_sweep_writes_jax_records(files, tmp_path):
     assert all(set(w) <= set(g) for g, w in zip(got[0]["history"], want[0]["history"]))
     assert (got[0]["preset"], got[0]["seed"], got[0]["variant"]) == ("basic_ds2", 16, "aux")
     assert np.isfinite(got[0]["best_val"])
-    assert (tmp_path / "t" / "config_dr_basic_ds2_s16_aux_ckpt.pt").exists()
+    assert (tmp_path / "t" / "config_dr_basic_ds2_s16_aux_ckpt").exists()

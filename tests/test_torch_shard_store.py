@@ -89,5 +89,5 @@ def test_two_rank_shard_store_matches_jax(folder, tmp_path, monkeypatch):
                     np.testing.assert_allclose(hg["train_loss"], hw["train_loss"], rtol=1e-4)
                     np.testing.assert_allclose(hg["val_loss"], hw["val_loss"], rtol=1e-4)
                 _rel_trees(got[name]["params"], to_numpy_tree(want.params), 5e-4)
-    assert (tmp_path / "t" / "0" / "aux_ckpt.pt").exists()
-    assert not (tmp_path / "t" / "1" / "aux_ckpt.pt").exists()  # rank 0 writes alone
+    assert (tmp_path / "t" / "0" / "aux_ckpt").exists()
+    assert not (tmp_path / "t" / "1" / "aux_ckpt").exists()  # rank 0 writes alone

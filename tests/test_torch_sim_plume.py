@@ -291,4 +291,4 @@ def test_plume_loader_and_trainer_read_without_h5py(tmp_path, monkeypatch):
     np.testing.assert_array_equal(ds.primary_train.data[0, ..., 3].numpy(), smoke)
     h = res.history[0]
     assert np.isfinite([h["first_step_loss"], h["train_loss"], h["val_loss"]]).all()
-    assert (tmp_path / "run" / "plume_c9_ckpt.pt").exists()
+    assert (tmp_path / "run" / "plume_c9_ckpt").exists()

@@ -206,9 +206,9 @@ def test_ssl_pretraining_feeds_pretrained_path(tmp_path):
         epochs=2, learning_rate=1e-3, run_dir=str(tmp_path), model_name="ssl", seed=3,
         log_every=0, device="cpu")
     assert len(hist) == 2 and all(np.isfinite(h["ssl_loss"]) for h in hist)
-    ck = restore_checkpoint(tmp_path / "ssl_ckpt.pt")
+    ck = restore_checkpoint(tmp_path / "ssl_ckpt")
     assert "head" not in ck["params"] and "mask_token" in ck["params"]
-    assert ck["opt_state"]["count"] == 2 * 5  # 10 windows of 4 + 0 frames, batch 2
+    assert ck["opt_state"][0]["count"] == 2 * 5  # optax adamw; 10 windows of 4 + 0 frames, batch 2
 
     for i in (0, 250):
         with h5py.File(tmp_path / f"ns_incom_inhom_2d_256-{i}.h5", "w") as f:
@@ -222,7 +222,7 @@ def test_ssl_pretraining_feeds_pretrained_path(tmp_path):
         encoder_embed_dim=32, encoder_depth=2, encoder_num_heads=2, decoder_embed_dim=16,
         decoder_depth=1, decoder_num_heads=1, initial_step=4, batch_size=2, epochs=0,
         bf16=False, log_every=0, run_dir=str(tmp_path / "op"), model_name="op",
-        pretrained_path=str(tmp_path / "ssl_ckpt.pt"), init_params=init, device="cpu")
+        pretrained_path=str(tmp_path / "ssl_ckpt"), init_params=init, device="cpu")
     flat_res = transformer_flax_to_state_dict(res.params)
     flat_ssl = transformer_flax_to_state_dict(ck["params"])
     shared = [n for n in flat_res if n in flat_ssl]

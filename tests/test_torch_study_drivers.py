@@ -59,7 +59,7 @@ def test_dr_transformer_writes_jax_keys(trained):
         assert len(row["rollout_nrmse"]) == 5 and _finite(row)
         np.testing.assert_allclose(row["rollout_nrmse_allsteps"],
                                    np.cumsum(row["rollout_nrmse"]) / np.arange(1, 6))
-        assert (out / f"vmae_dr_{key}_ckpt.pt").exists()
+        assert (out / f"vmae_dr_{key}_ckpt").exists()
     # the aux recipe keeps SWA weights (swa_frac 0.1 of one epoch: the last)
     assert summary["basic_ds2_aux"]["swa_rollout_nrmse"] is not None
     assert summary["basic_ds2_baseline"]["swa_rollout_nrmse"] is None
@@ -72,7 +72,8 @@ def test_dr_transformer_eval_only_restores_the_best_checkpoint(trained, tmp_path
     from sciml_pde_torch.experiments import dr_transformer
 
     data, out, res = trained
-    shutil.copy(out / "vmae_dr_basic_ds2_baseline_ckpt.pt", tmp_path)
+    shutil.copytree(out / "vmae_dr_basic_ds2_baseline_ckpt",
+                    tmp_path / "vmae_dr_basic_ds2_baseline_ckpt")
     got = dr_transformer.main(["--data", data, "--dataset", "basic_ds2", "--eval-only",
                                "--variants", "baseline", "--precision", "fp32",
                                "--out", str(tmp_path), *TINY, *CPU])
@@ -86,7 +87,7 @@ def test_convention_eval_writes_four_rows(trained, tmp_path, capsys):
     from sciml_pde_torch.experiments import dr_convention_eval
 
     data, out, _ = trained
-    ckpt = out / "vmae_dr_basic_ds2_baseline_ckpt.pt"
+    ckpt = out / "vmae_dr_basic_ds2_baseline_ckpt"
     res = dr_convention_eval.main(["--data", data, "--ckpts", f"baseline={ckpt}",
                                    f"aux={tmp_path / 'missing.pt'}", "--rollout", "3",
                                    "--out", str(tmp_path / "ce.json"), *TINY, *CPU])
@@ -108,7 +109,7 @@ def test_vchannel_diag_writes_both_precisions(trained, tmp_path):
 
     data, out, _ = trained
     res = dr_vchannel_diag.main(["--data", data, "--ckpt",
-                                 str(out / "vmae_dr_basic_ds2_baseline_ckpt.pt"),
+                                 str(out / "vmae_dr_basic_ds2_baseline_ckpt"),
                                  "--rollout", "2", "--out", str(tmp_path / "vc.json"),
                                  *TINY, *CPU])
     saved = json.loads((tmp_path / "vc.json").read_text())
@@ -123,7 +124,7 @@ def test_early_window_finetune_writes_before_and_after(trained, tmp_path):
     from sciml_pde_torch.experiments import dr_early_window_finetune as ew
 
     data, out, _ = trained
-    res = ew.main(["--data", data, "--ckpt", str(out / "vmae_dr_basic_ds2_baseline_ckpt.pt"),
+    res = ew.main(["--data", data, "--ckpt", str(out / "vmae_dr_basic_ds2_baseline_ckpt"),
                    "--n-train", "2", "--t0-max", "3", "--epochs", "1", "--precision", "fp32",
                    "--out", str(tmp_path / "ew.json"), *TINY, *CPU])
     saved = json.loads((tmp_path / "ew.json").read_text())

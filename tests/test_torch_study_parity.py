@@ -60,9 +60,9 @@ def dr(tmp_path_factory):
     tree = to_numpy_tree(jax.jit(model.init)(jax.random.PRNGKey(3),
                                              jnp.zeros((1, 10, 128, 128, 2)))["params"])
     jax_save(root / "jax_ckpt", tree, {}, 0, 0.5)
-    port_save(root / "port_ckpt.pt", tree, {}, 0, 0.5)
+    port_save(root / "port_ckpt", tree, {}, 0, 0.5)
     return types.SimpleNamespace(root=root, data=data, tree=tree, jax_ckpt=root / "jax_ckpt",
-                                 port_ckpt=root / "port_ckpt.pt")
+                                 port_ckpt=root / "port_ckpt")
 
 
 def assert_nested_close(got, want, rtol, atol=0.0, path=""):
@@ -89,7 +89,7 @@ def test_dr_transformer_eval_matches_jax(dr, tmp_path):
         (tmp_path / d).mkdir()
     for v in ("baseline", "aux"):
         shutil.copytree(dr.jax_ckpt, tmp_path / "j" / f"vmae_dr_basic_ds2_{v}_ckpt")
-        shutil.copy(dr.port_ckpt, tmp_path / "t" / f"vmae_dr_basic_ds2_{v}_ckpt.pt")
+        shutil.copytree(dr.port_ckpt, tmp_path / "t" / f"vmae_dr_basic_ds2_{v}_ckpt")
     common = ["--data", dr.data, "--dataset", "basic_ds2", "--eval-only", "--precision", "fp32",
               *TINY]
     jax_driver("dr_transformer").main(common + ["--out", str(tmp_path / "j")])

@@ -57,7 +57,7 @@ def test_one_epoch_matches_jax_fast_step(folder, tmp_path):
     assert_trees_close(got.params, to_numpy_tree(want.params), rtol=5e-3, atol=1e-5,
                        what="trained params")
 
-    ck = restore_checkpoint(tmp_path / "t" / "t_ckpt.pt")
+    ck = restore_checkpoint(tmp_path / "t" / "t_ckpt")
     assert ck["meta"]["epoch"] == 0
     assert ck["params"]["backbone"]["conv0"]["w1"].shape == (2, 8, 8, 4, 4)
     assert ck["params"]["fc2"]["Dense_0"]["kernel"].shape == (128, C)
@@ -72,7 +72,7 @@ def test_continue_training_resumes_from_checkpoint(folder, tmp_path):
     # the JAX trainer resumes at the checkpoint's (best) epoch
     assert [h["epoch"] for h in res.history] == [0, 1]
     assert all(np.isfinite(h["val_loss"]) for h in res.history)
-    assert restore_checkpoint(tmp_path / "r_ckpt.pt")["opt_state"]["count"] > 0
+    assert restore_checkpoint(tmp_path / "r_ckpt")["opt_state"][2]["count"] > 0  # optax adam
 
 
 @pytest.mark.parametrize("bad", [dict(if_aux=True), dict(training_type="autoregressive"),
@@ -112,8 +112,9 @@ def test_two_epochs_match_jax_production_step(folder, tmp_path, case):
     for hg, hw in zip(got.history, want.history):
         np.testing.assert_allclose(hg["train_loss"], hw["train_loss"], rtol=1e-4)
         np.testing.assert_allclose(hg["val_loss"], hw["val_loss"], rtol=1e-4)
-    ck = restore_checkpoint(tmp_path / "t" / "t_ckpt.pt")
-    assert isinstance(ck["opt_state"]["m"], dict) and ck["opt_state"]["count"] > 0
+    ck = restore_checkpoint(tmp_path / "t" / "t_ckpt")
+    adam = ck["opt_state"][2]  # optax's (clip, L2, adam, schedule) chain
+    assert isinstance(adam["mu"], dict) and adam["count"] > 0
     assert ck["params"]["backbone"]["conv0"]["w1"].shape == (2, 8, 8, 4, 4)
 
 
@@ -135,7 +136,7 @@ def test_cli_train_matches_jax_cli(folder, tmp_path, monkeypatch):
     for hg, hw in zip(got.history, want.history):
         np.testing.assert_allclose(hg["train_loss"], hw["train_loss"], rtol=1e-4)
         np.testing.assert_allclose(hg["val_loss"], hw["val_loss"], rtol=1e-4)
-    assert isinstance(restore_checkpoint(tmp_path / "t" / "FNO_ckpt.pt")["opt_state"]["m"], dict)
+    assert isinstance(restore_checkpoint(tmp_path / "t" / "FNO_ckpt")["opt_state"][2]["mu"], dict)
 
 
 @pytest.mark.parametrize("env, config, fused", [
@@ -150,8 +151,9 @@ def test_fast_step_none_follows_env(folder, tmp_path, monkeypatch, env, config, 
     kw = {k: v for k, v in COMMON.items() if k != "if_aux"}
     run_training(base_path=folder, run_dir=str(tmp_path), model_name="e", device="cpu",
                  **dict(kw, **config))
-    m = restore_checkpoint(tmp_path / "e_ckpt.pt")["opt_state"]["m"]
-    assert isinstance(m, torch.Tensor) is fused
+    ost = restore_checkpoint(tmp_path / "e_ckpt")["opt_state"]
+    assert isinstance(ost, dict) and isinstance(ost["m"], torch.Tensor) is fused or (
+        not fused and isinstance(ost[2]["mu"], dict))  # FlatOptState, or optax's adam
 
 
 def test_resume_needs_the_same_step(folder, tmp_path):
@@ -168,7 +170,7 @@ def test_evaluation_plot_writes_the_field_render(folder, tmp_path, if_aux):
     """``if_training=False, plot=True`` writes ``{model_name}_pred.png``
     beside the pickle, for a baseline and a two-head checkpoint."""
     tree = default_init_tree(C, 4, 8, 5, seed=0, aux=if_aux)
-    save_checkpoint(tmp_path / "p_ckpt.pt", tree, {}, 0, 0.0)
+    save_checkpoint(tmp_path / "p_ckpt", tree, {}, 0, 0.0)
     res = run_training(base_path=folder, run_dir=str(tmp_path), model_name="p", device="cpu",
                        if_training=False, if_aux=if_aux, plot=True, channel_plot=1,
                        modes=4, width=8, initial_step=5, rollout_test=2)

@@ -202,7 +202,7 @@ def test_run_training_transformer3d_matches_jax(plume, tmp_path, aux):
                        what="trained 3D VideoMAE")
     moved = np.abs(got.params["vit_core"]["head"]["kernel"] - init["vit_core"]["head"]["kernel"])
     assert moved.max() > 1e-4, moved.max()
-    ck = restore_checkpoint(tmp_path / "t" / "VMAE3D_ckpt.pt")
+    ck = restore_checkpoint(tmp_path / "t" / "VMAE3D_ckpt")
     assert tuple(ck["params"]["vit_core"]["patch_proj"]["kernel"].shape) == (2 * 64 * C, 16)
 
 

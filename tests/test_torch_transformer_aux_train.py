@@ -93,7 +93,7 @@ def test_ns_aux_epoch_matches_jax(ns_folder, tmp_path):
                                        **common)
     _assert_runs_match(got, want)
     assert got.swa_params is None and want.swa_params is None
-    ck = restore_checkpoint(tmp_path / "t" / "t_ckpt.pt")
+    ck = restore_checkpoint(tmp_path / "t" / "t_ckpt")
     assert ck["meta"]["loss"] == pytest.approx(got.best_val)
     assert tuple(ck["params"]["head_primary"]["kernel"].shape) == (3, 3)
 
